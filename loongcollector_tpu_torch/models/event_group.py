@@ -1,0 +1,432 @@
+"""PipelineEventGroup — the unit that flows through pipelines.
+
+Reference: core/models/PipelineEventGroup.h:80-158 — metadata map + tags +
+vector<PipelineEventPtr> + shared SourceBuffer; plus the test-only JSON
+round-trip (PipelineEventGroup.h:140-146) which we keep as a first-class
+fixture format (SURVEY.md §4).
+
+TPU-first redesign: groups additionally carry a **columnar** representation
+(`ColumnarLogs`): per-event (offset, length, timestamp) numpy arrays over the
+shared arena, plus parsed field span columns.  The device data plane operates
+exclusively on columns — per-event Python objects are materialised only on
+demand (tests, per-event plugins, JSON serialization).  Columnar groups are
+what gets packed into fixed-width device batches.
+"""
+
+from __future__ import annotations
+
+import enum
+import json
+import os
+import threading
+from typing import Dict, List, Optional, Tuple
+
+import numpy as np
+
+from ..utils.stringview import AnyStr, StringView, as_bytes
+from .events import (EventType, LogEvent, MetricEvent, PipelineEvent,
+                     RawEvent, SpanEvent, metric_name_str)
+from .source_buffer import SourceBuffer
+
+
+# -- columnar mode + materialization accounting (loongcolumn) ---------------
+#
+# The data plane keeps groups columnar end-to-end; per-event LogEvent
+# objects exist ONLY where a plugin that needs dict access forces them
+# (ProcessorInstance/FlusherInstance materialize at that boundary).  Every
+# such expansion is counted here so the bench (extra.alloc) and the
+# equivalence gate can assert the fast path really is zero-materialization.
+# ``LOONG_COLUMNAR=0`` disables the columnar fast path wholesale — every
+# stage boundary materializes — which is the "dict path" half of the
+# side-by-side bench and of scripts/columnar_equivalence.py.
+
+_churn_lock = threading.Lock()
+_materialized_events = 0
+_materialized_groups = 0
+_materialized_at: Dict[str, int] = {}
+
+_columnar_enabled = os.environ.get("LOONG_COLUMNAR", "1") != "0"
+
+
+def columnar_enabled() -> bool:
+    """False ⇒ dict mode: treat every plugin boundary as non-columnar."""
+    return _columnar_enabled
+
+
+def set_columnar_enabled(on: bool) -> bool:
+    """Flip the columnar fast path (bench side-by-side / equivalence gate);
+    returns the previous value."""
+    global _columnar_enabled
+    prev = _columnar_enabled
+    _columnar_enabled = bool(on)
+    return prev
+
+
+def _note_materialized(n_events: int, where: str) -> None:
+    global _materialized_events, _materialized_groups
+    with _churn_lock:
+        _materialized_events += n_events
+        _materialized_groups += 1
+        if where:
+            _materialized_at[where] = _materialized_at.get(where, 0) + n_events
+
+
+def churn_stats() -> Dict[str, object]:
+    """Process-lifetime materialization counters: how many per-event
+    Python objects the lazy boundary actually minted, and at which plugin
+    boundaries.  The columnar fast path's regression signal — see
+    bench.py extra.alloc and docs/performance.md."""
+    with _churn_lock:
+        return {"materialized_events": _materialized_events,
+                "materialized_groups": _materialized_groups,
+                "by_boundary": dict(_materialized_at)}
+
+
+def reset_churn_stats() -> None:
+    global _materialized_events, _materialized_groups
+    with _churn_lock:
+        _materialized_events = 0
+        _materialized_groups = 0
+        _materialized_at.clear()
+
+
+class EventGroupMetaKey(enum.Enum):
+    """Reference: PipelineEventGroup.h metadata keys."""
+
+    LOG_FILE_PATH = "log.file.path"
+    LOG_FILE_PATH_RESOLVED = "log.file.path_resolved"
+    LOG_FILE_INODE = "log.file.inode"
+    LOG_FILE_DEV = "log.file.dev"
+    # multiline stitch markers (reader ↔ split_multiline carry contract)
+    ML_PARTIAL_TAIL = "log.file.ml_partial_tail"
+    ML_CONTINUE = "log.file.ml_continue"
+    LOG_FILE_OFFSET = "log.file.offset"
+    LOG_FILE_LENGTH = "log.file.length"
+    # crc32 of the SOURCE byte-span [offset, offset+length) — loongcrash
+    # replay dedup verifies content identity, not just span containment
+    LOG_FILE_CRC32 = "log.file.crc32"
+    IS_REPLAY = "internal.is.replay"
+    # loongslo: monotonic-ns ingest stamp minted at the B_INGEST admit —
+    # derived groups must carry it (loonglint: stamp-propagation)
+    INGEST_NS = "internal.ingest.ns"
+    SOURCE_ID = "source_id"
+    TOPIC = "topic"
+    HOST_NAME = "host.name"
+    HOST_IP = "host.ip"
+    INTERNAL_DATA_TYPE = "internal.data.type"
+    CONTAINER_INFO = "container.info"
+
+
+class ColumnarLogs:
+    """Columnar log events over a shared arena.
+
+    offsets/lengths: int32 [N] — raw content span of each event in the arena.
+    timestamps:      int64 [N]
+    fields:          name -> (offsets int32 [N], lengths int32 [N]) parsed
+                     field spans (device kernel output).  Length -1 marks
+                     "field absent" (parse failed for that event).
+    """
+
+    __slots__ = ("offsets", "lengths", "timestamps", "fields", "parse_ok",
+                 "content_consumed", "span_matrix")
+
+    def __init__(self, offsets: np.ndarray, lengths: np.ndarray,
+                 timestamps: Optional[np.ndarray] = None):
+        self.offsets = np.asarray(offsets, dtype=np.int32)
+        self.lengths = np.asarray(lengths, dtype=np.int32)
+        if timestamps is None:
+            timestamps = np.zeros(len(self.offsets), dtype=np.int64)
+        self.timestamps = np.asarray(timestamps, dtype=np.int64)
+        self.fields: Dict[str, Tuple[np.ndarray, np.ndarray]] = {}
+        self.parse_ok: Optional[np.ndarray] = None  # bool [N]
+        # False until a parse processor replaces the raw content span with
+        # extracted fields; until then `content` remains a live column even
+        # when auxiliary fields exist (e.g. container stream tags)
+        self.content_consumed = False
+        # serializer fast path: when the parse kernel's [N, F] span matrices
+        # cover the field dict exactly, serialization reads them directly
+        # (no per-field slicing / restacking).  (names, off_mat, len_mat,
+        # column_view_tuples); any later set_field invalidates it.
+        self.span_matrix: Optional[
+            Tuple[List, np.ndarray, np.ndarray, List]] = None
+
+    def __len__(self) -> int:
+        return int(self.offsets.shape[0])
+
+    @property
+    def total_bytes(self) -> int:
+        return int(self.lengths.sum())
+
+    def set_field(self, name: str, offsets: np.ndarray, lengths: np.ndarray) -> None:
+        self.fields[name] = (np.asarray(offsets, dtype=np.int32),
+                             np.asarray(lengths, dtype=np.int32))
+        self.span_matrix = None
+
+    def set_fields_matrix(self, names: List, off_mat: np.ndarray,
+                          len_mat: np.ndarray) -> None:
+        """Install parsed fields from [N, F] span matrices.  Field columns
+        become views; when no other fields exist the serializer consumes the
+        matrices without a transpose.  The exact column tuples are kept in
+        span_matrix so the serializer can verify (by identity) that no
+        processor replaced or renamed fields behind its back."""
+        off_mat = np.ascontiguousarray(off_mat, dtype=np.int32)
+        len_mat = np.ascontiguousarray(len_mat, dtype=np.int32)
+        fresh = not self.fields
+        views = []
+        for g, name in enumerate(names):
+            pair = (off_mat[:, g], len_mat[:, g])
+            self.fields[name] = pair
+            views.append(pair)
+        self.span_matrix = ((list(names), off_mat, len_mat, views)
+                            if fresh else None)
+
+
+class PipelineEventGroup:
+    __slots__ = ("_source_buffer", "_metadata", "_tags", "_events", "_columns",
+                 "_exactly_once_checkpoint")
+
+    def __init__(self, source_buffer: Optional[SourceBuffer] = None):
+        self._source_buffer = source_buffer if source_buffer is not None else SourceBuffer()
+        self._metadata: Dict[EventGroupMetaKey, StringView] = {}
+        self._tags: Dict[bytes, StringView] = {}
+        self._events: List[PipelineEvent] = []
+        self._columns: Optional[ColumnarLogs] = None
+        self._exactly_once_checkpoint = None
+
+    # -- buffer -------------------------------------------------------------
+
+    @property
+    def source_buffer(self) -> SourceBuffer:
+        return self._source_buffer
+
+    # -- metadata / tags ----------------------------------------------------
+
+    def set_metadata(self, key: EventGroupMetaKey, value: AnyStr) -> None:
+        vv = value if isinstance(value, StringView) else self._source_buffer.copy_string(value)
+        self._metadata[key] = vv
+
+    def get_metadata(self, key: EventGroupMetaKey) -> Optional[StringView]:
+        return self._metadata.get(key)
+
+    def has_metadata(self, key: EventGroupMetaKey) -> bool:
+        return key in self._metadata
+
+    def del_metadata(self, key: EventGroupMetaKey) -> None:
+        self._metadata.pop(key, None)
+
+    @property
+    def metadata(self) -> Dict[EventGroupMetaKey, StringView]:
+        return self._metadata
+
+    def set_tag(self, key: AnyStr, value: AnyStr) -> None:
+        vv = value if isinstance(value, StringView) else self._source_buffer.copy_string(value)
+        self._tags[as_bytes(key)] = vv
+
+    def get_tag(self, key: AnyStr) -> Optional[StringView]:
+        return self._tags.get(as_bytes(key))
+
+    def del_tag(self, key: AnyStr) -> None:
+        self._tags.pop(as_bytes(key), None)
+
+    @property
+    def tags(self) -> Dict[bytes, StringView]:
+        return self._tags
+
+    # -- events (row representation) ---------------------------------------
+
+    @property
+    def events(self) -> List[PipelineEvent]:
+        if self._columns is not None and not self._events:
+            self.materialize("events_property")
+        return self._events
+
+    def add_event(self, event: PipelineEvent) -> None:
+        self._events.append(event)
+
+    def add_log_event(self, timestamp: int = 0) -> LogEvent:
+        ev = LogEvent(timestamp)
+        self._events.append(ev)
+        return ev
+
+    def add_metric_event(self, timestamp: int = 0) -> MetricEvent:
+        ev = MetricEvent(timestamp)
+        self._events.append(ev)
+        return ev
+
+    def add_span_event(self, timestamp: int = 0) -> SpanEvent:
+        ev = SpanEvent(timestamp)
+        self._events.append(ev)
+        return ev
+
+    def add_raw_event(self, timestamp: int = 0) -> RawEvent:
+        ev = RawEvent(timestamp)
+        self._events.append(ev)
+        return ev
+
+    def __len__(self) -> int:
+        if self._columns is not None and not self._events:
+            return len(self._columns)
+        return len(self._events)
+
+    def empty(self) -> bool:
+        return len(self) == 0
+
+    def event_type(self) -> EventType:
+        if self._columns is not None and not self._events:
+            return EventType.LOG
+        return self._events[0].type if self._events else EventType.NONE
+
+    # -- columnar representation (TPU fast path) ----------------------------
+
+    @property
+    def columns(self) -> Optional[ColumnarLogs]:
+        return self._columns
+
+    def set_columns(self, columns: ColumnarLogs) -> None:
+        self._columns = columns
+        self._events = []
+
+    def is_columnar(self) -> bool:
+        return self._columns is not None
+
+    def materialize(self, where: str = "") -> List[PipelineEvent]:
+        """Expand columns into per-event LogEvent objects (slow path).
+
+        ``where`` names the boundary that forced the expansion (plugin id /
+        ``"events_property"``) — every call is counted in churn_stats(), so
+        a hot path that silently falls off the columnar plane shows up in
+        bench extra.alloc instead of just running slow."""
+        cols = self._columns
+        if cols is None:
+            return self._events
+        _note_materialized(len(cols), where)
+        sb = self._source_buffer
+        events: List[PipelineEvent] = []
+        field_items = list(cols.fields.items())
+        offs = cols.offsets
+        lens = cols.lengths
+        tss = cols.timestamps
+        # consumed content NEVER resurrects, even when every field was
+        # later dropped (all-failed + discard configs); the raw-tail case
+        # (no parse ran) is exactly content_consumed == False
+        emit_content = not cols.content_consumed
+        for i in range(len(cols)):
+            ev = LogEvent(int(tss[i]))
+            if emit_content:
+                ev.set_content(b"content", sb.view(int(offs[i]), int(lens[i])))
+            for name, (foffs, flens) in field_items:
+                flen = int(flens[i])
+                if flen >= 0:
+                    ev.set_content(name.encode() if isinstance(name, str) else name,
+                                   sb.view(int(foffs[i]), flen))
+            events.append(ev)
+        self._events = events
+        return events
+
+    def data_size(self) -> int:
+        if self._columns is not None and not self._events:
+            return self._columns.total_bytes
+        total = 0
+        for ev in self._events:
+            if isinstance(ev, LogEvent):
+                for k, v in ev.contents:
+                    total += len(k) + len(v)
+            elif isinstance(ev, RawEvent) and ev.content is not None:
+                total += len(ev.content)
+            else:
+                total += 64  # metric/span rough estimate
+        return total
+
+    # -- JSON round-trip (test fixture format, SURVEY.md §4) ----------------
+
+    def to_json(self) -> str:
+        out: dict = {
+            "metadata": {k.value: str(v) for k, v in self._metadata.items()},
+            "tags": {k.decode("utf-8", "replace"): str(v) for k, v in self._tags.items()},
+            "events": [],
+        }
+        for ev in self.events:
+            if isinstance(ev, LogEvent):
+                out["events"].append({
+                    "type": "log",
+                    "timestamp": ev.timestamp,
+                    "contents": {str(k): str(v) for k, v in ev.contents},
+                })
+            elif isinstance(ev, MetricEvent):
+                item = {
+                    "type": "metric",
+                    "timestamp": ev.timestamp,
+                    "name": metric_name_str(ev.name),
+                    "tags": {k.decode("utf-8", "replace"): str(v) for k, v in ev.tags.items()},
+                }
+                if ev.value.is_multi():
+                    item["values"] = {k.decode("utf-8", "replace"): v
+                                      for k, v in ev.value.values.items()}
+                else:
+                    item["value"] = ev.value.value
+                out["events"].append(item)
+            elif isinstance(ev, SpanEvent):
+                out["events"].append({
+                    "type": "span",
+                    "timestamp": ev.timestamp,
+                    "traceId": ev.trace_id.decode("utf-8", "replace"),
+                    "spanId": ev.span_id.decode("utf-8", "replace"),
+                    "name": ev.name.decode("utf-8", "replace"),
+                    "kind": int(ev.kind),
+                    "startTimeNs": ev.start_time_ns,
+                    "endTimeNs": ev.end_time_ns,
+                    "attributes": {k.decode("utf-8", "replace"): str(v)
+                                   for k, v in ev.attributes.items()},
+                })
+            elif isinstance(ev, RawEvent):
+                out["events"].append({
+                    "type": "raw",
+                    "timestamp": ev.timestamp,
+                    "content": str(ev.content) if ev.content else "",
+                })
+        return json.dumps(out, sort_keys=True)
+
+    @classmethod
+    def from_json(cls, text: str) -> "PipelineEventGroup":
+        data = json.loads(text)
+        group = cls()
+        sb = group.source_buffer
+        for k, v in data.get("metadata", {}).items():
+            group.set_metadata(EventGroupMetaKey(k), v)
+        for k, v in data.get("tags", {}).items():
+            group.set_tag(k, v)
+        for item in data.get("events", []):
+            typ = item.get("type", "log")
+            if typ == "log":
+                ev = group.add_log_event(item.get("timestamp", 0))
+                for k, v in item.get("contents", {}).items():
+                    ev.set_content(sb.copy_string(k), sb.copy_string(v))
+            elif typ == "metric":
+                ev = group.add_metric_event(item.get("timestamp", 0))
+                ev.set_name(sb.copy_string(item.get("name", "")))
+                if "values" in item:
+                    ev.set_multi_value(item["values"])
+                else:
+                    ev.set_value(item.get("value", 0.0))
+                for k, v in item.get("tags", {}).items():
+                    ev.set_tag(k, sb.copy_string(v))
+            elif typ == "span":
+                ev = group.add_span_event(item.get("timestamp", 0))
+                ev.trace_id = item.get("traceId", "").encode()
+                ev.span_id = item.get("spanId", "").encode()
+                ev.name = item.get("name", "").encode()
+                ev.kind = SpanEvent.Kind(item.get("kind", 0))
+                ev.start_time_ns = item.get("startTimeNs", 0)
+                ev.end_time_ns = item.get("endTimeNs", 0)
+                for k, v in item.get("attributes", {}).items():
+                    ev.set_attribute(k, sb.copy_string(v))
+            elif typ == "raw":
+                ev = group.add_raw_event(item.get("timestamp", 0))
+                ev.set_content(sb.copy_string(item.get("content", "")))
+        return group
+
+    def copy_meta_to(self, other: "PipelineEventGroup") -> None:
+        for k, v in self._metadata.items():
+            other.set_metadata(k, v.to_bytes())
+        for k, v in self._tags.items():
+            other.set_tag(k, v.to_bytes())

@@ -1,0 +1,157 @@
+"""Byte character classes as 256-entry boolean masks.
+
+The TPU kernels never gather from a 256-entry LUT (per-element gathers are
+slow on TPU); instead each class is lowered to a union of byte intervals and
+membership is computed with vectorised range comparisons on the VPU.
+"""
+
+from __future__ import annotations
+
+from typing import List, Tuple
+
+import numpy as np
+
+try:  # Python 3.11+
+    from re import _constants as sre_c
+    from re import _parser as sre_parse
+except ImportError:  # pragma: no cover
+    import sre_constants as sre_c
+    import sre_parse
+
+_WHITESPACE = b" \t\n\r\x0b\x0c"
+_DIGITS = b"0123456789"
+_WORD = b"abcdefghijklmnopqrstuvwxyzABCDEFGHIJKLMNOPQRSTUVWXYZ0123456789_"
+
+
+def _category_mask(cat) -> np.ndarray:
+    mask = np.zeros(256, dtype=bool)
+    name = str(cat)
+    if "DIGIT" in name:
+        mask[list(_DIGITS)] = True
+    elif "SPACE" in name:
+        mask[list(_WHITESPACE)] = True
+    elif "WORD" in name:
+        mask[list(_WORD)] = True
+    else:
+        raise ValueError(f"unsupported category {cat}")
+    if "NOT" in name:
+        mask = ~mask
+    return mask
+
+
+class CharClass:
+    """A set of byte values."""
+
+    __slots__ = ("mask",)
+
+    def __init__(self, mask: np.ndarray):
+        self.mask = np.asarray(mask, dtype=bool)
+
+    # -- constructors -------------------------------------------------------
+
+    @classmethod
+    def from_bytes(cls, data: bytes) -> "CharClass":
+        mask = np.zeros(256, dtype=bool)
+        mask[list(data)] = True
+        return cls(mask)
+
+    @classmethod
+    def single(cls, byte: int) -> "CharClass":
+        mask = np.zeros(256, dtype=bool)
+        mask[byte] = True
+        return cls(mask)
+
+    @classmethod
+    def dot(cls, dotall: bool = False) -> "CharClass":
+        mask = np.ones(256, dtype=bool)
+        if not dotall:
+            mask[ord("\n")] = False
+        return cls(mask)
+
+    @classmethod
+    def from_sre_in(cls, items) -> "CharClass":
+        """Build from an sre `IN` item list: LITERAL/RANGE/CATEGORY/NEGATE."""
+        mask = np.zeros(256, dtype=bool)
+        negate = False
+        for op, av in items:
+            if op is sre_c.NEGATE:
+                negate = True
+            elif op is sre_c.LITERAL:
+                if av > 255:
+                    raise ValueError("non-byte literal in class")
+                mask[av] = True
+            elif op is sre_c.RANGE:
+                lo, hi = av
+                if hi > 255:
+                    raise ValueError("non-byte range in class")
+                mask[lo : hi + 1] = True
+            elif op is sre_c.CATEGORY:
+                mask |= _category_mask(av)
+            else:
+                raise ValueError(f"unsupported class item {op}")
+        if negate:
+            mask = ~mask
+        return cls(mask)
+
+    @classmethod
+    def from_category(cls, cat) -> "CharClass":
+        return cls(_category_mask(cat))
+
+    # -- ops ----------------------------------------------------------------
+
+    def negated(self) -> "CharClass":
+        return CharClass(~self.mask)
+
+    def union(self, other: "CharClass") -> "CharClass":
+        return CharClass(self.mask | other.mask)
+
+    def intersects(self, other: "CharClass") -> bool:
+        return bool((self.mask & other.mask).any())
+
+    def issubset(self, other: "CharClass") -> bool:
+        return bool((self.mask & ~other.mask).sum() == 0)
+
+    def contains(self, byte: int) -> bool:
+        return bool(self.mask[byte])
+
+    def __eq__(self, other) -> bool:
+        return isinstance(other, CharClass) and bool((self.mask == other.mask).all())
+
+    def __hash__(self) -> int:
+        return hash(self.mask.tobytes())
+
+    def popcount(self) -> int:
+        return int(self.mask.sum())
+
+    def intervals(self) -> List[Tuple[int, int]]:
+        """Minimal list of inclusive (lo, hi) byte intervals covering the set.
+
+        Membership test in the kernel: OR over intervals of (b>=lo)&(b<=hi).
+        If the complement has fewer intervals, the kernel may instead test the
+        complement and negate (see kernel emission).
+        """
+        out: List[Tuple[int, int]] = []
+        m = self.mask
+        i = 0
+        while i < 256:
+            if m[i]:
+                j = i
+                while j + 1 < 256 and m[j + 1]:
+                    j += 1
+                out.append((i, j))
+                i = j + 1
+            i += 1
+        return out
+
+    def to_regex_fragment(self) -> str:
+        """Debug/CPU-fallback representation like [\\x00-\\x1f...]."""
+        parts = []
+        for lo, hi in self.intervals():
+            if lo == hi:
+                parts.append(f"\\x{lo:02x}")
+            else:
+                parts.append(f"\\x{lo:02x}-\\x{hi:02x}")
+        return "[" + "".join(parts) + "]"
+
+    def __repr__(self) -> str:
+        return f"CharClass({self.to_regex_fragment()})"

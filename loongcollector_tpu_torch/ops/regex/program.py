@@ -1,0 +1,773 @@
+"""Regex → Tier-1 "segment program" compiler.
+
+The reference parses each event with boost::regex full-match on a CPU thread
+(core/plugin/processor/ProcessorParseRegexNative.cpp:186-253, RegexLogLineParser).
+Log-parsing regexes are overwhelmingly *anchored sequences of character-class
+runs separated by literal delimiters* — e.g. Apache/nginx access patterns,
+grok expansions, delimiter formats.  Such patterns need no general automaton:
+they compile to a **segment program** whose device execution is pure
+vectorised arithmetic (interval compares, suffix scans, cursor gathers) over a
+[batch, length] byte tensor — the TPU-idiomatic replacement for the per-event
+NFA loop.
+
+Tiers (SURVEY.md §7 step 4):
+  Tier 1  segment program      → field_extract kernel (this module)
+  Tier 2  general DFA (no captures, no backrefs/lookaround) → dfa_scan kernel
+  Tier 3  anything else        → CPU fallback (Python `re`)
+
+Semantics contract: FULL match of the event content (the reference uses
+regex_match, i.e. anchored both ends), greedy quantifiers, captures as byte
+(offset, length) spans.  The compiler REJECTS (raises Tier1Unsupported) any
+pattern whose greedy semantics could require backtracking, so every accepted
+program is exactly equivalent to the backtracking engine on all inputs —
+enforced by differential tests (tests/test_regex_program.py).
+"""
+
+from __future__ import annotations
+
+import enum
+from dataclasses import dataclass, field
+from typing import Dict, List, Optional, Sequence, Tuple, Union
+
+try:  # Python 3.11+
+    from re import _constants as sre_c
+    from re import _parser as sre_parse
+except ImportError:  # pragma: no cover
+    import sre_constants as sre_c
+    import sre_parse
+
+from .charclass import CharClass
+
+MAXREPEAT = sre_c.MAXREPEAT
+INF = 1 << 30
+
+
+class Tier1Unsupported(Exception):
+    """Pattern cannot be compiled to a backtracking-free segment program."""
+
+
+class PatternTier(enum.IntEnum):
+    SEGMENT = 1  # field_extract kernel
+    DFA = 2      # dfa_scan kernel (match only)
+    CPU = 3      # Python re fallback
+
+
+# ---------------------------------------------------------------------------
+# Program ops
+# ---------------------------------------------------------------------------
+
+
+@dataclass
+class Lit:
+    """Match a literal byte string at the cursor."""
+
+    data: bytes
+
+
+@dataclass
+class Span:
+    """Greedy run of `cls` bytes, min_len ≤ run ≤ max_len (max_len may be INF).
+
+    Compiled only when maximal-munch is provably equivalent to backtracking
+    semantics (the follow set is disjoint from `cls`), so the kernel can take
+    the full run unconditionally.
+    """
+
+    class_id: int
+    min_len: int
+    max_len: int
+    lazy: bool = False
+
+
+@dataclass
+class FixedSpan:
+    """Exactly n bytes, all members of `cls` — validated via membership
+    prefix-sums, so no disjointness requirement (e.g. `(\\d{4})(\\d{2})`)."""
+
+    class_id: int
+    n: int
+
+
+@dataclass
+class Optional_:
+    """(?:...)?  — the body is evaluated in full (vectorised) and committed
+    where it matches; rows where it fails skip the group.  This mirrors the
+    greedy preference of the backtracking engine (take if takeable)."""
+
+    body: List["Op"]
+
+
+@dataclass
+class Alt:
+    """(a|b|c) — alternatives tried in order, committing to the first whose
+    WHOLE branch matches at the cursor (leftmost-match).  Each branch must
+    itself be backtracking-free w.r.t. the group's follow set."""
+
+    branches: List[List["Op"]]
+
+
+@dataclass
+class CapStart:
+    cap_id: int
+
+
+@dataclass
+class CapEnd:
+    cap_id: int
+
+
+Op = Union[Lit, Span, FixedSpan, "Optional_", "Alt", CapStart, CapEnd]
+
+
+@dataclass
+class SegmentProgram:
+    pattern: str
+    ops: List[Op] = field(default_factory=list)
+    classes: List[CharClass] = field(default_factory=list)
+    num_caps: int = 0
+    group_names: Dict[int, str] = field(default_factory=dict)
+    # bidirectional split (set when one ambiguous span pivots the pattern):
+    # `ops` is then the forward PREFIX; the suffix executes right-to-left
+    # from the line end; the pivot span covers whatever lies between the two
+    # cursors (validated for membership/min/max via prefix sums).
+    pivot: Optional["Span"] = None
+    suffix_ops: Optional[List[Op]] = None      # stored pre-reversed
+    split_caps: List[int] = field(default_factory=list)
+    # double-pivot form (two ambiguous spans separated by a literal):
+    # ops = prefix | pivot | mid_ops (one Lit + cap markers) | pivot2 |
+    # suffix_ops. The boundary literal is located by a min- (both lazy) or
+    # max-reduce (both greedy); soundness conditions in _try_double_pivot.
+    pivot2: Optional["Span"] = None
+    mid_ops: Optional[List[Op]] = None
+    mid_end_caps: List[int] = field(default_factory=list)
+
+    def class_id(self, cls: CharClass) -> int:
+        for i, c in enumerate(self.classes):
+            if c == cls:
+                return i
+        self.classes.append(cls)
+        return len(self.classes) - 1
+
+    # which classes need which auxiliary scans (kernel planning)
+    def scan_requirements(self) -> Tuple[set, set]:
+        """Returns (next_non_classes, cumsum_classes)."""
+        next_non, cumsum = set(), set()
+
+        def walk(ops):
+            for op in ops:
+                if isinstance(op, Span):
+                    next_non.add(op.class_id)
+                elif isinstance(op, FixedSpan):
+                    cumsum.add(op.class_id)
+                elif isinstance(op, Optional_):
+                    walk(op.body)
+                elif isinstance(op, Alt):
+                    for b in op.branches:
+                        walk(b)
+        walk(self.ops)
+        if self.suffix_ops is not None:
+            walk(self.suffix_ops)
+        if self.mid_ops is not None:
+            walk(self.mid_ops)
+        if self.pivot is not None:
+            cumsum.add(self.pivot.class_id)
+        if self.pivot2 is not None:
+            cumsum.add(self.pivot2.class_id)
+        return next_non, cumsum
+
+    def max_reach(self) -> int:
+        """Minimum event length that could possibly match (for bucketing)."""
+        n = 0
+        for op in self.ops:
+            if isinstance(op, Lit):
+                n += len(op.data)
+            elif isinstance(op, (Span,)):
+                n += op.min_len
+            elif isinstance(op, FixedSpan):
+                n += op.n
+        return n
+
+
+# ---------------------------------------------------------------------------
+# sre AST → flat item list
+# ---------------------------------------------------------------------------
+
+
+def _flatten(tokens, prog: SegmentProgram, ops: List[Op]) -> None:
+    """Recursively translate an sre token sequence into ops (no validation of
+    backtracking-freedom yet — that's the second pass)."""
+    pending_lit = bytearray()
+
+    def flush_lit():
+        if pending_lit:
+            ops.append(Lit(bytes(pending_lit)))
+            pending_lit.clear()
+
+    for tok_op, av in tokens:
+        if tok_op is sre_c.LITERAL:
+            if av > 255:
+                raise Tier1Unsupported("non-byte literal")
+            pending_lit.append(av)
+        elif tok_op is sre_c.NOT_LITERAL:
+            flush_lit()
+            cid = prog.class_id(CharClass.single(av).negated())
+            ops.append(FixedSpan(cid, 1))
+        elif tok_op is sre_c.IN:
+            flush_lit()
+            cid = prog.class_id(CharClass.from_sre_in(av))
+            ops.append(FixedSpan(cid, 1))
+        elif tok_op is sre_c.ANY:
+            flush_lit()
+            cid = prog.class_id(CharClass.dot())
+            ops.append(FixedSpan(cid, 1))
+        elif tok_op is sre_c.CATEGORY:
+            flush_lit()
+            cid = prog.class_id(CharClass.from_category(av))
+            ops.append(FixedSpan(cid, 1))
+        elif tok_op in (sre_c.MAX_REPEAT, sre_c.MIN_REPEAT):
+            flush_lit()
+            lo, hi, sub = av
+            hi = INF if hi is MAXREPEAT else int(hi)
+            lo = int(lo)
+            cls = _single_class(sub)
+            if cls is None:
+                if lo == 0 and hi == 1:
+                    body: List[Op] = []
+                    _flatten(sub, prog, body)
+                    ops.append(Optional_(body))
+                    continue
+                if hi != INF and lo <= 8 and hi - lo <= 8:
+                    # counted repeat of a group: lo mandatory copies, then
+                    # nested optionals (greedy: outer optional contains the
+                    # next, preferring more copies)
+                    for _ in range(lo):
+                        _flatten(sub, prog, ops)
+                    tail: List[Op] = []
+                    for _ in range(hi - lo):
+                        body2: List[Op] = []
+                        _flatten(sub, prog, body2)
+                        body2.extend(tail)
+                        tail = [Optional_(body2)]
+                    ops.extend(tail)
+                    continue
+                raise Tier1Unsupported("repeat of non-class subpattern")
+            cid = prog.class_id(cls)
+            if lo == hi:
+                ops.append(FixedSpan(cid, lo))
+            else:
+                # Lazy repeats compile identically to greedy ones on the
+                # strict path (the run is forced when the class is disjoint
+                # from the follow set); laziness matters only when the span
+                # becomes a bidirectional pivot.
+                ops.append(Span(cid, lo, hi,
+                               lazy=tok_op is sre_c.MIN_REPEAT))
+        elif tok_op is sre_c.SUBPATTERN:
+            flush_lit()
+            group, add_flags, del_flags, sub = av
+            if add_flags or del_flags:
+                raise Tier1Unsupported("inline flags")
+            if group is not None:
+                cap = group - 1
+                prog.num_caps = max(prog.num_caps, group)
+                ops.append(CapStart(cap))
+                _flatten(sub, prog, ops)
+                ops.append(CapEnd(cap))
+            else:
+                _flatten(sub, prog, ops)
+        elif tok_op is sre_c.AT:
+            # Edge anchors are stripped at top level by compile_tier1 before
+            # flattening; any AT surviving to here (interior ^/$, \b, \B)
+            # has position-dependent semantics the segment walk can't model.
+            raise Tier1Unsupported(f"assertion {av}")
+        elif tok_op is sre_c.BRANCH:
+            flush_lit()
+            _, alts = av
+            branches: List[List[Op]] = []
+            for alt in alts:
+                b: List[Op] = []
+                _flatten(list(alt), prog, b)
+                branches.append(b)
+            ops.append(Alt(branches))
+        else:
+            raise Tier1Unsupported(f"op {tok_op}")
+    flush_lit()
+
+
+def _single_class(sub) -> Optional[CharClass]:
+    """If an sre subpattern is a single char-class-like token, return it."""
+    toks = list(sub)
+    if len(toks) != 1:
+        return None
+    tok_op, av = toks[0]
+    if tok_op is sre_c.LITERAL:
+        return CharClass.single(av)
+    if tok_op is sre_c.NOT_LITERAL:
+        return CharClass.single(av).negated()
+    if tok_op is sre_c.IN:
+        return CharClass.from_sre_in(av)
+    if tok_op is sre_c.ANY:
+        return CharClass.dot()
+    return None
+
+
+# ---------------------------------------------------------------------------
+# Validation: maximal munch ≡ backtracking
+# ---------------------------------------------------------------------------
+
+
+def _first_set(ops: Sequence[Op], i: int, prog: SegmentProgram) -> Tuple[CharClass, bool]:
+    """Set of bytes that can begin the match of ops[i:]; bool = 'can be empty'
+    (end of pattern reachable without consuming)."""
+    mask = CharClass.from_bytes(b"")
+    j = i
+    while j < len(ops):
+        op = ops[j]
+        if isinstance(op, (CapStart, CapEnd)):
+            j += 1
+            continue
+        if isinstance(op, Lit):
+            return mask.union(CharClass.single(op.data[0])), False
+        if isinstance(op, FixedSpan):
+            if op.n == 0:
+                j += 1
+                continue
+            return mask.union(prog.classes[op.class_id]), False
+        if isinstance(op, Span):
+            mask = mask.union(prog.classes[op.class_id])
+            if op.min_len > 0:
+                return mask, False
+            j += 1
+            continue
+        if isinstance(op, Optional_):
+            sub, _ = _first_set(op.body, 0, prog)
+            mask = mask.union(sub)
+            j += 1
+            continue
+        if isinstance(op, Alt):
+            can_empty = False
+            for b in op.branches:
+                sub, e = _first_set(b, 0, prog)
+                mask = mask.union(sub)
+                can_empty = can_empty or e
+            if not can_empty:
+                return mask, False
+            j += 1
+            continue
+        raise AssertionError(op)
+    return mask, True
+
+
+def _fixed_len(ops: Sequence[Op]) -> Optional[int]:
+    """Total consumed length if statically fixed, else None."""
+    total = 0
+    for op in ops:
+        if isinstance(op, (CapStart, CapEnd)):
+            continue
+        if isinstance(op, Lit):
+            total += len(op.data)
+        elif isinstance(op, FixedSpan):
+            total += op.n
+        elif isinstance(op, Span):
+            if op.min_len != op.max_len:
+                return None
+            total += op.min_len
+        elif isinstance(op, Alt):
+            lens = [_fixed_len(b) for b in op.branches]
+            if any(l is None for l in lens) or len(set(lens)) != 1:
+                return None
+            total += lens[0]
+        else:  # Optional_ is never fixed
+            return None
+    return total
+
+
+def _follow_of(ops: Sequence[Op], i: int, prog: SegmentProgram,
+               outer: CharClass) -> CharClass:
+    """First set of what can follow ops[i] (the rest of this sequence, or the
+    outer follow when the tail can match empty)."""
+    mask, can_empty = _first_set(ops, i + 1, prog)
+    if can_empty:
+        mask = mask.union(outer)
+    return mask
+
+
+def _guaranteed_nonabsorber(ops: Sequence[Op], prog: SegmentProgram,
+                            absorber: CharClass) -> bool:
+    """True if EVERY possible match of ops must contain at least one byte
+    the absorber (pivot) class cannot consume — then the pivot can never
+    swallow this content and take/skip decisions are forced."""
+    for op in ops:
+        if isinstance(op, Lit):
+            if any(not absorber.contains(b) for b in op.data):
+                return True
+        elif isinstance(op, FixedSpan):
+            if op.n >= 1 and not prog.classes[op.class_id].intersects(absorber):
+                return True
+        elif isinstance(op, Span):
+            if op.min_len >= 1 and                     not prog.classes[op.class_id].intersects(absorber):
+                return True
+        elif isinstance(op, Alt):
+            if all(_guaranteed_nonabsorber(b, prog, absorber)
+                   for b in op.branches):
+                return True
+        # Optional_ is not mandatory; CapStart/End consume nothing
+    return False
+
+
+def _validate_ops(ops: Sequence[Op], prog: SegmentProgram,
+                  outer_follow: CharClass,
+                  absorber: "Optional[CharClass]" = None,
+                  pivot_lazy: bool = False) -> None:
+    """Backtracking-equivalence validation.  In bidirectional (reverse
+    suffix) mode, `absorber` is the pivot span's class: content the pivot
+    could alternatively consume.  Boundary-shifting ambiguity against the
+    absorber is allowed only when the pivot is lazy (reverse maximal munch
+    IS the lazy answer) or the content is guaranteed non-absorbable."""
+    for i, op in enumerate(ops):
+        if isinstance(op, Span):
+            # maximal munch (plus the {m,n} length check) is equivalent to
+            # backtracking only when the follow set is disjoint from the class
+            follow_inner, reaches_end = _first_set(ops, i + 1, prog)
+            cls = prog.classes[op.class_id]
+            if cls.intersects(follow_inner):
+                raise Tier1Unsupported(
+                    f"greedy class {cls} overlaps follow set {follow_inner}")
+            if reaches_end:
+                # outer_follow is the enclosing continuation (nested Alt
+                # branches still have one in absorber mode)
+                if cls.intersects(outer_follow):
+                    raise Tier1Unsupported(
+                        f"greedy class {cls} overlaps follow set "
+                        f"{outer_follow}")
+                if absorber is not None and cls.intersects(absorber) \
+                        and not pivot_lazy:
+                    raise Tier1Unsupported(
+                        "suffix span can trade bytes with a greedy pivot")
+        elif isinstance(op, Optional_):
+            follow = _follow_of(ops, i, prog, outer_follow)
+            first, can_empty = _first_set(op.body, 0, prog)
+            if can_empty:
+                raise Tier1Unsupported("optional group can match empty")
+            # greedy take/skip commits on body success; that equals
+            # backtracking only when the body can never "absorb" what the
+            # continuation needs — first(body) must not overlap follow
+            # (counterexample otherwise: (?:ab)?abc on "abc")
+            if first.intersects(follow):
+                raise Tier1Unsupported(
+                    "optional body first set overlaps follow set")
+            # reverse-suffix mode: a greedy pivot prefers to absorb the
+            # body's text (skipping the optional); taking-on-body-match is
+            # only re-equivalent when the body is guaranteed to contain a
+            # byte the pivot cannot consume, or the pivot is lazy
+            if absorber is not None and not pivot_lazy and \
+                    not _guaranteed_nonabsorber(op.body, prog, absorber):
+                raise Tier1Unsupported(
+                    "optional body could be absorbed by a greedy pivot")
+            _validate_ops(op.body, prog, follow, absorber, pivot_lazy)
+        elif isinstance(op, Alt):
+            follow_inner, reaches_end = _first_set(ops, i + 1, prog)
+            follow = (follow_inner.union(outer_follow) if reaches_end
+                      else follow_inner)
+            firsts = []
+            flens = []
+            empties = []
+            for bi, b in enumerate(op.branches):
+                _validate_ops(b, prog, follow, absorber, pivot_lazy)
+                f, can_empty = _first_set(b, 0, prog)
+                # commit-on-branch-success prefers earlier branches; an
+                # empty-matchable branch always succeeds, so anywhere but
+                # LAST it would shadow later branches the backtracking
+                # engine could still reach (sre factors "GET|GETX" into
+                # GET(?:|X) — empty-first — which must be rejected)
+                if can_empty and bi != len(op.branches) - 1:
+                    raise Tier1Unsupported(
+                        "empty-matchable alternation branch before the last")
+                firsts.append(f)
+                flens.append(_fixed_len(b))
+                empties.append(can_empty)
+            # commit equals leftmost-with-backtracking only when, for every
+            # branch pair, either at most one branch can apply (disjoint
+            # first sets) or both consume the same fixed length (identical
+            # continuation, so a continuation failure fails under both).
+            # Counterexample otherwise: HOUR (2[0-3]|[0-9]) on "230"
+            # followed by MINUTE.
+            n_br = len(op.branches)
+            lits = [b[0].data if len(b) == 1 and isinstance(b[0], Lit)
+                    else None for b in op.branches]
+            for a in range(n_br):
+                for b2 in range(a + 1, n_br):
+                    if empties[a] or empties[b2]:
+                        continue  # empty last branch handled below
+                    if lits[a] is not None and lits[b2] is not None:
+                        # distinct literals: local matches are mutually
+                        # exclusive unless one prefixes the other — and the
+                        # dangerous ordering is shorter-prefix-first (re
+                        # would backtrack into the longer: "GET|GETX")
+                        if lits[b2].startswith(lits[a]) and lits[a] != lits[b2]:
+                            raise Tier1Unsupported(
+                                "alternation literal is a prefix of a later "
+                                "branch (reorder longest-first)")
+                        if lits[a].startswith(lits[b2]) and lits[a] != lits[b2]:
+                            # longer-first (the normalized order): commit on
+                            # the longer branch equals backtracking ONLY if
+                            # the continuation can never consume the
+                            # extension — counterexample: (WARNING|WARN)ING
+                            ext_first = lits[a][len(lits[b2])]
+                            if follow.contains(ext_first):
+                                raise Tier1Unsupported(
+                                    "literal prefix pair: follow set can "
+                                    "consume the longer branch's extension")
+                        if (absorber is not None and not pivot_lazy
+                                and len(lits[a]) != len(lits[b2])
+                                and not (_guaranteed_nonabsorber(
+                                    [Lit(lits[a])], prog, absorber)
+                                    and _guaranteed_nonabsorber(
+                                        [Lit(lits[b2])], prog, absorber))):
+                            raise Tier1Unsupported(
+                                "unequal literal branches could trade bytes "
+                                "with a greedy pivot")
+                        continue
+                    if firsts[a].intersects(firsts[b2]) and (
+                            flens[a] is None or flens[a] != flens[b2]):
+                        raise Tier1Unsupported(
+                            "ambiguous alternation branches (overlapping "
+                            "first sets, unequal lengths)")
+            # an empty-matchable LAST branch makes the Alt optional-like:
+            # the other branches must not absorb the continuation
+            if empties and empties[-1]:
+                union = CharClass.from_bytes(b"")
+                for f, e in zip(firsts, empties):
+                    if not e:
+                        union = union.union(f)
+                if union.intersects(follow):
+                    raise Tier1Unsupported(
+                        "alternation with empty branch overlaps follow set")
+                if absorber is not None and not pivot_lazy:
+                    for b, e in zip(op.branches, empties):
+                        if not e and not _guaranteed_nonabsorber(b, prog,
+                                                                 absorber):
+                            raise Tier1Unsupported(
+                                "optional-like branch could be absorbed by "
+                                "a greedy pivot")
+
+
+def _normalize_alts(ops: Sequence[Op]) -> None:
+    """All-literal alternations with prefix pairs reorder LONGEST-FIRST
+    (in place, recursive). For `re` this is match-equivalent — backtracking
+    explores every branch and the continuation disambiguates — and it is
+    the order the commit emitter needs (WARN before WARNING would shadow
+    WARNING forever). Soundness of the commit itself is still checked by
+    the follow-set guard in _validate_ops."""
+    for op in ops:
+        if isinstance(op, Optional_):
+            _normalize_alts(op.body)
+        elif isinstance(op, Alt):
+            for b in op.branches:
+                _normalize_alts(b)
+            lits = [b[0].data if len(b) == 1 and isinstance(b[0], Lit)
+                    else None for b in op.branches]
+            if all(l is not None for l in lits):
+                has_prefix_pair = any(
+                    a != b and (a.startswith(b) or b.startswith(a))
+                    for i, a in enumerate(lits) for b in lits[i + 1:])
+                if has_prefix_pair:
+                    op.branches.sort(key=lambda br: -len(br[0].data))
+
+
+def _validate_and_bind(prog: SegmentProgram) -> None:
+    _normalize_alts(prog.ops)
+    _validate_ops(prog.ops, prog, CharClass.from_bytes(b""))
+
+
+# ---------------------------------------------------------------------------
+# Public API
+# ---------------------------------------------------------------------------
+
+
+def _strip_edge_anchors(tokens):
+    """Remove a leading ^ and trailing $ (redundant under full-match
+    semantics).  Interior/boundary assertions are rejected in _flatten."""
+    at_begin = (sre_c.AT_BEGINNING, sre_c.AT_BEGINNING_STRING)
+    at_end = (sre_c.AT_END, sre_c.AT_END_STRING)
+    while tokens and tokens[0][0] is sre_c.AT and tokens[0][1] in at_begin:
+        tokens = tokens[1:]
+    while tokens and tokens[-1][0] is sre_c.AT and tokens[-1][1] in at_end:
+        tokens = tokens[:-1]
+    return tokens
+
+
+def _reverse_ops(ops: Sequence[Op]) -> List[Op]:
+    """Mirror an op sequence for right-to-left execution.  Literal bytes
+    reverse; composites reverse their bodies; CapStart/CapEnd swap roles is
+    handled by the emitter (original CapEnd, encountered first in reverse,
+    records the group's right edge)."""
+    out: List[Op] = []
+    for op in reversed(list(ops)):
+        if isinstance(op, Lit):
+            out.append(Lit(op.data[::-1]))
+        elif isinstance(op, Optional_):
+            out.append(Optional_(_reverse_ops(op.body)))
+        elif isinstance(op, Alt):
+            out.append(Alt([_reverse_ops(b) for b in op.branches]))
+        else:
+            out.append(op)
+    return out
+
+
+def _try_pivot_split(prog: SegmentProgram) -> bool:
+    """Attempt the bidirectional rescue for a pattern that failed strict
+    validation: exactly one top-level ambiguous Span becomes the pivot; the
+    prefix must validate forward, the suffix (reversed, anchored at the line
+    end) must validate in reverse.  Covers `"(.*?)"`-style fields.
+
+    The suffix match is then UNIQUE (its reversed form is backtracking-
+    free), so both greedy and lazy pivots take the same span — equal to the
+    backtracking engine's answer."""
+    ops = prog.ops
+    for i, op in enumerate(ops):
+        if not isinstance(op, Span):
+            continue
+        prefix = ops[:i]
+        suffix = ops[i + 1 :]
+        if not suffix:
+            continue  # span-at-end is the strict path's job
+        # follow of the prefix = pivot class (∪ first(suffix) if pivot may
+        # be empty)
+        follow = prog.classes[op.class_id]
+        if op.min_len == 0:
+            sf, _ = _first_set(suffix, 0, prog)
+            follow = follow.union(sf)
+        rev = _reverse_ops(suffix)
+        try:
+            _validate_ops(prefix, prog, follow)
+            _validate_ops(rev, prog, CharClass.from_bytes(b""),
+                          absorber=prog.classes[op.class_id],
+                          pivot_lazy=op.lazy)
+        except Tier1Unsupported:
+            continue
+        # captures spanning the split: CapStart in prefix whose CapEnd sits
+        # in the suffix
+        starts_prefix = _cap_ids(prefix, CapStart)
+        ends_suffix = _cap_ids(suffix, CapEnd)
+        split = sorted(starts_prefix & ends_suffix)
+        # a capture OPENING in the suffix but closing... cannot happen
+        # (well-formed nesting), and captures fully inside either side are
+        # handled by their own walk
+        prog.ops = prefix
+        prog.pivot = op
+        prog.suffix_ops = rev
+        prog.split_caps = split
+        return True
+    return False
+
+
+def _cap_ids(seq, cls) -> set:
+    found = set()
+
+    def walk(oo):
+        for o in oo:
+            if isinstance(o, cls):
+                found.add(o.cap_id)
+            elif isinstance(o, Optional_):
+                walk(o.body)
+            elif isinstance(o, Alt):
+                for b in o.branches:
+                    walk(b)
+    walk(seq)
+    return found
+
+
+def _try_double_pivot(prog: SegmentProgram) -> bool:
+    """Two ambiguous spans separated by a boundary literal — the common
+    `%{DATA}` × 2 grok shape (processor_grok.go:55-56 semantics).
+
+    Structure: prefix | pivot1 | middle | pivot2 | suffix, where middle is
+    ONE literal L (plus capture markers). The kernel walks prefix forward,
+    suffix in reverse, then locates L inside the gap with a min-reduce
+    (both pivots lazy → first feasible occurrence) or max-reduce (both
+    greedy → last), and validates both pivot regions by masked counts.
+
+    Commit-to-first is equivalent to the backtracking engine iff a failure
+    of the chosen occurrence implies failure of every later one. That holds
+    when any byte pivot2 cannot absorb also cannot be re-assigned to a
+    later boundary's pivot1 region or L match:
+        class(pivot1) ⊆ class(pivot2)  and  bytes(L) ⊆ class(pivot2).
+    Commit-to-last (greedy) mirrors:  class2 ⊆ class1 and bytes(L) ⊆ class1.
+    Unbounded maxima are required — a max-length bound could force the
+    engine to a different occurrence the reduce would skip."""
+    ops = prog.ops
+    span_idx = [k for k, op in enumerate(ops) if isinstance(op, Span)]
+    for ii in range(len(span_idx)):
+        for jj in range(ii + 1, len(span_idx)):
+            i, j = span_idx[ii], span_idx[jj]
+            p1, p2 = ops[i], ops[j]
+            middle = ops[i + 1:j]
+            lits = [o for o in middle if isinstance(o, Lit)]
+            if len(lits) != 1 or not all(
+                    isinstance(o, (Lit, CapStart, CapEnd)) for o in middle):
+                continue
+            lit = lits[0]
+            c1 = prog.classes[p1.class_id]
+            c2 = prog.classes[p2.class_id]
+            if p1.max_len != INF or p2.max_len != INF:
+                continue
+            if p1.lazy and p2.lazy:
+                if not (c1.issubset(c2)
+                        and all(c2.contains(b) for b in lit.data)):
+                    continue
+            elif not p1.lazy and not p2.lazy:
+                if not (c2.issubset(c1)
+                        and all(c1.contains(b) for b in lit.data)):
+                    continue
+            else:
+                continue  # mixed greedy/lazy: no sound commit order
+            prefix = ops[:i]
+            suffix = ops[j + 1:]
+            if not suffix:
+                continue  # pivot2-at-end belongs to the single-pivot path
+            follow1 = c1
+            if p1.min_len == 0:
+                follow1 = follow1.union(CharClass.from_bytes(lit.data[:1]))
+            rev = _reverse_ops(suffix)
+            try:
+                _validate_ops(prefix, prog, follow1)
+                _validate_ops(rev, prog, CharClass.from_bytes(b""),
+                              absorber=c2, pivot_lazy=p2.lazy)
+            except Tier1Unsupported:
+                continue
+            starts_fwd = _cap_ids(prefix, CapStart) | _cap_ids(middle,
+                                                               CapStart)
+            ends_suffix = _cap_ids(suffix, CapEnd)
+            prog.ops = prefix
+            prog.pivot = p1
+            prog.mid_ops = list(middle)
+            prog.mid_end_caps = sorted(_cap_ids(middle, CapEnd))
+            prog.pivot2 = p2
+            prog.suffix_ops = rev
+            prog.split_caps = sorted(starts_fwd & ends_suffix)
+            return True
+    return False
+
+
+def compile_tier1(pattern: Union[str, bytes]) -> SegmentProgram:
+    if isinstance(pattern, bytes):
+        pattern = pattern.decode("latin-1")
+    try:
+        tree = sre_parse.parse(pattern)
+    except Exception as e:  # noqa: BLE001
+        raise Tier1Unsupported(f"parse error: {e}") from e
+    prog = SegmentProgram(pattern=pattern)
+    try:
+        names = tree.state.groupdict
+        prog.group_names = {v - 1: k for k, v in names.items()}
+    except AttributeError:
+        pass
+    tokens = _strip_edge_anchors(list(tree))
+    _flatten(tokens, prog, prog.ops)
+    try:
+        _validate_and_bind(prog)
+    except Tier1Unsupported:
+        if not _try_pivot_split(prog) and not _try_double_pivot(prog):
+            raise
+    return prog
+

@@ -1,0 +1,200 @@
+"""Batched NDJSON assembly shared by the JSON-family sinks (loongshard).
+
+Before this module, JsonSerializer and four flushers (clickhouse / doris /
+elasticsearch / loki) each ran the same loop: materialise a Python dict per
+event, then ``json.dumps`` per row.  At pipeline rates that is the dominant
+serialize cost — every field pays a bytes→str decode, a dict insert and a
+re-encode, even though for columnar groups the values are untouched spans
+of the SourceBuffer arena.
+
+The fast path assembles output bytes once per group in native code
+(``lct_ndjson_serialize``): cached group-tag prefix, cached per-column key
+fragments, values escaped straight out of the arena.  Python only decides
+eligibility — groups whose spans may hold non-ASCII bytes fall back to the
+canonical dict path, because ``json.dumps`` + ``decode("utf-8", "replace")``
+semantics for invalid UTF-8 belong to CPython, not to a C re-implementation.
+
+Output is byte-identical to the dict path — ``json.dumps(obj,
+ensure_ascii=False)`` with default separators — pinned by golden tests
+(tests/test_batch_json.py).
+"""
+
+from __future__ import annotations
+
+import json
+from typing import Dict, List, Optional, Tuple
+
+import numpy as np
+
+from ... import native
+from ...models import PipelineEventGroup
+from .event_dicts import iter_event_dicts
+
+TS_NONE = native.NDJSON_TS_NONE
+TS_EPOCH = native.NDJSON_TS_EPOCH
+TS_ISO8601 = native.NDJSON_TS_ISO8601
+
+# 1 where a byte is outside single-byte UTF-8 (>= 0x80): such spans must
+# take the CPython path so invalid sequences get codec-identical treatment
+_HIGH = np.zeros(256, dtype=np.uint8)
+_HIGH[0x80:] = 1
+
+
+def dumps_row(obj: Dict[str, object]) -> bytes:
+    """The one canonical row encoder every JSON sink shares (identical to
+    the four ``json.dumps(obj, ensure_ascii=False)`` copies it replaced)."""
+    return json.dumps(obj, ensure_ascii=False).encode()
+
+
+def decoded_tags(group: PipelineEventGroup) -> Dict[str, str]:
+    """Group tags in the exact shape the dict path folds into every row."""
+    return {k.decode("utf-8", "replace"): str(v)
+            for k, v in group.tags.items()}
+
+
+_frag_cache: Dict[str, bytes] = {}
+_prefix_cache: Dict[Tuple[Tuple[str, str], ...], bytes] = {}
+
+
+def _field_frag(name: str) -> bytes:
+    """``"name": "`` — cached; schemas repeat for every group."""
+    frag = _frag_cache.get(name)
+    if frag is None:
+        frag = (json.dumps(name, ensure_ascii=False) + ': "').encode()
+        if len(_frag_cache) > 4096:      # unbounded schemas must not leak
+            _frag_cache.clear()
+        _frag_cache[name] = frag
+    return frag
+
+
+def tag_prefix(tags: Dict[str, str]) -> bytes:
+    """``{"tag": "value"`` — the per-group constant head of every row
+    (no trailing separator; the native writer adds ``, `` before the first
+    member it appends).  Cached: steady-state pipelines re-emit identical
+    tag sets for every group."""
+    key = tuple(tags.items())
+    pre = _prefix_cache.get(key)
+    if pre is None:
+        inner = ", ".join(
+            f"{json.dumps(k, ensure_ascii=False)}: "
+            f"{json.dumps(v, ensure_ascii=False)}" for k, v in tags.items())
+        pre = ("{" + inner).encode()
+        if len(_prefix_cache) > 1024:
+            _prefix_cache.clear()
+        _prefix_cache[key] = pre
+    return pre
+
+
+def _columnar_layout(group: PipelineEventGroup):
+    """(names, offs [F,n] i32, lens [F,n] i32, tss) for the fast path, or
+    None when the group is not columnar / the layout is not fast-safe.
+    Field order matches iter_event_dicts exactly."""
+    cols = group.columns
+    if cols is None or group._events:
+        return None
+    fields = cols.fields or {}
+    names = [n for n in fields if n != "_partial_"]
+    spans = [fields[n] for n in names]
+    if not cols.content_consumed and "content" not in fields:
+        names.insert(0, "content")
+        spans.insert(0, (cols.offsets, cols.lengths))
+    if not names:
+        return None
+    if any(not isinstance(n, str) for n in names):
+        return None
+    try:
+        offs = np.stack([np.asarray(s[0], dtype=np.int32) for s in spans])
+        lens = np.stack([np.asarray(s[1], dtype=np.int32) for s in spans])
+    except ValueError:
+        return None
+    return names, offs, lens, cols.timestamps
+
+
+def _spans_are_ascii(group: PipelineEventGroup, offs: np.ndarray,
+                     lens: np.ndarray) -> bool:
+    """True when every present span is single-byte UTF-8 (no byte >=
+    0x80).  Cheap max() over the arena answers the common machine-log case
+    in one SIMD pass; only arenas that do contain high bytes pay the
+    per-span cumulative-sum classification."""
+    raw = group.source_buffer.raw
+    if len(raw) == 0:
+        return True
+    arena = np.frombuffer(raw, dtype=np.uint8, count=len(raw))
+    if int(arena.max()) < 0x80:
+        return True
+    csum = np.zeros(len(arena) + 1, dtype=np.int64)
+    np.cumsum(_HIGH[arena], out=csum[1:])
+    present = lens >= 0
+    o = np.where(present, offs, 0).astype(np.int64)
+    ln = np.where(present, lens, 0).astype(np.int64)
+    e = np.minimum(o + ln, len(arena))
+    o = np.minimum(o, len(arena))
+    return not bool(((csum[e] - csum[o]) > 0).any())
+
+
+def native_group_rows(group: PipelineEventGroup,
+                      ts_key: Optional[str],
+                      ts_mode: int = TS_EPOCH,
+                      ts_first: bool = False,
+                      suffix: bytes = b"\n",
+                      head: bytes = b"",
+                      ) -> Optional[memoryview]:
+    """One group's NDJSON rows via the native assembler; None ⇒ the caller
+    must run the canonical dict path for this group.  ``head`` is prepended
+    to every row before the JSON object (ES bulk action lines)."""
+    layout = _columnar_layout(group)
+    if layout is None:
+        return None
+    names, offs, lens, tss = layout
+    tags = decoded_tags(group)
+    if ts_key is not None and (ts_key in names or ts_key in tags):
+        # setdefault semantics: an existing field/tag wins — rare enough
+        # that the dict path handles it wholesale
+        return None
+    if any(n in tags for n in names):
+        # a field overwrites the same-named tag IN PLACE in the dict path;
+        # the flat fast layout cannot reproduce that ordering
+        return None
+    if not _spans_are_ascii(group, offs, lens):
+        return None
+    prefix = head + tag_prefix(tags)
+    ts_frag = b""
+    if ts_key is not None and ts_mode != TS_NONE:
+        ts_frag = (json.dumps(ts_key, ensure_ascii=False) + ": ").encode()
+    else:
+        ts_mode = TS_NONE
+    return native.ndjson_serialize(
+        np.frombuffer(group.source_buffer.raw, dtype=np.uint8,
+                      count=len(group.source_buffer.raw)),
+        np.asarray(tss, dtype=np.int64),
+        tuple(_field_frag(n) for n in names),
+        offs, lens, prefix, bool(tags), ts_frag, ts_mode, ts_first,
+        suffix=suffix)
+
+
+def ndjson_payload(groups: List[PipelineEventGroup],
+                   ts_key: Optional[str] = None,
+                   ts_mode: int = TS_EPOCH,
+                   ) -> Optional[bytes]:
+    """The shared NDJSON payload builder (clickhouse / doris): one JSON
+    object per line, ``obj.setdefault(ts_key, ts)`` semantics, trailing
+    newline after every row.  Columnar groups take the native zero-copy
+    assembly; everything else rides the canonical dict path."""
+    parts: List = []
+    empty = True
+    for g in groups:
+        fast = native_group_rows(g, ts_key, ts_mode=ts_mode, ts_first=False)
+        if fast is not None:
+            if len(fast):
+                empty = False
+                parts.append(fast)
+            continue
+        for ts, obj in iter_event_dicts(g):
+            if ts_key is not None:
+                obj.setdefault(ts_key, ts)
+            parts.append(dumps_row(obj))
+            parts.append(b"\n")
+            empty = False
+    if empty:
+        return None
+    return b"".join(parts)

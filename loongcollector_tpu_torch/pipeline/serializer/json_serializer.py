@@ -1,0 +1,109 @@
+"""JSON line serializer for JSON sinks (reference
+core/collection_pipeline/serializer/JsonSerializer.cpp — one JSON object per
+event with group tags folded in).
+
+Columnar fast path (loongshard): rows are assembled in native code straight
+from the SourceBuffer arena spans — cached group-tag prefix, cached key
+fragments, no per-event dict, no per-event ``json.dumps`` (batch_json).
+Event groups and non-ASCII payloads keep the original dict path; output is
+byte-identical either way.
+"""
+
+from __future__ import annotations
+
+import json
+from typing import List
+
+from ...models import (EventType, LogEvent, MetricEvent, PipelineEventGroup,
+                       RawEvent, SpanEvent)
+
+
+from ...models.events import metric_name_str as _name_str
+
+from .batch_json import TS_EPOCH, native_group_rows
+
+class JsonSerializer:
+    name = "json"
+
+    def serialize_view(self, groups: List[PipelineEventGroup]):
+        """Serializer-interface hook: may return a memoryview when a
+        zero-copy path exists (see SLSEventGroupSerializer); here it is
+        just serialize()."""
+        return self.serialize(groups)
+
+    def serialize(self, groups: List[PipelineEventGroup]) -> bytes:
+        parts: List = []
+        for group in groups:
+            cols = group.columns
+            # the raw-tail case (no parsed fields, just content spans) is
+            # columnar too — falling through would materialize every line
+            # into a Python event (loonglint hot-path-materialize)
+            columnar = (cols is not None and not group._events
+                        and (cols.fields or not cols.content_consumed))
+            if columnar:
+                # native zero-copy assembly; None ⇒ dict fallback (event
+                # groups, non-ASCII spans, key collisions)
+                fast = native_group_rows(group, "__time__",
+                                         ts_mode=TS_EPOCH, ts_first=True)
+                if fast is not None:
+                    if len(fast):
+                        parts.append(fast)
+                    continue
+            out: List[str] = []
+            tags = {k.decode("utf-8", "replace"): str(v)
+                    for k, v in group.tags.items()}
+            if columnar:
+                self._serialize_columnar(group, tags, out)
+            else:
+                self._serialize_events(group, tags, out)
+            if out:
+                parts.append(("\n".join(out) + "\n").encode("utf-8"))
+        return b"".join(parts) if parts else b""
+
+    def _serialize_events(self, group: PipelineEventGroup, tags: dict,
+                          out: List[str]) -> None:
+        # canonical dict fallback (non-LOG events, materialized groups)
+        for ev in group.events:  # loonglint: disable=hot-path-materialize
+            obj = dict(tags)
+            if isinstance(ev, LogEvent):
+                obj["__time__"] = ev.timestamp
+                for k, v in ev.contents:
+                    obj[k.to_str()] = v.to_str()
+            elif isinstance(ev, MetricEvent):
+                obj["__time__"] = ev.timestamp
+                obj["__name__"] = _name_str(ev.name)
+                if ev.value.is_multi():
+                    obj["__values__"] = {k.decode(): v for k, v in ev.value.values.items()}
+                else:
+                    obj["__value__"] = ev.value.value
+                obj["__labels__"] = {k.decode(): str(v) for k, v in ev.tags.items()}
+            elif isinstance(ev, SpanEvent):
+                obj["traceId"] = ev.trace_id.decode("utf-8", "replace")
+                obj["spanId"] = ev.span_id.decode("utf-8", "replace")
+                obj["name"] = ev.name.decode("utf-8", "replace")
+                obj["startTimeNs"] = ev.start_time_ns
+                obj["endTimeNs"] = ev.end_time_ns
+            elif isinstance(ev, RawEvent):
+                obj["__time__"] = ev.timestamp
+                obj["content"] = str(ev.content) if ev.content else ""
+            out.append(json.dumps(obj, ensure_ascii=False))
+
+    def _serialize_columnar(self, group: PipelineEventGroup, tags: dict,
+                            out: List[str]) -> None:
+        cols = group.columns
+        raw = group.source_buffer.raw
+        names = [n for n in cols.fields if n != "_partial_"]
+        spans = [cols.fields[n] for n in names]
+        if not cols.content_consumed and "content" not in cols.fields:
+            names.insert(0, "content")
+            spans.insert(0, (cols.offsets, cols.lengths))
+        tss = cols.timestamps
+        for i in range(len(cols)):
+            obj = dict(tags)
+            obj["__time__"] = int(tss[i])
+            for name, (offs, lens) in zip(names, spans):
+                ln = int(lens[i])
+                if ln >= 0:
+                    o = int(offs[i])
+                    obj[name] = raw[o : o + ln].decode("utf-8", "replace")
+            out.append(json.dumps(obj, ensure_ascii=False))

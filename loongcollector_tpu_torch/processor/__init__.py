@@ -1,0 +1,19 @@
+"""Processor plugins of the port.
+
+Names keep the reference's ``_native`` suffix and its ``_tpu`` aliases, so
+one pipeline YAML drives either package.
+"""
+
+
+def register_all(registry) -> None:
+    from .parse_regex import ProcessorParseRegex
+    from .parse_timestamp import ProcessorParseTimestamp
+    from .split_log_string import ProcessorSplitLogString
+    registry.register_processor("processor_split_log_string_native",
+                                ProcessorSplitLogString)
+    registry.register_processor("processor_parse_regex_native",
+                                ProcessorParseRegex)
+    registry.register_processor("processor_parse_regex_tpu",
+                                ProcessorParseRegex)
+    registry.register_processor("processor_parse_timestamp_native",
+                                ProcessorParseTimestamp)

@@ -1,0 +1,209 @@
+"""Shared processor helpers: columnar source extraction.
+
+The data plane keeps groups columnar; processors that parse a source field
+need (arena, offsets, lengths) triples.  For columnar groups that's free;
+for per-event groups the sources are packed into a scratch arena first.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import List, Optional, Tuple
+
+import numpy as np
+
+from ..models import ColumnarLogs, LogEvent, PipelineEventGroup, RawEvent
+from ..utils.logger import get_logger
+
+DEFAULT_CONTENT_KEY = b"content"
+RAW_LOG_KEY = "rawLog"
+
+log = get_logger("processor")
+
+# The reference raises a PARSE_LOG_FAIL alarm through its AlarmManager; the
+# port has no alarm plane yet, so failed parses are logged and counted here.
+parse_fail_events = 0
+
+
+def note_parse_failures(n: int) -> None:
+    global parse_fail_events
+    parse_fail_events += n
+    log.warning("%d events failed to parse (kept as rawLog when configured)",
+                n)
+
+
+@dataclass
+class SourceColumns:
+    arena: np.ndarray            # uint8 flat
+    offsets: np.ndarray          # int64 [N]
+    lengths: np.ndarray          # int32 [N]
+    columnar: bool               # True → spans index the group's arena
+    present: np.ndarray          # bool [N] source field existed
+    from_content: bool = False   # True → spans are the raw content column
+
+
+def extract_source(group: PipelineEventGroup,
+                   source_key: bytes = DEFAULT_CONTENT_KEY
+                   ) -> Optional[SourceColumns]:
+    """Returns the source field of every event as span columns."""
+    cols = group.columns
+    if cols is not None and not group._events:
+        skey = source_key.decode() if isinstance(source_key, bytes) else source_key
+        from_content = False
+        if skey in cols.fields:
+            offs, lens = cols.fields[skey]
+            present = lens >= 0
+        elif (skey == "content" and not cols.content_consumed) or not cols.fields:
+            offs, lens = cols.offsets, cols.lengths
+            present = np.ones(len(cols), dtype=bool)
+            from_content = True
+        else:
+            return None
+        arena = group.source_buffer.as_array()
+        return SourceColumns(arena, offs.astype(np.int64), lens, True, present,
+                             from_content)
+
+    # row path: pack source values into a scratch arena
+    values: List[bytes] = []
+    present: List[bool] = []
+    for ev in group.events:
+        if isinstance(ev, LogEvent):
+            v = ev.get_content(source_key)
+        elif isinstance(ev, RawEvent):
+            v = ev.content
+        else:
+            v = None
+        if v is None:
+            values.append(b"")
+            present.append(False)
+        else:
+            values.append(v.to_bytes())
+            present.append(True)
+    if not values:
+        return None
+    blob = b"".join(values)
+    arena = np.frombuffer(blob, dtype=np.uint8) if blob else np.zeros(0, np.uint8)
+    lengths = np.array([len(v) for v in values], dtype=np.int32)
+    offsets = np.concatenate([[0], np.cumsum(lengths[:-1], dtype=np.int64)]) \
+        if len(values) else np.zeros(0, np.int64)
+    return SourceColumns(arena, offsets.astype(np.int64), lengths, False,
+                         np.array(present, dtype=bool))
+
+
+def subset_source(src: SourceColumns, rowmap: np.ndarray) -> SourceColumns:
+    """Row-subset view of a SourceColumns (loongresident: a fused run's
+    member applies after a filter member compacted the group — the
+    original packed-row arrays re-index through the run's rowmap)."""
+    if len(rowmap) == len(src.offsets) \
+            and bool((rowmap == np.arange(len(rowmap))).all()):
+        return src
+    return SourceColumns(src.arena, src.offsets[rowmap],
+                         src.lengths[rowmap], src.columnar,
+                         src.present[rowmap], src.from_content)
+
+
+def apply_parse_spans(group, src, res, keys, keep_on_fail: bool,
+                      keep_on_success: bool, renamed_source_key: str,
+                      source_key=None) -> None:
+    """Columnar install of device parse results — shared by the regex and
+    delimiter processors so the subtle parts (all-ok fast path, span_matrix
+    preservation, keep-source mask algebra, content consumption) cannot
+    diverge between them."""
+    import numpy as np
+
+    cols = group.columns
+    ok = res.ok & src.present
+    nkeys = min(len(keys), res.cap_len.shape[1])
+    # one [N, K] mask at most; all-matched groups (the steady state) install
+    # the kernel matrices as-is and keep the serializer's zero-transpose
+    # span_matrix fast path
+    all_ok = bool(ok.all())
+    if all_ok:
+        len_mat = res.cap_len[:, :nkeys]
+    else:
+        len_mat = np.where(ok[:, None], res.cap_len[:, :nkeys],
+                           np.int32(-1))
+    cols.set_fields_matrix(keys[:nkeys], res.cap_off[:, :nkeys], len_mat)
+    # consume a NAMED source BEFORE the keep machinery re-adds the raw
+    # bytes — with RenamedSourceKey == SourceKey the re-added field must
+    # survive (reference DelContent-then-AddLog ordering)
+    if not src.from_content and source_key is not None:
+        consume_named_source(cols, source_key, keys[:nkeys])
+    # source retention
+    if keep_on_fail and keep_on_success:
+        keep = src.present
+    elif keep_on_fail:
+        keep = (~ok) & src.present
+    elif keep_on_success:
+        keep = ok & src.present
+    else:
+        keep = np.zeros(len(ok), dtype=bool)
+    if keep.any():
+        cols.set_field(renamed_source_key, src.offsets.astype(np.int32),
+                       np.where(keep, src.lengths, -1).astype(np.int32))
+    cols.parse_ok = ok
+    if src.from_content:
+        cols.content_consumed = True
+    if not all_ok:
+        n_fail = int((~ok & src.present).sum())
+        if n_fail:
+            note_parse_failures(n_fail)
+
+
+def finish_row_keep(ev, raw, parse_ok: bool, source_key: bytes,
+                    overwritten: bool, keep_on_fail: bool,
+                    keep_on_success: bool, renamed: bytes) -> None:
+    """Row-path keep/discard tail shared by the regex and delimiter
+    processors (reference ProcessEvent ordering): delete the source unless
+    a successful parse overwrote it, then re-add the captured raw bytes
+    under the renamed key per the keep flags."""
+    if parse_ok:
+        if not overwritten:
+            ev.del_content(source_key)
+        if keep_on_success and raw is not None:
+            ev.set_content(renamed, raw)
+    else:
+        ev.del_content(source_key)
+        if keep_on_fail and raw is not None:
+            ev.set_content(renamed, raw)
+
+
+def append_side_arena(source_buffer, side, arena_len: int) -> int:
+    """loongstruct side-arena install, shared by the JSON and delimiter
+    processors so the sentinel contract cannot diverge: the native parse
+    emits rewritten bytes (escape decodes, CSV collapses/joins) into a
+    side buffer with span offsets encoded as arena_len + side_offset;
+    append those bytes to the source buffer ONCE and return the rebase
+    delta for rebase_side_spans.  A zero return is valid (the side bytes
+    happened to land exactly at arena_len)."""
+    if not len(side):
+        return 0
+    base = source_buffer.allocate(len(side))
+    source_buffer.write_at(base, side.tobytes())
+    return base - arena_len
+
+
+def rebase_side_spans(offs: np.ndarray, lens: np.ndarray, arena_len: int,
+                      rebase: int) -> np.ndarray:
+    """Shift side-sentinel offsets (>= arena_len, len >= 0) by `rebase`,
+    vectorised; returns offs unchanged when nothing needs shifting.
+    Absent slots (len < 0) may hold uninitialised offsets and must never
+    be touched."""
+    if not rebase:
+        return offs
+    sidep = (lens >= 0) & (offs >= arena_len)
+    if not sidep.any():
+        return offs
+    return offs + np.where(sidep, np.int32(rebase), 0)
+
+
+def consume_named_source(cols, source_key, parsed_key_names) -> None:
+    """Reference DelContent for a NAMED source field: drop it unless one of
+    the parsed keys overwrote that very name.  Callers must run this
+    BEFORE re-adding the kept raw source under RenamedSourceKey, or the
+    RenamedSourceKey == SourceKey configuration destroys what it kept."""
+    skey = source_key.decode("utf-8", "replace") \
+        if isinstance(source_key, bytes) else source_key
+    if skey not in parsed_key_names:
+        cols.fields.pop(skey, None)
+        cols.span_matrix = None

@@ -1,0 +1,95 @@
+"""processor_parse_regex — regex field extraction on the CUDA device.
+
+Reference: core/plugin/processor/ProcessorParseRegexNative.cpp — full-match
+with capture groups → fields (SetContentNoCopy spans, :249-251); keep/discard
+semantics from CommonParserOptions (:153-165): KeepingSourceWhenParseFail
+(default true ⇒ failed events keep the raw line under `rawLog`),
+KeepingSourceWhenParseSucceed, RenamedSourceKey.
+
+The whole group parses as ONE batch through ops.regex.RegexEngine on the
+pipeline's device (context.device); returned spans index the group's own
+arena, so downstream serialization stays zero-copy.  Columnar groups take
+the span-matrix path, per-event groups the row path — both as in the JAX
+package's processor.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, List
+
+from ..models import PipelineEventGroup
+from ..ops.regex.engine import RegexEngine, get_engine
+from ..pipeline.plugin.interface import PluginContext, Processor
+from .common import (RAW_LOG_KEY, apply_parse_spans, extract_source,
+                     finish_row_keep)
+
+
+class ProcessorParseRegex(Processor):
+    name = "processor_parse_regex_tpu"
+
+    def __init__(self) -> None:
+        super().__init__()
+        self.source_key = b"content"
+        self.regex = ""
+        self.keys: List[str] = []
+        self.keep_source_on_fail = True
+        self.keep_source_on_success = False
+        self.renamed_source_key = RAW_LOG_KEY
+        self.engine: RegexEngine = None  # type: ignore
+
+    def init(self, config: Dict[str, Any], context: PluginContext) -> bool:
+        super().init(config, context)
+        self.source_key = config.get("SourceKey", "content").encode()
+        self.regex = config.get("Regex", "(.*)")
+        self.keys = list(config.get("Keys", []))
+        self.keep_source_on_fail = bool(
+            config.get("KeepingSourceWhenParseFail", True))
+        self.keep_source_on_success = bool(
+            config.get("KeepingSourceWhenParseSucceed", False))
+        self.renamed_source_key = config.get("RenamedSourceKey", RAW_LOG_KEY)
+        self.engine = get_engine(self.regex, context.device)
+        # name capture groups: config Keys win; else named groups; else g{N}
+        if not self.keys:
+            self.keys = [self.engine.group_names.get(i, f"g{i+1}")
+                         for i in range(self.engine.num_caps)]
+        return True
+
+    def process(self, group: PipelineEventGroup) -> None:
+        src = extract_source(group, self.source_key)
+        if src is None:
+            return
+        res = self.engine.parse_batch(src.arena, src.offsets, src.lengths)
+        if src.columnar:
+            apply_parse_spans(group, src, res, self.keys,
+                              self.keep_source_on_fail,
+                              self.keep_source_on_success,
+                              self.renamed_source_key,
+                              source_key=self.source_key)
+            return
+
+        # row path (non-columnar groups) — reference ordering
+        # (ProcessorParseRegexNative.cpp ProcessEvent): capture the raw
+        # source FIRST (a key may overwrite it), delete the source unless a
+        # successful parse overwrote it, then re-add under the renamed key
+        # per the keep flags
+        ok = res.ok & src.present
+        sb = group.source_buffer
+        key_bytes = [k.encode() for k in self.keys]
+        renamed = self.renamed_source_key.encode()
+        for i, ev in enumerate(group.events):
+            if not hasattr(ev, "get_content"):
+                continue  # RawEvent/metric/span rows don't carry fields
+            raw = ev.get_content(self.source_key)
+            overwritten = False
+            if ok[i]:
+                for g in range(min(self.engine.num_caps, len(self.keys))):
+                    ln = int(res.cap_len[i, g])
+                    if ln >= 0:
+                        o = int(res.cap_off[i, g])
+                        data = bytes(src.arena[o: o + ln].tobytes())
+                        ev.set_content(key_bytes[g], sb.copy_string(data))
+                        if key_bytes[g] == self.source_key:
+                            overwritten = True
+            finish_row_keep(ev, raw, bool(ok[i]), self.source_key,
+                            overwritten, self.keep_source_on_fail,
+                            self.keep_source_on_success, renamed)

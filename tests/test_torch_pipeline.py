@@ -1,0 +1,99 @@
+"""The Apache main path end to end: the JAX package against the port.
+
+One seeded Apache log (with noise, oversize lines and a final line without
+a newline) goes through the JAX package's processors — file reader →
+split → processor_parse_regex_tpu → processor_parse_timestamp_native →
+JsonSerializer — and through the port's ``--once --cpu`` CLI with a
+flusher_file sink.  The NDJSON must be byte-equal.  ``time.time`` is pinned
+in both runs: lines whose regex or timestamp parse fails keep the read
+time as ``__time__``, which would otherwise differ between two runs.
+"""
+
+import os
+import time
+
+import numpy as np
+
+from loongcollector_tpu.input.file.reader import LogFileReader
+from loongcollector_tpu.pipeline.plugin.interface import PluginContext
+from loongcollector_tpu.pipeline.serializer.json_serializer import \
+    JsonSerializer
+from loongcollector_tpu.processor.parse_regex import ProcessorParseRegex
+from loongcollector_tpu.processor.parse_timestamp import \
+    ProcessorParseTimestamp
+from loongcollector_tpu.processor.split_log_string import \
+    ProcessorSplitLogString
+from loongcollector_tpu_torch.application import main as port_main
+from loongcollector_tpu_torch.testdata import gen_lines
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+YAML = os.path.join(REPO, "example_config", "quick_start",
+                    "file_regex_apache.yaml")
+
+
+def _write_log(path):
+    rng = np.random.default_rng(5)
+    lines = gen_lines(7000, seed=5)       # > one 512 KiB chunk
+    for i in range(0, 7000, 501):
+        lines[i] = bytes(rng.integers(32, 127, 60, dtype=np.uint8))
+    lines[3] = lines[3].replace(b" HTTP/", b"/" + b"p" * 4500 + b" HTTP/")
+    lines[9] = lines[9].replace(b"10/Oct/2000", b"99/Xyz/2000")
+    data = b"\n".join(lines) + b"\n" + b'1.2.3.4 - - [10/Oct/2000:13:55:36 ' \
+        b'-0700] "GET / HTTP/1.1" 200 5'    # no trailing newline
+    with open(path, "wb") as f:
+        f.write(data)
+
+
+def _reference_ndjson(log_path):
+    with open(YAML) as f:
+        import yaml
+        cfg = yaml.safe_load(f)
+    ctx = PluginContext("apache")
+    procs = [ProcessorSplitLogString()]
+    procs[0].init({}, ctx)
+    for pcfg, cls in zip(cfg["processors"],
+                         (ProcessorParseRegex, ProcessorParseTimestamp)):
+        p = cls()
+        assert p.init(pcfg, ctx)
+        procs.append(p)
+    ser = JsonSerializer()
+    reader = LogFileReader(log_path)
+    out = []
+    while True:
+        group = reader.read() or reader.read(force_flush=True)
+        if group is None:
+            break
+        for p in procs:
+            p.process(group)
+        out.append(ser.serialize([group]))
+    reader.close()
+    return b"".join(out)
+
+
+def test_apache_once_cpu_matches_reference(tmp_path, monkeypatch):
+    monkeypatch.setattr(time, "time", lambda: 1700000000.25)
+    log_path = str(tmp_path / "access.log")
+    out_path = str(tmp_path / "out.json")
+    _write_log(log_path)
+    cfg_dir = tmp_path / "config"
+    cfg_dir.mkdir()
+    with open(YAML) as f:
+        text = f.read()
+    text = text.replace("/tmp/loongcollector_demo/access.log", log_path)
+    text = text.replace("  - Type: flusher_stdout",
+                        f"  - Type: flusher_file\n    FilePath: {out_path}")
+    (cfg_dir / "file_regex_apache.yaml").write_text(text)
+    stats_path = str(tmp_path / "stats.json")
+    assert port_main(["--config", str(cfg_dir), "--once", "--cpu",
+                      "--stats", stats_path]) == 0
+    with open(out_path, "rb") as f:
+        got = f.read()
+    want = _reference_ndjson(log_path)
+    assert got.count(b"\n") == 7001
+    assert b'"rawLog"' in got and b'"__time__": 1700000000' in got
+    assert got == want
+    import json
+    with open(stats_path) as f:
+        stats = json.load(f)
+    assert stats["events"] == 7001 and stats["device"] == "cpu"
+    assert stats["re_oversize_rows"] == 1 and stats["launches"] == 0
