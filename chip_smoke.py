@@ -305,7 +305,7 @@ def phase_parity(quick: bool) -> dict:
         noise = [bytes(rng.integers(32, 127, int(rng.integers(0, 40)),
                                     dtype="u1")) for _ in range(40)]
         extra = gen_lines(64, seed=3) if pat == APACHE else []
-        cases.append((pat, SEEDS + noise + extra, True))
+        cases.append((pat, SEEDS + noise + extra))
     n_gen, n_dp = (6, 3) if quick else (40, 16)
     while n_gen:
         pat = gen_pattern(rng)
@@ -314,7 +314,7 @@ def phase_parity(quick: bool) -> dict:
         except (Tier1Unsupported, re.error):
             continue
         n_gen -= 1
-        cases.append((pat, gen_inputs(rng, pat, 120), False))
+        cases.append((pat, gen_inputs(rng, pat, 120)))
     while n_dp:
         pat = gen_double_pivot(rng)
         try:
@@ -324,14 +324,14 @@ def phase_parity(quick: bool) -> dict:
         if prog.pivot2 is None:
             continue
         n_dp -= 1
-        cases.append((pat, gen_inputs(rng, pat, 100), False))
-    for pat, lines, all_buckets in cases:
+        cases.append((pat, gen_inputs(rng, pat, 100)))
+    for pat, lines in cases:
         kern = ExtractKernel(compile_tier1(pat))
         stats["patterns"] += 1
         lines = list(lines) + [b"", b""]
         need = pick_length_bucket(max(len(x) for x in lines))
         buckets = [L for L in LENGTH_BUCKETS if L >= need]
-        if not (all_buckets and not quick):
+        if quick:
             buckets = buckets[:1] + buckets[-1:]
         for L in buckets:
             check_batch(kern, pat, lines + exact_length_lines(rng, lines, L),
@@ -495,7 +495,8 @@ def main() -> int:
     ap.add_argument("--lines", type=int, default=600000,
                     help="Apache log lines for the main-path phase")
     ap.add_argument("--quick", action="store_true",
-                    help="fewer parity patterns and timing iterations")
+                    help="fewer parity patterns and length buckets, fewer "
+                         "timing iterations")
     args = ap.parse_args()
     if not os.path.isdir(os.path.join(REPO, "loongcollector_tpu_torch")):
         fail("run from a checkout of the repo (loongcollector_tpu_torch/ "
