@@ -31,7 +31,6 @@ the JAX package.
 
 from __future__ import annotations
 
-import argparse
 import json
 import os
 import re
@@ -41,6 +40,7 @@ import tempfile
 import time
 
 REPO = os.path.dirname(os.path.abspath(__file__))
+MAIN_PATH_LINES = 600_000   # the size of bench.py:bench_pipeline_e2e
 
 # H100 SXM peaks from NVIDIA's data sheet (dense, at the 700 W limit)
 HBM_BYTES_PER_S = 3.35e12
@@ -289,7 +289,7 @@ def exact_length_lines(rng, lines, L):
     return out
 
 
-def phase_parity(quick: bool) -> dict:
+def phase_parity() -> dict:
     import numpy as np
     from loongcollector_tpu_torch.ops.device_batch import (LENGTH_BUCKETS,
                                                             pick_length_bucket)
@@ -306,7 +306,7 @@ def phase_parity(quick: bool) -> dict:
                                     dtype="u1")) for _ in range(40)]
         extra = gen_lines(64, seed=3) if pat == APACHE else []
         cases.append((pat, SEEDS + noise + extra))
-    n_gen, n_dp = (6, 3) if quick else (40, 16)
+    n_gen, n_dp = 40, 16
     while n_gen:
         pat = gen_pattern(rng)
         try:
@@ -330,10 +330,7 @@ def phase_parity(quick: bool) -> dict:
         stats["patterns"] += 1
         lines = list(lines) + [b"", b""]
         need = pick_length_bucket(max(len(x) for x in lines))
-        buckets = [L for L in LENGTH_BUCKETS if L >= need]
-        if quick:
-            buckets = buckets[:1] + buckets[-1:]
-        for L in buckets:
+        for L in (L for L in LENGTH_BUCKETS if L >= need):
             check_batch(kern, pat, lines + exact_length_lines(rng, lines, L),
                         L, stats)
     log(f"parity: {stats['checks']} (pattern, L) batches over "
@@ -343,7 +340,10 @@ def phase_parity(quick: bool) -> dict:
 
 
 def write_config(tmp: str, log_path: str, out_path: str) -> str:
-    from loongcollector_tpu_torch.testdata import APACHE_KEYS
+    try:
+        import yaml
+    except ImportError:
+        fail("PyYAML is needed to load file_regex_apache.yaml")
     src = os.path.join(REPO, "example_config", "quick_start",
                        "file_regex_apache.yaml")
     with open(src) as f:
@@ -351,46 +351,30 @@ def write_config(tmp: str, log_path: str, out_path: str) -> str:
     text = text.replace("/tmp/loongcollector_demo/access.log", log_path)
     text = text.replace("  - Type: flusher_stdout",
                         f"  - Type: flusher_file\n    FilePath: {out_path}")
-    if log_path not in text or out_path not in text:
+    cfg = yaml.safe_load(text)
+    if (cfg["inputs"][0]["FilePaths"] != [log_path]
+            or cfg["flushers"] != [{"Type": "flusher_file",
+                                    "FilePath": out_path}]):
         fail("could not rewrite file_regex_apache.yaml")
     cfg_dir = os.path.join(tmp, "config")
     os.makedirs(cfg_dir)
-    try:
-        import yaml
-        yaml.safe_load(text)
-        name = "file_regex_apache.yaml"
-    except ImportError:
-        # no PyYAML on this machine: the same pipeline as JSON (the
-        # agent's loader reads both)
-        name = "file_regex_apache.json"
-        text = json.dumps({
-            "inputs": [{"Type": "input_file", "FilePaths": [log_path],
-                        "TailingAllMatchedFiles": True}],
-            "processors": [
-                {"Type": "processor_parse_regex_tpu", "SourceKey": "content",
-                 "Regex": APACHE, "Keys": APACHE_KEYS},
-                {"Type": "processor_parse_timestamp_native",
-                 "SourceKey": "time",
-                 "SourceFormat": "%d/%b/%Y:%H:%M:%S %z"}],
-            "flushers": [{"Type": "flusher_file", "FilePath": out_path}]},
-            indent=1)
-    with open(os.path.join(cfg_dir, name), "w") as f:
+    with open(os.path.join(cfg_dir, "file_regex_apache.yaml"), "w") as f:
         f.write(text)
     return cfg_dir
 
 
-def phase_main_path(n_lines: int) -> dict:
+def phase_main_path() -> dict:
     from loongcollector_tpu_torch.testdata import APACHE_KEYS, gen_lines
     tmp = tempfile.mkdtemp(prefix="chip_smoke_")
     log_path = os.path.join(tmp, "access.log")
     out_path = os.path.join(tmp, "out.json")
     stats_path = os.path.join(tmp, "stats.json")
     t0 = time.perf_counter()
-    lines = gen_lines(n_lines, seed=11)
+    lines = gen_lines(MAIN_PATH_LINES, seed=11)
     data = b"\n".join(lines) + b"\n"
     with open(log_path, "wb") as f:
         f.write(data)
-    log(f"main path: {n_lines} lines, {len(data)} bytes written in "
+    log(f"main path: {len(lines)} lines, {len(data)} bytes written in "
         f"{time.perf_counter() - t0:.1f} s")
     cfg_dir = write_config(tmp, log_path, out_path)
     t0 = time.perf_counter()
@@ -437,10 +421,13 @@ def phase_main_path(n_lines: int) -> dict:
     return {"stats": st, "mbps": mbps, "bytes": len(data), "wall_s": wall}
 
 
-def bound_ms(B: int, L: int, C: int, prog_words: int, row_bytes: int):
+def bound_ms(B: int, C: int, prog_words: int, row_bytes: int):
     """Least time for the work: bytes moved at HBM rate vs one 32-bit op per
-    examined row byte at the non-tensor rate; returns (ms, bound_by)."""
-    moved = B * L + 4 * B + 4 * prog_words + B * (8 * C + 1)
+    examined row byte at the non-tensor rate; returns (ms, bound_by).  The
+    function reads only the bytes below each row's length (`row_bytes`, the
+    sum of the lengths), plus the lengths and the program, and writes
+    ok/cap_off/cap_len for all B rows."""
+    moved = row_bytes + 4 * B + 4 * prog_words + B * (8 * C + 1)
     t_bytes = moved / HBM_BYTES_PER_S
     t_ops = row_bytes / INT_OPS_PER_S
     if t_bytes >= t_ops:
@@ -448,7 +435,7 @@ def bound_ms(B: int, L: int, C: int, prog_words: int, row_bytes: int):
     return t_ops * 1e3, "operations"
 
 
-def phase_timing(quick: bool) -> dict:
+def phase_timing() -> dict:
     import numpy as np
     import torch
     from loongcollector_tpu_torch.ops.device_batch import pack_rows
@@ -474,12 +461,10 @@ def phase_timing(quick: bool) -> dict:
             fail(f"kernel != plain at B={B}")
         if not got[0][:n_real].all():
             fail(f"Apache rows failed to match at B={B}")
-        call_ms = time_cuda(lambda: kern(rows, lengths),
-                            20 if quick else 200)
+        call_ms = time_cuda(lambda: kern(rows, lengths), 200)
         ms = graph_ms(lambda: kern(rows, lengths))
-        plain_ms = time_cuda(lambda: kern.plain(rows, lengths),
-                             3 if quick else 20)
-        b_ms, by = bound_ms(B, 128, 9, prog_words, int(lens.sum()))
+        plain_ms = time_cuda(lambda: kern.plain(rows, lengths), 20)
+        b_ms, by = bound_ms(B, 9, prog_words, int(lens.sum()))
         mbps = int(lens.sum()) / (ms * 1e-3) / 1e6
         out[B] = {"ms": ms, "call_ms": call_ms, "parse_mbps": mbps, "plain_ms": plain_ms,
                   "bound_ms": b_ms, "bound_by": by, "real_rows": n_real}
@@ -491,13 +476,8 @@ def phase_timing(quick: bool) -> dict:
 
 
 def main() -> int:
-    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--lines", type=int, default=600000,
-                    help="Apache log lines for the main-path phase")
-    ap.add_argument("--quick", action="store_true",
-                    help="fewer parity patterns and length buckets, fewer "
-                         "timing iterations")
-    args = ap.parse_args()
+    if len(sys.argv) > 1:
+        fail("takes no arguments")
     if not os.path.isdir(os.path.join(REPO, "loongcollector_tpu_torch")):
         fail("run from a checkout of the repo (loongcollector_tpu_torch/ "
              "not found beside this script)")
@@ -508,9 +488,9 @@ def main() -> int:
     from loongcollector_tpu_torch import native
     from loongcollector_tpu_torch.ops.kernels import field_extract_cuda as fxc
     build = phase_build(fxc, native)
-    parity = phase_parity(args.quick)
-    main_path = phase_main_path(args.lines)
-    timing = phase_timing(args.quick)
+    parity = phase_parity()
+    main_path = phase_main_path()
+    timing = phase_timing()
     mp = main_path["stats"]
     t8, t64 = timing[8192], timing[65536]
     kernels = {"kernels": [{

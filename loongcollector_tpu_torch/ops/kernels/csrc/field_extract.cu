@@ -22,10 +22,13 @@
 //   * failed rows write off 0 and len -1.
 //
 // Bound on this card (H100 SXM, 3.35 TB/s of HBM by the data sheet, at the
-// 700 W power limit): the kernel must read B*L row bytes plus B lengths and
-// write B*(8C+1) output bytes.  At the Apache main path's geometry B=8192,
-// L=128, C=9 that is about 1.6 MB, about 0.5 us of memory time, so a launch
-// is dominated by its fixed latency.  The per-row
+// 700 W power limit): the function needs only the row bytes below each
+// row's length (the sum of the lengths, about 95 bytes an Apache line; the
+// zero padding past a length, and padding rows, need not be read), plus B
+// lengths and the program, and must write B*(8C+1) output bytes.  At the
+// Apache main path's geometry B=8192 (about 5,500 real rows), L=128, C=9
+// that is about 1.15 MB, about 0.34 us of memory time, so a launch is
+// dominated by its fixed latency.  The per-row
 // walk reads each byte about once (the TPU form re-reads the tile for every
 // op) and keeps the program in shared memory, loaded once per block; rows
 // are read straight from global memory through L1.  Staging the row tile in
