@@ -1,0 +1,155 @@
+#!/usr/bin/env python3
+"""Where the CUDA field-extraction kernel spends its time, on one H100.
+
+    python3 chip_probe.py            # run from the repo root
+
+Builds the kernel ``loongcollector_tpu_torch/ops/kernels/csrc/
+field_extract.cu`` as it is, and ``stamped``, an edited copy with
+``clock64()`` stamps taken by thread 0 of each block at its phase
+boundaries (entry, the barrier after staging the program and the rows, the
+end of warp 0's walk, the end of its write-back), into ``build/probe/``
+(the package is not touched).
+
+On the Apache rows of ``chip_smoke.py`` phase 4 (``B=8192`` with 5,500 real
+rows, and ``B=65536``; ``L=128``) it prints the kernel's device time per
+launch (50 launches replayed in a CUDA graph, inputs warm in L2, as in
+``chip_smoke.py``) after checking the outputs bit-exact against the plain
+version, and for ``stamped`` the median and largest cycles per block of
+each phase over the blocks that hold real rows.  Needs a CUDA card and ``nvcc``; imports nothing of JAX.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import os
+import subprocess
+import sys
+
+REPO = os.path.dirname(os.path.abspath(__file__))
+OUT = os.path.join(REPO, "build", "probe")
+STAMPS = 4
+
+
+def edit(src: str, old: str, new: str) -> str:
+    if src.count(old) != 1:
+        raise SystemExit(f"chip_probe: the kernel source changed; cannot "
+                         f"find {old!r}")
+    return src.replace(old, new)
+
+
+def stamped(src: str) -> str:
+    src = edit(src, "namespace {\n", "namespace {\n"
+               "__device__ long long g_stamp[65536 * 4];\n"
+               "#define STAMP(k) do { if (threadIdx.x == 0) "
+               "g_stamp[blockIdx.x * 4 + (k)] = clock64(); } while (0)\n")
+    src = edit(src, "  extern __shared__ int32_t smem[];\n",
+               "  extern __shared__ int32_t smem[];\n  STAMP(0);\n")
+    src = edit(src, "  __syncthreads();\n", "  __syncthreads();\n  STAMP(1);\n")
+    src = edit(src, "  __syncwarp();\n", "  __syncwarp();\n  STAMP(2);\n")
+    src = edit(src, "\n}\n\ntemplate <bool NESTED, int PIVOT>\nint launch",
+               "\n  STAMP(3);\n}\n\ntemplate <bool NESTED, int PIVOT>\nint launch")
+    return edit(src, 'extern "C" {\n', 'extern "C" {\n'
+                "int probe_stamps(void* dst, size_t n) {\n"
+                "  return (int)cudaMemcpyFromSymbol(dst, g_stamp, n);\n}\n")
+
+
+def build(fxc, name: str, src: str):
+    os.makedirs(OUT, exist_ok=True)
+    cu, so = os.path.join(OUT, name + ".cu"), os.path.join(OUT, name + ".so")
+    with open(cu, "w") as f:
+        f.write(src)
+    proc = subprocess.run([fxc._nvcc(), *fxc.NVCC_FLAGS, "-o", so, cu],
+                          capture_output=True, text=True, timeout=600)
+    if proc.returncode:
+        raise SystemExit(f"chip_probe: nvcc failed on {name}:\n"
+                         f"{proc.stderr[-3000:]}")
+    flat = fxc.ptxas_report(proc.stdout + proc.stderr).get("d0_p0")
+    print(f"chip_probe: {name}: ptxas d0_p0 {flat}", flush=True)
+    lib = ctypes.CDLL(so)
+    vp, i32 = ctypes.c_void_p, ctypes.c_int32
+    for entry in fxc.ENTRY_POINTS:
+        fn = getattr(lib, entry)
+        fn.restype = ctypes.c_int
+        fn.argtypes = [vp, vp, ctypes.c_int64, i32, vp, i32, vp, vp, vp, i32,
+                       i32, vp]
+    return lib
+
+
+def launcher(fxc, lib, kern, prog):
+    import torch
+    kp = kern.kernel_program
+
+    def launch(rows, lengths):
+        B, L = rows.shape
+        threads, smem = fxc.launch_geometry(B, L, kp.num_caps, kp.pivot,
+                                            prog.numel())
+        ok = torch.empty(B, dtype=torch.bool, device=rows.device)
+        off = torch.empty((B, kp.num_caps), dtype=torch.int32,
+                          device=rows.device)
+        length = torch.empty_like(off)
+        rc = getattr(lib, kp.entry_point)(
+            rows.data_ptr(), lengths.data_ptr(), B, L, prog.data_ptr(),
+            prog.numel(), ok.data_ptr(), off.data_ptr(), length.data_ptr(),
+            threads, smem, torch.cuda.current_stream().cuda_stream)
+        if rc:
+            raise SystemExit(f"chip_probe: launch failed ({rc})")
+        return ok, off, length, threads
+    return launch
+
+
+def main() -> int:
+    sys.path.insert(0, REPO)
+    import numpy as np
+    import torch
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_probe: no CUDA device")
+    import chip_smoke
+    from loongcollector_tpu_torch.ops.device_batch import pack_rows
+    from loongcollector_tpu_torch.ops.kernels import field_extract_cuda as fxc
+    from loongcollector_tpu_torch.ops.kernels.field_extract import \
+        ExtractKernel
+    from loongcollector_tpu_torch.ops.regex.program import compile_tier1
+    from loongcollector_tpu_torch.testdata import gen_lines
+    print(f"chip_probe: card: {chip_smoke.nvidia_smi()}", flush=True)
+    with open(fxc._SRC) as f:
+        src = f.read()
+    kern = ExtractKernel(compile_tier1(chip_smoke.APACHE))
+    prog = torch.from_numpy(kern.kernel_program.blob).cuda()
+    kernel = launcher(fxc, build(fxc, "kernel", src), kern, prog)
+    stamp_lib = build(fxc, "stamped", stamped(src))
+    stamp_lib.probe_stamps.argtypes = [ctypes.c_void_p, ctypes.c_size_t]
+    stamp = launcher(fxc, stamp_lib, kern, prog)
+    base = gen_lines(65536, seed=5)
+    for B, n_real in ((8192, 5500), (65536, 65536)):
+        lines = base[:n_real]
+        lens = np.array([len(x) for x in lines], np.int32)
+        arena = np.frombuffer(b"".join(lines), np.uint8)
+        offs = np.concatenate([[0], np.cumsum(lens[:-1])]).astype(np.int64)
+        batch = pack_rows(arena, offs, lens, 128, B)
+        rows = torch.from_numpy(batch.rows).cuda()
+        lengths = torch.from_numpy(batch.lengths).cuda()
+        want = [t.cpu() for t in kern.plain(rows, lengths)]
+        got = [t.cpu() for t in kernel(rows, lengths)[:3]]
+        if not all(bool((g == w).all()) for g, w in zip(got, want)):
+            raise SystemExit(f"chip_probe: kernel != plain at B={B}")
+        ms = chip_smoke.graph_ms([lambda: kernel(rows, lengths)])
+        threads = stamp(rows, lengths)[3]
+        torch.cuda.synchronize()
+        blocks = -(-B // threads)
+        buf = np.zeros(65536 * STAMPS, np.int64)
+        if stamp_lib.probe_stamps(buf.ctypes.data, buf.nbytes):
+            raise SystemExit("chip_probe: cannot read the stamps")
+        st = buf[:blocks * STAMPS].reshape(blocks, STAMPS)
+        st = st[:-(-n_real // threads)]          # blocks with real rows
+        phases = {"staging": st[:, 1] - st[:, 0], "walk": st[:, 2] - st[:, 1],
+                  "write-back": st[:, 3] - st[:, 2], "block": st[:, 3] - st[:, 0]}
+        print(f"chip_probe: B={B} L=128 ({n_real} Apache rows, {blocks} blocks "
+              f"of {threads}): device ms per launch {ms:.5f}", flush=True)
+        print(f"chip_probe: B={B} cycles per block (median / largest): " +
+              "; ".join(f"{k} {int(np.median(v))} / {int(v.max())}"
+                        for k, v in phases.items()), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -8,21 +8,35 @@ Phases, each of which exits non-zero on failure:
 1. build: compile the CUDA field-extraction kernel from
    ``loongcollector_tpu_torch/ops/kernels/csrc/`` (into ``build/kernels/``,
    keyed on the source hash) and the repo's native host library; print the
-   build seconds, the torch version and the card's name and power limit.
+   build seconds, ptxas's registers, stack frame and spills for each kernel
+   instantiation, the torch version and the card's name and power limit.
+   Fails if the depth-0, pivot-free instantiation (the Apache program's)
+   has a stack frame or spills.
 2. parity: the kernel against its plain PyTorch version, on the card, on
-   the test patterns, a seeded generative set (double pivots included) and
-   the Apache pattern, at every length bucket, with rows exactly L bytes
-   long, empty rows and padding rows.  Bit-exact on (ok, cap_off,
-   cap_len), and both agree with a ``re.fullmatch`` oracle.
+   the test patterns, a seeded generative set (double pivots included), the
+   Apache pattern, and a depth-8 nested pattern and a 32-capture pattern on
+   rows of up to 2048 and 4096 bytes (the largest shared-memory blocks), at
+   every length bucket, with rows exactly L bytes long, empty rows and
+   padding rows.  Bit-exact on (ok, cap_off, cap_len), and both agree with
+   a ``re.fullmatch`` oracle.  Every kernel instantiation must launch, as
+   ``field_extract_cuda.launch()`` records its launches.
 3. main path: a seeded 600,000-line Apache access log runs through
    ``python -m loongcollector_tpu_torch --config DIR --once`` on the card
    (``example_config/quick_start/file_regex_apache.yaml`` with FilePaths
    pointed at the log and a flusher_file sink).  Every record must equal
    the ``re`` oracle's fields, the kernel's launches (counted from 0 in
    that process) must equal its device batches and be > 0, and no row may
-   be routed to ``re``.  Prints the end-to-end MB/s and the kernel seconds.
+   be routed to ``re``.  Prints the end-to-end MB/s, the kernel seconds and
+   the geometry of the launches (from the agent's ``--stats``).
 4. timing: kernel, plain version and bound at the main path's geometry
-   (B=8192, L=128, C=9) and at the bench geometry (B=65536, L=128).
+   (B=8192, L=128, C=9) and at the bench geometry (B=65536, L=128); the
+   kernel warm (the same inputs launch after launch) and cold (launches
+   rotate over enough copies of the inputs to pass twice the 50 MB L2).
+
+In every phase each recorded launch must be whole warps within the block
+limit and the shared-memory budget, with a block for each SM once a batch
+holds 32 rows an SM; the geometry in the ``kernels`` line is the one
+``launch()`` passed to the kernel in this run.
 
 The line before the last is the ``kernels`` JSON line, the last line the
 ``{"ok": true, "device": ...}`` object.  It imports nothing of JAX or of
@@ -45,6 +59,7 @@ MAIN_PATH_LINES = 600_000   # the size of bench.py:bench_pipeline_e2e
 # H100 SXM peaks from NVIDIA's data sheet (dense, at the 700 W limit)
 HBM_BYTES_PER_S = 3.35e12
 INT_OPS_PER_S = 67e12          # non-tensor 32-bit rate, fp32 column
+L2_BYTES = 50 * 2**20
 
 # tests/test_pallas_kernel.py PATTERNS: every op family, a pivot program
 APACHE = (r'(\S+) (\S+) (\S+) \[([^\]]+)\] '
@@ -58,12 +73,33 @@ PATTERNS = [
     r"pre (.*) post",                               # pivot: ambiguous span
     r"\[([^\]]*)\] (.*)",                           # pivot with class prefix
 ]
+# more pivot forms; their inputs come from a seed of their own, so the
+# batches of the set above stay the same
+MORE_PATTERNS = [
+    r"(\w+) (.*?) - (.*?) end",                     # double pivot
+    r"(cat|dog) (.*?) - (.*?) end",                 # nested double pivot
+]
+# the largest shared-memory footprints: the deepest nesting the kernel
+# takes, the most captures with a pivot (two copies of the state), and
+# those captures with a program blob near the budget (full_pattern)
+DEEP = r"(\w+)" + r"(?:-(\w+)" * 8 + ")?" * 8 + " end"
+WIDE = r"(\w+)," * 30 + r"(.*);(\d+)"
+
+
+def full_pattern(rng) -> str:
+    """WIDE with its first group an Alt of "x" and 18 literals of 4000
+    bytes: about 74 KB of program, a 230 KB block at L=4096."""
+    import numpy as np
+    chars = np.frombuffer(b"abcdefgh", np.uint8)
+    lits = [rng.choice(chars, 4000).tobytes().decode() for _ in range(18)]
+    return "(x|" + "|".join(lits) + ")," + r"(\w+)," * 29 + r"(.*);(\d+)"
 SEEDS = [
     b'1.2.3.4 - frank [10/Oct/2000:13:55:36 -0700] "GET /a HTTP/1.0" 200 23',
     b"123-abc", b"aaa opt7 end", b"aaa end", b"cat says hi",
     b"dog says x", b"421 fixed", b"pre middle bit post",
     b"[tag] rest of line", b"pre  post",
 ]
+MORE_SEEDS = [b"ab x - y end", b"cat  -  end", b"dog a - b - c end"]
 
 # tests/test_fuzz_generative.py grammar (copied: the port's checks may not
 # import the JAX package's tests)
@@ -186,20 +222,27 @@ def time_cuda(fn, iters: int) -> float:
     return a.elapsed_time(b) / iters
 
 
-def graph_ms(fn, reps: int = 50, iters: int = 20) -> float:
-    """Device ms per call: `reps` calls captured in one CUDA graph, the
-    graph replayed `iters` times between CUDA events, so the host's
-    per-call Python and launch overhead stays out of the figure."""
+def graph_ms(fns, reps: int = 50, iters: int = 20,
+             keep_outputs: bool = False) -> float:
+    """Device ms per call: `reps` calls, taking the callables `fns` in
+    turn, captured in one CUDA graph, the graph replayed `iters` times
+    between CUDA events, so the host's per-call Python and launch overhead
+    stays out of the figure.  With `keep_outputs` every captured call
+    writes its own outputs; else one call's are freed for the next."""
     import torch
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
-        fn()
+        for fn in fns:
+            fn()
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
+    outs = []
     with torch.cuda.graph(graph):
-        for _ in range(reps):
-            fn()
+        for i in range(reps):
+            out = fns[i % len(fns)]()
+            if keep_outputs:
+                outs.append(out)
     graph.replay()
     torch.cuda.synchronize()
     a = torch.cuda.Event(enable_timing=True)
@@ -222,9 +265,20 @@ def phase_build(fxc, native) -> dict:
     except Exception as e:  # noqa: BLE001 — reported, then exit non-zero
         fail(f"kernel build: {e}")
     kernel_s = time.perf_counter() - t0
-    for ln in fxc.build_log.splitlines():
-        if "registers" in ln or "bytes stack frame" in ln or "spill" in ln:
-            log(f"ptxas: {ln.strip()}")
+    ptxas = fxc.ptxas_report(fxc.build_log)
+    for name, r in sorted(ptxas.items()):
+        log(f"ptxas {name}: {r.get('registers')} registers, "
+            f"{r.get('stack')} bytes stack frame, {r.get('spill_stores')} "
+            f"bytes spill stores, {r.get('spill_loads')} bytes spill loads")
+    missing = [e for e in fxc.ENTRY_POINTS
+               if e.replace("lct_field_extract_", "") not in ptxas]
+    if missing:
+        fail(f"no ptxas report for {missing}")
+    flat = ptxas["d0_p0"]
+    if flat.get("stack", 1) or flat.get("spill_stores", 1) \
+            or flat.get("spill_loads", 1):
+        fail(f"the depth-0, pivot-free instantiation has local memory: "
+             f"{flat}")
     t0 = time.perf_counter()
     if native.get_lib() is None:
         fail("native host library did not build")
@@ -233,11 +287,32 @@ def phase_build(fxc, native) -> dict:
         f"torch {torch.__version__} cuda {torch.version.cuda}; "
         f"python {sys.version.split()[0]}")
     log(f"card: {nvidia_smi()}; {torch.cuda.get_device_name(0)}")
-    return {"kernel_build_s": kernel_s, "native_build_s": native_s}
+    return {"kernel_build_s": kernel_s, "native_build_s": native_s,
+            "ptxas": ptxas}
 
 
-def check_batch(kern, pattern, lines, L, stats) -> None:
-    """Kernel vs plain on the card, and both vs re, for one (pattern, L)."""
+def checked_shapes(shapes, phase: str) -> list:
+    """The launches a phase recorded (``field_extract_cuda.launch_shapes``,
+    or the agent's ``--stats``), as (shape, launches) pairs; fails unless
+    every launch was whole warps within the block limit and shared-memory
+    budget, and every batch of at least 32 rows an SM gave each SM a
+    block."""
+    from loongcollector_tpu_torch.ops.kernels import field_extract_cuda as fxc
+    out = sorted(shapes.items(), key=lambda kv: (kv[0].entry_point,
+                                                 kv[0].B, kv[0].L))
+    for sh, n in out:
+        if (sh.threads % 32 or not fxc.MIN_THREADS <= sh.threads
+                <= fxc.MAX_THREADS or sh.smem > fxc.SMEM_BUDGET
+                or sh.B >= 32 * fxc.NUM_SMS and sh.blocks < fxc.NUM_SMS):
+            fail(f"{phase}: launch outside the card's limits: {sh}")
+    if not out:
+        fail(f"{phase}: no kernel launch recorded")
+    return out
+
+
+def check_batch(kern, pattern, lines, L, stats, misalign=False) -> None:
+    """Kernel vs plain on the card, and both vs re, for one (pattern, L).
+    With `misalign` the rows start one byte past a 16-byte boundary."""
     import numpy as np
     import torch
     from loongcollector_tpu_torch.ops.device_batch import pack_rows
@@ -246,6 +321,10 @@ def check_batch(kern, pattern, lines, L, stats) -> None:
     offs = np.concatenate([[0], np.cumsum(lens[:-1])]).astype(np.int64)
     batch = pack_rows(arena, offs, lens, L)
     rows = torch.from_numpy(batch.rows).cuda()
+    if misalign:
+        buf = torch.zeros(rows.numel() + 1, dtype=torch.uint8,
+                          device=rows.device)
+        rows = buf[1:].view(rows.shape).copy_(rows)
     lengths = torch.from_numpy(batch.lengths).cuda()
     got = [t.cpu().numpy() for t in kern(rows, lengths)]
     torch.cuda.synchronize()
@@ -289,6 +368,38 @@ def exact_length_lines(rng, lines, L):
     return out
 
 
+def wide_lines(rng, pattern: str, lo: int, hi: int, count: int):
+    """Rows of the DEEP, WIDE or full_pattern pattern between lo and hi
+    bytes long, most of them matching, some broken in one byte."""
+    import numpy as np
+    chars = np.frombuffer(b"abcXYZ0189_", np.uint8)
+    word = lambda n: rng.choice(chars, n).tobytes()
+    out = []
+    while len(out) < count:
+        n = int(rng.integers(lo, hi + 1))
+        if pattern == DEEP:
+            k = int(rng.integers(1, 10))
+            parts = [word(max(1, (n - 3 - k) // k)) for _ in range(k)]
+            line = b"-".join(parts) + b" end"
+        else:
+            head = b",".join(word(int(rng.integers(1, 40)))
+                             for _ in range(30)) + b","
+            if pattern.startswith("(x|"):
+                head = b"x," + head.split(b",", 1)[1]
+            tail = b";" + word(int(rng.integers(1, 6))).translate(
+                bytes.maketrans(b"abcXYZ_", b"2345670"))
+            mid = bytes(rng.integers(32, 127, max(0, n - len(head)
+                                                  - len(tail)),
+                                     dtype="u1"))
+            line = head + mid + tail
+        line = line[:hi]
+        if rng.integers(4) == 0:
+            p = int(rng.integers(len(line)))
+            line = line[:p] + b" " + line[p + 1:]
+        out.append(line)
+    return out
+
+
 def phase_parity() -> dict:
     import numpy as np
     from loongcollector_tpu_torch.ops.device_batch import (LENGTH_BUCKETS,
@@ -298,6 +409,7 @@ def phase_parity() -> dict:
     from loongcollector_tpu_torch.ops.regex.program import (Tier1Unsupported,
                                                             compile_tier1)
     from loongcollector_tpu_torch.testdata import gen_lines
+    from loongcollector_tpu_torch.ops.kernels import field_extract_cuda as fxc
     stats = {"checks": 0, "rows": 0, "max_abs_err": 0, "patterns": 0}
     rng = np.random.default_rng(20240607)
     cases = []
@@ -325,6 +437,17 @@ def phase_parity() -> dict:
             continue
         n_dp -= 1
         cases.append((pat, gen_inputs(rng, pat, 100)))
+    more = np.random.default_rng(20261017)
+    for pat in MORE_PATTERNS:
+        noise = [bytes(more.integers(32, 127, int(more.integers(0, 40)),
+                                     dtype="u1")) for _ in range(40)]
+        cases.append((pat, SEEDS + MORE_SEEDS + noise))
+    for pat in (DEEP, WIDE, full_pattern(more)):
+        # rows that fit L=2048 (run at 2048 and 4096), then rows that only
+        # fit L=4096
+        cases.append((pat, SEEDS + wide_lines(more, pat, 1025, 2048, 48)))
+        cases.append((pat, wide_lines(more, pat, 2049, 4096, 48)))
+    fxc.reset_launch_shapes()
     for pat, lines in cases:
         kern = ExtractKernel(compile_tier1(pat))
         stats["patterns"] += 1
@@ -333,9 +456,30 @@ def phase_parity() -> dict:
         for L in (L for L in LENGTH_BUCKETS if L >= need):
             check_batch(kern, pat, lines + exact_length_lines(rng, lines, L),
                         L, stats)
+    # a width that is not a multiple of 16 bytes, and rows that do not
+    # start on a 16-byte boundary, take the kernel's byte-copy staging
+    odd = [x for x in gen_lines(300, seed=7) if len(x) <= 100] + [b""]
+    kern = ExtractKernel(compile_tier1(APACHE))
+    check_batch(kern, APACHE, odd, 100, stats)
+    check_batch(kern, APACHE, odd, 128, stats, misalign=True)
     log(f"parity: {stats['checks']} (pattern, L) batches over "
         f"{stats['patterns']} patterns, {stats['rows']} rows: kernel "
         f"bit-exact with the plain version and with re")
+    shapes = checked_shapes(dict(fxc.launch_shapes), "parity")
+    if sum(n for _, n in shapes) != stats["checks"]:
+        fail(f"parity: {sum(n for _, n in shapes)} launches recorded for "
+             f"{stats['checks']} batches")
+    by_entry = {}
+    for sh, n in shapes:
+        by_entry[sh.entry_point] = by_entry.get(sh.entry_point, 0) + n
+    log(f"parity: launches by instantiation (as launched) {by_entry}")
+    idle = [e for e in fxc.ENTRY_POINTS if e not in by_entry]
+    if idle:
+        fail(f"instantiations never launched in parity: {idle}")
+    big = max((sh for sh, _ in shapes), key=lambda sh: sh.smem)
+    log(f"parity: largest block launched {big.threads} threads, {big.smem} "
+        f"bytes of shared memory ({big.entry_point}, B={big.B}, L={big.L})")
+    stats["largest_smem"] = big.smem
     return stats
 
 
@@ -408,6 +552,21 @@ def phase_main_path() -> dict:
              f"{st['device_batches']}")
     if st["re_oversize_rows"] or st["re_tier_rows"]:
         fail(f"rows routed to re: {st}")
+    from loongcollector_tpu_torch.ops.kernels.field_extract_cuda import \
+        LaunchShape
+    shapes = checked_shapes({LaunchShape(**{k: v for k, v in d.items()
+                                            if k != "launches"}):
+                             d["launches"] for d in st["launch_shapes"]},
+                            "main path")
+    if sum(n for _, n in shapes) != st["launches"]:
+        fail(f"main path: launch shapes {st['launch_shapes']} do not add up "
+             f"to {st['launches']} launches")
+    if not any(sh.B == 8192 for sh, _ in shapes):
+        fail(f"main path: no launch at B=8192: {st['launch_shapes']}")
+    for sh, k in shapes:
+        log(f"main path: {k} launches of {sh.entry_point} at B={sh.B} "
+            f"L={sh.L}: {sh.blocks} blocks of {sh.threads} threads, "
+            f"{sh.smem} bytes of shared memory")
     mbps = len(data) / st["seconds"] / 1e6
     log(f"main path: {n} records equal the re oracle; {st['launches']} "
         f"launches = {st['device_batches']} device batches; pipeline "
@@ -418,7 +577,8 @@ def phase_main_path() -> dict:
         f"{st['kernel_seconds'] / st['seconds']:.6f}")
     for name in (log_path, out_path):
         os.unlink(name)
-    return {"stats": st, "mbps": mbps, "bytes": len(data), "wall_s": wall}
+    return {"stats": st, "mbps": mbps, "bytes": len(data), "wall_s": wall,
+            "shapes": shapes}
 
 
 def bound_ms(B: int, C: int, prog_words: int, row_bytes: int):
@@ -439,6 +599,7 @@ def phase_timing() -> dict:
     import numpy as np
     import torch
     from loongcollector_tpu_torch.ops.device_batch import pack_rows
+    from loongcollector_tpu_torch.ops.kernels import field_extract_cuda as fxc
     from loongcollector_tpu_torch.ops.kernels.field_extract import \
         ExtractKernel
     from loongcollector_tpu_torch.ops.regex.program import compile_tier1
@@ -455,6 +616,7 @@ def phase_timing() -> dict:
         batch = pack_rows(arena, offs, lens, 128, B)
         rows = torch.from_numpy(batch.rows).cuda()
         lengths = torch.from_numpy(batch.lengths).cuda()
+        fxc.reset_launch_shapes()
         got = [t.cpu().numpy() for t in kern(rows, lengths)]
         want = [t.cpu().numpy() for t in kern.plain(rows, lengths)]
         if not all((g == w).all() for g, w in zip(got, want)):
@@ -462,16 +624,34 @@ def phase_timing() -> dict:
         if not got[0][:n_real].all():
             fail(f"Apache rows failed to match at B={B}")
         call_ms = time_cuda(lambda: kern(rows, lengths), 200)
-        ms = graph_ms(lambda: kern(rows, lengths))
+        ms = graph_ms([lambda: kern(rows, lengths)])
+        # cold: every launch reads its own copy, and the other copies'
+        # traffic (inputs and outputs) between two uses passes 2x the L2
+        touched = int(lens.sum()) + 4 * B + B * (8 * 9 + 1)
+        n_copies = max(8, -(-2 * L2_BYTES // touched))
+        copies = [(rows.clone(), lengths.clone()) for _ in range(n_copies)]
+        cold_ms = graph_ms([lambda r=r, n=n: kern(r, n) for r, n in copies],
+                           reps=n_copies * -(-50 // n_copies), iters=5,
+                           keep_outputs=True)
+        del copies
         plain_ms = time_cuda(lambda: kern.plain(rows, lengths), 20)
         b_ms, by = bound_ms(B, 9, prog_words, int(lens.sum()))
         mbps = int(lens.sum()) / (ms * 1e-3) / 1e6
-        out[B] = {"ms": ms, "call_ms": call_ms, "parse_mbps": mbps, "plain_ms": plain_ms,
-                  "bound_ms": b_ms, "bound_by": by, "real_rows": n_real}
-        log(f"timing B={B} L=128 C=9 ({n_real} Apache rows): kernel "
-            f"{ms:.4f} ms on the device (graph replay), {call_ms:.4f} ms "
-            f"per wrapper call, plain {plain_ms:.3f} ms, bound "
-            f"{b_ms:.5f} ms ({by}); regex-parse {mbps:.1f} MB/s")
+        shapes = checked_shapes(dict(fxc.launch_shapes), f"timing B={B}")
+        if len(shapes) != 1:
+            fail(f"timing B={B}: launches of more than one shape: {shapes}")
+        sh = shapes[0][0]
+        out[B] = {"ms": ms, "cold_ms": cold_ms, "call_ms": call_ms,
+                  "parse_mbps": mbps, "plain_ms": plain_ms,
+                  "bound_ms": b_ms, "bound_by": by, "real_rows": n_real,
+                  "blocks": sh.blocks, "threads": sh.threads,
+                  "smem": sh.smem, "copies": n_copies}
+        log(f"timing B={B} L=128 C=9 ({n_real} Apache rows; as launched: "
+            f"{sh.blocks} blocks of {sh.threads} threads, {sh.smem} bytes "
+            f"of shared memory): kernel {ms:.5f} ms warm and {cold_ms:.5f} "
+            f"ms cold ({n_copies} copies) on the device (graph replay), "
+            f"{call_ms:.4f} ms per wrapper call, plain {plain_ms:.3f} ms, "
+            f"bound {b_ms:.5f} ms ({by}); regex-parse {mbps:.1f} MB/s")
     return out
 
 
@@ -504,6 +684,7 @@ def main() -> int:
         "max_abs_err": parity["max_abs_err"],
         "ms": t8["ms"],
         "kernel_ms": t8["ms"],
+        "cold_ms": t8["cold_ms"],
         "call_ms": t8["call_ms"],
         "plain_ms": t8["plain_ms"],
         "bound_ms": t8["bound_ms"],
@@ -512,6 +693,7 @@ def main() -> int:
         "library_ms": None,
         "bench_geometry": [65536, 128, 9],
         "bench_ms": t64["ms"],
+        "bench_cold_ms": t64["cold_ms"],
         "bench_call_ms": t64["call_ms"],
         "parse_mbps": t8["parse_mbps"],
         "bench_parse_mbps": t64["parse_mbps"],
@@ -520,6 +702,13 @@ def main() -> int:
         "main_path_kernel_s": mp["kernel_seconds"],
         "main_path_mbps": main_path["mbps"],
         "build_s": build["kernel_build_s"],
+        "blocks": [t8["blocks"], t64["blocks"]],
+        "threads": [t8["threads"], t64["threads"]],
+        "smem_bytes": [t8["smem"], t64["smem"]],
+        "largest_smem_bytes": parity["largest_smem"],
+        "main_path_blocks": sorted({sh.blocks for sh, _ in
+                                    main_path["shapes"]}),
+        "ptxas": build["ptxas"],
     }]}
     print(nvidia_smi())
     print(json.dumps(kernels))

@@ -8,8 +8,8 @@ and the process exits.  Tail mode comes with the file-server slice.
 
 The pipelines run on the CUDA device unless ``--cpu`` is given; with no
 CUDA device and no ``--cpu`` the CLI exits with an error.  ``--stats PATH``
-writes the run's counts (events, kernel launches, device batches, rows
-routed to Python ``re``, kernel seconds) as JSON.
+writes the run's counts (events, kernel launches and their geometry,
+device batches, rows routed to Python ``re``, kernel seconds) as JSON.
 """
 
 from __future__ import annotations
@@ -19,6 +19,7 @@ import json
 import os
 import sys
 import time
+from dataclasses import asdict
 from typing import Any, Dict, List, Optional, Tuple
 
 from .utils.device import NoCudaDevice, resolve_device
@@ -48,6 +49,7 @@ def load_config_dir(config_dir: str) -> List[Tuple[str, Dict[str, Any]]]:
 
 def run_once(config_dir: str, device) -> Dict[str, Any]:
     """Run every pipeline of the directory once; returns the run's counts."""
+    from .ops.kernels import field_extract_cuda as fxc
     from .ops.regex.engine import cached_engines
     from .pipeline.pipeline import CollectionPipeline
     configs = load_config_dir(config_dir)
@@ -56,6 +58,7 @@ def run_once(config_dir: str, device) -> Dict[str, Any]:
     pipelines = [CollectionPipeline(name, cfg, device)
                  for name, cfg in configs]
     engines = cached_engines()
+    fxc.reset_launch_shapes()
     for eng in engines:
         eng.reset_counts()
         if eng.kernel is not None:
@@ -77,6 +80,8 @@ def run_once(config_dir: str, device) -> Dict[str, Any]:
         "stage_seconds": stages,
         "launches": sum(e.kernel.launches for e in engines
                         if e.kernel is not None),
+        "launch_shapes": [dict(asdict(shape), launches=n)
+                          for shape, n in fxc.launch_shapes.items()],
         "device_batches": sum(e.device_batches for e in engines),
         "re_oversize_rows": sum(e.re_oversize_rows for e in engines),
         "re_tier_rows": sum(e.re_tier_rows for e in engines),

@@ -1,52 +1,61 @@
-// Tier-1 field extraction on Hopper: one thread walks one row.
+// Tier-1 field extraction on Hopper: each warp stages its 32 rows in shared
+// memory, then each thread walks one row.
 //
 // Replaces the TPU kernel loongcollector_tpu/ops/kernels/field_extract_pallas.py:54
-// (build_extract_fn_pallas, whose body is build_extract_core in
-// field_extract.py).  That kernel is a branch-free interpreter: every cursor
-// step is a masked min/max/sum reduction over the whole [bB, L] tile, because
-// the TPU rules out gathers and scans.  Hopper has neither limit, so here the
-// SegmentProgram runs as a scalar per-row walker with an explicit
-// save/restore stack for Optional_ and Alt — each row byte is read about once
-// instead of once per program op.
+// (build_extract_fn_pallas, pl.pallas_call at :84; body build_extract_core).
+// That kernel reduces the whole [bB, L] tile once per program op, because the
+// TPU rules out gathers and scans; here the SegmentProgram runs as a scalar
+// walker per row, and each row byte is read about once.
 //
-// Semantics are build_extract_core's, op for op (the plain PyTorch version in
-// field_extract.py is held bit-exact against this kernel):
-//   * forward Lit hits only at pos == cur with cur < L, needs cur + k <= len,
-//     and moves cur to min(cur + k, L); FixedSpan likewise;
-//   * forward Span stops at the first non-member (bytes at or past len are
-//     non-members) and never moves cur backwards;
-//   * reverse Span is clamped by max_len, by the pivot floor and to [0, cur];
-//   * bytes at or past L read as zero (pack_rows zero-fills past len);
-//   * a row stops at its first failure: `ok` never turns true again in the
-//     reference walk, and a failed trial's state is discarded;
-//   * failed rows write off 0 and len -1.
+// Bound on this card (H100 SXM, 3.35 TB/s HBM, 700 W): bytes, counted as
+// chip_smoke.py:bound_ms counts them: the row bytes below each length, B
+// lengths, the program, and B*(8C+1) output bytes.  At the Apache main path
+// (B=8192, ~5,500 real rows, L=128, C=9) that is ~1.15 MB, 0.34 us: less than
+// one launch's fixed cost.  The walk is a chain of dependent shared-memory
+// loads per row, so a row's latency, not bandwidth, sets the time.
 //
-// Bound on this card (H100 SXM, 3.35 TB/s of HBM by the data sheet, at the
-// 700 W power limit): the function needs only the row bytes below each
-// row's length (the sum of the lengths, about 95 bytes an Apache line; the
-// zero padding past a length, and padding rows, need not be read), plus B
-// lengths and the program, and must write B*(8C+1) output bytes.  At the
-// Apache main path's geometry B=8192 (about 5,500 real rows), L=128, C=9
-// that is about 1.15 MB, about 0.34 us of memory time, so a launch is
-// dominated by its fixed latency.  The per-row
-// walk reads each byte about once (the TPU form re-reads the tile for every
-// op) and keeps the program in shared memory, loaded once per block; rows
-// are read straight from global memory through L1.  Staging the row tile in
-// shared memory with a padded stride, or a warp per row, are later steps.
-//
-// Interface: plain C, loaded with ctypes.  The program arrives as one int32
-// blob (layout in field_extract_cuda.py: a 32-word header, then the IR words,
-// the class bitsets [K][8] u32, the literal offsets and lengths, and the
-// literal bytes).
+// Against the four limits of the first version (one thread per row reading
+// global memory a byte at a time, walk state in local memory, 128-row blocks):
+//  1. Row bytes: a warp copies its 32 consecutive rows to shared memory with
+//     16-byte loads, neighbouring lanes on neighbouring chunks, up to each
+//     length rounded up to 16 bytes (the walk reads no byte at or past a
+//     length, so padding rows copy nothing).  The tile's row stride is L + 4
+//     bytes, so one column of a warp's rows lies in 32 banks.  Spans test
+//     eight bytes a step from two 32-bit words; literals compare four at once.
+//  2. Walk state: the capture state (off/len/start, and the reverse walk's
+//     copy for pivot programs) lives in shared memory, 3C | 1 words a row (an
+//     odd stride: a capture's slot of 32 rows falls in 32 banks).  The walker
+//     is a template on nesting (depth 0 or more) and on the pivots (none,
+//     single, double), picked on the host from the program header.  Depth-0
+//     instantiations hold no save stack and no frames: no stack frame, no
+//     spills (chip_smoke.py phase 1 checks).  Nested ones keep a save stack in
+//     local memory.
+//  3. Occupancy: threads per block (32..128) and shared memory come from
+//     field_extract_cuda.launch_geometry, which shrinks the block as L grows
+//     and until B gives all 132 SMs a block.  One barrier per block; a warp
+//     writes its rows' outputs back from shared memory, coalesced.
+//  4. Class test: a shared-memory bitset load per byte, the loads of a step
+//     independent.  A byte-to-class table measured no better (PERF.md).
+// Plain C interface, loaded with ctypes, one entry point per instantiation;
+// the program is one int32 blob (layout in field_extract_cuda.py).
 
+#include <atomic>
 #include <cstdint>
 #include <cuda_runtime.h>
 
 namespace {
 
 constexpr int kMaxCaps = 32;
-constexpr int kMaxDepth = 8;      // Optional_/Alt nesting, checked at build
-constexpr int kThreads = 128;
+constexpr int kMaxDepth = 8;       // Optional_/Alt nesting, checked at build
+constexpr int kMaxThreads = 128;   // launch_geometry's largest block
+// ptxas sizes registers for this many blocks of kMaxThreads on an SM (up to
+// 128 registers a thread).  With the thread bound alone it squeezes the
+// depth-0 walks into 32 registers and spills; shared memory caps the blocks
+// an SM holds below this anyway.
+constexpr int kMinBlocks = 4;
+constexpr int kBatch = 8;          // global loads a thread keeps in flight
+constexpr int kSmemBudget = 232448;  // dynamic shared memory a block may use
+constexpr int kMaxDevices = 64;
 
 // header indices (field_extract_cuda.py _META)
 enum : int {
@@ -67,17 +76,27 @@ struct Prog {
   const uint8_t* lits;
 };
 
+// One row of the shared tile: 4-byte aligned, its bytes below min(L, len)
+// copied in.
 struct Row {
-  const uint8_t* p;
+  const uint32_t* w;
   int32_t L;
   int32_t len;
 };
 
-struct State {
-  int32_t cur;
-  int32_t off[kMaxCaps];
-  int32_t len[kMaxCaps];
-  int32_t start[kMaxCaps];
+// This thread's capture state in shared memory: off[C], len[C], start[C].
+// Threads' states lie (3C | 1) words apart, an odd stride, so a warp's
+// accesses to one capture fall in 32 banks.
+struct Caps {
+  int32_t* p;
+  int32_t C;
+  __device__ __forceinline__ int32_t& off(int32_t k) const { return p[k]; }
+  __device__ __forceinline__ int32_t& len(int32_t k) const {
+    return p[C + k];
+  }
+  __device__ __forceinline__ int32_t& start(int32_t k) const {
+    return p[2 * C + k];
+  }
 };
 
 struct Frame {
@@ -87,328 +106,524 @@ struct Frame {
   int32_t left;       // Alt: branches after the current one
 };
 
-__device__ __forceinline__ uint8_t byte_at(const Row& r, int32_t q) {
-  return q < r.L ? r.p[q] : 0;
-}
+// The Optional_/Alt save stack: only the nested instantiations have one,
+// in local memory.
+template <bool NESTED>
+struct SaveStack {};
 
-__device__ __forceinline__ bool in_class(const Prog& g, int32_t cls,
-                                         uint32_t b) {
-  return (g.bits[cls * 8 + (b >> 5)] >> (b & 31)) & 1u;
-}
+template <>
+struct SaveStack<true> {
+  Frame fr[kMaxDepth];
+  int32_t cur[kMaxDepth];
+  int32_t caps[kMaxDepth][3 * kMaxCaps];
 
-// membership as the reference's mask: class & pos < len & 0 <= pos < L
-__device__ __forceinline__ bool member_at(const Prog& g, const Row& r,
-                                          int32_t cls, int32_t q) {
-  return q >= 0 && q < r.L && q < r.len && in_class(g, cls, r.p[q]);
-}
-
-__device__ bool all_member(const Prog& g, const Row& r, int32_t cls,
-                           int32_t lo, int32_t hi) {
-  for (int32_t q = lo; q < hi; ++q)
-    if (!member_at(g, r, cls, q)) return false;
-  return true;
-}
-
-// the reference's lit_ok[lit][q] for q in [0, L): bytes from q on, zero past L
-__device__ bool lit_at(const Prog& g, const Row& r, int32_t li, int32_t q) {
-  if (q < 0 || q >= r.L) return false;
-  const int32_t k = g.llens[li];
-  const uint8_t* d = g.lits + g.loffs[li];
-  for (int32_t i = 0; i < k; ++i)
-    if (byte_at(r, q + i) != d[i]) return false;
-  return true;
-}
-
-__device__ __forceinline__ void copy_state(State& d, const State& s,
-                                           int32_t C) {
-  d.cur = s.cur;
-  for (int32_t k = 0; k < C; ++k) {
-    d.off[k] = s.off[k];
-    d.len[k] = s.len[k];
-    d.start[k] = s.start[k];
+  __device__ __forceinline__ void save(int32_t d, int32_t c, const Caps& s) {
+    cur[d] = c;
+    for (int32_t i = 0; i < 3 * s.C; ++i) caps[d][i] = s.p[i];
   }
+  __device__ __forceinline__ int32_t restore(int32_t d, const Caps& s) const {
+    for (int32_t i = 0; i < 3 * s.C; ++i) s.p[i] = caps[d][i];
+    return cur[d];
+  }
+};
+
+__device__ __forceinline__ uint32_t dynamic_smem_bytes() {
+  uint32_t n;
+  asm("mov.u32 %0, %%dynamic_smem_size;" : "=r"(n));
+  return n;
+}
+
+// Bit j set when byte j of `word` is in the class with bitset `cb`: four
+// independent loads, so their latencies overlap.
+__device__ __forceinline__ uint32_t members4(const uint32_t* cb,
+                                             uint32_t word) {
+  uint32_t m = 0;
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const uint32_t b = (word >> (8 * j)) & 255u;
+    m |= ((cb[b >> 5] >> (b & 31)) & 1u) << j;
+  }
+  return m;
+}
+
+// The same for the eight bytes of two consecutive words.
+__device__ __forceinline__ uint32_t members8(const uint32_t* cb, uint32_t lo,
+                                             uint32_t hi) {
+  return members4(cb, lo) | (members4(cb, hi) << 4);
+}
+
+// The first q in [lo, hi) whose byte is not in the class, or hi; needs
+// 0 <= lo < hi <= min(L, len).  Eight bytes a step.
+__device__ __forceinline__ int32_t run_end(const uint32_t* cb, const Row& r,
+                                           int32_t lo, int32_t hi) {
+  int32_t q = lo & ~3;
+  uint32_t live = (0xFFu << (lo & 3)) & 0xFFu;
+  while (true) {
+    // the second word is within the row's stride: q < L
+    const uint32_t a = r.w[q >> 2], b = r.w[(q >> 2) + 1];
+    if (hi - q < 8) live &= (1u << (hi - q)) - 1;
+    const uint32_t miss = live & ~members8(cb, a, b);
+    if (miss) return q + __ffs(miss) - 1;
+    q += 8;
+    if (q >= hi) return hi;
+    live = 0xFFu;
+  }
+}
+
+// The least s <= hi with every byte of [s, hi) in the class; needs
+// 0 < hi <= min(L, len).  Eight bytes a step, from the word holding hi - 1
+// and the one below it.
+__device__ __forceinline__ int32_t run_start(const uint32_t* cb, const Row& r,
+                                             int32_t hi) {
+  int32_t q = ((hi - 1) & ~3) - 4;         // first byte of the lower word
+  uint32_t live = (1u << (hi - q)) - 1;    // hi - q is 5..8
+  while (true) {
+    const uint32_t a = q >= 0 ? r.w[q >> 2] : 0u, b = r.w[(q >> 2) + 1];
+    if (q < 0) live &= 0xF0u;
+    const uint32_t miss = live & ~members8(cb, a, b);
+    if (miss) return q + 32 - __clz(miss);
+    if (q <= 0) return 0;
+    q -= 8;
+    live = 0xFFu;
+  }
+}
+
+// every q in [lo, hi) a member as the reference's mask has it: class, and
+// 0 <= q < min(L, len)
+__device__ __forceinline__ bool all_member(const Prog& g, const Row& r,
+                                           int32_t cls, int32_t lo,
+                                           int32_t hi) {
+  if (lo >= hi) return true;
+  if (lo < 0 || hi > min(r.L, r.len)) return false;
+  return run_end(g.bits + cls * 8, r, lo, hi) == hi;
+}
+
+// Four bytes from byte offset `off` of a 4-byte aligned array.
+__device__ __forceinline__ uint32_t bytes4(const uint32_t* w, int32_t off) {
+  const int32_t i = off >> 2;
+  return __funnelshift_r(w[i], w[i + 1], (off & 3) * 8);
+}
+
+// the reference's lit_ok[lit][q] for q in [0, L): bytes at or past L read
+// zero.  Every caller has q + k <= len, so no byte at or past the length
+// is compared; four bytes are compared at a time.
+__device__ __forceinline__ bool lit_at(const Prog& g, const Row& r,
+                                       int32_t li, int32_t q) {
+  if (q < 0 || q >= r.L) return false;
+  const int32_t k = g.llens[li], o = g.loffs[li];
+  const uint32_t* lw = reinterpret_cast<const uint32_t*>(g.lits);
+  if (k <= 4 && q + k <= r.L) {      // the usual case: one compare
+    const uint32_t keep = k < 4 ? (1u << (8 * k)) - 1 : ~0u;
+    return ((bytes4(r.w, q) ^ bytes4(lw, o)) & keep) == 0;
+  }
+  for (int32_t i = 0; i < k; i += 4) {
+    const int32_t n = min(k - i, 4), past = r.L - (q + i);
+    if (past <= 0) {     // the rest of the literal faces zeros
+      for (int32_t j = i; j < k; ++j)
+        if (g.lits[o + j]) return false;
+      return true;
+    }
+    const uint32_t row = bytes4(r.w, q + i);
+    const uint32_t keep = (n < 4 ? (1u << (8 * n)) - 1 : ~0u) &
+                          (past < 4 ? (1u << (8 * past)) - 1 : ~0u);
+    const uint32_t lit = bytes4(lw, o + i) &
+                         (n < 4 ? (1u << (8 * n)) - 1 : ~0u);
+    if ((row & keep) != lit) return false;
+  }
+  return true;
 }
 
 // Walks the ops in words [pc, end) over one row; returns the row's ok.
 // REV walks right to left (the pivot suffix): cur is the exclusive end
 // boundary, CapEnd records the right edge and CapStart closes the group.
-template <bool REV>
-__device__ bool walk(const Prog& g, const Row& r, int32_t pc, int32_t end,
-                     int32_t floor_, State& st, int32_t C, State* saved) {
-  Frame fr[kMaxDepth];
+// An op's four words are loaded together, and capture markers, which only
+// record the cursor, are taken in a loop of their own.
+template <bool REV, bool NESTED>
+__device__ __forceinline__ bool walk(const Prog& g, const Row& r, int32_t pc,
+                                     const int32_t end, const int32_t floor_,
+                                     int32_t& cur, const Caps& cs) {
+  SaveStack<NESTED> ss;
   int32_t depth = 0;
   int32_t limit = end;
   while (true) {
     if (pc >= limit) {
-      if (depth == 0) return true;
-      // the innermost body matched: keep its state (greedy Optional_,
-      // leftmost Alt branch) and continue after the construct
-      --depth;
-      pc = fr[depth].end;
-      limit = depth == 0 ? end : fr[depth - 1].body_end;
-      continue;
+      if constexpr (NESTED) {
+        if (depth > 0) {
+          // the innermost body matched: keep its state (greedy Optional_,
+          // leftmost Alt branch) and continue after the construct
+          --depth;
+          pc = ss.fr[depth].end;
+          limit = depth == 0 ? end : ss.fr[depth - 1].body_end;
+          continue;
+        }
+      }
+      return true;
     }
-    const int32_t* w = g.w + pc;
+    int32_t w0 = g.w[pc], w1 = g.w[pc + 1];
+    while ((w0 == 3 || w0 == 4) && pc < limit) {   // CapStart, CapEnd
+      if ((w0 == 3) != REV) {   // a group opens (forward CapStart)
+        cs.start(w1) = cur;
+      } else if (!REV) {        // forward CapEnd closes it
+        cs.off(w1) = cs.start(w1);
+        cs.len(w1) = cur - cs.start(w1);
+      } else {                  // reverse CapStart closes it
+        cs.off(w1) = cur;
+        cs.len(w1) = cs.start(w1) - cur;
+      }
+      pc += 2;
+      w0 = g.w[pc];
+      w1 = g.w[pc + 1];
+    }
+    if (pc >= limit) continue;
+    const int32_t w2 = g.w[pc + 2], w3 = g.w[pc + 3];
+    // op sizes in words, a nibble per op code: Lit 2, Span 5, FixedSpan 3,
+    // CapStart 2, CapEnd 2, Optional_ 2 (then its body), Alt 3 (then its
+    // first branch)
+    const int32_t next = pc + ((0x3222352 >> (4 * (w0 & 7))) & 15);
     bool ok = true;
-    switch (w[0]) {
-      case 0: {  // Lit
-        const int32_t li = w[1];
-        const int32_t k = g.llens[li];
-        if (!REV) {
-          ok = st.cur + k <= r.len && lit_at(g, r, li, st.cur);
-          st.cur = min(st.cur + k, r.L);
-        } else {
-          const int32_t s = st.cur - k;
-          ok = s >= 0 && lit_at(g, r, li, s);
-          st.cur = max(s, 0);
-        }
-        pc += 2;
-        break;
+    if (w0 == 1) {              // Span
+      const uint32_t* cb = g.bits + w1 * 8;
+      if (!REV) {
+        // up to the first non-member below min(L, len)
+        const int32_t lim = min(r.L, r.len);
+        const int32_t e = cur < lim ? run_end(cb, r, cur, lim) : cur;
+        const int32_t run = e - cur;
+        ok = run >= w2 && (w3 < 0 || run <= w3);
+        cur = e;
+      } else {
+        // down to the last non-member; bytes at or past len are not
+        // members, so a cursor past len does not move
+        int32_t s = min(cur, r.L);
+        if (s > 0 && s <= r.len) s = run_start(cb, r, s);
+        if (w3 >= 0) s = max(s, cur - w3);
+        s = max(s, floor_);
+        s = min(max(s, 0), cur);
+        ok = cur - s >= w2;
+        cur = s;
       }
-      case 1: {  // Span
-        const int32_t cls = w[1], mn = w[2], mx = w[3];
-        if (!REV) {
-          const int32_t lim = min(r.L, r.len);
-          int32_t e = st.cur;
-          while (e < lim && in_class(g, cls, r.p[e])) ++e;
-          const int32_t run = e - st.cur;
-          ok = run >= mn && (mx < 0 || run <= mx);
-          st.cur = e;
-        } else {
-          int32_t s = min(st.cur, r.L);
-          while (s > 0 && member_at(g, r, cls, s - 1)) --s;
-          if (mx >= 0) s = max(s, st.cur - mx);
-          s = max(s, floor_);
-          s = min(max(s, 0), st.cur);
-          ok = st.cur - s >= mn;
-          st.cur = s;
-        }
-        pc += 5;
-        break;
+      pc = next;
+    } else if (w0 == 0) {       // Lit
+      const int32_t k = g.llens[w1];
+      if (!REV) {
+        ok = cur + k <= r.len && lit_at(g, r, w1, cur);
+        cur = min(cur + k, r.L);
+      } else {
+        const int32_t s = cur - k;
+        ok = s >= 0 && lit_at(g, r, w1, s);
+        cur = max(s, 0);
       }
-      case 2: {  // FixedSpan
-        const int32_t cls = w[1], n = w[2];
-        if (!REV) {
-          ok = st.cur + n <= r.len && all_member(g, r, cls, st.cur, st.cur + n);
-          st.cur = min(st.cur + n, r.L);
-        } else {
-          const int32_t s = st.cur - n;
-          ok = s >= 0 && all_member(g, r, cls, s, st.cur);
-          st.cur = max(s, 0);
-        }
-        pc += 3;
-        break;
+      pc = next;
+    } else if (w0 == 2) {       // FixedSpan
+      if (!REV) {
+        ok = cur + w2 <= r.len && all_member(g, r, w1, cur, cur + w2);
+        cur = min(cur + w2, r.L);
+      } else {
+        const int32_t s = cur - w2;
+        ok = s >= 0 && all_member(g, r, w1, s, cur);
+        cur = max(s, 0);
       }
-      case 3: {  // CapStart
-        const int32_t id = w[1];
-        if (!REV) {
-          st.start[id] = st.cur;
-        } else {
-          st.off[id] = st.cur;
-          st.len[id] = st.start[id] - st.cur;
-        }
-        pc += 2;
-        break;
-      }
-      case 4: {  // CapEnd
-        const int32_t id = w[1];
-        if (!REV) {
-          st.off[id] = st.start[id];
-          st.len[id] = st.cur - st.start[id];
-        } else {
-          st.start[id] = st.cur;
-        }
-        pc += 2;
-        break;
-      }
-      case 5: {  // Optional_: try the body, restore the saved state on failure
-        if (depth >= kMaxDepth) __trap();
-        const int32_t body_end = pc + 2 + w[1];
-        copy_state(saved[depth], st, C);
-        fr[depth] = Frame{5, body_end, body_end, 0};
-        ++depth;
-        pc += 2;
+      pc = next;
+    } else if (w0 == 6 && w1 == 0) {   // Alt without branches
+      ok = false;
+      pc += 2;
+    } else if constexpr (NESTED) {
+      if (depth >= kMaxDepth) __trap();
+      ss.save(depth, cur, cs);
+      if (w0 == 5) {            // Optional_: try the body
+        const int32_t body_end = pc + 2 + w1;
+        ss.fr[depth] = Frame{5, body_end, body_end, 0};
         limit = body_end;
-        break;
-      }
-      case 6: {  // Alt: first branch whose whole body matches
-        const int32_t nb = w[1];
-        if (nb == 0) {
-          ok = false;
-          pc += 2;
-          break;
-        }
-        if (depth >= kMaxDepth) __trap();
+      } else if (w0 == 6) {     // Alt: first branch whose body matches
         int32_t q = pc + 2;
-        for (int32_t b = 0; b < nb; ++b) q += 1 + g.w[q];
-        const int32_t first_end = pc + 3 + w[2];
-        copy_state(saved[depth], st, C);
-        fr[depth] = Frame{6, q, first_end, nb - 1};
-        ++depth;
-        pc += 3;
-        limit = first_end;
-        break;
-      }
-      default:
+        for (int32_t b = 0; b < w1; ++b) q += 1 + g.w[q];
+        ss.fr[depth] = Frame{6, q, pc + 3 + w2, w1 - 1};
+        limit = pc + 3 + w2;
+      } else {
         __trap();   // the host validates every program before upload
+      }
+      ++depth;
+      pc = next;
+    } else {
+      __trap();     // a depth-0 program has no Optional_ or Alt
     }
     if (ok) continue;
-    // failure: unwind to the innermost construct that can absorb it
-    while (true) {
-      if (depth == 0) return false;
-      Frame& f = fr[depth - 1];
-      copy_state(st, saved[depth - 1], C);
-      if (f.kind == 5) {           // failed optional body: skip the group
-        --depth;
-        pc = f.end;
-        limit = depth == 0 ? end : fr[depth - 1].body_end;
-        break;
+    if constexpr (!NESTED) {
+      return false;
+    } else {
+      // failure: unwind to the innermost construct that can absorb it,
+      // restoring the state saved when it was entered
+      while (true) {
+        if (depth == 0) return false;
+        Frame& f = ss.fr[depth - 1];
+        cur = ss.restore(depth - 1, cs);
+        if (f.kind == 5) {           // failed optional body: skip the group
+          --depth;
+          pc = f.end;
+          limit = depth == 0 ? end : ss.fr[depth - 1].body_end;
+          break;
+        }
+        if (f.left > 0) {            // next Alt branch from the saved state
+          const int32_t q = f.body_end;
+          f.body_end = q + 1 + g.w[q];
+          --f.left;
+          pc = q + 1;
+          limit = f.body_end;
+          break;
+        }
+        --depth;                     // no branch matched: the Alt fails
       }
-      if (f.left > 0) {            // next Alt branch from the saved state
-        const int32_t q = f.body_end;
-        f.body_end = q + 1 + g.w[q];
-        --f.left;
-        pc = q + 1;
-        limit = f.body_end;
-        break;
-      }
-      --depth;                     // no branch matched: the Alt fails
     }
   }
 }
 
-__global__ void __launch_bounds__(kThreads)
+// Shared memory, in 32-bit words (field_extract_cuda.smem_bytes):
+//   [program][tile T * (ceil(L/4) + 1)][caps T * (3C | 1)]
+//   [reverse caps T * (3C | 1), pivot programs only]
+// A warp stages, walks and writes back its own 32 rows, so the block
+// synchronises once, after the program and the tile are in.
+template <bool NESTED, int PIVOT>
+__global__ void __launch_bounds__(kMaxThreads, kMinBlocks)
 field_extract_kernel(const uint8_t* __restrict__ rows,
                      const int32_t* __restrict__ lens, int64_t B, int32_t L,
                      const int32_t* __restrict__ prog, int32_t prog_words,
                      uint8_t* __restrict__ ok_out,
                      int32_t* __restrict__ off_out,
                      int32_t* __restrict__ len_out) {
-  extern __shared__ int32_t sprog[];
-  for (int32_t i = threadIdx.x; i < prog_words; i += blockDim.x)
-    sprog[i] = prog[i];
+  extern __shared__ int32_t smem[];
+  const int32_t T = blockDim.x, tid = threadIdx.x, lane = tid & 31;
+  const int64_t row0 = (int64_t)blockIdx.x * T;
+  const int32_t nrows = B - row0 < T ? (int32_t)(B - row0) : T;
+  const int32_t wrow = tid - lane;         // this warp's first row
+  const int32_t wrows = max(0, min(32, nrows - wrow));
+  const int32_t ws = (L + 3) / 4 + 1;      // tile row stride in words
+
+  int32_t* const sprog = smem;
+  uint32_t* const tile = reinterpret_cast<uint32_t*>(sprog + prog_words);
+  int32_t* const scaps = reinterpret_cast<int32_t*>(tile + T * ws);
+
+  // every global load a thread makes before the one barrier: its row's
+  // length, the program in batches of kBatch words, then its warp's rows
+  // in 16-byte chunks up to each length rounded up to 16 bytes
+  const int32_t len = tid < nrows ? __ldg(lens + row0 + tid) : 0;
+  for (int32_t i0 = tid; i0 < prog_words; i0 += kBatch * T) {
+    int32_t v[kBatch];
+#pragma unroll
+    for (int j = 0; j < kBatch; ++j)
+      if (i0 + j * T < prog_words) v[j] = __ldg(prog + i0 + j * T);
+#pragma unroll
+    for (int j = 0; j < kBatch; ++j)
+      if (i0 + j * T < prog_words) sprog[i0 + j * T] = v[j];
+  }
+  const uint8_t* wsrc = rows + (row0 + wrow) * L;
+  uint32_t* wtile = tile + wrow * ws;
+  if ((L & 15) == 0 && (reinterpret_cast<uintptr_t>(rows) & 15) == 0) {
+    const int32_t cpr = L >> 4;            // 16-byte chunks per row
+    const int32_t n = wrows * cpr;
+    for (int32_t base = 0; base < n; base += kBatch * 32) {
+      uint4 v[kBatch];
+      int32_t dst[kBatch];
+#pragma unroll
+      for (int j = 0; j < kBatch; ++j) {
+        const int32_t i = base + j * 32 + lane, r = min(i / cpr, 31);
+        const int32_t c = i - r * cpr;
+        const int32_t rlen = __shfl_sync(0xffffffffu, len, r);
+        dst[j] = -1;
+        if (i < n && c * 16 < rlen) {
+          v[j] = __ldg(reinterpret_cast<const uint4*>(wsrc) + i);
+          dst[j] = r * ws + c * 4;
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < kBatch; ++j) {
+        if (dst[j] < 0) continue;
+        uint32_t* d = wtile + dst[j];
+        d[0] = v[j].x;
+        d[1] = v[j].y;
+        d[2] = v[j].z;
+        d[3] = v[j].w;
+      }
+    }
+  } else {                                 // unaligned rows: byte copies
+    uint8_t* tb = reinterpret_cast<uint8_t*>(wtile);
+    for (int32_t base = 0; base < wrows * L; base += 32) {
+      const int32_t i = base + lane, r = min(i / L, 31), c = i - r * L;
+      const int32_t rlen = __shfl_sync(0xffffffffu, len, r);
+      if (i < wrows * L && c < rlen) tb[r * ws * 4 + c] = wsrc[i];
+    }
+  }
   __syncthreads();
-  const int64_t row = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (row >= B) return;
 
   const int32_t* h = sprog;
-  Prog g{sprog, reinterpret_cast<const uint32_t*>(sprog + h[M_BITS_OFF]),
-         sprog + h[M_LOFFS_OFF], sprog + h[M_LLENS_OFF],
-         reinterpret_cast<const uint8_t*>(sprog + h[M_BLOB_OFF])};
-  const Row r{rows + row * L, L, lens[row]};
   const int32_t C = h[M_NCAPS];
+  const int32_t pivot = h[M_HAS_P2] ? 2 : h[M_HAS_P1];
+  const int32_t cw = (3 * C) | 1;          // capture state stride in words
+  const uint32_t need = 4u * (prog_words + T * ws + (PIVOT ? 2 : 1) * T * cw);
+  // the host picks the instantiation and the size from the same header
+  if (pivot != PIVOT || (!NESTED && h[M_DEPTH] > 0) ||
+      need > dynamic_smem_bytes())
+    __trap();
 
-  State st;
-  st.cur = 0;
-  for (int32_t k = 0; k < C; ++k) {
-    st.off[k] = 0;
-    st.len[k] = -1;
-    st.start[k] = 0;
-  }
-  State saved[kMaxDepth];
-  State rst;
-  const State* fin = &st;
-
-  bool ok = walk<false>(g, r, h[M_PREFIX_OFF], h[M_PREFIX_OFF] + h[M_PREFIX_N],
-                        0, st, C, saved);
-  if (ok && h[M_HAS_P2]) {
-    // double pivot: prefix | pivot1 | mid literal | pivot2 | suffix
-    const int32_t p1min = h[M_P1_MIN], p2min = h[M_P2_MIN];
-    const int32_t mfix = h[M_MID_FIXED];
-    copy_state(rst, st, C);
-    rst.cur = r.len;
-    ok = walk<true>(g, r, h[M_SUFFIX_OFF], h[M_SUFFIX_OFF] + h[M_SUFFIX_N],
-                    st.cur + p1min + mfix + p2min, rst, C, saved);
-    if (ok) {
-      const int32_t lo1 = st.cur, hi2 = rst.cur;
-      const int32_t a = max(lo1 + p1min, 0);
-      const int32_t b = min(hi2 - mfix - p2min, L - 1);
-      const int32_t mid_lit = h[M_MID_LIT];
-      int32_t p = -1;
-      if (h[M_P1_LAZY]) {          // both lazy: first occurrence
-        for (int32_t q = a; q <= b; ++q)
-          if (lit_at(g, r, mid_lit, q)) { p = q; break; }
-      } else {                     // both greedy: last occurrence
-        for (int32_t q = b; q >= a; --q)
-          if (lit_at(g, r, mid_lit, q)) { p = q; break; }
-      }
-      ok = p >= 0;
-      if (ok) {
-        st.cur = p;
-        ok = walk<false>(g, r, h[M_MID_OFF], h[M_MID_OFF] + h[M_MID_N], 0,
-                         st, C, saved);
-        const int32_t lo2 = st.cur;
-        ok = ok && hi2 >= lo2 && p - lo1 >= p1min && hi2 - lo2 >= p2min &&
-             all_member(g, r, h[M_P1_CLS], lo1, p) &&
-             all_member(g, r, h[M_P2_CLS], lo2, hi2);
-      }
-      if (ok) {
-        for (int32_t i = 0; i < h[M_NMIDEND]; ++i) {
-          const int32_t k = h[h[M_MIDEND_OFF] + i];
-          rst.off[k] = st.off[k];
-          rst.len[k] = st.len[k];
+  const Caps cs{scaps + tid * cw, C};
+  bool ok = false;
+  if (tid < nrows) {
+    for (int32_t k = 0; k < C; ++k) {
+      cs.off(k) = 0;
+      cs.len(k) = -1;
+      cs.start(k) = 0;
+    }
+    const Prog g{sprog, reinterpret_cast<const uint32_t*>(sprog + h[M_BITS_OFF]),
+                 sprog + h[M_LOFFS_OFF], sprog + h[M_LLENS_OFF],
+                 reinterpret_cast<const uint8_t*>(sprog + h[M_BLOB_OFF])};
+    const Row r{tile + tid * ws, L, len};
+    int32_t cur = 0;
+    ok = walk<false, NESTED>(g, r, h[M_PREFIX_OFF],
+                             h[M_PREFIX_OFF] + h[M_PREFIX_N], 0, cur, cs);
+    if constexpr (PIVOT == 0) {
+      ok = ok && cur == r.len;
+    } else if (ok) {
+      // the reverse walk starts from the forward state with cur = len
+      const Caps rs{scaps + (T + tid) * cw, C};
+      for (int32_t i = 0; i < 3 * C; ++i) rs.p[i] = cs.p[i];
+      int32_t rcur = r.len;
+      if constexpr (PIVOT == 2) {
+        // double pivot: prefix | pivot1 | mid literal | pivot2 | suffix
+        const int32_t p1min = h[M_P1_MIN], p2min = h[M_P2_MIN];
+        const int32_t mfix = h[M_MID_FIXED];
+        ok = walk<true, NESTED>(g, r, h[M_SUFFIX_OFF],
+                                h[M_SUFFIX_OFF] + h[M_SUFFIX_N],
+                                cur + p1min + mfix + p2min, rcur, rs);
+        if (ok) {
+          const int32_t lo1 = cur, hi2 = rcur;
+          const int32_t a = max(lo1 + p1min, 0);
+          const int32_t b = min(hi2 - mfix - p2min, L - 1);
+          const int32_t mid_lit = h[M_MID_LIT];
+          int32_t p = -1;
+          if (h[M_P1_LAZY]) {          // both lazy: first occurrence
+            for (int32_t q = a; q <= b; ++q)
+              if (lit_at(g, r, mid_lit, q)) { p = q; break; }
+          } else {                     // both greedy: last occurrence
+            for (int32_t q = b; q >= a; --q)
+              if (lit_at(g, r, mid_lit, q)) { p = q; break; }
+          }
+          ok = p >= 0;
+          if (ok) {
+            cur = p;
+            ok = walk<false, NESTED>(g, r, h[M_MID_OFF],
+                                     h[M_MID_OFF] + h[M_MID_N], 0, cur, cs);
+            const int32_t lo2 = cur;
+            ok = ok && hi2 >= lo2 && p - lo1 >= p1min && hi2 - lo2 >= p2min &&
+                 all_member(g, r, h[M_P1_CLS], lo1, p) &&
+                 all_member(g, r, h[M_P2_CLS], lo2, hi2);
+          }
+          if (ok) {
+            for (int32_t i = 0; i < h[M_NMIDEND]; ++i) {
+              const int32_t k = h[h[M_MIDEND_OFF] + i];
+              rs.off(k) = cs.off(k);
+              rs.len(k) = cs.len(k);
+            }
+          }
         }
+      } else {
+        // single pivot: forward prefix, reverse suffix, pivot class between
+        ok = walk<true, NESTED>(g, r, h[M_SUFFIX_OFF],
+                                h[M_SUFFIX_OFF] + h[M_SUFFIX_N],
+                                cur + h[M_P1_MIN], rcur, rs);
+        if (ok) {
+          const int32_t lo = cur, hi = rcur, run = hi - lo;
+          const int32_t p1max = h[M_P1_MAX];
+          ok = hi >= lo && run >= h[M_P1_MIN] &&
+               (p1max < 0 || run <= p1max) &&
+               all_member(g, r, h[M_P1_CLS], lo, hi);
+        }
+      }
+      if (ok) {
+        // split caps open where the forward walk put their CapStart and
+        // close at the reverse walk's right edge
         for (int32_t i = 0; i < h[M_NSPLIT]; ++i) {
           const int32_t k = h[h[M_SPLIT_OFF] + i];
-          rst.off[k] = st.start[k];
-          rst.len[k] = rst.start[k] - st.start[k];
+          rs.off(k) = cs.start(k);
+          rs.len(k) = rs.start(k) - cs.start(k);
         }
-        fin = &rst;
       }
     }
-  } else if (ok && h[M_HAS_P1]) {
-    // single pivot: forward prefix, reverse suffix, pivot class between
-    copy_state(rst, st, C);
-    rst.cur = r.len;
-    ok = walk<true>(g, r, h[M_SUFFIX_OFF], h[M_SUFFIX_OFF] + h[M_SUFFIX_N],
-                    st.cur + h[M_P1_MIN], rst, C, saved);
-    if (ok) {
-      const int32_t lo = st.cur, hi = rst.cur, run = hi - lo;
-      const int32_t p1max = h[M_P1_MAX];
-      ok = hi >= lo && run >= h[M_P1_MIN] && (p1max < 0 || run <= p1max) &&
-           all_member(g, r, h[M_P1_CLS], lo, hi);
-    }
-    if (ok) {
-      // split caps open where the forward walk put their CapStart and
-      // close at the reverse walk's right edge
-      for (int32_t i = 0; i < h[M_NSPLIT]; ++i) {
-        const int32_t k = h[h[M_SPLIT_OFF] + i];
-        rst.off[k] = st.start[k];
-        rst.len[k] = rst.start[k] - st.start[k];
-      }
-      fin = &rst;
-    }
-  } else if (ok) {
-    ok = st.cur == r.len;
   }
+  __syncwarp();
 
-  ok_out[row] = ok ? 1 : 0;
-  int32_t* co = off_out + row * C;
-  int32_t* cl = len_out + row * C;
-  for (int32_t k = 0; k < C; ++k) {
-    co[k] = ok ? fin->off[k] : 0;
-    cl[k] = ok ? fin->len[k] : -1;
+  // the warp writes back its rows from the shared state: pivot programs end
+  // in the reverse walk's caps; failed rows write off 0 and len -1
+  const int32_t* fin = scaps + ((PIVOT ? T : 0) + wrow) * cw;
+  if (lane < wrows) ok_out[row0 + tid] = ok;
+  int32_t* co = off_out + (row0 + wrow) * C;
+  int32_t* cl = len_out + (row0 + wrow) * C;
+  // e / C as a multiply: exact for e < 2^20 (here e < 32 * 32)
+  const uint64_t inv = ((1ull << 32) + C - 1) / C;
+#pragma unroll 4
+  for (int32_t base = 0; base < wrows * C; base += 32) {
+    const int32_t e = base + lane;
+    const int32_t i = (int32_t)(((uint64_t)e * inv) >> 32), k = e - i * C;
+    const bool rok = __shfl_sync(0xffffffffu, ok, min(i, 31));
+    if (e < wrows * C) {
+      co[e] = rok ? fin[i * cw + k] : 0;
+      cl[e] = rok ? fin[i * cw + C + k] : -1;
+    }
   }
+}
+
+template <bool NESTED, int PIVOT>
+int launch(const uint8_t* rows, const int32_t* lens, int64_t B, int32_t L,
+           const int32_t* prog, int32_t prog_words, uint8_t* ok_out,
+           int32_t* off_out, int32_t* len_out, int32_t threads,
+           int32_t smem_bytes, void* stream) {
+  if (B <= 0) return 0;
+  if (threads < 32 || threads > kMaxThreads || threads % 32)
+    return (int)cudaErrorInvalidValue;
+  auto kernel = field_extract_kernel<NESTED, PIVOT>;
+  // The attribute is a cap, not a reservation: each instantiation opts into
+  // the whole budget once per device and no launch lowers it again, so two
+  // threads launching at once can only set the same value twice.
+  static std::atomic<bool> opted_in[kMaxDevices];
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return (int)e;
+  if (dev < 0 || dev >= kMaxDevices) return (int)cudaErrorInvalidDevice;
+  if (!opted_in[dev].load(std::memory_order_acquire)) {
+    e = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             kSmemBudget);
+    if (e != cudaSuccess) return (int)e;
+    opted_in[dev].store(true, std::memory_order_release);
+  }
+  const int64_t blocks = (B + threads - 1) / threads;
+  kernel<<<(unsigned)blocks, threads, (size_t)smem_bytes,
+           (cudaStream_t)stream>>>(rows, lens, B, L, prog, prog_words, ok_out,
+                                   off_out, len_out);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
+// Each entry point launches on `stream` (PyTorch's current stream) without
+// synchronising, with `threads` per block and `smem_bytes` of dynamic shared
+// memory (field_extract_cuda.launch_geometry); returns the launch's
+// cudaError_t (0 = launched).  dN is nesting (0: depth 0), pN the pivots.
+#define LCT_FIELD_EXTRACT(NAME, NESTED, PIVOT)                               \
+  int NAME(const uint8_t* rows, const int32_t* lens, int64_t B, int32_t L,   \
+           const int32_t* prog, int32_t prog_words, uint8_t* ok_out,         \
+           int32_t* off_out, int32_t* len_out, int32_t threads,              \
+           int32_t smem_bytes, void* stream) {                               \
+    return launch<NESTED, PIVOT>(rows, lens, B, L, prog, prog_words, ok_out, \
+                                 off_out, len_out, threads, smem_bytes,      \
+                                 stream);                                    \
+  }
+
 extern "C" {
 
-// Launches on `stream` (PyTorch's current stream) without synchronising;
-// returns the launch's cudaError_t (0 = launched).
-int lct_field_extract(const uint8_t* rows, const int32_t* lens, int64_t B,
-                      int32_t L, const int32_t* prog, int32_t prog_words,
-                      uint8_t* ok_out, int32_t* off_out, int32_t* len_out,
-                      void* stream) {
-  if (B <= 0) return 0;
-  const int64_t blocks = (B + kThreads - 1) / kThreads;
-  const size_t smem = (size_t)prog_words * sizeof(int32_t);
-  field_extract_kernel<<<(unsigned)blocks, kThreads, smem,
-                         (cudaStream_t)stream>>>(
-      rows, lens, B, L, prog, prog_words, ok_out, off_out, len_out);
-  return (int)cudaGetLastError();
-}
+LCT_FIELD_EXTRACT(lct_field_extract_d0_p0, false, 0)
+LCT_FIELD_EXTRACT(lct_field_extract_d0_p1, false, 1)
+LCT_FIELD_EXTRACT(lct_field_extract_d0_p2, false, 2)
+LCT_FIELD_EXTRACT(lct_field_extract_d1_p0, true, 0)
+LCT_FIELD_EXTRACT(lct_field_extract_d1_p1, true, 1)
+LCT_FIELD_EXTRACT(lct_field_extract_d1_p2, true, 2)
 
 const char* lct_cuda_error_string(int code) {
   return cudaGetErrorString((cudaError_t)code);

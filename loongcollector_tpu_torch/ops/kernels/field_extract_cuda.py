@@ -15,36 +15,88 @@ The kernel's input is one int32 blob packed from the serialized IR
     lit_offs, lit_lens
     lit bytes        padded to a whole int32 word
 
-The whole blob sits in shared memory, so its size is a build-time limit
-checked here, with the caps/classes limits of the serializer and the
-nesting depth of Optional_/Alt.  A program over any limit raises
-``KernelUnsupported`` when the engine is built; the engine then runs the
-pattern on Python ``re`` (counted and logged).  Importing this module needs
-no CUDA: only ``build()`` and ``launch()`` touch the toolchain and the card.
+A block holds the blob, its rows and their capture state in shared memory
+(``smem_bytes``); ``launch_geometry`` picks the block size for each launch
+and ``MAX_PROGRAM_BYTES`` is what is left of the card's budget at the
+largest row bucket.  The kernel is instantiated for depth-0 or nested
+programs and for no, single or double pivot; the header picks one
+(``KernelProgram.entry_point``).  A program over a limit (captures,
+classes, nesting depth, blob size) raises ``KernelUnsupported`` when the
+engine is built; the engine then runs the pattern on Python ``re``
+(counted and logged).  Importing this module needs no CUDA: only
+``build()`` and ``launch()`` touch the toolchain and the card.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
 import threading
 from dataclasses import dataclass
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
 
+from ..device_batch import LENGTH_BUCKETS
 from ..regex.native_exec import (MAX_CAPS, MAX_CLASSES, NativeUnsupported,
                                  serialize_program)
 from ..regex.program import SegmentProgram
 
 MAX_DEPTH = 8                 # kMaxDepth in field_extract.cu
-MAX_PROGRAM_BYTES = 48 * 1024  # static shared-memory budget of one block
 HEADER_WORDS = 32
+
+# launch geometry on the H100 (sm_90)
+SMEM_BUDGET = 232_448         # kSmemBudget in field_extract.cu
+NUM_SMS = 132
+MIN_THREADS, MAX_THREADS = 32, 128   # kMaxThreads in field_extract.cu
+ROW_TILE_BYTES = 64 * 1024    # rows a block stages: three blocks fit an SM
+
+
+def smem_bytes(threads: int, L: int, C: int, pivot: int,
+               prog_words: int) -> int:
+    """Dynamic shared memory of one block, as field_extract.cu lays it out:
+    the program, the row tile at a stride of ceil(L/4) + 1 words, and the
+    capture state at a stride of 3C | 1 words (twice for a pivot program,
+    whose reverse walk has its own copy)."""
+    tile_words = (L + 3) // 4 + 1
+    caps = (2 if pivot else 1) * ((3 * C) | 1)
+    return 4 * (prog_words + threads * (tile_words + caps))
+
+
+# what the budget leaves for the program at the largest row bucket, the
+# smallest block and the widest state
+MAX_PROGRAM_BYTES = SMEM_BUDGET - smem_bytes(
+    MIN_THREADS, LENGTH_BUCKETS[-1], MAX_CAPS, 2, 0)
+
+
+@functools.lru_cache(maxsize=256)
+def launch_geometry(B: int, L: int, C: int, pivot: int,
+                    prog_words: int) -> Tuple[int, int]:
+    """(threads per block, dynamic shared-memory bytes) for one launch.
+
+    A block stages one row per thread.  It starts at 128 rows and halves,
+    down to one warp, while its row tile exceeds ROW_TILE_BYTES, while it
+    does not fit the budget, or while B would leave an SM without a block.
+    Raises ValueError when not even one warp's rows fit (L far above the
+    largest bucket)."""
+    t = MAX_THREADS
+    while t > MIN_THREADS and (
+            t * L > ROW_TILE_BYTES
+            or smem_bytes(t, L, C, pivot, prog_words) > SMEM_BUDGET
+            or -(-B // t) < NUM_SMS):
+        t //= 2
+    smem = smem_bytes(t, L, C, pivot, prog_words)
+    if smem > SMEM_BUDGET:
+        raise ValueError(f"field_extract: {smem} bytes of shared memory for "
+                         f"{t} rows of {L} bytes > {SMEM_BUDGET}")
+    return t, smem
 
 _META = [
     "NCAPS", "PREFIX_OFF", "PREFIX_N", "HAS_P1", "P1_CLS", "P1_MIN",
@@ -76,6 +128,18 @@ class KernelProgram:
     blob: np.ndarray
     num_caps: int
     depth: int
+
+    @property
+    def pivot(self) -> int:
+        """0 for no pivot, 1 for a single pivot, 2 for a double pivot."""
+        if self.blob[M["HAS_P2"]]:
+            return 2
+        return int(self.blob[M["HAS_P1"]])
+
+    @property
+    def entry_point(self) -> str:
+        """The C entry point of the instantiation this program takes."""
+        return f"lct_field_extract_d{int(self.depth > 0)}_p{self.pivot}"
 
 
 def _ops_depth(words, lo: int, hi: int) -> int:
@@ -222,6 +286,10 @@ def _nvcc() -> str:
     return path
 
 
+ENTRY_POINTS = [f"lct_field_extract_d{d}_p{p}" for d in (0, 1)
+                for p in (0, 1, 2)]
+
+
 def source_hash() -> str:
     h = hashlib.sha256()
     with open(_SRC, "rb") as f:
@@ -240,6 +308,7 @@ def build() -> ctypes.CDLL:
             return _lib
         out_dir = os.path.join(BUILD_ROOT, source_hash())
         so_path = os.path.join(out_dir, "libfield_extract.so")
+        log_path = os.path.join(out_dir, "nvcc.log")
         if not os.path.exists(so_path):
             os.makedirs(out_dir, exist_ok=True)
             fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
@@ -252,20 +321,86 @@ def build() -> ctypes.CDLL:
                 os.unlink(tmp)
                 raise RuntimeError(
                     f"nvcc failed ({proc.returncode}):\n{build_log}")
+            with open(log_path, "w") as f:
+                f.write(build_log)
             os.replace(tmp, so_path)
+        elif os.path.exists(log_path):
+            with open(log_path) as f:
+                build_log = f.read()
         lib = ctypes.CDLL(so_path)
-        vp = ctypes.c_void_p
-        lib.lct_field_extract.restype = ctypes.c_int
-        lib.lct_field_extract.argtypes = [vp, vp, ctypes.c_int64,
-                                          ctypes.c_int32, vp, ctypes.c_int32,
-                                          vp, vp, vp, vp]
+        vp, i32 = ctypes.c_void_p, ctypes.c_int32
+        for name in ENTRY_POINTS:
+            fn = getattr(lib, name)
+            fn.restype = ctypes.c_int
+            fn.argtypes = [vp, vp, ctypes.c_int64, i32, vp, i32, vp, vp, vp,
+                           i32, i32, vp]
         lib.lct_cuda_error_string.restype = ctypes.c_char_p
         lib.lct_cuda_error_string.argtypes = [ctypes.c_int]
         _lib = lib
         return lib
 
 
+_PTXAS_FUNC = re.compile(r"(?:Compiling entry function|Function properties "
+                         r"for) '?([\w.$]+)")
+_PTXAS_KERNEL = re.compile(r"field_extract_kernelILb([01])ELi([0-2])E")
+_PTXAS_FRAME = re.compile(r"(\d+) bytes stack frame, (\d+) bytes spill "
+                          r"stores, (\d+) bytes spill loads")
+_PTXAS_REGS = re.compile(r"Used (\d+) registers")
+
+
+def ptxas_report(log: str) -> Dict[str, Dict[str, int]]:
+    """What ``nvcc -Xptxas -v`` reported for each function: registers,
+    stack frame and spill bytes.  Kernel instantiations are keyed like
+    their entry points (``d0_p0`` = depth 0, no pivot), any other function
+    by its mangled name."""
+    out: Dict[str, Dict[str, int]] = {}
+    key = None
+    for ln in log.splitlines():
+        m = _PTXAS_FUNC.search(ln)
+        if m:
+            k = _PTXAS_KERNEL.search(m.group(1))
+            key = f"d{k.group(1)}_p{k.group(2)}" if k else m.group(1)
+            out.setdefault(key, {})
+            continue
+        if key is None:
+            continue
+        m = _PTXAS_FRAME.search(ln)
+        if m:
+            out[key].update(stack=int(m.group(1)),
+                            spill_stores=int(m.group(2)),
+                            spill_loads=int(m.group(3)))
+        m = _PTXAS_REGS.search(ln)
+        if m:
+            out[key]["registers"] = int(m.group(1))
+    return out
+
+
 # -- launch -----------------------------------------------------------------
+
+@dataclass(frozen=True)
+class LaunchShape:
+    """What one launch passed to the C entry point: the instantiation, the
+    batch, threads per block, dynamic shared-memory bytes, and the grid the
+    entry point launches, ceil(B / threads) blocks."""
+
+    entry_point: str
+    B: int
+    L: int
+    threads: int
+    smem: int
+    blocks: int
+
+
+# launches by shape since the last reset_launch_shapes(), counted in
+# launch() once the entry point has launched
+launch_shapes: Dict[LaunchShape, int] = {}
+_shapes_lock = threading.Lock()
+
+
+def reset_launch_shapes() -> None:
+    with _shapes_lock:
+        launch_shapes.clear()
+
 
 def launch(rows: torch.Tensor, lengths: torch.Tensor, prog: torch.Tensor,
            kprog: KernelProgram, events: Optional[list] = None
@@ -275,7 +410,8 @@ def launch(rows: torch.Tensor, lengths: torch.Tensor, prog: torch.Tensor,
     rows u8 [B, L] and lengths i32 [B] on one CUDA device, contiguous;
     returns (ok bool [B], cap_off i32 [B, C], cap_len i32 [B, C]).  With
     ``events``, a (start, end) CUDA event pair recorded right around the
-    launch is appended to it."""
+    launch is appended to it.  Each launch is counted in ``launch_shapes``
+    under the geometry it was given."""
     if rows.device.type != "cuda" or lengths.device != rows.device \
             or prog.device != rows.device:
         raise ValueError("field_extract: rows, lengths and program must lie "
@@ -292,6 +428,9 @@ def launch(rows: torch.Tensor, lengths: torch.Tensor, prog: torch.Tensor,
         raise ValueError("field_extract: inputs must be contiguous")
     lib = build()
     C = kprog.num_caps
+    threads, smem = launch_geometry(B, L, C, kprog.pivot, prog.numel())
+    shape = LaunchShape(kprog.entry_point, B, L, threads, smem,
+                        -(-B // threads))
     ok = torch.empty(B, dtype=torch.bool, device=rows.device)
     off = torch.empty((B, C), dtype=torch.int32, device=rows.device)
     length = torch.empty((B, C), dtype=torch.int32, device=rows.device)
@@ -300,14 +439,16 @@ def launch(rows: torch.Tensor, lengths: torch.Tensor, prog: torch.Tensor,
         ev = (torch.cuda.Event(enable_timing=True),
               torch.cuda.Event(enable_timing=True))
         ev[0].record(stream)
-    rc = lib.lct_field_extract(rows.data_ptr(), lengths.data_ptr(), B, L,
-                               prog.data_ptr(), prog.numel(), ok.data_ptr(),
-                               off.data_ptr(), length.data_ptr(),
-                               stream.cuda_stream)
+    rc = getattr(lib, shape.entry_point)(
+        rows.data_ptr(), lengths.data_ptr(), B, L, prog.data_ptr(),
+        prog.numel(), ok.data_ptr(), off.data_ptr(), length.data_ptr(),
+        shape.threads, shape.smem, stream.cuda_stream)
     if events is not None:
         ev[1].record(stream)
         events.append(ev)
     if rc != 0:
         raise RuntimeError("field_extract launch failed: "
                            + lib.lct_cuda_error_string(rc).decode())
+    with _shapes_lock:
+        launch_shapes[shape] = launch_shapes.get(shape, 0) + 1
     return ok, off, length
