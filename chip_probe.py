@@ -2,6 +2,7 @@
 """Where the CUDA field-extraction kernel spends its time, on one H100.
 
     python3 chip_probe.py            # run from the repo root
+    python3 chip_probe.py dispatch   # the host cost of one plane dispatch
 
 Builds the kernel ``loongcollector_tpu_torch/ops/kernels/csrc/
 field_extract.cu`` as it is, and ``stamped``, an edited copy with
@@ -16,6 +17,13 @@ launch (50 launches replayed in a CUDA graph, inputs warm in L2, as in
 ``chip_smoke.py``) after checking the outputs bit-exact against the plain
 version, and for ``stamped`` the median and largest cycles per block of
 each phase over the blocks that hold real rows.  Needs a CUDA card and ``nvcc``; imports nothing of JAX.
+
+``dispatch`` times the main path's dispatch of one chunk through the
+device plane (``DevicePlane.submit`` of ``StagedKernel`` on a packed
+``B=8192, L=128`` ring slot, then ``result()``), 300 times with the
+timeline on as the agent runs it: the mean host microseconds of submit
+and of result with profiling off, then the same loop under ``cProfile``
+with the functions that take the most time of their own.
 """
 
 from __future__ import annotations
@@ -97,8 +105,66 @@ def launcher(fxc, lib, kern, prog):
     return launch
 
 
+def dispatch_cost(reps: int = 300) -> int:
+    import cProfile
+    import pstats
+    import time
+    import numpy as np
+    import torch
+    import chip_smoke
+    from loongcollector_tpu_torch.ops import xprof
+    from loongcollector_tpu_torch.ops.device_plane import DevicePlane
+    from loongcollector_tpu_torch.ops.device_stream import batch_ring
+    from loongcollector_tpu_torch.ops.regex.engine import RegexEngine
+    from loongcollector_tpu_torch.testdata import gen_lines
+    print(f"chip_probe: card: {chip_smoke.nvidia_smi()}", flush=True)
+    dev = torch.device("cuda", torch.cuda.current_device())
+    eng = RegexEngine(chip_smoke.APACHE, dev)
+    staged = eng._device_kernel()
+    lines = gen_lines(5500, seed=5)
+    lens = np.array([len(x) for x in lines], np.int32)
+    arena = np.frombuffer(b"".join(lines), np.uint8)
+    offs = np.concatenate([[0], np.cumsum(lens[:-1])]).astype(np.int64)
+    slot = batch_ring().lease(8192, 128, pinned=True)
+    slot.pack(arena, offs, lens)
+    plane = DevicePlane.instance()
+    C = eng.num_caps
+
+    def loop(n):
+        t_sub = t_res = 0.0
+        for _ in range(n):
+            t0 = time.perf_counter()
+            fut = plane.submit(staged, (slot, C), 8192 * 128)
+            t1 = time.perf_counter()
+            fut.result()
+            t_sub += t1 - t0
+            t_res += time.perf_counter() - t1
+        return t_sub / n * 1e6, t_res / n * 1e6
+
+    with xprof.active(dev):
+        loop(20)
+        sub_us, res_us = loop(reps)
+        print(f"chip_probe: dispatch B=8192 L=128, {reps} times: submit "
+              f"{sub_us:.1f} us, result {res_us:.1f} us (host, mean, "
+              f"profiling off)", flush=True)
+        prof = cProfile.Profile()
+        prof.enable()
+        loop(reps)
+        prof.disable()
+    slot.release()
+    st = pstats.Stats(prof)
+    rows = sorted(st.stats.items(), key=lambda kv: -kv[1][2])[:25]
+    for (fn, line, name), (_cc, calls, tt, ct, _callers) in rows:
+        print(f"chip_probe: profile {tt / reps * 1e6:8.1f} us own "
+              f"{ct / reps * 1e6:8.1f} us total per dispatch, {calls} calls: "
+              f"{os.path.basename(fn)}:{line} {name}", flush=True)
+    return 0
+
+
 def main() -> int:
     sys.path.insert(0, REPO)
+    if sys.argv[1:] == ["dispatch"]:
+        return dispatch_cost()
     import numpy as np
     import torch
     if not torch.cuda.is_available():

@@ -23,15 +23,30 @@ Phases, each of which exits non-zero on failure:
 3. main path: a seeded 600,000-line Apache access log runs through
    ``python -m loongcollector_tpu_torch --config DIR --once`` on the card
    (``example_config/quick_start/file_regex_apache.yaml`` with FilePaths
-   pointed at the log and a flusher_file sink).  Every record must equal
-   the ``re`` oracle's fields, the kernel's launches (counted from 0 in
-   that process) must equal its device batches and be > 0, and no row may
-   be routed to ``re``.  Prints the end-to-end MB/s, the kernel seconds and
-   the geometry of the launches (from the agent's ``--stats``).
+   pointed at the log and a flusher_file sink): the input pushes into the
+   bounded process queue, the processor runner's workers dispatch through
+   the device plane.  It runs twice, at the default one worker and at
+   ``LOONG_PROCESS_THREADS=4``.  Each time every record must equal the
+   ``re`` oracle's fields in file order, the kernel's launches (counted from
+   0 in that process) must equal its device batches and the plane's
+   dispatches and be > 0, no row may be routed to ``re``, and the plane's
+   in-flight bytes, the ring's leased slots and the memory ledger's live
+   bytes must be back at 0 at exit.  Prints the end-to-end MB/s, the kernel
+   seconds (the timeline's exec legs), the median of each leg, the traced
+   busy share and the geometry of the launches (from ``--stats``).
 4. timing: kernel, plain version and bound at the main path's geometry
    (B=8192, L=128, C=9) and at the bench geometry (B=65536, L=128); the
    kernel warm (the same inputs launch after launch) and cold (launches
    rotate over enough copies of the inputs to pass twice the 50 MB L2).
+5. plane, on the real kernel: (a) ``PendingParse.dispatch`` of six chunks
+   under ``torch.cuda.set_sync_debug_mode("error")``, results checked
+   after; (b) 200 seeded chunks at depth 3 with two ring slots per
+   geometry, every chunk bit-exact with the plain version; (c) a
+   ``StallableKernel`` around the staged CUDA kernel with a budget of two
+   chunks: the third submit blocks until the device is unstalled, and
+   every result is then bit-exact; (d) the count of dispatches of (b)
+   whose H2D ran under the previous dispatch's kernel, from the timeline
+   (printed; the phase does not fail on it).
 
 In every phase each recorded launch must be whole warps within the block
 limit and the shared-memory budget, with a block for each SM once a batch
@@ -507,12 +522,11 @@ def write_config(tmp: str, log_path: str, out_path: str) -> str:
     return cfg_dir
 
 
-def phase_main_path() -> dict:
-    from loongcollector_tpu_torch.testdata import APACHE_KEYS, gen_lines
+def main_path_log():
+    """The seeded main-path log, written once for both runs."""
+    from loongcollector_tpu_torch.testdata import gen_lines
     tmp = tempfile.mkdtemp(prefix="chip_smoke_")
     log_path = os.path.join(tmp, "access.log")
-    out_path = os.path.join(tmp, "out.json")
-    stats_path = os.path.join(tmp, "stats.json")
     t0 = time.perf_counter()
     lines = gen_lines(MAIN_PATH_LINES, seed=11)
     data = b"\n".join(lines) + b"\n"
@@ -520,19 +534,35 @@ def phase_main_path() -> dict:
         f.write(data)
     log(f"main path: {len(lines)} lines, {len(data)} bytes written in "
         f"{time.perf_counter() - t0:.1f} s")
-    cfg_dir = write_config(tmp, log_path, out_path)
+    return tmp, log_path, lines, len(data)
+
+
+def phase_main_path(tmp: str, log_path: str, lines, n_bytes: int,
+                    threads: int) -> dict:
+    from loongcollector_tpu_torch.ops.xprof import LEGS
+    from loongcollector_tpu_torch.testdata import APACHE_KEYS
+    run_dir = os.path.join(tmp, f"threads{threads}")
+    os.makedirs(run_dir)
+    out_path = os.path.join(run_dir, "out.json")
+    stats_path = os.path.join(run_dir, "stats.json")
+    cfg_dir = write_config(run_dir, log_path, out_path)
+    tag = f"main path, {threads} worker{'s' if threads > 1 else ''}"
+    env = dict(os.environ, LOONG_PROCESS_THREADS=str(threads))
     t0 = time.perf_counter()
     proc = subprocess.run(
         [sys.executable, "-m", "loongcollector_tpu_torch", "--config",
          cfg_dir, "--once", "--stats", stats_path],
-        cwd=REPO, capture_output=True, text=True, timeout=900)
+        cwd=REPO, capture_output=True, text=True, timeout=900, env=env)
     wall = time.perf_counter() - t0
     if proc.returncode != 0:
-        fail(f"agent exited {proc.returncode}:\n{proc.stderr[-4000:]}")
+        fail(f"{tag}: agent exited {proc.returncode}:\n"
+             f"{proc.stderr[-4000:]}")
     with open(stats_path) as f:
         st = json.load(f)
     if st["device"] != "cuda":
-        fail(f"agent ran on {st['device']}")
+        fail(f"{tag}: agent ran on {st['device']}")
+    if st["threads"] != threads:
+        fail(f"{tag}: the agent ran {st['threads']} workers")
     rx = re.compile(APACHE.encode())
     n = 0
     with open(out_path, "rb") as f:
@@ -546,39 +576,61 @@ def phase_main_path() -> dict:
             if got != want:
                 fail(f"record {n}: {got} != re {want}")
     if n != len(lines):
-        fail(f"{n} records for {len(lines)} lines")
-    if not 0 < st["launches"] == st["device_batches"]:
-        fail(f"launches {st['launches']} vs device batches "
-             f"{st['device_batches']}")
+        fail(f"{tag}: {n} records for {len(lines)} lines")
+    plane, ring = st["plane"], st["ring"]
+    if not 0 < st["launches"] == st["device_batches"] == plane["dispatches"]:
+        fail(f"{tag}: launches {st['launches']} vs device batches "
+             f"{st['device_batches']} vs plane dispatches "
+             f"{plane['dispatches']}")
     if st["re_oversize_rows"] or st["re_tier_rows"]:
-        fail(f"rows routed to re: {st}")
+        fail(f"{tag}: rows routed to re: {st}")
+    if plane["inflight_bytes"] or ring["leased"] \
+            or st["device_memory"]["total_live_bytes"] \
+            or ring["leases"] != ring["returns"]:
+        fail(f"{tag}: the plane did not settle: in flight "
+             f"{plane['inflight_bytes']} bytes, ring {ring}, memory "
+             f"{st['device_memory']}")
+    legs = st["timeline"]["legs"]
+    if legs.get("exec", {}).get("count") != st["launches"] \
+            or legs["exec"]["clock"] != "device":
+        fail(f"{tag}: the timeline has no device exec leg for every "
+             f"launch: {legs}")
     from loongcollector_tpu_torch.ops.kernels.field_extract_cuda import \
         LaunchShape
     shapes = checked_shapes({LaunchShape(**{k: v for k, v in d.items()
                                             if k != "launches"}):
                              d["launches"] for d in st["launch_shapes"]},
-                            "main path")
+                            tag)
     if sum(n for _, n in shapes) != st["launches"]:
-        fail(f"main path: launch shapes {st['launch_shapes']} do not add up "
+        fail(f"{tag}: launch shapes {st['launch_shapes']} do not add up "
              f"to {st['launches']} launches")
     if not any(sh.B == 8192 for sh, _ in shapes):
-        fail(f"main path: no launch at B=8192: {st['launch_shapes']}")
+        fail(f"{tag}: no launch at B=8192: {st['launch_shapes']}")
     for sh, k in shapes:
-        log(f"main path: {k} launches of {sh.entry_point} at B={sh.B} "
+        log(f"{tag}: {k} launches of {sh.entry_point} at B={sh.B} "
             f"L={sh.L}: {sh.blocks} blocks of {sh.threads} threads, "
             f"{sh.smem} bytes of shared memory")
-    mbps = len(data) / st["seconds"] / 1e6
-    log(f"main path: {n} records equal the re oracle; {st['launches']} "
-        f"launches = {st['device_batches']} device batches; pipeline "
-        f"{st['seconds']:.3f} s = {mbps:.2f} MB/s end to end "
-        f"(agent process {wall:.1f} s); kernel {st['kernel_seconds']:.6f} s")
-    log("main path stage seconds (host): " + json.dumps(st["stage_seconds"]))
-    log(f"main path device busy share (kernel s / pipeline s): "
-        f"{st['kernel_seconds'] / st['seconds']:.6f}")
-    for name in (log_path, out_path):
-        os.unlink(name)
-    return {"stats": st, "mbps": mbps, "bytes": len(data), "wall_s": wall,
-            "shapes": shapes}
+    mbps = n_bytes / st["seconds"] / 1e6
+    log(f"{tag}: {n} records equal the re oracle in order; "
+        f"{st['launches']} launches = {st['device_batches']} device "
+        f"batches = {plane['dispatches']} plane dispatches; pipeline "
+        f"{st['seconds']:.3f} s = {mbps:.2f} MB/s end to end (agent "
+        f"process {wall:.1f} s); kernel {st['kernel_seconds']:.6f} s "
+        f"(exec legs)")
+    log(f"{tag}: stage seconds (host): " + json.dumps(st["stage_seconds"]))
+    log(f"{tag}: legs (median ms / sum s / count): " + ", ".join(
+        f"{leg} {legs[leg]['median_s'] * 1e3:.4f} / {legs[leg]['sum_s']:.4f}"
+        f" / {legs[leg]['count']} ({legs[leg]['clock']})"
+        for leg in LEGS if leg in legs))
+    log(f"{tag}: traced device busy share (union of exec legs / pipeline "
+        f"s): {st['busy_share']:.6f}; overlapped dispatches "
+        f"{st['timeline']['overlapped_dispatches']}; peak in flight "
+        f"{plane['peak_inflight_bytes']} bytes, budget waits "
+        f"{plane['budget_waits']}; ring {ring['leases']} leases, "
+        f"{ring['returns']} returns; depth {st['depth']}; tuner "
+        f"{json.dumps(st['tuner']['buckets'])}")
+    os.unlink(out_path)
+    return {"stats": st, "mbps": mbps, "wall_s": wall, "shapes": shapes}
 
 
 def bound_ms(B: int, C: int, prog_words: int, row_bytes: int):
@@ -655,6 +707,153 @@ def phase_timing() -> dict:
     return out
 
 
+def _layout(lines):
+    import numpy as np
+    lens = np.array([len(x) for x in lines], np.int32)
+    arena = np.frombuffer(b"".join(lines), np.uint8)
+    offs = np.concatenate([[0], np.cumsum(lens[:-1])]).astype(np.int64)
+    return arena, offs, lens
+
+
+def _same(got, want, what: str, chunk_rows: int) -> None:
+    import numpy as np
+    for g, w, name in zip((got.ok, got.cap_off, got.cap_len),
+                          (want.ok, want.cap_off, want.cap_len),
+                          ("ok", "cap_off", "cap_len")):
+        if g.shape != w.shape or not (g == w).all():
+            rows = np.nonzero((g != w).reshape(len(g), -1).any(axis=1))[0]
+            fail(f"plane {what}: {name} differs from the plain version in "
+                 f"chunks {sorted(set((rows // chunk_rows).tolist()))[:10]}")
+
+
+def phase_plane() -> dict:
+    """The plane on the real kernel: no hidden synchronisation in a
+    dispatch, slot reuse under stress, back-pressure, overlap."""
+    import threading
+    import numpy as np
+    import torch
+    from loongcollector_tpu_torch.ops import device_stream, xprof
+    from loongcollector_tpu_torch.ops.device_plane import (DevicePlane,
+                                                           StallableKernel)
+    from loongcollector_tpu_torch.ops.device_stream import (StagedKernel,
+                                                            batch_ring)
+    from loongcollector_tpu_torch.ops.regex import engine as engine_mod
+    from loongcollector_tpu_torch.testdata import gen_lines
+    dev = torch.device("cuda", torch.cuda.current_device())
+    eng = engine_mod.RegexEngine(APACHE, dev)
+    plain = engine_mod.RegexEngine(APACHE, dev)
+    # the plain version on the card, through the same staged path
+    plain.set_device_kernel_override(StagedKernel(plain.kernel.plain, dev))
+    rng = np.random.default_rng(20261017)
+    out = {}
+
+    # (a) no hidden synchronisation between submit and result
+    chunk = 8192
+    engine_mod.MAX_BATCH = chunk
+    lines = gen_lines(6 * chunk - 100, seed=21)
+    arena, offs, lens = _layout(lines)
+    n = len(lines)
+    C = eng.num_caps
+    pending = engine_mod.PendingParse(
+        eng, arena, offs, lens, np.zeros(n, bool),
+        np.zeros((n, C), np.int32), np.full((n, C), -1, np.int32),
+        np.arange(0), depth=8)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        pending.dispatch(np.arange(n))
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    got = pending.result()
+    _same(got, plain.parse_batch(arena, offs, lens), "(a)", chunk)
+    if not got.ok.all():
+        fail("plane (a): Apache rows failed to match")
+    log(f"plane (a): PendingParse.dispatch of 6 chunks ({n} rows) ran "
+        f"under set_sync_debug_mode('error') with no synchronisation; "
+        f"bit-exact with the plain version")
+
+    # (b) slot reuse: 200 chunks at depth 3, two slots per geometry; the
+    # timeline is on for (d)
+    chunk = 1024
+    engine_mod.MAX_BATCH = chunk
+    device_stream.reset_for_testing(slots_per_geometry=2)
+    lines = gen_lines(200 * chunk, seed=22)
+    for i in rng.choice(len(lines), 2000, replace=False):
+        lines[i] = bytes(rng.integers(32, 127, int(rng.integers(0, 200)),
+                                      dtype=np.uint8))
+    arena, offs, lens = _layout(lines)
+    want = plain.parse_batch(arena, offs, lens)
+    with xprof.active(dev) as timeline:
+        got = eng.parse_batch_async(arena, offs, lens, depth=3).result()
+    _same(got, want, "(b)", chunk)
+    ring = batch_ring().totals()
+    if ring["leased"] or ring["leases"] != ring["returns"]:
+        fail(f"plane (b): ring did not settle: {ring}")
+    st = batch_ring().stats()
+    reuses = sum(g["slot_reuses"] for g in st.values())
+    log(f"plane (b): 200 chunks of {chunk} rows at depth 3 with two slots "
+        f"per geometry bit-exact with the plain version; ring {ring['leases']}"
+        f" leases, {reuses} slot reuses, geometries {sorted(st)}")
+    out["stress_chunks"] = 200
+    out["stress_reuses"] = reuses
+
+    # (d) overlap, from the timeline of (b)
+    overlapped = timeline.overlapped_dispatches()
+    legs = timeline.leg_summary()
+    log(f"plane (d): {overlapped} of {timeline.stats()['closed']} "
+        f"dispatches had their H2D under the previous dispatch's kernel; "
+        f"legs (median ms): " + ", ".join(
+            f"{k} {v['median_s'] * 1e3:.4f}" for k, v in legs.items()))
+    out["overlapped"] = overlapped
+    out["overlap_dispatches"] = timeline.stats()["closed"]
+
+    # (c) back-pressure: a budget of two chunks, the device stalled
+    ring = batch_ring()
+    slots = []
+    B, L = 1024, 128
+    for i in range(3):
+        slot = ring.lease(B, L, pinned=True)
+        sel = np.arange(i * B, (i + 1) * B)
+        slot.pack(arena, offs[sel], lens[sel])
+        slots.append((slot, sel))
+    nbytes = B * L
+    plane = DevicePlane.reset_for_testing(budget_bytes=2 * nbytes)
+    stall = StallableKernel(eng._device_kernel())
+    stall.stall()
+    futs = [plane.submit(stall, (slots[i][0], C), nbytes) for i in range(2)]
+    third = []
+    t = threading.Thread(target=lambda: third.append(
+        plane.submit(stall, (slots[2][0], C), nbytes)))
+    t.start()
+    time.sleep(0.5)
+    if third:
+        fail("plane (c): a third submit over the budget did not block")
+    blocked_inflight = plane.inflight_bytes()
+    stall.unstall()
+    results = [futs[0].result(), futs[1].result()]
+    t.join(10)
+    if t.is_alive() or not third:
+        fail("plane (c): the third submit did not proceed once unstalled")
+    results.append(third[0].result())
+    for (slot, sel), (k_ok, k_off, k_len) in zip(slots, results):
+        w_ok, w_off, w_len = (x.cpu().numpy() for x in eng.kernel.plain(
+            slot.rows.to(dev), slot.lengths.to(dev)))
+        if not ((k_ok == w_ok).all() and (k_off == w_off).all()
+                and (k_len == w_len).all()):
+            fail("plane (c): a result after the stall differs from the "
+                 "plain version")
+        slot.release()
+    if plane.inflight_bytes():
+        fail(f"plane (c): {plane.inflight_bytes()} bytes left in flight")
+    log(f"plane (c): with the device stalled and a budget of two chunks "
+        f"({2 * nbytes} bytes, {blocked_inflight} in flight) the third "
+        f"submit blocked until unstalled; all three results bit-exact")
+    DevicePlane.reset_for_testing()
+    device_stream.reset_for_testing()
+    engine_mod.MAX_BATCH = 65536
+    return out
+
+
 def main() -> int:
     if len(sys.argv) > 1:
         fail("takes no arguments")
@@ -669,8 +868,12 @@ def main() -> int:
     from loongcollector_tpu_torch.ops.kernels import field_extract_cuda as fxc
     build = phase_build(fxc, native)
     parity = phase_parity()
-    main_path = phase_main_path()
+    tmp, log_path, lines, n_bytes = main_path_log()
+    main_path = phase_main_path(tmp, log_path, lines, n_bytes, threads=1)
+    main_path4 = phase_main_path(tmp, log_path, lines, n_bytes, threads=4)
+    os.unlink(log_path)
     timing = phase_timing()
+    plane = phase_plane()
     mp = main_path["stats"]
     t8, t64 = timing[8192], timing[65536]
     kernels = {"kernels": [{
@@ -701,6 +904,15 @@ def main() -> int:
         "bench_bound_ms": t64["bound_ms"],
         "main_path_kernel_s": mp["kernel_seconds"],
         "main_path_mbps": main_path["mbps"],
+        "main_path_mbps_4_workers": main_path4["mbps"],
+        "main_path_busy_share": mp["busy_share"],
+        "main_path_leg_median_ms": {
+            k: v["median_s"] * 1e3 for k, v in mp["timeline"]["legs"].items()},
+        "main_path_overlapped_dispatches":
+            mp["timeline"]["overlapped_dispatches"],
+        "plane_stress_chunks": plane["stress_chunks"],
+        "plane_overlapped": [plane["overlapped"],
+                             plane["overlap_dispatches"]],
         "build_s": build["kernel_build_s"],
         "blocks": [t8["blocks"], t64["blocks"]],
         "threads": [t8["threads"], t64["threads"]],

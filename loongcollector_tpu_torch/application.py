@@ -6,10 +6,23 @@ config in the directory (one pipeline per ``.yaml``/``.yml``/``.json``
 file, named by its stem) runs once over the existing content of its inputs
 and the process exits.  Tail mode comes with the file-server slice.
 
+``--once`` runs the streaming main path: the pipeline manager builds the
+pipelines and their bounded process queues, the processor runner's workers
+(``LOONG_PROCESS_THREADS``) pop them and dispatch through the device plane
+(``LOONG_STREAM_DEPTH``, ``LOONG_DEVICE_INFLIGHT_BYTES``), and the inputs
+push what they read, waiting at the queues' high watermark.  The run ends
+once every group the inputs pushed has settled, every process queue is
+empty and every pipeline's in-process count is 0.  A processing failure
+(a kernel failure included) ends the run with exit code 1.
+
 The pipelines run on the CUDA device unless ``--cpu`` is given; with no
 CUDA device and no ``--cpu`` the CLI exits with an error.  ``--stats PATH``
-writes the run's counts (events, kernel launches and their geometry,
-device batches, rows routed to Python ``re``, kernel seconds) as JSON.
+writes the run's counts as JSON: events, kernel launches and their
+geometry, device batches, rows routed to Python ``re``, the plane's
+dispatches, peak in-flight bytes and budget waits, ring leases and
+returns, the tuner's choices, threads and depth, the dispatch timeline's
+legs and overlapped dispatches, and kernel seconds (the sum of the
+timeline's exec legs on the card).
 """
 
 from __future__ import annotations
@@ -47,35 +60,76 @@ def load_config_dir(config_dir: str) -> List[Tuple[str, Dict[str, Any]]]:
     return out
 
 
+class ProcessingFailed(RuntimeError):
+    """A group failed in processing or send; the run exits non-zero."""
+
+
+def _drained(pqm, manager, runner) -> bool:
+    pushed = sum(inp.groups_pushed for p in manager.pipelines()
+                 for inp in p.inputs)
+    return (runner.groups_settled() == pushed and pqm.all_empty()
+            and all(p.in_process_count() == 0 for p in manager.pipelines()))
+
+
 def run_once(config_dir: str, device) -> Dict[str, Any]:
-    """Run every pipeline of the directory once; returns the run's counts."""
+    """Run every pipeline of the directory once through the processor
+    runner; returns the run's counts."""
+    from .ops import compile_watch, xprof
+    from .ops.device_plane import DevicePlane, device_memory_status
+    from .ops.device_stream import auto_tuner, batch_ring, stream_depth
     from .ops.kernels import field_extract_cuda as fxc
     from .ops.regex.engine import cached_engines
-    from .pipeline.pipeline import CollectionPipeline
+    from .pipeline.pipeline_manager import CollectionPipelineManager
+    from .pipeline.queue.process_queue_manager import ProcessQueueManager
+    from .runner.processor_runner import ProcessorRunner
     configs = load_config_dir(config_dir)
     if not configs:
         raise FileNotFoundError(f"no pipeline config in {config_dir}")
-    pipelines = [CollectionPipeline(name, cfg, device)
-                 for name, cfg in configs]
+    pqm = ProcessQueueManager()
+    manager = CollectionPipelineManager(pqm, device)
+    manager.update_pipelines(configs)
     engines = cached_engines()
     fxc.reset_launch_shapes()
     for eng in engines:
         eng.reset_counts()
-        if eng.kernel is not None:
-            eng.kernel.record_times = device.type == "cuda"
+    plane = DevicePlane.instance()
+    plane.reset_counters()
+    ring = batch_ring()
+    ring_before = ring.totals()
+    timeline = xprof.enable(device)
+    runner = ProcessorRunner(pqm, manager, device=device)
     t0 = time.perf_counter()
-    n_events = 0
+    runner.init()
+    try:
+        manager.start_inputs(should_abort=runner.failed)
+        while not runner.failed() and not _drained(pqm, manager, runner):
+            time.sleep(0.002)
+    finally:
+        runner.stop()
+        seconds = time.perf_counter() - t0
+        drained = _drained(pqm, manager, runner)
+        manager_pipelines = manager.pipelines()
+        manager.stop_all()
+        xprof.disable()
+    if runner.error is not None:
+        raise ProcessingFailed(
+            f"{runner.groups_failed} group(s) failed: {runner.error!r}"
+        ) from runner.error
+    if not drained or runner.alive_threads():
+        raise ProcessingFailed("the processor runner did not drain")
+    ring_after = ring.totals()
+    on_card = device.type == "cuda"
+    legs = timeline.leg_summary()
+    kernel_s = timeline.leg_seconds("exec", xprof.DEVICE) if on_card \
+        else None
+    busy_s = timeline.exec_union_seconds(xprof.DEVICE) if on_card else None
     stages: Dict[str, float] = {}
-    for p in pipelines:
-        n_events += p.run_once()
+    for p in manager_pipelines:
         for k, v in p.stage_seconds.items():
             stages[k] = stages.get(k, 0.0) + v
-    seconds = time.perf_counter() - t0
-    kernel_s = [eng.kernel.kernel_seconds() for eng in engines
-                if eng.kernel is not None]
     return {
         "device": str(device),
-        "events": n_events,
+        "events": sum(p.events_sent for p in manager_pipelines),
         "seconds": seconds,
         "stage_seconds": stages,
         "launches": sum(e.kernel.launches for e in engines
@@ -85,8 +139,25 @@ def run_once(config_dir: str, device) -> Dict[str, Any]:
         "device_batches": sum(e.device_batches for e in engines),
         "re_oversize_rows": sum(e.re_oversize_rows for e in engines),
         "re_tier_rows": sum(e.re_tier_rows for e in engines),
-        "kernel_seconds": (sum(s for s in kernel_s if s is not None)
-                           if any(s is not None for s in kernel_s) else None),
+        "kernel_seconds": kernel_s,
+        # traced: the union of the exec legs over the pipeline's seconds
+        "busy_share": busy_s / seconds if on_card else None,
+        "threads": runner.thread_count,
+        "depth": stream_depth(),
+        "plane": plane.counters(),
+        "ring": {"leases": ring_after["leases"] - ring_before["leases"],
+                 "returns": ring_after["returns"] - ring_before["returns"],
+                 "leased": ring_after["leased"],
+                 "fenced": ring_after["fenced"],
+                 "packs": ring_after["packs"] - ring_before["packs"]},
+        "device_memory": device_memory_status(),
+        "tuner": auto_tuner().chosen(),
+        "timeline": {"legs": legs,
+                     "overlapped_dispatches":
+                         timeline.overlapped_dispatches(),
+                     **timeline.stats()},
+        "lane_overlap": runner.lane_overlap(),
+        "compile": compile_watch.compile_status(),
     }
 
 
@@ -110,7 +181,11 @@ def main(argv: Optional[List[str]] = None) -> int:
     except NoCudaDevice as e:
         print(f"loongcollector_tpu_torch: {e}", file=sys.stderr)
         return 2
-    stats = run_once(args.config, device)
+    try:
+        stats = run_once(args.config, device)
+    except ProcessingFailed as e:
+        print(f"loongcollector_tpu_torch: {e}", file=sys.stderr)
+        return 1
     log.info("run complete: %s", json.dumps(stats))
     if args.stats:
         with open(args.stats, "w") as f:

@@ -3,9 +3,10 @@
 Reference: core/file_server/reader/LogFileReader.cpp — ReadLog :964,
 GetRawData :1518 (pread into an arena, align to the last complete line and
 roll back the rest), GenerateEventGroup :2726 (ONE zero-copy RawEvent per
-chunk).  The port's slice reads the existing content of a file once:
-rotation tracking, multiline-aware rollback, GBK transcoding and
-checkpoints come with the file-server slice.
+chunk).  The port's slice reads the existing content of a file once, one
+group per chunk, and ``input_file`` pushes each into the pipeline's
+process queue as it is read: rotation tracking, multiline-aware rollback,
+GBK transcoding and checkpoints come with the file-server slice.
 """
 
 from __future__ import annotations

@@ -16,7 +16,8 @@ There is no fallback from one to the other.
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+import threading
+from typing import Dict, Tuple
 
 import numpy as np
 import torch
@@ -434,9 +435,10 @@ class ExtractKernel:
 
     ``kernel(rows, lengths)`` with CPU tensors runs the plain version
     (``plain``); with CUDA tensors it launches the hand-written CUDA kernel
-    (``field_extract_cuda``) and counts the launch in ``launches`` — it
-    never falls back.  ``record_times`` brackets every launch with CUDA
-    events so ``kernel_seconds()`` can report device time."""
+    (``field_extract_cuda``) on the current stream and counts the launch in
+    ``launches`` — it never falls back.  Several runner workers share one
+    engine's kernel, so the count is taken under a lock.  Device time comes
+    from the dispatch timeline (``ops/xprof.py``), not from here."""
 
     def __init__(self, program: SegmentProgram, kernel_program=None):
         from . import field_extract_cuda as fxc
@@ -447,8 +449,7 @@ class ExtractKernel:
         self.kernel_program = (kernel_program if kernel_program is not None
                                else fxc.program_arrays(program))
         self.launches = 0
-        self.record_times = False
-        self._events = []
+        self._count_lock = threading.Lock()
         self._device_prog: Dict[torch.device, torch.Tensor] = {}
 
     @property
@@ -456,8 +457,8 @@ class ExtractKernel:
         return self.program.num_caps
 
     def reset_counts(self) -> None:
-        self.launches = 0
-        self._events = []
+        with self._count_lock:
+            self.launches = 0
 
     def warm(self, device: torch.device) -> None:
         """Build the kernel library and upload the program ahead of the
@@ -476,22 +477,18 @@ class ExtractKernel:
             self._device_prog[device] = prog
         return prog
 
-    def __call__(self, rows: torch.Tensor, lengths: torch.Tensor
+    def __call__(self, rows: torch.Tensor, lengths: torch.Tensor,
+                 events=None
                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """``events`` (CUDA only): a (start, end) pair of CUDA events
+        recorded right around the launch, the timeline's exec leg."""
         if rows.device.type == "cpu":
             return self.plain(rows, lengths)
         if rows.device.type != "cuda":
             raise ValueError(f"no field_extract kernel for {rows.device}")
         from . import field_extract_cuda as fxc
         out = fxc.launch(rows, lengths, self.device_program(rows.device),
-                         self.kernel_program,
-                         self._events if self.record_times else None)
-        self.launches += 1
+                         self.kernel_program, events)
+        with self._count_lock:
+            self.launches += 1
         return out
-
-    def kernel_seconds(self) -> Optional[float]:
-        """Summed device time of the recorded launches (synchronises)."""
-        if not self._events:
-            return None
-        torch.cuda.synchronize()
-        return sum(a.elapsed_time(b) for a, b in self._events) / 1e3

@@ -38,12 +38,14 @@ import shutil
 import subprocess
 import tempfile
 import threading
+import time
 from dataclasses import dataclass
-from typing import Dict, Optional, Tuple
+from typing import Dict, Tuple
 
 import numpy as np
 import torch
 
+from .. import compile_watch
 from ..device_batch import LENGTH_BUCKETS
 from ..regex.native_exec import (MAX_CAPS, MAX_CLASSES, NativeUnsupported,
                                  serialize_program)
@@ -278,6 +280,10 @@ _lib = None
 _lib_lock = threading.Lock()
 build_log = ""
 
+# compile_watch families: the nvcc build, and each geometry's first launch
+BUILD_FAMILY = "field_extract_cuda.build"
+LAUNCH_FAMILY = "field_extract_cuda.launch"
+
 
 def _nvcc() -> str:
     path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
@@ -306,10 +312,12 @@ def build() -> ctypes.CDLL:
     with _lib_lock:
         if _lib is not None:
             return _lib
-        out_dir = os.path.join(BUILD_ROOT, source_hash())
+        digest = source_hash()
+        out_dir = os.path.join(BUILD_ROOT, digest)
         so_path = os.path.join(out_dir, "libfield_extract.so")
         log_path = os.path.join(out_dir, "nvcc.log")
         if not os.path.exists(so_path):
+            t0 = time.perf_counter()
             os.makedirs(out_dir, exist_ok=True)
             fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
             os.close(fd)
@@ -324,9 +332,13 @@ def build() -> ctypes.CDLL:
             with open(log_path, "w") as f:
                 f.write(build_log)
             os.replace(tmp, so_path)
-        elif os.path.exists(log_path):
-            with open(log_path) as f:
-                build_log = f.read()
+            compile_watch.note_compile(BUILD_FAMILY, digest,
+                                       (time.perf_counter() - t0) * 1e3)
+        else:
+            compile_watch.note_hit(BUILD_FAMILY)
+            if os.path.exists(log_path):
+                with open(log_path) as f:
+                    build_log = f.read()
         lib = ctypes.CDLL(so_path)
         vp, i32 = ctypes.c_void_p, ctypes.c_int32
         for name in ENTRY_POINTS:
@@ -403,15 +415,17 @@ def reset_launch_shapes() -> None:
 
 
 def launch(rows: torch.Tensor, lengths: torch.Tensor, prog: torch.Tensor,
-           kprog: KernelProgram, events: Optional[list] = None
+           kprog: KernelProgram, events=None
            ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """One kernel launch on PyTorch's current stream (no synchronise).
 
     rows u8 [B, L] and lengths i32 [B] on one CUDA device, contiguous;
-    returns (ok bool [B], cap_off i32 [B, C], cap_len i32 [B, C]).  With
-    ``events``, a (start, end) CUDA event pair recorded right around the
-    launch is appended to it.  Each launch is counted in ``launch_shapes``
-    under the geometry it was given."""
+    returns (ok bool [B], cap_off i32 [B, C], cap_len i32 [B, C]), allocated
+    on the current stream.  ``events``, a (start, end) pair of CUDA events
+    when given, is recorded on the stream right around the entry point's
+    call: the dispatch timeline's exec leg.  Each launch is counted in ``launch_shapes``
+    under the geometry it was given, and the first launch of each (entry
+    point, B, L) is recorded by ``compile_watch``."""
     if rows.device.type != "cuda" or lengths.device != rows.device \
             or prog.device != rows.device:
         raise ValueError("field_extract: rows, lengths and program must lie "
@@ -436,19 +450,19 @@ def launch(rows: torch.Tensor, lengths: torch.Tensor, prog: torch.Tensor,
     length = torch.empty((B, C), dtype=torch.int32, device=rows.device)
     stream = torch.cuda.current_stream(rows.device)
     if events is not None:
-        ev = (torch.cuda.Event(enable_timing=True),
-              torch.cuda.Event(enable_timing=True))
-        ev[0].record(stream)
+        events[0].record(stream)
+    t0 = time.perf_counter()
     rc = getattr(lib, shape.entry_point)(
         rows.data_ptr(), lengths.data_ptr(), B, L, prog.data_ptr(),
         prog.numel(), ok.data_ptr(), off.data_ptr(), length.data_ptr(),
         shape.threads, shape.smem, stream.cuda_stream)
     if events is not None:
-        ev[1].record(stream)
-        events.append(ev)
+        events[1].record(stream)
     if rc != 0:
         raise RuntimeError("field_extract launch failed: "
                            + lib.lct_cuda_error_string(rc).decode())
+    compile_watch.note_call(LAUNCH_FAMILY, f"{shape.entry_point}:{B}x{L}",
+                            t0)
     with _shapes_lock:
         launch_shapes[shape] = launch_shapes.get(shape, 0) + 1
     return ok, off, length

@@ -1,18 +1,25 @@
-"""CollectionPipeline: config → plugin chain, run synchronously.
+"""CollectionPipeline: config → plugin chain; process_begin → send.
 
 Reference: core/collection_pipeline/CollectionPipeline.cpp — Init (:77)
 builds inputs/processors/flushers from the registry (:109-204) and wires the
 inner processors inputs supply (:236-256); Process (:419) runs inner then
-user processors; Send hands the group to the flushers.  The port's slice
-runs input → inner processors → processors → flushers on one thread, the
-reference's default ``process_thread_count = 1``; queues, routers and
-runner threads come with a later slice.
+user processors; Send hands the group to the flushers.  The processor
+runner drives it (``runner/processor_runner.py``): ``process_begin`` walks
+the chain up to the first processor that leaves device work in flight and
+returns a continuation that finishes the chain (JAX package
+``pipeline/pipeline.py:334-425``).  While a continuation is outstanding
+the groups count as in process (``in_process_count``,
+``wait_all_items_in_process_finished``).  There is no fused-chain branch
+and no aggregator yet.  Host seconds per stage (``stage_seconds``) are
+summed across the runner's workers.
 """
 
 from __future__ import annotations
 
+import itertools
+import threading
 import time
-from typing import Any, Dict, List
+from typing import Any, Callable, Dict, List, Optional
 
 import torch
 
@@ -23,6 +30,12 @@ from .plugin.registry import PluginRegistry
 
 log = get_logger("pipeline")
 
+_queue_keys = itertools.count(1)
+
+
+def next_queue_key() -> int:
+    return next(_queue_keys)
+
 
 class PipelineInitError(RuntimeError):
     """A plugin of the config is unknown or refused its config."""
@@ -30,16 +43,23 @@ class PipelineInitError(RuntimeError):
 
 class CollectionPipeline:
     def __init__(self, name: str, config: Dict[str, Any],
-                 device: torch.device):
+                 device: torch.device, process_queue_manager=None):
         self.name = name
         self.config = config
-        self.context = PluginContext(pipeline_name=name, config=config,
-                                     device=device)
+        self.process_queue_key = next_queue_key()
+        self.context = PluginContext(
+            pipeline_name=name, config=config, device=device,
+            process_queue_manager=process_queue_manager,
+            process_queue_key=self.process_queue_key)
         self.inputs: List[Input] = []
         self.inner_processors: List[Processor] = []
         self.processors: List[Processor] = []
         self.flushers: List[Flusher] = []
         self.stage_seconds: Dict[str, float] = {}
+        self.events_sent = 0
+        self._stats_lock = threading.Lock()
+        self._in_process_cnt = 0
+        self._in_process_zero = threading.Condition()
         registry = PluginRegistry.instance()
         registry.load_static_plugins()
         for icfg in config.get("inputs", []):
@@ -64,36 +84,109 @@ class CollectionPipeline:
                                     f"its config")
         return plugin
 
-    def _timed(self, name: str, fn, group) -> None:
+    def add_stage_seconds(self, name: str, seconds: float) -> None:
+        with self._stats_lock:
+            self.stage_seconds[name] = (self.stage_seconds.get(name, 0.0)
+                                        + seconds)
+
+    def _timed(self, name: str, fn, *args):
         t0 = time.perf_counter()
-        fn(group)
-        self.stage_seconds[name] = (self.stage_seconds.get(name, 0.0)
-                                    + time.perf_counter() - t0)
+        try:
+            return fn(*args)
+        finally:
+            self.add_stage_seconds(name, time.perf_counter() - t0)
 
-    def process(self, group: PipelineEventGroup) -> None:
-        for p in self.inner_processors + self.processors:
-            self._timed(p.name, p.process, group)
+    # -- inputs ---------------------------------------------------------------
 
-    def send(self, group: PipelineEventGroup) -> None:
-        for f in self.flushers:
-            self._timed(f.name, f.send, group)
-
-    def run_once(self) -> int:
-        """Read every input once, process and flush each group; returns the
-        number of events sent.  Host seconds per stage accumulate in
-        ``stage_seconds`` (``input`` is the file read)."""
-        n_events = 0
+    def start_inputs(self, should_abort: Callable[[], bool] = lambda: False
+                     ) -> None:
+        """One-shot read of every input into this pipeline's process
+        queue; the inputs' read seconds count as the ``input`` stage."""
         for inp in self.inputs:
-            groups = inp.read_all()
-            while True:
-                t0 = time.perf_counter()
-                group = next(groups, None)
-                self.stage_seconds["input"] = (
-                    self.stage_seconds.get("input", 0.0)
-                    + time.perf_counter() - t0)
-                if group is None:
-                    break
-                self.process(group)
-                n_events += len(group)
-                self.send(group)
-        return n_events
+            inp.start(should_abort)
+            self.add_stage_seconds("input", inp.read_seconds)
+
+    def stop_inputs(self) -> None:
+        for inp in self.inputs:
+            inp.stop()
+
+    # -- processing -----------------------------------------------------------
+
+    def process_begin(self, groups: List[PipelineEventGroup]
+                      ) -> Optional[Callable[[], None]]:
+        """Run the chain up to and including the first processor that
+        leaves device work in flight.  Returns None when the chain ran to
+        its end; else a continuation that consumes the device work and runs
+        the remaining processors — call it exactly once."""
+        with self._in_process_zero:
+            self._in_process_cnt += 1
+        try:
+            cont = self._walk_chain(groups, 0, allow_async=True)
+        except BaseException:
+            self._exit_process()
+            raise
+        if cont is None:
+            self._exit_process()
+            return None
+
+        def finish():
+            try:
+                cont()
+            finally:
+                self._exit_process()
+        return finish
+
+    def _walk_chain(self, groups: List[PipelineEventGroup], i: int,
+                    allow_async: bool):
+        """Walk the chain from ``i``.  With ``allow_async`` the first stage
+        that leaves device work in flight returns a continuation, which
+        finishes that stage and walks the rest of the chain inline."""
+        chain = self.inner_processors + self.processors
+        while i < len(chain):
+            p = chain[i]
+            if not p.supports_async_dispatch:
+                for g in groups:
+                    self._timed(p.name, p.process, g)
+                i += 1
+                continue
+            tokens = [self._timed(p.name, p.process_dispatch, g)
+                      for g in groups]
+            if allow_async and any(t is not None for t in tokens):
+                rest = i + 1
+
+                def finish(p=p, tokens=tokens, rest=rest):
+                    self._complete(p, groups, tokens)
+                    self._walk_chain(groups, rest, allow_async=False)
+                return finish
+            # nothing stayed in flight (or no overlap asked): finish inline
+            self._complete(p, groups, tokens)
+            i += 1
+        return None
+
+    def _complete(self, p: Processor, groups, tokens) -> None:
+        for g, t in zip(groups, tokens):
+            self._timed(p.name, p.process_complete, g, t)
+
+    def _exit_process(self) -> None:
+        with self._in_process_zero:
+            self._in_process_cnt -= 1
+            if self._in_process_cnt == 0:
+                self._in_process_zero.notify_all()
+
+    def in_process_count(self) -> int:
+        with self._in_process_zero:
+            return self._in_process_cnt
+
+    def wait_all_items_in_process_finished(self, timeout: float = 10.0
+                                           ) -> bool:
+        with self._in_process_zero:
+            return self._in_process_zero.wait_for(
+                lambda: self._in_process_cnt == 0, timeout)
+
+    def send(self, groups: List[PipelineEventGroup]) -> bool:
+        for g in groups:
+            for f in self.flushers:
+                self._timed(f.name, f.send, g)
+        with self._stats_lock:
+            self.events_sent += sum(len(g) for g in groups)
+        return True

@@ -7,6 +7,7 @@ for per-event groups the sources are packed into a scratch arena first.
 
 from __future__ import annotations
 
+import threading
 from dataclasses import dataclass
 from typing import List, Optional, Tuple
 
@@ -21,13 +22,16 @@ RAW_LOG_KEY = "rawLog"
 log = get_logger("processor")
 
 # The reference raises a PARSE_LOG_FAIL alarm through its AlarmManager; the
-# port has no alarm plane yet, so failed parses are logged and counted here.
+# port has no alarm plane yet, so failed parses are logged and counted here
+# (under a lock: runner workers share it).
 parse_fail_events = 0
+_fail_lock = threading.Lock()
 
 
 def note_parse_failures(n: int) -> None:
     global parse_fail_events
-    parse_fail_events += n
+    with _fail_lock:
+        parse_fail_events += n
     log.warning("%d events failed to parse (kept as rawLog when configured)",
                 n)
 

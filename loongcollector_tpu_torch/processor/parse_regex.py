@@ -10,7 +10,10 @@ The whole group parses as ONE batch through ops.regex.RegexEngine on the
 pipeline's device (context.device); returned spans index the group's own
 arena, so downstream serialization stays zero-copy.  Columnar groups take
 the span-matrix path, per-event groups the row path — both as in the JAX
-package's processor.
+package's processor.  ``process_dispatch`` leaves the parse in flight on
+the device and ``process_complete`` applies it (reference
+``processor/parse_regex.py:98-118``); a parse that completed at dispatch is
+applied at once.
 """
 
 from __future__ import annotations
@@ -54,11 +57,31 @@ class ProcessorParseRegex(Processor):
                          for i in range(self.engine.num_caps)]
         return True
 
-    def process(self, group: PipelineEventGroup) -> None:
+    supports_async_dispatch = True
+
+    def process_dispatch(self, group: PipelineEventGroup):
+        """Dispatch the group's parse and return the pending handle; the
+        device works while the runner handles neighbouring groups."""
         src = extract_source(group, self.source_key)
         if src is None:
+            return None
+        pending = self.engine.parse_batch_async(
+            src.arena, src.offsets, src.lengths)
+        if pending.done:
+            self._apply(group, src, pending.result())
+            return None
+        return src, pending
+
+    def process_complete(self, group: PipelineEventGroup, token) -> None:
+        if token is None:
             return
-        res = self.engine.parse_batch(src.arena, src.offsets, src.lengths)
+        src, pending = token
+        self._apply(group, src, pending.result())
+
+    def process(self, group: PipelineEventGroup) -> None:
+        self.process_complete(group, self.process_dispatch(group))
+
+    def _apply(self, group: PipelineEventGroup, src, res) -> None:
         if src.columnar:
             apply_parse_spans(group, src, res, self.keys,
                               self.keep_source_on_fail,

@@ -44,6 +44,37 @@ def test_import_loads_no_jax():
     assert res["bad"] == []
 
 
+STREAMING_MODULES = [
+    "ops.xprof", "ops.compile_watch", "ops.device_plane", "ops.device_stream",
+    "ops.regex.engine", "processor.parse_regex", "pipeline.plugin.interface",
+    "pipeline.pipeline", "pipeline.queue.bounded_queue",
+    "pipeline.queue.process_queue_manager", "pipeline.pipeline_manager",
+    "runner.processor_runner", "input.file.input_file", "input.file.reader",
+    "application",
+]
+
+_PROBE_EACH = """
+import importlib, json, sys
+out = {}
+for name in sys.argv[1:]:
+    importlib.import_module("loongcollector_tpu_torch." + name)
+    out[name] = sorted(m for m in sys.modules if m.split(".")[0] in
+                       ("jax", "jaxlib", "loongcollector_tpu"))
+print(json.dumps(out))
+"""
+
+
+def test_streaming_modules_load_no_jax():
+    """The modules of the streaming main path, imported one after the
+    other in a fresh interpreter, load neither JAX nor the JAX package."""
+    out = subprocess.run([sys.executable, "-c", _PROBE_EACH,
+                          *STREAMING_MODULES], cwd=REPO, capture_output=True,
+                         text=True, timeout=120, check=True)
+    res = json.loads(out.stdout.strip().splitlines()[-1])
+    assert sorted(res) == sorted(STREAMING_MODULES)
+    assert all(bad == [] for bad in res.values()), res
+
+
 def _sources():
     for root, _dirs, files in os.walk(PORT):
         for fn in files:
