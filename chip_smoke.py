@@ -5,13 +5,14 @@
 
 Phases, each of which exits non-zero on failure:
 
-1. build: compile the CUDA field-extraction kernel from
-   ``loongcollector_tpu_torch/ops/kernels/csrc/`` (into ``build/kernels/``,
-   keyed on the source hash) and the repo's native host library; print the
-   build seconds, ptxas's registers, stack frame and spills for each kernel
+1. build: compile the CUDA field-extraction kernel and the DFA walk
+   (K2, K4) from ``loongcollector_tpu_torch/ops/kernels/csrc/`` (into
+   ``build/kernels/``, keyed on the source hash), one nvcc each, started
+   together, and the repo's native host library; print the build seconds,
+   ptxas's registers, stack frame and spills for each kernel
    instantiation, the torch version and the card's name and power limit.
    Fails if the depth-0, pivot-free instantiation (the Apache program's)
-   has a stack frame or spills.
+   or either DFA walker has a stack frame or spills.
 2. parity: the kernel against its plain PyTorch version, on the card, on
    the test patterns, a seeded generative set (double pivots included), the
    Apache pattern, and a depth-8 nested pattern and a 32-capture pattern on
@@ -48,12 +49,47 @@ Phases, each of which exits non-zero on failure:
    whose H2D ran under the previous dispatch's kernel, from the timeline
    (printed; the phase does not fail on it).
 
+6. DFA parity: K2 and K4 against their plain versions on the card,
+   bit-exact, at every length bucket (rows exactly L long, empty rows,
+   padding rows) and at L=100 and on misaligned rows (the byte walk), on
+   the patterns and sets of the JAX package's DFA and fusion tests
+   (copied), the multiline paths' own, a single DFA at 64 states and 32
+   classes, a fused set of 124 states and 48 classes, and a 32-member set
+   whose bit 31 is set on real rows; both agree with ``re.fullmatch``, and
+   both entry points launch.
+7. multiline paths on a seeded 600,000-line Java log
+   (``testdata.gen_java_log``): path 1, the stock ``multiline_java.yaml``
+   (K1 as the start gate and the parse), at one worker; path 2, start and
+   continue patterns with an exception filter
+   (``testdata.java_filter_config``: K4 classifies lines, K1 parses
+   records, K2 gates messages), at one and four workers.  Each run: every
+   record equals the ``re`` oracle (``testdata.java_records`` and
+   ``java_oracle``) in file order, the last record from the stop-time
+   drain included; K4's and K2's launches equal their device batches and
+   their exec legs on the dispatch timeline, and are > 0; rows routed to
+   the host equal the oracle's lines, records and messages over 4096
+   bytes; the plane settles.  Prints MB/s, records, each kernel's seconds
+   (its exec legs), the traced busy share and the launch geometries.
+8. grok: ``grok_nginx.yaml`` as shipped on phase 3's Apache log; every
+   record equals ``re`` with ``expand("%{COMMONAPACHELOG}")``'s named
+   groups, and K1's launches equal its device batches.  Prints MB/s.
+9. DFA at the paths' shapes, and timing: at every (B, L) that K4 and K2
+   launched in phase 7's path-2 runs, a batch of that run's own rows (Java
+   lines for K4, record messages for K2: consecutive rows in file order no
+   longer than L, from a row over L/2, with padding rows) through the
+   kernel and its plain version, bit-exact, and against ``re.fullmatch``;
+   then each kernel warm and cold, its plain version and bound, at each of
+   those shapes, and on the path-2 automata at B=8192 and B=65536, L=128,
+   and for K2 at L=1024.  The ``kernels`` line gives K2 and K4 at the
+   shape path 2 launched most.
+
 In every phase each recorded launch must be whole warps within the block
 limit and the shared-memory budget, with a block for each SM once a batch
 holds 32 rows an SM; the geometry in the ``kernels`` line is the one
 ``launch()`` passed to the kernel in this run.
 
-The line before the last is the ``kernels`` JSON line, the last line the
+An earlier line prints the script's total seconds.  The line before the
+last is the ``kernels`` JSON line (K1, K2 and K4), the last line the
 ``{"ok": true, "device": ...}`` object.  It imports nothing of JAX or of
 the JAX package.
 """
@@ -272,38 +308,56 @@ def graph_ms(fns, reps: int = 50, iters: int = 20,
 
 # -- phases -----------------------------------------------------------------
 
-def phase_build(fxc, native) -> dict:
+def phase_build(fxc, dsc, native) -> dict:
+    """Both kernel libraries, one nvcc each, started together."""
+    import threading
     import torch
     t0 = time.perf_counter()
-    try:
-        fxc.build()
-    except Exception as e:  # noqa: BLE001 — reported, then exit non-zero
-        fail(f"kernel build: {e}")
+    errors, secs = {}, {}
+
+    def build(name, mod):
+        t = time.perf_counter()
+        try:
+            mod.build()
+        except Exception as e:  # noqa: BLE001 — reported, then exit 1
+            errors[name] = e
+        secs[name] = time.perf_counter() - t
+    threads = [threading.Thread(target=build, args=a)
+               for a in (("field_extract", fxc), ("dfa_scan", dsc))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    if errors:
+        fail(f"kernel build: {errors}")
     kernel_s = time.perf_counter() - t0
     ptxas = fxc.ptxas_report(fxc.build_log)
-    for name, r in sorted(ptxas.items()):
+    dfa_ptxas = dsc.ptxas_report(dsc.build_log)
+    for name, r in sorted(ptxas.items()) + sorted(dfa_ptxas.items()):
         log(f"ptxas {name}: {r.get('registers')} registers, "
             f"{r.get('stack')} bytes stack frame, {r.get('spill_stores')} "
             f"bytes spill stores, {r.get('spill_loads')} bytes spill loads")
     missing = [e for e in fxc.ENTRY_POINTS
                if e.replace("lct_field_extract_", "") not in ptxas]
+    missing += [m for m in dsc.ENTRY_POINTS if m not in dfa_ptxas]
     if missing:
         fail(f"no ptxas report for {missing}")
-    flat = ptxas["d0_p0"]
-    if flat.get("stack", 1) or flat.get("spill_stores", 1) \
-            or flat.get("spill_loads", 1):
-        fail(f"the depth-0, pivot-free instantiation has local memory: "
-             f"{flat}")
+    for name, r in [("d0_p0", ptxas["d0_p0"])] + [
+            (m, dfa_ptxas[m]) for m in dsc.ENTRY_POINTS]:
+        if r.get("stack", 1) or r.get("spill_stores", 1) \
+                or r.get("spill_loads", 1):
+            fail(f"the {name} walker has local memory: {r}")
     t0 = time.perf_counter()
     if native.get_lib() is None:
         fail("native host library did not build")
     native_s = time.perf_counter() - t0
-    log(f"build: kernel {kernel_s:.2f} s, native library {native_s:.2f} s; "
-        f"torch {torch.__version__} cuda {torch.version.cuda}; "
-        f"python {sys.version.split()[0]}")
+    log(f"build: both kernels {kernel_s:.2f} s in parallel (field_extract "
+        f"{secs['field_extract']:.2f} s, dfa_scan {secs['dfa_scan']:.2f} s), "
+        f"native library {native_s:.2f} s; torch {torch.__version__} cuda "
+        f"{torch.version.cuda}; python {sys.version.split()[0]}")
     log(f"card: {nvidia_smi()}; {torch.cuda.get_device_name(0)}")
     return {"kernel_build_s": kernel_s, "native_build_s": native_s,
-            "ptxas": ptxas}
+            "build_s": secs, "ptxas": ptxas, "dfa_ptxas": dfa_ptxas}
 
 
 def checked_shapes(shapes, phase: str) -> list:
@@ -547,22 +601,7 @@ def phase_main_path(tmp: str, log_path: str, lines, n_bytes: int,
     stats_path = os.path.join(run_dir, "stats.json")
     cfg_dir = write_config(run_dir, log_path, out_path)
     tag = f"main path, {threads} worker{'s' if threads > 1 else ''}"
-    env = dict(os.environ, LOONG_PROCESS_THREADS=str(threads))
-    t0 = time.perf_counter()
-    proc = subprocess.run(
-        [sys.executable, "-m", "loongcollector_tpu_torch", "--config",
-         cfg_dir, "--once", "--stats", stats_path],
-        cwd=REPO, capture_output=True, text=True, timeout=900, env=env)
-    wall = time.perf_counter() - t0
-    if proc.returncode != 0:
-        fail(f"{tag}: agent exited {proc.returncode}:\n"
-             f"{proc.stderr[-4000:]}")
-    with open(stats_path) as f:
-        st = json.load(f)
-    if st["device"] != "cuda":
-        fail(f"{tag}: agent ran on {st['device']}")
-    if st["threads"] != threads:
-        fail(f"{tag}: the agent ran {st['threads']} workers")
+    st, wall = run_agent(tag, cfg_dir, stats_path, threads)
     rx = re.compile(APACHE.encode())
     n = 0
     with open(out_path, "rb") as f:
@@ -578,32 +617,14 @@ def phase_main_path(tmp: str, log_path: str, lines, n_bytes: int,
     if n != len(lines):
         fail(f"{tag}: {n} records for {len(lines)} lines")
     plane, ring = st["plane"], st["ring"]
-    if not 0 < st["launches"] == st["device_batches"] == plane["dispatches"]:
-        fail(f"{tag}: launches {st['launches']} vs device batches "
-             f"{st['device_batches']} vs plane dispatches "
-             f"{plane['dispatches']}")
+    shapes = check_settled(tag, st)
     if st["re_oversize_rows"] or st["re_tier_rows"]:
         fail(f"{tag}: rows routed to re: {st}")
-    if plane["inflight_bytes"] or ring["leased"] \
-            or st["device_memory"]["total_live_bytes"] \
-            or ring["leases"] != ring["returns"]:
-        fail(f"{tag}: the plane did not settle: in flight "
-             f"{plane['inflight_bytes']} bytes, ring {ring}, memory "
-             f"{st['device_memory']}")
     legs = st["timeline"]["legs"]
     if legs.get("exec", {}).get("count") != st["launches"] \
             or legs["exec"]["clock"] != "device":
         fail(f"{tag}: the timeline has no device exec leg for every "
              f"launch: {legs}")
-    from loongcollector_tpu_torch.ops.kernels.field_extract_cuda import \
-        LaunchShape
-    shapes = checked_shapes({LaunchShape(**{k: v for k, v in d.items()
-                                            if k != "launches"}):
-                             d["launches"] for d in st["launch_shapes"]},
-                            tag)
-    if sum(n for _, n in shapes) != st["launches"]:
-        fail(f"{tag}: launch shapes {st['launch_shapes']} do not add up "
-             f"to {st['launches']} launches")
     if not any(sh.B == 8192 for sh, _ in shapes):
         fail(f"{tag}: no launch at B=8192: {st['launch_shapes']}")
     for sh, k in shapes:
@@ -854,7 +875,571 @@ def phase_plane() -> dict:
     return out
 
 
+# -- the DFA tier (K2, K4) ---------------------------------------------------
+
+# tests/test_dfa_engine.py and tests/test_fuse.py patterns and sets, copied
+# (the port's checks may not import the JAX package's tests), with the
+# multiline paths' own and the automata at the kernels' limits
+DFA_PATTERNS = [
+    r"(?:GET|POST|PUT) /\S*", r"(?:ab)+x", r"(?:GET|POST|DELETE|PUT|HEAD) .*",
+    r"[a-z]+\d*(?:-[a-z0-9]+)*", r"(?:ERROR|WARN|INFO|DEBUG):.*",
+    r"(?:ERROR|WARN):\d+ .*",
+]
+FUSED_SETS = [
+    [r"\d{4}-\d{2}-\d{2} .*", r"\s+at .*", r"(\w+)=(\d+)", r"\d+", r"[a-z]+"],
+    [r"\d+", r"[a-z]+", r"\d+[a-z]+", r"x.*", r"-"],
+]
+DFA_ALPHABET = b"GETPOSTabcz0123 :-ERRORWANIF.*/=x\tExceptionat"
+
+
+def dfa_lines(rng, patterns, java, L):
+    """Rows for one (automaton, L): the patterns' own words, seeded noise,
+    Java lines and records (long rows), rows exactly L long, empty rows."""
+    import numpy as np
+    words = sorted({w for p in patterns
+                    for w in re.findall(r"[A-Za-z0-9]{2,}", p)}) + [
+        "2024-03-01 12:00:01 INFO x", "\tat a.B(C.java:1)", "Caused by: x",
+        "GET /a", "ERROR:12 x", "abab", "k=12"]
+    out = []
+    for _ in range(60):
+        line = words[int(rng.integers(len(words)))].encode() \
+            + [b"", b"123", b" x y", b"=7", b"-ab", b"x"][int(rng.integers(6))]
+        if rng.integers(4) == 0:
+            i = int(rng.integers(len(line)))
+            line = line[:i] + bytes([DFA_ALPHABET[int(rng.integers(
+                len(DFA_ALPHABET)))]]) + line[i + 1:]
+        out.append(line)
+    out += [bytes(DFA_ALPHABET[i] for i in rng.integers(
+        0, len(DFA_ALPHABET), int(rng.integers(0, 40)))) for _ in range(40)]
+    out += java[:40]
+    k = int(rng.integers(len(java) - 200))
+    out += [b"\n".join(java[k:k + n]) for n in (5, 20, 60, 200)]
+    out = [x[:L] for x in out]
+    out += [bytes(rng.integers(32, 127, L, dtype=np.uint8)),
+            (b"1" * L), (java[0] * (L // len(java[0]) + 1))[:L], b"", b""]
+    return out
+
+
+def check_dfa_batch(kern, patterns, lines, L, stats, misalign=False):
+    """K2/K4 against its plain version on the card, bit-exact, and both
+    against re.fullmatch, for one (automaton, L) batch."""
+    import numpy as np
+    import torch
+    from loongcollector_tpu_torch.ops.device_batch import pack_rows
+    lens = np.array([len(x) for x in lines], np.int32)
+    arena = np.frombuffer(b"".join(lines) or b"\0", np.uint8)
+    offs = np.concatenate([[0], np.cumsum(lens[:-1])]).astype(np.int64)
+    batch = pack_rows(arena, offs, lens, L)
+    rows = torch.from_numpy(batch.rows).cuda()
+    if misalign:
+        buf = torch.zeros(rows.numel() + 1, dtype=torch.uint8,
+                          device=rows.device)
+        rows = buf[1:].view(rows.shape).copy_(rows)
+    lengths = torch.from_numpy(batch.lengths).cuda()
+    got = kern(rows, lengths).cpu().numpy()
+    torch.cuda.synchronize()
+    want = kern.plain(rows, lengths).cpu().numpy()
+    if got.shape != want.shape or got.dtype != want.dtype \
+            or not (got == want).all():
+        bad = np.nonzero(got != want)[0]
+        fail(f"{kern.mode} kernel != plain for {patterns!r} at L={L}, "
+             f"rows {bad[:5].tolist()}")
+    stats["max_abs_err"] = max(stats["max_abs_err"], int(np.abs(
+        got.astype(np.int64) - want.astype(np.int64)).max(initial=0)))
+    rxs = [re.compile(p.encode("latin-1")) for p in patterns]
+    for i, line in enumerate(lines):
+        if kern.mode == "match":
+            ok = rxs[0].fullmatch(line) is not None
+            if bool(got[i]) != ok:
+                fail(f"K2 disagrees with re on {patterns[0]!r} {line!r}")
+        else:
+            tags = sum(1 << b for b, r in enumerate(rxs) if r.fullmatch(line))
+            if int(got.view(np.uint32)[i]) != tags:
+                fail(f"K4 disagrees with re on {patterns!r} {line!r}")
+    stats["checks"] += 1
+    stats["rows"] += len(lines)
+    if kern.mode == "tags":
+        stats["bit31_rows"] += int((got.view(np.uint32)[:len(lines)]
+                                    >> 31 & 1).sum())
+
+
+def checked_dfa_shapes(shapes, phase: str) -> list:
+    """K2/K4 launches as (shape, launches): whole warps within the block
+    limit, a block for every ``threads`` rows and for each SM once a batch
+    holds 32 rows an SM, the tables within 48 KB."""
+    from loongcollector_tpu_torch.ops.kernels import dfa_scan_cuda as dsc
+    from loongcollector_tpu_torch.ops.kernels import field_extract_cuda as fxc
+    out = sorted(shapes.items(), key=lambda kv: (kv[0].entry_point,
+                                                 kv[0].B, kv[0].L))
+    for sh, _n in out:
+        if (sh.threads % 32 or not dsc.MIN_THREADS <= sh.threads
+                <= dsc.MAX_THREADS or sh.S > dsc.MAX_STATES
+                or sh.smem != dsc.smem_bytes(sh.S) or sh.smem > 48 * 1024
+                or sh.blocks != -(-sh.B // sh.threads)
+                or sh.B >= 32 * fxc.NUM_SMS and sh.blocks < fxc.NUM_SMS):
+            fail(f"{phase}: DFA launch outside the card's limits: {sh}")
+    if not out:
+        fail(f"{phase}: no DFA kernel launch recorded")
+    return out
+
+
+def phase_dfa_parity(java) -> dict:
+    import numpy as np
+    from loongcollector_tpu_torch.ops.device_batch import LENGTH_BUCKETS
+    from loongcollector_tpu_torch.ops.kernels import dfa_scan_cuda as dsc
+    from loongcollector_tpu_torch.ops.kernels.dfa_scan import (
+        DFAMatchKernel, FusedScanKernel)
+    from loongcollector_tpu_torch.ops.regex.dfa import compile_dfa
+    from loongcollector_tpu_torch.ops.regex.fuse import compile_fused
+    from loongcollector_tpu_torch import testdata as td
+    stats = {"checks": 0, "rows": 0, "max_abs_err": 0, "bit31_rows": 0,
+             "automata": []}
+    rng = np.random.default_rng(20261017)
+    cases = []
+    for pat in DFA_PATTERNS + [td.JAVA_FILTER, td.JAVA_CONTINUE,
+                               td.LIMIT_DFA]:
+        dfa = compile_dfa(pat)
+        cases.append((DFAMatchKernel(dfa), [pat]))
+        stats["automata"].append(("K2", dfa.num_states, dfa.num_classes))
+    for pats in FUSED_SETS + [[td.JAVA_START, td.JAVA_CONTINUE],
+                              td.NEAR_CAP_SET, td.BIT31_SET]:
+        fd = compile_fused(pats)
+        if not fd.device_ok or fd.demoted:
+            fail(f"fused set {pats!r} is not device_ok or demoted a member")
+        cases.append((FusedScanKernel(fd), fd.patterns))
+        stats["automata"].append(("K4", fd.num_states, fd.num_classes))
+    if ("K2", 64, 32) not in stats["automata"] \
+            or ("K4", 124, 48) not in stats["automata"]:
+        fail(f"the limit automata changed: {stats['automata']}")
+    dsc.reset_launch_shapes()
+    for kern, pats in cases:
+        extra = [p.encode() for p in td.BIT31_SET] \
+            if pats == td.BIT31_SET else []
+        for L in LENGTH_BUCKETS:
+            check_dfa_batch(kern, pats, dfa_lines(rng, pats, java, L) + extra,
+                            L, stats)
+        # a width that is not a multiple of 16 and rows off a 16-byte
+        # boundary take the byte-by-byte walk
+        check_dfa_batch(kern, pats, dfa_lines(rng, pats, java, 100), 100,
+                        stats)
+        check_dfa_batch(kern, pats, dfa_lines(rng, pats, java, 128), 128,
+                        stats, misalign=True)
+    if not stats["bit31_rows"]:
+        fail("no row set tag bit 31")
+    shapes = checked_dfa_shapes(dict(dsc.launch_shapes), "dfa parity")
+    if sum(n for _, n in shapes) != stats["checks"]:
+        fail(f"dfa parity: {sum(n for _, n in shapes)} launches recorded "
+             f"for {stats['checks']} batches")
+    launched = {sh.entry_point for sh, _ in shapes}
+    if launched != set(dsc.ENTRY_POINTS.values()):
+        fail(f"DFA entry points never launched: "
+             f"{set(dsc.ENTRY_POINTS.values()) - launched}")
+    log(f"dfa parity: {stats['checks']} (automaton, L) batches over "
+        f"{len(cases)} automata {stats['automata']}, {stats['rows']} rows: "
+        f"K2 and K4 bit-exact with their plain versions and with re; "
+        f"{stats['bit31_rows']} rows with tag bit 31; entry points "
+        f"launched {sorted(launched)}")
+    return stats
+
+
+def java_log():
+    """The seeded Java log of the multiline paths, written once."""
+    from loongcollector_tpu_torch.testdata import gen_java_log
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_java_")
+    log_path = os.path.join(tmp, "app.log")
+    t0 = time.perf_counter()
+    lines = gen_java_log(MAIN_PATH_LINES, seed=13)
+    data = b"\n".join(lines) + b"\n"
+    with open(log_path, "wb") as f:
+        f.write(data)
+    log(f"java log: {len(lines)} lines, {len(data)} bytes written in "
+        f"{time.perf_counter() - t0:.1f} s")
+    return tmp, log_path, lines, len(data)
+
+
+def run_agent(tag, cfg_dir, stats_path, threads):
+    env = dict(os.environ, LOONG_PROCESS_THREADS=str(threads))
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "loongcollector_tpu_torch", "--config",
+         cfg_dir, "--once", "--stats", stats_path],
+        cwd=REPO, capture_output=True, text=True, timeout=900, env=env)
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        fail(f"{tag}: agent exited {proc.returncode}:\n"
+             f"{proc.stderr[-4000:]}")
+    with open(stats_path) as f:
+        st = json.load(f)
+    if st["device"] != "cuda" or st["threads"] != threads:
+        fail(f"{tag}: the agent ran on {st['device']} with {st['threads']} "
+             f"workers")
+    return st, wall
+
+
+def check_settled(tag, st) -> list:
+    """K1's launches equal its device batches and the plane's dispatches,
+    the plane, ring and memory ledger are back at 0, and the launch shapes
+    add up; returns the shapes."""
+    from loongcollector_tpu_torch.ops.kernels.field_extract_cuda import \
+        LaunchShape
+    plane, ring = st["plane"], st["ring"]
+    if not 0 < st["launches"] == st["device_batches"] == plane["dispatches"]:
+        fail(f"{tag}: K1 launches {st['launches']} vs device batches "
+             f"{st['device_batches']} vs plane dispatches "
+             f"{plane['dispatches']}")
+    if plane["inflight_bytes"] or ring["leased"] \
+            or st["device_memory"]["total_live_bytes"] \
+            or ring["leases"] != ring["returns"]:
+        fail(f"{tag}: the plane did not settle: in flight "
+             f"{plane['inflight_bytes']} bytes, ring {ring}, memory "
+             f"{st['device_memory']}")
+    shapes = checked_shapes({LaunchShape(**{k: v for k, v in d.items()
+                                            if k != "launches"}):
+                             d["launches"] for d in st["launch_shapes"]},
+                            tag)
+    if sum(n for _, n in shapes) != st["launches"]:
+        fail(f"{tag}: K1 launch shapes do not add up to its launches")
+    return shapes
+
+
+def dfa_stats_line(tag, name, k) -> list:
+    from loongcollector_tpu_torch.ops.kernels.dfa_scan_cuda import \
+        LaunchShape
+    shapes = checked_dfa_shapes(
+        {LaunchShape(**{f: v for f, v in d.items() if f != "launches"}):
+         d["launches"] for d in k["launch_shapes"]}, f"{tag} {name}")
+    if sum(n for _, n in shapes) != k["launches"]:
+        fail(f"{tag}: {name} launch shapes do not add up to its launches")
+    if k["exec_legs"] != k["launches"]:
+        fail(f"{tag}: {name} has {k['exec_legs']} exec legs on the timeline "
+             f"for {k['launches']} launches")
+    log(f"{tag}: {name} {k['launches']} launches = {k['device_batches']} "
+        f"device batches = its exec legs, {k['host_rows']} host-routed rows, "
+        f"kernel {k['kernel_seconds']:.6f} s (exec legs; median "
+        f"{k['exec_median_s'] * 1e3:.5f} ms, largest "
+        f"{k['exec_max_s'] * 1e3:.5f} ms); "
+        + ", ".join(f"{n} at B={sh.B} L={sh.L} S={sh.S} ({sh.blocks} "
+                    f"blocks of {sh.threads}, {sh.smem} bytes)"
+                    for sh, n in shapes))
+    return shapes
+
+
+def phase_multiline(tmp, log_path, lines, n_bytes, path, threads) -> dict:
+    """Path 1 (the stock multiline_java.yaml) or path 2 (start+continue
+    and the exception filter) on the Java log, every record against the
+    re oracle in file order."""
+    from loongcollector_tpu_torch import testdata as td
+    tag = f"path {path}, {threads} worker{'s' if threads > 1 else ''}"
+    run_dir = os.path.join(tmp, f"path{path}_threads{threads}")
+    cfg_dir = os.path.join(run_dir, "config")
+    os.makedirs(cfg_dir)
+    out_path = os.path.join(run_dir, "out.json")
+    if path == 1:
+        with open(os.path.join(REPO, "example_config", "quick_start",
+                               "multiline_java.yaml")) as f:
+            text = f.read()
+        text = text.replace("/tmp/loongcollector_demo/app.log", log_path)
+        text = text.replace("  - Type: flusher_stdout",
+                            f"  - Type: flusher_file\n    FilePath: "
+                            f"{out_path}")
+        if log_path not in text or out_path not in text:
+            fail("could not rewrite multiline_java.yaml")
+    else:
+        text = td.java_filter_config(log_path, out_path)
+    with open(os.path.join(cfg_dir, "java.yaml"), "w") as f:
+        f.write(text)
+    st, wall = run_agent(tag, cfg_dir, os.path.join(run_dir, "stats.json"),
+                         threads)
+    records = td.java_records(lines, td.JAVA_CONTINUE if path == 2 else None)
+    want = td.java_oracle(records, td.JAVA_FILTER if path == 2 else None)
+    keys = ("time", "level", "message", "rawLog")
+    n = 0
+    with open(out_path, "rb") as f:
+        for n, rec in enumerate(f, 1):
+            if n > len(want):
+                fail(f"{tag}: more records than the oracle's {len(want)}")
+            obj = json.loads(rec)
+            got = {k: obj[k] for k in keys if k in obj}
+            if got != want[n - 1]:
+                fail(f"{tag}: record {n}: {str(got)[:300]} != re "
+                     f"{str(want[n - 1])[:300]}")
+    if n != len(want) or st["events"] != n:
+        fail(f"{tag}: {n} records ({st['events']} events) for the oracle's "
+             f"{len(want)}")
+    if st["drained_groups"] != 1:
+        fail(f"{tag}: {st['drained_groups']} groups from the stop-time "
+             f"drain, not the file's last record")
+    check_settled(tag, st)
+    long_lines = sum(len(x) > 4096 for x in lines)
+    long_records = sum(len(r) > 4096 for r in records)
+    long_msgs = sum(len(r["message"]) > 4096
+                    for r in td.java_oracle(records) if "message" in r)
+    k2, k4 = st["k2"], st["k4"]
+    k_shapes = {}
+    if path == 1:
+        if st["re_oversize_rows"] != long_lines + long_records \
+                or k2["launches"] or k4["launches"]:
+            fail(f"{tag}: re rows {st['re_oversize_rows']} (oracle "
+                 f"{long_lines} lines + {long_records} records over 4096), "
+                 f"K2 {k2['launches']}, K4 {k4['launches']} launches")
+    else:
+        if not 0 < k4["launches"] == k4["device_batches"] \
+                or not 0 < k2["launches"] == k2["device_batches"]:
+            fail(f"{tag}: K4 {k4['launches']} launches / "
+                 f"{k4['device_batches']} batches, K2 {k2['launches']} / "
+                 f"{k2['device_batches']}")
+        if (st["re_oversize_rows"], k4["host_rows"], k2["host_rows"]) \
+                != (long_records, long_lines, long_msgs):
+            fail(f"{tag}: host-routed rows: K1 {st['re_oversize_rows']}, "
+                 f"K4 {k4['host_rows']}, K2 {k2['host_rows']}; oracle "
+                 f"{long_records} records, {long_lines} lines, {long_msgs} "
+                 f"messages over 4096 bytes")
+        k_shapes = {"K4": dfa_stats_line(tag, "K4", k4),
+                    "K2": dfa_stats_line(tag, "K2", k2)}
+    mbps = n_bytes / st["seconds"] / 1e6
+    k1_s = st["kernel_seconds"] - (k2["kernel_seconds"]
+                                   + k4["kernel_seconds"])
+    log(f"{tag}: {len(lines)} lines in, {len(records)} records, {n} out, "
+        f"equal to the re oracle in order (the last from the stop-time "
+        f"drain); {mbps:.2f} MB/s end to end ({st['seconds']:.3f} s, agent "
+        f"process {wall:.1f} s); exec legs of every kernel "
+        f"{st['kernel_seconds']:.6f} s, traced busy share "
+        f"{st['busy_share'] * 100:.2f}%; K1 {st['launches']} launches, "
+        f"kernel {k1_s:.6f} s, {st['re_oversize_rows']}"
+        f" rows on re; K1 geometry " + ", ".join(
+            f"{d['launches']}x {d['entry_point']} B={d['B']} L={d['L']}"
+            for d in st["launch_shapes"]))
+    log(f"{tag}: stage seconds (host): " + json.dumps(st["stage_seconds"]))
+    os.unlink(out_path)
+    return {"stats": st, "mbps": mbps, "records": len(records), "out": n,
+            "shapes": k_shapes}
+
+
+def phase_grok(tmp, log_path, lines, n_bytes) -> dict:
+    """Path 3: grok_nginx.yaml as shipped on the Apache log."""
+    from loongcollector_tpu_torch.ops.regex.grok import expand
+    tag = "path 3 (grok)"
+    run_dir = os.path.join(tmp, "grok")
+    cfg_dir = os.path.join(run_dir, "config")
+    os.makedirs(cfg_dir)
+    out_path = os.path.join(run_dir, "out.json")
+    with open(os.path.join(REPO, "example_config", "quick_start",
+                           "grok_nginx.yaml")) as f:
+        text = f.read()
+    text = text.replace("/tmp/loongcollector_demo/nginx.log", log_path)
+    text = text.replace("  - Type: flusher_stdout",
+                        f"  - Type: flusher_file\n    FilePath: {out_path}")
+    if log_path not in text or out_path not in text:
+        fail("could not rewrite grok_nginx.yaml")
+    with open(os.path.join(cfg_dir, "grok_nginx.yaml"), "w") as f:
+        f.write(text)
+    st, wall = run_agent(tag, cfg_dir, os.path.join(run_dir, "stats.json"), 1)
+    rx = re.compile(expand("%{COMMONAPACHELOG}").encode())
+    names = list(rx.groupindex)
+    n = 0
+    with open(out_path, "rb") as f:
+        for n, rec in enumerate(f, 1):
+            if n > len(lines):
+                fail(f"{tag}: more records than lines")
+            m = rx.fullmatch(lines[n - 1])
+            obj = json.loads(rec)
+            want = {k: v.decode() for k, v in m.groupdict().items()
+                    if v is not None}
+            got = {k: obj[k] for k in names if k in obj}
+            if got != want:
+                fail(f"{tag}: record {n}: {got} != re {want}")
+    if n != len(lines):
+        fail(f"{tag}: {n} records for {len(lines)} lines")
+    check_settled(tag, st)
+    if st["re_oversize_rows"] or st["re_tier_rows"]:
+        fail(f"{tag}: rows routed to re")
+    mbps = n_bytes / st["seconds"] / 1e6
+    log(f"{tag}: {n} records equal re with the named groups of "
+        f"%{{COMMONAPACHELOG}} in order; K1 {st['launches']} launches = "
+        f"{st['device_batches']} device batches; {mbps:.2f} MB/s end to end "
+        f"({st['seconds']:.3f} s, agent process {wall:.1f} s); kernel "
+        f"{st['kernel_seconds']:.6f} s; geometry " + ", ".join(
+            f"{d['launches']}x {d['entry_point']} B={d['B']} L={d['L']}"
+            for d in st["launch_shapes"]))
+    os.unlink(out_path)
+    return {"stats": st, "mbps": mbps}
+
+
+def dfa_bound_ms(B, S, row_bytes, out_bytes):
+    """Least time for one DFA walk: the bytes the inputs need once (row
+    bytes below each length, the lengths, the table and the per-state
+    outputs) and the outputs, at the HBM rate, against one 32-bit op per
+    row byte at the non-tensor rate; returns (ms, bound_by)."""
+    moved = row_bytes + 4 * B + S * 256 + 4 * S + out_bytes * B
+    t_bytes = moved / HBM_BYTES_PER_S
+    t_ops = row_bytes / INT_OPS_PER_S
+    if t_bytes >= t_ops:
+        return t_bytes * 1e3, "bytes"
+    return t_ops * 1e3, "operations"
+
+
+def path_rows(pool, B, L):
+    """A batch like one the path launched at (B, L): consecutive rows of the
+    run's own pool in file order, each no longer than L, starting at a row
+    over L/2 (so the batch needs its bucket), cycled to 7/8 of B; the rest
+    are padding rows."""
+    fit = [x for x in pool if len(x) <= L]
+    first = next(i for i, x in enumerate(fit) if len(x) > L // 2)
+    n = B - B // 8
+    return [fit[(first + i) % len(fit)] for i in range(n)]
+
+
+def bench_rows(pool, B, L):
+    """B rows of the pool within (lo, L], lo 128 for L=1024 else 0, cycled:
+    the fixed bench points at L=128 and L=1024."""
+    lo = 128 if L == 1024 else 0
+    src = [x for x in pool if lo < len(x) <= L]
+    return (src * (B // max(len(src), 1) + 1))[:B]
+
+
+def phase_dfa_path_shapes(java, path2_runs) -> dict:
+    """K2 and K4 at every (B, L) path 2 launched, on that run's own rows,
+    against the plain version (bit-exact) and re, then warm and cold
+    timing there and at the fixed bench points."""
+    import numpy as np
+    import torch
+    from loongcollector_tpu_torch import testdata as td
+    from loongcollector_tpu_torch.ops.device_batch import pack_rows
+    from loongcollector_tpu_torch.ops.kernels import dfa_scan_cuda as dsc
+    from loongcollector_tpu_torch.ops.kernels.dfa_scan import (
+        DFAMatchKernel, FusedScanKernel)
+    from loongcollector_tpu_torch.ops.regex.dfa import compile_dfa
+    from loongcollector_tpu_torch.ops.regex.fuse import compile_fused
+    fd = compile_fused([td.JAVA_START, td.JAVA_CONTINUE])
+    k4 = FusedScanKernel(fd)
+    k2 = DFAMatchKernel(compile_dfa(td.JAVA_FILTER))
+    msgs = [r["message"].encode()
+            for r in td.java_oracle(td.java_records(java, td.JAVA_CONTINUE))
+            if "message" in r]
+    kerns = {"K4": (k4, java, fd.patterns), "K2": (k2, msgs,
+                                                    [td.JAVA_FILTER])}
+    points = []
+    for name in ("K4", "K2"):
+        shapes = sorted({(sh.B, sh.L) for run in path2_runs
+                         for sh, _ in run["shapes"][name]})
+        points += [(name, B, L, "path") for B, L in shapes]
+    points += [(name, B, L, "bench") for name, L in
+               (("K4", 128), ("K2", 128), ("K2", 1024))
+               for B in (8192, 65536)]
+    out = {}
+    for name, B, L, kind in points:
+        kern, pool, pats = kerns[name]
+        lines = (path_rows if kind == "path" else bench_rows)(pool, B, L)
+        lens = np.array([len(x) for x in lines], np.int32)
+        arena = np.frombuffer(b"".join(lines), np.uint8)
+        offs = np.concatenate([[0], np.cumsum(lens[:-1])]).astype(np.int64)
+        batch = pack_rows(arena, offs, lens, L, B)
+        rows = torch.from_numpy(batch.rows).cuda()
+        lengths = torch.from_numpy(batch.lengths).cuda()
+        dsc.reset_launch_shapes()
+        got = kern(rows, lengths).cpu().numpy()
+        want = kern.plain(rows, lengths).cpu().numpy()
+        if got.dtype != want.dtype or not (got == want).all():
+            bad = np.nonzero(got != want)[0]
+            fail(f"{name} {kind} B={B} L={L}: kernel != plain, rows "
+                 f"{bad[:5].tolist()}")
+        rxs = [re.compile(p.encode()) for p in pats]
+        for i, line in enumerate(lines):
+            if name == "K2":
+                ok = bool(got[i]) == (rxs[0].fullmatch(line) is not None)
+            else:
+                ok = int(got.view(np.uint32)[i]) == sum(
+                    1 << b for b, r in enumerate(rxs) if r.fullmatch(line))
+            if not ok:
+                fail(f"{name} {kind} B={B} L={L}: disagrees with re on "
+                     f"{line[:200]!r}")
+        (sh, _n), = checked_dfa_shapes(dict(dsc.launch_shapes),
+                                       f"{name} B={B} L={L}")
+        call_ms = time_cuda(lambda: kern(rows, lengths), 200)
+        ms = graph_ms([lambda: kern(rows, lengths)])
+        out_bytes = 1 if name == "K2" else 4
+        touched = int(lens.sum()) + 4 * B + out_bytes * B
+        n_copies = max(8, -(-2 * L2_BYTES // touched))
+        copies = [(rows.clone(), lengths.clone()) for _ in range(n_copies)]
+        cold_ms = graph_ms([lambda r=r, n=n: kern(r, n) for r, n in copies],
+                           reps=n_copies * -(-50 // n_copies), iters=5,
+                           keep_outputs=True)
+        del copies
+        plain_ms = time_cuda(lambda: kern.plain(rows, lengths), 5)
+        b_ms, by = dfa_bound_ms(B, kern.arrays.num_states, int(lens.sum()),
+                                out_bytes)
+        out[(name, B, L, kind)] = {
+            "ms": ms, "cold_ms": cold_ms, "call_ms": call_ms,
+            "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": by,
+            "rows": len(lines), "row_bytes": int(lens.sum()),
+            "longest": int(lens.max()), "blocks": sh.blocks,
+            "threads": sh.threads, "smem": sh.smem, "S": sh.S,
+            "copies": n_copies}
+        log(f"{name} {kind} B={B} L={L} S={sh.S} ({len(lines)} rows, longest "
+            f"{int(lens.max())}, {int(lens.sum())} row bytes; {sh.blocks} "
+            f"blocks of {sh.threads} threads, {sh.smem} bytes of shared "
+            f"memory): bit-exact with the plain version and re; kernel "
+            f"{ms:.5f} ms warm and {cold_ms:.5f} ms cold ({n_copies} copies) "
+            f"on the device (graph replay), {call_ms:.4f} ms per wrapper "
+            f"call, plain {plain_ms:.3f} ms, bound {b_ms:.6f} ms ({by}); "
+            f"{int(lens.sum()) / (ms * 1e-3) / 1e6:.1f} MB/s walked")
+    return out
+
+
+def dfa_kernel_entry(name, mode, replaces, parity, timing, path2, path2_4,
+                     build, key):
+    """The ``kernels`` line's entry of K2 (``key`` "K2") or K4 ("K4"): its
+    numbers at the shape path 2 launched most (ties: the larger B)."""
+    k = path2["stats"][key.lower()]
+    (main_sh, _n) = max(path2["shapes"][key],
+                        key=lambda kv: (kv[1], kv[0].B))
+    t = timing[(key, main_sh.B, main_sh.L, "path")]
+    bench = {f"{B}x{L}": {f: timing[(key, B, L, "bench")][f] for f in
+                          ("ms", "cold_ms", "plain_ms", "bound_ms",
+                           "blocks", "threads")}
+             for (k_, B, L, kind) in sorted(timing) if k_ == key
+             and kind == "bench"}
+    return {
+        "name": name,
+        "route": "cuda",
+        "source": "loongcollector_tpu_torch/ops/kernels/csrc/dfa_scan.cu",
+        "replaces": replaces,
+        "parity": "bit-exact",
+        "geometry": [main_sh.B, main_sh.L, t["S"]],
+        "launches": k["launches"],
+        "max_abs_err": parity["max_abs_err"],
+        "ms": t["ms"],
+        "cold_ms": t["cold_ms"],
+        "call_ms": t["call_ms"],
+        "plain_ms": t["plain_ms"],
+        "bound_ms": t["bound_ms"],
+        "bound_by": t["bound_by"],
+        # no single PyTorch call computes a DFA walk
+        "library_ms": None,
+        "path_points": {f"{B}x{L}": {f: v[f] for f in
+                                     ("ms", "cold_ms", "plain_ms",
+                                      "bound_ms", "blocks", "threads")}
+                        for (k_, B, L, kind), v in sorted(timing.items())
+                        if k_ == key and kind == "path"},
+        "bench_points": bench,
+        "path_device_batches": k["device_batches"],
+        "path_host_rows": k["host_rows"],
+        "path_kernel_s": k["kernel_seconds"],
+        "path_exec_median_ms": k["exec_median_s"] * 1e3,
+        "path_exec_max_ms": k["exec_max_s"] * 1e3,
+        "path_launches_4_workers": path2_4["stats"][key.lower()]["launches"],
+        "path_launch_shapes": [[sh.B, sh.L, sh.S, sh.blocks, n]
+                               for sh, n in path2["shapes"][key]],
+        "threads": t["threads"],
+        "blocks": t["blocks"],
+        "smem_bytes": t["smem"],
+        "build_s": build["build_s"]["dfa_scan"],
+        "ptxas": build["dfa_ptxas"][mode],
+    }
+
+
 def main() -> int:
+    t_start = time.perf_counter()
     if len(sys.argv) > 1:
         fail("takes no arguments")
     if not os.path.isdir(os.path.join(REPO, "loongcollector_tpu_torch")):
@@ -865,15 +1450,24 @@ def main() -> int:
     if not torch.cuda.is_available():
         fail("no CUDA device")
     from loongcollector_tpu_torch import native
+    from loongcollector_tpu_torch.ops.kernels import dfa_scan_cuda as dsc
     from loongcollector_tpu_torch.ops.kernels import field_extract_cuda as fxc
-    build = phase_build(fxc, native)
+    build = phase_build(fxc, dsc, native)
     parity = phase_parity()
     tmp, log_path, lines, n_bytes = main_path_log()
     main_path = phase_main_path(tmp, log_path, lines, n_bytes, threads=1)
     main_path4 = phase_main_path(tmp, log_path, lines, n_bytes, threads=4)
-    os.unlink(log_path)
     timing = phase_timing()
     plane = phase_plane()
+    jtmp, jlog_path, jlines, j_bytes = java_log()
+    dfa_parity = phase_dfa_parity(jlines)
+    path1 = phase_multiline(jtmp, jlog_path, jlines, j_bytes, 1, 1)
+    path2 = phase_multiline(jtmp, jlog_path, jlines, j_bytes, 2, 1)
+    path2_4 = phase_multiline(jtmp, jlog_path, jlines, j_bytes, 2, 4)
+    os.unlink(jlog_path)
+    grok = phase_grok(tmp, log_path, lines, n_bytes)
+    os.unlink(log_path)
+    dfa_timing = phase_dfa_path_shapes(jlines, [path2, path2_4])
     mp = main_path["stats"]
     t8, t64 = timing[8192], timing[65536]
     kernels = {"kernels": [{
@@ -913,7 +1507,14 @@ def main() -> int:
         "plane_stress_chunks": plane["stress_chunks"],
         "plane_overlapped": [plane["overlapped"],
                              plane["overlap_dispatches"]],
-        "build_s": build["kernel_build_s"],
+        "path_launches": {"multiline_java": path1["stats"]["launches"],
+                          "java_filter": path2["stats"]["launches"],
+                          "grok_nginx": grok["stats"]["launches"]},
+        "path_mbps": {"multiline_java": path1["mbps"],
+                      "java_filter": path2["mbps"],
+                      "java_filter_4_workers": path2_4["mbps"],
+                      "grok_nginx": grok["mbps"]},
+        "build_s": build["build_s"]["field_extract"],
         "blocks": [t8["blocks"], t64["blocks"]],
         "threads": [t8["threads"], t64["threads"]],
         "smem_bytes": [t8["smem"], t64["smem"]],
@@ -921,7 +1522,15 @@ def main() -> int:
         "main_path_blocks": sorted({sh.blocks for sh, _ in
                                     main_path["shapes"]}),
         "ptxas": build["ptxas"],
-    }]}
+    }, dfa_kernel_entry(
+        "dfa_match", "match",
+        "loongcollector_tpu/ops/kernels/dfa_scan.py:88", dfa_parity,
+        dfa_timing, path2, path2_4, build, "K2"),
+        dfa_kernel_entry(
+        "fused_scan", "tags",
+        "loongcollector_tpu/ops/kernels/dfa_scan.py:172", dfa_parity,
+        dfa_timing, path2, path2_4, build, "K4")]}
+    log(f"total: {time.perf_counter() - t_start:.1f} s")
     print(nvidia_smi())
     print(json.dumps(kernels))
     print(json.dumps({"ok": True, "device": {

@@ -12,8 +12,11 @@ pipelines and their bounded process queues, the processor runner's workers
 (``LOONG_STREAM_DEPTH``, ``LOONG_DEVICE_INFLIGHT_BYTES``), and the inputs
 push what they read, waiting at the queues' high watermark.  The run ends
 once every group the inputs pushed has settled, every process queue is
-empty and every pipeline's in-process count is 0.  A processing failure
-(a kernel failure included) ends the run with exit code 1.
+empty and every pipeline's in-process count is 0; then the records the
+processors still hold (split_multiline's open record of each file) ship
+through the rest of their chain on the calling thread (``drain_held``),
+and the run ends once they are sent.  A processing failure (a kernel
+failure included) ends the run with exit code 1.
 
 The pipelines run on the CUDA device unless ``--cpu`` is given; with no
 CUDA device and no ``--cpu`` the CLI exits with an error.  ``--stats PATH``
@@ -22,7 +25,11 @@ geometry, device batches, rows routed to Python ``re``, the plane's
 dispatches, peak in-flight bytes and budget waits, ring leases and
 returns, the tuner's choices, threads and depth, the dispatch timeline's
 legs and overlapped dispatches, and kernel seconds (the sum of the
-timeline's exec legs on the card).
+timeline's exec legs on the card, every kernel's); and for the DFA
+kernels, ``k2`` (the engines' ``match_batch`` on the DFA tier) and ``k4``
+(the fused sets): launches, device batches, host-routed rows, launch
+shapes, and the kernel's exec legs on the timeline (count, and on the
+card their sum, median and largest).
 """
 
 from __future__ import annotations
@@ -30,6 +37,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import statistics
 import sys
 import time
 from dataclasses import asdict
@@ -77,8 +85,10 @@ def run_once(config_dir: str, device) -> Dict[str, Any]:
     from .ops import compile_watch, xprof
     from .ops.device_plane import DevicePlane, device_memory_status
     from .ops.device_stream import auto_tuner, batch_ring, stream_depth
+    from .ops.kernels import dfa_scan_cuda
     from .ops.kernels import field_extract_cuda as fxc
     from .ops.regex.engine import cached_engines
+    from .ops.regex.fuse import live_sets
     from .pipeline.pipeline_manager import CollectionPipelineManager
     from .pipeline.queue.process_queue_manager import ProcessQueueManager
     from .runner.processor_runner import ProcessorRunner
@@ -89,9 +99,11 @@ def run_once(config_dir: str, device) -> Dict[str, Any]:
     manager = CollectionPipelineManager(pqm, device)
     manager.update_pipelines(configs)
     engines = cached_engines()
+    sets = live_sets()
     fxc.reset_launch_shapes()
-    for eng in engines:
-        eng.reset_counts()
+    dfa_scan_cuda.reset_launch_shapes()
+    for counted in engines + sets:
+        counted.reset_counts()
     plane = DevicePlane.instance()
     plane.reset_counters()
     ring = batch_ring()
@@ -100,10 +112,18 @@ def run_once(config_dir: str, device) -> Dict[str, Any]:
     runner = ProcessorRunner(pqm, manager, device=device)
     t0 = time.perf_counter()
     runner.init()
+    drained_groups = 0
+    drain_error: Optional[BaseException] = None
     try:
         manager.start_inputs(should_abort=runner.failed)
         while not runner.failed() and not _drained(pqm, manager, runner):
             time.sleep(0.002)
+        if not runner.failed():
+            try:
+                drained_groups = manager.drain_held()
+            except Exception as e:  # noqa: BLE001 — the run exits 1
+                log.error("stop-time drain failed", exc_info=e)
+                drain_error = e
     finally:
         runner.stop()
         seconds = time.perf_counter() - t0
@@ -115,6 +135,9 @@ def run_once(config_dir: str, device) -> Dict[str, Any]:
         raise ProcessingFailed(
             f"{runner.groups_failed} group(s) failed: {runner.error!r}"
         ) from runner.error
+    if drain_error is not None:
+        raise ProcessingFailed(f"stop-time drain failed: {drain_error!r}"
+                               ) from drain_error
     if not drained or runner.alive_threads():
         raise ProcessingFailed("the processor runner did not drain")
     ring_after = ring.totals()
@@ -158,6 +181,42 @@ def run_once(config_dir: str, device) -> Dict[str, Any]:
                      **timeline.stats()},
         "lane_overlap": runner.lane_overlap(),
         "compile": compile_watch.compile_status(),
+        "drained_groups": drained_groups,
+        "k2": _dfa_stats([e.dfa_kernel for e in engines
+                          if e.dfa_kernel is not None],
+                         sum(e.dfa_batches for e in engines),
+                         sum(e.dfa_re_rows for e in engines), "match",
+                         timeline, on_card),
+        "k4": _dfa_stats([fs.kernel for fs in sets if fs.kernel is not None],
+                         sum(fs.device_batches for fs in sets),
+                         sum(fs.host_rows for fs in sets), "tags", timeline,
+                         on_card),
+    }
+
+
+def _dfa_stats(kernels, device_batches: int, host_rows: int, mode: str,
+               timeline: xprof.DeviceTimeline,
+               on_card: bool) -> Dict[str, Any]:
+    """One DFA kernel's counts for ``--stats``; its kernel seconds are the
+    timeline's device exec legs of its program."""
+    from .ops import xprof
+    from .ops.kernels import dfa_scan, dfa_scan_cuda
+    entry = dfa_scan_cuda.ENTRY_POINTS[mode]
+    program = (dfa_scan.DFAMatchKernel if mode == "match"
+               else dfa_scan.FusedScanKernel).program
+    execs = timeline.leg_durations("exec", xprof.DEVICE if on_card else None,
+                                   program)
+    return {
+        "launches": sum(k.launches for k in kernels),
+        "device_batches": device_batches,
+        "host_rows": host_rows,
+        "kernel_seconds": sum(execs) if on_card else None,
+        "exec_legs": len(execs),
+        "exec_median_s": statistics.median(execs) if execs else None,
+        "exec_max_s": max(execs, default=None),
+        "launch_shapes": [dict(asdict(shape), launches=n) for shape, n
+                          in dfa_scan_cuda.launch_shapes.items()
+                          if shape.entry_point == entry],
     }
 
 

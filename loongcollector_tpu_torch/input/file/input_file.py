@@ -6,8 +6,11 @@ server.  The port's slice reads the existing content of every matching
 file once (``start``), pushing each group into the pipeline's bounded
 process queue and waiting while the queue is at its high watermark, until
 its feedback says it fell under the low one (JAX package
-``input/file/input_file.py:107-108``).  Tailing, discovery options and
-multiline come with the file-server slice.
+``input/file/input_file.py:107-108``).  With ``Multiline`` (a
+``StartPattern`` or ``EndPattern``) the inner processors are the line
+split and then ``processor_split_multiline_log_string_native``, as the
+reference's (``input_file.py:47-52``), and the reader rolls back to whole
+records.  Tailing and discovery options come with the file-server slice.
 """
 
 from __future__ import annotations
@@ -20,10 +23,7 @@ from typing import Any, Callable, Dict, Iterator, List
 from ...models import PipelineEventGroup
 from ...pipeline.plugin.interface import Input, PluginContext
 from ...pipeline.queue.bounded_queue import FeedbackInterface
-from ...utils.logger import get_logger
 from .reader import LogFileReader
-
-log = get_logger("input_file")
 
 
 class _QueueFeedback(FeedbackInterface):
@@ -46,21 +46,23 @@ class InputFile(Input):
     def __init__(self) -> None:
         super().__init__()
         self.paths: List[str] = []
+        self.multiline: Dict[str, Any] = {}
         self.read_seconds = 0.0
         self.groups_pushed = 0
 
     def init(self, config: Dict[str, Any], context: PluginContext) -> bool:
         super().init(config, context)
         self.paths = list(config.get("FilePaths", []))
-        multiline = config.get("Multiline") or {}
-        if multiline.get("StartPattern") or multiline.get("EndPattern"):
-            log.error("input_file: Multiline is not supported by this port "
-                      "yet")
-            return False
+        self.multiline = config.get("Multiline") or {}
         return bool(self.paths)
 
     def inner_processor_configs(self) -> List[Dict[str, Any]]:
-        return [{"Type": "processor_split_log_string_native"}]
+        out = [{"Type": "processor_split_log_string_native"}]
+        if self.multiline.get("StartPattern") \
+                or self.multiline.get("EndPattern"):
+            out.append({"Type": "processor_split_multiline_log_string_native",
+                        "Multiline": self.multiline})
+        return out
 
     def start(self, should_abort: Callable[[], bool] = lambda: False
               ) -> bool:
@@ -91,7 +93,9 @@ class InputFile(Input):
     def read_all(self) -> Iterator[PipelineEventGroup]:
         for pattern in self.paths:
             for path in sorted(glob.glob(pattern, recursive="**" in pattern)):
-                reader = LogFileReader(path)
+                reader = LogFileReader(
+                    path, multiline_start=self.multiline.get("StartPattern"),
+                    multiline_end=self.multiline.get("EndPattern"))
                 if not reader.open():
                     continue
                 try:

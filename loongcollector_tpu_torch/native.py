@@ -1,9 +1,10 @@
 """ctypes bridge to the repo's C++ host library (``native/``).
 
 The port's copy of the JAX package's bridge, reduced to the entry points
-the Apache path calls: ``split_lines`` (line spans of a read chunk),
-``pack_rows`` (arena → zero-padded ``[B, L]`` row tile) and
-``ndjson_serialize`` (columnar NDJSON assembly).  The library is built from
+the port calls: ``split_lines`` (line spans of a read chunk),
+``pack_rows`` (arena → zero-padded ``[B, L]`` row tile),
+``ndjson_serialize`` (columnar NDJSON assembly) and ``dfa_scan`` (the host
+walk of a byte-indexed DFA table, ``ops/regex/fuse.ByteTableScanner``).  The library is built from
 the repo's sources with ``make -C native`` on first use; when neither the
 library nor a toolchain exists, every wrapper returns None and its caller
 runs the numpy fallback, with byte-identical results.
@@ -31,7 +32,8 @@ _NATIVE_DIR = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "native")
 _LIB_NAME = "libloongcollector_native.so"
 _SO_PATH = os.path.join(_NATIVE_DIR, _LIB_NAME)
-_ENTRY_POINTS = ("lct_split_lines", "lct_pack_rows", "lct_ndjson_serialize")
+_ENTRY_POINTS = ("lct_split_lines", "lct_pack_rows", "lct_ndjson_serialize",
+                 "lct_dfa_scan")
 
 
 def _try_build() -> bool:
@@ -83,6 +85,10 @@ def get_lib() -> Optional[ctypes.CDLL]:
             vp, i64, ctypes.c_int32,
             vp, i64, ctypes.c_int32, ctypes.c_int32,
             vp, i64, vp, i64]
+        i32 = ctypes.c_int32
+        lib.lct_dfa_scan.restype = i64
+        lib.lct_dfa_scan.argtypes = [vp, i64, vp, vp, i64, vp, i32, i32, i32,
+                                     vp, vp]
         _lib = lib
         log.info("native library loaded: %s", _SO_PATH)
         return _lib
@@ -203,3 +209,21 @@ def ndjson_serialize(arena: np.ndarray, timestamps: np.ndarray,
     if written < 0:
         return None
     return memoryview(out)[:written]
+
+
+def dfa_scan(arena: np.ndarray, offsets: np.ndarray, lengths: np.ndarray,
+             t256: np.ndarray, n_states: int, wide: bool, start: int,
+             accept_tags: np.ndarray, out: np.ndarray) -> bool:
+    """Walk each row ``arena[offsets[i]:offsets[i]+lengths[i]]`` through the
+    byte-indexed table ``t256`` (u8, or u16 when ``wide``) and write its
+    accept tags into ``out`` (u32).  All arrays contiguous, offsets i64,
+    lengths i32.  False when the library is unavailable or refused the
+    table (the caller walks in numpy)."""
+    lib = get_lib()
+    if lib is None:
+        return False
+    rc = lib.lct_dfa_scan(_ptr(arena), len(arena), _ptr(offsets),
+                          _ptr(lengths), len(offsets), _ptr(t256), n_states,
+                          1 if wide else 0, start, _ptr(accept_tags),
+                          _ptr(out))
+    return rc == 0

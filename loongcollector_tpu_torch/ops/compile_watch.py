@@ -2,16 +2,17 @@
 
 Reference: loongcollector_tpu/ops/compile_watch.py, which wraps ``jax.jit``
 so the first call at each geometry (trace and compile) is timed and
-counted and every later call is a cache hit.  The port has no jit: its
-kernel is built once by ``nvcc`` into a library keyed on the source hash,
-and each (entry point, B, L) then pays its first launch.  So two families
-are watched, both from ``ops/kernels/field_extract_cuda.py``:
+counted and every later call is a cache hit.  The port has no jit: each
+kernel library is built once by ``nvcc`` into a directory keyed on its
+source hash, and each (entry point, B, L) then pays its first launch.  So
+two families are watched per library (``ops/kernels/field_extract_cuda.py``
+and ``dfa_scan_cuda.py``):
 
-  * ``field_extract_cuda.build`` — ``build()``: a compile is an ``nvcc``
-    run (geometry = the source hash), a cache hit a library loaded from
-    the build directory without one.  ``build()`` holds a lock, so two
+  * ``<module>.build`` — ``build()``: a compile is an ``nvcc`` run
+    (geometry = the source hash), a cache hit a library loaded from the
+    build directory without one.  ``build()`` holds a lock, so two
     workers reaching the first launch at once record one build;
-  * ``field_extract_cuda.launch`` — ``launch()``: the first launch of each
+  * ``<module>.launch`` — ``launch()``: the first launch of each
     (entry point, B, L) is recorded with its host wall time, every later
     launch at that geometry is a cache hit.
 

@@ -1,0 +1,246 @@
+"""Tier-2 DFA execution (K2 and K4): plain PyTorch versions and their
+kernel wrappers.
+
+The JAX package runs both as XLA programs (``loongcollector_tpu/ops/
+kernels/dfa_scan.py``): K2 ``build_dfa_match_fn`` (one DFA, bool per row)
+and K4 ``build_fused_scan_fn`` (a fused multi-accept DFA, a u32 accept-tag
+mask per row carried as i32).  Both compute one table walk per row,
+``state = start; for p < length: state = δ(state, class(row[p]))``, and
+read ``accepting[state]`` or ``accept_tags[state]``; positions at or past
+the length leave the state alone, so a padding row gives the start
+state's value.
+
+``automaton_arrays_from_reference`` folds an automaton's
+``byte_class``/``transitions`` (the port's ``DFA``/``FusedDFA`` or the
+reference's, as numpy) into the kernel inputs: the byte-indexed table
+``t256`` u8 ``[S, 256]`` and ``accept`` i32 ``[S]``.  ``walk_plain`` is the
+lockstep gather over the ``L`` columns (the reference's
+``fuse._scan_numpy`` on tensors): what the tests and ``--cpu`` run.
+
+``DFAMatchKernel`` and ``FusedScanKernel`` are the surfaces callers use: a
+CPU tensor takes the plain version, a CUDA tensor launches the hand-written
+kernel (``dfa_scan_cuda``, source ``csrc/dfa_scan.cu``) and counts it in
+``launches`` — or raises.  ``run_chunks`` is the synchronous chunked
+dispatch the engine's ``match_batch`` and ``FusedSetExec.classify`` share:
+rows packed by ``device_batch.pack_rows`` into pinned buffers of its own
+(not ring slots), copied on the worker's current stream, and the host
+waiting on its own event only, never on the whole device.  While the
+dispatch timeline (``ops/xprof.py``) is on, each batch is a dispatch of its
+own there, program ``dfa_match`` or ``fused_scan``, with h2d, exec and d2h
+legs; the exec events are recorded by the kernel's entry point right
+around the launch.
+"""
+
+from __future__ import annotations
+
+import threading
+from dataclasses import dataclass
+from typing import Dict, Tuple
+
+import numpy as np
+import torch
+
+from .. import xprof
+from ..device_batch import (LENGTH_BUCKETS, MAX_BATCH, pack_rows, pad_batch,
+                            pick_length_bucket)
+
+
+TABLE_MAX_STATES = 256        # u8 state ids in t256; the kernel takes 128
+
+
+@dataclass(frozen=True)
+class AutomatonArrays:
+    """The kernel's inputs for one automaton."""
+
+    t256: np.ndarray          # u8 [S, 256]: next state by (state, byte)
+    accept: np.ndarray        # i32 [S]: 0/1 (K2) or the u32 tags as i32 (K4)
+    start: int
+
+    @property
+    def num_states(self) -> int:
+        return self.t256.shape[0]
+
+
+def automaton_arrays_from_reference(byte_class, transitions, start,
+                                    accept) -> AutomatonArrays:
+    """Kernel inputs from an automaton's arrays (either package's ``DFA``
+    — ``accept`` its bool ``accepting`` — or ``FusedDFA`` — ``accept`` its
+    u32 ``accept_tags``).  The kernel's own cap on states
+    (``dfa_scan_cuda.MAX_STATES``) is checked at launch."""
+    byte_class = np.asarray(byte_class, dtype=np.int64)
+    transitions = np.asarray(transitions, dtype=np.int64)
+    accept = np.asarray(accept)
+    S = transitions.shape[0]
+    if byte_class.shape != (256,) or not 1 <= S <= TABLE_MAX_STATES \
+            or accept.shape != (S,) or not 0 <= int(start) < S \
+            or transitions.min() < 0 or transitions.max() >= S:
+        raise ValueError(f"dfa_scan: automaton of {S} states outside the "
+                         f"table's 1..{TABLE_MAX_STATES} or malformed")
+    t256 = np.ascontiguousarray(transitions[:, byte_class].astype(np.uint8))
+    if accept.dtype == bool:
+        acc = accept.astype(np.int32)
+    else:
+        acc = accept.astype(np.uint32).view(np.int32)
+    return AutomatonArrays(t256, np.ascontiguousarray(acc), int(start))
+
+
+def walk_plain(t256: torch.Tensor, accept: torch.Tensor, start: int,
+               rows: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
+    """accept[final state] per row, i32 [B]: every row advances one byte
+    column per step while the column is below its length."""
+    B, L = rows.shape
+    table = t256.to(torch.int64).reshape(-1)
+    lens = lengths.to(torch.int64).clamp(0, L)
+    state = torch.full((B,), int(start), dtype=torch.int64,
+                       device=rows.device)
+    steps = int(lens.max()) if B else 0
+    for p in range(steps):
+        nxt = table[state * 256 + rows[:, p].to(torch.int64)]
+        state = torch.where(lens > p, nxt, state)
+    return accept[state]
+
+
+class _TableWalkKernel:
+    """One automaton's walk, dispatched by tensor device (see the module
+    docstring).  Runner workers share a wrapper, so the counts are taken
+    under a lock."""
+
+    mode = ""
+    program = ""              # the dispatch timeline's program name
+
+    def __init__(self, arrays: AutomatonArrays):
+        self.arrays = arrays
+        self.launches = 0
+        self._count_lock = threading.Lock()
+        self._tables: Dict[torch.device, Tuple[torch.Tensor, ...]] = {}
+
+    def reset_counts(self) -> None:
+        with self._count_lock:
+            self.launches = 0
+
+    def tables(self, device: torch.device) -> Tuple[torch.Tensor, ...]:
+        """(t256, accept) on ``device``, uploaded once."""
+        got = self._tables.get(device)
+        if got is None:
+            got = (torch.from_numpy(self.arrays.t256).to(device),
+                   torch.from_numpy(self.arrays.accept).to(device))
+            got = self._tables.setdefault(device, got)
+        return got
+
+    def warm(self, device: torch.device) -> None:
+        """Build the kernel library and upload the tables ahead of the
+        first batch (no-op for the CPU)."""
+        if device.type == "cuda":
+            from . import dfa_scan_cuda
+            dfa_scan_cuda.build()
+            if device.index is None:
+                device = torch.device("cuda", torch.cuda.current_device())
+            self.tables(device)
+
+    def _epilogue(self, values: torch.Tensor) -> torch.Tensor:
+        return values
+
+    def plain(self, rows: torch.Tensor, lengths: torch.Tensor
+              ) -> torch.Tensor:
+        t256, accept = self.tables(rows.device)
+        return self._epilogue(walk_plain(t256, accept, self.arrays.start,
+                                         rows, lengths))
+
+    def __call__(self, rows: torch.Tensor, lengths: torch.Tensor,
+                 events=None) -> torch.Tensor:
+        """``events`` (CUDA only): a (start, end) pair of timing CUDA
+        events, recorded right around the kernel."""
+        if rows.device.type == "cpu":
+            return self.plain(rows, lengths)
+        if rows.device.type != "cuda":
+            raise ValueError(f"no dfa_scan kernel for {rows.device}")
+        from . import dfa_scan_cuda
+        t256, accept = self.tables(rows.device)
+        out = dfa_scan_cuda.launch(self.mode, rows, lengths, t256, accept,
+                                   self.arrays.start, events)
+        with self._count_lock:
+            self.launches += 1
+        return out
+
+
+class DFAMatchKernel(_TableWalkKernel):
+    """K2: bool [B], the row fully matches ``dfa``."""
+
+    mode = "match"
+    program = "dfa_match"
+
+    def __init__(self, dfa):
+        super().__init__(automaton_arrays_from_reference(
+            dfa.byte_class, dfa.transitions, dfa.start, dfa.accepting))
+
+    def _epilogue(self, values: torch.Tensor) -> torch.Tensor:
+        return values != 0
+
+
+class FusedScanKernel(_TableWalkKernel):
+    """K4: i32 [B], the u32 accept-tag mask of each row (view it as u32)."""
+
+    mode = "tags"
+    program = "fused_scan"
+
+    def __init__(self, fdfa):
+        super().__init__(automaton_arrays_from_reference(
+            fdfa.byte_class, fdfa.transitions, fdfa.start, fdfa.accept_tags))
+
+
+def _run_batch(kern: _TableWalkKernel, arena: np.ndarray,
+               offsets: np.ndarray, lengths: np.ndarray, L: int,
+               device: torch.device) -> np.ndarray:
+    """One packed batch through ``kern`` on ``device``; the first
+    ``len(offsets)`` results as numpy."""
+    n = len(offsets)
+    B = pad_batch(n)
+    if device.type == "cpu":
+        batch = pack_rows(arena, offsets, lengths, L, B)
+        return kern(torch.from_numpy(batch.rows),
+                    torch.from_numpy(batch.lengths)).numpy()[:n]
+    rows_h = torch.empty((B, L), dtype=torch.uint8, pin_memory=True)
+    lens_h = torch.empty(B, dtype=torch.int32, pin_memory=True)
+    pack_rows(arena, offsets, lengths, L, B,
+              out=(rows_h.numpy(), lens_h.numpy(), np.empty(B, np.int32)))
+    stream = torch.cuda.current_stream(device)
+    xid = xprof.begin_dispatch(rows_h.numel() + 4 * B)
+    ev = None
+    if xid:
+        xprof.annotate(xid, kern.program, f"{B}x{L}")
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
+        ev[0].record(stream)
+    rows_d = rows_h.to(device, non_blocking=True)
+    lens_d = lens_h.to(device, non_blocking=True)
+    if xid:
+        ev[1].record(stream)
+    out_d = kern(rows_d, lens_d, None if ev is None else ev[2:4])
+    out_h = torch.empty(B, dtype=out_d.dtype, pin_memory=True)
+    out_h.copy_(out_d, non_blocking=True)
+    done = ev[4] if xid else torch.cuda.Event()
+    done.record(stream)
+    done.synchronize()
+    if xid:
+        xprof.event_leg(xid, "h2d", ev[0], ev[1])
+        xprof.event_leg(xid, "exec", ev[2], ev[3])
+        xprof.event_leg(xid, "d2h", ev[3], done)
+        xprof.close_dispatch(xid)
+    return out_h.numpy()[:n].copy()
+
+
+def run_chunks(kern: _TableWalkKernel, arena: np.ndarray,
+               offsets: np.ndarray, lengths: np.ndarray, idx: np.ndarray,
+               device: torch.device, out: np.ndarray) -> int:
+    """Rows ``idx`` (each within the largest length bucket) through
+    ``kern`` in chunks of ``MAX_BATCH``, each at the smallest bucket that
+    holds its longest row; results into ``out[idx]`` (i32 tags land as
+    their u32 bit patterns).  Returns the number of batches."""
+    batches = 0
+    for i in range(0, len(idx), MAX_BATCH):
+        chunk = idx[i: i + MAX_BATCH]
+        d_len = lengths[chunk]
+        L = pick_length_bucket(int(d_len.max())) or LENGTH_BUCKETS[-1]
+        res = _run_batch(kern, arena, offsets[chunk], d_len, L, device)
+        out[chunk] = res.view(np.uint32) if res.dtype == np.int32 else res
+        batches += 1
+    return batches

@@ -296,12 +296,46 @@ ENTRY_POINTS = [f"lct_field_extract_d{d}_p{p}" for d in (0, 1)
                 for p in (0, 1, 2)]
 
 
-def source_hash() -> str:
+def source_hash(src: str = _SRC) -> str:
     h = hashlib.sha256()
-    with open(_SRC, "rb") as f:
+    with open(src, "rb") as f:
         h.update(f.read())
     h.update(" ".join(NVCC_FLAGS).encode())
     return h.hexdigest()[:16]
+
+
+def compile_library(src: str, lib_name: str, family: str) -> Tuple[str, str]:
+    """``nvcc`` ``src`` into ``build/kernels/<source hash>/<lib_name>``
+    unless that library exists; returns (library path, nvcc log).  The
+    run is a compile of ``family`` in compile_watch, a library found
+    without one a cache hit.  Raises when nvcc is missing or fails."""
+    digest = source_hash(src)
+    out_dir = os.path.join(BUILD_ROOT, digest)
+    so_path = os.path.join(out_dir, lib_name)
+    log_path = os.path.join(out_dir, "nvcc.log")
+    if os.path.exists(so_path):
+        compile_watch.note_hit(family)
+        log = ""
+        if os.path.exists(log_path):
+            with open(log_path) as f:
+                log = f.read()
+        return so_path, log
+    t0 = time.perf_counter()
+    os.makedirs(out_dir, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
+    os.close(fd)
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, src]
+    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
+    log = proc.stdout + proc.stderr
+    if proc.returncode != 0:
+        os.unlink(tmp)
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{log}")
+    with open(log_path, "w") as f:
+        f.write(log)
+    os.replace(tmp, so_path)
+    compile_watch.note_compile(family, digest,
+                               (time.perf_counter() - t0) * 1e3)
+    return so_path, log
 
 
 def build() -> ctypes.CDLL:
@@ -312,33 +346,8 @@ def build() -> ctypes.CDLL:
     with _lib_lock:
         if _lib is not None:
             return _lib
-        digest = source_hash()
-        out_dir = os.path.join(BUILD_ROOT, digest)
-        so_path = os.path.join(out_dir, "libfield_extract.so")
-        log_path = os.path.join(out_dir, "nvcc.log")
-        if not os.path.exists(so_path):
-            t0 = time.perf_counter()
-            os.makedirs(out_dir, exist_ok=True)
-            fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
-            os.close(fd)
-            cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, _SRC]
-            proc = subprocess.run(cmd, capture_output=True, text=True,
-                                  timeout=600)
-            build_log = proc.stdout + proc.stderr
-            if proc.returncode != 0:
-                os.unlink(tmp)
-                raise RuntimeError(
-                    f"nvcc failed ({proc.returncode}):\n{build_log}")
-            with open(log_path, "w") as f:
-                f.write(build_log)
-            os.replace(tmp, so_path)
-            compile_watch.note_compile(BUILD_FAMILY, digest,
-                                       (time.perf_counter() - t0) * 1e3)
-        else:
-            compile_watch.note_hit(BUILD_FAMILY)
-            if os.path.exists(log_path):
-                with open(log_path) as f:
-                    build_log = f.read()
+        so_path, build_log = compile_library(_SRC, "libfield_extract.so",
+                                             BUILD_FAMILY)
         lib = ctypes.CDLL(so_path)
         vp, i32 = ctypes.c_void_p, ctypes.c_int32
         for name in ENTRY_POINTS:
@@ -360,18 +369,24 @@ _PTXAS_FRAME = re.compile(r"(\d+) bytes stack frame, (\d+) bytes spill "
 _PTXAS_REGS = re.compile(r"Used (\d+) registers")
 
 
-def ptxas_report(log: str) -> Dict[str, Dict[str, int]]:
+def _extract_key(m: "re.Match") -> str:
+    return f"d{m.group(1)}_p{m.group(2)}"
+
+
+def ptxas_report(log: str, kernel: "re.Pattern" = _PTXAS_KERNEL,
+                 key_of=_extract_key) -> Dict[str, Dict[str, int]]:
     """What ``nvcc -Xptxas -v`` reported for each function: registers,
-    stack frame and spill bytes.  Kernel instantiations are keyed like
-    their entry points (``d0_p0`` = depth 0, no pivot), any other function
-    by its mangled name."""
+    stack frame and spill bytes.  A function whose mangled name matches
+    ``kernel`` is keyed ``key_of(match)`` (here like the entry points:
+    ``d0_p0`` = depth 0, no pivot), any other function by its mangled
+    name."""
     out: Dict[str, Dict[str, int]] = {}
     key = None
     for ln in log.splitlines():
         m = _PTXAS_FUNC.search(ln)
         if m:
-            k = _PTXAS_KERNEL.search(m.group(1))
-            key = f"d{k.group(1)}_p{k.group(2)}" if k else m.group(1)
+            k = kernel.search(m.group(1))
+            key = key_of(k) if k else m.group(1)
             out.setdefault(key, {})
             continue
         if key is None:

@@ -1,0 +1,297 @@
+"""Tier-2: regex → DFA with byte-class alphabet compression.
+
+The port's copy of the JAX package's ``ops/regex/dfa.py``: the same Thompson
+NFA from the sre AST, the same subset construction and byte-class
+partition, so a pattern compiles to the reference's tables state for state
+(``tests/test_torch_fuse.py`` compares the arrays).  Patterns that do not
+segment-compile (alternation, overlapping classes) but are still regular
+(no backreferences or lookaround) run here: full-match semantics, no
+captures (a capture-needing Tier-2 parse runs on ``re``).
+
+``MAX_DFA_STATES``/``MAX_BYTE_CLASSES`` keep the reference's caps, so the
+same patterns take this tier in both packages.  On the card the automaton
+runs as a per-row table walk (``ops/kernels/csrc/dfa_scan.cu``, K2), with
+the class map folded into a byte-indexed table at upload.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Dict, FrozenSet, List, Optional, Set, Tuple, Union
+
+import numpy as np
+
+try:  # Python 3.11+
+    from re import _constants as sre_c
+    from re import _parser as sre_parse
+except ImportError:  # pragma: no cover
+    import sre_constants as sre_c
+    import sre_parse
+
+from .charclass import CharClass
+
+MAXREPEAT = sre_c.MAXREPEAT
+
+MAX_NFA_STATES = 4096
+MAX_DFA_STATES = 64
+MAX_BYTE_CLASSES = 32
+
+
+class DFAUnsupported(Exception):
+    pass
+
+
+# ---------------------------------------------------------------------------
+# Thompson NFA
+# ---------------------------------------------------------------------------
+
+
+class _NFA:
+    def __init__(self) -> None:
+        self.eps: List[List[int]] = []          # state -> eps targets
+        self.trans: List[List[Tuple[np.ndarray, int]]] = []  # state -> [(mask, target)]
+
+    def new_state(self) -> int:
+        if len(self.eps) >= MAX_NFA_STATES:
+            raise DFAUnsupported("NFA too large")
+        self.eps.append([])
+        self.trans.append([])
+        return len(self.eps) - 1
+
+    def add_eps(self, a: int, b: int) -> None:
+        self.eps[a].append(b)
+
+    def add_trans(self, a: int, mask: np.ndarray, b: int) -> None:
+        self.trans[a].append((mask, b))
+
+
+def _build(nfa: _NFA, tokens, start: int) -> int:
+    """Builds NFA fragment for token sequence beginning at `start`; returns
+    the accepting tail state."""
+    cur = start
+    for tok_op, av in tokens:
+        if tok_op is sre_c.LITERAL:
+            nxt = nfa.new_state()
+            nfa.add_trans(cur, CharClass.single(av).mask, nxt)
+            cur = nxt
+        elif tok_op is sre_c.NOT_LITERAL:
+            nxt = nfa.new_state()
+            nfa.add_trans(cur, CharClass.single(av).negated().mask, nxt)
+            cur = nxt
+        elif tok_op is sre_c.IN:
+            nxt = nfa.new_state()
+            nfa.add_trans(cur, CharClass.from_sre_in(av).mask, nxt)
+            cur = nxt
+        elif tok_op is sre_c.ANY:
+            nxt = nfa.new_state()
+            nfa.add_trans(cur, CharClass.dot().mask, nxt)
+            cur = nxt
+        elif tok_op is sre_c.CATEGORY:
+            nxt = nfa.new_state()
+            nfa.add_trans(cur, CharClass.from_category(av).mask, nxt)
+            cur = nxt
+        elif tok_op is sre_c.SUBPATTERN:
+            _, add_flags, del_flags, sub = av
+            if add_flags or del_flags:
+                raise DFAUnsupported("inline flags")
+            cur = _build(nfa, list(sub), cur)
+        elif tok_op is sre_c.BRANCH:
+            _, alts = av
+            tail = nfa.new_state()
+            for alt in alts:
+                head = nfa.new_state()
+                nfa.add_eps(cur, head)
+                end = _build(nfa, list(alt), head)
+                nfa.add_eps(end, tail)
+            cur = tail
+        elif tok_op in (sre_c.MAX_REPEAT, sre_c.MIN_REPEAT):
+            lo, hi, sub = av
+            sub = list(sub)
+            # expand lo mandatory copies
+            if lo > 64:
+                raise DFAUnsupported("huge repeat")
+            for _ in range(lo):
+                cur = _build(nfa, sub, cur)
+            if hi is MAXREPEAT:
+                # star: loop state
+                loop_in = nfa.new_state()
+                nfa.add_eps(cur, loop_in)
+                body_end = _build(nfa, sub, loop_in)
+                nfa.add_eps(body_end, loop_in)
+                cur = loop_in
+            else:
+                hi = int(hi)
+                if hi - lo > 64:
+                    raise DFAUnsupported("huge repeat")
+                tail = nfa.new_state()
+                nfa.add_eps(cur, tail)
+                for _ in range(hi - lo):
+                    cur = _build(nfa, sub, cur)
+                    nfa.add_eps(cur, tail)
+                cur = tail
+        elif tok_op is sre_c.AT:
+            # Edge anchors are stripped at top level by compile_dfa; any AT
+            # reaching here (interior ^/$, \b, \B, anchors inside branches)
+            # is position-dependent and unsupported.
+            raise DFAUnsupported(f"assertion {av}")
+        elif tok_op in (sre_c.ASSERT, sre_c.ASSERT_NOT):
+            raise DFAUnsupported("lookaround")
+        elif tok_op is sre_c.GROUPREF:
+            raise DFAUnsupported("backreference")
+        else:
+            raise DFAUnsupported(f"op {tok_op}")
+    return cur
+
+
+# ---------------------------------------------------------------------------
+# Subset construction + alphabet compression
+# ---------------------------------------------------------------------------
+
+
+@dataclass
+class DFA:
+    pattern: str
+    num_states: int
+    num_classes: int
+    byte_class: np.ndarray        # [256] uint8 — byte -> class id
+    transitions: np.ndarray       # [num_states, num_classes] int32 (dead = 0? no: dead state id)
+    start: int
+    accepting: np.ndarray         # [num_states] bool
+    dead: int
+
+    def byte_class_intervals(self) -> List[List[Tuple[int, int]]]:
+        """Per class id, the byte intervals mapping to it (for gather-free
+        class computation on device)."""
+        out = []
+        for k in range(self.num_classes):
+            out.append(CharClass(self.byte_class == k).intervals())
+        return out
+
+    def match_cpu(self, data: bytes) -> bool:
+        """Reference interpreter (for tests)."""
+        s = self.start
+        for b in data:
+            s = int(self.transitions[s, self.byte_class[b]])
+        return bool(self.accepting[s])
+
+
+def strip_anchors(tokens: list) -> list:
+    """Drop leading ^/\\A and trailing $/\\Z anchor tokens — batch rows are
+    whole lines, so every scan is implicitly anchored."""
+    at_begin = (sre_c.AT_BEGINNING, sre_c.AT_BEGINNING_STRING)
+    at_end = (sre_c.AT_END, sre_c.AT_END_STRING)
+    while tokens and tokens[0][0] is sre_c.AT and tokens[0][1] in at_begin:
+        tokens = tokens[1:]
+    while tokens and tokens[-1][0] is sre_c.AT and tokens[-1][1] in at_end:
+        tokens = tokens[:-1]
+    return tokens
+
+
+def build_pattern_nfa(pattern: Union[str, bytes],
+                      nfa: Optional[_NFA] = None) -> Tuple[_NFA, int, int]:
+    """Thompson NFA for one pattern: returns (nfa, start, accept).
+
+    When `nfa` is given, the fragment is built INTO it (loongfuse product
+    construction: every pattern of a fused set shares one state space, and
+    the fused compiler adds a common start with epsilon edges to each
+    pattern's start)."""
+    if isinstance(pattern, bytes):
+        pattern = pattern.decode("latin-1")
+    try:
+        tree = sre_parse.parse(pattern)
+    except Exception as e:  # noqa: BLE001
+        raise DFAUnsupported(f"parse error: {e}") from e
+
+    tokens = strip_anchors(list(tree))
+    if nfa is None:
+        nfa = _NFA()
+    start = nfa.new_state()
+    accept = _build(nfa, tokens, start)
+    return nfa, start, accept
+
+
+def compile_dfa(pattern: Union[str, bytes],
+                max_states: int = MAX_DFA_STATES,
+                max_classes: int = MAX_BYTE_CLASSES) -> DFA:
+    if isinstance(pattern, bytes):
+        pattern = pattern.decode("latin-1")
+    nfa, start, accept = build_pattern_nfa(pattern)
+
+    # epsilon closures
+    n = len(nfa.eps)
+    closure: List[FrozenSet[int]] = []
+    for i in range(n):
+        seen = {i}
+        stack = [i]
+        while stack:
+            s = stack.pop()
+            for t in nfa.eps[s]:
+                if t not in seen:
+                    seen.add(t)
+                    stack.append(t)
+        closure.append(frozenset(seen))
+
+    # alphabet partition: signature per byte over all distinct transition masks
+    masks: List[np.ndarray] = []
+    for s in range(n):
+        for mask, _ in nfa.trans[s]:
+            masks.append(mask)
+    if masks:
+        sig = np.stack(masks).astype(np.uint8)  # [M, 256]
+        # unique signature per byte column
+        _, byte_class = np.unique(sig.T, axis=0, return_inverse=True)
+        byte_class = byte_class.astype(np.uint8)
+    else:
+        byte_class = np.zeros(256, dtype=np.uint8)
+    num_classes = int(byte_class.max()) + 1
+    if num_classes > max_classes:
+        raise DFAUnsupported(f"{num_classes} byte classes > {max_classes}")
+    class_rep = np.zeros(num_classes, dtype=np.int32)  # a representative byte
+    for k in range(num_classes):
+        class_rep[k] = int(np.argmax(byte_class == k))
+
+    # subset construction over byte classes
+    def step(states: FrozenSet[int], byte: int) -> FrozenSet[int]:
+        out: Set[int] = set()
+        for s in states:
+            for mask, t in nfa.trans[s]:
+                if mask[byte]:
+                    out.update(closure[t])
+        return frozenset(out)
+
+    start_set = closure[start]
+    dfa_states: Dict[FrozenSet[int], int] = {}
+    order: List[FrozenSet[int]] = []
+
+    def intern(fs: FrozenSet[int]) -> int:
+        if fs not in dfa_states:
+            if len(order) >= max_states:
+                raise DFAUnsupported(f"DFA exceeds {max_states} states")
+            dfa_states[fs] = len(order)
+            order.append(fs)
+        return dfa_states[fs]
+
+    dead_id = intern(frozenset())
+    start_id = intern(start_set)
+    trans_rows: List[List[int]] = [[dead_id] * num_classes]  # dead loops
+    i = 1
+    while i < len(order):
+        fs = order[i]
+        row = []
+        for k in range(num_classes):
+            row.append(intern(step(fs, int(class_rep[k]))))
+        trans_rows.append(row)
+        i += 1
+
+    transitions = np.array(trans_rows, dtype=np.int32)
+    accepting = np.array([accept in fs for fs in order], dtype=bool)
+    return DFA(
+        pattern=pattern,
+        num_states=len(order),
+        num_classes=num_classes,
+        byte_class=byte_class,
+        transitions=transitions,
+        start=start_id,
+        accepting=accepting,
+        dead=dead_id,
+    )

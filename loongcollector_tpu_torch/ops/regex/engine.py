@@ -1,18 +1,29 @@
 """Regex engine: tier selection + async batch orchestration.
 
 The single entry point processors use.  Given a pattern and a device, it
-picks the execution tier — the Tier-1 SEGMENT kernel, or Python ``re`` —
-owns geometry bucketing and row packing, and returns arena-absolute capture
-spans so downstream stays zero-copy.
+picks the execution tier as the reference does (``engine.py:301-331``):
+the Tier-1 SEGMENT kernel (K1), else the Tier-2 DFA kernel (K2, when
+``compile_dfa`` takes the pattern), else Python ``re``.  It owns geometry
+bucketing and row packing, and returns arena-absolute capture spans so
+downstream stays zero-copy.
 
-Two routes send rows to ``re``, both part of the reference's semantics:
-rows longer than ``LENGTH_BUCKETS[-1]``, and patterns with no device tier.
-A pattern ``compile_tier1`` refuses runs on ``re`` here (the JAX package
-would try its DFA tier; that kernel is not ported yet), and so does a
-program over the CUDA kernel's build-time limits — decided once, when the
-engine is built, logged and counted in ``demotions``.  The engine counts
-the rows of each route (``re_oversize_rows``, ``re_tier_rows``) and its
-device batches, under a lock: runner workers share one cached engine.
+Routes to ``re``, all part of the reference's semantics: rows longer than
+``LENGTH_BUCKETS[-1]``; patterns with no device tier; and every
+``parse_batch`` of a DFA-tier pattern (K2 gives no captures; logged as the
+reference's "capture-needing Tier-2" demotion when the pattern has
+groups).  A Tier-1 program over the CUDA kernel's build-time limits also
+runs on ``re`` here.  Each is decided once, when the engine is built, and
+logged and counted by ``fuse.note_demotion``.  The engine counts the rows
+of each route (``re_oversize_rows``, ``re_tier_rows``, ``dfa_re_rows``)
+and its device batches (K1's ``device_batches``, K2's ``dfa_batches``),
+under a lock: runner workers share one cached engine.
+
+``match_batch`` (reference ``engine.py:587-636``) is the boolean full
+match filters and gates call: SEGMENT through ``parse_batch(...).ok``; DFA
+through K2 in synchronous chunks of at most ``MAX_BATCH`` rows, with rows
+over the largest bucket on ``re``; CPU on ``re``.  The reference's
+latency-probe routing of small batches to a host scanner is not ported:
+every chunk within the buckets goes to the device.
 
 ``parse_batch_async`` (reference ``engine.py:487-551, 637-920``) packs each
 chunk of at most ``MAX_BATCH`` rows into a leased ring slot and submits it
@@ -31,7 +42,7 @@ from __future__ import annotations
 import re
 import threading
 from collections import OrderedDict
-from typing import Dict, Optional, Union
+from typing import Optional, Union
 
 import numpy as np
 import torch
@@ -44,20 +55,14 @@ from ..device_batch import (LENGTH_BUCKETS, MAX_BATCH, pad_batch,
 from ..device_plane import DevicePlane
 from ..device_stream import (StagedKernel, auto_tuner, batch_ring,
                              stream_depth)
+from ..kernels.dfa_scan import DFAMatchKernel, run_chunks
 from ..kernels.field_extract import ExtractKernel
+from .dfa import DFAUnsupported, compile_dfa
+from .fuse import demotions, note_demotion  # noqa: F401 — re-exported
 from .native_exec import NativeUnsupported
 from .program import PatternTier, Tier1Unsupported, compile_tier1
 
 log = get_logger("regex")
-
-# pattern -> reason, for every pattern that fell off the device tier
-demotions: Dict[str, str] = {}
-
-
-def note_demotion(pattern: str, reason: str) -> None:
-    if pattern not in demotions:
-        log.warning("pattern %r runs on Python re: %s", pattern, reason)
-    demotions[pattern] = reason
 
 
 def _chunks(idx: np.ndarray, size: int):
@@ -120,10 +125,15 @@ class RegexEngine:
         self.num_caps = self._re.groups
         self.group_names = {v - 1: k for k, v in self._re.groupindex.items()}
         self.kernel: Optional[ExtractKernel] = None
+        self.dfa_kernel: Optional[DFAMatchKernel] = None
         self.tier = PatternTier.CPU
         self.device_batches = 0
         self.re_oversize_rows = 0
         self.re_tier_rows = 0
+        # match_batch on the DFA tier: K2 batches, and rows over the
+        # largest bucket matched on re
+        self.dfa_batches = 0
+        self.dfa_re_rows = 0
         self._count_lock = threading.Lock()
         self._kernel_override = None
         self._staged: Optional[StagedKernel] = None
@@ -133,18 +143,29 @@ class RegexEngine:
             self.kernel.warm(self.device)
             self._staged = StagedKernel(self.kernel, self.device)
         except Tier1Unsupported:
-            note_demotion(pattern, "Tier-1 compile refused (the DFA tier "
-                          "is not ported yet)")
+            try:
+                self.dfa_kernel = DFAMatchKernel(compile_dfa(pattern))
+                self.tier = PatternTier.DFA
+                self.dfa_kernel.warm(self.device)
+            except DFAUnsupported:
+                note_demotion(pattern, "no device tier (Tier-1 and DFA "
+                              "compile both refused)")
         except NativeUnsupported as e:
             note_demotion(pattern, f"over the kernel's limits: {e}")
+        if self.tier is PatternTier.DFA and self.num_caps > 0:
+            note_demotion(pattern, "capture-needing Tier-2 (device gates "
+                          "the match; captures extract on host)")
 
     def reset_counts(self) -> None:
         with self._count_lock:
             self.device_batches = 0
             self.re_oversize_rows = 0
             self.re_tier_rows = 0
-        if self.kernel is not None:
-            self.kernel.reset_counts()
+            self.dfa_batches = 0
+            self.dfa_re_rows = 0
+        for k in (self.kernel, self.dfa_kernel):
+            if k is not None:
+                k.reset_counts()
 
     def _count(self, name: str, n: int) -> None:
         with self._count_lock:
@@ -214,6 +235,38 @@ class RegexEngine:
                     if s >= 0:
                         cap_off[i, g] = o + s
                         cap_len[i, g] = e - s
+
+
+    def _re_match(self, arena, offsets, lengths, idx, ok) -> None:
+        for i in idx:
+            o, ln = int(offsets[i]), int(lengths[i])
+            ok[i] = self._re.fullmatch(
+                bytes(arena[o: o + ln].tobytes())) is not None
+
+    def match_batch(self, arena: np.ndarray, offsets: np.ndarray,
+                    lengths: np.ndarray) -> np.ndarray:
+        """Full-match boolean only (filters, gates): can use the DFA
+        tier."""
+        offsets = np.asarray(offsets, dtype=np.int64)
+        lengths = np.asarray(lengths, dtype=np.int32)
+        n = len(offsets)
+        if n == 0:
+            return np.zeros(0, dtype=bool)
+        if self.tier is PatternTier.SEGMENT:
+            return self.parse_batch(arena, offsets, lengths).ok
+        ok = np.zeros(n, dtype=bool)
+        if self.tier is PatternTier.CPU:
+            self._count("re_tier_rows", n)
+            self._re_match(arena, offsets, lengths, range(n), ok)
+            return ok
+        over = lengths > LENGTH_BUCKETS[-1]
+        batches = run_chunks(self.dfa_kernel, arena, offsets, lengths,
+                             np.nonzero(~over)[0], self.device, ok)
+        self._count("dfa_batches", batches)
+        over_idx = np.nonzero(over)[0]
+        self._count("dfa_re_rows", len(over_idx))
+        self._re_match(arena, offsets, lengths, over_idx, ok)
+        return ok
 
 
 class PendingParse:

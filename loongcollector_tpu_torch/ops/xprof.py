@@ -1,7 +1,8 @@
 """The dispatch timeline: every device dispatch decomposed into its legs.
 
 Reference: loongcollector_tpu/ops/xprof.py.  A dispatch id is minted in
-``DevicePlane.submit`` and carried by its ``DeviceFuture``; the dispatch
+``DevicePlane.submit`` and carried by its ``DeviceFuture``, or minted by a
+synchronous K2/K4 batch for itself (``kernels/dfa_scan.py``); the dispatch
 loops attach the legs they time:
 
   * ``pack``   — packing the rows into the leased ring slot (host
@@ -199,9 +200,16 @@ class DeviceTimeline:
 
     def leg_seconds(self, leg: str, clock: Optional[str] = None) -> float:
         """Summed duration of one leg over every settled dispatch."""
-        return sum(dur for rec in self._closed()
-                   for name, _t0, dur, c in rec.legs
-                   if name == leg and (clock is None or c == clock))
+        return sum(self.leg_durations(leg, clock))
+
+    def leg_durations(self, leg: str, clock: Optional[str] = None,
+                      program: Optional[str] = None) -> List[float]:
+        """Durations of one leg over every settled dispatch (of one
+        program, when given), in dispatch order."""
+        return [dur for rec in self._closed()
+                if program is None or rec.program == program
+                for name, _t0, dur, c in rec.legs
+                if name == leg and (clock is None or c == clock)]
 
     def exec_union_seconds(self, clock: str = DEVICE) -> float:
         """Seconds during which at least one exec leg ran: the device-busy
@@ -296,6 +304,13 @@ def event_leg(xid: int, name: str, start, end) -> None:
     if t is None or not xid:
         return
     t.event_leg(xid, name, start, end)
+
+
+def annotate(xid: int, program: str, geometry: str) -> None:
+    t = _timeline
+    if t is None or not xid:
+        return
+    t.annotate(xid, program=program, geometry=geometry)
 
 
 def close_dispatch(xid: int) -> None:

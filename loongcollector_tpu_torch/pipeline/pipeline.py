@@ -12,6 +12,12 @@ the groups count as in process (``in_process_count``,
 ``wait_all_items_in_process_finished``).  There is no fused-chain branch
 and no aggregator yet.  Host seconds per stage (``stage_seconds``) are
 summed across the runner's workers.
+
+Processors that hold records across groups (split_multiline's carry)
+release them at stop: ``drain_held`` runs every ``drain_groups()`` through
+the processors after the holder and the send path (``drain_from``; JAX
+package ``pipeline.py:294-330``).  The reference's timeout-flush
+registration of the same hook waits for tail mode.
 """
 
 from __future__ import annotations
@@ -182,6 +188,31 @@ class CollectionPipeline:
         with self._in_process_zero:
             return self._in_process_zero.wait_for(
                 lambda: self._in_process_cnt == 0, timeout)
+
+    def drain_from(self, chain_idx: int,
+                   groups: List[PipelineEventGroup]) -> None:
+        """Run released groups through the processors AFTER ``chain_idx``,
+        then send them."""
+        if not groups:
+            return
+        chain = self.inner_processors + self.processors
+        for g in groups:
+            for p in chain[chain_idx + 1:]:
+                self._timed(p.name, p.process, g)
+        self.send(groups)
+
+    def drain_held(self) -> int:
+        """Stop-time drain: every record a processor still holds ships
+        through the rest of the chain.  Returns the groups sent."""
+        n = 0
+        chain = self.inner_processors + self.processors
+        for idx, p in enumerate(chain):
+            drain = getattr(p, "drain_groups", None)
+            if drain is not None:
+                groups = drain()
+                self.drain_from(idx, groups)
+                n += len(groups)
+        return n
 
     def send(self, groups: List[PipelineEventGroup]) -> bool:
         for g in groups:

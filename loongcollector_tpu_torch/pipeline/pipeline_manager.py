@@ -3,7 +3,8 @@
 Reference: loongcollector_tpu/pipeline/pipeline_manager.py.  The port
 builds one pipeline per config of the config directory, gives each its
 bounded process queue and its tenant share of the device plane's byte
-budget, starts its inputs (a one-shot read into the queue) and stops them.
+budget, starts its inputs (a one-shot read into the queue), drains what
+its processors hold at stop, and stops them.
 Hot reload (generations, drain and hand-off), onetime configs and the
 sender queues come with later slices.
 """
@@ -47,6 +48,11 @@ class CollectionPipelineManager:
                      ) -> None:
         for p in self.pipelines():
             p.start_inputs(should_abort)
+
+    def drain_held(self) -> int:
+        """Each pipeline's stop-time drain (``CollectionPipeline.drain_held``)
+        on the calling thread; returns the groups sent."""
+        return sum(p.drain_held() for p in self.pipelines())
 
     def find_pipeline(self, name: str) -> Optional[CollectionPipeline]:
         with self._lock:

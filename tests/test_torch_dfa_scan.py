@@ -1,0 +1,295 @@
+"""K2 and K4 in the port against the JAX package's programs, on the CPU.
+
+The plain versions (``ops/kernels/dfa_scan.walk_plain`` behind
+``DFAMatchKernel.plain`` / ``FusedScanKernel.plain``) must equal
+``build_dfa_match_fn`` / ``build_fused_scan_fn`` of the JAX package, jitted
+on the CPU, bit-exact (bools and u32 tag masks), on the same packed rows:
+at every length bucket, with padding rows, empty rows and rows exactly
+``L`` long; at the single-DFA caps (S = 64, K = 32), near the fused
+device caps (S = 124, K = 48), and on a 32-member set whose bit 31 is set
+on real rows.  The automata are the reference's own, carried over by
+``automaton_arrays_from_reference``, and the port's compiles of the same
+patterns.  Both also agree with ``re.fullmatch``.
+
+The wrappers: a CUDA tensor goes to the kernel launch (counted), never to
+the plain version; the build raises without nvcc; ``run_chunks`` splits at
+``MAX_BATCH`` and each chunk takes its own bucket.  The launch geometry
+gives every SM a block once a batch holds 32 rows an SM, the kernel's
+constants are the wrapper's, and the dispatch timeline keeps each DFA
+program's exec legs apart.
+"""
+
+import os
+import re
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+from loongcollector_tpu.ops.kernels.dfa_scan import (build_dfa_match_fn,
+                                                     build_fused_scan_fn)
+from loongcollector_tpu.ops.regex import fuse as ref_fuse
+from loongcollector_tpu.ops.regex.dfa import compile_dfa as ref_compile_dfa
+from loongcollector_tpu_torch.ops import device_batch
+from loongcollector_tpu_torch.ops.device_batch import (LENGTH_BUCKETS,
+                                                        pack_rows)
+from loongcollector_tpu_torch.ops.kernels import dfa_scan
+from loongcollector_tpu_torch.ops.kernels.dfa_scan import (
+    DFAMatchKernel, FusedScanKernel, automaton_arrays_from_reference)
+from loongcollector_tpu_torch.ops.regex.dfa import compile_dfa
+from loongcollector_tpu_torch.ops.regex.fuse import compile_fused
+from loongcollector_tpu_torch.testdata import (BIT31_SET, JAVA_CONTINUE,
+                                               JAVA_FILTER, JAVA_START,
+                                               LIMIT_DFA, NEAR_CAP_SET,
+                                               gen_java_log)
+
+JAVA_SET = [JAVA_START, JAVA_CONTINUE]
+
+
+def _members(rng, patterns, n):
+    """Strings of the patterns' own words, some mutated in one byte."""
+    words = sorted({w for p in patterns
+                    for w in re.findall(r"[A-Za-z0-9]{2,}", p)})
+    out = []
+    for _ in range(n):
+        s = words[int(rng.integers(len(words)))]
+        tail = rng.choice([b"", b"123", b" x y", b"=v", b"-ab"])
+        line = s.encode() + tail
+        if rng.integers(4) == 0:
+            p = int(rng.integers(len(line)))
+            line = line[:p] + bytes([int(rng.integers(32, 127))]) \
+                + line[p + 1:]
+        out.append(line)
+    return out
+
+
+def _java_lines(rng, n):
+    lines = gen_java_log(n, seed=int(rng.integers(1000)))
+    # filter messages: a header's message with its frames
+    return lines + [b"x java.lang.Error: " + lines[1], b"no match here"]
+
+
+def _pack(rng, lines, L):
+    """Rows of at most L bytes, plus rows exactly L long, empty rows, and
+    padding rows (the batch is padded past the real rows)."""
+    lines = [x[:L] for x in lines]
+    lines += [bytes(rng.integers(32, 127, L, dtype=np.uint8)), b"", b""]
+    if lines[0]:
+        lines.append((lines[0] * (L // len(lines[0]) + 1))[:L])
+    lens = np.array([len(x) for x in lines], np.int32)
+    arena = np.frombuffer(b"".join(lines) or b"\0", np.uint8)
+    offs = np.concatenate([[0], np.cumsum(lens[:-1])]).astype(np.int64)
+    batch = pack_rows(arena, offs, lens, L, B=len(lines) + 5)
+    return lines, batch.rows, batch.lengths
+
+
+def _check_match(pattern, lines, rows, lengths):
+    ref = ref_compile_dfa(pattern)
+    want = np.asarray(jax.jit(build_dfa_match_fn(ref))(rows, lengths))
+    kern = DFAMatchKernel(compile_dfa(pattern))
+    got = kern.plain(torch.from_numpy(rows), torch.from_numpy(lengths))
+    assert got.dtype == torch.bool
+    np.testing.assert_array_equal(got.numpy(), want)
+    rx = re.compile(pattern.encode("latin-1"))
+    assert [bool(v) for v in want[:len(lines)]] \
+        == [rx.fullmatch(x) is not None for x in lines]
+    assert not want[len(lines):].any() or rx.fullmatch(b"")
+    return want
+
+
+def _check_tags(patterns, lines, rows, lengths):
+    ref = ref_fuse.compile_fused(patterns, note_demotions=False)
+    want = np.asarray(jax.jit(build_fused_scan_fn(ref))(rows, lengths))
+    kern = FusedScanKernel(compile_fused(patterns, note_demotions=False))
+    got = kern.plain(torch.from_numpy(rows), torch.from_numpy(lengths))
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), want)
+    tags = want.view(np.uint32)
+    rxs = [re.compile(p.encode("latin-1")) for p in patterns]
+    for i, x in enumerate(lines):
+        assert int(tags[i]) == sum(1 << b for b, r in enumerate(rxs)
+                                   if r.fullmatch(x)), x
+    return tags
+
+
+@pytest.mark.parametrize("L", LENGTH_BUCKETS)
+def test_match_plain_equals_reference(L):
+    rng = np.random.default_rng(L)
+    lines = _java_lines(rng, 40) + _members(rng, [LIMIT_DFA], 20)
+    lines, rows, lengths = _pack(rng, lines, L)
+    for pattern in (JAVA_FILTER, JAVA_CONTINUE):
+        want = _check_match(pattern, lines, rows, lengths)
+        assert want.any() and not want.all()
+
+
+@pytest.mark.parametrize("L", LENGTH_BUCKETS)
+def test_fused_plain_equals_reference(L):
+    rng = np.random.default_rng(100 + L)
+    lines = _java_lines(rng, 60)
+    lines, rows, lengths = _pack(rng, lines, L)
+    tags = _check_tags(JAVA_SET, lines, rows, lengths)
+    assert set(np.unique(tags[:len(lines)]).tolist()) >= {0, 1, 2}
+
+
+@pytest.mark.parametrize("case", ["dfa_64x32", "fused_124x48", "bit31"])
+def test_caps_and_bit31(case):
+    rng = np.random.default_rng(7)
+    if case == "dfa_64x32":
+        dfa = compile_dfa(LIMIT_DFA)
+        assert (dfa.num_states, dfa.num_classes) == (64, 32)
+        for L in (128, 256):
+            lines, rows, lengths = _pack(
+                rng, _members(rng, [LIMIT_DFA], 120), L)
+            assert _check_match(LIMIT_DFA, lines, rows, lengths).any()
+        return
+    patterns = NEAR_CAP_SET if case == "fused_124x48" else BIT31_SET
+    fd = compile_fused(patterns, note_demotions=False)
+    assert fd.device_ok and not fd.demoted
+    if case == "fused_124x48":
+        assert (fd.num_states, fd.num_classes) == (124, 48)
+    lines = _members(rng, patterns, 150) + [p.encode() for p in BIT31_SET]
+    lines, rows, lengths = _pack(rng, lines, 128)
+    tags = _check_tags(patterns, lines, rows, lengths)
+    if case == "bit31":
+        assert (tags >> 31 & 1).any() and (tags & 1).any()
+
+
+@pytest.mark.parametrize("kind", ["dfa", "fused"])
+def test_automaton_arrays_from_reference(kind):
+    """The reference's automaton, carried over, gives the port's own
+    kernel inputs and the same walk."""
+    if kind == "dfa":
+        ref = ref_compile_dfa(JAVA_FILTER)
+        ours = compile_dfa(JAVA_FILTER)
+        got = automaton_arrays_from_reference(
+            ref.byte_class, ref.transitions, ref.start, ref.accepting)
+        mine = DFAMatchKernel(ours).arrays
+    else:
+        ref = ref_fuse.compile_fused(BIT31_SET, note_demotions=False)
+        ours = compile_fused(BIT31_SET, note_demotions=False)
+        got = automaton_arrays_from_reference(
+            ref.byte_class, ref.transitions, ref.start, ref.accept_tags)
+        mine = FusedScanKernel(ours).arrays
+    np.testing.assert_array_equal(got.t256, mine.t256)
+    np.testing.assert_array_equal(got.accept, mine.accept)
+    assert got.start == mine.start and got.t256.dtype == np.uint8
+    assert got.accept.dtype == np.int32
+    if kind == "fused":
+        assert got.accept.view(np.uint32).max() >= 1 << 31
+    with pytest.raises(ValueError):
+        automaton_arrays_from_reference(np.zeros(256, np.uint8),
+                                        np.zeros((300, 1), np.int32), 0,
+                                        np.zeros(300, bool))
+
+
+class _FakeCudaTensor:
+    device = torch.device("cuda", 0)
+
+
+@pytest.mark.parametrize("mode", ["match", "tags"])
+def test_cuda_tensor_launches_kernel_never_plain(monkeypatch, mode):
+    from loongcollector_tpu_torch.ops.kernels import dfa_scan_cuda
+    if mode == "match":
+        kern = DFAMatchKernel(compile_dfa(JAVA_FILTER))
+    else:
+        kern = FusedScanKernel(compile_fused(JAVA_SET))
+
+    def plain(*a):
+        raise AssertionError("plain version ran for a CUDA tensor")
+
+    calls = []
+    kern.plain = plain
+    monkeypatch.setattr(kern, "tables", lambda dev: ("t256", "accept"))
+    monkeypatch.setattr(dfa_scan_cuda, "launch",
+                        lambda *a: calls.append(a) or "out")
+    rows = _FakeCudaTensor()
+    assert kern(rows, rows) == "out" and kern(rows, rows) == "out"
+    assert kern.launches == 2 and [c[0] for c in calls] == [mode, mode]
+    kern.reset_counts()
+    assert kern.launches == 0
+
+
+def test_build_failure_raises(monkeypatch, tmp_path):
+    from loongcollector_tpu_torch.ops.kernels import dfa_scan_cuda
+    from loongcollector_tpu_torch.ops.kernels import field_extract_cuda as fxc
+    monkeypatch.setattr(dfa_scan_cuda, "_lib", None)
+    monkeypatch.setattr(fxc, "BUILD_ROOT", str(tmp_path))
+    monkeypatch.setattr(fxc.shutil, "which", lambda name: None)
+    monkeypatch.setattr(fxc.os.path, "exists",
+                        lambda p: False if "nvcc" in p else os.path.isfile(p))
+    with pytest.raises(RuntimeError, match="nvcc"):
+        dfa_scan_cuda.build()
+
+
+def test_run_chunks_splits_at_max_batch(monkeypatch):
+    monkeypatch.setattr(dfa_scan, "MAX_BATCH", 16)
+    rng = np.random.default_rng(3)
+    lines = _java_lines(rng, 50)
+    lens = np.array([len(x) for x in lines], np.int32)
+    arena = np.frombuffer(b"".join(lines), np.uint8)
+    offs = np.concatenate([[0], np.cumsum(lens[:-1])]).astype(np.int64)
+    kern = DFAMatchKernel(compile_dfa(JAVA_FILTER))
+    idx = np.nonzero(lens <= device_batch.LENGTH_BUCKETS[-1])[0]
+    out = np.zeros(len(lines), bool)
+    n = dfa_scan.run_chunks(kern, arena, offs, lens, idx,
+                            torch.device("cpu"), out)
+    assert n == -(-len(idx) // 16)
+    rx = re.compile(JAVA_FILTER.encode())
+    assert out[idx].tolist() == [rx.fullmatch(lines[i]) is not None
+                                 for i in idx]
+    assert kern.launches == 0         # the plain version is not a launch
+
+
+@pytest.mark.parametrize("B", [1, 256, 1024, 2048, 4096, 4224, 8192, 16384,
+                               32768, 65536])
+def test_launch_geometry_gives_every_sm_a_block(B):
+    from loongcollector_tpu_torch.ops.kernels import dfa_scan_cuda as dsc
+    from loongcollector_tpu_torch.ops.kernels import field_extract_cuda as fxc
+    t = dsc.launch_geometry(B)
+    assert t % 32 == 0 and dsc.MIN_THREADS <= t <= dsc.MAX_THREADS
+    blocks = -(-B // t)
+    if B >= 32 * fxc.NUM_SMS:
+        assert blocks >= fxc.NUM_SMS
+    else:
+        assert t == dsc.MIN_THREADS
+    # the largest block that keeps every SM busy
+    if t < dsc.MAX_THREADS:
+        assert -(-B // (2 * t)) < fxc.NUM_SMS
+    assert dsc.launch_geometry(8192) == 32 and dsc.launch_geometry(65536) == 128
+
+
+def test_dfa_source_agrees_with_the_wrapper():
+    from loongcollector_tpu_torch.ops.kernels import dfa_scan_cuda as dsc
+    from loongcollector_tpu_torch.ops.regex import fuse
+    with open(dsc._SRC) as f:
+        src = f.read()
+    consts = dict(re.findall(r"constexpr int (k\w+) = (\d+);", src))
+    assert int(consts["kMaxThreads"]) == dsc.MAX_THREADS
+    assert int(consts["kMaxStates"]) == dsc.MAX_STATES \
+        == fuse.DEVICE_MAX_STATES
+    # the largest automaton's tables fit the default 48 KB of a block
+    assert dsc.smem_bytes(dsc.MAX_STATES) <= 48 * 1024
+    assert "cudaFuncSetAttribute" not in src
+    for name in dsc.ENTRY_POINTS.values():
+        assert re.search(rf"int {name}\([^)]*void\* ev_start, void\* ev_end\)",
+                         src)
+
+
+def test_timeline_splits_exec_legs_by_program():
+    from loongcollector_tpu_torch.ops import xprof
+    with xprof.active() as tl:
+        for program, dur in [("dfa_match", 0.002), ("fused_scan", 0.001),
+                             ("dfa_match", 0.003), ("regex", 0.004)]:
+            xid = xprof.begin_dispatch(64)
+            xprof.annotate(xid, program, "8192x256")
+            xprof.leg(xid, "exec", 0.0, dur)
+            xprof.close_dispatch(xid)
+    assert tl.leg_durations("exec", program="dfa_match") == pytest.approx(
+        [0.002, 0.003])
+    assert tl.leg_durations("exec", xprof.HOST, "fused_scan") == \
+        pytest.approx([0.001])
+    assert tl.leg_durations("exec", xprof.DEVICE, "fused_scan") == []
+    assert tl.leg_seconds("exec") == pytest.approx(0.010)
+    assert not xprof.is_active()
+    xprof.annotate(1, "dfa_match", "-")      # off: a no-op
