@@ -3,6 +3,7 @@
 
     python3 chip_probe.py            # run from the repo root
     python3 chip_probe.py dispatch   # the host cost of one plane dispatch
+    python3 chip_probe.py ab OTHER/field_extract.cu   # K1 built two ways
 
 Builds the kernel ``loongcollector_tpu_torch/ops/kernels/csrc/
 field_extract.cu`` as it is, and ``stamped``, an edited copy with
@@ -24,6 +25,12 @@ device plane (``DevicePlane.submit`` of ``StagedKernel`` on a packed
 timeline on as the agent runs it: the mean host microseconds of submit
 and of result with profiling off, then the same loop under ``cProfile``
 with the functions that take the most time of their own.
+
+``ab OTHER`` builds K1 from ``OTHER`` (another ``field_extract.cu``, with
+the headers beside it: a checkout of an earlier commit, say) and from this
+tree, checks both bit-exact on the same rows, and times the Apache
+instantiation of each in turns (other, this, this, other) at ``B=8192``
+and ``B=65536``, ``L=128``, printing each build's ptxas figures.
 """
 
 from __future__ import annotations
@@ -61,18 +68,26 @@ def stamped(src: str) -> str:
                 "  return (int)cudaMemcpyFromSymbol(dst, g_stamp, n);\n}\n")
 
 
-def build(fxc, name: str, src: str):
+def build(fxc, name: str, src: str, include: str = ""):
+    """``src`` compiled into ``build/probe/<name>.so``; ``include`` is the
+    directory of the headers it includes (the kernel sources' own by
+    default)."""
     os.makedirs(OUT, exist_ok=True)
     cu, so = os.path.join(OUT, name + ".cu"), os.path.join(OUT, name + ".so")
     with open(cu, "w") as f:
         f.write(src)
-    proc = subprocess.run([fxc._nvcc(), *fxc.NVCC_FLAGS, "-o", so, cu],
-                          capture_output=True, text=True, timeout=600)
+    inc = include or os.path.dirname(fxc._SRC)
+    proc = subprocess.run([fxc._nvcc(), *fxc.NVCC_FLAGS, "-I", inc, "-o", so,
+                           cu], capture_output=True, text=True, timeout=600)
     if proc.returncode:
         raise SystemExit(f"chip_probe: nvcc failed on {name}:\n"
                          f"{proc.stderr[-3000:]}")
-    flat = fxc.ptxas_report(proc.stdout + proc.stderr).get("d0_p0")
-    print(f"chip_probe: {name}: ptxas d0_p0 {flat}", flush=True)
+    report = fxc.ptxas_report(proc.stdout + proc.stderr)
+    print(f"chip_probe: {name}: ptxas d0_p0 {report.get('d0_p0')}; "
+          f"registers " + ", ".join(
+              f"{k} {r.get('registers')}" for k, r in sorted(report.items())
+              if k in ("d0_p0", "d0_p1", "d0_p2", "d1_p0", "d1_p1",
+                       "d1_p2")), flush=True)
     lib = ctypes.CDLL(so)
     vp, i32 = ctypes.c_void_p, ctypes.c_int32
     for entry in fxc.ENTRY_POINTS:
@@ -161,10 +176,64 @@ def dispatch_cost(reps: int = 300) -> int:
     return 0
 
 
+def apache_batches():
+    """(B, real rows, rows, lengths) of phase 4's Apache batches, on the
+    card."""
+    import numpy as np
+    import torch
+    from loongcollector_tpu_torch.ops.device_batch import pack_rows
+    from loongcollector_tpu_torch.testdata import gen_lines
+    base = gen_lines(65536, seed=5)
+    for B, n_real in ((8192, 5500), (65536, 65536)):
+        lines = base[:n_real]
+        lens = np.array([len(x) for x in lines], np.int32)
+        arena = np.frombuffer(b"".join(lines), np.uint8)
+        offs = np.concatenate([[0], np.cumsum(lens[:-1])]).astype(np.int64)
+        batch = pack_rows(arena, offs, lens, 128, B)
+        yield (B, n_real, torch.from_numpy(batch.rows).cuda(),
+               torch.from_numpy(batch.lengths).cuda())
+
+
+def ab(other: str) -> int:
+    """K1 from ``other`` against this tree's, timed in turns."""
+    import torch
+    import chip_smoke
+    from loongcollector_tpu_torch.ops.kernels import field_extract_cuda as fxc
+    from loongcollector_tpu_torch.ops.kernels.field_extract import \
+        ExtractKernel
+    from loongcollector_tpu_torch.ops.regex.program import compile_tier1
+    print(f"chip_probe: card: {chip_smoke.nvidia_smi()}", flush=True)
+    kern = ExtractKernel(compile_tier1(chip_smoke.APACHE))
+    prog = torch.from_numpy(kern.kernel_program.blob).cuda()
+    with open(other) as f:
+        other_src = f.read()
+    with open(fxc._SRC) as f:
+        this_src = f.read()
+    calls = {"other": launcher(fxc, build(fxc, "other", other_src,
+                                          os.path.dirname(os.path.abspath(
+                                              other))), kern, prog),
+             "this": launcher(fxc, build(fxc, "this", this_src), kern, prog)}
+    for B, n_real, rows, lengths in apache_batches():
+        outs = {k: [t.cpu() for t in fn(rows, lengths)[:3]]
+                for k, fn in calls.items()}
+        if not all(bool((a == b).all()) for a, b in zip(outs["other"],
+                                                         outs["this"])):
+            raise SystemExit(f"chip_probe: the two builds differ at B={B}")
+        turns = [(k, chip_smoke.graph_ms([lambda fn=calls[k]: fn(rows,
+                                                                 lengths)]))
+                 for k in ("other", "this", "this", "other")]
+        print(f"chip_probe: ab B={B} L=128 ({n_real} Apache rows): device "
+              f"ms per launch in turns: " + ", ".join(
+                  f"{k} {ms:.5f}" for k, ms in turns), flush=True)
+    return 0
+
+
 def main() -> int:
     sys.path.insert(0, REPO)
     if sys.argv[1:] == ["dispatch"]:
         return dispatch_cost()
+    if sys.argv[1:2] == ["ab"] and len(sys.argv) == 3:
+        return ab(sys.argv[2])
     import numpy as np
     import torch
     if not torch.cuda.is_available():

@@ -5,14 +5,17 @@
 
 Phases, each of which exits non-zero on failure:
 
-1. build: compile the CUDA field-extraction kernel and the DFA walk
-   (K2, K4) from ``loongcollector_tpu_torch/ops/kernels/csrc/`` (into
-   ``build/kernels/``, keyed on the source hash), one nvcc each, started
-   together, and the repo's native host library; print the build seconds,
-   ptxas's registers, stack frame and spills for each kernel
-   instantiation, the torch version and the card's name and power limit.
-   Fails if the depth-0, pivot-free instantiation (the Apache program's)
-   or either DFA walker has a stack frame or spills.
+1. build: compile the CUDA field-extraction kernel (K1), the DFA walk
+   (K2, K3, K4) and the fused stage program (K7) from
+   ``loongcollector_tpu_torch/ops/kernels/csrc/`` (into ``build/kernels/``,
+   keyed on the hash of each source and the headers it includes), one nvcc
+   each, started together, and the repo's native host library; print the
+   build seconds, ptxas's registers, stack frame and spills for each
+   kernel instantiation, the torch version and the card's name and power
+   limit.  Fails if K1's depth-0, pivot-free instantiation (the Apache
+   program's), a DFA walker, or a K7 instantiation without the general
+   walker (the Apache-filter program's is ``d0_p0``) has a stack frame or
+   spills.
 2. parity: the kernel against its plain PyTorch version, on the card, on
    the test patterns, a seeded generative set (double pivots included), the
    Apache pattern, and a depth-8 nested pattern and a 32-capture pattern on
@@ -82,6 +85,35 @@ Phases, each of which exits non-zero on failure:
    those shapes, and on the path-2 automata at B=8192 and B=65536, L=128,
    and for K2 at L=1024.  The ``kernels`` line gives K2 and K4 at the
    shape path 2 launched most.
+10. K3 parity (before phase 7): ``lct_dfa_span_match`` against its plain
+   version, bit-exact, and against ``re.fullmatch`` of each span cut at its
+   row's length, at every length bucket, at L=100 and on misaligned rows,
+   on phase 6's single automata: spans at a row's start, middle and end,
+   past its length, from a negative start, absent (-1) and empty, padding
+   rows.
+11. K7 parity (before phase 7): each stage list of
+   ``testdata.fused_stage_lists`` (THREE_STAGE; extract + extract_ok;
+   match + grok's scan + the multiline terminal scan; the Apache-filter
+   program; a keep stage whose tables pass the shared-memory budget at
+   L=4096; a 32-member scan, bit 31; a nested program) through the kernel,
+   its plain version and ``FusedProgramKernel.staged_run`` (one
+   K1/K2/K3/K4 launch a stage), bit-exact on every output at every bucket,
+   at L=100 and on misaligned rows; then ``FusedDispatch.dispatch()`` of
+   six chunks under ``torch.cuda.set_sync_debug_mode("error")``, equal to
+   the same dispatch on the CPU.
+12. the Apache-filter path (after phase 8): ``testdata.apache_filter_config``
+   (parse, keep 4xx/5xx, drop ``/health``) on phase 3's log at one and four
+   workers: every record equals ``testdata.apache_filter_oracle`` in file
+   order; K7 launches = fused dispatches = plane dispatches = groups > 0,
+   standalone K1/K2/K3 launches 0; the plane settles.  Prints MB/s, K7's
+   exec legs (sum, median, largest), the busy share and the geometry.
+   Phase 7's path 2 runs with fusion on (the default on the card): its
+   groups fuse unless they hold a record over 4096 bytes, and the groups of
+   each kind must be those the log's chunks give
+   (``testdata.java_groups``).
+13. K7 and K3 timing (last): K7 on the Apache-filter program and K3 on its
+   status condition over the status spans, at B=8192 and B=65536, L=128,
+   warm and cold, beside the plain versions and the bounds.
 
 In every phase each recorded launch must be whole warps within the block
 limit and the shared-memory budget, with a block for each SM once a batch
@@ -89,8 +121,8 @@ holds 32 rows an SM; the geometry in the ``kernels`` line is the one
 ``launch()`` passed to the kernel in this run.
 
 An earlier line prints the script's total seconds.  The line before the
-last is the ``kernels`` JSON line (K1, K2 and K4), the last line the
-``{"ok": true, "device": ...}`` object.  It imports nothing of JAX or of
+last is the ``kernels`` JSON line (K1, K2, K4, K3 and K7), the last line
+the ``{"ok": true, "device": ...}`` object.  It imports nothing of JAX or of
 the JAX package.
 """
 
@@ -308,8 +340,8 @@ def graph_ms(fns, reps: int = 50, iters: int = 20,
 
 # -- phases -----------------------------------------------------------------
 
-def phase_build(fxc, dsc, native) -> dict:
-    """Both kernel libraries, one nvcc each, started together."""
+def phase_build(fxc, dsc, fpc, native) -> dict:
+    """The three kernel libraries, one nvcc each, started together."""
     import threading
     import torch
     t0 = time.perf_counter()
@@ -323,7 +355,8 @@ def phase_build(fxc, dsc, native) -> dict:
             errors[name] = e
         secs[name] = time.perf_counter() - t
     threads = [threading.Thread(target=build, args=a)
-               for a in (("field_extract", fxc), ("dfa_scan", dsc))]
+               for a in (("field_extract", fxc), ("dfa_scan", dsc),
+                         ("fused_program", fpc))]
     for t in threads:
         t.start()
     for t in threads:
@@ -333,17 +366,25 @@ def phase_build(fxc, dsc, native) -> dict:
     kernel_s = time.perf_counter() - t0
     ptxas = fxc.ptxas_report(fxc.build_log)
     dfa_ptxas = dsc.ptxas_report(dsc.build_log)
-    for name, r in sorted(ptxas.items()) + sorted(dfa_ptxas.items()):
+    k7_ptxas = fpc.ptxas_report(fpc.build_log)
+    for name, r in sorted(ptxas.items()) + sorted(dfa_ptxas.items()) + [
+            (f"fused_program {k}", v) for k, v in sorted(k7_ptxas.items())]:
         log(f"ptxas {name}: {r.get('registers')} registers, "
             f"{r.get('stack')} bytes stack frame, {r.get('spill_stores')} "
             f"bytes spill stores, {r.get('spill_loads')} bytes spill loads")
     missing = [e for e in fxc.ENTRY_POINTS
                if e.replace("lct_field_extract_", "") not in ptxas]
     missing += [m for m in dsc.ENTRY_POINTS if m not in dfa_ptxas]
+    missing += [k for k in fpc.INSTANTIATIONS if k not in k7_ptxas]
     if missing:
         fail(f"no ptxas report for {missing}")
+    # the depth-0 walkers: K1's Apache instantiation, the DFA walks (K2,
+    # K3, K4), and K7's instantiations without the general walker (the
+    # Apache filter program's is d0_p0)
     for name, r in [("d0_p0", ptxas["d0_p0"])] + [
-            (m, dfa_ptxas[m]) for m in dsc.ENTRY_POINTS]:
+            (m, dfa_ptxas[m]) for m in dsc.ENTRY_POINTS] + [
+            (f"fused_program {k}", k7_ptxas[k]) for k in fpc.INSTANTIATIONS
+            if not k.endswith("_g")]:
         if r.get("stack", 1) or r.get("spill_stores", 1) \
                 or r.get("spill_loads", 1):
             fail(f"the {name} walker has local memory: {r}")
@@ -351,13 +392,15 @@ def phase_build(fxc, dsc, native) -> dict:
     if native.get_lib() is None:
         fail("native host library did not build")
     native_s = time.perf_counter() - t0
-    log(f"build: both kernels {kernel_s:.2f} s in parallel (field_extract "
-        f"{secs['field_extract']:.2f} s, dfa_scan {secs['dfa_scan']:.2f} s), "
-        f"native library {native_s:.2f} s; torch {torch.__version__} cuda "
+    log(f"build: three kernels {kernel_s:.2f} s in parallel (field_extract "
+        f"{secs['field_extract']:.2f} s, dfa_scan {secs['dfa_scan']:.2f} s, "
+        f"fused_program {secs['fused_program']:.2f} s), native library "
+        f"{native_s:.2f} s; torch {torch.__version__} cuda "
         f"{torch.version.cuda}; python {sys.version.split()[0]}")
     log(f"card: {nvidia_smi()}; {torch.cuda.get_device_name(0)}")
     return {"kernel_build_s": kernel_s, "native_build_s": native_s,
-            "build_s": secs, "ptxas": ptxas, "dfa_ptxas": dfa_ptxas}
+            "build_s": secs, "ptxas": ptxas, "dfa_ptxas": dfa_ptxas,
+            "k7_ptxas": k7_ptxas}
 
 
 def checked_shapes(shapes, phase: str) -> list:
@@ -1031,9 +1074,9 @@ def phase_dfa_parity(java) -> dict:
         fail(f"dfa parity: {sum(n for _, n in shapes)} launches recorded "
              f"for {stats['checks']} batches")
     launched = {sh.entry_point for sh, _ in shapes}
-    if launched != set(dsc.ENTRY_POINTS.values()):
-        fail(f"DFA entry points never launched: "
-             f"{set(dsc.ENTRY_POINTS.values()) - launched}")
+    walks = {dsc.ENTRY_POINTS[m] for m in ("match", "tags")}
+    if launched != walks:
+        fail(f"DFA entry points never launched: {walks - launched}")
     log(f"dfa parity: {stats['checks']} (automaton, L) batches over "
         f"{len(cases)} automata {stats['automata']}, {stats['rows']} rows: "
         f"K2 and K4 bit-exact with their plain versions and with re; "
@@ -1076,16 +1119,22 @@ def run_agent(tag, cfg_dir, stats_path, threads):
     return st, wall
 
 
-def check_settled(tag, st) -> list:
-    """K1's launches equal its device batches and the plane's dispatches,
-    the plane, ring and memory ledger are back at 0, and the launch shapes
-    add up; returns the shapes."""
+def check_settled(tag, st, k1=True) -> list:
+    """K1's launches (> 0 unless ``k1`` is false) equal its device batches
+    and, with the fused runs' K7 launches, the plane's dispatches; the
+    plane, ring and memory ledger are back at 0, and the launch shapes add
+    up; returns K1's shapes."""
     from loongcollector_tpu_torch.ops.kernels.field_extract_cuda import \
         LaunchShape
-    plane, ring = st["plane"], st["ring"]
-    if not 0 < st["launches"] == st["device_batches"] == plane["dispatches"]:
+    plane, ring, fu = st["plane"], st["ring"], st["fusion"]
+    if not (0 < st["launches"] if k1 else st["launches"] == 0) \
+            or st["launches"] != st["device_batches"] \
+            or plane["dispatches"] != st["device_batches"] \
+            + fu["fused_dispatches"] \
+            or fu["k7_launches"] != fu["fused_dispatches"]:
         fail(f"{tag}: K1 launches {st['launches']} vs device batches "
-             f"{st['device_batches']} vs plane dispatches "
+             f"{st['device_batches']}, K7 launches {fu['k7_launches']} vs "
+             f"fused dispatches {fu['fused_dispatches']}, plane dispatches "
              f"{plane['dispatches']}")
     if plane["inflight_bytes"] or ring["leased"] \
             or st["device_memory"]["total_live_bytes"] \
@@ -1093,6 +1142,8 @@ def check_settled(tag, st) -> list:
         fail(f"{tag}: the plane did not settle: in flight "
              f"{plane['inflight_bytes']} bytes, ring {ring}, memory "
              f"{st['device_memory']}")
+    if not k1:
+        return []
     shapes = checked_shapes({LaunchShape(**{k: v for k, v in d.items()
                                             if k != "launches"}):
                              d["launches"] for d in st["launch_shapes"]},
@@ -1122,6 +1173,38 @@ def dfa_stats_line(tag, name, k) -> list:
                     f"blocks of {sh.threads}, {sh.smem} bytes)"
                     for sh, n in shapes))
     return shapes
+
+
+def check_java_fusion(tag, st, lines, path) -> dict:
+    """Path 1 plans no fused run.  Path 2 plans one (the parse and the
+    filter on its message): each group the reader's chunks give either
+    fuses (one K7 launch) or, holding a record over 4096 bytes, runs
+    per-stage; the groups of each kind are counted from the log itself
+    (``testdata.java_groups``)."""
+    from loongcollector_tpu_torch import testdata as td
+    from loongcollector_tpu_torch.input.file.reader import DEFAULT_CHUNK
+    fu = st["fusion"]
+    if path == 1:
+        if fu["runs_planned"] or fu["fused_dispatches"]:
+            fail(f"{tag}: fused runs on path 1: {fu}")
+        return {}
+    groups = td.java_groups(lines, DEFAULT_CHUNK)
+    long_groups = sum(any(len(r) > 4096 for r in g) for g in groups)
+    empty = sum(not g for g in groups)
+    got = (fu["runs_planned"], fu["fused_groups"], fu["long_row_groups"],
+           fu["other_groups"])
+    want = (1, len(groups) - long_groups - empty, long_groups, empty)
+    if got != want or not fu["enabled"] == [True] \
+            or fu["fused_dispatches"] != fu["fused_groups"] \
+            or fu["exec_legs"] != fu["k7_launches"]:
+        fail(f"{tag}: fused run (planned, fused, per-stage over 4096, "
+             f"other) groups {got}, from the log {want}; {fu}")
+    log(f"{tag}: fusion on: {len(groups)} groups = {fu['fused_groups']} "
+        f"fused ({fu['k7_launches']} K7 launches, exec legs "
+        f"{fu['kernel_seconds']:.6f} s) + {fu['long_row_groups']} per-stage "
+        f"for a record over 4096 bytes, as the log's chunks give them")
+    return {"groups": len(groups), "fused": fu["fused_groups"],
+            "long": fu["long_row_groups"]}
 
 
 def phase_multiline(tmp, log_path, lines, n_bytes, path, threads) -> dict:
@@ -1170,6 +1253,7 @@ def phase_multiline(tmp, log_path, lines, n_bytes, path, threads) -> dict:
         fail(f"{tag}: {st['drained_groups']} groups from the stop-time "
              f"drain, not the file's last record")
     check_settled(tag, st)
+    fusion = check_java_fusion(tag, st, lines, path)
     long_lines = sum(len(x) > 4096 for x in lines)
     long_records = sum(len(r) > 4096 for r in records)
     long_msgs = sum(len(r["message"]) > 4096
@@ -1198,7 +1282,8 @@ def phase_multiline(tmp, log_path, lines, n_bytes, path, threads) -> dict:
                     "K2": dfa_stats_line(tag, "K2", k2)}
     mbps = n_bytes / st["seconds"] / 1e6
     k1_s = st["kernel_seconds"] - (k2["kernel_seconds"]
-                                   + k4["kernel_seconds"])
+                                   + k4["kernel_seconds"]
+                                   + st["fusion"]["kernel_seconds"])
     log(f"{tag}: {len(lines)} lines in, {len(records)} records, {n} out, "
         f"equal to the re oracle in order (the last from the stop-time "
         f"drain); {mbps:.2f} MB/s end to end ({st['seconds']:.3f} s, agent "
@@ -1212,7 +1297,7 @@ def phase_multiline(tmp, log_path, lines, n_bytes, path, threads) -> dict:
     log(f"{tag}: stage seconds (host): " + json.dumps(st["stage_seconds"]))
     os.unlink(out_path)
     return {"stats": st, "mbps": mbps, "records": len(records), "out": n,
-            "shapes": k_shapes}
+            "shapes": k_shapes, "fusion": fusion}
 
 
 def phase_grok(tmp, log_path, lines, n_bytes) -> dict:
@@ -1386,6 +1471,541 @@ def phase_dfa_path_shapes(java, path2_runs) -> dict:
     return out
 
 
+# -- K3 and K7 ----------------------------------------------------------------
+
+def span_cases(rng, lens, L):
+    """Spans for each row of one batch: at the row's start (the whole row),
+    in its middle, at its end, past its length, from a negative start,
+    absent (-1) and empty (0), and seeded random ones."""
+    import numpy as np
+    B = len(lens)
+    ln = lens.astype(np.int64)
+    starts = rng.integers(-3, L + 5, B).astype(np.int32)
+    spans = rng.integers(-2, L + 5, B).astype(np.int32)
+    kind = np.arange(B) % 8
+    starts[kind == 0], spans[kind == 0] = 0, ln[kind == 0]
+    starts[kind == 1] = ln[kind == 1] // 2
+    spans[kind == 1] = ln[kind == 1] - starts[kind == 1]
+    starts[kind == 2] = np.maximum(ln[kind == 2] - 3, 0)
+    spans[kind == 2] = 3
+    starts[kind == 3], spans[kind == 3] = 2, ln[kind == 3] + 40
+    starts[kind == 4], spans[kind == 4] = -2, ln[kind == 4] + 2
+    spans[kind == 5] = -1
+    spans[kind == 6] = 0
+    return starts, spans
+
+
+def phase_span_parity(java) -> dict:
+    """K3 (``lct_dfa_span_match``) against its plain version, bit-exact, and
+    against ``re.fullmatch`` of each span cut at its row's length, at every
+    length bucket (rows exactly L long, empty and padding rows), at L=100
+    and on misaligned rows, on phase 6's single automata."""
+    import numpy as np
+    import torch
+    from loongcollector_tpu_torch import testdata as td
+    from loongcollector_tpu_torch.ops.device_batch import (LENGTH_BUCKETS,
+                                                            pack_rows)
+    from loongcollector_tpu_torch.ops.kernels import dfa_scan_cuda as dsc
+    from loongcollector_tpu_torch.ops.kernels.dfa_scan import \
+        DFASpanMatchKernel
+    from loongcollector_tpu_torch.ops.regex.dfa import compile_dfa
+    rng = np.random.default_rng(20261018)
+    stats = {"checks": 0, "rows": 0, "max_abs_err": 0, "matched": 0}
+    dsc.reset_launch_shapes()
+    pats = DFA_PATTERNS + [td.JAVA_FILTER, td.JAVA_CONTINUE, td.LIMIT_DFA,
+                           td.APACHE_FILTER_INCLUDE["status"],
+                           td.APACHE_FILTER_EXCLUDE["url"]]
+    for pat in pats:
+        kern = DFASpanMatchKernel(compile_dfa(pat))
+        rx = re.compile(pat.encode())
+        for L, mis in [(L, False) for L in LENGTH_BUCKETS] + [
+                (100, False), (128, True)]:
+            lines = dfa_lines(rng, [pat], java, L) + [
+                b"404", b"/health", b"500", b"x/health"]
+            lens = np.array([len(x) for x in lines], np.int32)
+            arena = np.frombuffer(b"".join(lines), np.uint8)
+            offs = np.concatenate([[0], np.cumsum(lens[:-1])]).astype(
+                np.int64)
+            batch = pack_rows(arena, offs, lens, L, len(lines) + 40)
+            rows = torch.from_numpy(batch.rows).cuda()
+            if mis:
+                buf = torch.zeros(rows.numel() + 1, dtype=torch.uint8,
+                                  device=rows.device)
+                rows = buf[1:].view(rows.shape).copy_(rows)
+            lengths = torch.from_numpy(batch.lengths).cuda()
+            starts, spans = span_cases(rng, batch.lengths, L)
+            st_d = torch.from_numpy(starts).cuda()
+            sp_d = torch.from_numpy(spans).cuda()
+            got = kern(rows, lengths, st_d, sp_d).cpu().numpy()
+            torch.cuda.synchronize()
+            want = kern.plain(rows, lengths, st_d, sp_d).cpu().numpy()
+            if got.dtype != want.dtype or not (got == want).all():
+                bad = np.nonzero(got != want)[0]
+                fail(f"K3 != plain for {pat!r} at L={L} (misaligned {mis}), "
+                     f"rows {bad[:5].tolist()}")
+            for i, line in enumerate(lines):
+                lo, sl = max(int(starts[i]), 0), int(spans[i])
+                hi = min(int(starts[i]) + max(sl, 0), len(line), L)
+                exp = sl >= 0 and rx.fullmatch(
+                    line[lo:hi] if hi > lo else b"") is not None
+                if bool(got[i]) != exp:
+                    fail(f"K3 disagrees with re on {pat!r}: {line[:80]!r} "
+                         f"span ({starts[i]}, {spans[i]})")
+            stats["checks"] += 1
+            stats["rows"] += len(lines)
+            stats["matched"] += int(got.sum())
+    shapes = checked_dfa_shapes(dict(dsc.launch_shapes), "span parity")
+    if sum(n for sh, n in shapes if sh.entry_point
+           == dsc.ENTRY_POINTS["span"]) != stats["checks"]:
+        fail(f"span parity: launches recorded {shapes} for "
+             f"{stats['checks']} batches")
+    log(f"span parity: {stats['checks']} (automaton, L) batches over "
+        f"{len(pats)} automata, {stats['rows']} rows ({stats['matched']} "
+        f"spans matched): K3 bit-exact with its plain version and with re")
+    return stats
+
+
+def checked_fused_shapes(shapes, phase: str) -> list:
+    """K7 launches as (shape, launches): whole warps within the block limit
+    and the shared-memory budget, a block for every ``threads`` rows and
+    for each SM once a batch holds 32 rows an SM."""
+    from loongcollector_tpu_torch.ops.kernels import field_extract_cuda as fxc
+    out = sorted(shapes.items(), key=lambda kv: (kv[0].instantiation,
+                                                 kv[0].B, kv[0].L))
+    for sh, _n in out:
+        if (sh.threads % 32 or not fxc.MIN_THREADS <= sh.threads
+                <= fxc.MAX_THREADS or sh.smem > fxc.SMEM_BUDGET
+                or sh.blocks != -(-sh.B // sh.threads)
+                or sh.B >= 32 * fxc.NUM_SMS and sh.blocks < fxc.NUM_SMS):
+            fail(f"{phase}: K7 launch outside the card's limits: {sh}")
+    if not out:
+        fail(f"{phase}: no K7 launch recorded")
+    return out
+
+
+def _oracle_keep(name, line):
+    """The keep bit ``re`` gives a row of the three_stage and
+    apache_filter stage lists."""
+    from loongcollector_tpu_torch import testdata as td
+    if name == "three_stage":
+        m = re.fullmatch(td.THREE_STAGE_RX.encode(), line)
+        return (re.fullmatch(td.THREE_STAGE_SOURCE.encode(), line)
+                is not None, m is not None and re.fullmatch(
+                    td.THREE_STAGE_NUM.encode(), m.group(2)) is not None)
+    m = re.fullmatch(APACHE.encode(), line)
+    return (m is not None and re.fullmatch(rb"[45]\d\d", m.group(8))
+            is not None and re.fullmatch(rb"/health", m.group(6)) is None,)
+
+
+def phase_fused_parity() -> dict:
+    """K7 on each stage list of ``testdata.fused_stage_lists`` against its
+    plain version and against ``staged_run`` (one K1/K2/K3/K4 launch a
+    stage), bit-exact on every output, at every length bucket, at L=100
+    and on misaligned rows; the keep bits of the THREE_STAGE and
+    Apache-filter lists against re.  Then one FusedDispatch of six chunks
+    under ``set_sync_debug_mode("error")``, equal to the same dispatch on
+    the CPU."""
+    import numpy as np
+    import torch
+    from loongcollector_tpu_torch import testdata as td
+    from loongcollector_tpu_torch.ops import fused_pipeline as fp
+    from loongcollector_tpu_torch.ops.device_batch import (LENGTH_BUCKETS,
+                                                            pack_rows)
+    from loongcollector_tpu_torch.ops.kernels import fused_program_cuda as fpc
+    rng = np.random.default_rng(20261019)
+    stats = {"checks": 0, "rows": 0, "max_abs_err": 0, "bit31_rows": 0,
+             "lists": {}}
+    fpc.reset_launch_shapes()
+    programs = {}
+    for name, specs, rows_fn in td.fused_stage_lists():
+        program = fp.FusedProgramKernel(specs, name)
+        programs[name] = program
+        for L, mis in [(L, False) for L in LENGTH_BUCKETS] + [
+                (100, False), (128, True)]:
+            lines = rows_fn(rng, 1500 if L <= 1024 else 600, L)
+            lens = np.array([len(x) for x in lines], np.int32)
+            arena = np.frombuffer(b"".join(lines), np.uint8)
+            offs = np.concatenate([[0], np.cumsum(lens[:-1])]).astype(
+                np.int64)
+            batch = pack_rows(arena, offs, lens, L)
+            B = batch.rows.shape[0]
+            rows = torch.from_numpy(batch.rows).cuda()
+            if mis:
+                buf = torch.zeros(rows.numel() + 1, dtype=torch.uint8,
+                                  device=rows.device)
+                rows = buf[1:].view(rows.shape).copy_(rows)
+            lengths = torch.from_numpy(batch.lengths).cuda()
+            (flat,) = program(rows, lengths)
+            got = [t.cpu().numpy() for t in program.split(flat, B)]
+            torch.cuda.synchronize()
+            want = [t.cpu().numpy() for t in program.plain(rows, lengths)]
+            staged = [t.cpu().numpy() for tup in
+                      program.staged_run(rows, lengths) for t in tup]
+            for o, g, w, st in zip(program.descriptor.outputs, got, want,
+                                   staged):
+                g = g.reshape(w.shape)
+                for other, what in ((w, "plain version"),
+                                    (st, "staged run")):
+                    if g.dtype != other.dtype or not (g == other).all():
+                        bad = np.nonzero((g != other).reshape(B, -1)
+                                         .any(axis=1))[0]
+                        fail(f"K7 != {what} for {name} stage {o.stage} "
+                             f"{o.name} at L={L} (misaligned {mis}), rows "
+                             f"{bad[:5].tolist()}")
+                stats["max_abs_err"] = max(stats["max_abs_err"], int(np.abs(
+                    g.astype(np.int64) - w.astype(np.int64)).max(initial=0)))
+                if o.name == "tags":
+                    stats["bit31_rows"] += int((g.view(np.uint32)
+                                                >> 31 & 1).sum())
+            if name in ("three_stage", "apache_filter"):
+                keeps = [g for o, g in zip(program.descriptor.outputs, got)
+                         if o.name == "keep"]
+                for i, line in enumerate(lines):
+                    exp = _oracle_keep(name, line)
+                    if tuple(bool(k[i]) for k in keeps) != exp:
+                        fail(f"K7 {name} keep disagrees with re on "
+                             f"{line[:100]!r}")
+            stats["checks"] += 1
+            stats["rows"] += len(lines)
+        d = program.descriptor
+        stats["lists"][name] = {"instantiation": d.instantiation,
+                                "descriptor_words": len(d.blob),
+                                "shared_words": d.shared_words,
+                                "launches": program.launches}
+        log(f"fused parity {name}: {program.launches} launches of "
+            f"{d.instantiation} bit-exact with the plain version and "
+            f"staged_run; descriptor {len(d.blob)} words, {d.shared_words} "
+            f"in shared memory; placement {d.placement}")
+    if not stats["bit31_rows"]:
+        fail("fused parity: no row set tag bit 31")
+    shapes = checked_fused_shapes(dict(fpc.launch_shapes), "fused parity")
+    if sum(n for _, n in shapes) != stats["checks"]:
+        fail(f"fused parity: {sum(n for _, n in shapes)} launches recorded "
+             f"for {stats['checks']} batches")
+    over = [sh for sh, _ in shapes if sh.device_words > 0
+            and sh.L == LENGTH_BUCKETS[-1]]
+    if not over:
+        fail("fused parity: no launch at L=4096 with tables in device "
+             "memory")
+    log(f"fused parity: {stats['checks']} (stage list, L) batches, "
+        f"{stats['rows']} rows, {stats['bit31_rows']} rows with tag bit 31; "
+        f"instantiations launched "
+        f"{sorted({sh.instantiation for sh, _ in shapes})}; at L=4096 the "
+        f"over-budget list ran {over[0].threads} threads with "
+        f"{over[0].smem} bytes of shared memory and {over[0].device_words} "
+        f"descriptor words in device memory")
+    stats["sync_debug"] = phase_fused_dispatch(programs["apache_filter"])
+    return stats
+
+
+def phase_fused_dispatch(program) -> int:
+    """One FusedDispatch of six chunks under set_sync_debug_mode("error"):
+    no hidden synchronisation between dispatch and result; its stage
+    outputs equal the same dispatch on the CPU."""
+    import numpy as np
+    import torch
+    from loongcollector_tpu_torch.ops import fused_pipeline as fp
+    from loongcollector_tpu_torch.testdata import gen_lines
+    dev = torch.device("cuda", torch.cuda.current_device())
+    program.warm(dev)
+    chunk = 8192
+    fp.MAX_BATCH = chunk
+    try:
+        lines = gen_lines(6 * chunk - 100, seed=23)
+        arena, offs, lens = _layout(lines)
+        d = fp.FusedDispatch(program, arena, offs, lens, dev, depth=8)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            d.dispatch()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        got = d.result()
+        want = fp.FusedDispatch(program, arena, offs, lens,
+                                torch.device("cpu")).dispatch().result()
+    finally:
+        fp.MAX_BATCH = 65536
+    for si, (g, w) in enumerate(zip(got.stages, want.stages)):
+        for a, b in zip(g, w):
+            if a.dtype != b.dtype or not np.array_equal(a, b):
+                fail(f"fused dispatch: stage {si} differs from the CPU run")
+    log(f"fused dispatch: FusedDispatch.dispatch of 6 chunks "
+        f"({len(lines)} rows) ran under set_sync_debug_mode('error'); "
+        f"stage outputs equal the CPU run's")
+    return len(lines)
+
+
+def phase_apache_filter(tmp, log_path, lines, n_bytes, threads) -> dict:
+    """The Apache-filter path (``testdata.apache_filter_config``) on the
+    main path's log: every record equals the re oracle in file order; K7
+    launches = fused dispatches = plane dispatches = groups > 0, and K1's
+    and K2's standalone launches are 0; the plane, ring and memory ledger
+    settle."""
+    from loongcollector_tpu_torch import testdata as td
+    from loongcollector_tpu_torch.ops.kernels.fused_program_cuda import \
+        LaunchShape
+    tag = f"apache filter, {threads} worker{'s' if threads > 1 else ''}"
+    run_dir = os.path.join(tmp, f"filter{threads}")
+    cfg_dir = os.path.join(run_dir, "config")
+    os.makedirs(cfg_dir)
+    out_path = os.path.join(run_dir, "out.json")
+    with open(os.path.join(cfg_dir, "apache_filter.yaml"), "w") as f:
+        f.write(td.apache_filter_config(log_path, out_path))
+    st, wall = run_agent(tag, cfg_dir, os.path.join(run_dir, "stats.json"),
+                         threads)
+    want = td.apache_filter_oracle(lines)
+    n = 0
+    with open(out_path, "rb") as f:
+        for n, rec in enumerate(f, 1):
+            if n > len(want):
+                fail(f"{tag}: more records than the oracle's {len(want)}")
+            obj = json.loads(rec)
+            got = {k: obj.get(k) for k in td.APACHE_KEYS}
+            if got != want[n - 1]:
+                fail(f"{tag}: record {n}: {got} != re {want[n - 1]}")
+    if n != len(want) or st["events"] != n:
+        fail(f"{tag}: {n} records ({st['events']} events) for the oracle's "
+             f"{len(want)}")
+    check_settled(tag, st, k1=False)
+    fu, plane = st["fusion"], st["plane"]
+    if not (0 < fu["k7_launches"] == fu["fused_dispatches"]
+            == plane["dispatches"] == fu["fused_groups"]
+            == fu["exec_legs"]) or fu["runs_planned"] != 1 \
+            or fu["long_row_groups"] or fu["other_groups"] \
+            or st["launches"] or st["k2"]["launches"] \
+            or st["k4"]["launches"] or fu["k3_launches"]:
+        fail(f"{tag}: K7 launches {fu['k7_launches']}, fused dispatches "
+             f"{fu['fused_dispatches']}, plane dispatches "
+             f"{plane['dispatches']}, groups {fu['fused_groups']} fused / "
+             f"{fu['long_row_groups']} per-stage, standalone K1 "
+             f"{st['launches']}, K2 {st['k2']['launches']}, K3 "
+             f"{fu['k3_launches']}")
+    shapes = checked_fused_shapes(
+        {LaunchShape(**{k: v for k, v in d.items() if k != "launches"}):
+         d["launches"] for d in fu["launch_shapes"]}, tag)
+    if sum(n_ for _, n_ in shapes) != fu["k7_launches"]:
+        fail(f"{tag}: K7 launch shapes do not add up to its launches")
+    mbps = n_bytes / st["seconds"] / 1e6
+    log(f"{tag}: {len(lines)} lines in, {n} records out ({n / len(lines):.1%}"
+        f" kept), equal to the re oracle in order; {fu['k7_launches']} K7 "
+        f"launches = fused dispatches = plane dispatches = groups, 0 "
+        f"standalone K1/K2 launches; {mbps:.2f} MB/s end to end "
+        f"({st['seconds']:.3f} s, agent process {wall:.1f} s); K7 exec legs "
+        f"{fu['kernel_seconds']:.6f} s, median "
+        f"{fu['exec_median_s'] * 1e3:.5f} ms, largest "
+        f"{fu['exec_max_s'] * 1e3:.5f} ms; traced busy share "
+        f"{st['busy_share'] * 100:.3f}%; geometry " + ", ".join(
+            f"{k}x {sh.instantiation} B={sh.B} L={sh.L}: {sh.blocks} blocks "
+            f"of {sh.threads} threads, {sh.smem} bytes of shared memory"
+            for sh, k in shapes))
+    log(f"{tag}: stage seconds (host): " + json.dumps(st["stage_seconds"]))
+    legs = st["timeline"]["legs"]
+    log(f"{tag}: legs (median ms / sum s / count): " + ", ".join(
+        f"{leg} {v['median_s'] * 1e3:.4f} / {v['sum_s']:.4f} / {v['count']}"
+        f" ({v['clock']})" for leg, v in legs.items()))
+    os.unlink(out_path)
+    return {"stats": st, "mbps": mbps, "wall_s": wall, "shapes": shapes,
+            "records": n}
+
+
+def fused_bound_ms(B, row_bytes, walked, desc_words, C, n_keep):
+    """Least time for one K7 launch of the Apache-filter program: the bytes
+    it must move (row bytes below each length, the lengths, the descriptor,
+    B * (1 + 8C) extract outputs and B keep bytes) at the HBM rate, against
+    one 32-bit op per byte walked (the row, then each span) at the
+    non-tensor rate; returns (ms, bound_by)."""
+    moved = row_bytes + 4 * B + 4 * desc_words + B * (1 + 8 * C) \
+        + n_keep * B
+    t_bytes = moved / HBM_BYTES_PER_S
+    t_ops = walked / INT_OPS_PER_S
+    if t_bytes >= t_ops:
+        return t_bytes * 1e3, "bytes"
+    return t_ops * 1e3, "operations"
+
+
+def span_bound_ms(B, S, span_bytes):
+    """Least time for one K3 launch: K2's count over the bytes the spans
+    hold (row bytes below each length, cut to the span), plus 8B for the
+    starts and lengths of the spans."""
+    moved = span_bytes + 4 * B + S * 256 + 4 * S + B + 8 * B
+    t_bytes = moved / HBM_BYTES_PER_S
+    t_ops = span_bytes / INT_OPS_PER_S
+    if t_bytes >= t_ops:
+        return t_bytes * 1e3, "bytes"
+    return t_ops * 1e3, "operations"
+
+
+def phase_fused_timing() -> dict:
+    """K7 on the Apache-filter program and K3 on the status condition over
+    the status spans, at B=8192 (5,500 Apache rows: one main-path chunk)
+    and B=65536, L=128: warm and cold (graph replay), each beside its plain
+    version and bound."""
+    import numpy as np
+    import torch
+    from loongcollector_tpu_torch import testdata as td
+    from loongcollector_tpu_torch.ops import fused_pipeline as fp
+    from loongcollector_tpu_torch.ops.device_batch import pack_rows
+    from loongcollector_tpu_torch.ops.kernels import fused_program_cuda as fpc
+    from loongcollector_tpu_torch.ops.kernels import dfa_scan_cuda as dsc
+    specs = dict((n, s) for n, s, _ in td.fused_stage_lists())[
+        "apache_filter"]
+    program = fp.FusedProgramKernel(specs, "apache_filter")
+    span = specs[1].payload[0].staged.kernel
+    status = td.APACHE_KEYS.index("status")
+    out = {}
+    base = td.gen_lines(65536, seed=5)
+    for B, n_real in ((8192, 5500), (65536, 65536)):
+        lines = base[:n_real]
+        lens = np.array([len(x) for x in lines], np.int32)
+        arena = np.frombuffer(b"".join(lines), np.uint8)
+        offs = np.concatenate([[0], np.cumsum(lens[:-1])]).astype(np.int64)
+        batch = pack_rows(arena, offs, lens, 128, B)
+        rows = torch.from_numpy(batch.rows).cuda()
+        lengths = torch.from_numpy(batch.lengths).cuda()
+        fpc.reset_launch_shapes()
+        dsc.reset_launch_shapes()
+        (flat,) = program(rows, lengths)
+        got = [t.cpu().numpy() for t in program.split(flat, B)]
+        want = [t.cpu().numpy() for t in program.plain(rows, lengths)]
+        if not all((g.reshape(w.shape) == w).all()
+                   for g, w in zip(got, want)):
+            fail(f"fused timing B={B}: K7 != plain")
+        ok, off, ln = want[0], want[1], want[2]
+        starts = torch.from_numpy(np.ascontiguousarray(off[:, status])).cuda()
+        spans = torch.from_numpy(np.ascontiguousarray(ln[:, status])).cuda()
+        k3 = span(rows, lengths, starts, spans).cpu().numpy()
+        if not (k3 == span.plain(rows, lengths, starts, spans)
+                .cpu().numpy()).all():
+            fail(f"fused timing B={B}: K3 != plain")
+        row_bytes = int(lens.sum())
+        span_bytes = int(np.clip(ln[:, 7], 0, None).sum())
+        walked = row_bytes + span_bytes + int(np.clip(ln[:, 5], 0, None)
+                                              .sum())
+        res = {}
+        for name, fn, plain, bound in (
+                ("K7", lambda r, n: program(r, n),
+                 lambda: program.plain(rows, lengths),
+                 fused_bound_ms(B, row_bytes, walked,
+                                len(program.descriptor.blob), 9, 1)),
+                ("K3", lambda r, n: span(r, n, starts, spans),
+                 lambda: span.plain(rows, lengths, starts, spans),
+                 span_bound_ms(B, span.arrays.num_states, span_bytes))):
+            call_ms = time_cuda(lambda: fn(rows, lengths), 200)
+            ms = graph_ms([lambda: fn(rows, lengths)])
+            touched = row_bytes + 4 * B + B * (
+                program.descriptor.row_bytes if name == "K7" else 9)
+            n_copies = max(8, -(-2 * L2_BYTES // touched))
+            copies = [(rows.clone(), lengths.clone())
+                      for _ in range(n_copies)]
+            cold_ms = graph_ms([lambda r=r, n=n: fn(r, n) for r, n in copies],
+                               reps=n_copies * -(-50 // n_copies), iters=5,
+                               keep_outputs=True)
+            del copies
+            plain_ms = time_cuda(plain, 5)
+            b_ms, by = bound
+            res[name] = {"ms": ms, "cold_ms": cold_ms, "call_ms": call_ms,
+                         "plain_ms": plain_ms, "bound_ms": b_ms,
+                         "bound_by": by, "copies": n_copies}
+        (k7_sh, _), = checked_fused_shapes(dict(fpc.launch_shapes),
+                                           f"fused timing B={B}")
+        k3_sh = next(sh for sh in dsc.launch_shapes
+                     if sh.entry_point == dsc.ENTRY_POINTS["span"])
+        res["K7"].update(blocks=k7_sh.blocks, threads=k7_sh.threads,
+                         smem=k7_sh.smem, instantiation=k7_sh.instantiation)
+        res["K3"].update(blocks=k3_sh.blocks, threads=k3_sh.threads,
+                         smem=k3_sh.smem, S=k3_sh.S)
+        out[B] = res
+        for name, r in res.items():
+            log(f"{name} timing B={B} L=128 ({n_real} Apache rows; "
+                f"{r['blocks']} blocks of {r['threads']} threads, {r['smem']}"
+                f" bytes of shared memory): kernel {r['ms']:.5f} ms warm and "
+                f"{r['cold_ms']:.5f} ms cold ({r['copies']} copies) on the "
+                f"device (graph replay), {r['call_ms']:.4f} ms per wrapper "
+                f"call, plain {r['plain_ms']:.3f} ms, bound "
+                f"{r['bound_ms']:.6f} ms ({r['bound_by']})")
+    return out
+
+
+def fused_kernel_entries(span_parity, fused_parity, timing, filt, filt4,
+                         path2, build) -> list:
+    """The ``kernels`` line's entries of K3 and K7: K7's launches from the
+    Apache-filter path (one worker), K3's standalone launches there (0: on
+    that path its walk runs inside each K7 launch); times at B=8192,
+    L=128."""
+    t8, t64 = timing[8192], timing[65536]
+    fu = filt["stats"]["fusion"]
+    return [{
+        "name": "dfa_span_match",
+        "route": "cuda",
+        "source": "loongcollector_tpu_torch/ops/kernels/csrc/dfa_scan.cu",
+        "replaces": "loongcollector_tpu/ops/kernels/dfa_scan.py:105",
+        "parity": "bit-exact",
+        "geometry": [8192, 128, t8["K3"]["S"]],
+        "launches": fu["k3_launches"],
+        "span_walks_inside_k7_launches": fu["k7_launches"],
+        "max_abs_err": span_parity["max_abs_err"],
+        "ms": t8["K3"]["ms"],
+        "cold_ms": t8["K3"]["cold_ms"],
+        "call_ms": t8["K3"]["call_ms"],
+        "plain_ms": t8["K3"]["plain_ms"],
+        "bound_ms": t8["K3"]["bound_ms"],
+        "bound_by": t8["K3"]["bound_by"],
+        # no single PyTorch call computes a DFA walk
+        "library_ms": None,
+        "bench_ms": t64["K3"]["ms"],
+        "bench_cold_ms": t64["K3"]["cold_ms"],
+        "bench_plain_ms": t64["K3"]["plain_ms"],
+        "bench_bound_ms": t64["K3"]["bound_ms"],
+        "parity_batches": span_parity["checks"],
+        "threads": t8["K3"]["threads"],
+        "blocks": t8["K3"]["blocks"],
+        "build_s": build["build_s"]["dfa_scan"],
+        "ptxas": build["dfa_ptxas"]["span"],
+    }, {
+        "name": "fused_program",
+        "route": "cuda",
+        "source": "loongcollector_tpu_torch/ops/kernels/csrc/"
+                  "fused_program.cu",
+        "replaces": "loongcollector_tpu/ops/fused_pipeline.py:156",
+        "parity": "bit-exact",
+        "geometry": [8192, 128, 9],
+        "launches": fu["k7_launches"],
+        "max_abs_err": fused_parity["max_abs_err"],
+        "ms": t8["K7"]["ms"],
+        "cold_ms": t8["K7"]["cold_ms"],
+        "call_ms": t8["K7"]["call_ms"],
+        "plain_ms": t8["K7"]["plain_ms"],
+        "bound_ms": t8["K7"]["bound_ms"],
+        "bound_by": t8["K7"]["bound_by"],
+        # no single PyTorch call computes a stage program
+        "library_ms": None,
+        "bench_ms": t64["K7"]["ms"],
+        "bench_cold_ms": t64["K7"]["cold_ms"],
+        "bench_plain_ms": t64["K7"]["plain_ms"],
+        "bench_bound_ms": t64["K7"]["bound_ms"],
+        "path_mbps": filt["mbps"],
+        "path_mbps_4_workers": filt4["mbps"],
+        "path_records": filt["records"],
+        "path_kernel_s": fu["kernel_seconds"],
+        "path_exec_median_ms": fu["exec_median_s"] * 1e3,
+        "path_exec_max_ms": fu["exec_max_s"] * 1e3,
+        "path_busy_share": filt["stats"]["busy_share"],
+        "path_launch_shapes": [[sh.B, sh.L, sh.blocks, sh.threads, n]
+                               for sh, n in filt["shapes"]],
+        "path_launches_4_workers":
+            filt4["stats"]["fusion"]["k7_launches"],
+        "java_filter_groups": path2["fusion"],
+        "instantiation": t8["K7"]["instantiation"],
+        "threads": t8["K7"]["threads"],
+        "blocks": t8["K7"]["blocks"],
+        "smem_bytes": t8["K7"]["smem"],
+        "parity_batches": fused_parity["checks"],
+        "stage_lists": fused_parity["lists"],
+        "build_s": build["build_s"]["fused_program"],
+        "ptxas": build["k7_ptxas"],
+    }]
+
+
 def dfa_kernel_entry(name, mode, replaces, parity, timing, path2, path2_4,
                      build, key):
     """The ``kernels`` line's entry of K2 (``key`` "K2") or K4 ("K4"): its
@@ -1452,7 +2072,8 @@ def main() -> int:
     from loongcollector_tpu_torch import native
     from loongcollector_tpu_torch.ops.kernels import dfa_scan_cuda as dsc
     from loongcollector_tpu_torch.ops.kernels import field_extract_cuda as fxc
-    build = phase_build(fxc, dsc, native)
+    from loongcollector_tpu_torch.ops.kernels import fused_program_cuda as fpc
+    build = phase_build(fxc, dsc, fpc, native)
     parity = phase_parity()
     tmp, log_path, lines, n_bytes = main_path_log()
     main_path = phase_main_path(tmp, log_path, lines, n_bytes, threads=1)
@@ -1461,13 +2082,18 @@ def main() -> int:
     plane = phase_plane()
     jtmp, jlog_path, jlines, j_bytes = java_log()
     dfa_parity = phase_dfa_parity(jlines)
+    span_parity = phase_span_parity(jlines)
+    fused_parity = phase_fused_parity()
     path1 = phase_multiline(jtmp, jlog_path, jlines, j_bytes, 1, 1)
     path2 = phase_multiline(jtmp, jlog_path, jlines, j_bytes, 2, 1)
     path2_4 = phase_multiline(jtmp, jlog_path, jlines, j_bytes, 2, 4)
     os.unlink(jlog_path)
     grok = phase_grok(tmp, log_path, lines, n_bytes)
+    filt = phase_apache_filter(tmp, log_path, lines, n_bytes, threads=1)
+    filt4 = phase_apache_filter(tmp, log_path, lines, n_bytes, threads=4)
     os.unlink(log_path)
     dfa_timing = phase_dfa_path_shapes(jlines, [path2, path2_4])
+    fused_timing = phase_fused_timing()
     mp = main_path["stats"]
     t8, t64 = timing[8192], timing[65536]
     kernels = {"kernels": [{
@@ -1529,7 +2155,9 @@ def main() -> int:
         dfa_kernel_entry(
         "fused_scan", "tags",
         "loongcollector_tpu/ops/kernels/dfa_scan.py:172", dfa_parity,
-        dfa_timing, path2, path2_4, build, "K4")]}
+        dfa_timing, path2, path2_4, build, "K4")] + fused_kernel_entries(
+        span_parity, fused_parity, fused_timing, filt, filt4, path2,
+        build)}
     log(f"total: {time.perf_counter() - t_start:.1f} s")
     print(nvidia_smi())
     print(json.dumps(kernels))

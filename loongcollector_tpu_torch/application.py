@@ -29,7 +29,11 @@ timeline's exec legs on the card, every kernel's); and for the DFA
 kernels, ``k2`` (the engines' ``match_batch`` on the DFA tier) and ``k4``
 (the fused sets): launches, device batches, host-routed rows, launch
 shapes, and the kernel's exec legs on the timeline (count, and on the
-card their sum, median and largest).
+card their sum, median and largest); and ``fusion`` (resident stage
+fusion): runs planned, groups fused and sent per-stage (``long_row_groups``:
+a row over 4096 bytes), fused dispatches, K7 launches and launch shapes, K3
+launches, the program rows, and K7's exec legs on the timeline (program
+``fused``).
 """
 
 from __future__ import annotations
@@ -83,9 +87,10 @@ def run_once(config_dir: str, device) -> Dict[str, Any]:
     """Run every pipeline of the directory once through the processor
     runner; returns the run's counts."""
     from .ops import compile_watch, xprof
+    from .ops import fused_pipeline
     from .ops.device_plane import DevicePlane, device_memory_status
     from .ops.device_stream import auto_tuner, batch_ring, stream_depth
-    from .ops.kernels import dfa_scan_cuda
+    from .ops.kernels import dfa_scan_cuda, fused_program_cuda
     from .ops.kernels import field_extract_cuda as fxc
     from .ops.regex.engine import cached_engines
     from .ops.regex.fuse import live_sets
@@ -102,8 +107,11 @@ def run_once(config_dir: str, device) -> Dict[str, Any]:
     sets = live_sets()
     fxc.reset_launch_shapes()
     dfa_scan_cuda.reset_launch_shapes()
-    for counted in engines + sets:
+    fused_program_cuda.reset_launch_shapes()
+    runs = [r for p in manager.pipelines() for r in p.fused_runs]
+    for counted in engines + sets + runs:
         counted.reset_counts()
+    fused_pipeline.reset_counts()
     plane = DevicePlane.instance()
     plane.reset_counters()
     ring = batch_ring()
@@ -191,6 +199,39 @@ def run_once(config_dir: str, device) -> Dict[str, Any]:
                          sum(fs.device_batches for fs in sets),
                          sum(fs.host_rows for fs in sets), "tags", timeline,
                          on_card),
+        "fusion": _fusion_stats(runs, timeline, on_card),
+    }
+
+
+def _fusion_stats(runs, timeline: xprof.DeviceTimeline,
+                  on_card: bool) -> Dict[str, Any]:
+    """Resident stage fusion's counts for ``--stats``: the runs planned,
+    the groups they fused or sent per-stage, the fused dispatches and K7
+    launches (with their shapes), K3 launches (its per-stage twin), and
+    K7's exec legs on the timeline."""
+    from .ops import fused_pipeline, xprof
+    from .ops.kernels import fused_program_cuda
+    programs = fused_pipeline.cached_programs()
+    execs = timeline.leg_durations("exec", xprof.DEVICE if on_card else None,
+                                   "fused")
+    status = fused_pipeline.stage_fusion_status()
+    return {
+        "enabled": [r.enabled() for r in runs],
+        "runs_planned": len(runs),
+        "fused_groups": sum(r.fused_groups for r in runs),
+        "long_row_groups": sum(r.long_row_groups for r in runs),
+        "other_groups": sum(r.other_groups for r in runs),
+        "fused_dispatches": status["fused_dispatch_total"],
+        "program_dispatches": sum(p.dispatch_count for p in programs),
+        "k7_launches": sum(p.launches for p in programs),
+        "k3_launches": sum(p.span_launches() for p in programs),
+        "programs": status["programs"],
+        "kernel_seconds": sum(execs) if on_card else None,
+        "exec_legs": len(execs),
+        "exec_median_s": statistics.median(execs) if execs else None,
+        "exec_max_s": max(execs, default=None),
+        "launch_shapes": [dict(asdict(shape), launches=n) for shape, n
+                          in fused_program_cuda.launch_shapes.items()],
     }
 
 

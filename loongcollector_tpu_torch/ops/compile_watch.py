@@ -5,8 +5,9 @@ so the first call at each geometry (trace and compile) is timed and
 counted and every later call is a cache hit.  The port has no jit: each
 kernel library is built once by ``nvcc`` into a directory keyed on its
 source hash, and each (entry point, B, L) then pays its first launch.  So
-two families are watched per library (``ops/kernels/field_extract_cuda.py``
-and ``dfa_scan_cuda.py``):
+two families are watched per library (``ops/kernels/field_extract_cuda.py``,
+``dfa_scan_cuda.py`` and ``fused_program_cuda.py``, K7's, whose launch
+geometry is keyed by its instantiation):
 
   * ``<module>.build`` — ``build()``: a compile is an ``nvcc`` run
     (geometry = the source hash), a cache hit a library loaded from the

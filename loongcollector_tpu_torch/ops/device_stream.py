@@ -8,15 +8,19 @@ Reference: loongcollector_tpu/ops/device_stream.py.
   host tensors, pinned when the device is CUDA (``pin_memory`` needs CUDA,
   so on the CPU they are plain tensors); ``pack()`` writes into them
   through numpy views.  A slot also owns pinned output buffers for
-  ``ok``/``cap_off``/``cap_len`` (``outputs(C)``).  Slots are leased and
-  released exactly once; every pack records its padding waste.
+  ``ok``/``cap_off``/``cap_len`` (``outputs(C)``), and one flat byte
+  buffer for a fused stage program's outputs (``flat_output(nbytes)``).
+  Slots are leased and released exactly once; every pack records its
+  padding waste.
 * **StagedKernel** — the call the plane dispatches for a slot: on CUDA it
   copies the slot's rows and lengths to the device on the thread's H2D
   stream, launches the kernel on the thread's compute stream once an event
   says the copy is done, copies the outputs back into the slot's pinned
   buffers on the compute stream and records the final event (the slot's
   ``fence``).  No step synchronises the host.  On the CPU it runs the
-  kernel's plain version on the slot's tensors.
+  kernel's plain version on the slot's tensors.  A kernel with
+  ``host_outputs(slot)`` (the fused stage program) names its own host
+  buffers; else they are the slot's ``outputs(C)``.
 * **Slot reuse** — a slot goes back to its pool only once its fence has
   completed: the copy engine may still read the pinned rows, or write the
   pinned outputs, of a dispatch released on an error path.  Until then
@@ -24,9 +28,11 @@ Reference: loongcollector_tpu/ops/device_stream.py.
 * **DeviceStream** — the pipelined dispatch window: at most ``depth``
   batches in flight, results strictly in submit order, an errored batch
   costs only its own entry.
-* **WidthAutoTuner** — per-length-bucket B floors driven by the measured
-  row padding, and the worker lanes' flush deadline driven by the plane's
-  idle-while-backlogged accounting.
+* **WidthAutoTuner** — B floors per (lane, length bucket) driven by the
+  measured row padding — lane None for the engines' stream, ``fused:<sig>``
+  for each fused program, so a sparse fused pipeline does not shrink the
+  staged plane's geometry — and the worker lanes' flush deadline driven by
+  the plane's idle-while-backlogged accounting.
 
 Left out of the port: the chaos fault points, the metrics instruments and
 the chip-lane keys of the reference's tuner.
@@ -112,7 +118,8 @@ class BatchSlot:
     exactly once, after the dispatch that used it has been consumed."""
 
     __slots__ = ("_ring", "B", "L", "pinned", "rows", "lengths", "origins",
-                 "_np", "_outs", "fence", "_leased", "pack_t0", "pack_dur")
+                 "_np", "_outs", "_flat", "fence", "_leased", "pack_t0",
+                 "pack_dur")
 
     def __init__(self, ring: "BatchRing", B: int, L: int, pinned: bool):
         self._ring = ring
@@ -125,6 +132,7 @@ class BatchSlot:
         self._np = (self.rows.numpy(), self.lengths.numpy(),
                     self.origins.numpy())
         self._outs: Dict[int, Tuple[torch.Tensor, ...]] = {}
+        self._flat: Dict[int, torch.Tensor] = {}
         # the CUDA event after the last dispatch's D2H; None on the CPU
         self.fence = None
         self._leased = False
@@ -133,9 +141,10 @@ class BatchSlot:
         self.pack_dur: Optional[float] = None
 
     def pack(self, arena: np.ndarray, offsets: np.ndarray,
-             lengths: np.ndarray):
+             lengths: np.ndarray, lane: Optional[str] = None):
         """Pack rows into this slot's buffers; records padding waste and
-        feeds the auto-tuner.  Returns the DeviceBatch of numpy views."""
+        feeds the auto-tuner (``lane``'s floors).  Returns the DeviceBatch
+        of numpy views."""
         if xprof.is_active():
             self.pack_t0 = time.perf_counter()
             batch = pack_rows(arena, offsets, lengths, self.L, self.B,
@@ -146,7 +155,8 @@ class BatchSlot:
             batch = pack_rows(arena, offsets, lengths, self.L, self.B,
                               out=self._np)
         self._ring.record_pack(self.B, self.L, batch.n_real,
-                               int(np.asarray(lengths, np.int64).sum()))
+                               int(np.asarray(lengths, np.int64).sum()),
+                               lane=lane)
         return batch
 
     def outputs(self, C: int) -> Tuple[torch.Tensor, ...]:
@@ -162,6 +172,16 @@ class BatchSlot:
                                 pin_memory=pin))
             self._outs[C] = outs
         return outs
+
+    def flat_output(self, nbytes: int) -> torch.Tensor:
+        """A u8 host buffer of ``nbytes`` a dispatch copies one flat output
+        into (pinned like the slot)."""
+        flat = self._flat.get(nbytes)
+        if flat is None:
+            flat = torch.zeros(nbytes, dtype=torch.uint8,
+                               pin_memory=self.pinned)
+            self._flat[nbytes] = flat
+        return flat
 
     def nbytes(self) -> int:
         """Host bytes this slot stages for H2D (rows + lengths + origins):
@@ -263,7 +283,7 @@ class BatchRing:
         mem_note_free("ring_slots", slot.nbytes())
 
     def record_pack(self, B: int, L: int, n_real: int,
-                    real_bytes: int) -> None:
+                    real_bytes: int, lane: Optional[str] = None) -> None:
         total_bytes = B * L
         padded_bytes = max(0, total_bytes - real_bytes)
         with self._lock:
@@ -273,7 +293,7 @@ class BatchRing:
             st.padded_rows += B - n_real
             st.real_bytes += real_bytes
             st.padded_bytes += padded_bytes
-        auto_tuner().observe_pack(L, B, n_real)
+        auto_tuner().observe_pack(L, B, n_real, lane=lane)
 
     # -- observability ------------------------------------------------------
 
@@ -345,21 +365,23 @@ class StagedKernel:
         if device.type == "cuda" and device.index is None:
             device = torch.device("cuda", torch.cuda.current_device())
         self.device = device
-        # the hand kernel's wrapper records the exec leg's events right
+        # a hand kernel's wrapper records the exec leg's events right
         # around its launch; any other callable (the plain version) is
         # bracketed from here
-        from .kernels.field_extract import ExtractKernel
-        self._brackets_launch = isinstance(kernel, ExtractKernel)
+        self._brackets_launch = bool(getattr(kernel, "brackets_launch",
+                                             False))
+        self._host_outputs = getattr(kernel, "host_outputs", None)
 
     def __call__(self, slot: BatchSlot, C: int):
-        outs = slot.outputs(C)
+        outs = (self._host_outputs(slot) if self._host_outputs is not None
+                else slot.outputs(C))
         xid = xprof.current_dispatch()
         if self.device.type == "cpu":
             slot.fence = None
             t0 = time.perf_counter()
-            ok, off, length = self.kernel(slot.rows, slot.lengths)
+            results = self.kernel(slot.rows, slot.lengths)
             t1 = time.perf_counter()
-            for dst, src in zip(outs, (ok, off, length)):
+            for dst, src in zip(outs, results):
                 dst.copy_(src)
             if xid:
                 xprof.leg(xid, "exec", t0, t1 - t0)
@@ -382,12 +404,12 @@ class StagedKernel:
             rows.record_stream(streams.compute)
             lengths.record_stream(streams.compute)
             if self._brackets_launch:
-                ok, off, length = self.kernel(rows, lengths, ev[2:4])
+                results = self.kernel(rows, lengths, ev[2:4])
             else:
                 ev[2].record(streams.compute)
-                ok, off, length = self.kernel(rows, lengths)
+                results = self.kernel(rows, lengths)
                 ev[3].record(streams.compute)
-            for dst, src in zip(outs, (ok, off, length)):
+            for dst, src in zip(outs, results):
                 dst.copy_(src, non_blocking=True)
             done.record(streams.compute)
         slot.fence = done
@@ -436,23 +458,26 @@ class WidthAutoTuner:
 
     def __init__(self) -> None:
         self._lock = threading.Lock()
-        self._buckets: Dict[int, _BucketState] = {}
+        # keyed (lane, L): lane None is the engines' stream, "fused:<sig>"
+        # a fused program's
+        self._buckets: Dict[Tuple[Optional[str], int], _BucketState] = {}
         self._flush_deadline_s = self.DEADLINE_DEFAULT_S
         self._last_adjust = 0.0
         self._last_idle_ms: Optional[float] = None
         self._deadline_adjusts = 0
 
-    def min_batch_for(self, L: int) -> int:
+    def min_batch_for(self, L: int, lane: Optional[str] = None) -> int:
         if not tuner_enabled():
             return MIN_BATCH
         with self._lock:
-            st = self._buckets.get(L)
+            st = self._buckets.get((lane, L))
             return st.floor if st is not None else MIN_BATCH
 
-    def observe_pack(self, L: int, B: int, n_real: int) -> None:
+    def observe_pack(self, L: int, B: int, n_real: int,
+                     lane: Optional[str] = None) -> None:
         frac = (B - n_real) / B if B else 0.0
         with self._lock:
-            st = self._buckets.setdefault(L, _BucketState())
+            st = self._buckets.setdefault((lane, L), _BucketState())
             st.packs_total += 1
             st.packs_since += 1
             st.ewma_pad += self.EWMA_ALPHA * (frac - st.ewma_pad)
@@ -498,18 +523,30 @@ class WidthAutoTuner:
                 self._deadline_adjusts += 1
 
     def chosen(self) -> dict:
-        """The tuner's current decisions, per length bucket."""
+        """The tuner's current decisions, per length bucket of the engines'
+        stream (``buckets``) and per lane and bucket of the fused programs
+        (``lane_buckets``, when any packed)."""
+        def bucket(st: _BucketState) -> dict:
+            return {"floor": st.floor,
+                    "ewma_row_padding_fraction": round(st.ewma_pad, 4),
+                    "packs": st.packs_total}
         with self._lock:
-            return {
+            items = sorted(self._buckets.items(),
+                           key=lambda kv: (str(kv[0][0]), kv[0][1]))
+            out = {
                 "enabled": tuner_enabled(),
                 "flush_deadline_ms": round(self._flush_deadline_s * 1e3, 3),
                 "deadline_adjusts": self._deadline_adjusts,
-                "buckets": {str(L): {"floor": st.floor,
-                                     "ewma_row_padding_fraction":
-                                         round(st.ewma_pad, 4),
-                                     "packs": st.packs_total}
-                            for L, st in sorted(self._buckets.items())},
+                "buckets": {str(L): bucket(st) for (lane, L), st in items
+                            if lane is None},
             }
+            lanes: Dict[str, dict] = {}
+            for (lane, L), st in items:
+                if lane is not None:
+                    lanes.setdefault(lane, {})[str(L)] = bucket(st)
+            if lanes:
+                out["lane_buckets"] = lanes
+            return out
 
 
 _tuner: Optional[WidthAutoTuner] = None

@@ -1,14 +1,17 @@
-// K2 and K4: the Tier-2 DFA walk, one thread per row, for sm_90a.
+// K2, K3 and K4: the Tier-2 DFA walk, one thread per row, for sm_90a.
 //
-// Replaces two XLA programs of the JAX package (ops/kernels/dfa_scan.py):
-//   K2  build_dfa_match_fn   full DFA match per row   -> bool  [B]
-//   K4  build_fused_scan_fn  fused multi-accept DFA   -> int32 [B] (u32 tags)
+// Replaces three XLA programs of the JAX package (ops/kernels/dfa_scan.py):
+//   K2  build_dfa_match_fn       full DFA match per row  -> bool  [B]
+//   K3  build_dfa_span_match_fn  K2 over a span per row  -> bool  [B]
+//   K4  build_fused_scan_fn      fused multi-accept DFA  -> int32 [B] (u32)
 // Both run one automaton over u8 rows [B, L] with i32 lengths [B]:
 //   state = start; for p < length: state = delta(state, class(row[p]))
 // K2 writes accept[state] != 0, K4 writes accept[state] (the u32 tag mask
 // carried as i32; bit 31 included).  Positions at or past the length do not
 // move the state (the TPU program's freeze class); a padding row (length 0)
-// gives the start state's value.
+// gives the start state's value.  K3 walks only the bytes of the row-relative
+// span [start, start + spanlen) below the length (the reference's `inside`
+// mask) and gives 0 where spanlen < 0, the absent-capture convention.
 //
 // The TPU form carried a bf16 one-hot state [B, S] and multiplied it by a
 // [(K+1)S, S] matrix once per byte under lax.scan, because a per-element
@@ -41,6 +44,8 @@
 //     different lengths; the warp runs until its longest row is done.
 // The caller's timing events, when given, are recorded on the stream right
 // around the launch, so a kernel's time holds no host latency.
+// The byte walk is in dfa_walk.cuh, which the fused stage program
+// (fused_program.cu) shares.
 // Speed is later work (several rows a thread to hide the chain's latency,
 // a warp per long row with a parallel-prefix over transition vectors).
 
@@ -48,27 +53,12 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "dfa_walk.cuh"
+
 namespace {
 
 constexpr int kMaxThreads = 128;
 constexpr int kMaxStates = 128;
-
-__device__ __forceinline__ uint32_t walk_word(const uint8_t* tab, uint32_t s,
-                                              uint32_t w, int n) {
-#pragma unroll
-    for (int k = 0; k < 4; ++k) {
-        if (k < n) s = tab[(s << 8) | ((w >> (8 * k)) & 0xFFu)];
-    }
-    return s;
-}
-
-__device__ __forceinline__ uint32_t walk_vec(const uint8_t* tab, uint32_t s,
-                                             uint4 q, int n) {
-    s = walk_word(tab, s, q.x, n);
-    s = walk_word(tab, s, q.y, n - 4);
-    s = walk_word(tab, s, q.z, n - 8);
-    return walk_word(tab, s, q.w, n - 12);
-}
 
 template <bool kTags>
 __global__ void __launch_bounds__(kMaxThreads)
@@ -111,6 +101,44 @@ dfa_walk_kernel(const uint8_t* __restrict__ rows,
     } else {
         static_cast<uint8_t*>(out)[r] = acc[s] != 0;
     }
+}
+
+// K3: the walk over bytes [max(start, 0), start + max(spanlen, 0)) of each
+// row, cut at the row's length; a row with spanlen < 0 gives 0.
+__global__ void __launch_bounds__(kMaxThreads)
+dfa_span_kernel(const uint8_t* __restrict__ rows,
+                const int32_t* __restrict__ lengths, int64_t B, int32_t L,
+                const uint8_t* __restrict__ t256, int32_t S,
+                const int32_t* __restrict__ accept, int32_t start,
+                const int32_t* __restrict__ starts,
+                const int32_t* __restrict__ spanlens,
+                uint8_t* __restrict__ out) {
+    extern __shared__ __align__(16) uint8_t smem[];
+    uint8_t* tab = smem;
+    int32_t* acc = reinterpret_cast<int32_t*>(smem + S * 256);
+    for (int i = threadIdx.x; i < S * 16; i += blockDim.x)
+        __pipeline_memcpy_async(tab + 16 * i, t256 + 16 * i, 16);
+    for (int i = threadIdx.x; i < S; i += blockDim.x)
+        __pipeline_memcpy_async(acc + i, accept + i, 4);
+    __pipeline_commit();
+    __pipeline_wait_prior(0);
+    __syncthreads();
+
+    const int64_t r = static_cast<int64_t>(blockIdx.x) * blockDim.x
+                      + threadIdx.x;
+    if (r >= B) return;
+    int len = lengths[r];
+    len = len < 0 ? 0 : (len > L ? L : len);
+    const int32_t st = starts[r], sl = spanlens[r];
+    const int64_t end = static_cast<int64_t>(st) + (sl < 0 ? 0 : sl);
+    const int lo = st < 0 ? 0 : st;
+    const int hi = static_cast<int>(end < len ? end : len);
+    const uint8_t* row = rows + r * L;
+    const bool vec = (reinterpret_cast<uintptr_t>(row) & 15) == 0
+                     && (L & 15) == 0;
+    const uint32_t s = walk_row_range(tab, static_cast<uint32_t>(start), row,
+                                      lo, hi, vec);
+    out[r] = sl >= 0 && acc[s] != 0;
 }
 
 template <bool kTags>
@@ -164,12 +192,37 @@ int lct_fused_scan(const uint8_t* rows, const int32_t* lengths, int64_t B,
                         static_cast<cudaEvent_t>(ev_end));
 }
 
-// Loads both walkers' code now: CUDA loads a module's kernels lazily, at
+// K3: out is bool [B]; starts and spanlens are int32 [B], row-relative.
+int lct_dfa_span_match(const uint8_t* rows, const int32_t* lengths,
+                       int64_t B, int32_t L, const uint8_t* t256, int32_t S,
+                       const int32_t* accept, int32_t start,
+                       const int32_t* starts, const int32_t* spanlens,
+                       uint8_t* out, int32_t threads, int32_t smem,
+                       void* stream, void* ev_start, void* ev_end) {
+    if (B <= 0) return 0;
+    if (threads < 32 || threads > kMaxThreads || threads % 32 || S < 1
+        || S > kMaxStates || start < 0 || start >= S)
+        return static_cast<int>(cudaErrorInvalidValue);
+    const int64_t blocks = (B + threads - 1) / threads;
+    cudaStream_t st = static_cast<cudaStream_t>(stream);
+    cudaError_t e;
+    if (ev_start && (e = cudaEventRecord(static_cast<cudaEvent_t>(ev_start),
+                                         st)) != cudaSuccess)
+        return static_cast<int>(e);
+    dfa_span_kernel<<<static_cast<unsigned>(blocks), threads, smem, st>>>(
+        rows, lengths, B, L, t256, S, accept, start, starts, spanlens, out);
+    if ((e = cudaGetLastError()) != cudaSuccess) return static_cast<int>(e);
+    if (ev_end) e = cudaEventRecord(static_cast<cudaEvent_t>(ev_end), st);
+    return static_cast<int>(e);
+}
+
+// Loads the walkers' code now: CUDA loads a module's kernels lazily, at
 // their first launch, and the first batch's time would hold the load.
 int lct_dfa_prepare(void) {
     cudaFuncAttributes a;
     cudaError_t e = cudaFuncGetAttributes(&a, dfa_walk_kernel<false>);
     if (e == cudaSuccess) e = cudaFuncGetAttributes(&a, dfa_walk_kernel<true>);
+    if (e == cudaSuccess) e = cudaFuncGetAttributes(&a, dfa_span_kernel);
     return static_cast<int>(e);
 }
 

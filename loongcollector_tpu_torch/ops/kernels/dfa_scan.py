@@ -1,14 +1,19 @@
-"""Tier-2 DFA execution (K2 and K4): plain PyTorch versions and their
+"""Tier-2 DFA execution (K2, K3 and K4): plain PyTorch versions and their
 kernel wrappers.
 
-The JAX package runs both as XLA programs (``loongcollector_tpu/ops/
-kernels/dfa_scan.py``): K2 ``build_dfa_match_fn`` (one DFA, bool per row)
+The JAX package runs these as XLA programs (``loongcollector_tpu/ops/
+kernels/dfa_scan.py``): K2 ``build_dfa_match_fn`` (one DFA, bool per row),
+K3 ``build_dfa_span_match_fn`` (K2 over a row-relative span of each row)
 and K4 ``build_fused_scan_fn`` (a fused multi-accept DFA, a u32 accept-tag
-mask per row carried as i32).  Both compute one table walk per row,
+mask per row carried as i32).  Each computes one table walk per row,
 ``state = start; for p < length: state = δ(state, class(row[p]))``, and
-read ``accepting[state]`` or ``accept_tags[state]``; positions at or past
+reads ``accepting[state]`` or ``accept_tags[state]``; positions at or past
 the length leave the state alone, so a padding row gives the start
-state's value.
+state's value.  K3 walks only the positions of ``[start, start + spanlen)``
+below the length (the reference's ``inside``) and never matches a row whose
+``spanlen`` is negative (an absent capture): it is the span condition of
+the fused stage program (K7, ``ops/fused_pipeline.py``) and that
+condition's per-stage twin.
 
 ``automaton_arrays_from_reference`` folds an automaton's
 ``byte_class``/``transitions`` (the port's ``DFA``/``FusedDFA`` or the
@@ -17,11 +22,13 @@ reference's, as numpy) into the kernel inputs: the byte-indexed table
 lockstep gather over the ``L`` columns (the reference's
 ``fuse._scan_numpy`` on tensors): what the tests and ``--cpu`` run.
 
-``DFAMatchKernel`` and ``FusedScanKernel`` are the surfaces callers use: a
-CPU tensor takes the plain version, a CUDA tensor launches the hand-written
-kernel (``dfa_scan_cuda``, source ``csrc/dfa_scan.cu``) and counts it in
-``launches`` — or raises.  ``run_chunks`` is the synchronous chunked
-dispatch the engine's ``match_batch`` and ``FusedSetExec.classify`` share:
+``DFAMatchKernel``, ``DFASpanMatchKernel`` (and ``LazySpanMatchKernel``,
+built at its first call) and ``FusedScanKernel`` are the surfaces callers
+use: a CPU tensor takes the plain version, a CUDA tensor launches the
+hand-written kernel (``dfa_scan_cuda``, source ``csrc/dfa_scan.cu``) and
+counts it in ``launches`` — or raises.  ``run_chunks`` is the synchronous
+chunked dispatch the engine's ``match_batch`` and ``FusedSetExec.classify``
+share:
 rows packed by ``device_batch.pack_rows`` into pinned buffers of its own
 (not ring slots), copied on the worker's current stream, and the host
 waiting on its own event only, never on the whole device.  While the
@@ -100,6 +107,28 @@ def walk_plain(t256: torch.Tensor, accept: torch.Tensor, start: int,
     return accept[state]
 
 
+def span_walk_plain(t256: torch.Tensor, accept: torch.Tensor, start: int,
+                    rows: torch.Tensor, lengths: torch.Tensor,
+                    starts: torch.Tensor, spanlens: torch.Tensor
+                    ) -> torch.Tensor:
+    """K3: bool [B], ``accept[final state] != 0`` after the positions of
+    ``[starts, starts + max(spanlens, 0))`` below each row's length, and
+    ``spanlens >= 0``."""
+    B, L = rows.shape
+    table = t256.to(torch.int64).reshape(-1)
+    lens = lengths.to(torch.int64).clamp(0, L)
+    lo = starts.to(torch.int64).clamp(min=0)
+    span = spanlens.to(torch.int64)
+    hi = torch.minimum(starts.to(torch.int64) + span.clamp(min=0), lens)
+    state = torch.full((B,), int(start), dtype=torch.int64,
+                       device=rows.device)
+    steps = int(hi.max()) if B else 0
+    for p in range(steps):
+        nxt = table[state * 256 + rows[:, p].to(torch.int64)]
+        state = torch.where((lo <= p) & (hi > p), nxt, state)
+    return (accept[state] != 0) & (span >= 0)
+
+
 class _TableWalkKernel:
     """One automaton's walk, dispatched by tensor device (see the module
     docstring).  Runner workers share a wrapper, so the counts are taken
@@ -170,11 +199,80 @@ class DFAMatchKernel(_TableWalkKernel):
     program = "dfa_match"
 
     def __init__(self, dfa):
+        self.dfa = dfa
         super().__init__(automaton_arrays_from_reference(
             dfa.byte_class, dfa.transitions, dfa.start, dfa.accepting))
 
     def _epilogue(self, values: torch.Tensor) -> torch.Tensor:
         return values != 0
+
+
+class DFASpanMatchKernel(_TableWalkKernel):
+    """K3: bool [B], the row-relative span ``[starts, starts + spanlens)``
+    of each row fully matches ``dfa``; a negative ``spanlens`` never
+    matches.  The per-stage twin of the fused program's span condition."""
+
+    mode = "span"
+    program = "dfa_span_match"
+
+    def __init__(self, dfa):
+        self.dfa = dfa
+        super().__init__(automaton_arrays_from_reference(
+            dfa.byte_class, dfa.transitions, dfa.start, dfa.accepting))
+
+    def plain(self, rows: torch.Tensor, lengths: torch.Tensor,
+              starts: torch.Tensor, spanlens: torch.Tensor) -> torch.Tensor:
+        t256, accept = self.tables(rows.device)
+        return span_walk_plain(t256, accept, self.arrays.start, rows,
+                               lengths, starts, spanlens)
+
+    def __call__(self, rows: torch.Tensor, lengths: torch.Tensor,
+                 starts: torch.Tensor, spanlens: torch.Tensor,
+                 events=None) -> torch.Tensor:
+        if rows.device.type == "cpu":
+            return self.plain(rows, lengths, starts, spanlens)
+        if rows.device.type != "cuda":
+            raise ValueError(f"no dfa_scan kernel for {rows.device}")
+        from . import dfa_scan_cuda
+        t256, accept = self.tables(rows.device)
+        out = dfa_scan_cuda.launch(self.mode, rows, lengths, t256, accept,
+                                   self.arrays.start, events,
+                                   spans=(starts, spanlens))
+        with self._count_lock:
+            self.launches += 1
+        return out
+
+
+class LazySpanMatchKernel:
+    """A ``DFASpanMatchKernel`` built at its first call: the fused planner
+    keeps one as a span condition's per-stage twin, so pipeline init does
+    not fold a table that only ``FusedProgramKernel.staged_run`` reads."""
+
+    __slots__ = ("dfa", "_k", "_lock")
+
+    def __init__(self, dfa):
+        self.dfa = dfa
+        self._k = None
+        self._lock = threading.Lock()
+
+    @property
+    def kernel(self) -> DFASpanMatchKernel:
+        if self._k is None:
+            with self._lock:
+                if self._k is None:
+                    self._k = DFASpanMatchKernel(self.dfa)
+        return self._k
+
+    @property
+    def launches(self) -> int:
+        return self._k.launches if self._k is not None else 0
+
+    def reset_counts(self) -> None:
+        if self._k is not None:
+            self._k.reset_counts()
+
+    def __call__(self, rows, lengths, starts, spanlens) -> torch.Tensor:
+        return self.kernel(rows, lengths, starts, spanlens)
 
 
 class FusedScanKernel(_TableWalkKernel):

@@ -1,4 +1,4 @@
-"""Build, bind and launch the hand-written CUDA DFA walk (K2 and K4).
+"""Build, bind and launch the hand-written CUDA DFA walk (K2, K3 and K4).
 
 The kernels (``csrc/dfa_scan.cu``) are built like K1's
 (``field_extract_cuda.compile_library``): ``nvcc`` for ``sm_90a`` into a
@@ -9,9 +9,10 @@ or launch failure raises; nothing here falls back to the plain version.
 
 A launch takes the automaton as two device tables (``AutomatonArrays``):
 ``t256`` u8 ``[S, 256]`` and ``accept`` i32 ``[S]``, which each block copies
-into shared memory.  ``launch_geometry`` picks threads per block so that a
-batch of at least 32 rows an SM gives every SM a block.  Importing this
-module needs no CUDA.
+into shared memory; K3 also takes each row's span, ``starts`` and
+``spanlens`` i32 ``[B]``.  ``launch_geometry`` picks threads per block so
+that a batch of at least 32 rows an SM gives every SM a block.  Importing
+this module needs no CUDA.
 """
 
 from __future__ import annotations
@@ -40,9 +41,10 @@ BUILD_FAMILY = "dfa_scan_cuda.build"
 LAUNCH_FAMILY = "dfa_scan_cuda.launch"
 
 # entry point of each kernel, by the wrapper's mode
-ENTRY_POINTS = {"match": "lct_dfa_match", "tags": "lct_fused_scan"}
+ENTRY_POINTS = {"match": "lct_dfa_match", "tags": "lct_fused_scan",
+                "span": "lct_dfa_span_match"}
 
-_PTXAS_KERNEL = re.compile(r"dfa_walk_kernelILb([01])E")
+_PTXAS_KERNEL = re.compile(r"dfa_(?:walk_kernelILb([01])E|span_kernel)")
 
 
 def smem_bytes(S: int) -> int:
@@ -60,11 +62,12 @@ def launch_geometry(B: int) -> int:
 
 
 def ptxas_report(log: str) -> Dict[str, Dict[str, int]]:
-    """ptxas's registers, stack and spills per walker: ``match`` (K2) and
-    ``tags`` (K4)."""
+    """ptxas's registers, stack and spills per walker: ``match`` (K2),
+    ``span`` (K3) and ``tags`` (K4)."""
     return fxc.ptxas_report(
         log, _PTXAS_KERNEL,
-        lambda m: "tags" if m.group(1) == "1" else "match")
+        lambda m: ("span" if m.group(1) is None
+                   else "tags" if m.group(1) == "1" else "match"))
 
 
 _lib = None
@@ -85,11 +88,12 @@ def build() -> ctypes.CDLL:
                                                  BUILD_FAMILY)
         lib = ctypes.CDLL(so_path)
         vp, i32 = ctypes.c_void_p, ctypes.c_int32
-        for name in ENTRY_POINTS.values():
+        for mode, name in ENTRY_POINTS.items():
             fn = getattr(lib, name)
             fn.restype = ctypes.c_int
-            fn.argtypes = [vp, vp, ctypes.c_int64, i32, vp, i32, vp, i32, vp,
-                           i32, i32, vp, vp, vp]
+            spans = [vp, vp] if mode == "span" else []
+            fn.argtypes = [vp, vp, ctypes.c_int64, i32, vp, i32, vp, i32,
+                           *spans, vp, i32, i32, vp, vp, vp]
         lib.lct_dfa_error_string.restype = ctypes.c_char_p
         lib.lct_dfa_error_string.argtypes = [ctypes.c_int]
         lib.lct_dfa_prepare.restype = ctypes.c_int
@@ -130,17 +134,22 @@ def reset_launch_shapes() -> None:
 
 def launch(mode: str, rows: torch.Tensor, lengths: torch.Tensor,
            t256: torch.Tensor, accept: torch.Tensor, start: int,
-           events=None) -> torch.Tensor:
-    """One launch of K2 (``mode="match"``, bool ``[B]``) or K4
-    (``mode="tags"``, i32 ``[B]``) on PyTorch's current stream, without a
-    synchronise.  rows u8 ``[B, L]``, lengths i32 ``[B]``, t256 u8
-    ``[S, 256]`` and accept i32 ``[S]`` on one CUDA device, contiguous.
-    ``events``, a (start, end) pair of timing CUDA events when given, is
-    recorded on the stream by the entry point itself, right around the
-    kernel."""
+           events=None, spans=None) -> torch.Tensor:
+    """One launch of K2 (``mode="match"``, bool ``[B]``), K3
+    (``mode="span"``, bool ``[B]``; ``spans`` the (starts, spanlens) i32
+    ``[B]`` pair) or K4 (``mode="tags"``, i32 ``[B]``) on PyTorch's current
+    stream, without a synchronise.  rows u8 ``[B, L]``, lengths i32
+    ``[B]``, t256 u8 ``[S, 256]`` and accept i32 ``[S]`` on one CUDA
+    device, contiguous.  ``events``, a (start, end) pair of timing CUDA
+    events when given, is recorded on the stream by the entry point
+    itself, right around the kernel."""
     dev = rows.device
+    span_args = tuple(spans or ()) if mode == "span" else ()
+    if mode == "span" and len(span_args) != 2:
+        raise ValueError("dfa_scan: K3 takes (starts, spanlens)")
     if dev.type != "cuda" or any(t.device != dev
-                                 for t in (lengths, t256, accept)):
+                                 for t in (lengths, t256, accept,
+                                           *span_args)):
         raise ValueError("dfa_scan: rows, lengths and tables must lie on "
                          "one CUDA device")
     if rows.dtype != torch.uint8 or rows.dim() != 2:
@@ -157,15 +166,19 @@ def launch(mode: str, rows: torch.Tensor, lengths: torch.Tensor,
         raise ValueError(f"dfa_scan: bad tables: t256 {t256.dtype} "
                          f"{tuple(t256.shape)}, accept {accept.dtype} "
                          f"{tuple(accept.shape)}, start {start}")
-    if not all(t.is_contiguous() for t in (rows, lengths, t256, accept)):
+    if any(t.dtype != torch.int32 or tuple(t.shape) != (B,)
+           for t in span_args):
+        raise ValueError(f"dfa_scan: starts and spanlens must be i32 [{B}]")
+    if not all(t.is_contiguous() for t in (rows, lengths, t256, accept,
+                                           *span_args)):
         raise ValueError("dfa_scan: inputs must be contiguous")
     lib = build()
     entry = ENTRY_POINTS[mode]
     threads = launch_geometry(B)
     shape = LaunchShape(entry, B, L, S, threads, smem_bytes(S),
                         -(-B // threads))
-    out = torch.empty(B, dtype=torch.bool if mode == "match"
-                      else torch.int32, device=dev)
+    out = torch.empty(B, dtype=torch.int32 if mode == "tags"
+                      else torch.bool, device=dev)
     stream = torch.cuda.current_stream(dev)
     handles = (None, None)
     if events is not None:
@@ -177,8 +190,9 @@ def launch(mode: str, rows: torch.Tensor, lengths: torch.Tensor,
     t0 = time.perf_counter()
     rc = getattr(lib, entry)(
         rows.data_ptr(), lengths.data_ptr(), B, L, t256.data_ptr(), S,
-        accept.data_ptr(), start, out.data_ptr(), shape.threads, shape.smem,
-        stream.cuda_stream, *handles)
+        accept.data_ptr(), start, *(t.data_ptr() for t in span_args),
+        out.data_ptr(), shape.threads, shape.smem, stream.cuda_stream,
+        *handles)
     if rc != 0:
         raise RuntimeError(f"dfa_scan launch failed ({entry}): "
                            + lib.lct_dfa_error_string(rc).decode())

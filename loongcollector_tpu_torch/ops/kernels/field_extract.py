@@ -440,6 +440,9 @@ class ExtractKernel:
     engine's kernel, so the count is taken under a lock.  Device time comes
     from the dispatch timeline (``ops/xprof.py``), not from here."""
 
+    # the wrapper records the exec leg's events right around its launch
+    brackets_launch = True
+
     def __init__(self, program: SegmentProgram, kernel_program=None):
         from . import field_extract_cuda as fxc
         self.program = program

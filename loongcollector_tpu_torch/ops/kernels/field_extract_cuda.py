@@ -40,7 +40,7 @@ import tempfile
 import threading
 import time
 from dataclasses import dataclass
-from typing import Dict, Tuple
+from typing import Dict, List, Tuple
 
 import numpy as np
 import torch
@@ -296,10 +296,34 @@ ENTRY_POINTS = [f"lct_field_extract_d{d}_p{p}" for d in (0, 1)
                 for p in (0, 1, 2)]
 
 
+_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.M)
+
+
+def source_files(src: str = _SRC) -> List[str]:
+    """``src`` and every file it includes with ``#include "..."``, resolved
+    beside the including file, recursively, each once."""
+    out: List[str] = []
+    todo = [os.path.abspath(src)]
+    while todo:
+        path = todo.pop(0)
+        if path in out:
+            continue
+        out.append(path)
+        with open(path, "rb") as f:
+            for m in _INCLUDE.finditer(f.read()):
+                todo.append(os.path.join(os.path.dirname(path),
+                                         m.group(1).decode()))
+    return out
+
+
 def source_hash(src: str = _SRC) -> str:
+    """The build directory's key: the bytes of ``src`` and of the headers it
+    includes, and the nvcc flags."""
     h = hashlib.sha256()
-    with open(src, "rb") as f:
-        h.update(f.read())
+    for path in source_files(src):
+        h.update(os.path.basename(path).encode() + b"\0")
+        with open(path, "rb") as f:
+            h.update(f.read())
     h.update(" ".join(NVCC_FLAGS).encode())
     return h.hexdigest()[:16]
 

@@ -3,7 +3,10 @@
 Reference: loongcollector_tpu/ops/xprof.py.  A dispatch id is minted in
 ``DevicePlane.submit`` and carried by its ``DeviceFuture``, or minted by a
 synchronous K2/K4 batch for itself (``kernels/dfa_scan.py``); the dispatch
-loops attach the legs they time:
+loops attach the legs they time.  Programs: ``regex`` (K1 chunks of the
+engines), ``fused`` (K7 chunks of a fused run, ``ops/fused_pipeline.py``),
+``dfa_match`` and ``fused_scan`` (K2, K4 batches) and ``stream``
+(``DeviceStream``).  The legs:
 
   * ``pack``   — packing the rows into the leased ring slot (host
     ``perf_counter`` time);

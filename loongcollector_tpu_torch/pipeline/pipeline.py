@@ -9,9 +9,23 @@ the chain up to the first processor that leaves device work in flight and
 returns a continuation that finishes the chain (JAX package
 ``pipeline/pipeline.py:334-425``).  While a continuation is outstanding
 the groups count as in process (``in_process_count``,
-``wait_all_items_in_process_finished``).  There is no fused-chain branch
-and no aggregator yet.  Host seconds per stage (``stage_seconds``) are
-summed across the runner's workers.
+``wait_all_items_in_process_finished``).  There is no aggregator yet.
+Host seconds per stage (``stage_seconds``) are summed across the runner's
+workers.
+
+Fused runs (resident stage fusion, ``pipeline/fused_chain.py``): at init
+``plan_fusion`` turns every run of two or more consecutive stages that can
+join one device program (a Tier-1 parse, a multi-pattern classify, a filter
+on the source or on a field the run itself parsed) into a ``FusedRun``.
+When fusion is on (``LOONG_FUSED``, by default exactly when the pipeline's
+device is CUDA) the chain walk meets a run at its head and takes it as one
+async stage: the run dispatches one K7 program a chunk for each group it
+can take (``fused_dispatch``), and its continuation waits for the results
+(``fused_result``), applies each member's epilogue (timed under the
+member's name) and walks the rest of the chain inline; groups it cannot
+take (a row over 4096 bytes, a row-path group) run the members per-stage
+inline.  With fusion off the members run per-stage as before.
+``drain_from`` always runs per-stage, as in the reference.
 
 Processors that hold records across groups (split_multiline's carry)
 release them at stop: ``drain_held`` runs every ``drain_groups()`` through
@@ -78,6 +92,12 @@ class CollectionPipeline:
             self.processors.append(self._make(registry.create_processor, pcfg))
         for fcfg in config.get("flushers", []):
             self.flushers.append(self._make(registry.create_flusher, fcfg))
+        # fused runs over the final chain: description only, the programs
+        # are built at their first dispatch; LOONG_FUSED gates running them
+        from .fused_chain import plan_fusion
+        self.fused_runs = plan_fusion(self.inner_processors + self.processors,
+                                      device)
+        self._fused_by_head = {r.head: r for r in self.fused_runs}
 
     def _make(self, create, cfg: Dict[str, Any]):
         typ = cfg.get("Type", "")
@@ -149,6 +169,19 @@ class CollectionPipeline:
         finishes that stage and walks the rest of the chain inline."""
         chain = self.inner_processors + self.processors
         while i < len(chain):
+            run = self._fused_by_head.get(i)
+            if run is not None and run.enabled():
+                tokens = run.dispatch(groups, self._timed)
+                nxt = run.end
+                if any(t is not None for t in tokens):
+                    if allow_async:
+                        def finish_run(run=run, tokens=tokens, nxt=nxt):
+                            run.complete(groups, tokens, self._timed)
+                            self._walk_chain(groups, nxt, allow_async=False)
+                        return finish_run
+                    run.complete(groups, tokens, self._timed)
+                i = nxt
+                continue
             p = chain[i]
             if not p.supports_async_dispatch:
                 for g in groups:

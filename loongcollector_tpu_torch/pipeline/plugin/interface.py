@@ -4,8 +4,9 @@ Reference: core/collection_pipeline/plugin/interface/{Input,Processor,
 Flusher}.h — Init(config, context), Start/Stop for inputs, Process(group) for
 processors, Send(group)/FlushAll for flushers — and the JAX package's
 dispatch/complete protocol for device-backed processors
-(``loongcollector_tpu/pipeline/plugin/interface.py:88-140``).  No ledger,
-SLO or ack-watermark hooks yet.
+(``loongcollector_tpu/pipeline/plugin/interface.py:88-140``), with the
+default ``fused_stage_spec`` hook of resident stage fusion (reference
+``interface.py:126``).  No ledger, SLO or ack-watermark hooks yet.
 """
 
 from __future__ import annotations
@@ -86,6 +87,14 @@ class Processor(Plugin):
 
     def process_complete(self, group: PipelineEventGroup, token) -> None:
         """Finish the work started by ``process_dispatch``."""
+
+    def fused_stage_spec(self, ctx):
+        """This plugin's device work as one stage of a fused program
+        (``pipeline/fused_chain.FusedMemberStage``), or None when it cannot
+        join one: no device tier, inputs not statically bindable against
+        ``ctx`` (``FusionPlanContext``), or no device half at all.  A member
+        keeps its own ``process`` path for the groups a run cannot take."""
+        return None
 
 
 class Flusher(Plugin):

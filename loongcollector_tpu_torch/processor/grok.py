@@ -6,8 +6,9 @@ fully matches — and the JAX package's ``processor/grok.py``, whose staged
 path this is.  Expansion feeds the tiered ``RegexEngine`` on the
 pipeline's device, so kernel-friendly grok runs on K1; with several Match
 patterns one fused scan (K4) classifies them all and each event runs only
-its first-matching pattern's extract.  Left out: the fused-pipeline stage
-(``fused_stage_spec``), which is K7's.
+its first-matching pattern's extract.  In a fused run the classify scan is
+the program's ``scan`` stage (``fused_stage_spec``, reference
+``grok.py:86-115``); the extracts still run per matching subset.
 """
 
 from __future__ import annotations
@@ -84,6 +85,31 @@ class ProcessorGrok(Processor):
             return
 
         self._process_rows(group)
+
+    def fused_stage_spec(self, ctx):
+        """The multi-pattern classify scan as a ``scan`` stage of a fused
+        program (one tag mask a row); each pattern's extract then runs on
+        its matching rows.  Grok's fields are extracted on the host, so
+        they never register as capture columns a later member could bind."""
+        fs = self._fused_set
+        if fs is None or not fs.fdfa.device_ok or fs.kernel is None:
+            return None
+        if not ctx.bind_source(self.source_key):
+            return None
+        from ..ops import fused_pipeline as fp
+        from ..pipeline.fused_chain import FusedMemberStage
+        spec = fp.StageSpec("scan", fs.fdfa,
+                            ["scan"] + list(fs.fdfa.patterns),
+                            staged=fs.kernel, label="grok-classify")
+        ctx.note_consumed(self.source_key)
+        return FusedMemberStage(spec, self._fused_apply)
+
+    def _fused_apply(self, group, src, out, rowmap):
+        from .common import subset_source
+        tags = np.asarray(out[0]).astype(np.uint32)[rowmap]
+        masks = self._fused_set.member_masks(tags)
+        self._apply_columnar(group, subset_source(src, rowmap), masks)
+        return rowmap
 
     def _apply_columnar(self, group, src, member_masks) -> None:
         n = len(src.offsets)

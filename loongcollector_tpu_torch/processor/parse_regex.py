@@ -13,7 +13,8 @@ the span-matrix path, per-event groups the row path — both as in the JAX
 package's processor.  ``process_dispatch`` leaves the parse in flight on
 the device and ``process_complete`` applies it (reference
 ``processor/parse_regex.py:98-118``); a parse that completed at dispatch is
-applied at once.
+applied at once.  In a fused run the parse is the program's ``extract``
+stage (``fused_stage_spec``).
 """
 
 from __future__ import annotations
@@ -58,6 +59,37 @@ class ProcessorParseRegex(Processor):
         return True
 
     supports_async_dispatch = True
+
+    def fused_stage_spec(self, ctx):
+        """A SEGMENT-tier parse joins a fused program as an ``extract``
+        stage (reference ``parse_regex.py:65-96``): one packed source column
+        in, capture spans out, which a later filter condition on a parsed
+        key reads where they were computed.  The parsed keys register as
+        capture columns; the consumed source key leaves the run's
+        bindings, as ``apply_parse_spans`` consumes it."""
+        from ..ops.regex.program import PatternTier
+        eng = self.engine
+        if eng is None or eng.tier is not PatternTier.SEGMENT \
+                or eng.kernel is None:
+            return None
+        if not ctx.bind_source(self.source_key):
+            return None
+        from ..ops import fused_pipeline as fp
+        from ..pipeline.fused_chain import FusedMemberStage
+        spec = fp.StageSpec("extract", eng.kernel.program,
+                            ["extract", eng.pattern], staged=eng.kernel,
+                            label=f"extract:{self.name}")
+        ctx.note_fields(ctx.n_stages, self.keys[:eng.num_caps])
+        ctx.note_consumed(self.source_key)
+        return FusedMemberStage(spec, self._fused_apply)
+
+    def _fused_apply(self, group, src, out, rowmap):
+        from ..ops.regex.engine import BatchParseResult
+        from .common import subset_source
+        ok, off, ln = out
+        self._apply(group, subset_source(src, rowmap),
+                    BatchParseResult(ok[rowmap], off[rowmap], ln[rowmap]))
+        return rowmap
 
     def process_dispatch(self, group: PipelineEventGroup):
         """Dispatch the group's parse and return the pending handle; the

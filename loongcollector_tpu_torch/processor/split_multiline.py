@@ -22,8 +22,10 @@ last record may continue in the next chunk) and the follow-up
 (``path:inode``) and stitched onto the next chunk's leading lines.  Held
 records ship on the pipeline's stop (``drain_groups``);
 ``flush_timeout_groups`` releases those held past ``CARRY_FLUSH_S``, for
-the timeout tick that comes with tail mode.  Left out: the fused-pipeline
-stage (``fused_stage_spec``), which is K7's.
+the timeout tick that comes with tail mode.  With several patterns the
+classify scan can end a fused run as its terminal ``scan`` stage
+(``fused_stage_spec``, reference ``split_multiline.py:121-152``): the block
+walk then reads the program's tag masks.
 """
 
 from __future__ import annotations
@@ -113,6 +115,38 @@ class ProcessorSplitMultilineLogString(Processor):
             masks = {name: member[slot]
                      for name, slot in self._fused_slots.items()}
         self._classify_blocks(group, cols, arena, offs, lens, masks)
+
+    def fused_stage_spec(self, ctx):
+        """The start/continue/end classify scan as the LAST stage of a fused
+        program (``terminal``: the block merge rebuilds the rows, so no
+        later member can read the packed ones); the block walk and the
+        carry are unchanged host logic over the scan's tag masks."""
+        fs = self._fused_set
+        if fs is None or not fs.fdfa.device_ok or fs.kernel is None:
+            return None
+        if not ctx.bind_source(b"content"):
+            return None
+        from ..ops import fused_pipeline as fp
+        from ..pipeline.fused_chain import FusedMemberStage
+        spec = fp.StageSpec("scan", fs.fdfa,
+                            ["scan"] + list(fs.fdfa.patterns),
+                            staged=fs.kernel, terminal=True,
+                            label="multiline-classify")
+        return FusedMemberStage(spec, self._fused_apply)
+
+    def _fused_apply(self, group, src, out, rowmap):
+        cols = group.columns
+        if cols is None or group._events or len(rowmap) != len(cols):
+            return rowmap
+        arena = group.source_buffer.as_array()
+        tags = np.asarray(out[0]).astype(np.uint32)[rowmap]
+        member = self._fused_set.member_masks(tags)
+        masks = {name: member[slot]
+                 for name, slot in self._fused_slots.items()}
+        self._classify_blocks(group, cols, arena,
+                              cols.offsets.astype(np.int64), cols.lengths,
+                              masks)
+        return rowmap
 
     def _classify_blocks(self, group, cols, arena, offs, lens,
                          masks: Dict[str, Optional[np.ndarray]]) -> None:

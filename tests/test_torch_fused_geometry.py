@@ -1,0 +1,260 @@
+"""K7's host side, on the CPU: descriptor packing, the flat output's
+layout, shared-memory placement and the launch geometry.
+
+The kernel (``csrc/fused_program.cu``) runs only on the card; what it is
+given is plain Python (``ops/kernels/fused_program_cuda.py``) and is held
+here: every record of the descriptor points at the section it names and
+the sections hold the programs and tables they were packed from; the i32
+outputs lie 4-byte aligned ahead of the byte outputs; a stage list whose
+tables pass the shared-memory budget at L=4096 keeps some in device memory
+and still fits one warp's block there; the block gives every SM a block
+once a batch holds 32 rows an SM; the source's constants are the
+wrapper's.
+"""
+
+import re
+
+import numpy as np
+import pytest
+import torch
+
+from loongcollector_tpu_torch import testdata as td
+from loongcollector_tpu_torch.ops import fused_pipeline as fp
+from loongcollector_tpu_torch.ops.device_batch import LENGTH_BUCKETS
+from loongcollector_tpu_torch.ops.kernels import field_extract_cuda as fxc
+from loongcollector_tpu_torch.ops.kernels import fused_program_cuda as fpc
+from loongcollector_tpu_torch.ops.kernels.dfa_scan import AutomatonArrays
+
+LISTS = {name: (specs, rows) for name, specs, rows in td.fused_stage_lists()}
+
+
+def _desc(name):
+    return fpc.pack_descriptor(fp.kernel_stages(LISTS[name][0]))
+
+
+def _header(desc):
+    return {k: int(desc.blob[i]) for k, i in fpc.H.items()}
+
+
+@pytest.mark.parametrize("name", sorted(LISTS))
+def test_records_point_at_their_sections(name):
+    stages = fp.kernel_stages(LISTS[name][0])
+    desc = fpc.pack_descriptor(stages)
+    blob = desc.blob
+    h = _header(desc)
+    assert h["MAGIC"] == fpc.MAGIC and h["NSTAGES"] == len(stages)
+    assert h["TOTAL_WORDS"] == len(blob) and h["SHARED_WORDS"] \
+        == desc.shared_words <= len(blob)
+    assert h["ROW_BYTES"] == desc.row_bytes
+    base = fpc.HEADER_WORDS
+    conds = base + fpc.RECORD_WORDS * len(stages)
+
+    def automaton_at(off, arrays):
+        S = arrays.num_states
+        assert list(blob[off:off + 2]) == [S, arrays.start]
+        t256 = blob[off + 4:off + 4 + 64 * S].view(np.uint8).reshape(S, 256)
+        assert np.array_equal(t256, arrays.t256)
+        assert np.array_equal(blob[off + 4 + 64 * S:off + 4 + 65 * S],
+                              arrays.accept)
+
+    caps = 0
+    units = {(o.stage, o.name): o.unit for o in desc.outputs}
+    for si, st in enumerate(stages):
+        rec = blob[base + fpc.RECORD_WORDS * si:][:fpc.RECORD_WORDS]
+        assert rec[0] == fpc.STAGE_KINDS[st.kind]
+        if st.kind == "extract":
+            kp = st.obj
+            assert np.array_equal(blob[rec[1]:rec[1] + len(kp.blob)], kp.blob)
+            assert (rec[2], rec[3], rec[4]) == (kp.num_caps, caps, kp.pivot)
+            caps += ((3 * kp.num_caps) | 1) * (2 if kp.pivot else 1)
+            assert list(rec[5:8]) == [units[(si, n)] for n in
+                                      ("ok", "cap_off", "cap_len")]
+        elif st.kind == "scan":
+            automaton_at(rec[1], st.obj)
+            assert rec[5] == units[(si, "tags")]
+        else:
+            assert rec[2] == len(st.conds) and rec[5] == units[(si, "keep")]
+            for k, c in enumerate(st.conds):
+                crec = blob[conds + fpc.RECORD_WORDS * (rec[1] + k):][:5]
+                assert list(crec[:2]) == [fpc.COND_KINDS[c.kind],
+                                          int(c.negate)]
+                assert list(crec[3:5]) == [c.prod, c.cap]
+                if c.kind == "extract_ok":
+                    assert np.array_equal(
+                        blob[crec[2]:crec[2] + len(c.obj.blob)], c.obj.blob)
+                else:
+                    automaton_at(crec[2], c.obj)
+    assert h["SCRATCH_OFF"] == caps and desc.caps_words >= caps
+
+
+@pytest.mark.parametrize("name", sorted(LISTS))
+def test_output_layout_and_split(name):
+    program = fp.FusedProgramKernel(LISTS[name][0], name)
+    desc = program.descriptor
+    outs = desc.outputs
+    assert [o.stage for o in outs] == sorted(o.stage for o in outs)
+    assert len(outs) == program.n_outputs
+    i32 = [o for o in outs if o.dtype == "int32"]
+    u8 = [o for o in outs if o.dtype == "bool"]
+    assert all(o.unit % 4 == 0 for o in i32)
+    assert max((o.unit for o in i32), default=-1) \
+        < min(o.unit for o in u8) if u8 else True
+    assert desc.row_bytes == sum(o.width * o.itemsize for o in outs)
+    # the plain outputs packed into a flat buffer come back out of it
+    rng = np.random.default_rng(4)
+    specs, rows_fn = LISTS[name]
+    lines = rows_fn(rng, 40, 256)
+    rows = torch.zeros((64, 256), dtype=torch.uint8)
+    lens = torch.zeros(64, dtype=torch.int32)
+    for i, line in enumerate(lines):
+        rows[i, :len(line)] = torch.tensor(list(line), dtype=torch.uint8)
+        lens[i] = len(line)
+    (flat,) = program(rows, lens)
+    assert flat.dtype == torch.uint8 and flat.numel() == 64 * desc.row_bytes
+    want = program.plain(rows, lens)
+    for got, w in zip(program.split(flat, 64), want):
+        assert torch.equal(got.reshape(w.shape), w)
+    for got, w in zip(program.split(flat.numpy(), 64), want):
+        assert np.array_equal(got.reshape(w.shape), w.numpy())
+    assert program.dispatch_count == 1 and program.launches == 0
+
+
+def test_over_budget_tables_stay_in_device_memory():
+    desc = _desc("over_budget")
+    placed = desc.placement
+    assert "device" in placed.values() and "shared" in placed.values()
+    # the shared part is what fits beside one warp's rows at L=4096
+    assert fpc.smem_bytes(32, LENGTH_BUCKETS[-1], desc) <= fxc.SMEM_BUDGET
+    device_words = len(desc.blob) - desc.shared_words
+    assert device_words > 0
+    assert 4 * len(desc.blob) > fxc.SMEM_BUDGET - 32 * 4 * fpc.tile_words(
+        LENGTH_BUCKETS[-1])
+    for L in LENGTH_BUCKETS:
+        for B in (256, 8192, 65536):
+            t, smem = fpc.launch_geometry(B, L, desc)
+            assert smem == fpc.smem_bytes(t, L, desc) <= fxc.SMEM_BUDGET
+
+
+@pytest.mark.parametrize("name", sorted(LISTS))
+def test_geometry_gives_every_sm_a_block(name):
+    desc = _desc(name)
+    for L in LENGTH_BUCKETS:
+        for B in (256, 1024, 4224, 8192, 65536):
+            t, smem = fpc.launch_geometry(B, L, desc)
+            assert t % 32 == 0 and fxc.MIN_THREADS <= t <= fxc.MAX_THREADS
+            assert smem <= fxc.SMEM_BUDGET
+            assert t * L <= max(fxc.ROW_TILE_BYTES, 32 * L)
+            if B >= 32 * fxc.NUM_SMS:
+                assert -(-B // t) >= fxc.NUM_SMS
+
+
+def test_instantiation_follows_the_first_extract_stage():
+    got = {name: (_desc(name).first, _desc(name).first_stage,
+                  _desc(name).general) for name in LISTS}
+    assert got["apache_filter"] == (0, 0, False)
+    assert got["three_stage"] == (0, 1, True)      # extract_ok: general
+    assert got["extract_ok"] == (0, 0, True)
+    assert got["match_scan"] == (-1, -1, False)
+    assert got["bit31"] == (-1, -1, False)
+    assert _desc("apache_filter").instantiation == "d0_p0"
+    assert _desc("three_stage").instantiation == "d0_p0_g"
+    assert len(set(fpc.INSTANTIATIONS)) == 8
+
+
+def test_first_program_in_device_memory_runs_general(monkeypatch):
+    # a budget with no room beside the rows: every section in device
+    # memory, so the first extract program runs on the general walker
+    stages = fp.kernel_stages(LISTS["apache_filter"][0])
+    monkeypatch.setattr(fxc, "SMEM_BUDGET", 4 * (
+        fpc.HEADER_WORDS + 4 * fpc.RECORD_WORDS + 32 * (
+            fpc.tile_words(LENGTH_BUCKETS[-1]) + 27)))
+    desc = fpc.pack_descriptor(stages)
+    assert set(desc.placement.values()) == {"device"}
+    assert (desc.first, desc.general) == (-1, True)
+    assert desc.instantiation == "none_g"
+
+
+def test_refused_stage_lists():
+    stages = fp.kernel_stages(LISTS["apache_filter"][0])
+    ext, keep = stages
+    bad_span = fpc.KernelStage("keep", conds=(fpc.KernelCond(
+        "span_match", keep.conds[0].obj, False, 1, 0),))
+    with pytest.raises(fpc.FusedUnsupported, match="earlier extract"):
+        fpc.pack_descriptor([ext, bad_span])
+    bad_cap = fpc.KernelStage("keep", conds=(fpc.KernelCond(
+        "span_match", keep.conds[0].obj, False, 0, 9),))
+    with pytest.raises(fpc.FusedUnsupported):
+        fpc.pack_descriptor([ext, bad_cap])
+    with pytest.raises(fpc.FusedUnsupported, match="no condition"):
+        fpc.pack_descriptor([ext, fpc.KernelStage("keep")])
+    with pytest.raises(fpc.FusedUnsupported):
+        fpc.pack_descriptor([ext] * (fpc.MAX_STAGES + 1))
+    big = AutomatonArrays(np.zeros((129, 256), np.uint8),
+                          np.zeros(129, np.int32), 0)
+    with pytest.raises(fpc.FusedUnsupported, match="states"):
+        fpc.pack_descriptor([fpc.KernelStage("scan", big)])
+
+
+def test_struct_index_stage_is_refused_naming_k5():
+    specs = list(LISTS["apache_filter"][0]) + [
+        fp.StageSpec("struct_index", ("json", b","), ["struct_index"])]
+    with pytest.raises(fp.FusedUnsupported, match="K5"):
+        fp.FusedProgramKernel(specs, "x")
+    with pytest.raises(fp.FusedUnsupported, match="struct-index slice"):
+        fp.build_fused_fn(specs)
+
+
+def _enum(src, first):
+    body = src[src.index("enum : int {\n  " + first):]
+    body = body[:body.index("}")]
+    names = re.findall(r"([A-Z]\w*)(?: = (\d+))?", body)
+    return [n for n, _ in names]
+
+
+def test_source_agrees_with_the_wrapper():
+    with open(fpc._SRC) as f:
+        src = f.read()
+    header = _enum(src, "D_MAGIC")
+    assert header[:len(fpc._HEADER)] == ["D_" + n for n in fpc._HEADER]
+    assert header[-1] == "D_HEADER"
+    assert int(re.search(r"D_HEADER = (\d+)", src).group(1)) \
+        == fpc.HEADER_WORDS
+    assert int(re.search(r"kMagic = (0x[0-9A-F]+)", src).group(1), 16) \
+        == fpc.MAGIC
+    assert int(re.search(r"kRecordWords = (\d+)", src).group(1)) \
+        == fpc.RECORD_WORDS
+    assert int(re.search(r"kMaxStages = (\d+)", src).group(1)) \
+        == fpc.MAX_STAGES
+    kinds = dict(re.findall(r"ST_(\w+) = (\d)", src))
+    assert {k.lower(): int(v) for k, v in kinds.items()} == fpc.STAGE_KINDS
+    ck = dict(re.findall(r"CK_(\w+) = (\d)", src))
+    assert {"match": int(ck["MATCH"]), "extract_ok": int(ck["EXTRACT_OK"]),
+            "span_match": int(ck["SPAN"])} == fpc.COND_KINDS
+    m = re.search(r"int lct_fused_program\(([^)]*)\)", src)
+    assert len(m.group(1).split(",")) == 13
+    assert "fused_program_kernel<2, true>" in src
+    assert "fused_program_kernel<-1, false>" in src
+
+
+PTXAS_LOG = """\
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_120fused_program_kernelILin1ELb0EEEvPKhPKilS4_S4_Ph' for 'sm_90a'
+ptxas info    : Function properties for _ZN12_GLOBAL__N_120fused_program_kernelILin1ELb0EEEvPKhPKilS4_S4_Ph
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 38 registers, used 1 barriers, 400 bytes cmem[0]
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_120fused_program_kernelILi0ELb0EEEvPKhPKilS4_S4_Ph' for 'sm_90a'
+ptxas info    : Function properties for _ZN12_GLOBAL__N_120fused_program_kernelILi0ELb0EEEvPKhPKilS4_S4_Ph
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 56 registers, used 1 barriers, 400 bytes cmem[0]
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_120fused_program_kernelILi2ELb1EEEvPKhPKilS4_S4_Ph' for 'sm_90a'
+ptxas info    : Function properties for _ZN12_GLOBAL__N_120fused_program_kernelILi2ELb1EEEvPKhPKilS4_S4_Ph
+    3248 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 90 registers, used 1 barriers, 400 bytes cmem[0]
+"""
+
+
+def test_ptxas_report_keys_each_instantiation():
+    rep = fpc.ptxas_report(PTXAS_LOG)
+    assert sorted(rep) == ["d0_p0", "d0_p2_g", "none"]
+    assert rep["d0_p0"] == {"stack": 0, "spill_stores": 0, "spill_loads": 0,
+                            "registers": 56}
+    assert rep["d0_p2_g"]["stack"] == 3248

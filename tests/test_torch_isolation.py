@@ -7,7 +7,10 @@
 * entry points asked for no device default to CUDA and raise on a machine
   without one, rather than running on the CPU;
 * ``ExtractKernel`` sends a CUDA tensor to the kernel launch, never to the
-  plain version, and the kernel build raises when it cannot build.
+  plain version, and the kernel build raises when it cannot build; so does
+  ``FusedProgramKernel`` (K7) and its build;
+* each kernel library's source hash covers the headers its source
+  includes, so a header edit rebuilds every library that includes it.
 """
 
 import ast
@@ -50,7 +53,8 @@ STREAMING_MODULES = [
     "pipeline.pipeline", "pipeline.queue.bounded_queue",
     "pipeline.queue.process_queue_manager", "pipeline.pipeline_manager",
     "runner.processor_runner", "input.file.input_file", "input.file.reader",
-    "application",
+    "application", "ops.fused_pipeline", "ops.kernels.fused_program_cuda",
+    "pipeline.fused_chain",
 ]
 
 _PROBE_EACH = """
@@ -160,3 +164,70 @@ def test_kernel_build_failure_raises(monkeypatch, tmp_path):
                         lambda p: False if "nvcc" in p else os.path.isfile(p))
     with pytest.raises(RuntimeError, match="nvcc"):
         fxc.build()
+
+
+def test_fused_program_sends_cuda_tensors_to_k7_never_plain(monkeypatch):
+    from loongcollector_tpu_torch import testdata as td
+    from loongcollector_tpu_torch.ops import fused_pipeline as fp
+    from loongcollector_tpu_torch.ops.kernels import fused_program_cuda as fpc
+    specs = dict((n, s) for n, s, _ in td.fused_stage_lists())["apache_filter"]
+    program = fp.FusedProgramKernel(specs, "iso")
+
+    def plain(*a):
+        raise AssertionError("plain version ran for a CUDA tensor")
+
+    calls = []
+    program.plain = plain
+    monkeypatch.setattr(program, "device_blob", lambda dev: "blob")
+    monkeypatch.setattr(fpc, "launch",
+                        lambda *a: calls.append(a) or "flat")
+    rows = _FakeCudaTensor()
+    rows.shape = (8, 128)
+    assert program(rows, rows) == ("flat",)
+    assert program.launches == 1 and program.dispatch_count == 1
+    (args,) = calls
+    assert args[2] == "blob" and args[3] is program.descriptor
+
+
+def test_fused_program_build_failure_raises(monkeypatch, tmp_path):
+    from loongcollector_tpu_torch.ops.kernels import field_extract_cuda as fxc
+    from loongcollector_tpu_torch.ops.kernels import fused_program_cuda as fpc
+    monkeypatch.setattr(fpc, "_lib", None)
+    monkeypatch.setattr(fxc, "BUILD_ROOT", str(tmp_path))
+    monkeypatch.setattr(fxc.shutil, "which", lambda name: None)
+    monkeypatch.setattr(fxc.os.path, "exists",
+                        lambda p: False if "nvcc" in p else os.path.isfile(p))
+    with pytest.raises(RuntimeError, match="nvcc"):
+        fpc.build()
+
+
+def test_source_hashes_cover_the_shared_headers(tmp_path):
+    import shutil
+    from loongcollector_tpu_torch.ops.kernels import field_extract_cuda as fxc
+    src = os.path.join(PORT, "ops", "kernels", "csrc")
+    dst = tmp_path / "csrc"
+    shutil.copytree(src, dst)
+    libs = {name: str(dst / name) for name in
+            ("field_extract.cu", "dfa_scan.cu", "fused_program.cu")}
+    assert [os.path.basename(p) for p in fxc.source_files(
+        libs["fused_program.cu"])] == ["fused_program.cu", "dfa_walk.cuh",
+                                       "extract_walk.cuh"]
+
+    def hashes():
+        return {name: fxc.source_hash(path) for name, path in libs.items()}
+
+    before = hashes()
+    assert before == {name: fxc.source_hash(os.path.join(src, name))
+                      for name in libs}
+    with open(dst / "extract_walk.cuh", "a") as f:
+        f.write("// edited\n")
+    after_extract = hashes()
+    assert after_extract["field_extract.cu"] != before["field_extract.cu"]
+    assert after_extract["fused_program.cu"] != before["fused_program.cu"]
+    assert after_extract["dfa_scan.cu"] == before["dfa_scan.cu"]
+    with open(dst / "dfa_walk.cuh", "a") as f:
+        f.write("// edited\n")
+    after_dfa = hashes()
+    assert after_dfa["dfa_scan.cu"] != before["dfa_scan.cu"]
+    assert after_dfa["fused_program.cu"] != after_extract["fused_program.cu"]
+    assert after_dfa["field_extract.cu"] == after_extract["field_extract.cu"]

@@ -165,9 +165,12 @@ def test_program_over_the_budget_is_unsupported():
 
 def test_source_agrees_with_the_wrapper():
     """The kernel's constants and entry points are the ones the wrapper
-    sizes and binds."""
-    with open(fxc._SRC) as f:
-        src = f.read()
+    sizes and binds (the constants live in the walker's header, which the
+    source includes)."""
+    src = ""
+    for path in fxc.source_files(fxc._SRC):
+        with open(path) as f:
+            src += f.read()
     consts = dict(re.findall(r"constexpr int (k\w+) = (\d+);", src))
     assert int(consts["kMaxThreads"]) == fxc.MAX_THREADS
     assert int(consts["kMaxDepth"]) == fxc.MAX_DEPTH
