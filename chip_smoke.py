@@ -6,16 +6,17 @@
 Phases, each of which exits non-zero on failure:
 
 1. build: compile the CUDA field-extraction kernel (K1), the DFA walk
-   (K2, K3, K4) and the fused stage program (K7) from
+   (K2, K3, K4), the fused stage program (K7) and the segment reduce (K6)
+   from
    ``loongcollector_tpu_torch/ops/kernels/csrc/`` (into ``build/kernels/``,
    keyed on the hash of each source and the headers it includes), one nvcc
    each, started together, and the repo's native host library; print the
    build seconds, ptxas's registers, stack frame and spills for each
    kernel instantiation, the torch version and the card's name and power
    limit.  Fails if K1's depth-0, pivot-free instantiation (the Apache
-   program's), a DFA walker, or a K7 instantiation without the general
-   walker (the Apache-filter program's is ``d0_p0``) has a stack frame or
-   spills.
+   program's), a DFA walker, a K7 instantiation without the general
+   walker (the Apache-filter program's is ``d0_p0``) or one of K6's three
+   kernels has a stack frame or spills.
 2. parity: the kernel against its plain PyTorch version, on the card, on
    the test patterns, a seeded generative set (double pivots included), the
    Apache pattern, and a depth-8 nested pattern and a 32-capture pattern on
@@ -30,7 +31,11 @@ Phases, each of which exits non-zero on failure:
    pointed at the log and a flusher_file sink): the input pushes into the
    bounded process queue, the processor runner's workers dispatch through
    the device plane.  It runs twice, at the default one worker and at
-   ``LOONG_PROCESS_THREADS=4``.  Each time every record must equal the
+   ``LOONG_PROCESS_THREADS=4``, then once more at one worker with the
+   event-conservation ledger on (``LOONG_LEDGER=1``; every other agent run
+   has it off), whose residual must be 0; the ledger-on run's MB/s beside
+   the one-worker run's is the ledger's cost.  Each time every record must
+   equal the
    ``re`` oracle's fields in file order, the kernel's launches (counted from
    0 in that process) must equal its device batches and the plane's
    dispatches and be > 0, no row may be routed to ``re``, and the plane's
@@ -111,9 +116,48 @@ Phases, each of which exits non-zero on failure:
    groups fuse unless they hold a record over 4096 bytes, and the groups of
    each kind must be those the log's chunks give
    (``testdata.java_groups``).
-13. K7 and K3 timing (last): K7 on the Apache-filter program and K3 on its
+13. K7 and K3 timing: K7 on the Apache-filter program and K3 on its
    status condition over the status spans, at B=8192 and B=65536, L=128,
    warm and cold, beside the plain versions and the bounds.
+14. K6 parity (after phase 11): ``lct_segment_reduce`` against its plain
+   version on the card over ``testdata.k6_cases`` (B 256..65536, Gq
+   16..65536, 41 buckets and 1, invalid shares 0 / 10% / 100%, a hot
+   segment, +-inf and both zeros): count, min, max, last and hist exact,
+   sums within rtol = atol = 1e-5 (the reference's device tolerance,
+   ``scripts/agg_equivalence.py:163``: atomics add in a changing order);
+   and ``SegmentReduceKernel.fold_batch`` on the card against the host
+   numpy twin on the gate's device corpora (``testdata.agg_batch_corpus``)
+   at 41 and 1 buckets: group ids, rows, counts and histograms exact, min,
+   max and last equal to the twin's through f32, sums within tolerance.
+15. the metric-rollup path (after phase 12): ``testdata.metric_rollup_config``
+   (parse_json, parse_timestamp, ``aggregator_metric_rollup`` with
+   ``Substrate: device``, flusher_file) on a seeded 600,000-line
+   ``testdata.gen_metrics_jsonl`` corpus at one and four workers, at one
+   worker with ``LOONG_AGG_SUBSTRATE=numpy``, and at one worker with the
+   ledger on (residual 0, its ingest the log's reader chunks): the rows
+   equal the
+   script's own f64 fold of the corpus (``testdata.metrics_oracle``; keys,
+   counts and histograms exact, min / max / last through f32 on the
+   device runs, sums within the tolerance), and the device runs' rows
+   equal the numpy run's; invalid rows are the corpus's, late rows 0, no
+   parse row falls back; on the device runs K6 launches = folds = groups
+   (the log's reader chunks) = K6's exec legs on the timeline and no fold
+   ran on the host; on the
+   numpy run no K6 launch.  Prints MB/s, rows/s, the fold's host seconds,
+   K6's h2d, exec and d2h leg medians and the busy share.
+16. K6 timing (last): at the path's fold shape (B=8192, 5,000 real rows
+   over 1,600 segments, Gq=2048) and at B = Gq = 65536, 41 buckets, warm
+   and cold (graph replay), beside the plain version graph-replayed (its
+   ``index_add_`` / ``scatter_reduce_`` calls are also the library
+   yardstick) and the bound ``B + 12 V + 20 Gq + 4 n_hist Gq`` bytes (V
+   the batch's valid rows: K6 reads only the flag of an invalid row) at
+   3.35 TB/s.
+17. K6 on the path's own folds (after phase 15): each reader chunk of the
+   metrics log, keyed and staged as the device substrate stages it
+   (``testdata.metrics_fold_rows``, ``segment_reduce.key_fold``), through
+   K6 and its plain version on the card, held as in phase 14; the folds'
+   (B, Gq, n_hist) must be those the device runs of phase 15 launched,
+   fold for fold.
 
 In every phase each recorded launch must be whole warps within the block
 limit and the shared-memory budget, with a block for each SM once a batch
@@ -121,7 +165,7 @@ holds 32 rows an SM; the geometry in the ``kernels`` line is the one
 ``launch()`` passed to the kernel in this run.
 
 An earlier line prints the script's total seconds.  The line before the
-last is the ``kernels`` JSON line (K1, K2, K4, K3 and K7), the last line
+last is the ``kernels`` JSON line (K1, K2, K4, K3, K7 and K6), the last line
 the ``{"ok": true, "device": ...}`` object.  It imports nothing of JAX or of
 the JAX package.
 """
@@ -340,8 +384,8 @@ def graph_ms(fns, reps: int = 50, iters: int = 20,
 
 # -- phases -----------------------------------------------------------------
 
-def phase_build(fxc, dsc, fpc, native) -> dict:
-    """The three kernel libraries, one nvcc each, started together."""
+def phase_build(fxc, dsc, fpc, src, native) -> dict:
+    """The four kernel libraries, one nvcc each, started together."""
     import threading
     import torch
     t0 = time.perf_counter()
@@ -356,7 +400,7 @@ def phase_build(fxc, dsc, fpc, native) -> dict:
         secs[name] = time.perf_counter() - t
     threads = [threading.Thread(target=build, args=a)
                for a in (("field_extract", fxc), ("dfa_scan", dsc),
-                         ("fused_program", fpc))]
+                         ("fused_program", fpc), ("segment_reduce", src))]
     for t in threads:
         t.start()
     for t in threads:
@@ -367,8 +411,10 @@ def phase_build(fxc, dsc, fpc, native) -> dict:
     ptxas = fxc.ptxas_report(fxc.build_log)
     dfa_ptxas = dsc.ptxas_report(dsc.build_log)
     k7_ptxas = fpc.ptxas_report(fpc.build_log)
+    k6_ptxas = src.ptxas_report(src.build_log)
     for name, r in sorted(ptxas.items()) + sorted(dfa_ptxas.items()) + [
-            (f"fused_program {k}", v) for k, v in sorted(k7_ptxas.items())]:
+            (f"fused_program {k}", v) for k, v in sorted(k7_ptxas.items())] \
+            + [(f"segment_reduce {k}", v) for k, v in sorted(k6_ptxas.items())]:
         log(f"ptxas {name}: {r.get('registers')} registers, "
             f"{r.get('stack')} bytes stack frame, {r.get('spill_stores')} "
             f"bytes spill stores, {r.get('spill_loads')} bytes spill loads")
@@ -376,15 +422,17 @@ def phase_build(fxc, dsc, fpc, native) -> dict:
                if e.replace("lct_field_extract_", "") not in ptxas]
     missing += [m for m in dsc.ENTRY_POINTS if m not in dfa_ptxas]
     missing += [k for k in fpc.INSTANTIATIONS if k not in k7_ptxas]
+    missing += [k for k in src.KERNELS if k not in k6_ptxas]
     if missing:
         fail(f"no ptxas report for {missing}")
     # the depth-0 walkers: K1's Apache instantiation, the DFA walks (K2,
-    # K3, K4), and K7's instantiations without the general walker (the
-    # Apache filter program's is d0_p0)
+    # K3, K4), K7's instantiations without the general walker (the Apache
+    # filter program's is d0_p0), and K6's three kernels
     for name, r in [("d0_p0", ptxas["d0_p0"])] + [
             (m, dfa_ptxas[m]) for m in dsc.ENTRY_POINTS] + [
             (f"fused_program {k}", k7_ptxas[k]) for k in fpc.INSTANTIATIONS
-            if not k.endswith("_g")]:
+            if not k.endswith("_g")] + [
+            (f"segment_reduce {k}", k6_ptxas[k]) for k in src.KERNELS]:
         if r.get("stack", 1) or r.get("spill_stores", 1) \
                 or r.get("spill_loads", 1):
             fail(f"the {name} walker has local memory: {r}")
@@ -392,15 +440,16 @@ def phase_build(fxc, dsc, fpc, native) -> dict:
     if native.get_lib() is None:
         fail("native host library did not build")
     native_s = time.perf_counter() - t0
-    log(f"build: three kernels {kernel_s:.2f} s in parallel (field_extract "
+    log(f"build: four kernels {kernel_s:.2f} s in parallel (field_extract "
         f"{secs['field_extract']:.2f} s, dfa_scan {secs['dfa_scan']:.2f} s, "
-        f"fused_program {secs['fused_program']:.2f} s), native library "
+        f"fused_program {secs['fused_program']:.2f} s, segment_reduce "
+        f"{secs['segment_reduce']:.2f} s), native library "
         f"{native_s:.2f} s; torch {torch.__version__} cuda "
         f"{torch.version.cuda}; python {sys.version.split()[0]}")
     log(f"card: {nvidia_smi()}; {torch.cuda.get_device_name(0)}")
     return {"kernel_build_s": kernel_s, "native_build_s": native_s,
             "build_s": secs, "ptxas": ptxas, "dfa_ptxas": dfa_ptxas,
-            "k7_ptxas": k7_ptxas}
+            "k7_ptxas": k7_ptxas, "k6_ptxas": k6_ptxas}
 
 
 def checked_shapes(shapes, phase: str) -> list:
@@ -635,16 +684,17 @@ def main_path_log():
 
 
 def phase_main_path(tmp: str, log_path: str, lines, n_bytes: int,
-                    threads: int) -> dict:
+                    threads: int, ledger: bool = False) -> dict:
     from loongcollector_tpu_torch.ops.xprof import LEGS
     from loongcollector_tpu_torch.testdata import APACHE_KEYS
-    run_dir = os.path.join(tmp, f"threads{threads}")
+    run_dir = os.path.join(tmp, f"threads{threads}{'ledger' * ledger}")
     os.makedirs(run_dir)
     out_path = os.path.join(run_dir, "out.json")
     stats_path = os.path.join(run_dir, "stats.json")
     cfg_dir = write_config(run_dir, log_path, out_path)
-    tag = f"main path, {threads} worker{'s' if threads > 1 else ''}"
-    st, wall = run_agent(tag, cfg_dir, stats_path, threads)
+    tag = (f"main path, {threads} worker{'s' if threads > 1 else ''}"
+           f"{', ledger on' * ledger}")
+    st, wall = run_agent(tag, cfg_dir, stats_path, threads, ledger)
     rx = re.compile(APACHE.encode())
     n = 0
     with open(out_path, "rb") as f:
@@ -1100,8 +1150,16 @@ def java_log():
     return tmp, log_path, lines, len(data)
 
 
-def run_agent(tag, cfg_dir, stats_path, threads):
-    env = dict(os.environ, LOONG_PROCESS_THREADS=str(threads))
+def run_agent(tag, cfg_dir, stats_path, threads, ledger=False,
+              **env_vars):
+    """One ``--once`` agent run on the card with ``threads`` workers; fails
+    unless the run exits 0 and ran on CUDA.  With ``ledger`` the
+    event-conservation ledger is on (``LOONG_LEDGER=1``) and every
+    pipeline's residual must be 0; without it the ledger must be off."""
+    env = dict(os.environ, LOONG_PROCESS_THREADS=str(threads), **env_vars)
+    env.pop("LOONG_LEDGER", None)
+    if ledger:
+        env["LOONG_LEDGER"] = "1"
     t0 = time.perf_counter()
     proc = subprocess.run(
         [sys.executable, "-m", "loongcollector_tpu_torch", "--config",
@@ -1116,6 +1174,13 @@ def run_agent(tag, cfg_dir, stats_path, threads):
     if st["device"] != "cuda" or st["threads"] != threads:
         fail(f"{tag}: the agent ran on {st['device']} with {st['threads']} "
              f"workers")
+    if not ledger:
+        if st["ledger"] is not None:
+            fail(f"{tag}: the ledger was on in a run without it")
+        return st, wall
+    res = (st["ledger"] or {}).get("residuals")
+    if not res or any(res.values()):
+        fail(f"{tag}: ledger residuals {res} (want 0 for every pipeline)")
     return st, wall
 
 
@@ -1926,6 +1991,383 @@ def phase_fused_timing() -> dict:
     return out
 
 
+# -- slice 6: the metric rollup and K6 ---------------------------------------
+
+K6_TOL = 1e-5       # rtol = atol on sums: scripts/agg_equivalence.py:163
+K6_PATH_SHAPE = (8192, 2048)       # B, Gq of a rollup-path fold
+K6_BENCH_SHAPE = (65536, 65536)
+
+
+def _k6_compare(got, want, what):
+    """K6's six outputs against another's: sums within rtol = atol = 1e-5
+    (atomics add in a changing order; NaN where inf meets -inf on both);
+    count, min, max, last and hist equal.  Returns the largest absolute
+    difference of the finite sums."""
+    import numpy as np
+    names = ("sum", "count", "min", "max", "last", "hist")
+    for name, g, w in zip(names, got, want):
+        if g.shape != w.shape:
+            fail(f"{what}: {name} shape {g.shape} != {w.shape}")
+        if name == "sum":
+            if not np.allclose(g, w, rtol=K6_TOL, atol=K6_TOL,
+                               equal_nan=True):
+                bad = np.nonzero(~np.isclose(g, w, rtol=K6_TOL, atol=K6_TOL,
+                                             equal_nan=True))[0]
+                fail(f"{what}: sums differ at {bad[:5]}: {g[bad[:5]]} vs "
+                     f"{w[bad[:5]]}")
+        elif not np.array_equal(g, w):
+            bad = np.nonzero((g != w).reshape(len(g), -1).any(axis=1))[0]
+            fail(f"{what}: {name} differs at segments {bad[:5]}")
+    fin = np.isfinite(got[0]) & np.isfinite(want[0])
+    return float(np.max(np.abs(got[0][fin].astype(np.float64)
+                               - want[0][fin]), initial=0.0))
+
+
+def phase_k6_parity() -> dict:
+    """K6 against its plain version on the card over the seeded batches of
+    ``testdata.k6_cases`` (B 256..65536, G 16..65536, 41 and 1 buckets,
+    invalid shares 0 / 10% / 100%, a hot segment, +-inf and both zeros),
+    and the device fold (``SegmentReduceKernel.fold_batch`` on the card)
+    against the host numpy twin on the equivalence gate's device corpora:
+    group ids, representative rows, counts and histograms exact, min, max
+    and last equal to the twin's through f32, sums within the tolerance."""
+    import numpy as np
+    import torch
+    from loongcollector_tpu_torch import testdata as td
+    from loongcollector_tpu_torch.ops.kernels import segment_reduce as sr
+    from loongcollector_tpu_torch.ops.kernels import segment_reduce_cuda as src
+    src.reset_launch_shapes()
+    kerns = {n: sr.SegmentReduceKernel(n) for n in (41, 1)}
+    max_err, checks = 0.0, 0
+    for label, B, G, n_hist, invalid, hot, inf, spread in td.k6_cases():
+        vals, seg, buckets, valid = td.k6_batch(B + G, B, G, n_hist,
+                                                invalid, hot, inf,
+                                                spread=spread)
+        args = [torch.from_numpy(a).cuda() for a in (vals, seg, buckets,
+                                                     valid)]
+        kern = kerns[n_hist]
+        got = [t.cpu().numpy() for t in kern(*args, G)]
+        torch.cuda.synchronize()
+        want = [t.cpu().numpy() for t in kern.plain(*args, G)]
+        max_err = max(max_err, _k6_compare(got, want, f"K6 {label}"))
+        if invalid == 1.0 and (got[1].any() or got[5].any()):
+            fail(f"K6 {label}: an all-invalid batch counted rows")
+        checks += 1
+    folds = 0
+    for label, rows, device_ok in td.agg_batch_corpus():
+        if not device_ok:
+            continue
+        args = td.pack_agg_rows(rows)
+        for n_hist, kern in kerns.items():
+            dev = kern.fold_batch(*args, device=torch.device("cuda"))
+            ref = sr.fold_batch_numpy(*args, n_hist=n_hist)
+            for f in ("group_id", "rep_row", "count", "hist"):
+                if not np.array_equal(getattr(dev, f), getattr(ref, f)):
+                    fail(f"K6 fold [{label}] n_hist={n_hist}: {f} != the "
+                         f"numpy twin's")
+            for f in ("min", "max", "last"):
+                if not np.array_equal(getattr(dev, f), getattr(ref, f)
+                                      .astype(np.float32)
+                                      .astype(np.float64)):
+                    fail(f"K6 fold [{label}] n_hist={n_hist}: {f} != f32 of "
+                         f"the numpy twin's")
+            if not np.allclose(dev.sum, ref.sum, rtol=K6_TOL, atol=K6_TOL):
+                fail(f"K6 fold [{label}] n_hist={n_hist}: sums out of "
+                     f"tolerance")
+            folds += 1
+    launches = sum(k.launches for k in kerns.values())
+    shapes = dict(src.launch_shapes)
+    if launches != checks + folds or sum(shapes.values()) != launches:
+        fail(f"K6 parity: {launches} launches, {sum(shapes.values())} in "
+             f"the shapes, for {checks} batches and {folds} folds")
+    big = max(shapes, key=lambda sh: (sh.B, sh.G))
+    log(f"K6 parity: {checks} batches equal the plain version on the card "
+        f"(count, min, max, last, hist exact; sums within rtol = atol = "
+        f"{K6_TOL}, largest difference {max_err:.3g}), {folds} folds of the "
+        f"gate's device corpora equal the numpy twin; {launches} launches "
+        f"of {len(shapes)} shapes, the largest B={big.B} G={big.G}: "
+        f"{big.blocks} scatter blocks, {big.init_blocks} init blocks")
+    return {"checks": checks, "folds": folds, "max_abs_err": max_err}
+
+
+def phase_k6_path_parity(fold_rows, runs) -> dict:
+    """K6 against its plain version on the card on the rollup path's own
+    fold inputs: each group of the metrics log (``testdata.
+    metrics_fold_rows``, one a reader chunk) keyed and staged as the device
+    substrate does it (``segment_reduce.key_fold``); count, min, max, last
+    and hist exact, sums within the tolerance.  The (B, Gq, n_hist) of
+    these folds must be those each run in ``runs`` launched, fold for
+    fold."""
+    from collections import Counter
+    import numpy as np
+    import torch
+    from loongcollector_tpu_torch import testdata as td
+    from loongcollector_tpu_torch.ops.kernels import segment_reduce as sr
+    kern = sr.SegmentReduceKernel(sr.N_HIST)
+    shapes = Counter()
+    max_err = 0.0
+    for i, rows in enumerate(fold_rows):
+        keyed = sr.key_fold(*td.pack_agg_rows(rows))
+        if keyed is None:
+            continue
+        buf = np.empty(13 * keyed.B, np.uint8)
+        keyed.stage(buf, sr.HIST_BASE, sr.N_HIST)
+        args = [torch.from_numpy(a.copy()).cuda()
+                for a in sr.staged_views(buf, keyed.B)]
+        got = [t.cpu().numpy() for t in kern(*args, keyed.Gq)]
+        want = [t.cpu().numpy() for t in kern.plain(*args, keyed.Gq)]
+        max_err = max(max_err, _k6_compare(got, want, f"K6 path fold {i}"))
+        shapes[(keyed.B, keyed.Gq, sr.N_HIST)] += 1
+    for run in runs:
+        launched = Counter({(sh["B"], sh["G"], sh["n_hist"]): sh["launches"]
+                            for sh in run["stats"]["aggregation"]
+                            ["launch_shapes"]})
+        if launched != shapes:
+            fail(f"K6 path parity: the path launched {dict(launched)}, its "
+                 f"folds rebuilt give {dict(shapes)}")
+    log(f"K6 path parity: {sum(shapes.values())} folds of the rollup "
+        f"path's own inputs equal the plain version on the card (count, "
+        f"min, max, last, hist exact; sums within rtol = atol = {K6_TOL}, "
+        f"largest difference {max_err:.3g}); (B, Gq, n_hist): folds "
+        f"{dict(shapes)}, as the {len(runs)} path runs launched")
+    return {"folds": sum(shapes.values()), "max_abs_err": max_err}
+
+
+def k6_bound_ms(B, n_valid, G, n_hist):
+    """Bytes the reduce must move (the valid flag of each of the ``B``
+    rows, 12 more bytes of each of the ``n_valid`` valid rows, whose value,
+    segment and bucket the kernel reads, and 4 (5 + n_hist) a segment out)
+    at HBM rate, against one 32-bit operation a row and ~8 more a valid row
+    at the non-tensor rate; returns (ms, bound_by)."""
+    t_bytes = (B + 12 * n_valid + 20 * G + 4 * n_hist * G) / HBM_BYTES_PER_S
+    t_ops = (B + 8 * n_valid) / INT_OPS_PER_S
+    if t_bytes >= t_ops:
+        return t_bytes * 1e3, "bytes"
+    return t_ops * 1e3, "operations"
+
+
+def phase_k6_timing() -> dict:
+    """K6 at the rollup path's fold shape (B=8192 with 5,000 real rows over
+    1,600 segments, Gq=2048) and at B = Gq = 65536 (every row real), 41
+    buckets: warm (the same inputs launch after launch) and cold (the
+    launches rotate over enough copies to pass twice the 50 MB L2), by
+    graph replay, beside the plain version (also graph-replayed: its
+    ``index_add_`` / ``scatter_reduce_`` calls are the library yardstick)
+    and the bound (``k6_bound_ms``, from the timed batch's valid rows)."""
+    import torch
+    from loongcollector_tpu_torch import testdata as td
+    from loongcollector_tpu_torch.ops.kernels import segment_reduce as sr
+    from loongcollector_tpu_torch.ops.kernels import segment_reduce_cuda as src
+    kern = sr.SegmentReduceKernel(41)
+    out = {}
+    for (B, G), (n_real, n_seg) in ((K6_PATH_SHAPE, (5000, 1600)),
+                                    (K6_BENCH_SHAPE, (65536, 65536))):
+        vals, seg, buckets, valid = td.k6_batch(7, B, n_seg, 41,
+                                                n_real=n_real)
+        seg[n_real:] = G
+        args = [torch.from_numpy(a).cuda() for a in (vals, seg, buckets,
+                                                     valid)]
+        src.reset_launch_shapes()
+        got = [t.cpu().numpy() for t in kern(*args, G)]
+        want = [t.cpu().numpy() for t in kern.plain(*args, G)]
+        _k6_compare(got, want, f"K6 timing B={B} G={G}")
+
+        def fn(v, s, b, ok):
+            return kern.launch_flat(v, s, b, ok, G)
+        call_ms = time_cuda(lambda: fn(*args), 200)
+        ms = graph_ms([lambda: fn(*args)])
+        touched = 13 * B + 4 * src.out_words(G, 41) + 8 * G
+        n_copies = max(8, -(-2 * L2_BYTES // touched))
+        copies = [tuple(a.clone() for a in args) for _ in range(n_copies)]
+        cold_ms = graph_ms([lambda c=c: fn(*c) for c in copies],
+                           reps=n_copies * -(-50 // n_copies), iters=5,
+                           keep_outputs=True)
+        del copies
+        plain_ms = graph_ms([lambda: kern.plain(*args, G)], reps=10,
+                            iters=5)
+        plain_call_ms = time_cuda(lambda: kern.plain(*args, G), 20)
+        b_ms, by = k6_bound_ms(B, int(valid.sum()), G, 41)
+        sh = next((sh for sh in src.launch_shapes
+                   if sh.B == B and sh.G == G), None)
+        if sh is None:
+            fail(f"K6 timing: no launch recorded at B={B} G={G}")
+        out[(B, G)] = {"ms": ms, "cold_ms": cold_ms, "call_ms": call_ms,
+                       "plain_ms": plain_ms, "plain_call_ms": plain_call_ms,
+                       "bound_ms": b_ms, "bound_by": by, "copies": n_copies,
+                       "blocks": sh.blocks, "init_blocks": sh.init_blocks,
+                       "real_rows": n_real, "segments": n_seg}
+        log(f"K6 timing B={B} Gq={G} n_hist=41 ({n_real} real rows over "
+            f"{n_seg} segments; {sh.blocks} scatter blocks and "
+            f"{sh.init_blocks} init blocks of {src.THREADS} threads): "
+            f"kernel {ms:.5f} ms warm and {cold_ms:.5f} ms cold ({n_copies} "
+            f"copies) on the device (graph replay), {call_ms:.4f} ms per "
+            f"wrapper call; plain (= library: index_add_ / scatter_reduce_) "
+            f"{plain_ms:.4f} ms graph-replayed, {plain_call_ms:.4f} ms per "
+            f"call; bound {b_ms:.6f} ms ({by})")
+    return out
+
+
+def metrics_log():
+    """The seeded 600,000-line metrics corpus, its f64 oracle and the
+    fold rows of each reader chunk (``testdata.metrics_fold_rows``)."""
+    from loongcollector_tpu_torch import testdata as td
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_metrics_")
+    log_path = os.path.join(tmp, "metrics.jsonl")
+    t0 = time.perf_counter()
+    lines = td.gen_metrics_jsonl(MAIN_PATH_LINES, seed=17)
+    data = b"\n".join(lines) + b"\n"
+    with open(log_path, "wb") as f:
+        f.write(data)
+    oracle, invalid = td.metrics_oracle(lines)
+    fold_rows = td.metrics_fold_rows(lines)
+    log(f"metrics log: {len(lines)} lines, {len(data)} bytes, "
+        f"{len(oracle)} rollup rows and {invalid} invalid rows by the f64 "
+        f"oracle, {len(fold_rows)} reader chunks, in "
+        f"{time.perf_counter() - t0:.1f} s")
+    return tmp, log_path, lines, len(data), oracle, invalid, fold_rows
+
+
+def phase_rollup(tmp, log_path, lines, n_bytes, oracle, invalid, groups,
+                 threads, substrate=None, ledger=False) -> dict:
+    """The metric-rollup path (``testdata.metric_rollup_config``: parse_json,
+    parse_timestamp, aggregator_metric_rollup with ``Substrate: device``,
+    flusher_file) on the metrics log: the emitted rows equal the f64
+    oracle (keys, counts and histograms exact, min / max / last equal
+    through f32, sums within rtol = atol = 1e-5); invalid rows are the
+    corpus's and late rows 0; no parse row falls back; every fold is one
+    K6 launch (launches = folds = ``groups``, the reader's chunks of the
+    log, = K6's dispatches on the timeline) and none ran on the host.
+    ``substrate`` (``numpy``) reruns it with ``LOONG_AGG_SUBSTRATE``: every
+    fold on the numpy twin, no K6 launch, rows equal to the oracle with
+    min / max / last exact.  With ``ledger`` the ledger is on, its
+    residual must be 0 and its ingest the ``groups``."""
+    from loongcollector_tpu_torch import testdata as td
+    tag = (f"rollup{' ' + substrate if substrate else ''}, {threads} "
+           f"worker{'s' if threads > 1 else ''}{', ledger on' * ledger}")
+    run_dir = os.path.join(tmp, f"rollup{threads}{substrate or ''}"
+                                f"{'ledger' * ledger}")
+    cfg_dir = os.path.join(run_dir, "config")
+    os.makedirs(cfg_dir)
+    out_path = os.path.join(run_dir, "out.json")
+    with open(os.path.join(cfg_dir, "rollup.yaml"), "w") as f:
+        f.write(td.metric_rollup_config(log_path, out_path))
+    env = {"LOONG_AGG_SUBSTRATE": substrate} if substrate else {}
+    st, wall = run_agent(tag, cfg_dir, os.path.join(run_dir, "stats.json"),
+                         threads, ledger, **env)
+    with open(out_path, "rb") as f:
+        rows = td.rollup_rows(f.read())
+    os.unlink(out_path)
+    bad = td.rollup_mismatches(rows, oracle, f32_want=substrate is None)
+    if bad:
+        fail(f"{tag}: rows differ from the f64 oracle: {bad}")
+    agg = st["aggregation"]
+    c = agg["counters"]
+    if ledger and st["ledger"]["snapshot"]["rollup"]["ingest"]["events"] \
+            != groups:
+        fail(f"{tag}: the ledger's ingest is not the log's {groups} chunks")
+    parse = st["parse"]["processor_parse_json_tpu/rollup"]
+    if c["agg_invalid_rows_total"] != invalid or c["agg_late_rows_total"] \
+            or c["agg_folded_rows_total"] + invalid != len(lines) \
+            or c["agg_emitted_rows_total"] != len(oracle) \
+            or parse["fallback_rows"] or parse["rows"] != len(lines):
+        fail(f"{tag}: counters {c}, parse {parse}, for {len(lines)} lines, "
+             f"{invalid} invalid, {len(oracle)} rollup rows")
+    if st["device_memory"]["total_live_bytes"]:
+        fail(f"{tag}: live bytes left at exit: {st['device_memory']}")
+    legs = agg["legs"]
+    if substrate is None:
+        if not (0 < agg["k6_launches"] == agg["k6_dispatches"] == groups
+                == legs["exec"]["count"]) \
+                or agg["folds"] != {"device": agg["k6_launches"]}:
+            fail(f"{tag}: K6 launches {agg['k6_launches']}, dispatches "
+                 f"{agg['k6_dispatches']}, exec legs {legs['exec']['count']},"
+                 f" folds {agg['folds']}, groups {groups}")
+    elif agg["k6_launches"] or agg["folds"] != {substrate: groups}:
+        fail(f"{tag}: K6 launches {agg['k6_launches']}, folds "
+             f"{agg['folds']}, groups {groups}")
+    secs = st["seconds"]
+    mbps = n_bytes / secs / 1e6
+    shapes = [(sh["B"], sh["G"], sh["n_hist"], sh["launches"])
+              for sh in agg["launch_shapes"]]
+    log(f"{tag}: {len(lines)} lines in, {len(rows)} rollup rows out, equal "
+        f"to the f64 oracle; {c['agg_invalid_rows_total']} invalid rows (the "
+        f"corpus's), 0 late, 0 parse fallback rows; {groups} groups, folds "
+        f"{agg['folds']}, {agg['k6_launches']} K6 launches; {mbps:.2f} MB/s "
+        f"and {len(lines) / secs:.0f} rows/s end to end ({secs:.3f} s, agent "
+        f"process {wall:.1f} s); fold host seconds "
+        f"{agg['fold_seconds']:.4f}{'; ledger residual 0' * ledger}")
+    if substrate is None:
+        log(f"{tag}: K6 legs median ms (sum s): " + ", ".join(
+            f"{leg} {v['median_s'] * 1e3:.5f} ({v['sum_s']:.5f})"
+            for leg, v in legs.items()) + f"; largest exec "
+            f"{legs['exec']['max_s'] * 1e3:.5f} ms; traced busy share "
+            f"{st['busy_share'] * 100:.3f}%; launch shapes (B, Gq, n_hist, "
+            f"launches) {shapes}")
+    log(f"{tag}: stage seconds (host): " + json.dumps(st["stage_seconds"]))
+    return {"stats": st, "mbps": mbps, "wall_s": wall, "rows": rows,
+            "groups": groups}
+
+
+def k6_kernel_entry(parity, path_parity, timing, roll, roll4, roll_np,
+                    roll_led, build) -> dict:
+    """The ``kernels`` line's entry of K6: launches from the rollup path at
+    one worker, times at its fold shape (B=8192, Gq=2048)."""
+    t, tb = timing[K6_PATH_SHAPE], timing[K6_BENCH_SHAPE]
+    agg = roll["stats"]["aggregation"]
+    legs = agg["legs"]
+    return {
+        "name": "segment_reduce",
+        "route": "cuda",
+        "source": "loongcollector_tpu_torch/ops/kernels/csrc/"
+                  "segment_reduce.cu",
+        "replaces": "loongcollector_tpu/ops/kernels/segment_reduce.py:362",
+        "parity": f"sums rtol=atol={K6_TOL}, the rest exact",
+        "geometry": [*K6_PATH_SHAPE, 41],
+        "launches": agg["k6_launches"],
+        "max_abs_err": max(parity["max_abs_err"],
+                           path_parity["max_abs_err"]),
+        "ms": t["ms"],
+        "cold_ms": t["cold_ms"],
+        "call_ms": t["call_ms"],
+        "plain_ms": t["plain_ms"],
+        "bound_ms": t["bound_ms"],
+        "bound_by": t["bound_by"],
+        # the plain version's index_add_ / scatter_reduce_ calls compute
+        # the program directly: one measurement for both columns
+        "library_ms": t["plain_ms"],
+        "plain_call_ms": t["plain_call_ms"],
+        "bench_geometry": [*K6_BENCH_SHAPE, 41],
+        "bench_ms": tb["ms"],
+        "bench_cold_ms": tb["cold_ms"],
+        "bench_plain_ms": tb["plain_ms"],
+        "bench_bound_ms": tb["bound_ms"],
+        "path_mbps": roll["mbps"],
+        "path_mbps_4_workers": roll4["mbps"],
+        "path_mbps_numpy_substrate": roll_np["mbps"],
+        "path_mbps_ledger_on": roll_led["mbps"],
+        "path_groups": roll["groups"],
+        "path_rollup_rows": len(roll["rows"]),
+        "path_fold_s": agg["fold_seconds"],
+        "path_leg_median_ms": {k: v["median_s"] * 1e3
+                               for k, v in legs.items()},
+        "path_exec_max_ms": legs["exec"]["max_s"] * 1e3,
+        "path_busy_share": roll["stats"]["busy_share"],
+        "path_launch_shapes": [[sh["B"], sh["G"], sh["n_hist"],
+                                sh["launches"]]
+                               for sh in agg["launch_shapes"]],
+        "path_launches_4_workers":
+            roll4["stats"]["aggregation"]["k6_launches"],
+        "parity_batches": parity["checks"],
+        "parity_folds": parity["folds"],
+        "path_parity_folds": path_parity["folds"],
+        "blocks": t["blocks"],
+        "init_blocks": t["init_blocks"],
+        "threads": 256,
+        "build_s": build["build_s"]["segment_reduce"],
+        "ptxas": build["k6_ptxas"],
+    }
+
+
 def fused_kernel_entries(span_parity, fused_parity, timing, filt, filt4,
                          path2, build) -> list:
     """The ``kernels`` line's entries of K3 and K7: K7's launches from the
@@ -2073,17 +2515,22 @@ def main() -> int:
     from loongcollector_tpu_torch.ops.kernels import dfa_scan_cuda as dsc
     from loongcollector_tpu_torch.ops.kernels import field_extract_cuda as fxc
     from loongcollector_tpu_torch.ops.kernels import fused_program_cuda as fpc
-    build = phase_build(fxc, dsc, fpc, native)
+    from loongcollector_tpu_torch.ops.kernels import segment_reduce_cuda as src
+    from loongcollector_tpu_torch.testdata import rollup_mismatches
+    build = phase_build(fxc, dsc, fpc, src, native)
     parity = phase_parity()
     tmp, log_path, lines, n_bytes = main_path_log()
     main_path = phase_main_path(tmp, log_path, lines, n_bytes, threads=1)
     main_path4 = phase_main_path(tmp, log_path, lines, n_bytes, threads=4)
+    main_led = phase_main_path(tmp, log_path, lines, n_bytes, threads=1,
+                               ledger=True)
     timing = phase_timing()
     plane = phase_plane()
     jtmp, jlog_path, jlines, j_bytes = java_log()
     dfa_parity = phase_dfa_parity(jlines)
     span_parity = phase_span_parity(jlines)
     fused_parity = phase_fused_parity()
+    k6_parity = phase_k6_parity()
     path1 = phase_multiline(jtmp, jlog_path, jlines, j_bytes, 1, 1)
     path2 = phase_multiline(jtmp, jlog_path, jlines, j_bytes, 2, 1)
     path2_4 = phase_multiline(jtmp, jlog_path, jlines, j_bytes, 2, 4)
@@ -2092,8 +2539,33 @@ def main() -> int:
     filt = phase_apache_filter(tmp, log_path, lines, n_bytes, threads=1)
     filt4 = phase_apache_filter(tmp, log_path, lines, n_bytes, threads=4)
     os.unlink(log_path)
+    mtmp, mlog_path, mlines, m_bytes, oracle, invalid, fold_rows = \
+        metrics_log()
+    m_args = (mtmp, mlog_path, mlines, m_bytes, oracle, invalid,
+              len(fold_rows))
+    roll = phase_rollup(*m_args, 1)
+    roll4 = phase_rollup(*m_args, 4)
+    roll_np = phase_rollup(*m_args, 1, substrate="numpy")
+    roll_led = phase_rollup(*m_args, 1, ledger=True)
+    os.unlink(mlog_path)
+    log(f"ledger cost (one worker, off / on): main path "
+        f"{main_path['mbps']:.2f} / {main_led['mbps']:.2f} MB/s, rollup "
+        f"{roll['mbps']:.2f} / {roll_led['mbps']:.2f} MB/s")
+    for name, other in (("four workers", roll4), ("numpy substrate",
+                                                   roll_np),
+                        ("ledger-on", roll_led)):
+        bad = rollup_mismatches(roll["rows"], other["rows"],
+                                f32_want=other is roll_np)
+        if bad:
+            fail(f"rollup: the device run's rows differ from the {name} "
+                 f"run's: {bad}")
+    log(f"rollup: the device run's {len(roll['rows'])} rows equal the four-"
+        f"worker run's, the numpy-substrate run's and the ledger-on run's "
+        f"(sums within rtol = atol = {K6_TOL}, the rest exact)")
+    k6_path = phase_k6_path_parity(fold_rows, [roll, roll4, roll_led])
     dfa_timing = phase_dfa_path_shapes(jlines, [path2, path2_4])
     fused_timing = phase_fused_timing()
+    k6_timing = phase_k6_timing()
     mp = main_path["stats"]
     t8, t64 = timing[8192], timing[65536]
     kernels = {"kernels": [{
@@ -2125,6 +2597,7 @@ def main() -> int:
         "main_path_kernel_s": mp["kernel_seconds"],
         "main_path_mbps": main_path["mbps"],
         "main_path_mbps_4_workers": main_path4["mbps"],
+        "main_path_mbps_ledger_on": main_led["mbps"],
         "main_path_busy_share": mp["busy_share"],
         "main_path_leg_median_ms": {
             k: v["median_s"] * 1e3 for k, v in mp["timeline"]["legs"].items()},
@@ -2157,7 +2630,8 @@ def main() -> int:
         "loongcollector_tpu/ops/kernels/dfa_scan.py:172", dfa_parity,
         dfa_timing, path2, path2_4, build, "K4")] + fused_kernel_entries(
         span_parity, fused_parity, fused_timing, filt, filt4, path2,
-        build)}
+        build) + [k6_kernel_entry(k6_parity, k6_path, k6_timing, roll,
+                                  roll4, roll_np, roll_led, build)]}
     log(f"total: {time.perf_counter() - t_start:.1f} s")
     print(nvidia_smi())
     print(json.dumps(kernels))

@@ -33,7 +33,14 @@ card their sum, median and largest); and ``fusion`` (resident stage
 fusion): runs planned, groups fused and sent per-stage (``long_row_groups``:
 a row over 4096 bytes), fused dispatches, K7 launches and launch shapes, K3
 launches, the program rows, and K7's exec legs on the timeline (program
-``fused``).
+``fused``); ``aggregation`` (the metric rollup): folds by the substrate
+that ran them and their host seconds, K6 launches and launch shapes, K6's
+h2d, exec and d2h legs on the timeline (program ``segment_reduce``: count,
+and on the card sum, median and largest), and the rollup's folded,
+invalid, late, emitted and evicted rows; ``parse``: the structural-index
+parsers' rows, fallback rows and drift rows; and ``ledger``: with
+``LOONG_LEDGER=1``, each pipeline's event-conservation residual after the
+run and the ledger's totals by boundary.
 """
 
 from __future__ import annotations
@@ -90,8 +97,11 @@ def run_once(config_dir: str, device) -> Dict[str, Any]:
     from .ops import fused_pipeline
     from .ops.device_plane import DevicePlane, device_memory_status
     from .ops.device_stream import auto_tuner, batch_ring, stream_depth
+    from .monitor import ledger
     from .ops.kernels import dfa_scan_cuda, fused_program_cuda
     from .ops.kernels import field_extract_cuda as fxc
+    from .ops.kernels import segment_reduce, segment_reduce_cuda
+    from .processor import parse_telemetry
     from .ops.regex.engine import cached_engines
     from .ops.regex.fuse import live_sets
     from .pipeline.pipeline_manager import CollectionPipelineManager
@@ -100,6 +110,9 @@ def run_once(config_dir: str, device) -> Dict[str, Any]:
     configs = load_config_dir(config_dir)
     if not configs:
         raise FileNotFoundError(f"no pipeline config in {config_dir}")
+    if ledger.install_from_env():
+        # this run's totals only: the residual is read after it drains
+        ledger.active_ledger().reset()
     pqm = ProcessQueueManager()
     manager = CollectionPipelineManager(pqm, device)
     manager.update_pipelines(configs)
@@ -108,6 +121,9 @@ def run_once(config_dir: str, device) -> Dict[str, Any]:
     fxc.reset_launch_shapes()
     dfa_scan_cuda.reset_launch_shapes()
     fused_program_cuda.reset_launch_shapes()
+    segment_reduce_cuda.reset_launch_shapes()
+    segment_reduce.device_kernel().reset_counts()
+    parse_telemetry.reset()
     runs = [r for p in manager.pipelines() for r in p.fused_runs]
     for counted in engines + sets + runs:
         counted.reset_counts()
@@ -200,7 +216,63 @@ def run_once(config_dir: str, device) -> Dict[str, Any]:
                          sum(fs.host_rows for fs in sets), "tags", timeline,
                          on_card),
         "fusion": _fusion_stats(runs, timeline, on_card),
+        "aggregation": _aggregation_stats(
+            [p.aggregator for p in manager_pipelines
+             if p.aggregator is not None], timeline, on_card),
+        "parse": parse_telemetry.status(),
+        "ledger": _ledger_stats(),
     }
+
+
+def _aggregation_stats(aggs, timeline: xprof.DeviceTimeline,
+                       on_card: bool) -> Dict[str, Any]:
+    """The metric rollup's counts for ``--stats``: folds by substrate and
+    their host seconds, K6's launches and shapes, its dispatch legs on the
+    timeline, and the rollup's row counters."""
+    from .ops import xprof
+    from .ops.kernels import segment_reduce, segment_reduce_cuda
+    folds: Dict[str, int] = {}
+    for a in aggs:
+        for sub, n in a.fold_counts.items():
+            folds[sub] = folds.get(sub, 0) + n
+    kernels = {id(k): k for k in [segment_reduce.device_kernel()] + [
+        a._device_kern for a in aggs if a._device_kern is not None]}
+    legs = {}
+    clock = xprof.DEVICE if on_card else None
+    for leg in ("h2d", "exec", "d2h"):
+        durs = timeline.leg_durations(leg, clock,
+                                      segment_reduce.SegmentReduceKernel.program)
+        legs[leg] = {"count": len(durs),
+                     "sum_s": sum(durs) if on_card else None,
+                     "median_s": (statistics.median(durs)
+                                  if durs and on_card else None),
+                     "max_s": max(durs) if durs and on_card else None}
+    counters: Dict[str, int] = {}
+    for a in aggs:
+        for name, v in a.metrics.snapshot()["counters"].items():
+            counters[name] = counters.get(name, 0) + v
+    return {
+        "aggregators": len(aggs),
+        "folds": folds,
+        "fold_seconds": sum(a.fold_seconds for a in aggs),
+        "k6_dispatches": sum(k.dispatch_count for k in kernels.values()),
+        "k6_launches": sum(k.launches for k in kernels.values()),
+        "launch_shapes": [dict(asdict(shape), launches=n) for shape, n
+                          in segment_reduce_cuda.launch_shapes.items()],
+        "legs": legs,
+        "counters": counters,
+    }
+
+
+def _ledger_stats() -> Optional[Dict[str, Any]]:
+    """With the ledger on: each pipeline's residual (read after the run
+    drained, when nothing is in flight) and the totals by boundary."""
+    from .monitor import ledger
+    led = ledger.active_ledger()
+    if led is None:
+        return None
+    snap = led.snapshot()
+    return {"residuals": ledger.residuals(snap), "snapshot": snap}
 
 
 def _fusion_stats(runs, timeline: xprof.DeviceTimeline,

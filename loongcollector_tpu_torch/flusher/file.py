@@ -2,7 +2,9 @@
 core/plugin/flusher/file/FlusherFile.cpp: spdlog-based JSON sink).
 
 The port flushes once per group, in place of the JAX package's Batcher;
-the bytes written are the same."""
+the bytes written are the same.  With the ledger on, each group's
+serialized payload is booked at ``serialize`` (the pipeline books the
+send_ok once ``send`` returns)."""
 
 from __future__ import annotations
 
@@ -10,6 +12,7 @@ import os
 from typing import Any, Dict
 
 from ..models import PipelineEventGroup
+from ..monitor import ledger
 from ..pipeline.plugin.interface import Flusher, PluginContext
 from ..pipeline.serializer.json_serializer import JsonSerializer
 
@@ -34,6 +37,9 @@ class FlusherFile(Flusher):
 
     def send(self, group: PipelineEventGroup) -> bool:
         data = self.serializer.serialize([group])
+        if ledger.is_on():
+            ledger.record(self.context.pipeline_name, ledger.B_SERIALIZE,
+                          len(group), len(data))
         with open(self.file_path, "ab") as f:
             f.write(data)
         return True

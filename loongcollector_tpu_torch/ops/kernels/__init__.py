@@ -16,4 +16,9 @@
   ``ops/fused_pipeline.py``'s ``build_fused_fn`` and
   ``FusedProgramKernel``.  The Tier-1 walker and the DFA byte walk are
   shared headers (``csrc/extract_walk.cuh``, ``csrc/dfa_walk.cuh``).
+* ``segment_reduce`` — the metric rollup's fold: the host twins (the
+  numpy fold, the native fold, value parsing, grouping, log2 buckets),
+  K6's plain version (``reduce_plain``) and ``SegmentReduceKernel``, whose
+  device fold launches the CUDA segment reduce (``segment_reduce_cuda``,
+  source ``csrc/segment_reduce.cu``) for a CUDA device.
 """

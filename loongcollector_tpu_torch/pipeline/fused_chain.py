@@ -20,8 +20,12 @@ to fuse and ends the run; it keeps its per-stage path.
 A group the run cannot take runs the members per-stage, inline: a group
 that is not columnar or has no rows, and a group holding a row longer
 than the largest length bucket (4096 bytes) — the reference's group-level
-rule (``fused_chain.py:150``), counted in ``long_row_groups``.  The
-monitor's ledger hooks are not ported yet.
+rule (``fused_chain.py:150``), counted in ``long_row_groups``.
+
+Each member's apply and per-stage ``process`` run through the caller's
+``stage`` hook (the pipeline's ``_stage``: the member's host seconds and,
+with the ledger on, its population change, after the earlier members'
+compaction; reference ``fused_chain.py:170-190``).
 """
 
 from __future__ import annotations
@@ -104,6 +108,10 @@ def _untimed(_name, fn, *args):
     return fn(*args)
 
 
+def _unstaged(_plugin, fn, group, *args):
+    return fn(group, *args)
+
+
 class FusedRun:
     """A planned run of consecutive fusable stages [head, end) on
     ``device``, its program built at first use (and the kernel built and
@@ -148,16 +156,19 @@ class FusedRun:
 
     # -- execution ------------------------------------------------------------
 
-    def dispatch(self, groups, timed: Timed = _untimed) -> List:
+    def dispatch(self, groups, timed: Timed = _untimed,
+                 stage: Timed = _unstaged) -> List:
         """A token a group; a group the run cannot take runs the member
-        processors per-stage inline here and gets None."""
+        processors per-stage inline here and gets None.  ``timed(name, fn,
+        *args)`` times the run's own steps, ``stage(member, fn, group,
+        *args)`` a member's work on a group."""
         tokens: List = []
         try:
             for g in groups:
                 tok = timed("fused_dispatch", self._dispatch_group, g)
                 if tok is None:
                     for inst in self.instances:
-                        timed(inst.name, inst.process, g)
+                        stage(inst, inst.process, g)
                 tokens.append(tok)
         except BaseException:
             self._release(tokens)
@@ -187,7 +198,8 @@ class FusedRun:
         self._note("fused_groups")
         return (src, d)
 
-    def complete(self, groups, tokens, timed: Timed = _untimed) -> None:
+    def complete(self, groups, tokens, timed: Timed = _untimed,
+                 stage: Timed = _unstaged) -> None:
         for i, (g, tok) in enumerate(zip(groups, tokens)):
             if tok is None:
                 continue
@@ -200,7 +212,7 @@ class FusedRun:
             rowmap = np.arange(res.n)
             for inst, member, out in zip(self.instances, self.members,
                                          res.stages):
-                rowmap = timed(inst.name, member.apply, g, src, out, rowmap)
+                rowmap = stage(inst, member.apply, g, src, out, rowmap)
 
 
 def plan_fusion(chain, device: Optional[torch.device] = None

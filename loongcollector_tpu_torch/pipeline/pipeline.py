@@ -9,9 +9,24 @@ the chain up to the first processor that leaves device work in flight and
 returns a continuation that finishes the chain (JAX package
 ``pipeline/pipeline.py:334-425``).  While a continuation is outstanding
 the groups count as in process (``in_process_count``,
-``wait_all_items_in_process_finished``).  There is no aggregator yet.
-Host seconds per stage (``stage_seconds``) are summed across the runner's
-workers.
+``wait_all_items_in_process_finished``).  Host seconds per stage
+(``stage_seconds``) are summed across the runner's workers.
+
+The aggregator stage (JAX package ``pipeline/pipeline.py:166-178``,
+``:431-465``): at most one aggregator a pipeline (``aggregators`` in the
+config), between the processors and the flushers.  ``send`` hands every
+group to its ``add`` and sends what it returns (closed windows) in place
+of the groups it took; its timeout hook is registered with the
+``TimeoutFlushManager``, which the processor runner pumps once a second
+(idle windows close), and the stop-time drain (``drain_held``) sends
+what its ``flush`` force-closes.  The SLO and ack-watermark calls of the
+reference's stage wait for their slice.
+
+With the ledger on (``monitor/ledger.py``, ``LOONG_LEDGER=1``) the
+pipeline books process_in at ``process_begin``, each stage's population
+change (process_expand / process_drop, by plugin), process_out at
+``send``, and send_ok at each flusher; a self-accounting aggregator (the
+rollup) books its own agg_in / agg_fold / agg_emit.
 
 Fused runs (resident stage fusion, ``pipeline/fused_chain.py``): at init
 ``plan_fusion`` turns every run of two or more consecutive stages that can
@@ -44,6 +59,7 @@ from typing import Any, Callable, Dict, List, Optional
 import torch
 
 from ..models import PipelineEventGroup
+from ..monitor import ledger
 from ..utils.logger import get_logger
 from .plugin.interface import Flusher, Input, PluginContext, Processor
 from .plugin.registry import PluginRegistry
@@ -61,6 +77,22 @@ class PipelineInitError(RuntimeError):
     """A plugin of the config is unknown or refused its config."""
 
 
+class _AggTimeoutHook:
+    """Adapter letting the aggregator ride TimeoutFlushManager's cadence
+    (processor thread 0 drives it, ProcessorRunner.cpp:109-112)."""
+
+    def __init__(self, pipeline: "CollectionPipeline"):
+        self._pipeline = pipeline
+
+    def flush_timeout(self) -> None:
+        agg = self._pipeline.aggregator
+        if agg is None:
+            return
+        hook = getattr(agg, "flush_timeout", None)
+        if hook is not None:
+            self._pipeline._send_direct(hook())
+
+
 class CollectionPipeline:
     def __init__(self, name: str, config: Dict[str, Any],
                  device: torch.device, process_queue_manager=None):
@@ -75,6 +107,8 @@ class CollectionPipeline:
         self.inner_processors: List[Processor] = []
         self.processors: List[Processor] = []
         self.flushers: List[Flusher] = []
+        self.aggregator = None
+        self._agg_timeout_hook = _AggTimeoutHook(self)
         self.stage_seconds: Dict[str, float] = {}
         self.events_sent = 0
         self._stats_lock = threading.Lock()
@@ -90,6 +124,12 @@ class CollectionPipeline:
                     self._make(registry.create_processor, pcfg))
         for pcfg in config.get("processors", []):
             self.processors.append(self._make(registry.create_processor, pcfg))
+        # aggregator stage (reference pkg/pipeline/aggregator.go:24-51 —
+        # at most one per pipeline, between processors and flushers)
+        agg_cfgs = config.get("aggregators", [])
+        if agg_cfgs:
+            self.aggregator = self._make(registry.create_aggregator,
+                                         agg_cfgs[0])
         for fcfg in config.get("flushers", []):
             self.flushers.append(self._make(registry.create_flusher, fcfg))
         # fused runs over the final chain: description only, the programs
@@ -98,6 +138,10 @@ class CollectionPipeline:
         self.fused_runs = plan_fusion(self.inner_processors + self.processors,
                                       device)
         self._fused_by_head = {r.head: r for r in self.fused_runs}
+        if self.aggregator is not None:
+            # last, once nothing can refuse its config: release() undoes it
+            from .batch.timeout_flush_manager import TimeoutFlushManager
+            TimeoutFlushManager.instance().register(self._agg_timeout_hook)
 
     def _make(self, create, cfg: Dict[str, Any]):
         typ = cfg.get("Type", "")
@@ -110,6 +154,14 @@ class CollectionPipeline:
                                     f"its config")
         return plugin
 
+    def release(self) -> None:
+        """Free the pipeline's global registrations (the aggregator's
+        timeout hook and metrics record).  Called by the manager at stop."""
+        from .batch.timeout_flush_manager import TimeoutFlushManager
+        TimeoutFlushManager.instance().unregister(self._agg_timeout_hook)
+        if self.aggregator is not None:
+            self.aggregator.metrics.mark_deleted()
+
     def add_stage_seconds(self, name: str, seconds: float) -> None:
         with self._stats_lock:
             self.stage_seconds[name] = (self.stage_seconds.get(name, 0.0)
@@ -121,6 +173,17 @@ class CollectionPipeline:
             return fn(*args)
         finally:
             self.add_stage_seconds(name, time.perf_counter() - t0)
+
+    def _stage(self, p, fn, group: PipelineEventGroup, *args):
+        """``fn(group, *args)`` timed under the plugin's name; with the
+        ledger on, the group's population change is booked to it."""
+        if not ledger.is_on():
+            return self._timed(p.name, fn, group, *args)
+        n_in = len(group)
+        try:
+            return self._timed(p.name, fn, group, *args)
+        finally:
+            ledger.record_delta(self.name, n_in, len(group), p.name)
 
     # -- inputs ---------------------------------------------------------------
 
@@ -146,6 +209,10 @@ class CollectionPipeline:
         the remaining processors — call it exactly once."""
         with self._in_process_zero:
             self._in_process_cnt += 1
+        if ledger.is_on():
+            ledger.record(self.name, ledger.B_PROCESS_IN,
+                          sum(len(g) for g in groups),
+                          sum(g.data_size() for g in groups))
         try:
             cont = self._walk_chain(groups, 0, allow_async=True)
         except BaseException:
@@ -171,25 +238,25 @@ class CollectionPipeline:
         while i < len(chain):
             run = self._fused_by_head.get(i)
             if run is not None and run.enabled():
-                tokens = run.dispatch(groups, self._timed)
+                tokens = run.dispatch(groups, self._timed, self._stage)
                 nxt = run.end
                 if any(t is not None for t in tokens):
                     if allow_async:
                         def finish_run(run=run, tokens=tokens, nxt=nxt):
-                            run.complete(groups, tokens, self._timed)
+                            run.complete(groups, tokens, self._timed,
+                                         self._stage)
                             self._walk_chain(groups, nxt, allow_async=False)
                         return finish_run
-                    run.complete(groups, tokens, self._timed)
+                    run.complete(groups, tokens, self._timed, self._stage)
                 i = nxt
                 continue
             p = chain[i]
             if not p.supports_async_dispatch:
                 for g in groups:
-                    self._timed(p.name, p.process, g)
+                    self._stage(p, p.process, g)
                 i += 1
                 continue
-            tokens = [self._timed(p.name, p.process_dispatch, g)
-                      for g in groups]
+            tokens = [self._stage(p, p.process_dispatch, g) for g in groups]
             if allow_async and any(t is not None for t in tokens):
                 rest = i + 1
 
@@ -204,7 +271,7 @@ class CollectionPipeline:
 
     def _complete(self, p: Processor, groups, tokens) -> None:
         for g, t in zip(groups, tokens):
-            self._timed(p.name, p.process_complete, g, t)
+            self._stage(p, p.process_complete, g, t)
 
     def _exit_process(self) -> None:
         with self._in_process_zero:
@@ -228,15 +295,22 @@ class CollectionPipeline:
         then send them."""
         if not groups:
             return
+        if ledger.is_on():
+            # held events re-enter the chain: the matching credit for the
+            # process_drop their holding stage booked when it kept them
+            ledger.record(self.name, ledger.B_PROCESS_EXPAND,
+                          sum(len(g) for g in groups), tag="drain")
         chain = self.inner_processors + self.processors
         for g in groups:
             for p in chain[chain_idx + 1:]:
-                self._timed(p.name, p.process, g)
+                self._stage(p, p.process, g)
         self.send(groups)
 
     def drain_held(self) -> int:
         """Stop-time drain: every record a processor still holds ships
-        through the rest of the chain.  Returns the groups sent."""
+        through the rest of the chain, then every window the aggregator
+        holds is force-closed and sent (the reference's ``flush_batch``).
+        Returns the groups sent."""
         n = 0
         chain = self.inner_processors + self.processors
         for idx, p in enumerate(chain):
@@ -245,12 +319,62 @@ class CollectionPipeline:
                 groups = drain()
                 self.drain_from(idx, groups)
                 n += len(groups)
+        if self.aggregator is not None:
+            groups = self._timed(self.aggregator.name, self.aggregator.flush)
+            n += self._send_direct(groups)
         return n
 
     def send(self, groups: List[PipelineEventGroup]) -> bool:
+        """Processed groups to the aggregator, if any, and what leaves it
+        to the flushers."""
+        led = ledger.is_on()
+        if led:
+            ledger.record(self.name, ledger.B_PROCESS_OUT,
+                          sum(len(g) for g in groups))
+        if self.aggregator is not None:
+            agg = self.aggregator
+            n_in = sum(len(g) for g in groups)
+            staged: List[PipelineEventGroup] = []
+            for g in groups:
+                staged.extend(self._timed(agg.name, agg.add, g))
+            groups = staged
+            if led and not getattr(agg, "ledger_self_accounting", False):
+                # a stateful aggregator holds events (process_drop, repaid
+                # at flush by _send_direct) or mints them (process_expand)
+                ledger.record_delta(self.name, n_in,
+                                    sum(len(g) for g in groups),
+                                    "aggregator")
+        self._flush_groups(groups)
+        return True
+
+    def _send_direct(self, groups: List[PipelineEventGroup]) -> int:
+        """Groups the aggregator released outside ``send`` (timeout and
+        drain flushes) to the flushers; returns the groups sent."""
+        if ledger.is_on():
+            n = sum(len(g) for g in groups)
+            if not getattr(self.aggregator, "ledger_self_accounting", False):
+                # the credit matching the "aggregator"-tagged process_drop
+                # (a self-accounting aggregator booked agg_emit instead)
+                ledger.record(self.name, ledger.B_PROCESS_EXPAND, n,
+                              tag="aggregator_flush")
+            ledger.record(self.name, ledger.B_PROCESS_OUT, n)
+        groups = [g for g in groups if not g.empty()]
+        self._flush_groups(groups)
+        return len(groups)
+
+    def _flush_groups(self, groups: List[PipelineEventGroup]) -> None:
+        """Every group to every flusher (the port has no router).  The
+        flushers write inline, so each send is terminal: send_ok, with the
+        extra copies of more than one flusher booked as fanout."""
+        led = ledger.is_on()
         for g in groups:
+            if led and len(self.flushers) > 1:
+                ledger.record(self.name, ledger.B_FANOUT,
+                              (len(self.flushers) - 1) * len(g))
             for f in self.flushers:
                 self._timed(f.name, f.send, g)
+                if led:
+                    ledger.record(self.name, ledger.B_SEND_OK, len(g),
+                                  g.data_size(), tag=f.name)
         with self._stats_lock:
             self.events_sent += sum(len(g) for g in groups)
-        return True

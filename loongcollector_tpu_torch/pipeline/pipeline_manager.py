@@ -68,13 +68,14 @@ class CollectionPipelineManager:
             return list(self._pipelines.values())
 
     def stop_all(self) -> None:
-        """Stop the inputs, delete the queues and release the tenant
-        shares."""
+        """Stop the inputs, release each pipeline's registrations, delete
+        the queues and release the tenant shares."""
         with self._lock:
             pipelines = list(self._pipelines.items())
             self._pipelines.clear()
             self._by_key.clear()
         for name, p in pipelines:
             p.stop_inputs()
+            p.release()
             self.process_queue_manager.delete_queue(p.process_queue_key)
             device_plane.unregister_tenant(name)

@@ -20,6 +20,7 @@ from collections import deque
 from typing import Deque, List, Optional
 
 from ...models import PipelineEventGroup
+from ...monitor import ledger
 
 DEFAULT_CAPACITY = 20
 LOW_WATERMARK_RATIO = 2 / 3
@@ -95,6 +96,9 @@ class BoundedProcessQueue:
             self.total_pushed += 1
             if self._over_high():
                 self._valid_to_push = False
+        if ledger.is_on():
+            ledger.record(self.pipeline_name, ledger.B_ENQUEUE, len(group),
+                          group.data_size())
         return True
 
     def is_valid_to_push(self) -> bool:
@@ -121,6 +125,9 @@ class BoundedProcessQueue:
                 return None
             item = self._pop_locked()
             feedbacks = self._feedbacks_locked()
+        if ledger.is_on():
+            ledger.record(self.pipeline_name, ledger.B_DEQUEUE, len(item),
+                          item.data_size())
         for fb in feedbacks:
             fb.feedback(self.key)
         return item
@@ -140,6 +147,10 @@ class BoundedProcessQueue:
                 nbytes += self._sizes[0]
                 out.append(self._pop_locked())
             feedbacks = self._feedbacks_locked() if out else []
+        if out and ledger.is_on():
+            ledger.record(self.pipeline_name, ledger.B_DEQUEUE,
+                          sum(len(g) for g in out),
+                          sum(g.data_size() for g in out))
         for fb in feedbacks:
             fb.feedback(self.key)
         return out

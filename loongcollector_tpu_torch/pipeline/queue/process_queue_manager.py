@@ -13,6 +13,7 @@ import threading
 from typing import Dict, List, Optional, Tuple
 
 from ...models import PipelineEventGroup
+from ...monitor import ledger
 from .bounded_queue import DEFAULT_MAX_BYTES, BoundedProcessQueue
 
 PRIORITY_COUNT = 3  # 0 = highest
@@ -72,6 +73,11 @@ class ProcessQueueManager:
             return False
         pushed = q.push(group)
         if pushed:
+            # ingest: every input funnels through this admit, so one hook
+            # covers them all; a refused push is never counted
+            if ledger.is_on():
+                ledger.record(q.pipeline_name, ledger.B_INGEST, len(group),
+                              group.data_size())
             with self._data_cv:
                 self._data_cv.notify()
         return pushed

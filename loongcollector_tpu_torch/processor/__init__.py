@@ -8,6 +8,7 @@ one pipeline YAML drives either package.
 def register_all(registry) -> None:
     from .filter import ProcessorFilter
     from .grok import ProcessorGrok
+    from .parse_json import ProcessorParseJson
     from .parse_regex import ProcessorParseRegex
     from .parse_timestamp import ProcessorParseTimestamp
     from .split_log_string import ProcessorSplitLogString
@@ -20,6 +21,10 @@ def register_all(registry) -> None:
                                 ProcessorParseRegex)
     registry.register_processor("processor_parse_regex_tpu",
                                 ProcessorParseRegex)
+    registry.register_processor("processor_parse_json_native",
+                                ProcessorParseJson)
+    registry.register_processor("processor_parse_json_tpu",
+                                ProcessorParseJson)
     registry.register_processor("processor_parse_timestamp_native",
                                 ProcessorParseTimestamp)
     registry.register_processor("processor_filter_native", ProcessorFilter)

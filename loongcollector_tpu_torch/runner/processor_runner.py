@@ -33,9 +33,12 @@ A processing or send failure is logged, the group dropped, and the first
 failure kept in ``error``: the agent's ``--once`` run then stops feeding
 and exits non-zero.  Nothing re-runs a group another way.
 
-Left out of the port: the ledger, SLO, ack-watermark, tracer, profiler and
-flight-recorder hooks, the chip lanes, the batch timeout flushes and the
-alarms.
+With the ledger on, a group whose device work stays in flight is booked
+device_submit when it enters its lane and device_materialize when it
+completes, and a failed group is a reason-tagged drop.  Left out of the
+port: the SLO, ack-watermark, tracer, profiler and flight-recorder hooks,
+the chip lanes and the alarms.  Once a second a worker (the dispatch loop
+when sharded) pumps the ``TimeoutFlushManager`` and the auto-tuner.
 """
 
 from __future__ import annotations
@@ -51,10 +54,12 @@ from typing import List, Optional, Tuple
 import torch
 
 from ..models import EventGroupMetaKey, PipelineEventGroup
+from ..monitor import ledger
 from ..ops.device_plane import (bind_thread_streams, current_tenant,
                                 note_host_backlog, set_budget_relief,
                                 set_thread_tenant)
 from ..ops.device_stream import auto_tuner, stream_depth
+from ..pipeline.batch.timeout_flush_manager import TimeoutFlushManager
 from ..pipeline.queue.process_queue_manager import (RUN_MAX_GROUPS,
                                                     ProcessQueueManager)
 from ..utils.logger import get_logger
@@ -362,6 +367,11 @@ class ProcessorRunner:
                       exc: BaseException) -> None:
         log.error("pipeline %s %s failed", pipeline.name, what,
                   exc_info=exc)
+        if ledger.is_on():
+            ledger.record(pipeline.name, ledger.B_DROP,
+                          sum(len(g) for g in groups),
+                          sum(g.data_size() for g in groups),
+                          tag=f"{what}_error")
         with self._count_lock:
             self.groups_failed += len(groups)
             self._settled += len(groups)
@@ -373,15 +383,19 @@ class ProcessorRunner:
     def _shard(self, key: int, group: PipelineEventGroup) -> int:
         return shard_of(key, group_source_id(group), self.thread_count)
 
-    def _pump_tuner(self) -> None:
-        """Once a second the width auto-tuner re-reads the plane's
-        utilisation and moves the lanes' flush deadline."""
+    def _pump_timeout_flush(self) -> None:
+        """Once a second (reference ``processor_runner.py:450-470``): the
+        ``TimeoutFlushManager``'s hooks run (an aggregator closes what its
+        watermark or idle timer allows), then the width auto-tuner re-reads
+        the plane's utilisation and moves the lanes' flush deadline.  A
+        hook's failure is the runner's, as any processing failure."""
         now = time.monotonic()
         with self._adjust_claim:
             claimed = now - self._last_adjust >= TUNER_ADJUST_INTERVAL_S
             if claimed:
                 self._last_adjust = now
         if claimed:
+            TimeoutFlushManager.instance().flush_timeout_batches()
             auto_tuner().maybe_adjust()
 
     def _run_dispatch(self) -> None:
@@ -389,7 +403,7 @@ class ProcessorRunner:
         group to its affinity shard; on stop, drain the queues into the
         inboxes and close them."""
         while self._running:
-            self._pump_tuner()
+            self._pump_timeout_flush()
             run = self.pqm.pop_run(timeout=0.2,
                                    max_groups=self.run_max_groups)
             if run is not None:
@@ -418,7 +432,7 @@ class ProcessorRunner:
                 # forced shutdown: process inline rather than drop
                 self._process_one(key, group)
                 return
-            self._pump_tuner()
+            self._pump_timeout_flush()
 
     # -- workers ------------------------------------------------------------
 
@@ -458,7 +472,7 @@ class ProcessorRunner:
         try:
             with self._worker_context(lane):
                 while self._running:
-                    self._pump_tuner()
+                    self._pump_timeout_flush()
                     # with device work in flight, poll: an empty queue
                     # closes the overlap window and the lane completes
                     run = self.pqm.pop_run(
@@ -546,6 +560,9 @@ class ProcessorRunner:
                 return None
         finally:
             set_thread_tenant(prev_tenant)
+        if ledger.is_on():
+            ledger.record(pipeline.name, ledger.B_DEVICE_SUBMIT,
+                          sum(len(g) for g in groups))
         return pipeline, groups, finish
 
     def _complete_oldest(self, lane: WorkerLane) -> None:
@@ -574,6 +591,9 @@ class ProcessorRunner:
             except Exception as e:  # noqa: BLE001 — recorded, run fails
                 self._note_failure("processing", pipeline, groups, e)
                 return
+            if ledger.is_on():
+                ledger.record(pipeline.name, ledger.B_DEVICE_MATERIALIZE,
+                              sum(len(g) for g in groups))
             self._send(pipeline, groups)
         finally:
             set_thread_tenant(prev_tenant)

@@ -450,3 +450,421 @@ def _nested_rows(rng, n, L):
     pool += [b"ab x - y end", b"cat  -  end", b"dog a - b - c end",
              b"abc-17 end", b"abc-7-x end"]
     return _fit(rng, pool, n, L)
+
+
+# -- windowed metric rollups (node-exporter-style samples) --------------------
+
+#: 25 node-exporter metric families; each takes 8 instance suffixes, so
+#: 200 metric names, and 8 hosts: 1,600 series
+METRIC_BASES = [
+    "node_cpu_seconds_total", "node_memory_MemAvailable_bytes",
+    "node_memory_Cached_bytes", "node_filesystem_avail_bytes",
+    "node_filesystem_files_free", "node_network_receive_bytes_total",
+    "node_network_transmit_bytes_total", "node_network_receive_packets_total",
+    "node_disk_read_bytes_total", "node_disk_written_bytes_total",
+    "node_disk_io_time_seconds_total", "node_load1", "node_load5",
+    "node_procs_running", "node_context_switches_total",
+    "node_interrupts_total", "node_sockstat_TCP_inuse",
+    "node_netstat_Tcp_RetransSegs", "node_entropy_available_bits",
+    "node_pressure_cpu_waiting_seconds_total", "node_hwmon_temp_celsius",
+    "node_power_supply_current_ampere", "node_vmstat_pgfault",
+    "node_timex_offset_seconds", "node_hwmon_temp_offset_celsius",
+]
+#: families whose values are always negative (a clock behind, a sensor
+#: below its reference), so their sums never cancel
+METRIC_NEGATIVE = ("node_timex_offset_seconds",
+                   "node_hwmon_temp_offset_celsius")
+METRIC_HOSTS = [f"host-{i}" for i in range(8)]
+#: event time of the first sample: 2025-10-09 08:53:20 UTC, a multiple of
+#: the rollup window
+METRICS_T0 = 1_760_000_000
+METRICS_WINDOW = 10
+METRICS_LATENESS = 5
+
+
+def metric_names():
+    return [f"{b}_{k}" for b in METRIC_BASES for k in range(8)]
+
+
+def gen_metrics_jsonl(n, seed=0):
+    """``n`` JSON lines of node-exporter-style samples, as bytes:
+    ``{"time":"...","__name__":"...","host":"...","value":...}``, about 110
+    bytes each.  Each of the 1,600 series (200 names x 8 hosts) is sampled
+    once a second of event time, in event-time order, shuffled within each
+    second.  Counters grow, gauges wander, and two families stay negative;
+    values are decimals, about 1% in exponent form.  About 0.1% of the
+    rows carry ``"value":"NaN"`` and about 0.1% have no ``__name__``:
+    both are invalid rollup rows."""
+    import time as _time
+    rng = np.random.default_rng(seed)
+    names = metric_names()
+    series = [(nm, h) for nm in names for h in METRIC_HOSTS]
+    S = len(series)
+    kind = np.array([0 if nm.startswith(METRIC_NEGATIVE) else
+                     1 if nm.endswith("_total") else 2
+                     for nm, _ in series])
+    start = 10.0 ** rng.uniform(0, 9, S)
+    rate = 10.0 ** rng.uniform(-2, 5, S)
+    level = 10.0 ** rng.uniform(-2, 6, S)
+    neg = -rng.uniform(1, 90, S)
+    seconds = -(-n // S)
+    lines = []
+    for t in range(seconds):
+        ts = _time.strftime("%Y-%m-%d %H:%M:%S",
+                            _time.gmtime(METRICS_T0 + t))
+        noise = rng.uniform(0.9, 1.1, S)
+        vals = np.where(kind == 1, start + rate * t * noise,
+                        np.where(kind == 0, neg * noise, level * noise))
+        order = rng.permutation(S)
+        draw = rng.random(S)
+        for i in order:
+            if len(lines) == n:
+                break
+            nm, host = series[i]
+            r = draw[i]
+            if r < 0.001:
+                val = '"NaN"'
+            elif 0.002 <= r < 0.012:
+                val = f"{vals[i]:.6e}"
+            else:
+                val = f"{vals[i]:.3f}"
+            name = "" if 0.001 <= r < 0.002 else f'"__name__":"{nm}",'
+            lines.append(f'{{"time":"{ts}",{name}"host":"{host}",'
+                         f'"value":{val}}}'.encode())
+    return lines
+
+
+def metric_rollup_config(log_path, out_path):
+    """The shipped ``metric_rollup_remote_write.yaml``, as YAML, with three
+    changes: ``flusher_file`` in place of ``flusher_prometheus`` (no
+    network); ``Substrate: device``, so every fold is a segment reduce on
+    the pipeline's device; and ``processor_parse_timestamp_native`` on the
+    JSON ``time`` field (UTC), so windows come from event time and not from
+    the second the file was read."""
+    return f"""inputs:
+  - Type: input_file
+    FilePaths: [{log_path}]
+processors:
+  - Type: processor_parse_json_tpu
+    SourceKey: content
+  - Type: processor_parse_timestamp_native
+    SourceKey: time
+    SourceFormat: '%Y-%m-%d %H:%M:%S'
+    SourceTimezone: 'GMT+00:00'
+aggregators:
+  - Type: aggregator_metric_rollup
+    WindowSecs: {METRICS_WINDOW}
+    AllowedLatenessSecs: {METRICS_LATENESS}
+    MetricNameKey: __name__
+    ValueKey: value
+    LabelKeys: [host]
+    MaxKeys: 65536
+    Substrate: device
+flushers:
+  - Type: flusher_file
+    FilePath: {out_path}
+"""
+
+
+_METRIC_VALUE = re.compile(
+    r"^[+-]?(?:(?:\d+\.?\d*|\.\d+)(?:[eE][+-]?\d+)?|"
+    r"[iI][nN][fF](?:[iI][nN][iI][tT][yY])?)$")
+
+
+def _oracle_bucket(v, n_hist=41):
+    """The rollup's log2 bucket of a value (base 1.0, the +Inf slot last)."""
+    import math
+    if math.isinf(v) and v > 0:
+        return n_hist - 1
+    if not v > 1.0:
+        return 0
+    m, e = math.frexp(v)
+    return min(max(e - 1 if m == 0.5 else e, 0), n_hist - 1)
+
+
+def metrics_oracle(lines, window=METRICS_WINDOW):
+    """(rollups, invalid rows) of a ``gen_metrics_jsonl`` corpus by a plain
+    f64 fold in row order, independent of the agent: rollups is {(window
+    start, window end, name, host): {"sum", "count", "min", "max", "last",
+    "hist": {bucket: count}}}.  A row is invalid without a name or with a
+    value outside the rollup's grammar (a JSON string is its text)."""
+    import calendar
+    import json
+    import time as _time
+    out = {}
+    invalid = 0
+    epoch = {}
+    for line in lines:
+        obj = json.loads(line)
+        name = obj.get("__name__")
+        v = obj.get("value")
+        if isinstance(v, str):
+            tok = v.strip(" \t")
+            v = float(tok) if _METRIC_VALUE.match(tok) else None
+        elif v is not None:
+            v = float(v)
+        if name is None or v is None:
+            invalid += 1
+            continue
+        ts = epoch.get(obj["time"])
+        if ts is None:
+            ts = epoch[obj["time"]] = calendar.timegm(
+                _time.strptime(obj["time"], "%Y-%m-%d %H:%M:%S"))
+        ws = ts // window * window
+        key = (ws, ws + window, name, obj.get("host"))
+        r = out.get(key)
+        if r is None:
+            r = out[key] = {"sum": 0.0, "count": 0, "min": v, "max": v,
+                            "last": v, "hist": {}}
+        r["sum"] += v
+        r["count"] += 1
+        r["min"] = min(r["min"], v)
+        r["max"] = max(r["max"], v)
+        r["last"] = v
+        b = _oracle_bucket(v)
+        r["hist"][b] = r["hist"].get(b, 0) + 1
+    return out, invalid
+
+
+_METRIC_VALUE_FIELD = re.compile(rb'"value":"?([^"}]*)"?}$')
+
+
+def metrics_fold_rows(lines, chunk_size=512 * 1024, slide=METRICS_WINDOW):
+    """The rollup's fold inputs on ``metric_rollup_config``'s path, rebuilt
+    from a ``gen_metrics_jsonl`` corpus: one list of rows (name, (host,),
+    value text, slot) for each group a one-shot read of ``lines`` (as a
+    file) makes, i.e. each reader chunk of at most ``chunk_size`` bytes
+    ending at a newline (``input/file/reader.py``), in row order.  The
+    value text is the JSON value's (a string's without its quotes); a row
+    without a name has no value, as the rollup forces it invalid; the slot
+    is the event second over ``slide``.  ``testdata.pack_agg_rows`` turns
+    a group into the fold's arguments."""
+    import calendar
+    import json
+    import time as _time
+    data = b"\n".join(lines) + b"\n"
+    epoch = {}
+    groups = []
+    off = i = 0
+    while off < len(data):
+        piece = data[off:off + chunk_size]
+        aligned = piece.rfind(b"\n") + 1
+        k = piece.count(b"\n", 0, aligned)
+        rows = []
+        for line in lines[i:i + k]:
+            obj = json.loads(line)
+            ts = epoch.get(obj["time"])
+            if ts is None:
+                ts = epoch[obj["time"]] = calendar.timegm(
+                    _time.strptime(obj["time"], "%Y-%m-%d %H:%M:%S"))
+            name = obj.get("__name__")
+            value = _METRIC_VALUE_FIELD.search(line).group(1)
+            rows.append((None if name is None else name.encode(),
+                         (obj["host"].encode(),),
+                         None if name is None else value, ts // slide))
+        groups.append(rows)
+        off += aligned
+        i += k
+    return groups
+
+
+def rollup_rows(ndjson):
+    """The rollup rows of a sink's NDJSON bytes, keyed as
+    ``metrics_oracle``'s; raises on a (window, series) emitted twice."""
+    import json
+    out = {}
+    for line in ndjson.splitlines():
+        if not line.strip():
+            continue
+        obj = json.loads(line)
+        key = (int(obj["window_start"]), int(obj["window_end"]),
+               obj.get("__name__"), obj.get("host"))
+        if key in out:
+            raise ValueError(f"rollup row emitted twice: {key}")
+        hist = {}
+        for part in obj.get("hist", "").split(","):
+            if part:
+                b, c = part.split(":")
+                hist[int(b)] = int(c)
+        out[key] = {"sum": float(obj["sum"]), "count": int(obj["count"]),
+                    "min": float(obj["min"]), "max": float(obj["max"]),
+                    "last": float(obj["last"]), "hist": hist}
+    return out
+
+
+def rollup_mismatches(got, want, f32_want=False, tol=1e-5, limit=10):
+    """Differences between two rollup row sets (``rollup_rows`` /
+    ``metrics_oracle``): keys, counts and histograms exact, sums within
+    ``rtol = atol = tol`` (the reference's device tolerance,
+    ``scripts/agg_equivalence.py:163``), min, max and last equal, taking
+    ``want``'s through f32 first when ``f32_want`` (a device fold against
+    an f64 one).  At most ``limit`` descriptions."""
+    import math
+    bad = []
+    for key in sorted(set(got) ^ set(want), key=repr)[:limit]:
+        bad.append(f"{key}: only in {'got' if key in got else 'want'}")
+    for key in sorted(set(got) & set(want)):
+        if len(bad) >= limit:
+            break
+        g, w = got[key], want[key]
+        if g["count"] != w["count"] or g["hist"] != w["hist"]:
+            bad.append(f"{key}: count/hist {g['count']} {g['hist']} != "
+                       f"{w['count']} {w['hist']}")
+            continue
+        gs, ws = g["sum"], w["sum"]
+        if not (gs == ws or (math.isnan(gs) and math.isnan(ws))
+                or abs(gs - ws) <= tol + tol * abs(ws)):
+            bad.append(f"{key}: sum {gs!r} != {ws!r}")
+        for f in ("min", "max", "last"):
+            wv = float(np.float32(w[f])) if f32_want else w[f]
+            if g[f] != wv:
+                bad.append(f"{key}: {f} {g[f]!r} != {wv!r}")
+    return bad
+
+
+def agg_batch_corpus():
+    """The fold corpora of the JAX package's equivalence gate
+    (``scripts/agg_equivalence.py:batch_corpus``), rebuilt here so the
+    port's tests and ``chip_smoke.py`` need nothing of that package:
+    [(label, rows, device_ok)] — rows are (name, labels tuple, value text,
+    slot).  device_ok=False keeps f32-overflowing magnitudes out of the
+    device comparison (documented f32 range)."""
+    rng = np.random.default_rng(20260804)
+    cases = []
+
+    rows = [(b"reqs", (b"h1",), b"1", 0), (b"reqs", (b"h1",), b"2", 0),
+            (b"reqs", (b"h2",), b"3.5", 0), (b"lat", (None,), b"0.25", 0),
+            (b"reqs", (b"h1",), b"4", 1)]
+    cases.append(("basic", rows, True))
+
+    rows = [(b"m", (b"",), b"1", 0), (b"m", (None,), b"1", 0),
+            (b"", (b"x",), b"2", 0), (b"m" * 61, (b"y" * 67,), b"3", 0),
+            (b"ab", (b"",), b"5", 0), (b"a", (b"b",), b"5", 0)]
+    cases.append(("absent-vs-empty keys, word-boundary lengths", rows, True))
+
+    rows = [(b"v", (), b" 1.5 ", 0), (b"v", (), b"\t2e3\t", 0),
+            (b"v", (), b"+.5", 0), (b"v", (), b"-0.0", 0),
+            (b"v", (), b"1_0", 0), (b"v", (), b"0x10", 0),
+            (b"v", (), b"nan", 0), (b"v", (), b"inf", 0),
+            (b"v", (), b"-INF", 0), (b"v", (), b"Infinity", 0),
+            (b"v", (), b"", 0), (b"v", (), b"  ", 0),
+            (b"v", (), b"1e", 0), (b"v", (), b".", 0),
+            (b"v", (), b"5.", 0), (b"v", (), b".5e-2", 0),
+            (b"v", (), b"12345678901234567890", 0)]
+    cases.append(("value grammar edge cases", rows, False))
+
+    rows = [(b"big", (), b"1e300", 0), (b"big", (), b"1e300", 0),
+            (b"tiny", (), b"1e-300", 0),
+            (b"long", (), b"3." + b"1" * 120, 0)]
+    cases.append(("magnitude extremes (host substrates only)", rows, False))
+
+    names = [b"http_requests_total", b"cpu_seconds", b"gc_pause"]
+    hosts = [b"h%d" % i for i in range(17)] + [None]
+    rows = []
+    for _ in range(3000):
+        v = f"{rng.uniform(-100, 100):.6g}".encode()
+        rows.append((names[rng.integers(len(names))],
+                     (hosts[rng.integers(len(hosts))],
+                      b"az%d" % rng.integers(3)),
+                     v, int(rng.integers(0, 5))))
+    cases.append(("random 3000x(3 names x 18 hosts x 3 az x 5 slots)",
+                  rows, True))
+
+    rows = [(b"one", (), b"%d" % i, i % 7) for i in range(257)]
+    cases.append(("per-slot splits", rows, True))
+    return cases
+
+
+def pack_agg_rows(rows):
+    """(arena, slots, key_offs, key_lens, val_offs, val_lens) of corpus
+    rows: the fold's inputs (``scripts/agg_equivalence.py:pack_rows``)."""
+    blob = bytearray()
+
+    def put(b):
+        if b is None:
+            return (0, -1)
+        off = len(blob)
+        blob.extend(b)
+        return (off, len(b))
+
+    n = len(rows)
+    K = 1 + max((len(r[1]) for r in rows), default=0)
+    key_offs = np.zeros((n, K), np.int64)
+    key_lens = np.full((n, K), -1, np.int32)
+    val_offs = np.zeros(n, np.int64)
+    val_lens = np.zeros(n, np.int32)
+    slots = np.zeros(n, np.int64)
+    for i, (nm, labels, v, slot) in enumerate(rows):
+        key_offs[i, 0], key_lens[i, 0] = put(nm)
+        for k, lb in enumerate(labels):
+            key_offs[i, 1 + k], key_lens[i, 1 + k] = put(lb)
+        val_offs[i], val_lens[i] = put(v)
+        slots[i] = slot
+    arena = (np.frombuffer(bytes(blob), np.uint8) if blob
+             else np.zeros(0, np.uint8))
+    return arena, slots, key_offs, key_lens, val_offs, val_lens
+
+
+def k6_batch(seed, B, G, n_hist, invalid=0.0, hot=False, inf=False,
+             n_real=None, spread=False):
+    """One segment-reduce batch (K6's inputs) as numpy: values f32,
+    segment ids i32, bucket ids i32 and valid bool, each ``[B]``.  Rows
+    take segments in ``[0, G)``; ``invalid`` of them are not valid, the
+    rows from ``n_real`` on (by default the last eighth) are padding
+    (segment ``G``, not valid, as the fold pads); ``hot`` sends nine rows
+    in ten to segment 3 (atomic contention); ``inf`` plants +inf, -inf and
+    both zeros.
+
+    Values are sixteenths below 16 in magnitude, so every partial sum of
+    up to 65536 of them is exact in f32 and the sums agree in any order of
+    addition; with ``spread`` they are positive and spread over nine
+    decades (10^-2 .. 10^7), where the order of the f32 adds shows."""
+    rng = np.random.default_rng(seed)
+    if spread:
+        vals = (10.0 ** rng.uniform(-2, 7, B)).astype(np.float32)
+    else:
+        vals = (rng.integers(-255, 256, B) / 16.0).astype(np.float32)
+    if inf:
+        k = rng.permutation(B)[:max(8, B // 64)]
+        q = len(k) // 4
+        vals[k[:q]] = np.inf
+        vals[k[q:2 * q]] = -np.inf
+        vals[k[2 * q:3 * q]] = -0.0
+        vals[k[3 * q:]] = 0.0
+    seg = rng.integers(0, G, B).astype(np.int32)
+    if hot:
+        seg[rng.random(B) < 0.9] = min(3, G - 1)
+    buckets = rng.integers(0, n_hist, B).astype(np.int32)
+    valid = rng.random(B) >= invalid
+    pad = B - B // 8 if n_real is None else n_real
+    seg[pad:] = G
+    valid[pad:] = False
+    buckets[pad:] = 0
+    return vals, seg, buckets, valid
+
+
+def k6_cases(max_rows=65536):
+    """(label, B, G, n_hist, invalid, hot, inf, spread) of the K6 parity
+    batches: B from 256 up to ``max_rows``, G from 16 to B, 41 or 1
+    buckets, invalid shares of 0, 10% and 100%, a hot segment, +-inf, and
+    spread values where segments hold at most 64 rows on average (so the
+    f32 sums of two orders stay well inside rtol = 1e-5)."""
+    cases = []
+    for B in (256, 2048, 8192, 65536):
+        if B > max_rows:
+            continue
+        for G in sorted({16, 2048, B}):
+            if G > B:
+                continue
+            kinds = [(0.0, False, False, False), (0.1, False, True, False),
+                     (1.0, False, False, False), (0.0, True, True, False)]
+            if B // G <= 64:
+                kinds.append((0.1, False, False, True))
+            for n_hist in (41, 1):
+                for invalid, hot, inf, spread in kinds:
+                    cases.append((f"B{B}_G{G}_h{n_hist}_inv{invalid}"
+                                  f"{'_hot' if hot else ''}"
+                                  f"{'_inf' if inf else ''}"
+                                  f"{'_spread' if spread else ''}",
+                                  B, G, n_hist, invalid, hot, inf, spread))
+    return cases

@@ -8,9 +8,11 @@
   without one, rather than running on the CPU;
 * ``ExtractKernel`` sends a CUDA tensor to the kernel launch, never to the
   plain version, and the kernel build raises when it cannot build; so does
-  ``FusedProgramKernel`` (K7) and its build;
+  ``FusedProgramKernel`` (K7) and its build, and ``SegmentReduceKernel``
+  (K6) and its build;
 * each kernel library's source hash covers the headers its source
-  includes, so a header edit rebuilds every library that includes it.
+  includes, so a header edit rebuilds every library that includes it;
+  ``segment_reduce.cu`` includes none, and only its own edits rebuild it.
 """
 
 import ast
@@ -57,6 +59,14 @@ STREAMING_MODULES = [
     "pipeline.fused_chain",
 ]
 
+ROLLUP_MODULES = [
+    "ops.kernels.segment_reduce", "ops.kernels.segment_reduce_cuda",
+    "native", "processor.parse_json", "processor.parse_telemetry",
+    "monitor.metrics", "monitor.ledger", "aggregator.base",
+    "aggregator.metric_rollup", "pipeline.batch.timeout_flush_manager",
+    "pipeline.plugin.registry", "testdata",
+]
+
 _PROBE_EACH = """
 import importlib, json, sys
 out = {}
@@ -76,6 +86,17 @@ def test_streaming_modules_load_no_jax():
                          text=True, timeout=120, check=True)
     res = json.loads(out.stdout.strip().splitlines()[-1])
     assert sorted(res) == sorted(STREAMING_MODULES)
+    assert all(bad == [] for bad in res.values()), res
+
+
+def test_rollup_modules_load_no_jax():
+    """The modules of the metric-rollup path, imported one after the other
+    in a fresh interpreter, load neither JAX nor the JAX package."""
+    out = subprocess.run([sys.executable, "-c", _PROBE_EACH,
+                          *ROLLUP_MODULES], cwd=REPO, capture_output=True,
+                         text=True, timeout=120, check=True)
+    res = json.loads(out.stdout.strip().splitlines()[-1])
+    assert sorted(res) == sorted(ROLLUP_MODULES)
     assert all(bad == [] for bad in res.values()), res
 
 
@@ -231,3 +252,61 @@ def test_source_hashes_cover_the_shared_headers(tmp_path):
     assert after_dfa["dfa_scan.cu"] != before["dfa_scan.cu"]
     assert after_dfa["fused_program.cu"] != after_extract["fused_program.cu"]
     assert after_dfa["field_extract.cu"] == after_extract["field_extract.cu"]
+
+
+def test_segment_reduce_sends_cuda_tensors_to_k6_never_plain(monkeypatch):
+    from loongcollector_tpu_torch.ops.kernels import segment_reduce as sr
+    from loongcollector_tpu_torch.ops.kernels import segment_reduce_cuda
+    kern = sr.SegmentReduceKernel(n_hist=3)
+
+    def plain(*a):
+        raise AssertionError("plain version ran for a CUDA tensor")
+
+    calls = []
+    kern.plain = plain
+    flat = torch.arange(5 * 16 + 16 * 3, dtype=torch.int32)
+    monkeypatch.setattr(segment_reduce_cuda, "launch",
+                        lambda *a: calls.append(a) or flat)
+    vals = _FakeCudaTensor()
+    out = kern(vals, "seg", "buckets", "valid", 16)
+    assert len(out) == 6 and out[5].shape == (16, 3)
+    assert kern.launches == 1 and kern.dispatch_count == 1
+    (args,) = calls
+    assert args[:6] == (vals, "seg", "buckets", "valid", 16, 3)
+
+
+def test_segment_reduce_build_failure_raises(monkeypatch, tmp_path):
+    from loongcollector_tpu_torch.ops.kernels import field_extract_cuda as fxc
+    from loongcollector_tpu_torch.ops.kernels import segment_reduce_cuda
+    monkeypatch.setattr(segment_reduce_cuda, "_lib", None)
+    monkeypatch.setattr(fxc, "BUILD_ROOT", str(tmp_path))
+    monkeypatch.setattr(fxc.shutil, "which", lambda name: None)
+    monkeypatch.setattr(fxc.os.path, "exists",
+                        lambda p: False if "nvcc" in p else os.path.isfile(p))
+    with pytest.raises(RuntimeError, match="nvcc"):
+        segment_reduce_cuda.build()
+
+
+def test_segment_reduce_source_hash(tmp_path):
+    import shutil
+    from loongcollector_tpu_torch.ops.kernels import field_extract_cuda as fxc
+    src = os.path.join(PORT, "ops", "kernels", "csrc")
+    dst = tmp_path / "csrc"
+    shutil.copytree(src, dst)
+    k6 = str(dst / "segment_reduce.cu")
+    assert [os.path.basename(p) for p in fxc.source_files(k6)] == [
+        "segment_reduce.cu"]
+    before = fxc.source_hash(k6)
+    assert before == fxc.source_hash(os.path.join(src, "segment_reduce.cu"))
+    others = {name: fxc.source_hash(str(dst / name)) for name in
+              ("field_extract.cu", "dfa_scan.cu", "fused_program.cu")}
+    assert before not in others.values()
+    for header in ("extract_walk.cuh", "dfa_walk.cuh"):
+        with open(dst / header, "a") as f:
+            f.write("// edited\n")
+    assert fxc.source_hash(k6) == before
+    with open(k6, "a") as f:
+        f.write("// edited\n")
+    assert fxc.source_hash(k6) != before
+    assert {name: fxc.source_hash(str(dst / name))
+            for name in others} != others       # the headers' edits

@@ -8,7 +8,9 @@ contracts (``tests/test_device_plane.py:173-247``):
   worker stops popping, the bounded process queue refuses pushes at its
   high watermark, and everything drains once the device recovers;
 * per-source order at four workers, the affinity hash, the worker lane and
-  the thread-count setting, compared with the reference's.
+  the thread-count setting, compared with the reference's;
+* the once-a-second pump of the ``TimeoutFlushManager``: an idle rollup
+  closes its window while the run goes on.
 """
 
 import json
@@ -186,7 +188,10 @@ def test_watermark_holds_under_stalled_device(stack):
         assert wait_for(lambda: pqm.is_valid_to_push(key), timeout=10)
         assert plane.inflight_bytes() == 0
         assert device_stream.batch_ring().leased_total() == 0
-        assert runner.groups_settled() == pushed and runner.error is None
+        # a group counts as settled just after its flusher wrote it
+        assert wait_for(lambda: runner.groups_settled() == pushed,
+                        timeout=10)
+        assert runner.error is None
     finally:
         eng.set_device_kernel_override(None)
 
@@ -277,3 +282,34 @@ def test_worker_lane_matches_reference():
         lane = port_runner.WorkerLane(0, 2)
         lane.put(1)
         lane.put(2)
+
+
+@pytest.mark.parametrize("threads", [1, 2])
+def test_runner_pumps_the_timeout_flush_hooks(stack, threads):
+    """Once a second the runner pumps the ``TimeoutFlushManager``
+    (reference ``processor_runner.py:450-470``), from its one worker or
+    from the dispatch loop: a rollup whose source went idle closes its open
+    window while the run goes on, before any stop-time drain."""
+    pqm, mgr, make_runner, tmp_path = stack
+    out_path = tmp_path / "rollup.jsonl"
+    mgr.update_pipelines([("rollup", {
+        "inputs": [],
+        "aggregators": [{"Type": "aggregator_metric_rollup",
+                         "WindowSecs": 10, "IdleFlushSecs": 0,
+                         "Substrate": "numpy"}],
+        "flushers": [{"Type": "flusher_file", "FilePath": str(out_path)}],
+    })])
+    pipeline = mgr.find_pipeline("rollup")
+    runner = make_runner(threads)
+    runner.init()
+    sb = SourceBuffer()
+    g = PipelineEventGroup(sb)
+    for v in (b"3", b"4"):
+        ev = g.add_log_event(1)
+        ev.set_content(sb.copy_string(b"__name__"), sb.copy_string(b"m"))
+        ev.set_content(sb.copy_string(b"value"), sb.copy_string(v))
+    assert runner.push_queue(pipeline.process_queue_key, g)
+    assert wait_for(lambda: _lines(out_path) >= 1, timeout=5)
+    row = json.loads(out_path.read_text().splitlines()[0])
+    assert (row["__name__"], row["count"], row["sum"]) == ("m", "2", "7")
+    assert runner.error is None
