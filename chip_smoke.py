@@ -6,8 +6,8 @@
 Phases, each of which exits non-zero on failure:
 
 1. build: compile the CUDA field-extraction kernel (K1), the DFA walk
-   (K2, K3, K4), the fused stage program (K7) and the segment reduce (K6)
-   from
+   (K2, K3, K4), the fused stage program (K7), the segment reduce (K6) and
+   the structural index (K5) from
    ``loongcollector_tpu_torch/ops/kernels/csrc/`` (into ``build/kernels/``,
    keyed on the hash of each source and the headers it includes), one nvcc
    each, started together, and the repo's native host library; print the
@@ -15,8 +15,8 @@ Phases, each of which exits non-zero on failure:
    kernel instantiation, the torch version and the card's name and power
    limit.  Fails if K1's depth-0, pivot-free instantiation (the Apache
    program's), a DFA walker, a K7 instantiation without the general
-   walker (the Apache-filter program's is ``d0_p0``) or one of K6's three
-   kernels has a stack frame or spills.
+   walker (the Apache-filter program's is ``d0_p0``), one of K6's three
+   kernels or one of K5's two modes has a stack frame or spills.
 2. parity: the kernel against its plain PyTorch version, on the card, on
    the test patterns, a seeded generative set (double pivots included), the
    Apache pattern, and a depth-8 nested pattern and a 32-capture pattern on
@@ -159,15 +159,51 @@ Phases, each of which exits non-zero on failure:
    (B, Gq, n_hist) must be those the device runs of phase 15 launched,
    fold for fold.
 
+18. K5 parity (after phase 14): ``lct_struct_index_cuda`` against its
+   plain version on the card and the native ``lct_struct_index`` (as
+   16-bit words), bit-exact, in JSON mode and in delimiter mode on ``,``
+   and ``|``, at every length bucket and at L = 1, 15, 16, 17, 33, 100, on
+   the reference's adversarial rows (backslash runs across the 32-byte
+   step and the 16-bit word), seeded rows over ``ab\",{}[]: \t|``, the
+   three paths' lines, absent rows (length -1), padding rows and a batch
+   that is not whole blocks.
+19. K7 with ``struct_index`` stages (after phase 18): the lists of
+   ``testdata.struct_stage_lists`` (a JSON-mode stage, a ``,`` stage, and
+   the pipe delimiter's extract + a ``|`` stage + the delimiter-filter
+   keep) against the plain version and ``staged_run`` (K1, K5, K3), at
+   L = 128, 512 and 4096, bit-exact.
+20. quote-mode CSV (after phase 16): ``testdata.quoted_csv_config`` on
+   ``gen_quoted_csv(300_000, seed=19)`` in the index tier
+   (``LOONG_DISABLE_NATIVE=1``: K5 indexes each group) at one and four
+   workers and in the native tier at one: every record equals the FSM
+   oracle (``testdata.csv_oracle``) in order, the three runs' NDJSON bytes
+   are equal (``__time__``, the read time, aside), K5 launches = its exec
+   legs = the groups with no group left to the numpy twin, the fallback
+   rows are the oracle's deviant rows (``testdata.csv_deviant``); then K5
+   on the path's own groups against its plain version, whose (B, L) must
+   be those the index runs launched.
+21. the delimiter-filter path: ``testdata.pipe_filter_config`` on
+   ``gen_pipe_log(600_000, seed=23)`` at one worker: the kept records equal
+   the ``split`` + ``re`` oracle in order; one K7 launch a group, no
+   standalone K1, K2, K3 or K5.
+22. ``json_filter.yaml`` (``BASELINE.json`` config 4) with ``flusher_file``
+   on ``gen_json_events(100_000, seed=29)``: the kept events equal the
+   ``json.loads`` + ``re`` oracle in order; the filter's kernel (K1 for
+   the Tier-1 ``ERROR|WARN``) launches once a group; no parse fallback.
+23. K5 timing (last): at B=8192 and B=65536, L=128, and at the CSV path's
+   most launched (B, L), warm and cold (graph replay), beside the plain
+   version and the bound ``sum(lengths) + 4B + 16 ceil(L/16) B`` bytes at
+   3.35 TB/s; no library time (no PyTorch call computes the bitmaps).
+
 In every phase each recorded launch must be whole warps within the block
 limit and the shared-memory budget, with a block for each SM once a batch
 holds 32 rows an SM; the geometry in the ``kernels`` line is the one
 ``launch()`` passed to the kernel in this run.
 
 An earlier line prints the script's total seconds.  The line before the
-last is the ``kernels`` JSON line (K1, K2, K4, K3, K7 and K6), the last line
-the ``{"ok": true, "device": ...}`` object.  It imports nothing of JAX or of
-the JAX package.
+last is the ``kernels`` JSON line (K1, K2, K4, K3, K7, K6 and K5), the last
+line the ``{"ok": true, "device": ...}`` object.  It imports nothing of JAX
+or of the JAX package.
 """
 
 from __future__ import annotations
@@ -384,8 +420,8 @@ def graph_ms(fns, reps: int = 50, iters: int = 20,
 
 # -- phases -----------------------------------------------------------------
 
-def phase_build(fxc, dsc, fpc, src, native) -> dict:
-    """The four kernel libraries, one nvcc each, started together."""
+def phase_build(fxc, dsc, fpc, src, sic, native) -> dict:
+    """The five kernel libraries, one nvcc each, started together."""
     import threading
     import torch
     t0 = time.perf_counter()
@@ -400,7 +436,8 @@ def phase_build(fxc, dsc, fpc, src, native) -> dict:
         secs[name] = time.perf_counter() - t
     threads = [threading.Thread(target=build, args=a)
                for a in (("field_extract", fxc), ("dfa_scan", dsc),
-                         ("fused_program", fpc), ("segment_reduce", src))]
+                         ("fused_program", fpc), ("segment_reduce", src),
+                         ("struct_index", sic))]
     for t in threads:
         t.start()
     for t in threads:
@@ -412,9 +449,11 @@ def phase_build(fxc, dsc, fpc, src, native) -> dict:
     dfa_ptxas = dsc.ptxas_report(dsc.build_log)
     k7_ptxas = fpc.ptxas_report(fpc.build_log)
     k6_ptxas = src.ptxas_report(src.build_log)
+    k5_ptxas = sic.ptxas_report(sic.build_log)
     for name, r in sorted(ptxas.items()) + sorted(dfa_ptxas.items()) + [
             (f"fused_program {k}", v) for k, v in sorted(k7_ptxas.items())] \
-            + [(f"segment_reduce {k}", v) for k, v in sorted(k6_ptxas.items())]:
+            + [(f"segment_reduce {k}", v) for k, v in sorted(k6_ptxas.items())] \
+            + [(f"struct_index {k}", v) for k, v in sorted(k5_ptxas.items())]:
         log(f"ptxas {name}: {r.get('registers')} registers, "
             f"{r.get('stack')} bytes stack frame, {r.get('spill_stores')} "
             f"bytes spill stores, {r.get('spill_loads')} bytes spill loads")
@@ -423,16 +462,18 @@ def phase_build(fxc, dsc, fpc, src, native) -> dict:
     missing += [m for m in dsc.ENTRY_POINTS if m not in dfa_ptxas]
     missing += [k for k in fpc.INSTANTIATIONS if k not in k7_ptxas]
     missing += [k for k in src.KERNELS if k not in k6_ptxas]
+    missing += [k for k in sic.MODES if k not in k5_ptxas]
     if missing:
         fail(f"no ptxas report for {missing}")
     # the depth-0 walkers: K1's Apache instantiation, the DFA walks (K2,
     # K3, K4), K7's instantiations without the general walker (the Apache
-    # filter program's is d0_p0), and K6's three kernels
+    # filter program's is d0_p0), K6's three kernels and K5's two modes
     for name, r in [("d0_p0", ptxas["d0_p0"])] + [
             (m, dfa_ptxas[m]) for m in dsc.ENTRY_POINTS] + [
             (f"fused_program {k}", k7_ptxas[k]) for k in fpc.INSTANTIATIONS
             if not k.endswith("_g")] + [
-            (f"segment_reduce {k}", k6_ptxas[k]) for k in src.KERNELS]:
+            (f"segment_reduce {k}", k6_ptxas[k]) for k in src.KERNELS] + [
+            (f"struct_index {k}", k5_ptxas[k]) for k in sic.MODES]:
         if r.get("stack", 1) or r.get("spill_stores", 1) \
                 or r.get("spill_loads", 1):
             fail(f"the {name} walker has local memory: {r}")
@@ -440,16 +481,17 @@ def phase_build(fxc, dsc, fpc, src, native) -> dict:
     if native.get_lib() is None:
         fail("native host library did not build")
     native_s = time.perf_counter() - t0
-    log(f"build: four kernels {kernel_s:.2f} s in parallel (field_extract "
+    log(f"build: five kernels {kernel_s:.2f} s in parallel (field_extract "
         f"{secs['field_extract']:.2f} s, dfa_scan {secs['dfa_scan']:.2f} s, "
         f"fused_program {secs['fused_program']:.2f} s, segment_reduce "
-        f"{secs['segment_reduce']:.2f} s), native library "
+        f"{secs['segment_reduce']:.2f} s, struct_index "
+        f"{secs['struct_index']:.2f} s), native library "
         f"{native_s:.2f} s; torch {torch.__version__} cuda "
         f"{torch.version.cuda}; python {sys.version.split()[0]}")
     log(f"card: {nvidia_smi()}; {torch.cuda.get_device_name(0)}")
     return {"kernel_build_s": kernel_s, "native_build_s": native_s,
             "build_s": secs, "ptxas": ptxas, "dfa_ptxas": dfa_ptxas,
-            "k7_ptxas": k7_ptxas, "k6_ptxas": k6_ptxas}
+            "k7_ptxas": k7_ptxas, "k6_ptxas": k6_ptxas, "k5_ptxas": k5_ptxas}
 
 
 def checked_shapes(shapes, phase: str) -> list:
@@ -2369,7 +2411,7 @@ def k6_kernel_entry(parity, path_parity, timing, roll, roll4, roll_np,
 
 
 def fused_kernel_entries(span_parity, fused_parity, timing, filt, filt4,
-                         path2, build) -> list:
+                         path2, build, k7_struct, pipe) -> list:
     """The ``kernels`` line's entries of K3 and K7: K7's launches from the
     Apache-filter path (one worker), K3's standalone launches there (0: on
     that path its walk runs inside each K7 launch); times at B=8192,
@@ -2443,6 +2485,11 @@ def fused_kernel_entries(span_parity, fused_parity, timing, filt, filt4,
         "smem_bytes": t8["K7"]["smem"],
         "parity_batches": fused_parity["checks"],
         "stage_lists": fused_parity["lists"],
+        "stage_kinds": ["extract", "scan", "keep", "struct_index"],
+        "struct_index_parity_batches": k7_struct["checks"],
+        "struct_index_stage_lists": k7_struct["lists"],
+        "delimiter_filter_launches": pipe["stats"]["fusion"]["k7_launches"],
+        "delimiter_filter_mbps": pipe["mbps"],
         "build_s": build["build_s"]["fused_program"],
         "ptxas": build["k7_ptxas"],
     }]
@@ -2500,6 +2547,517 @@ def dfa_kernel_entry(name, mode, replaces, parity, timing, path2, path2_4,
     }
 
 
+# -- the structural index (K5), K7's struct_index stage, and the
+# -- quote-mode CSV, delimiter-filter and json_filter.yaml paths -----------
+
+K5_ODD_L = (1, 15, 16, 17, 33, 100)
+K5_SHAPES = ((8192, 128), (65536, 128))
+CSV_LINES = 300_000
+PIPE_LINES = 600_000
+JSON_EVENTS = 100_000
+_TIME_FIELD = re.compile(rb'"__time__": \d+')
+
+
+def k5_rows(rng):
+    """Rows for K5's parity: the reference's adversarial rows, seeded rows
+    over ``ab\\",{}[]: \\t|``, the three paths' lines, long backslash and
+    quote runs, and random bytes."""
+    import numpy as np
+    from loongcollector_tpu_torch import testdata as td
+    rows = td.struct_adversarial_rows()
+    rows += [bytes(rng.choice(list(b'ab\\",{}[]: \t|'),
+                              size=int(rng.integers(0, 4200))).astype(
+                                  np.uint8)) for _ in range(60)]
+    rows += td.gen_quoted_csv(60, seed=int(rng.integers(1000)))
+    rows += td.gen_pipe_log(60, seed=int(rng.integers(1000)))
+    rows += td.gen_json_events(20, seed=int(rng.integers(1000)))
+    rows += [b"\\" * k + b'"' * j for k in (31, 32, 33, 63, 64, 65)
+             for j in (1, 2)]
+    rows += [bytes(rng.integers(0, 256, int(rng.integers(0, 5000)),
+                                dtype=np.uint8)) for _ in range(20)]
+    return rows
+
+
+def k5_matrix(rows, L, extra):
+    """rows cut to L (a row of exactly L bytes among them), ``extra``
+    padding rows, two rows absent (length -1)."""
+    import numpy as np
+    B = len(rows) + extra
+    mat = np.zeros((B, L), np.uint8)
+    lens = np.zeros(B, np.int32)
+    for i, r in enumerate(rows):
+        r = r[:L]
+        if r:
+            mat[i, :len(r)] = np.frombuffer(r, np.uint8)
+        lens[i] = len(r)
+    lens[1] = lens[len(rows) // 2] = -1
+    return mat, lens
+
+
+def phase_k5_parity() -> dict:
+    """K5 (``lct_struct_index_cuda``) against its plain version on the card
+    and the native ``lct_struct_index`` (as 16-bit words), bit-exact, in
+    JSON mode and in delimiter mode on ``,`` and ``|``, at every length
+    bucket and at L = 1, 15, 16, 17, 33, 100, on ``k5_rows``, with absent
+    rows, padding rows and a batch that is not a multiple of the eight rows
+    a block."""
+    import numpy as np
+    import torch
+    from loongcollector_tpu_torch import native
+    from loongcollector_tpu_torch.ops.device_batch import LENGTH_BUCKETS
+    from loongcollector_tpu_torch.ops.kernels import struct_index as si
+    from loongcollector_tpu_torch.ops.kernels import struct_index_cuda as sic
+    rng = np.random.default_rng(18)
+    rows = k5_rows(rng)
+    sic.reset_launch_shapes()
+    checks = 0
+    for L in K5_ODD_L + LENGTH_BUCKETS:
+        mat, lens = k5_matrix(rows, L, 13)
+        B = len(mat)
+        rd = torch.from_numpy(mat).cuda()
+        ld = torch.from_numpy(lens).cuda()
+        arena = mat.reshape(-1)
+        offs = np.arange(B, dtype=np.int64) * L
+        for mode, sep in ((si.MODE_JSON, 0x2C), (si.MODE_DELIM, 0x2C),
+                          (si.MODE_DELIM, 0x7C)):
+            kern = si.StructIndexKernel(mode, sep)
+            got = [t.cpu().numpy() for t in kern(rd, ld)]
+            torch.cuda.synchronize()
+            want = [t.cpu().numpy() for t in kern.plain(rd, ld)]
+            nat = native.struct_index(
+                arena, offs, lens, native.STRUCT_MODE_JSON
+                if mode == si.MODE_JSON else native.STRUCT_MODE_DELIM, sep,
+                W=-(-L // 64))
+            for k, name in enumerate(("in_string", "structural", "escaped",
+                                      "quote")):
+                nw = si.native_masks_as_words16(nat[k])[:, :got[k].shape[1]]
+                if not (np.array_equal(got[k], want[k])
+                        and np.array_equal(got[k], nw)):
+                    bad = np.nonzero((got[k] != want[k]).any(axis=1)
+                                     | (got[k] != nw).any(axis=1))[0]
+                    fail(f"K5 parity: {mode} sep={sep:#x} L={L}: {name} "
+                         f"differs on rows {bad[:8].tolist()}")
+            checks += 1
+    launched = sum(sic.launch_shapes.values())
+    if launched != checks:
+        fail(f"K5 parity: {launched} launches recorded for {checks} batches")
+    log(f"K5 parity: {checks} batches ({len(rows) + 13} rows each, JSON "
+        f"and delimiter modes, L {list(K5_ODD_L + LENGTH_BUCKETS)}) "
+        f"bit-exact with the plain version and the native lct_struct_index "
+        f"on the card; {launched} launches")
+    return {"checks": checks, "max_abs_err": 0}
+
+
+def phase_k7_struct_parity() -> dict:
+    """K7 with ``struct_index`` stages (``testdata.struct_stage_lists``:
+    JSON mode alone, delimiter mode alone, and the pipe delimiter's extract
+    + a ``|`` index + the delimiter-filter keep) against the plain
+    ``build_fused_fn`` and ``staged_run`` (K1, K5 and K3 launches), bit-exact
+    on every output, at L = 128, 512 and 4096, on 301 rows (not whole
+    blocks) with padding and absent rows."""
+    import numpy as np
+    import torch
+    from loongcollector_tpu_torch import testdata as td
+    from loongcollector_tpu_torch.ops import fused_pipeline as fp
+    rng = np.random.default_rng(19)
+    checks = 0
+    names = []
+    for name, specs, rows_fn in td.struct_stage_lists():
+        program = fp.FusedProgramKernel(specs, name)
+        names.append(name)
+        for L in (128, 512, 4096):
+            B = 301
+            lines = rows_fn(rng, B - 9, L)
+            mat, lens = k5_matrix(lines, L, 9)
+            rd = torch.from_numpy(mat).cuda()
+            ld = torch.from_numpy(lens).cuda()
+            (flat,) = program(rd, ld)
+            got = [t.cpu() for t in program.split(flat, B)]
+            want = [t.cpu() for t in program.plain(rd, ld)]
+            staged = [t.cpu() for tup in program.staged_run(rd, ld)
+                      for t in tup]
+            for k, (g, w, s) in enumerate(zip(got, want, staged)):
+                if not (torch.equal(g.reshape(w.shape), w)
+                        and torch.equal(s, w)):
+                    fail(f"K7 struct parity: {name} L={L}: output {k} "
+                         f"({program.descriptor.outputs[k].name}) differs")
+            checks += 1
+        if program.launches != 3:
+            fail(f"K7 struct parity: {name}: {program.launches} K7 launches")
+    torch.cuda.synchronize()
+    log(f"K7 struct_index parity: {checks} batches of {names} at L 128, "
+        f"512, 4096 bit-exact with the plain version and staged_run")
+    return {"checks": checks, "lists": names, "max_abs_err": 0}
+
+
+def write_log(prefix, name, lines):
+    tmp = tempfile.mkdtemp(prefix=prefix)
+    log_path = os.path.join(tmp, name)
+    data = b"\n".join(lines) + b"\n"
+    with open(log_path, "wb") as f:
+        f.write(data)
+    return tmp, log_path, len(data)
+
+
+def path_run(tmp, tag, config, log_path, threads, **env):
+    """One agent run of a config; returns (stats, NDJSON bytes, wall)."""
+    run_dir = os.path.join(tmp, re.sub(r"\W+", "_", tag))
+    cfg_dir = os.path.join(run_dir, "config")
+    os.makedirs(cfg_dir)
+    out_path = os.path.join(run_dir, "out.json")
+    with open(os.path.join(cfg_dir, "p.yaml"), "w") as f:
+        f.write(config(log_path, out_path))
+    st, wall = run_agent(tag, cfg_dir, os.path.join(run_dir, "stats.json"),
+                         threads, **env)
+    with open(out_path, "rb") as f:
+        out = f.read()
+    os.unlink(out_path)
+    return st, out, wall
+
+
+def check_records(tag, out, want, keys=None) -> int:
+    """Every record of ``out`` equals the oracle's, in order, on the
+    oracle's keys (``keys``, else each oracle record's own)."""
+    recs = out.splitlines()
+    if len(recs) != len(want):
+        fail(f"{tag}: {len(recs)} records for the oracle's {len(want)}")
+    for n, (rec, w) in enumerate(zip(recs, want), 1):
+        obj = json.loads(rec)
+        got = {k: obj.get(k) for k in (keys or w)}
+        if got != w:
+            fail(f"{tag}: record {n}: {got} != the oracle's {w}")
+    return len(recs)
+
+
+def k5_stats_line(tag, st) -> dict:
+    from collections import Counter
+    k5 = st["k5"]
+    shapes = Counter({(d["B"], d["L"]): d["launches"]
+                      for d in k5["launch_shapes"]})
+    legs = k5["legs"]
+    log(f"{tag}: K5 {k5['launches']} launches = {k5['device_batches']} "
+        f"groups indexed = {legs['exec']['count']} exec legs, host groups "
+        f"{k5['host_groups']}, fallback rows {k5['fallback_rows']}; legs "
+        f"median ms (sum s): " + ", ".join(
+            f"{leg} {v['median_s'] * 1e3:.5f} ({v['sum_s']:.5f})"
+            for leg, v in legs.items() if v["count"])
+        + f"; shapes (B, L): {dict(shapes)}")
+    return shapes
+
+
+def phase_csv_path() -> dict:
+    """Quote-mode CSV (``testdata.quoted_csv_config``) on
+    ``gen_quoted_csv(300_000, seed=19)``: the index tier
+    (``LOONG_DISABLE_NATIVE=1``) at one and four workers, then the native
+    tier at one.  Every record equals the FSM oracle (``csv_oracle``) in
+    order; the NDJSON bytes of the three runs are equal (the read time in
+    ``__time__`` aside); on the index runs K5 launches = its exec legs =
+    the groups (the log's reader chunks), no group is left to the numpy
+    twin and the fallback rows are the oracle's deviant rows; the native
+    run launches no K5.  Then K5 on the path's own groups: each reader
+    chunk packed as ``index_batch`` packs it, through K5 and its plain
+    version on the card, bit-exact, and the (B, L) of these batches must be
+    those the index runs launched, group for group."""
+    from collections import Counter
+    import numpy as np
+    import torch
+    from loongcollector_tpu_torch import testdata as td
+    from loongcollector_tpu_torch.ops.device_batch import (
+        pack_rows, pad_batch, pick_length_bucket)
+    from loongcollector_tpu_torch.ops.kernels import struct_index as si
+    t0 = time.perf_counter()
+    lines = td.gen_quoted_csv(CSV_LINES, seed=19)
+    tmp, log_path, n_bytes = write_log("chip_smoke_csv_", "audit.csv", lines)
+    want = td.csv_oracle(lines)
+    deviant = sum(td.csv_deviant(ln) for ln in lines)
+    groups = td.reader_chunks(lines)
+    log(f"csv log: {len(lines)} lines, {n_bytes} bytes, {deviant} deviant "
+        f"rows, {len(groups)} reader chunks, in "
+        f"{time.perf_counter() - t0:.1f} s")
+    runs = {}
+    outs = {}
+    for tag, threads, env in (("csv index tier, 1 worker", 1,
+                               {"LOONG_DISABLE_NATIVE": "1"}),
+                              ("csv index tier, 4 workers", 4,
+                               {"LOONG_DISABLE_NATIVE": "1"}),
+                              ("csv native tier, 1 worker", 1, {})):
+        st, out, wall = path_run(tmp, tag, td.quoted_csv_config, log_path,
+                                 threads, **env)
+        n = check_records(tag, out, want)
+        check_settled(tag, st, k1=False)
+        k5 = st["k5"]
+        index = "LOONG_DISABLE_NATIVE" in env
+        if index and not (0 < k5["launches"] == k5["device_batches"]
+                          == k5["dispatches"] == len(groups)
+                          == k5["legs"]["exec"]["count"]) \
+                or index and (k5["host_groups"]
+                              or k5["fallback_rows"] != deviant) \
+                or not index and (k5["launches"] or k5["fallback_rows"]):
+            fail(f"{tag}: K5 {k5}, groups {len(groups)}, deviant {deviant}")
+        shapes = k5_stats_line(tag, st) if index else None
+        mbps = n_bytes / st["seconds"] / 1e6
+        log(f"{tag}: {n} records equal to the FSM oracle in order; "
+            f"{mbps:.2f} MB/s end to end ({st['seconds']:.3f} s, agent "
+            f"process {wall:.1f} s); traced busy share "
+            f"{st['busy_share'] * 100:.4f}%; stage seconds (host): "
+            + json.dumps(st["stage_seconds"]))
+        runs[tag] = {"stats": st, "mbps": mbps, "shapes": shapes}
+        outs[tag] = _TIME_FIELD.sub(b'"__time__": 0', out)
+    first = next(iter(outs.values()))
+    if any(o != first for o in outs.values()):
+        fail("csv path: the three runs' NDJSON bytes differ")
+    # K5 on the path's own groups
+    kern = si.StructIndexKernel(si.MODE_DELIM, 0x2C)
+    shapes = Counter()
+    for i, rows in enumerate(groups):
+        lens = np.array([len(r) for r in rows], np.int32)
+        arena = np.frombuffer(b"".join(rows), np.uint8)
+        offs = np.concatenate([[0], np.cumsum(lens[:-1])]).astype(np.int64)
+        L = pick_length_bucket(int(lens.max()))
+        B = pad_batch(len(rows))
+        batch = pack_rows(arena, offs, lens, L, B)
+        rd = torch.from_numpy(batch.rows).cuda()
+        ld = torch.from_numpy(batch.lengths).cuda()
+        got = [t.cpu().numpy() for t in kern(rd, ld)]
+        want_m = [t.cpu().numpy() for t in kern.plain(rd, ld)]
+        if not all(np.array_equal(g, w) for g, w in zip(got, want_m)):
+            fail(f"csv path: K5 differs from its plain version on group {i}")
+        shapes[(B, L)] += 1
+    for tag, run in runs.items():
+        if run["shapes"] is not None and run["shapes"] != shapes:
+            fail(f"{tag}: K5 launched {dict(run['shapes'])}, the path's "
+                 f"groups give {dict(shapes)}")
+    log(f"csv path: the three runs' NDJSON bytes are equal; K5 on the "
+        f"path's own {len(groups)} groups bit-exact with its plain version, "
+        f"(B, L) {dict(shapes)} as both index runs launched")
+    os.unlink(log_path)
+    return {"runs": runs, "groups": len(groups), "deviant": deviant,
+            "shapes": shapes, "lines": len(lines), "bytes": n_bytes}
+
+
+def phase_pipe_filter() -> dict:
+    """The delimiter-filter path (``testdata.pipe_filter_config``: the
+    non-quote ``|`` parse, then keep ``level`` ERROR or WARN and drop
+    ``service`` healthcheck) on ``gen_pipe_log(600_000, seed=23)`` at one
+    worker: the kept records equal the ``split`` + ``re.fullmatch`` oracle
+    in order; one K7 launch a group (= fused dispatches = plane dispatches
+    = groups), no standalone K1, K2 or K3 launch."""
+    from loongcollector_tpu_torch import testdata as td
+    from loongcollector_tpu_torch.ops.kernels.fused_program_cuda import \
+        LaunchShape
+    t0 = time.perf_counter()
+    lines = td.gen_pipe_log(PIPE_LINES, seed=23)
+    tmp, log_path, n_bytes = write_log("chip_smoke_pipe_", "svc.log", lines)
+    want = td.pipe_filter_oracle(lines)
+    groups = len(td.reader_chunks(lines))
+    log(f"pipe log: {len(lines)} lines, {n_bytes} bytes, {len(want)} kept "
+        f"by the oracle, {groups} reader chunks, in "
+        f"{time.perf_counter() - t0:.1f} s")
+    tag = "delimiter filter, 1 worker"
+    st, out, wall = path_run(tmp, tag, td.pipe_filter_config, log_path, 1)
+    n = check_records(tag, out, want, td.PIPE_KEYS)
+    check_settled(tag, st, k1=False)
+    fu, plane = st["fusion"], st["plane"]
+    if not (0 < fu["k7_launches"] == fu["fused_dispatches"]
+            == plane["dispatches"] == fu["fused_groups"] == groups
+            == fu["exec_legs"]) or fu["runs_planned"] != 1 \
+            or fu["long_row_groups"] or fu["other_groups"] \
+            or st["launches"] or st["k2"]["launches"] or fu["k3_launches"] \
+            or st["k5"]["launches"]:
+        fail(f"{tag}: K7 launches {fu['k7_launches']}, fused dispatches "
+             f"{fu['fused_dispatches']}, plane {plane['dispatches']}, groups "
+             f"{fu['fused_groups']} of {groups}, standalone K1 "
+             f"{st['launches']}, K2 {st['k2']['launches']}, K3 "
+             f"{fu['k3_launches']}, K5 {st['k5']['launches']}")
+    shapes = checked_fused_shapes(
+        {LaunchShape(**{k: v for k, v in d.items() if k != "launches"}):
+         d["launches"] for d in fu["launch_shapes"]}, tag)
+    mbps = n_bytes / st["seconds"] / 1e6
+    log(f"{tag}: {n} records equal to the oracle in order; "
+        f"{fu['k7_launches']} K7 launches = fused dispatches = plane "
+        f"dispatches = groups, 0 standalone K1/K2/K3; {mbps:.2f} MB/s end to "
+        f"end ({st['seconds']:.3f} s, agent process {wall:.1f} s); K7 exec "
+        f"legs {fu['kernel_seconds']:.6f} s, median "
+        f"{fu['exec_median_s'] * 1e3:.5f} ms; traced busy share "
+        f"{st['busy_share'] * 100:.3f}%; stages "
+        f"{fu['programs'][0]['stages']}; geometry " + ", ".join(
+            f"{k}x {sh.instantiation} B={sh.B} L={sh.L}" for sh, k in shapes)
+        + "; stage seconds (host): " + json.dumps(st["stage_seconds"]))
+    os.unlink(log_path)
+    return {"stats": st, "mbps": mbps, "records": n, "groups": groups}
+
+
+def phase_json_filter() -> dict:
+    """``example_config/quick_start/json_filter.yaml`` (``BASELINE.json``
+    config 4) with ``flusher_file`` on ``gen_json_events(100_000,
+    seed=29)``: the kept events equal the ``json.loads`` +
+    ``re.fullmatch`` oracle in order; the filter's kernel and launches come
+    from ``--stats`` (K1 for a Tier-1 ``level`` pattern, K2 for a DFA one),
+    one launch a group; no parse row falls back."""
+    from loongcollector_tpu_torch import testdata as td
+    t0 = time.perf_counter()
+    lines = td.gen_json_events(JSON_EVENTS, seed=29)
+    tmp, log_path, n_bytes = write_log("chip_smoke_json_", "events.json",
+                                       lines)
+    want = td.json_filter_oracle(lines)
+    groups = len(td.reader_chunks(lines))
+    log(f"json log: {len(lines)} events, {n_bytes} bytes, {len(want)} kept "
+        f"by the oracle, {groups} reader chunks, in "
+        f"{time.perf_counter() - t0:.1f} s")
+    tag = "json_filter.yaml, 1 worker"
+    st, out, wall = path_run(tmp, tag, td.json_filter_config, log_path, 1)
+    n = check_records(tag, out, want)
+    check_settled(tag, st, k1=st["launches"] > 0)
+    k1, k2 = st["launches"], st["k2"]["launches"]
+    kernel = "K1" if k1 else "K2"
+    launches = k1 or k2
+    parse = st["parse"].get("processor_parse_json_tpu/p", {})
+    if launches != groups or (k1 and k2) \
+            or parse.get("fallback_rows") or parse.get("rows") != len(lines):
+        fail(f"{tag}: K1 {k1} and K2 {k2} launches for {groups} groups; "
+             f"parse {parse}")
+    mbps = n_bytes / st["seconds"] / 1e6
+    log(f"{tag}: {n} events equal to the oracle in order; the filter ran on "
+        f"{kernel}, {launches} launches = groups; 0 parse fallback rows; "
+        f"{mbps:.2f} MB/s end to end ({st['seconds']:.3f} s, agent process "
+        f"{wall:.1f} s); traced busy share {st['busy_share'] * 100:.3f}%; "
+        f"stage seconds (host): " + json.dumps(st["stage_seconds"]))
+    os.unlink(log_path)
+    return {"stats": st, "mbps": mbps, "records": n, "kernel": kernel,
+            "launches": launches, "groups": groups}
+
+
+def k5_bound_ms(B, L, row_bytes):
+    """Bytes K5 must move (each row's bytes below its length and the
+    lengths in, four masks of ceil(L / 16) i32 words a row out) at HBM
+    rate, against one 32-bit operation a byte at the non-tensor rate;
+    returns (ms, bound_by)."""
+    t_bytes = (row_bytes + 4 * B + 16 * -(-L // 16) * B) / HBM_BYTES_PER_S
+    t_ops = row_bytes / INT_OPS_PER_S
+    if t_bytes >= t_ops:
+        return t_bytes * 1e3, "bytes"
+    return t_ops * 1e3, "operations"
+
+
+def phase_k5_timing(csv) -> dict:
+    """K5 (delimiter mode, ``,``) on CSV rows at B=8192 and B=65536, L=128
+    (rows cut to L), and at the CSV path's most launched (B, L) on that
+    many of the path's own lines: warm (the same inputs launch after
+    launch) and cold (the launches rotate over enough copies to pass twice
+    the 50 MB L2), by graph replay, beside the plain version graph-replayed
+    and the bound (``k5_bound_ms``).  No single PyTorch call computes the
+    bitmaps, so there is no library time."""
+    import numpy as np
+    import torch
+    from loongcollector_tpu_torch import testdata as td
+    from loongcollector_tpu_torch.ops.kernels import struct_index as si
+    from loongcollector_tpu_torch.ops.kernels import struct_index_cuda as sic
+    kern = si.StructIndexKernel(si.MODE_DELIM, 0x2C)
+    path_shape = max(csv["shapes"].items(), key=lambda kv: kv[1])[0]
+    out = {}
+    for B, L in K5_SHAPES + (path_shape,):
+        n_real = B if (B, L) != path_shape else \
+            CSV_LINES // csv["groups"]
+        lines = td.gen_quoted_csv(n_real, seed=7)
+        mat, lens = k5_matrix(lines, L, B - n_real)
+        lens[1] = len(lines[1][:L])
+        lens[n_real // 2] = len(lines[n_real // 2][:L])
+        rd = torch.from_numpy(mat).cuda()
+        ld = torch.from_numpy(lens).cuda()
+        sic.reset_launch_shapes()
+        got = [t.cpu().numpy() for t in kern(rd, ld)]
+        want = [t.cpu().numpy() for t in kern.plain(rd, ld)]
+        if not all(np.array_equal(g, w) for g, w in zip(got, want)):
+            fail(f"K5 timing: B={B} L={L} differs from the plain version")
+        call_ms = time_cuda(lambda: kern.launch(rd, ld), 200)
+        ms = graph_ms([lambda: kern.launch(rd, ld)])
+        touched = mat.nbytes + 4 * B + 16 * sic.words16(L) * B
+        n_copies = max(8, -(-2 * L2_BYTES // touched))
+        copies = [(rd.clone(), ld.clone()) for _ in range(n_copies)]
+        cold_ms = graph_ms([lambda c=c: kern.launch(*c) for c in copies],
+                           reps=n_copies * -(-50 // n_copies), iters=5,
+                           keep_outputs=True)
+        del copies
+        plain_ms = graph_ms([lambda: kern.plain(rd, ld)], reps=10, iters=5)
+        plain_call_ms = time_cuda(lambda: kern.plain(rd, ld), 20)
+        row_bytes = int(np.clip(lens, 0, L).sum())
+        b_ms, by = k5_bound_ms(B, L, row_bytes)
+        (sh,) = sic.launch_shapes
+        out[(B, L)] = {"ms": ms, "cold_ms": cold_ms, "call_ms": call_ms,
+                       "plain_ms": plain_ms, "plain_call_ms": plain_call_ms,
+                       "bound_ms": b_ms, "bound_by": by, "blocks": sh.blocks,
+                       "real_rows": n_real, "row_bytes": row_bytes,
+                       "copies": n_copies}
+        log(f"K5 timing B={B} L={L} ({n_real} CSV rows, {row_bytes} bytes; "
+            f"{sh.blocks} blocks of {sic.THREADS} threads): kernel "
+            f"{ms:.5f} ms warm and {cold_ms:.5f} ms cold ({n_copies} copies) "
+            f"on the device (graph replay), {call_ms:.4f} ms per wrapper "
+            f"call; plain {plain_ms:.4f} ms graph-replayed, "
+            f"{plain_call_ms:.4f} ms per call; bound {b_ms:.6f} ms ({by}); "
+            f"library: none (no PyTorch call computes the bitmaps)")
+    out["path_shape"] = path_shape
+    return out
+
+
+def k5_kernel_entry(parity, k7_parity, csv, timing, build) -> dict:
+    """The ``kernels`` line's entry of K5: launches from the quote-mode CSV
+    path's index tier at one worker, times at B=8192, L=128 and at the
+    path's shape."""
+    runs = csv["runs"]
+    one = runs["csv index tier, 1 worker"]
+    k5 = one["stats"]["k5"]
+    t = timing[K5_SHAPES[0]]
+    tb = timing[K5_SHAPES[1]]
+    tp = timing[timing["path_shape"]]
+    legs = k5["legs"]
+    return {
+        "name": "struct_index",
+        "route": "cuda",
+        "source": "loongcollector_tpu_torch/ops/kernels/csrc/"
+                  "struct_index.cu",
+        "replaces": "loongcollector_tpu/ops/kernels/struct_index.py:119",
+        "parity": "bit-exact",
+        "geometry": list(K5_SHAPES[0]),
+        "launches": k5["launches"],
+        "max_abs_err": parity["max_abs_err"],
+        "ms": t["ms"],
+        "cold_ms": t["cold_ms"],
+        "call_ms": t["call_ms"],
+        "plain_ms": t["plain_ms"],
+        "bound_ms": t["bound_ms"],
+        "bound_by": t["bound_by"],
+        # no single PyTorch call computes the structural bitmaps
+        "library_ms": None,
+        "bench_geometry": list(K5_SHAPES[1]),
+        "bench_ms": tb["ms"],
+        "bench_cold_ms": tb["cold_ms"],
+        "bench_plain_ms": tb["plain_ms"],
+        "bench_bound_ms": tb["bound_ms"],
+        "path_geometry": list(timing["path_shape"]),
+        "path_ms": tp["ms"],
+        "path_cold_ms": tp["cold_ms"],
+        "path_plain_ms": tp["plain_ms"],
+        "path_bound_ms": tp["bound_ms"],
+        "path_groups": csv["groups"],
+        "path_fallback_rows": k5["fallback_rows"],
+        "path_host_groups": k5["host_groups"],
+        "path_launch_shapes": [[b, l, n] for (b, l), n in
+                               sorted(csv["shapes"].items())],
+        "path_leg_median_ms": {k: v["median_s"] * 1e3
+                               for k, v in legs.items() if v["count"]},
+        "path_mbps": {tag: r["mbps"] for tag, r in runs.items()},
+        "path_busy_share": one["stats"]["busy_share"],
+        "path_launches_4_workers":
+            runs["csv index tier, 4 workers"]["stats"]["k5"]["launches"],
+        "parity_batches": parity["checks"],
+        "k7_struct_parity_batches": k7_parity["checks"],
+        "blocks": t["blocks"],
+        "threads": 256,
+        "build_s": build["build_s"]["struct_index"],
+        "ptxas": build["k5_ptxas"],
+    }
+
+
 def main() -> int:
     t_start = time.perf_counter()
     if len(sys.argv) > 1:
@@ -2516,8 +3074,9 @@ def main() -> int:
     from loongcollector_tpu_torch.ops.kernels import field_extract_cuda as fxc
     from loongcollector_tpu_torch.ops.kernels import fused_program_cuda as fpc
     from loongcollector_tpu_torch.ops.kernels import segment_reduce_cuda as src
+    from loongcollector_tpu_torch.ops.kernels import struct_index_cuda as sic
     from loongcollector_tpu_torch.testdata import rollup_mismatches
-    build = phase_build(fxc, dsc, fpc, src, native)
+    build = phase_build(fxc, dsc, fpc, src, sic, native)
     parity = phase_parity()
     tmp, log_path, lines, n_bytes = main_path_log()
     main_path = phase_main_path(tmp, log_path, lines, n_bytes, threads=1)
@@ -2531,6 +3090,8 @@ def main() -> int:
     span_parity = phase_span_parity(jlines)
     fused_parity = phase_fused_parity()
     k6_parity = phase_k6_parity()
+    k5_parity = phase_k5_parity()
+    k7_struct = phase_k7_struct_parity()
     path1 = phase_multiline(jtmp, jlog_path, jlines, j_bytes, 1, 1)
     path2 = phase_multiline(jtmp, jlog_path, jlines, j_bytes, 2, 1)
     path2_4 = phase_multiline(jtmp, jlog_path, jlines, j_bytes, 2, 4)
@@ -2566,6 +3127,10 @@ def main() -> int:
     dfa_timing = phase_dfa_path_shapes(jlines, [path2, path2_4])
     fused_timing = phase_fused_timing()
     k6_timing = phase_k6_timing()
+    csv = phase_csv_path()
+    pipe = phase_pipe_filter()
+    jsonf = phase_json_filter()
+    k5_timing = phase_k5_timing(csv)
     mp = main_path["stats"]
     t8, t64 = timing[8192], timing[65536]
     kernels = {"kernels": [{
@@ -2608,11 +3173,13 @@ def main() -> int:
                              plane["overlap_dispatches"]],
         "path_launches": {"multiline_java": path1["stats"]["launches"],
                           "java_filter": path2["stats"]["launches"],
-                          "grok_nginx": grok["stats"]["launches"]},
+                          "grok_nginx": grok["stats"]["launches"],
+                          "json_filter": jsonf["stats"]["launches"]},
         "path_mbps": {"multiline_java": path1["mbps"],
                       "java_filter": path2["mbps"],
                       "java_filter_4_workers": path2_4["mbps"],
-                      "grok_nginx": grok["mbps"]},
+                      "grok_nginx": grok["mbps"],
+                      "json_filter": jsonf["mbps"]},
         "build_s": build["build_s"]["field_extract"],
         "blocks": [t8["blocks"], t64["blocks"]],
         "threads": [t8["threads"], t64["threads"]],
@@ -2630,8 +3197,11 @@ def main() -> int:
         "loongcollector_tpu/ops/kernels/dfa_scan.py:172", dfa_parity,
         dfa_timing, path2, path2_4, build, "K4")] + fused_kernel_entries(
         span_parity, fused_parity, fused_timing, filt, filt4, path2,
-        build) + [k6_kernel_entry(k6_parity, k6_path, k6_timing, roll,
-                                  roll4, roll_np, roll_led, build)]}
+        build, k7_struct, pipe) + [k6_kernel_entry(
+            k6_parity, k6_path, k6_timing, roll, roll4, roll_np, roll_led,
+            build), k5_kernel_entry(k5_parity, k7_struct, csv, k5_timing,
+                                    build)]}
+
     log(f"total: {time.perf_counter() - t_start:.1f} s")
     print(nvidia_smi())
     print(json.dumps(kernels))

@@ -101,6 +101,7 @@ def run_once(config_dir: str, device) -> Dict[str, Any]:
     from .ops.kernels import dfa_scan_cuda, fused_program_cuda
     from .ops.kernels import field_extract_cuda as fxc
     from .ops.kernels import segment_reduce, segment_reduce_cuda
+    from .ops.kernels import struct_index, struct_index_cuda
     from .processor import parse_telemetry
     from .ops.regex.engine import cached_engines
     from .ops.regex.fuse import live_sets
@@ -123,6 +124,9 @@ def run_once(config_dir: str, device) -> Dict[str, Any]:
     fused_program_cuda.reset_launch_shapes()
     segment_reduce_cuda.reset_launch_shapes()
     segment_reduce.device_kernel().reset_counts()
+    struct_index_cuda.reset_launch_shapes()
+    for kern in struct_index.device_kernels():
+        kern.reset_counts()
     parse_telemetry.reset()
     runs = [r for p in manager.pipelines() for r in p.fused_runs]
     for counted in engines + sets + runs:
@@ -220,7 +224,46 @@ def run_once(config_dir: str, device) -> Dict[str, Any]:
             [p.aggregator for p in manager_pipelines
              if p.aggregator is not None], timeline, on_card),
         "parse": parse_telemetry.status(),
+        "k5": _k5_stats(timeline, on_card),
         "ledger": _ledger_stats(),
+    }
+
+
+def _k5_stats(timeline: xprof.DeviceTimeline, on_card: bool
+              ) -> Dict[str, Any]:
+    """The structural index's counts for ``--stats``: K5's launches and
+    dispatches, the groups it indexed in one dispatch and those it left to
+    the numpy twin (by reason), the quote-mode delimiter's per-row FSM
+    rows, K5's launch shapes and its dispatch legs on the timeline."""
+    from .ops import xprof
+    from .ops.kernels import struct_index, struct_index_cuda
+    from .processor import parse_telemetry
+    kernels = struct_index.device_kernels()
+    host: Dict[str, int] = {}
+    for k in kernels:
+        for reason, n in k.host_groups.items():
+            host[reason] = host.get(reason, 0) + n
+    legs = {}
+    clock = xprof.DEVICE if on_card else None
+    for leg in ("h2d", "exec", "d2h"):
+        durs = timeline.leg_durations(leg, clock,
+                                      struct_index.StructIndexKernel.program)
+        legs[leg] = {"count": len(durs),
+                     "sum_s": sum(durs) if on_card else None,
+                     "median_s": (statistics.median(durs)
+                                  if durs and on_card else None),
+                     "max_s": max(durs) if durs and on_card else None}
+    return {
+        "launches": sum(k.launches for k in kernels),
+        "dispatches": sum(k.dispatch_count for k in kernels),
+        "device_batches": sum(k.device_batches for k in kernels),
+        "host_groups": host,
+        "fallback_rows": sum(
+            v["fallback_rows"] for name, v in parse_telemetry.status().items()
+            if name.startswith("processor_parse_delimiter")),
+        "launch_shapes": [dict(asdict(shape), launches=n) for shape, n
+                          in struct_index_cuda.launch_shapes.items()],
+        "legs": legs,
     }
 
 

@@ -7,8 +7,10 @@ the port calls: ``split_lines`` (line spans of a read chunk),
 walk of a byte-indexed DFA table, ``ops/regex/fuse.ByteTableScanner``),
 ``json_struct_parse`` and ``json_extract`` (the structural-index JSON
 parse of ``processor/parse_json.py`` and its ``LOONG_STRUCT=0`` plane),
-and ``group_reduce`` (the native fold of the metric rollup,
-``ops/kernels/segment_reduce.fold_batch_native``).  The library is built
+``struct_index`` (the host structural index, K5's third reference) and
+``delim_struct_parse`` (the quote-mode delimiter's native walk,
+``processor/parse_delimiter.py``), and ``group_reduce`` (the native fold of
+the metric rollup, ``ops/kernels/segment_reduce.fold_batch_native``).  The library is built
 from the repo's sources with ``make -C native`` on first use; when neither
 the library nor a toolchain exists, every wrapper returns None and its
 caller runs the numpy fallback, with byte-identical results.
@@ -38,7 +40,8 @@ _LIB_NAME = "libloongcollector_native.so"
 _SO_PATH = os.path.join(_NATIVE_DIR, _LIB_NAME)
 _ENTRY_POINTS = ("lct_split_lines", "lct_pack_rows", "lct_ndjson_serialize",
                  "lct_dfa_scan", "lct_json_struct_parse", "lct_json_extract",
-                 "lct_group_reduce")
+                 "lct_group_reduce", "lct_struct_index",
+                 "lct_delim_struct_parse")
 
 
 def _try_build() -> bool:
@@ -111,6 +114,14 @@ def get_lib() -> Optional[ctypes.CDLL]:
             ctypes.c_double, i64,
             vp, vp, vp, vp, vp, vp, vp,
             vp, i64]
+        lib.lct_struct_index.restype = None
+        lib.lct_struct_index.argtypes = [
+            vp, i64, vp, vp, i64, i32, ctypes.c_uint8, ctypes.c_uint8, i64,
+            vp, vp, vp, vp]
+        lib.lct_delim_struct_parse.restype = i64
+        lib.lct_delim_struct_parse.argtypes = [
+            vp, i64, vp, vp, i64, ctypes.c_uint8, ctypes.c_uint8, i64,
+            vp, vp, vp, vp, i64, vp]
         _lib = lib
         log.info("native library loaded: %s", _SO_PATH)
         return _lib
@@ -275,6 +286,70 @@ def json_extract(arena: np.ndarray, offsets: np.ndarray,
                          _ptr(out_offs), _ptr(out_lens), _ptr(ok),
                          _ptr(fallback))
     return out_offs, out_lens, ok.astype(bool), fallback.astype(bool)
+
+
+STRUCT_MODE_JSON = 0
+STRUCT_MODE_DELIM = 1
+
+
+def struct_index(arena: np.ndarray, offsets: np.ndarray,
+                 lengths: np.ndarray, mode: int = STRUCT_MODE_JSON,
+                 sep: int = 0x2C, quote: int = 0x22,
+                 W: Optional[int] = None):
+    """Per-row structural bitmaps: uint64 [n, W] arrays (in_string,
+    structural, escaped, quote) with row-local bit positions — the host
+    reference K5 (``ops/kernels/struct_index.py``) is held against.
+    Returns None when the native library is unavailable."""
+    lib = get_lib()
+    if lib is None:
+        return None
+    arena = np.ascontiguousarray(arena)
+    offsets = np.ascontiguousarray(offsets, dtype=np.int64)
+    lengths = np.ascontiguousarray(lengths, dtype=np.int32)
+    n = len(offsets)
+    if W is None:
+        W = max(1, (int(lengths.max()) + 63) // 64) if n else 1
+    shape = (n, W)
+    s_mask = np.zeros(shape, dtype=np.uint64)
+    t_mask = np.zeros(shape, dtype=np.uint64)
+    e_mask = np.zeros(shape, dtype=np.uint64)
+    q_mask = np.zeros(shape, dtype=np.uint64)
+    lib.lct_struct_index(_ptr(arena), len(arena), _ptr(offsets),
+                         _ptr(lengths), n, mode, sep, quote, W,
+                         _ptr(s_mask), _ptr(t_mask), _ptr(e_mask),
+                         _ptr(q_mask))
+    return s_mask, t_mask, e_mask, q_mask
+
+
+def delim_struct_parse(arena: np.ndarray, offsets: np.ndarray,
+                       lengths: np.ndarray, sep: int, quote: int,
+                       F: int):
+    """Structural-index quote-mode delimiter parse: event-major spans
+    (offs [n,F] i32, lens [n,F] i32, nfields [n] i32, side bytes).  Span
+    offsets >= len(arena) index into `side`.  Returns None when the
+    native library is unavailable."""
+    lib = get_lib()
+    if lib is None or F <= 0:
+        return None
+    arena = np.ascontiguousarray(arena)
+    offsets = np.ascontiguousarray(offsets, dtype=np.int64)
+    lengths = np.ascontiguousarray(lengths, dtype=np.int32)
+    n = len(offsets)
+    total = int(lengths.clip(min=0).sum())
+    if len(arena) + total >= 2**31 - 16:
+        return None
+    out_offs = np.zeros((n, F), dtype=np.int32)
+    out_lens = np.full((n, F), -1, dtype=np.int32)
+    nfields = np.zeros(n, dtype=np.int32)
+    side = np.empty(max(total, 1), dtype=np.uint8)
+    counts = np.zeros(2, dtype=np.int64)
+    rc = lib.lct_delim_struct_parse(
+        _ptr(arena), len(arena), _ptr(offsets), _ptr(lengths), n,
+        sep, quote, F, _ptr(out_offs), _ptr(out_lens), _ptr(nfields),
+        _ptr(side), len(side), _ptr(counts))
+    if rc != 0:
+        return None
+    return out_offs, out_lens, nfields, side[: int(counts[0])]
 
 
 def json_struct_parse(arena: np.ndarray, offsets: np.ndarray,

@@ -3,32 +3,39 @@ program a chunk (K7).
 
 Reference: loongcollector_tpu/ops/fused_pipeline.py.  A run of two or more
 consecutive device-capable stages (a Tier-1 parse, a multi-pattern
-classify scan, a filter) is described by ``StageSpec``s and ``StageCond``s
-(``pipeline/fused_chain.py`` plans them from each processor's
-``fused_stage_spec``), and ``FusedProgramKernel`` runs the whole list as
-one dispatch per chunk: the rows are packed and copied once, a filter
-condition on a field the run's own parse captured reads that capture's span
-where it was computed, and every stage's outputs come back in one copy.
+classify scan, a filter, a structural index) is described by
+``StageSpec``s and ``StageCond``s (``pipeline/fused_chain.py`` plans them
+from each processor's ``fused_stage_spec``), and ``FusedProgramKernel``
+runs the whole list as one dispatch per chunk: the rows are packed and
+copied once, a filter condition on a field the run's own parse captured
+reads that capture's span where it was computed, and every stage's
+outputs come back in one copy.
 
 * ``build_fused_fn`` is the plain version, in torch: the member stages'
   plain kernels (K1 ``build_extract_fn``, K2 ``DFAMatchKernel.plain``, K3
-  ``DFASpanMatchKernel.plain``, K4 ``FusedScanKernel.plain``) composed as
-  the reference composes its jitted cores, returning the flat tuple of
-  stage outputs.  It is what a CPU tensor runs.
+  ``DFASpanMatchKernel.plain``, K4 ``FusedScanKernel.plain``, K5
+  ``struct_index.build_index_fn``) composed as the reference composes its
+  jitted cores, returning the flat tuple of stage outputs.  It is what a
+  CPU tensor runs.
 * ``FusedProgramKernel`` owns one stage list: for a CUDA tensor it
   launches the hand-written CUDA kernel (``kernels/fused_program_cuda.py``,
   source ``kernels/csrc/fused_program.cu``) and counts it in ``launches``,
   or raises; ``dispatch_count`` counts fused dispatches on either device.
   ``staged_run`` runs each member's own kernel, one dispatch a stage (K1,
   K2, K3, K4 on the card): the on-card oracle of ``chip_smoke.py`` and the
-  per-stage twin of the program, never a route a failure falls back to.
+  per-stage twin of the program, never a route a failure falls back to
+  (a ``struct_index`` stage runs on K5).
 * ``FusedDispatch`` is one group's fused run in flight on the port's
   ``DevicePlane``: each chunk is packed into a leased ``BatchRing`` slot,
   its B floor comes from the ``WidthAutoTuner`` keyed per program
   (``fused:<signature>``), and one dispatch copies the rows in, launches
   K7 and copies the flat output back into the slot's pinned buffer.
   ``result()`` consumes the chunks in order; a K7 failure raises from it,
-  and every slot and byte of budget is released on the way out.
+  and every slot and byte of budget is released on the way out.  A
+  ``struct_index`` stage's packed words stay per chunk (their width
+  follows the chunk's ``L``) and are unpacked into ``[n, Lmax]`` bool
+  arrays at the end, as the reference's ``_finish_struct`` does.  No
+  planner emits that stage, in the port as in the reference.
 * Programs are cached in memory, keyed by the sha256 of the stage
   identities (``get_fused_program``).
 
@@ -113,7 +120,7 @@ class StageSpec:
     """One device-capable stage: ``extract`` (``payload`` a SegmentProgram:
     ok and capture spans), ``scan`` (a FusedDFA: the accept-tag mask),
     ``keep`` (a list of StageConds: the filter mask), or ``struct_index``
-    (K5's, refused by ``FusedProgramKernel`` until K5 is ported).
+    (``payload`` a (mode, separator byte) pair: K5's four packed masks).
 
     ``ident`` is the content identity the program cache hashes; ``staged``
     is the stage's own kernel; ``terminal`` marks a stage that rebuilds the
@@ -135,14 +142,6 @@ class StageSpec:
         return _STAGE_WIDTH[self.kind]
 
 
-def _refuse_struct_index(specs: Sequence[StageSpec]) -> None:
-    for spec in specs:
-        if spec.kind == "struct_index":
-            raise FusedUnsupported(
-                "a struct_index stage is K5's, which is not ported yet (the "
-                "struct-index slice); no planner of the port emits one")
-
-
 def _span_kernel(dfa):
     from .kernels.dfa_scan import DFASpanMatchKernel
     return DFASpanMatchKernel(dfa)
@@ -151,17 +150,20 @@ def _span_kernel(dfa):
 def build_fused_fn(specs: Sequence[StageSpec]):
     """The plain version: f(rows u8 [B, L], lengths i32 [B]) -> the flat
     tuple of stage outputs (extract: ok bool [B], cap_off, cap_len i32
-    [B, C]; scan: tags i32 [B]; keep: bool [B]), the member stages' plain
-    kernels composed as the reference composes its cores."""
+    [B, C]; scan: tags i32 [B]; keep: bool [B]; struct_index: the four
+    packed masks i32 [B, ceil(L/16)]), the member stages' plain kernels
+    composed as the reference composes its cores."""
     from .kernels.dfa_scan import DFAMatchKernel, FusedScanKernel
     from .kernels.field_extract import build_extract_fn
-    _refuse_struct_index(specs)
+    from .kernels.struct_index import build_index_fn
     stage_fns: List = []
     for spec in specs:
         if spec.kind == "extract":
             stage_fns.append(build_extract_fn(spec.payload))
         elif spec.kind == "scan":
             stage_fns.append(FusedScanKernel(spec.payload).plain)
+        elif spec.kind == "struct_index":
+            stage_fns.append(build_index_fn(*spec.payload))
         elif spec.kind == "keep":
             fns = []
             for cond in spec.payload:
@@ -181,7 +183,7 @@ def build_fused_fn(specs: Sequence[StageSpec]):
         stage_outs: List[Tuple] = []
         flat: List = []
         for spec, fn in zip(specs, stage_fns):
-            if spec.kind == "extract":
+            if spec.kind in ("extract", "struct_index"):
                 outs = tuple(fn(rows, lengths))
             elif spec.kind == "scan":
                 outs = (fn(rows, lengths),)
@@ -222,11 +224,12 @@ def kernel_stages(specs: Sequence[StageSpec]) -> List[fpc.KernelStage]:
         return automaton_arrays_from_reference(
             dfa.byte_class, dfa.transitions, dfa.start, dfa.accepting)
 
-    _refuse_struct_index(specs)
     out = []
     for spec in specs:
         if spec.kind == "extract":
             out.append(fpc.KernelStage("extract", kprog(spec)))
+        elif spec.kind == "struct_index":
+            out.append(fpc.KernelStage("struct_index", tuple(spec.payload)))
         elif spec.kind == "scan":
             f = spec.payload
             out.append(fpc.KernelStage("scan", automaton_arrays_from_reference(
@@ -254,9 +257,9 @@ class FusedProgramKernel:
     """One stage list's program, dispatched by tensor device.
 
     ``program(rows, lengths)`` returns a 1-tuple, the flat output (u8
-    ``[B * row_bytes]``, ``split`` views it): on the CPU the plain version's
-    outputs packed into it, on CUDA the K7 launch's own buffer (counted in
-    ``launches``).  ``dispatch_count`` counts fused dispatches on either
+    ``[descriptor.flat_bytes(B, L)]``, ``split`` views it): on the CPU the
+    plain version's outputs packed into it, on CUDA the K7 launch's own
+    buffer (counted in ``launches``).  ``dispatch_count`` counts fused dispatches on either
     device; the single-dispatch-per-chunk check reads it."""
 
     # the wrapper records the exec leg's events right around its launch
@@ -332,7 +335,8 @@ class FusedProgramKernel:
 
     def host_outputs(self, slot) -> Tuple[torch.Tensor]:
         """The slot's buffer the flat output is copied back into."""
-        return (slot.flat_output(slot.B * self.descriptor.row_bytes),)
+        return (slot.flat_output(
+            self.descriptor.flat_bytes(slot.B, slot.L)),)
 
     # -- the call -------------------------------------------------------------
 
@@ -340,9 +344,9 @@ class FusedProgramKernel:
                  events=None) -> Tuple[torch.Tensor]:
         """``events`` (CUDA only): a (start, end) pair of timing CUDA events
         recorded by the kernel's entry point right around the launch."""
-        B = rows.shape[0]
+        B, L = rows.shape
         if rows.device.type == "cpu":
-            flat = torch.empty(B * self.descriptor.row_bytes,
+            flat = torch.empty(self.descriptor.flat_bytes(B, L),
                                dtype=torch.uint8)
             for view, out in zip(self.split(flat, B),
                                  self.plain(rows, lengths)):
@@ -369,14 +373,18 @@ class FusedProgramKernel:
                    ) -> List[Tuple[torch.Tensor, ...]]:
         """Each member stage on its own kernel, one dispatch a stage, in
         order (a span condition reads its producer's returned spans): K1,
-        K2, K3 and K4 launches for CUDA tensors.  Per stage a tuple of
+        K2, K3, K4 and K5 launches for CUDA tensors.  Per stage a tuple of
         tensors, as the plain version lays them out."""
         from .kernels.dfa_scan import DFAMatchKernel, FusedScanKernel
         from .kernels.field_extract import ExtractKernel
+        from .kernels.struct_index import StructIndexKernel
         outs: List[Tuple[torch.Tensor, ...]] = []
         for spec in self.specs:
             if spec.kind == "extract":
                 kern = spec.staged or ExtractKernel(spec.payload)
+                outs.append(tuple(kern(rows, lengths)))
+            elif spec.kind == "struct_index":
+                kern = spec.staged or StructIndexKernel(*spec.payload)
                 outs.append(tuple(kern(rows, lengths)))
             elif spec.kind == "scan":
                 kern = spec.staged or FusedScanKernel(spec.payload)
@@ -509,7 +517,8 @@ def reset_for_testing() -> None:
 class FusedBatchResult:
     """Per-stage outputs in the group's row order: extract → (ok bool [n],
     cap_off i32 [n, C] arena-absolute, cap_len i32 [n, C]); scan → (tags
-    u32 [n],); keep → (keep bool [n],)."""
+    u32 [n],); keep → (keep bool [n],); struct_index → the four masks as
+    bool [n, Lmax] (Lmax the largest chunk's L)."""
 
     __slots__ = ("stages", "n")
 
@@ -531,7 +540,8 @@ class FusedDispatch:
     every in-flight future, slot and ledger entry and raises."""
 
     __slots__ = ("program", "device", "arena", "offsets", "lengths", "depth",
-                 "_pending", "_stage_bufs", "_result", "_n", "_plane")
+                 "_pending", "_stage_bufs", "_struct_parts", "_result", "_n",
+                 "_plane")
 
     def __init__(self, program: FusedProgramKernel, arena: np.ndarray,
                  offsets: np.ndarray, lengths: np.ndarray,
@@ -546,6 +556,8 @@ class FusedDispatch:
         # [(chunk_idx, DeviceBatch, BatchSlot, DeviceFuture)]
         self._pending: List = []
         self._stage_bufs = self._alloc_stage_bufs()
+        # struct_index stage -> [(chunk, packed masks, L)]
+        self._struct_parts: Dict[int, List] = {}
         self._result: Optional[FusedBatchResult] = None
         self._plane = DevicePlane.instance()
 
@@ -560,8 +572,10 @@ class FusedDispatch:
                              np.full((n, C), -1, dtype=np.int32)))
             elif spec.kind == "scan":
                 bufs.append((np.zeros(n, dtype=np.uint32),))
-            else:
+            elif spec.kind == "keep":
                 bufs.append((np.zeros(n, dtype=bool),))
+            else:  # struct_index: ragged per-chunk widths, assembled late
+                bufs.append(None)
         return bufs
 
     def dispatch(self) -> "FusedDispatch":
@@ -658,8 +672,12 @@ class FusedDispatch:
             elif spec.kind == "scan":
                 self._stage_bufs[si][0][chunk] = \
                     outs[0][:n_real].view(np.uint32)
-            else:
+            elif spec.kind == "keep":
                 self._stage_bufs[si][0][chunk] = outs[0][:n_real]
+            else:  # struct_index: keep the packed words, unpack late
+                self._struct_parts.setdefault(si, []).append(
+                    (chunk, [o[:n_real].copy() for o in outs],
+                     batch.rows.shape[1]))
 
     def result(self) -> FusedBatchResult:
         if self._result is not None:
@@ -670,6 +688,19 @@ class FusedDispatch:
         except BaseException:
             self._abandon(consume=True)
             raise
-        self._result = FusedBatchResult(list(self._stage_bufs), self._n)
+        stages = [self._finish_struct(si) if spec.kind == "struct_index"
+                  else self._stage_bufs[si]
+                  for si, spec in enumerate(self.program.specs)]
+        self._result = FusedBatchResult(stages, self._n)
         self.arena = None
         return self._result
+
+    def _finish_struct(self, si: int) -> Tuple[np.ndarray, ...]:
+        from .kernels.struct_index import unpack16
+        parts = self._struct_parts.get(si, [])
+        Lmax = max((L for _c, _m, L in parts), default=0)
+        out = tuple(np.zeros((self._n, Lmax), dtype=bool) for _ in range(4))
+        for chunk, masks, L in parts:
+            for mi in range(4):
+                out[mi][chunk, :L] = unpack16(masks[mi], L)
+        return out

@@ -1,14 +1,13 @@
-// K7: one pipeline program of Tier-1 extract, DFA scan and filter-keep
-// stages over rows staged once, for sm_90a.
+// K7: one pipeline program of Tier-1 extract, DFA scan, filter-keep and
+// structural-index stages over rows staged once, for sm_90a.
 //
 // Replaces the XLA program of the JAX package's resident stage fusion
 // (loongcollector_tpu/ops/fused_pipeline.py:156, build_fused_fn), which
 // chains the member stages' kernels (K1 build_extract_fn, K4
-// build_fused_scan_fn, K2 build_dfa_match_fn, K3 build_dfa_span_match_fn)
-// into one jitted program per stage list: inputs packed once, inter-stage
-// capture spans kept on the device, every output back in one transfer.
-// The struct_index stage (K5) is not ported yet; the host refuses a stage
-// list that holds one.
+// build_fused_scan_fn, K2 build_dfa_match_fn, K3 build_dfa_span_match_fn,
+// K5 build_index_fn) into one jitted program per stage list: inputs packed
+// once, inter-stage capture spans kept on the device, every output back in
+// one transfer.
 //
 // What it computes, per row, stage by stage (fused_pipeline.build_fused_fn
 // is the plain version it is held bit-exact against):
@@ -20,7 +19,11 @@
 //              span_match  a DFA full match of the bytes of capture `cap` of
 //                          an earlier extract stage, cut at the row's length;
 //                          false where that capture is absent (len -1),
-//                          before any negation.
+//                          before any negation;
+//   struct_index  K5's four bitmaps of the row (in_string, structural,
+//                 escaped, quote), JSON or delimiter mode, ceil(L / 16) i32
+//                 words a row each: the warp walks its rows' tile bytes one
+//                 row at a time with struct_walk.cuh, as K5 walks them.
 //
 // Bound on this card (H100 SXM, 3.35 TB/s, 700 W): bytes, the row bytes
 // below each length, the lengths, the descriptor and B * (outputs) bytes.
@@ -46,9 +49,10 @@
 //    capture state in shared memory ((3C | 1) words a row, as K1), and a
 //    later span condition reads it from there.  The warp writes the spans
 //    out, coalesced, for the host only.
-//  * Outputs: one flat buffer, the i32 arrays first (each stage's cap_off,
-//    cap_len, tags), then the byte arrays (ok, keep), an array at
-//    B * (row bytes before it).  The host copies it back once.
+//  * Outputs: one flat buffer, the fixed i32 arrays first (each stage's
+//    cap_off, cap_len, tags), then the struct_index masks (N_WIDE arrays of
+//    ceil(L / 16) words a row), then the byte arrays (ok, keep), an array
+//    at B * (row bytes before it).  The host copies it back once.
 //  * Instantiations: the first extract stage, when its program is depth 0
 //    and in shared memory, runs on its own inlined walker (by pivot kind),
 //    so the Apache program's stage has no stack frame (chip_smoke.py phase 1
@@ -66,6 +70,7 @@
 
 #include "dfa_walk.cuh"
 #include "extract_walk.cuh"
+#include "struct_walk.cuh"
 
 namespace {
 
@@ -73,18 +78,20 @@ namespace {
 enum : int {
   D_MAGIC = 0, D_NSTAGES, D_SHARED_WORDS, D_TOTAL_WORDS, D_FIRST,
   D_FIRST_STAGE, D_GENERAL, D_CAPS_WORDS, D_SCRATCH_OFF, D_ROW_BYTES,
-  D_NCONDS, D_HEADER = 16
+  D_NCONDS, D_NWIDE, D_HEADER = 16
 };
 constexpr int32_t kMagic = 0x4B375046;
 constexpr int kRecordWords = 8;
 constexpr int kMaxStages = 32;
-// stage record: kind; section (extract, scan) or first condition (keep);
-// captures (extract) or conditions (keep); capture state offset (words a
-// thread); pivot; outputs as bytes a row before each array
+// stage record: kind; section (extract, scan) or first condition (keep) or
+// mode (struct_index); captures (extract) or conditions (keep) or separator
+// (struct_index); capture state offset (words a thread); pivot; outputs as
+// bytes a row before each array (struct_index: the fixed i32 arrays' bytes
+// a row, then its first mask's index among the mask arrays)
 enum : int {
   S_KIND = 0, S_SEC, S_COUNT, S_CAPS_OFF, S_PIVOT, S_OUT0, S_OUT1, S_OUT2
 };
-enum : int { ST_EXTRACT = 0, ST_SCAN = 1, ST_KEEP = 2 };
+enum : int { ST_EXTRACT = 0, ST_SCAN = 1, ST_KEEP = 2, ST_STRUCT_INDEX = 3 };
 // condition record: kind, negate, section, producer stage, capture
 enum : int { C_KIND = 0, C_NEG, C_SEC, C_PROD, C_CAP };
 enum : int { CK_MATCH = 0, CK_EXTRACT_OK = 1, CK_SPAN = 2 };
@@ -176,6 +183,9 @@ fused_program_kernel(const uint8_t* __restrict__ rows,
   const bool live = tid < nrows;
   const Row r{tile + tid * ws, L, len};
   const int32_t clen = len < 0 ? 0 : (len > L ? L : len);  // bytes a DFA walks
+  // a mask row's words, and the mask arrays' bytes ahead of the byte arrays
+  const int32_t W = (L + 15) >> 4;
+  const int64_t bshift = B * 4 * W * d[D_NWIDE];
   uint32_t ext_ok = 0;      // bit si: extract stage si matched this row
   for (int32_t si = 0; si < nst; ++si) {
     const int32_t* st = d + D_HEADER + kRecordWords * si;
@@ -202,7 +212,7 @@ fused_program_kernel(const uint8_t* __restrict__ rows,
         } else {
           __trap();
         }
-        out[B * st[S_OUT0] + row0 + tid] = ok;
+        out[B * st[S_OUT0] + bshift + row0 + tid] = ok;
       }
       ext_ok |= static_cast<uint32_t>(ok) << si;
       __syncwarp();
@@ -216,6 +226,23 @@ fused_program_kernel(const uint8_t* __restrict__ rows,
       if (live)
         reinterpret_cast<int32_t*>(out + B * st[S_OUT0])[row0 + tid] =
             dfa_tile(b, st[S_SEC], r.w, 0, clen);
+    } else if (kind == ST_STRUCT_INDEX) {
+      // the warp walks its rows one at a time, as K5 does
+      int32_t* const masks = reinterpret_cast<int32_t*>(out + B * st[S_OUT0])
+                             + B * W * st[S_OUT1];
+      const uint32_t sep = static_cast<uint32_t>(st[S_COUNT]);
+      for (int32_t i = 0; i < wrows; ++i) {
+        const int32_t rl = __shfl_sync(0xffffffffu, len, i);
+        const int32_t n = rl < 0 ? 0 : (rl > L ? L : rl);
+        const uint8_t* const tb =
+            reinterpret_cast<const uint8_t*>(tile + (wrow + i) * ws);
+        const auto fetch = [tb](int32_t p) { return tb[p]; };
+        int32_t* const o = masks + (row0 + wrow + i) * W;
+        if (st[S_SEC] == kStructJson)
+          struct_row<kStructJson>(fetch, L, n, sep, lane, o, B * W);
+        else
+          struct_row<kStructDelim>(fetch, L, n, sep, lane, o, B * W);
+      }
     } else if (live) {      // keep
       bool keep = true;
       const int32_t c_end = st[S_SEC] + st[S_COUNT];
@@ -252,7 +279,7 @@ fused_program_kernel(const uint8_t* __restrict__ rows,
         }
         keep = c[C_NEG] ? !ok : ok;
       }
-      out[B * st[S_OUT0] + row0 + tid] = keep;
+      out[B * st[S_OUT0] + bshift + row0 + tid] = keep;
     }
   }
 }
@@ -310,7 +337,7 @@ extern "C" {
 
 // One launch on `stream` without synchronising: rows u8 [B, L], lens i32
 // [B], the descriptor `desc` in device memory, `out` the flat output of
-// B * row_bytes bytes; `first` and `general` pick the instantiation (from
+// B * (ROW_BYTES + 4 * ceil(L / 16) * N_WIDE) bytes; `first` and `general` pick the instantiation (from
 // the descriptor's header), `threads` and `smem_bytes` the block
 // (fused_program_cuda.launch_geometry).  ev_start / ev_end: CUDA events
 // recorded right around the launch, or null.  Returns the cudaError_t.

@@ -2,8 +2,9 @@
 
 The kernel (``csrc/fused_program.cu``) runs a pipeline's fused stage list
 (``ops/fused_pipeline.py``) over rows it stages once: Tier-1 ``extract``
-stages, DFA ``scan`` stages and filter ``keep`` stages with ``match``,
-``extract_ok`` and ``span_match`` conditions.  It is built like K1's
+stages, DFA ``scan`` stages, filter ``keep`` stages with ``match``,
+``extract_ok`` and ``span_match`` conditions, and ``struct_index`` stages
+(K5's four bitmaps, ``csrc/struct_walk.cuh``).  It is built like K1's
 (``field_extract_cuda.compile_library``: ``nvcc`` for ``sm_90a`` into a
 shared library with a plain C interface, at first use, into
 ``build/kernels/<source hash>/``, the hash covering the headers it
@@ -15,10 +16,13 @@ The stage list is data: ``pack_descriptor`` turns it into one int32
 descriptor (``FusedDescriptor.blob``)::
 
     [0, 16)              header (``_HEADER`` indices)
-    stage records        8 words each: kind, section or first condition,
-                         captures or conditions, capture-state offset,
+    stage records        8 words each: kind, section or first condition
+                         (a struct_index stage: its mode), captures or
+                         conditions (its separator), capture-state offset,
                          pivot, and the output arrays as bytes a row
-                         before each
+                         before each (a struct_index stage: the bytes a
+                         row of the fixed i32 arrays, and its first mask's
+                         index among the mask arrays)
     condition records    8 words each: kind, negate, section, producer
                          stage, capture
     sections             Tier-1 programs (``KernelProgram.blob``) and
@@ -33,10 +37,13 @@ length bucket, the first extract stage's program before every other, so
 every geometry ``launch_geometry`` picks holds it.  A stage list is never
 refused for its size at a launch.
 
-The outputs are one flat byte buffer of ``B * row_bytes`` bytes: the i32
-arrays first (each extract stage's ``cap_off`` and ``cap_len``, each scan's
-tags), then the byte arrays (each extract stage's ``ok``, each keep), an
-array at ``B`` times the bytes a row before it (``output_arrays``).
+The outputs are one flat byte buffer of ``B * row_bytes_at(L)`` bytes: the
+fixed i32 arrays first (each extract stage's ``cap_off`` and ``cap_len``,
+each scan's tags), then the mask arrays (four a struct_index stage, each
+``ceil(L / 16)`` i32 words a row, so the bytes a row follow ``L``), then
+the byte arrays (each extract stage's ``ok``, each keep); an array lies at
+``B`` times the bytes a row before it (``output_arrays``,
+``OutputArray.offset``).
 Importing this module needs no CUDA: only ``build()`` and ``launch()``
 touch the toolchain and the card.
 """
@@ -57,6 +64,7 @@ import torch
 from .. import compile_watch
 from ..device_batch import LENGTH_BUCKETS
 from . import field_extract_cuda as fxc
+from .struct_index_cuda import MODES as STRUCT_MODES
 
 MAGIC = 0x4B375046
 HEADER_WORDS = 16
@@ -67,9 +75,10 @@ MAX_STATES = 128              # the DFA walk's cap (dfa_scan_cuda.MAX_STATES)
 
 _HEADER = ["MAGIC", "NSTAGES", "SHARED_WORDS", "TOTAL_WORDS", "FIRST",
            "FIRST_STAGE", "GENERAL", "CAPS_WORDS", "SCRATCH_OFF",
-           "ROW_BYTES", "NCONDS"]
+           "ROW_BYTES", "NCONDS", "NWIDE"]
 H = {name: i for i, name in enumerate(_HEADER)}
-STAGE_KINDS = {"extract": 0, "scan": 1, "keep": 2}
+STAGE_KINDS = {"extract": 0, "scan": 1, "keep": 2, "struct_index": 3}
+STRUCT_MASKS = ("in_string", "structural", "escaped", "quote")
 COND_KINDS = {"match": 0, "extract_ok": 1, "span_match": 2}
 
 _SRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc",
@@ -101,7 +110,8 @@ class KernelCond:
 @dataclass(frozen=True)
 class KernelStage:
     """One stage: "extract" (``obj`` a KernelProgram), "scan" (an
-    AutomatonArrays) or "keep" (``conds``)."""
+    AutomatonArrays), "keep" (``conds``) or "struct_index" (``obj`` a
+    (mode, separator byte) pair, mode "json" or "delim")."""
 
     kind: str
     obj: object = None
@@ -111,18 +121,32 @@ class KernelStage:
 @dataclass(frozen=True)
 class OutputArray:
     """One array of the flat output: ``stage`` and its ``name`` (ok,
-    cap_off, cap_len, tags, keep), ``width`` values a row of ``dtype``, at
-    ``B * unit`` bytes."""
+    cap_off, cap_len, tags, keep, or a struct_index stage's mask),
+    ``width`` values a row of ``dtype`` (0 for a mask: ``ceil(L / 16)``
+    words), at ``B * (unit + 4 * ceil(L / 16) * wide)`` bytes: ``wide`` is
+    the count of mask arrays before it."""
 
     stage: int
     name: str
     dtype: str                # "int32" or "bool"
     width: int
     unit: int
+    wide: int = 0
 
     @property
     def itemsize(self) -> int:
         return 4 if self.dtype == "int32" else 1
+
+    @property
+    def mask(self) -> bool:
+        return self.width == 0
+
+    def width_at(self, W: int) -> int:
+        """Values a row when a mask row holds ``W`` words."""
+        return W if self.mask else self.width
+
+    def offset(self, B: int, W: int) -> int:
+        return B * (self.unit + 4 * W * self.wide)
 
 
 @dataclass
@@ -135,13 +159,22 @@ class FusedDescriptor:
     first_stage: int
     general: bool
     caps_words: int           # capture-state words a row
-    row_bytes: int            # flat output bytes a row
+    row_bytes: int            # flat output bytes a row, masks aside
     outputs: List[OutputArray]
     placement: Dict[str, str]  # section name -> "shared" / "device"
+    n_wide: int = 0           # mask arrays (four a struct_index stage)
 
     @property
     def instantiation(self) -> str:
         return instantiation_key(self.first, self.general)
+
+    def row_bytes_at(self, L: int) -> int:
+        """Flat output bytes a row at length ``L``: a mask array adds
+        ``4 * ceil(L / 16)``."""
+        return self.row_bytes + 4 * ((L + 15) // 16) * self.n_wide
+
+    def flat_bytes(self, B: int, L: int) -> int:
+        return B * self.row_bytes_at(L)
 
 
 def instantiation_key(first: int, general: bool) -> str:
@@ -181,8 +214,10 @@ def _automaton_words(arrays) -> np.ndarray:
 def output_arrays(stages: Sequence[KernelStage]) -> Tuple[List[OutputArray],
                                                          int]:
     """The flat output's arrays in layout order (stage by stage: extract ok,
-    cap_off, cap_len; scan tags; keep), and the bytes a row.  The i32
-    arrays come first in the buffer, so each lies 4-byte aligned."""
+    cap_off, cap_len; scan tags; keep; struct_index in_string, structural,
+    escaped, quote), and the bytes a row, masks aside.  In the buffer the
+    fixed i32 arrays come first, then the masks, then the byte arrays, so
+    every i32 array lies 4-byte aligned."""
     arrays: List[Tuple[int, str, str, int]] = []
     for si, st in enumerate(stages):
         if st.kind == "extract":
@@ -191,16 +226,26 @@ def output_arrays(stages: Sequence[KernelStage]) -> Tuple[List[OutputArray],
                        (si, "cap_len", "int32", C)]
         elif st.kind == "scan":
             arrays.append((si, "tags", "int32", 1))
+        elif st.kind == "struct_index":
+            arrays += [(si, name, "int32", 0) for name in STRUCT_MASKS]
         else:
             arrays.append((si, "keep", "bool", 1))
     unit = 0
-    units: Dict[int, int] = {}
-    for want in ("int32", "bool"):
-        for i, (_si, _name, dtype, width) in enumerate(arrays):
-            if dtype == want:
-                units[i] = unit
-                unit += width * (4 if dtype == "int32" else 1)
-    return ([OutputArray(si, name, dtype, width, units[i])
+    units: Dict[int, Tuple[int, int]] = {}
+    for i, (_si, _name, dtype, width) in enumerate(arrays):
+        if dtype == "int32" and width:
+            units[i] = (unit, 0)
+            unit += 4 * width
+    wide = 0
+    for i, (_si, _name, dtype, width) in enumerate(arrays):
+        if not width:
+            units[i] = (unit, wide)
+            wide += 1
+    for i, (_si, _name, dtype, width) in enumerate(arrays):
+        if dtype == "bool":
+            units[i] = (unit, wide)
+            unit += width
+    return ([OutputArray(si, name, dtype, width, *units[i])
              for i, (si, name, dtype, width) in enumerate(arrays)], unit)
 
 
@@ -213,7 +258,8 @@ def pack_descriptor(stages: Sequence[KernelStage]) -> FusedDescriptor:
     """The kernel's descriptor of a stage list; raises FusedUnsupported for
     a list the kernel cannot run (a stage kind it lacks, a span condition
     on a stage that is not an earlier extract, or a capture out of range,
-    too many stages or conditions, an automaton over the state cap)."""
+    too many stages or conditions, an automaton over the state cap, a
+    struct_index mode or separator it does not know)."""
     stages = list(stages)
     if not 1 <= len(stages) <= MAX_STAGES:
         raise FusedUnsupported(f"{len(stages)} stages outside "
@@ -223,6 +269,8 @@ def pack_descriptor(stages: Sequence[KernelStage]) -> FusedDescriptor:
         raise FusedUnsupported(f"{n_conds} conditions > {MAX_CONDS}")
     outputs, row_bytes = output_arrays(stages)
     out_units = {(o.stage, o.name): o.unit for o in outputs}
+    out_wide = {(o.stage, o.name): o.wide for o in outputs}
+    n_wide = sum(o.mask for o in outputs)
 
     # capture state: each extract stage's, then the general walker's scratch
     caps_off: Dict[int, int] = {}
@@ -231,6 +279,9 @@ def pack_descriptor(stages: Sequence[KernelStage]) -> FusedDescriptor:
     for si, st in enumerate(stages):
         if st.kind not in STAGE_KINDS:
             raise FusedUnsupported(f"stage kind {st.kind!r}")
+        if st.kind == "struct_index" and (
+                st.obj[0] not in STRUCT_MODES or not 0 <= st.obj[1] <= 255):
+            raise FusedUnsupported(f"struct_index stage {st.obj!r}")
         if st.kind == "extract":
             caps_off[si] = acc
             acc += _state_words(st.obj)
@@ -309,6 +360,7 @@ def pack_descriptor(stages: Sequence[KernelStage]) -> FusedDescriptor:
     hdr[H["SCRATCH_OFF"]] = scratch_off
     hdr[H["ROW_BYTES"]] = row_bytes
     hdr[H["NCONDS"]] = n_conds
+    hdr[H["NWIDE"]] = n_wide
     stage_rec = np.zeros((len(stages), RECORD_WORDS), np.int32)
     cond_rec = np.zeros((n_conds, RECORD_WORDS), np.int32)
     ci_all = 0
@@ -325,6 +377,11 @@ def pack_descriptor(stages: Sequence[KernelStage]) -> FusedDescriptor:
         elif st.kind == "scan":
             rec[1] = offsets[f"stage{si}"]
             rec[5] = out_units[(si, "tags")]
+        elif st.kind == "struct_index":
+            rec[1] = STRUCT_MODES[st.obj[0]]
+            rec[2] = st.obj[1]
+            rec[5] = out_units[(si, STRUCT_MASKS[0])]
+            rec[6] = out_wide[(si, STRUCT_MASKS[0])]
         else:
             if not st.conds:
                 raise FusedUnsupported(f"keep stage {si} has no condition")
@@ -344,7 +401,7 @@ def pack_descriptor(stages: Sequence[KernelStage]) -> FusedDescriptor:
     assert len(blob) == pos
     return FusedDescriptor(blob, used, first, hdr[H["FIRST_STAGE"]].item(),
                            general, caps_words, row_bytes, outputs,
-                           placement)
+                           placement, n_wide)
 
 
 def smem_bytes(threads: int, L: int, desc: FusedDescriptor) -> int:
@@ -375,20 +432,25 @@ def launch_geometry(B: int, L: int, desc: FusedDescriptor
 
 def split_flat(flat, B: int, desc: FusedDescriptor) -> list:
     """The flat output's arrays, in layout order, as views of ``flat``
-    (a uint8 numpy array or tensor of ``B * row_bytes``): [B] for a width
-    of 1 (ok, tags, keep), else [B, C]."""
+    (a uint8 numpy array or tensor of ``desc.flat_bytes(B, L)``; the words
+    a mask row holds follow from its size): [B] for a width of 1 (ok,
+    tags, keep), else [B, C] or [B, ceil(L / 16)]."""
     out = []
     is_tensor = isinstance(flat, torch.Tensor)
+    n = flat.numel() if is_tensor else len(flat)
+    W = (n // B - desc.row_bytes) // (4 * desc.n_wide) \
+        if desc.n_wide and B else 0
     for o in desc.outputs:
-        start = B * o.unit
-        part = flat[start:start + B * o.width * o.itemsize]
+        start = o.offset(B, W)
+        width = o.width_at(W)
+        part = flat[start:start + B * width * o.itemsize]
         if is_tensor:
             part = part.view(torch.int32 if o.dtype == "int32"
                              else torch.bool)
         else:
             part = part.view(np.int32 if o.dtype == "int32" else np.bool_)
-        out.append(part.reshape(B, o.width)
-                   if o.name in ("cap_off", "cap_len") else part)
+        out.append(part.reshape(B, width)
+                   if o.name in ("cap_off", "cap_len") or o.mask else part)
     return out
 
 
@@ -478,9 +540,9 @@ def launch(rows: torch.Tensor, lengths: torch.Tensor, blob: torch.Tensor,
     """One K7 launch on PyTorch's current stream, without a synchronise:
     rows u8 [B, L], lengths i32 [B] and the descriptor ``blob`` (i32, on
     the card) on one CUDA device, contiguous.  Returns the flat output, u8
-    ``[B * row_bytes]`` (``split_flat`` views it).  ``events``, a (start,
-    end) pair of timing CUDA events when given, is recorded by the entry
-    point right around the kernel."""
+    ``[desc.flat_bytes(B, L)]`` (``split_flat`` views it).  ``events``, a
+    (start, end) pair of timing CUDA events when given, is recorded by the
+    entry point right around the kernel."""
     dev = rows.device
     if dev.type != "cuda" or lengths.device != dev or blob.device != dev:
         raise ValueError("fused_program: rows, lengths and the descriptor "
@@ -503,7 +565,7 @@ def launch(rows: torch.Tensor, lengths: torch.Tensor, blob: torch.Tensor,
     shape = LaunchShape(desc.instantiation, B, L, threads, smem,
                         -(-B // threads), desc.shared_words,
                         len(desc.blob) - desc.shared_words)
-    out = torch.empty(B * desc.row_bytes, dtype=torch.uint8, device=dev)
+    out = torch.empty(desc.flat_bytes(B, L), dtype=torch.uint8, device=dev)
     stream = torch.cuda.current_stream(dev)
     handles = (None, None)
     if events is not None:

@@ -8,6 +8,7 @@ one pipeline YAML drives either package.
 def register_all(registry) -> None:
     from .filter import ProcessorFilter
     from .grok import ProcessorGrok
+    from .parse_delimiter import ProcessorParseDelimiter
     from .parse_json import ProcessorParseJson
     from .parse_regex import ProcessorParseRegex
     from .parse_timestamp import ProcessorParseTimestamp
@@ -25,6 +26,10 @@ def register_all(registry) -> None:
                                 ProcessorParseJson)
     registry.register_processor("processor_parse_json_tpu",
                                 ProcessorParseJson)
+    registry.register_processor("processor_parse_delimiter_native",
+                                ProcessorParseDelimiter)
+    registry.register_processor("processor_parse_delimiter_tpu",
+                                ProcessorParseDelimiter)
     registry.register_processor("processor_parse_timestamp_native",
                                 ProcessorParseTimestamp)
     registry.register_processor("processor_filter_native", ProcessorFilter)

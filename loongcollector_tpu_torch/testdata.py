@@ -868,3 +868,380 @@ def k6_cases(max_rows=65536):
                                   f"{'_spread' if spread else ''}",
                                   B, G, n_hist, invalid, hot, inf, spread))
     return cases
+
+
+# -- the structural-index slice: quote-mode CSV, pipe-delimited, JSON ---------
+
+CSV_KEYS = ["time", "client", "method", "url", "status", "bytes",
+            "user_agent", "request_id"]
+_CSV_PATHS = ["/api/v1/items", "/api/v2/orders", "/search", "/static/app.js",
+              "/login", "/cart/checkout", "/reports/export"]
+_CSV_AGENTS = [
+    "Mozilla/5.0 (X11; Linux x86_64) AppleWebKit/537.36 (KHTML, like Gecko) "
+    "Chrome/124.0 Safari/537.36",
+    "Mozilla/5.0 (Macintosh; Intel Mac OS X 14_4) AppleWebKit/605.1.15 "
+    "(KHTML, like Gecko) Version/17.4 Safari/605.1.15",
+    "Mozilla/5.0 (Windows NT 10.0; Win64; x64; rv:125.0) Gecko/20100101 "
+    "Firefox/125.0",
+    "curl/8.5.0, libcurl/8.5.0 (x86_64-pc-linux-gnu)",
+]
+
+
+def gen_quoted_csv(n, seed=0):
+    """``n`` quote-mode CSV lines of an HTTP audit log, as bytes, about
+    200-250 bytes each, eight fields (``CSV_KEYS``): the URL and the user
+    agent are quoted and hold commas.  About 1% of the rows carry doubled
+    quotes (``""``) inside the quoted agent, about 0.1% lose the closing
+    quote of the URL (an unbalanced quote)."""
+    rng = np.random.default_rng(seed)
+    methods = ["GET", "POST", "PUT", "DELETE"]
+    statuses = [200, 200, 200, 201, 204, 301, 404, 500]
+    r = rng.random(n)
+    path = rng.integers(len(_CSV_PATHS), size=n)
+    ids = rng.integers(1, 999, size=(n, 3))
+    page = rng.integers(1, 50, size=n)
+    agent = rng.integers(len(_CSV_AGENTS), size=n)
+    ip = rng.integers(0, 256, size=(n, 3))
+    method = rng.integers(len(methods), size=n)
+    status = rng.integers(len(statuses), size=n)
+    size = rng.integers(0, 10 ** 6, size=n)
+    lines = []
+    for i in range(n):
+        url = (f"{_CSV_PATHS[path[i]]}?ids={ids[i, 0]},{ids[i, 1]},"
+               f"{ids[i, 2]}&sort=asc&lang=en-US&page={page[i]}")
+        ua = _CSV_AGENTS[agent[i]]
+        if r[i] < 0.01:
+            ua = ua.replace("(KHTML", '""build 7"", (KHTML') \
+                if "KHTML" in ua else ua + ' ""beta""'
+        url_f = f'"{url}' if 0.01 <= r[i] < 0.011 else f'"{url}"'
+        lines.append(
+            (f"2024-05-01T{(i // 3600) % 24:02d}:{(i // 60) % 60:02d}:"
+             f"{i % 60:02d}.{i % 1000:03d}Z,10.{ip[i, 0]}.{ip[i, 1]}."
+             f"{ip[i, 2] or 1},{methods[method[i]]},{url_f},"
+             f"{statuses[status[i]]},{size[i]},\"{ua}\","
+             f"req-{i:08d}").encode())
+    return lines
+
+
+def quoted_csv_config(log_path, out_path):
+    """The quote-mode CSV config, as YAML: ``input_file``,
+    ``processor_parse_delimiter_native`` (``Mode: quote``, ``Separator:
+    ","``, ``CSV_KEYS``), ``flusher_file``."""
+    return f"""inputs:
+  - Type: input_file
+    FilePaths: [{log_path}]
+processors:
+  - Type: processor_parse_delimiter_native
+    SourceKey: content
+    Separator: ","
+    Mode: quote
+    Keys: [{", ".join(CSV_KEYS)}]
+flushers:
+  - Type: flusher_file
+    FilePath: {out_path}
+"""
+
+
+def csv_oracle(lines, keys=CSV_KEYS, sep=b","):
+    """Each line's record as the quote-mode parse gives it, in order: the
+    reference FSM's fields (``_csv_fsm_split``), the tail fields joined
+    into the last key; a line with fewer fields than keys keeps only
+    ``rawLog``."""
+    from .processor.parse_delimiter import _csv_fsm_split
+    F = len(keys)
+    out = []
+    for line in lines:
+        fields = _csv_fsm_split(line, sep)
+        if len(fields) < F:
+            out.append({"rawLog": line.decode()})
+            continue
+        if len(fields) > F:
+            fields = fields[:F - 1] + [sep.join(fields[F - 1:])]
+        out.append({k: v.decode() for k, v in zip(keys, fields)})
+    return out
+
+
+def csv_deviant(line, F=len(CSV_KEYS), sep=0x2C, quote=0x22):
+    """True when the index tier cannot emit the row from its masks: an odd
+    count of quotes, a quote that is not at a field's edge (the row's ends
+    or next to a separator outside quotes), or more fields than ``F``.
+    A per-row walk, written apart from the masks it checks."""
+    inside = False
+    seps = []
+    quotes = []
+    for i, b in enumerate(line):
+        if b == quote:
+            inside = not inside
+            quotes.append(i)
+        elif b == sep and not inside:
+            seps.append(i)
+    if len(quotes) % 2 or len(seps) + 1 > F:
+        return True
+    edge = set(seps)
+    return any(not (i == 0 or i == len(line) - 1 or i - 1 in edge
+                    or i + 1 in edge) for i in quotes)
+
+
+PIPE_KEYS = ["time", "level", "service", "host", "latency_ms", "msg"]
+PIPE_INCLUDE = {"level": "ERROR|WARN"}
+PIPE_EXCLUDE = {"service": "healthcheck"}
+_PIPE_SERVICES = ["checkout", "payments", "search", "healthcheck", "auth",
+                  "inventory"]
+_PIPE_MSGS = ["request served", "upstream timeout after {n} ms",
+              "cache miss for key user:{n}", "retrying call {n}",
+              "queue depth {n} | over soft limit", "connection reset by peer"]
+
+
+def gen_pipe_log(n, seed=0):
+    """``n`` pipe-delimited service log lines, as bytes:
+    ``time|level|service|host|latency_ms|msg``; a message may hold a ``|``
+    (the last field takes the rest), and about 0.1% of the lines have too
+    few fields."""
+    rng = np.random.default_rng(seed)
+    levels = ["INFO"] * 14 + ["DEBUG"] * 2 + ["WARN"] * 2 + ["ERROR"] * 2
+    msg = rng.integers(len(_PIPE_MSGS), size=n)
+    num = rng.integers(1, 10 ** 5, size=n)
+    lvl = rng.integers(len(levels), size=n)
+    svc = rng.integers(len(_PIPE_SERVICES), size=n)
+    node = rng.integers(64, size=n)
+    lat = rng.integers(0, 5000, size=n)
+    short = rng.random(n) < 0.001
+    lines = []
+    for i in range(n):
+        line = (f"2024-05-01T{(i // 3600) % 24:02d}:{(i // 60) % 60:02d}:"
+                f"{i % 60:02d}.{i % 1000:03d}Z|{levels[lvl[i]]}|"
+                f"{_PIPE_SERVICES[svc[i]]}|node-{node[i]:02d}|{lat[i]}|"
+                + _PIPE_MSGS[msg[i]].format(n=num[i]))
+        if short[i]:
+            line = line.rsplit("|", 3)[0]
+        lines.append(line.encode())
+    return lines
+
+
+def pipe_filter_config(log_path, out_path):
+    """The delimiter-then-filter config, as YAML: ``input_file``,
+    ``processor_parse_delimiter_native`` (``|``, ``PIPE_KEYS``, non-quote),
+    ``processor_filter_native`` keeping ``level`` ERROR or WARN and dropping
+    ``service`` healthcheck, ``flusher_file``."""
+    return f"""inputs:
+  - Type: input_file
+    FilePaths: [{log_path}]
+processors:
+  - Type: processor_parse_delimiter_native
+    SourceKey: content
+    Separator: "|"
+    Keys: [{", ".join(PIPE_KEYS)}]
+  - Type: processor_filter_native
+    Include:
+      level: '{PIPE_INCLUDE["level"]}'
+    Exclude:
+      service: '{PIPE_EXCLUDE["service"]}'
+flushers:
+  - Type: flusher_file
+    FilePath: {out_path}
+"""
+
+
+def pipe_filter_oracle(lines):
+    """The fields of the lines the delimiter-filter path keeps, in order:
+    ``split`` into the six keys (the last takes the rest; fewer fields
+    fail the parse and have no level), then ``re.fullmatch`` of the
+    Include and Exclude."""
+    inc = re.compile(PIPE_INCLUDE["level"].encode())
+    exc = re.compile(PIPE_EXCLUDE["service"].encode())
+    lvl, svc = PIPE_KEYS.index("level"), PIPE_KEYS.index("service")
+    out = []
+    for line in lines:
+        fields = line.split(b"|", len(PIPE_KEYS) - 1)
+        if len(fields) < len(PIPE_KEYS) or not inc.fullmatch(fields[lvl]) \
+                or exc.fullmatch(fields[svc]):
+            continue
+        out.append({k: v.decode() for k, v in zip(PIPE_KEYS, fields)})
+    return out
+
+
+JSON_FILTER_LEVEL = "ERROR|WARN"
+
+
+def gen_json_events(n, seed=0):
+    """``n`` structured JSON events of about 1 KB, as bytes: a flat object
+    of strings and integers (time, level, service, host, trace and span
+    ids, HTTP fields, a message with escapes, and a long attributes
+    string).  ``level`` is INFO 70%, DEBUG 10%, WARN 12%, ERROR 8%."""
+    import json as _json
+    rng = np.random.default_rng(seed)
+    levels = np.array(["INFO", "DEBUG", "WARN", "ERROR"])
+    lvl = levels[np.searchsorted([0.7, 0.8, 0.92], rng.random(n),
+                                 side="right")]
+    words = ["alpha", "bravo", "charlie", "delta", "echo", "foxtrot", "golf",
+             "hotel", "india", "juliet", "kilo", "lima"]
+    # attribute strings of 54 pairs, from a seeded pool of pairs
+    pairs = [f"{words[w]}={v}" for w, v in zip(
+        rng.integers(12, size=4096), rng.integers(10 ** 6, size=4096))]
+    pick = rng.integers(4096, size=(n, 54))
+    service = rng.integers(6, size=n)
+    host = rng.integers(64, size=n)
+    ids = rng.integers(2 ** 62, size=(n, 2))
+    method = rng.integers(3, size=n)
+    path = rng.integers(len(_CSV_PATHS), size=n)
+    status = rng.choice([200, 201, 404, 500, 503], size=n)
+    nums = rng.integers(0, 10 ** 6, size=(n, 3))
+    word = rng.integers(12, size=n)
+    lines = []
+    for i in range(n):
+        ev = {
+            "time": f"2024-05-01T{(i // 3600) % 24:02d}:"
+                    f"{(i // 60) % 60:02d}:{i % 60:02d}.{i % 1000:03d}Z",
+            "level": str(lvl[i]),
+            "service": _PIPE_SERVICES[service[i]],
+            "host": f"node-{host[i]:02d}",
+            "trace_id": f"{ids[i, 0]:032x}",
+            "span_id": f"{ids[i, 1]:016x}",
+            "method": ["GET", "POST", "PUT"][method[i]],
+            "path": _CSV_PATHS[path[i]],
+            "status": int(status[i]),
+            "latency_ms": int(nums[i, 0] % 5000),
+            "bytes": int(nums[i, 1]),
+            "msg": f"call \"{words[word[i]]}\" done\tin "
+                   f"{nums[i, 2] % 1000} ms\nretry=0",
+            "attrs": ";".join(pairs[j] for j in pick[i]),
+        }
+        lines.append(_json.dumps(ev, separators=(",", ":")).encode())
+    return lines
+
+
+def json_filter_config(log_path, out_path):
+    """The shipped ``example_config/quick_start/json_filter.yaml``
+    (``BASELINE.json`` config 4), as YAML, with its FilePaths pointed at
+    ``log_path`` and ``flusher_file`` in place of ``flusher_stdout``."""
+    import os as _os
+    src = _os.path.join(_os.path.dirname(_os.path.dirname(
+        _os.path.abspath(__file__))), "example_config", "quick_start",
+        "json_filter.yaml")
+    with open(src) as f:
+        text = f.read()
+    text = text.replace("/tmp/loongcollector_demo/events.json", log_path)
+    text = text.replace("  - Type: flusher_stdout",
+                        f"  - Type: flusher_file\n    FilePath: {out_path}")
+    if log_path not in text or out_path not in text:
+        raise ValueError("json_filter.yaml no longer has the expected "
+                         "FilePaths or flusher")
+    return text
+
+
+def json_filter_oracle(lines):
+    """The events the JSON-filter path keeps, in order, as ``json.loads``
+    gives them with every value as the text the parse keeps (strings
+    decoded, integers in their source spelling)."""
+    import json as _json
+    inc = re.compile(JSON_FILTER_LEVEL)
+    out = []
+    for line in lines:
+        ev = _json.loads(line)
+        if isinstance(ev.get("level"), str) and inc.fullmatch(ev["level"]):
+            out.append({k: v if isinstance(v, str) else str(v)
+                        for k, v in ev.items()})
+    return out
+
+
+def struct_stage_lists():
+    """The stage lists K7's ``struct_index`` stage is held to, as (name,
+    specs, rows) like ``fused_stage_lists``: ``struct_json`` (one JSON-mode
+    stage), ``struct_delim`` (one delimiter-mode stage, ``,``) and
+    ``delim_struct_keep`` (the pipe delimiter's Tier-1 program, a
+    delimiter-mode index on ``|``, and the delimiter-filter path's keep on
+    the level and service captures).  No planner emits such a stage: these
+    lists are built here, as the reference's tests build theirs."""
+    from .ops import fused_pipeline as fp
+    from .ops.kernels.dfa_scan import LazySpanMatchKernel
+    from .ops.kernels.field_extract import ExtractKernel
+    from .ops.kernels.struct_index import MODE_DELIM, MODE_JSON
+    from .ops.regex.dfa import compile_dfa
+    from .ops.regex.program import compile_tier1
+
+    def struct(mode, sep):
+        return fp.StageSpec("struct_index", (mode, sep),
+                            ["struct_index", mode, sep])
+
+    def span(pattern, prod, cap, negate=False):
+        dfa = compile_dfa(pattern)
+        return fp.StageCond("span_match", dfa,
+                            ["span_match", pattern, prod, cap, negate],
+                            binding=(prod, cap), negate=negate,
+                            staged=LazySpanMatchKernel(dfa))
+
+    kern = ExtractKernel(compile_tier1(PIPE_PATTERN))
+    lvl, svc = PIPE_KEYS.index("level"), PIPE_KEYS.index("service")
+    keep_conds = [span(PIPE_INCLUDE["level"], 0, lvl),
+                  span(PIPE_EXCLUDE["service"], 0, svc, negate=True)]
+    return [
+        ("struct_json", [struct(MODE_JSON, 0x2C)], _json_struct_rows),
+        ("struct_delim", [struct(MODE_DELIM, 0x2C)], _csv_struct_rows),
+        ("delim_struct_keep",
+         [fp.StageSpec("extract", kern.program, ["extract", PIPE_PATTERN],
+                       staged=kern),
+          struct(MODE_DELIM, 0x7C),
+          fp.StageSpec("keep", keep_conds,
+                       ["keep"] + [list(c.ident) for c in keep_conds])],
+         _pipe_struct_rows),
+    ]
+
+
+#: the pipe delimiter's Tier-1 program, as processor_parse_delimiter
+#: derives it for six keys
+PIPE_PATTERN = r"\|".join([r"([^\|]*)"] * 5 + ["(.*)"])
+
+
+def struct_adversarial_rows():
+    """The reference's adversarial rows of the structural index
+    (``tests/test_struct_index.py:110-125``): escapes, unterminated
+    strings, doubled quotes, backslash runs of 1-9 ending at bytes 54-63,
+    and 250 seeded rows over ``ab\\",{}[]: \\t``."""
+    rows = [b'{"a": "b"}', b'', b'{}', b'\\"x', b'"unterm',
+            b'a,b,"c,d",e', b'"a""b",c',
+            b'{"k": "v\\nw", "n": [1, {"m": "x,y"}]}']
+    for k in range(1, 10):
+        rows.append(b'x' * (63 - k) + b'\\' * k + b'n"q"')
+        rows.append(b'{"e": "' + b'x' * (55 - k) + b'\\' * k + b'n"}')
+    rng = np.random.default_rng(21)
+    for _ in range(250):
+        L = int(rng.integers(0, 150))
+        rows.append(bytes(rng.choice(
+            list(b'ab\\",{}[]: \t'), size=L).astype(np.uint8)))
+    return rows
+
+
+def _json_struct_rows(rng, n, L):
+    pool = struct_adversarial_rows() + gen_json_events(
+        20, seed=int(rng.integers(1000)))
+    pool += [b'"' + b'\\' * k + b'"' * 3 for k in range(40)]
+    return _fit(rng, pool, n, L)
+
+
+def _csv_struct_rows(rng, n, L):
+    pool = struct_adversarial_rows() + gen_quoted_csv(
+        200, seed=int(rng.integers(1000)))
+    return _fit(rng, pool, n, L)
+
+
+def _pipe_struct_rows(rng, n, L):
+    pool = gen_pipe_log(300, seed=int(rng.integers(1000)))
+    pool += [b'a|"b|c"|d', b'"|"|x|y|z|w', b'||||||', b'x|y']
+    return _fit(rng, pool, n, L)
+
+
+def reader_chunks(lines, chunk_size=512 * 1024):
+    """The lines of each group a one-shot read of ``lines`` (as a file)
+    makes: each reader chunk of at most ``chunk_size`` bytes ending at a
+    newline (``input/file/reader.py``), in order."""
+    data = b"\n".join(lines) + b"\n"
+    groups = []
+    off = i = 0
+    while off < len(data):
+        piece = data[off:off + chunk_size]
+        aligned = piece.rfind(b"\n") + 1
+        k = piece.count(b"\n", 0, aligned)
+        groups.append(lines[i:i + k])
+        off += aligned
+        i += k
+    return groups

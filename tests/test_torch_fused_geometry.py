@@ -195,13 +195,80 @@ def test_refused_stage_lists():
         fpc.pack_descriptor([fpc.KernelStage("scan", big)])
 
 
-def test_struct_index_stage_is_refused_naming_k5():
+STRUCT_LISTS = {name: specs for name, specs, _ in td.struct_stage_lists()}
+
+
+def test_struct_index_stage_is_accepted():
+    """K5 is ported: a stage list holding a struct_index stage packs, builds
+    its plain version, and runs, on the host and in the kernel's form."""
     specs = list(LISTS["apache_filter"][0]) + [
-        fp.StageSpec("struct_index", ("json", b","), ["struct_index"])]
-    with pytest.raises(fp.FusedUnsupported, match="K5"):
-        fp.FusedProgramKernel(specs, "x")
-    with pytest.raises(fp.FusedUnsupported, match="struct-index slice"):
-        fp.build_fused_fn(specs)
+        fp.StageSpec("struct_index", ("json", 0x2C), ["struct_index"])]
+    program = fp.FusedProgramKernel(specs, "x")
+    assert [o.name for o in program.descriptor.outputs][-4:] == list(
+        fpc.STRUCT_MASKS)
+    assert program.n_outputs == 3 + 1 + 4
+    rows = torch.zeros((8, 128), dtype=torch.uint8)
+    lens = torch.zeros(8, dtype=torch.int32)
+    outs = fp.build_fused_fn(specs)(rows, lens)
+    assert [tuple(o.shape) for o in outs[-4:]] == [(8, 8)] * 4
+    (flat,) = program(rows, lens)
+    assert flat.numel() == program.descriptor.flat_bytes(8, 128)
+
+
+@pytest.mark.parametrize("name", sorted(STRUCT_LISTS))
+def test_struct_index_descriptor_and_row_bytes_follow_L(name):
+    stages = fp.kernel_stages(STRUCT_LISTS[name])
+    desc = fpc.pack_descriptor(stages)
+    h = _header(desc)
+    n_struct = sum(st.kind == "struct_index" for st in stages)
+    assert h["NWIDE"] == desc.n_wide == 4 * n_struct
+    assert h["ROW_BYTES"] == desc.row_bytes == sum(
+        o.width * o.itemsize for o in desc.outputs)
+    masks = [o for o in desc.outputs if o.mask]
+    assert [o.wide for o in masks] == list(range(desc.n_wide))
+    fixed_i32 = sum(4 * o.width for o in desc.outputs
+                    if o.dtype == "int32" and not o.mask)
+    assert all(o.unit == fixed_i32 for o in masks)
+    base = fpc.HEADER_WORDS
+    for si, st in enumerate(stages):
+        rec = desc.blob[base + fpc.RECORD_WORDS * si:][:fpc.RECORD_WORDS]
+        assert rec[0] == fpc.STAGE_KINDS[st.kind]
+        if st.kind == "struct_index":
+            first = next(o for o in masks if o.stage == si)
+            assert (rec[1], rec[2]) == (fpc.STRUCT_MODES[st.obj[0]],
+                                        st.obj[1])
+            assert (rec[5], rec[6]) == (first.unit, first.wide)
+    for L in (1, 16, 17, 100, 128, 4096):
+        W = (L + 15) // 16
+        assert desc.row_bytes_at(L) == desc.row_bytes + 16 * W * n_struct
+        B = 67
+        assert desc.flat_bytes(B, L) == B * desc.row_bytes_at(L)
+        ends = []
+        for o in desc.outputs:
+            start = o.offset(B, W)
+            if o.dtype == "int32":
+                assert start % 4 == 0
+            ends.append((start, start + B * o.width_at(W) * o.itemsize))
+        ends.sort()
+        assert ends[0][0] == 0 and ends[-1][1] == desc.flat_bytes(B, L)
+        assert all(a[1] == b[0] for a, b in zip(ends, ends[1:]))
+        flat = np.zeros(desc.flat_bytes(B, L), np.uint8)
+        parts = fpc.split_flat(flat, B, desc)
+        assert [p.shape for p, o in zip(parts, desc.outputs) if o.mask] \
+            == [(B, W)] * desc.n_wide
+    # the masks take no shared memory: the block is the one of the list
+    # without them, the descriptor's stage record aside
+    rest = [st for st in stages if st.kind != "struct_index"]
+    if rest:
+        t, smem = fpc.launch_geometry(8192, 128, desc)
+        t2, smem2 = fpc.launch_geometry(8192, 128, fpc.pack_descriptor(rest))
+        assert t == t2 and smem - smem2 == 4 * fpc.RECORD_WORDS
+
+
+def test_struct_index_stage_refuses_an_unknown_mode_or_separator():
+    for obj in (("xml", 0x2C), ("delim", 256), ("json", -1)):
+        with pytest.raises(fpc.FusedUnsupported, match="struct_index"):
+            fpc.pack_descriptor([fpc.KernelStage("struct_index", obj)])
 
 
 def _enum(src, first):

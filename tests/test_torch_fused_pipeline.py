@@ -504,3 +504,118 @@ def test_a_failing_group_releases_the_groups_dispatched_before_it(
     assert plane.inflight_bytes() == 0
     assert mem_live_bytes("resident_columns") == 0
     assert p.in_process_count() == 0
+
+
+# ---------------------------------------------------------------------------
+# K7's struct_index stage (K5's masks), which no planner emits
+
+
+STRUCT_LISTS = {name: (specs, rows)
+                for name, specs, rows in td.struct_stage_lists()}
+
+
+def _ref_struct_specs(specs):
+    """The JAX package's specs of a struct stage list: struct_index stages
+    as they are, the rest from their identities."""
+    out = []
+    for spec in specs:
+        if spec.kind == "struct_index":
+            out.append(ref_fp.StageSpec("struct_index", spec.payload,
+                                        spec.ident))
+        else:
+            out += _ref_specs([spec])
+    return out
+
+
+@pytest.mark.parametrize("name", sorted(STRUCT_LISTS))
+def test_plain_struct_program_equals_the_jax_program(name):
+    specs, rows_fn = STRUCT_LISTS[name]
+    _compare_programs(specs, _ref_struct_specs(specs), rows_fn,
+                      seed=len(name))
+
+
+@pytest.mark.parametrize("name", sorted(STRUCT_LISTS))
+def test_struct_program_flat_output_and_staged_run(name):
+    """The CPU program's flat output splits back into the plain version's
+    arrays at every L (the masks' width follows L), and ``staged_run`` (K5
+    as the stage's own kernel) gives the same arrays."""
+    specs, rows_fn = STRUCT_LISTS[name]
+    program = fp.FusedProgramKernel(specs, name)
+    rng = np.random.default_rng(11)
+    for L in (17, 128, 512):
+        lines = rows_fn(rng, 30, L)
+        lens = np.array([len(x) for x in lines], np.int32)
+        arena = np.frombuffer(b"".join(lines) or b"\0", np.uint8)
+        offs = np.concatenate([[0], np.cumsum(lens[:-1])]).astype(np.int64)
+        batch = pack_rows(arena, offs, lens, L, 37)
+        rows, lengths = (torch.from_numpy(batch.rows),
+                         torch.from_numpy(batch.lengths))
+        (flat,) = program(rows, lengths)
+        assert flat.numel() == program.descriptor.flat_bytes(37, L)
+        want = program.plain(rows, lengths)
+        staged = [t for tup in program.staged_run(rows, lengths)
+                  for t in tup]
+        for got, w, s in zip(program.split(flat, 37), want, staged):
+            assert torch.equal(got.reshape(w.shape), w)
+            assert torch.equal(s, w)
+    assert program.launches == 0
+
+
+def test_struct_dispatch_assembles_chunks_of_different_L(monkeypatch):
+    """A group cut into chunks of 64 rows whose longest rows fall in
+    different buckets: the port's ``FusedDispatch`` unpacks each chunk's
+    masks into ``[n, Lmax]`` as the reference's ``_finish_struct`` does."""
+    monkeypatch.setattr(fp, "MAX_BATCH", 64)
+    monkeypatch.setattr(ref_fp, "MAX_BATCH", 64)
+    specs = STRUCT_LISTS["delim_struct_keep"][0]
+    lines = td.gen_pipe_log(64, seed=3) \
+        + [ln + b"|" + b"x" * 300 for ln in td.gen_pipe_log(64, seed=4)] \
+        + td.gen_pipe_log(40, seed=5) + [b'a|"b|c"|d|e|f|' + b"y" * 900]
+    arena = np.frombuffer(b"".join(lines), np.uint8)
+    lens = np.array([len(x) for x in lines], np.int32)
+    offs = np.concatenate([[0], np.cumsum(lens[:-1])]).astype(np.int64)
+    program = fp.FusedProgramKernel(specs, "struct")
+    got = fp.FusedDispatch(program, arena, offs, lens, CPU).dispatch() \
+        .result()
+    ref_prog = ref_fp.FusedProgramKernel(_ref_struct_specs(specs), "struct")
+    want = ref_fp.FusedDispatch(ref_prog, arena, offs, lens).dispatch() \
+        .result()
+    assert program.dispatch_count == 3
+    assert got.n == want.n == len(lines)
+    for g_stage, w_stage in zip(got.stages, want.stages):
+        assert len(g_stage) == len(w_stage)
+        for g, w in zip(g_stage, w_stage):
+            w = np.asarray(w)
+            assert g.shape == w.shape and np.array_equal(g, w.astype(g.dtype))
+    assert got.stages[1][0].shape == (len(lines), 1024)
+    ring = device_stream.batch_ring().totals()
+    assert ring["leased"] == 0 and ring["leases"] == ring["returns"]
+    assert mem_live_bytes("resident_columns") == 0
+
+
+def test_no_planner_emits_a_struct_index_stage():
+    """Planning the slice's configs gives extract and keep stages only: the
+    quote-mode delimiter and the JSON parse stay outside fused runs."""
+    for cfg in (
+            {"inputs": [], "flushers": [{"Type": "flusher_stdout"}],
+             "processors": [
+                 {"Type": "processor_parse_delimiter_native",
+                  "Separator": "|", "Keys": list(td.PIPE_KEYS)},
+                 {"Type": "processor_filter_native",
+                  "Include": dict(td.PIPE_INCLUDE),
+                  "Exclude": dict(td.PIPE_EXCLUDE)}]},
+            {"inputs": [], "flushers": [{"Type": "flusher_stdout"}],
+             "processors": [
+                 {"Type": "processor_parse_delimiter_native",
+                  "Mode": "quote", "Keys": list(td.CSV_KEYS)},
+                 {"Type": "processor_filter_native",
+                  "Include": {"method": "GET"}}]},
+            {"inputs": [], "flushers": [{"Type": "flusher_stdout"}],
+             "processors": [
+                 {"Type": "processor_parse_json_native"},
+                 {"Type": "processor_filter_native",
+                  "Include": {"level": td.JSON_FILTER_LEVEL}}]}):
+        p = port_pipeline(cfg)
+        kinds = [s.kind for r in p.fused_runs for s in r.program().specs]
+        assert "struct_index" not in kinds
+        assert kinds in ([], ["extract", "keep"])

@@ -8,11 +8,12 @@
   without one, rather than running on the CPU;
 * ``ExtractKernel`` sends a CUDA tensor to the kernel launch, never to the
   plain version, and the kernel build raises when it cannot build; so does
-  ``FusedProgramKernel`` (K7) and its build, and ``SegmentReduceKernel``
-  (K6) and its build;
+  ``FusedProgramKernel`` (K7) and its build, ``SegmentReduceKernel``
+  (K6) and its build, and ``StructIndexKernel`` (K5) and its build;
 * each kernel library's source hash covers the headers its source
   includes, so a header edit rebuilds every library that includes it;
-  ``segment_reduce.cu`` includes none, and only its own edits rebuild it.
+  ``segment_reduce.cu`` includes none, and only its own edits rebuild it;
+  ``struct_walk.cuh`` rebuilds K5 and K7 and nothing else.
 """
 
 import ast
@@ -67,6 +68,13 @@ ROLLUP_MODULES = [
     "pipeline.plugin.registry", "testdata",
 ]
 
+STRUCT_MODULES = [
+    "ops.kernels.struct_index", "ops.kernels.struct_index_cuda",
+    "processor.parse_delimiter", "processor.common", "native",
+    "ops.fused_pipeline", "ops.kernels.fused_program_cuda", "application",
+    "testdata",
+]
+
 _PROBE_EACH = """
 import importlib, json, sys
 out = {}
@@ -97,6 +105,18 @@ def test_rollup_modules_load_no_jax():
                          text=True, timeout=120, check=True)
     res = json.loads(out.stdout.strip().splitlines()[-1])
     assert sorted(res) == sorted(ROLLUP_MODULES)
+    assert all(bad == [] for bad in res.values()), res
+
+
+def test_struct_index_modules_load_no_jax():
+    """The modules of the structural-index slice (K5, the quote-mode
+    delimiter, K7's struct_index stage), imported one after the other in a
+    fresh interpreter, load neither JAX nor the JAX package."""
+    out = subprocess.run([sys.executable, "-c", _PROBE_EACH,
+                          *STRUCT_MODULES], cwd=REPO, capture_output=True,
+                         text=True, timeout=120, check=True)
+    res = json.loads(out.stdout.strip().splitlines()[-1])
+    assert sorted(res) == sorted(STRUCT_MODULES)
     assert all(bad == [] for bad in res.values()), res
 
 
@@ -229,10 +249,13 @@ def test_source_hashes_cover_the_shared_headers(tmp_path):
     dst = tmp_path / "csrc"
     shutil.copytree(src, dst)
     libs = {name: str(dst / name) for name in
-            ("field_extract.cu", "dfa_scan.cu", "fused_program.cu")}
+            ("field_extract.cu", "dfa_scan.cu", "fused_program.cu",
+             "struct_index.cu")}
     assert [os.path.basename(p) for p in fxc.source_files(
         libs["fused_program.cu"])] == ["fused_program.cu", "dfa_walk.cuh",
-                                       "extract_walk.cuh"]
+                                       "extract_walk.cuh", "struct_walk.cuh"]
+    assert [os.path.basename(p) for p in fxc.source_files(
+        libs["struct_index.cu"])] == ["struct_index.cu", "struct_walk.cuh"]
 
     def hashes():
         return {name: fxc.source_hash(path) for name, path in libs.items()}
@@ -252,6 +275,61 @@ def test_source_hashes_cover_the_shared_headers(tmp_path):
     assert after_dfa["dfa_scan.cu"] != before["dfa_scan.cu"]
     assert after_dfa["fused_program.cu"] != after_extract["fused_program.cu"]
     assert after_dfa["field_extract.cu"] == after_extract["field_extract.cu"]
+    assert after_dfa["struct_index.cu"] == before["struct_index.cu"]
+    with open(dst / "struct_walk.cuh", "a") as f:
+        f.write("// edited\n")
+    after_struct = hashes()
+    assert after_struct["struct_index.cu"] != before["struct_index.cu"]
+    assert after_struct["fused_program.cu"] != after_dfa["fused_program.cu"]
+    assert after_struct["field_extract.cu"] == after_dfa["field_extract.cu"]
+    assert after_struct["dfa_scan.cu"] == after_dfa["dfa_scan.cu"]
+
+
+def test_struct_index_sends_cuda_tensors_to_k5_never_plain(monkeypatch):
+    from loongcollector_tpu_torch.ops.kernels import struct_index as si
+    from loongcollector_tpu_torch.ops.kernels import struct_index_cuda
+    kern = si.StructIndexKernel(si.MODE_DELIM, 0x7C)
+
+    def plain(*a):
+        raise AssertionError("plain version ran for a CUDA tensor")
+
+    calls = []
+    kern._plain = plain
+    out = torch.arange(4 * 8 * 2, dtype=torch.int32).reshape(4, 8, 2)
+    monkeypatch.setattr(struct_index_cuda, "launch",
+                        lambda *a: calls.append(a) or out)
+    rows = _FakeCudaTensor()
+    got = kern(rows, "lengths")
+    assert len(got) == 4 and all(torch.equal(g, o) for g, o in zip(got, out))
+    assert kern.launches == 1 and kern.dispatch_count == 1
+    (args,) = calls
+    assert args == (rows, "lengths", si.MODE_DELIM, 0x7C, None)
+
+
+def test_struct_index_build_failure_raises(monkeypatch, tmp_path):
+    from loongcollector_tpu_torch.ops.kernels import field_extract_cuda as fxc
+    from loongcollector_tpu_torch.ops.kernels import struct_index_cuda
+    monkeypatch.setattr(struct_index_cuda, "_lib", None)
+    monkeypatch.setattr(fxc, "BUILD_ROOT", str(tmp_path))
+    monkeypatch.setattr(fxc.shutil, "which", lambda name: None)
+    monkeypatch.setattr(fxc.os.path, "exists",
+                        lambda p: False if "nvcc" in p else os.path.isfile(p))
+    with pytest.raises(RuntimeError, match="nvcc"):
+        struct_index_cuda.build()
+
+
+def test_struct_index_entry_points_without_device_raise():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device exists: the default device is valid")
+    import numpy as np
+    from loongcollector_tpu_torch.ops.kernels import struct_index as si
+    from loongcollector_tpu_torch.utils.device import NoCudaDevice
+    with pytest.raises(NoCudaDevice):
+        si.device_kernel(si.MODE_DELIM, 0x2C)
+    with pytest.raises(NoCudaDevice):
+        si.StructIndexKernel(si.MODE_DELIM, 0x2C).index_batch(
+            np.frombuffer(b"a,b", np.uint8), np.zeros(1, np.int64),
+            np.array([3], np.int32))
 
 
 def test_segment_reduce_sends_cuda_tensors_to_k6_never_plain(monkeypatch):
