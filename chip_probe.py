@@ -4,6 +4,7 @@
     python3 chip_probe.py            # run from the repo root
     python3 chip_probe.py dispatch   # the host cost of one plane dispatch
     python3 chip_probe.py ab OTHER/field_extract.cu   # K1 built two ways
+    python3 chip_probe.py k8         # K8's epilogue and its memset, timed
 
 Builds the kernel ``loongcollector_tpu_torch/ops/kernels/csrc/
 field_extract.cu`` as it is, and ``stamped``, an edited copy with
@@ -31,6 +32,13 @@ the headers beside it: a checkout of an earlier commit, say) and from this
 tree, checks both bit-exact on the same rows, and times the Apache
 instantiation of each in turns (other, this, this, other) at ``B=8192``
 and ``B=65536``, ``L=128``, printing each build's ptxas figures.
+
+``k8`` splits what K8 (``lct_sharded_extract_*``, K1's walk with the count
+epilogue) costs over K1: it builds this tree's source and ``nomemset``, a
+copy whose launcher skips the ``cudaMemsetAsync`` that zeroes the counts
+(its counts then accumulate; its ok, cap_off and cap_len stay K1's), checks
+K8's outputs bit-exact with K1's, and times K1, K8 and K8 without the
+memset in turns (K1, K8, nomemset, nomemset, K8, K1) at phase 4's shapes.
 """
 
 from __future__ import annotations
@@ -61,8 +69,9 @@ def stamped(src: str) -> str:
                "  extern __shared__ int32_t smem[];\n  STAMP(0);\n")
     src = edit(src, "  __syncthreads();\n", "  __syncthreads();\n  STAMP(1);\n")
     src = edit(src, "  __syncwarp();\n", "  __syncwarp();\n  STAMP(2);\n")
-    src = edit(src, "\n}\n\ntemplate <bool NESTED, int PIVOT>\nint launch",
-               "\n  STAMP(3);\n}\n\ntemplate <bool NESTED, int PIVOT>\nint launch")
+    src = edit(src, "\n  if constexpr (STATS) {\n    // the whole warp",
+               "\n  STAMP(3);\n  if constexpr (STATS) {\n    // the whole "
+               "warp")
     return edit(src, 'extern "C" {\n', 'extern "C" {\n'
                 "int probe_stamps(void* dst, size_t n) {\n"
                 "  return (int)cudaMemcpyFromSymbol(dst, g_stamp, n);\n}\n")
@@ -95,12 +104,20 @@ def build(fxc, name: str, src: str, include: str = ""):
         fn.restype = ctypes.c_int
         fn.argtypes = [vp, vp, ctypes.c_int64, i32, vp, i32, vp, vp, vp, i32,
                        i32, vp]
+    for entry in fxc.STATS_ENTRY_POINTS:
+        fn = getattr(lib, entry)
+        fn.restype = ctypes.c_int
+        fn.argtypes = [vp, vp, ctypes.c_int64, i32, vp, i32, vp, vp, vp, vp,
+                       i32, i32, vp]
     return lib
 
 
-def launcher(fxc, lib, kern, prog):
+def launcher(fxc, lib, kern, prog, stats: bool = False):
+    """K1's entry point of ``lib`` for ``kern``'s program, or with
+    ``stats`` K8's (its counts then come back as a fifth output)."""
     import torch
     kp = kern.kernel_program
+    entry = kp.stats_entry_point if stats else kp.entry_point
 
     def launch(rows, lengths):
         B, L = rows.shape
@@ -110,13 +127,18 @@ def launcher(fxc, lib, kern, prog):
         off = torch.empty((B, kp.num_caps), dtype=torch.int32,
                           device=rows.device)
         length = torch.empty_like(off)
-        rc = getattr(lib, kp.entry_point)(
-            rows.data_ptr(), lengths.data_ptr(), B, L, prog.data_ptr(),
-            prog.numel(), ok.data_ptr(), off.data_ptr(), length.data_ptr(),
-            threads, smem, torch.cuda.current_stream().cuda_stream)
+        args = [rows.data_ptr(), lengths.data_ptr(), B, L, prog.data_ptr(),
+                prog.numel(), ok.data_ptr(), off.data_ptr(),
+                length.data_ptr()]
+        counts = None
+        if stats:
+            counts = torch.empty(3, dtype=torch.int64, device=rows.device)
+            args.append(counts.data_ptr())
+        rc = getattr(lib, entry)(*args, threads, smem,
+                                 torch.cuda.current_stream().cuda_stream)
         if rc:
             raise SystemExit(f"chip_probe: launch failed ({rc})")
-        return ok, off, length, threads
+        return ok, off, length, threads, counts
     return launch
 
 
@@ -228,10 +250,46 @@ def ab(other: str) -> int:
     return 0
 
 
+def k8_split() -> int:
+    """K1, K8 and K8 without its memset, timed in turns."""
+    import torch
+    import chip_smoke
+    from loongcollector_tpu_torch.ops.kernels import field_extract_cuda as fxc
+    from loongcollector_tpu_torch.ops.kernels.field_extract import \
+        ExtractKernel
+    from loongcollector_tpu_torch.ops.regex.program import compile_tier1
+    print(f"chip_probe: card: {chip_smoke.nvidia_smi()}", flush=True)
+    kern = ExtractKernel(compile_tier1(chip_smoke.APACHE))
+    prog = torch.from_numpy(kern.kernel_program.blob).cuda()
+    with open(fxc._SRC) as f:
+        src = f.read()
+    nomemset = edit(src, "  if constexpr (STATS) {\n    cudaError_t z",
+                    "  if constexpr (false) {\n    cudaError_t z")
+    lib, lib_nm = build(fxc, "k8", src), build(fxc, "nomemset", nomemset)
+    calls = {"K1": launcher(fxc, lib, kern, prog),
+             "K8": launcher(fxc, lib, kern, prog, stats=True),
+             "nomemset": launcher(fxc, lib_nm, kern, prog, stats=True)}
+    for B, n_real, rows, lengths in apache_batches():
+        outs = {k: [t.cpu() for t in fn(rows, lengths)[:3]]
+                for k, fn in calls.items()}
+        if not all(bool((a == b).all()) for k in ("K8", "nomemset")
+                   for a, b in zip(outs["K1"], outs[k])):
+            raise SystemExit(f"chip_probe: K8 differs from K1 at B={B}")
+        turns = [(k, chip_smoke.graph_ms([lambda fn=calls[k]: fn(rows,
+                                                                 lengths)]))
+                 for k in ("K1", "K8", "nomemset", "nomemset", "K8", "K1")]
+        print(f"chip_probe: k8 B={B} L=128 ({n_real} Apache rows): device "
+              f"ms per launch in turns: " + ", ".join(
+                  f"{k} {ms:.5f}" for k, ms in turns), flush=True)
+    return 0
+
+
 def main() -> int:
     sys.path.insert(0, REPO)
     if sys.argv[1:] == ["dispatch"]:
         return dispatch_cost()
+    if sys.argv[1:] == ["k8"]:
+        return k8_split()
     if sys.argv[1:2] == ["ab"] and len(sys.argv) == 3:
         return ab(sys.argv[2])
     import numpy as np

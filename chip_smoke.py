@@ -16,7 +16,10 @@ Phases, each of which exits non-zero on failure:
    limit.  Fails if K1's depth-0, pivot-free instantiation (the Apache
    program's), a DFA walker, a K7 instantiation without the general
    walker (the Apache-filter program's is ``d0_p0``), one of K6's three
-   kernels or one of K5's two modes has a stack frame or spills.
+   kernels, one of K5's two modes or a depth-0 instantiation of K8
+   (``stats_d0_*``) has a stack frame or spills, and unless K1's six
+   instantiations keep the registers and stack they had before K8's
+   epilogue joined their source (``K1_PTXAS_BEFORE_K8``).
 2. parity: the kernel against its plain PyTorch version, on the card, on
    the test patterns, a seeded generative set (double pivots included), the
    Apache pattern, and a depth-8 nested pattern and a 32-capture pattern on
@@ -195,14 +198,39 @@ Phases, each of which exits non-zero on failure:
    version and the bound ``sum(lengths) + 4B + 16 ceil(L/16) B`` bytes at
    3.35 TB/s; no library time (no PyTorch call computes the bitmaps).
 
+24. K8, the sharded parse step (run inside phases 2 and 4): every batch
+   of phase 2, whole and cut to an odd row count, through
+   ``ShardedKernel``'s direct call on meshes of 1 and 4 shards that repeat
+   the card (one ``lct_sharded_extract_*`` launch a shard, the private pad
+   buffer for an odd B), with an empty-matching pattern (``(\\w*)``) among
+   them: ok, cap_off and cap_len bit-exact with K1, and each shard's
+   counts (matched, padding rows included; events; bytes) exact with the
+   plain K8's; every K8 instantiation launches.  Then K8 at phase 4's
+   shapes, warm and cold, beside K1 (the epilogue's cost), the plain K8
+   and the bound (K1's bytes and 24 a shard).
+25. the sharded Apache main path (after phase 12): phase 3's run with
+   ``LOONG_SHARDED=1`` at one worker, and at four with the ledger on
+   (residual 0): every record equals ``re``; ``--stats`` ``mesh`` holds
+   one kernel of one shard whose dispatches = K8 launches = device
+   batches = plane dispatches = exec legs = shard 0's h2d legs, no
+   standalone K1 launch, and totals equal to the log's lines (events),
+   bytes and the records (matched).
+26. logical lanes and shards on the card, in this process: four chip
+   lanes over ``[cuda:0] * 4`` under four workers (lane dispatches = device
+   batches = K1 launches, NDJSON byte-identical to phase 3's one-worker
+   run), a four-shard mesh on the card (four K8 launches and four h2d legs
+   a dispatch, one exec leg, the same NDJSON), and the Apache-filter path
+   on four lanes (K7 launches = fused dispatches = lane dispatches, the
+   records of phase 12).
+
 In every phase each recorded launch must be whole warps within the block
 limit and the shared-memory budget, with a block for each SM once a batch
 holds 32 rows an SM; the geometry in the ``kernels`` line is the one
 ``launch()`` passed to the kernel in this run.
 
 An earlier line prints the script's total seconds.  The line before the
-last is the ``kernels`` JSON line (K1, K2, K4, K3, K7, K6 and K5), the last
-line the ``{"ok": true, "device": ...}`` object.  It imports nothing of JAX
+last is the ``kernels`` JSON line (K1, K2, K4, K3, K7, K6, K5 and K8), the
+last line the ``{"ok": true, "device": ...}`` object.  It imports nothing of JAX
 or of the JAX package.
 """
 
@@ -222,6 +250,11 @@ MAIN_PATH_LINES = 600_000   # the size of bench.py:bench_pipeline_e2e
 # H100 SXM peaks from NVIDIA's data sheet (dense, at the 700 W limit)
 HBM_BYTES_PER_S = 3.35e12
 INT_OPS_PER_S = 67e12          # non-tensor 32-bit rate, fp32 column
+# K1's ptxas figures on the H100 (nvcc for sm_90a) before K8's epilogue
+# joined its source: registers and stack frame bytes, no spills
+K1_PTXAS_BEFORE_K8 = {"d0_p0": (91, 0), "d0_p1": (91, 0), "d0_p2": (91, 0),
+                      "d1_p0": (91, 3232), "d1_p1": (90, 3232),
+                      "d1_p2": (89, 3232)}
 L2_BYTES = 50 * 2**20
 
 # tests/test_pallas_kernel.py PATTERNS: every op family, a pivot program
@@ -246,6 +279,7 @@ MORE_PATTERNS = [
 # takes, the most captures with a pivot (two copies of the state), and
 # those captures with a program blob near the budget (full_pattern)
 DEEP = r"(\w+)" + r"(?:-(\w+)" * 8 + ")?" * 8 + " end"
+EMPTY_MATCH = r"(\w*)"       # K8: padding rows match, and count
 WIDE = r"(\w+)," * 30 + r"(.*);(\d+)"
 
 
@@ -459,6 +493,8 @@ def phase_build(fxc, dsc, fpc, src, sic, native) -> dict:
             f"bytes spill stores, {r.get('spill_loads')} bytes spill loads")
     missing = [e for e in fxc.ENTRY_POINTS
                if e.replace("lct_field_extract_", "") not in ptxas]
+    missing += [e for e in fxc.STATS_ENTRY_POINTS
+                if e.replace("lct_sharded_extract_", "stats_") not in ptxas]
     missing += [m for m in dsc.ENTRY_POINTS if m not in dfa_ptxas]
     missing += [k for k in fpc.INSTANTIATIONS if k not in k7_ptxas]
     missing += [k for k in src.KERNELS if k not in k6_ptxas]
@@ -468,7 +504,20 @@ def phase_build(fxc, dsc, fpc, src, sic, native) -> dict:
     # the depth-0 walkers: K1's Apache instantiation, the DFA walks (K2,
     # K3, K4), K7's instantiations without the general walker (the Apache
     # filter program's is d0_p0), K6's three kernels and K5's two modes
+    # K8's epilogue sits behind `if constexpr`: K1's six instantiations
+    # must compile to what they did before it
+    for key, (regs, stack) in K1_PTXAS_BEFORE_K8.items():
+        r = ptxas[key]
+        if (r.get("registers"), r.get("stack"), r.get("spill_stores"),
+                r.get("spill_loads")) != (regs, stack, 0, 0):
+            fail(f"K1 {key} moved with K8's epilogue: {r}, before "
+                 f"{regs} registers, {stack} bytes stack frame, no spills")
+    log("ptxas: K1's six instantiations unchanged by K8 ("
+        + ", ".join(f"{k} {v[0]}" for k, v in K1_PTXAS_BEFORE_K8.items())
+        + " registers)")
     for name, r in [("d0_p0", ptxas["d0_p0"])] + [
+            (f"K8 {k}", ptxas[k]) for k in sorted(ptxas)
+            if k.startswith("stats_d0_")] + [
             (m, dfa_ptxas[m]) for m in dsc.ENTRY_POINTS] + [
             (f"fused_program {k}", k7_ptxas[k]) for k in fpc.INSTANTIATIONS
             if not k.endswith("_g")] + [
@@ -513,9 +562,13 @@ def checked_shapes(shapes, phase: str) -> list:
     return out
 
 
-def check_batch(kern, pattern, lines, L, stats, misalign=False) -> None:
+def check_batch(kern, pattern, lines, L, stats, misalign=False,
+                k8=None) -> None:
     """Kernel vs plain on the card, and both vs re, for one (pattern, L).
-    With `misalign` the rows start one byte past a 16-byte boundary."""
+    With `misalign` the rows start one byte past a 16-byte boundary.  With
+    `k8`, a list of ``ShardedKernel``s over ``kern`` (meshes that repeat
+    the card), each one's direct call (K8, one launch a shard) must give
+    K1's outputs bit for bit and, per shard, the plain K8's counts."""
     import numpy as np
     import torch
     from loongcollector_tpu_torch.ops.device_batch import pack_rows
@@ -557,6 +610,58 @@ def check_batch(kern, pattern, lines, L, stats, misalign=False) -> None:
         fail(f"a padding row matched {pattern!r}")
     stats["checks"] += 1
     stats["rows"] += len(lines)
+    # the whole batch, and its first rows up to an odd count (the mesh's
+    # private pad buffer then adds rows)
+    odd = min(len(lines) | 1, batch.rows.shape[0])
+    for sk in k8 or ():
+        for n_rows in (batch.rows.shape[0], odd):
+            check_k8(sk, pattern, batch.rows[:n_rows],
+                     batch.lengths[:n_rows], [g[:n_rows] for g in got],
+                     want[0][:n_rows], rx, stats)
+
+
+def check_k8(sk, pattern, rows, lengths, k1_out, plain_ok, rx,
+             stats) -> None:
+    """K8 through ``ShardedKernel``'s direct call (its private pad buffer
+    when B is not a mesh multiple) against K1's outputs of the same rows,
+    and its counts against the plain K8's: the plain K1's ok (a padding
+    row of the pad buffer is ok exactly when the pattern matches the empty
+    string, as K1's own padding rows show) summed per shard with the
+    lengths, as ``extract_stats_plain`` sums them."""
+    import numpy as np
+    import torch
+    from loongcollector_tpu_torch.ops.kernels.field_extract import \
+        plain_counts
+    m = sk.batch_multiple
+    B = rows.shape[0]
+    before = sk.launches
+    base = sk.materialize_stats()
+    ok, off, ln = (t.numpy() for t in sk(rows, lengths))
+    if sk.launches - before != m:
+        fail(f"K8 on {m} shards made {sk.launches - before} launches")
+    for g, w, what in zip((ok, off, ln), k1_out, ("ok", "cap_off",
+                                                   "cap_len")):
+        stats["k8_max_abs_err"] = max(stats["k8_max_abs_err"], int(np.abs(
+            g[:B].astype(np.int64) - w.astype(np.int64)).max(initial=0)))
+        if not (g[:B] == w).all():
+            bad = np.nonzero((g[:B] != w).reshape(B, -1).any(axis=1))[0]
+            fail(f"K8 ({m} shards) != K1 on {what} for {pattern!r} at "
+                 f"L={rows.shape[1]}, B={B}, rows {bad[:5].tolist()}")
+    Bp = ok.shape[0]
+    want_ok = np.concatenate([plain_ok, np.full(Bp - B,
+                                                rx.fullmatch(b"") is not None)])
+    lens = np.concatenate([lengths, np.zeros(Bp - B, np.int32)])
+    s = Bp // m
+    want = sum(plain_counts(torch.from_numpy(want_ok[i * s:(i + 1) * s]),
+                            torch.from_numpy(lens[i * s:(i + 1) * s]))
+               for i in range(m)).tolist()
+    tot = sk.materialize_stats()
+    got = [tot[k] - base[k] for k in ("matched", "events", "bytes")]
+    if got != want:
+        fail(f"K8 ({m} shards) counts {got} != the plain K8's {want} for "
+             f"{pattern!r} at L={rows.shape[1]}, B={B}")
+    stats["k8_checks"] += 1
+    stats["k8_pad_rows"] += Bp - B
 
 
 def exact_length_lines(rng, lines, L):
@@ -613,7 +718,12 @@ def phase_parity() -> dict:
                                                             compile_tier1)
     from loongcollector_tpu_torch.testdata import gen_lines
     from loongcollector_tpu_torch.ops.kernels import field_extract_cuda as fxc
-    stats = {"checks": 0, "rows": 0, "max_abs_err": 0, "patterns": 0}
+    import torch
+    from loongcollector_tpu_torch.parallel.mesh import (ShardedKernel,
+                                                        make_mesh)
+    stats = {"checks": 0, "rows": 0, "max_abs_err": 0, "patterns": 0,
+             "k8_checks": 0, "k8_pad_rows": 0, "k8_max_abs_err": 0}
+    card = torch.device("cuda", torch.cuda.current_device())
     rng = np.random.default_rng(20240607)
     cases = []
     for pat in PATTERNS:
@@ -650,25 +760,46 @@ def phase_parity() -> dict:
         # fit L=4096
         cases.append((pat, SEEDS + wide_lines(more, pat, 1025, 2048, 48)))
         cases.append((pat, wide_lines(more, pat, 2049, 4096, 48)))
+    # K8 (phase 24): an empty-matching pattern at an odd B, whose padding
+    # rows are ok and counted
+    cases.append((EMPTY_MATCH, [b"", b"abc", b"a b", b"x_9"] * 25 + [b"z"]))
     fxc.reset_launch_shapes()
     for pat, lines in cases:
         kern = ExtractKernel(compile_tier1(pat))
+        k8 = [ShardedKernel(kern.program, make_mesh(devices=[card] * m),
+                            kernel=kern) for m in (1, 4)]
         stats["patterns"] += 1
         lines = list(lines) + [b"", b""]
         need = pick_length_bucket(max(len(x) for x in lines))
         for L in (L for L in LENGTH_BUCKETS if L >= need):
             check_batch(kern, pat, lines + exact_length_lines(rng, lines, L),
-                        L, stats)
+                        L, stats, k8=k8)
     # a width that is not a multiple of 16 bytes, and rows that do not
     # start on a 16-byte boundary, take the kernel's byte-copy staging
     odd = [x for x in gen_lines(300, seed=7) if len(x) <= 100] + [b""]
     kern = ExtractKernel(compile_tier1(APACHE))
-    check_batch(kern, APACHE, odd, 100, stats)
+    check_batch(kern, APACHE, odd, 100, stats, k8=[ShardedKernel(
+        kern.program, make_mesh(devices=[card] * 4), kernel=kern)])
     check_batch(kern, APACHE, odd, 128, stats, misalign=True)
     log(f"parity: {stats['checks']} (pattern, L) batches over "
         f"{stats['patterns']} patterns, {stats['rows']} rows: kernel "
         f"bit-exact with the plain version and with re")
-    shapes = checked_shapes(dict(fxc.launch_shapes), "parity")
+    log(f"K8 parity: {stats['k8_checks']} batches through meshes of 1 and "
+        f"4 shards on {card} (one launch a shard): ok, cap_off, cap_len "
+        f"bit-exact with K1, counts exact with the plain K8 "
+        f"({stats['k8_pad_rows']} padding rows of the pad buffer counted)")
+    k8_shapes = {sh: n for sh, n in fxc.launch_shapes.items()
+                 if sh.entry_point in fxc.STATS_ENTRY_POINTS}
+    k8_launched = sorted({sh.entry_point for sh in k8_shapes})
+    log(f"K8 parity: launches by instantiation {k8_launched}")
+    if k8_launched != sorted(fxc.STATS_ENTRY_POINTS):
+        fail(f"K8 instantiations never launched in parity: "
+             f"{sorted(set(fxc.STATS_ENTRY_POINTS) - set(k8_launched))}")
+    checked_shapes(k8_shapes, "K8 parity")
+    stats["k8_launches"] = sum(k8_shapes.values())
+    shapes = checked_shapes({sh: n for sh, n in fxc.launch_shapes.items()
+                             if sh.entry_point in fxc.ENTRY_POINTS},
+                            "parity")
     if sum(n for _, n in shapes) != stats["checks"]:
         fail(f"parity: {sum(n for _, n in shapes)} launches recorded for "
              f"{stats['checks']} batches")
@@ -726,17 +857,23 @@ def main_path_log():
 
 
 def phase_main_path(tmp: str, log_path: str, lines, n_bytes: int,
-                    threads: int, ledger: bool = False) -> dict:
+                    threads: int, ledger: bool = False,
+                    sharded: bool = False, keep: bool = False) -> dict:
+    """The Apache main path through the agent; with ``sharded`` in
+    ``LOONG_SHARDED=1`` mode (phase 25: K8 on the one-card mesh).  With
+    ``keep`` the NDJSON stays on disk (``out_path`` in the result)."""
     from loongcollector_tpu_torch.ops.xprof import LEGS
     from loongcollector_tpu_torch.testdata import APACHE_KEYS
-    run_dir = os.path.join(tmp, f"threads{threads}{'ledger' * ledger}")
+    run_dir = os.path.join(tmp, f"{'sharded' * sharded}threads{threads}"
+                                f"{'ledger' * ledger}")
     os.makedirs(run_dir)
     out_path = os.path.join(run_dir, "out.json")
     stats_path = os.path.join(run_dir, "stats.json")
     cfg_dir = write_config(run_dir, log_path, out_path)
-    tag = (f"main path, {threads} worker{'s' if threads > 1 else ''}"
-           f"{', ledger on' * ledger}")
-    st, wall = run_agent(tag, cfg_dir, stats_path, threads, ledger)
+    tag = (f"{'sharded ' * sharded}main path, {threads} "
+           f"worker{'s' if threads > 1 else ''}{', ledger on' * ledger}")
+    env = {"LOONG_SHARDED": "1"} if sharded else {}
+    st, wall = run_agent(tag, cfg_dir, stats_path, threads, ledger, **env)
     rx = re.compile(APACHE.encode())
     n = 0
     with open(out_path, "rb") as f:
@@ -752,23 +889,31 @@ def phase_main_path(tmp: str, log_path: str, lines, n_bytes: int,
     if n != len(lines):
         fail(f"{tag}: {n} records for {len(lines)} lines")
     plane, ring = st["plane"], st["ring"]
-    shapes = check_settled(tag, st)
     if st["re_oversize_rows"] or st["re_tier_rows"]:
         fail(f"{tag}: rows routed to re: {st}")
     legs = st["timeline"]["legs"]
-    if legs.get("exec", {}).get("count") != st["launches"] \
+    if sharded:
+        shapes = check_sharded(tag, st, lines, n)
+        launches = st["mesh"]["k8_launches"]
+    else:
+        shapes = check_settled(tag, st)
+        launches = st["launches"]
+        if st["mesh"] is not None:
+            fail(f"{tag}: a mesh or a lane outside sharded mode: "
+                 f"{st['mesh']}")
+    if legs.get("exec", {}).get("count") != launches \
             or legs["exec"]["clock"] != "device":
         fail(f"{tag}: the timeline has no device exec leg for every "
              f"launch: {legs}")
     if not any(sh.B == 8192 for sh, _ in shapes):
-        fail(f"{tag}: no launch at B=8192: {st['launch_shapes']}")
+        fail(f"{tag}: no launch at B=8192: {shapes}")
     for sh, k in shapes:
         log(f"{tag}: {k} launches of {sh.entry_point} at B={sh.B} "
             f"L={sh.L}: {sh.blocks} blocks of {sh.threads} threads, "
             f"{sh.smem} bytes of shared memory")
     mbps = n_bytes / st["seconds"] / 1e6
     log(f"{tag}: {n} records equal the re oracle in order; "
-        f"{st['launches']} launches = {st['device_batches']} device "
+        f"{launches} launches = {st['device_batches']} device "
         f"batches = {plane['dispatches']} plane dispatches; pipeline "
         f"{st['seconds']:.3f} s = {mbps:.2f} MB/s end to end (agent "
         f"process {wall:.1f} s); kernel {st['kernel_seconds']:.6f} s "
@@ -785,17 +930,74 @@ def phase_main_path(tmp: str, log_path: str, lines, n_bytes: int,
         f"{plane['budget_waits']}; ring {ring['leases']} leases, "
         f"{ring['returns']} returns; depth {st['depth']}; tuner "
         f"{json.dumps(st['tuner']['buckets'])}")
-    os.unlink(out_path)
-    return {"stats": st, "mbps": mbps, "wall_s": wall, "shapes": shapes}
+    if not keep:
+        os.unlink(out_path)
+    return {"stats": st, "mbps": mbps, "wall_s": wall, "shapes": shapes,
+            "out_path": out_path if keep else None}
 
 
-def bound_ms(B: int, C: int, prog_words: int, row_bytes: int):
+def check_sharded(tag, st, lines, n_records) -> list:
+    """A sharded run on the card (``LOONG_SHARDED=1``, one card: a one-
+    shard mesh): one sharded kernel, whose dispatches = K8 launches =
+    device batches = plane dispatches = exec legs = h2d legs of shard 0,
+    no standalone K1 launch, totals (events, bytes, matched) equal to the
+    log's lines, bytes and the records; the plane settles.  Returns K8's
+    launch shapes."""
+    from loongcollector_tpu_torch.ops.kernels.field_extract_cuda import \
+        LaunchShape
+    mesh, plane, ring = st["mesh"], st["plane"], st["ring"]
+    if mesh is None or len(mesh["kernels"]) != 1:
+        fail(f"{tag}: want one sharded kernel: {mesh}")
+    k = mesh["kernels"][0]
+    legs = st["timeline"]["legs"]
+    h2d = mesh["shard_legs"].get("h2d", {})
+    if k["chips"] != 1 or len(k["devices"]) != 1 or mesh["router"] \
+            or st["launches"] or st["launch_shapes"]:
+        fail(f"{tag}: chips {k['chips']} on {k['devices']}, lanes "
+             f"{mesh['router']}, standalone K1 launches {st['launches']}")
+    if not (0 < k["dispatches"] == k["launches"] == mesh["k8_launches"]
+            == st["device_batches"] == plane["dispatches"]
+            == legs["exec"]["count"] == h2d.get("0", {}).get("count")):
+        fail(f"{tag}: mesh dispatches {k['dispatches']}, K8 launches "
+             f"{k['launches']}, device batches {st['device_batches']}, "
+             f"plane dispatches {plane['dispatches']}, exec legs "
+             f"{legs['exec']['count']}, shard h2d legs {h2d}")
+    want = {"matched": n_records, "events": sum(1 for x in lines if x),
+            "bytes": sum(len(x) for x in lines)}
+    if k["totals"] != want:
+        fail(f"{tag}: mesh totals {k['totals']}, from the log {want}")
+    if plane["inflight_bytes"] or ring["leased"] \
+            or st["device_memory"]["total_live_bytes"] \
+            or ring["leases"] != ring["returns"]:
+        fail(f"{tag}: the plane did not settle: in flight "
+             f"{plane['inflight_bytes']} bytes, ring {ring}, memory "
+             f"{st['device_memory']}")
+    shapes = checked_shapes({LaunchShape(**{f: v for f, v in d.items()
+                                            if f != "launches"}):
+                             d["launches"] for d in mesh["launch_shapes"]},
+                            tag)
+    if sum(n for _, n in shapes) != k["launches"]:
+        fail(f"{tag}: K8 launch shapes do not add up to its launches")
+    log(f"{tag}: mesh of {k['chips']} shard on {k['devices']}: "
+        f"{k['dispatches']} dispatches = {k['launches']} K8 launches = "
+        f"device batches = plane dispatches = exec legs = shard-0 h2d legs "
+        f"(median {h2d['0']['median_s'] * 1e3:.4f} ms); totals "
+        f"{k['totals']} = the log's lines, bytes and records; per-chip row "
+        f"occupancy {k['per_chip_row_occupancy']}, pad fallbacks "
+        f"{k['pad_fallbacks']}")
+    return shapes
+
+
+def bound_ms(B: int, C: int, prog_words: int, row_bytes: int,
+             shards: int = 0):
     """Least time for the work: bytes moved at HBM rate vs one 32-bit op per
     examined row byte at the non-tensor rate; returns (ms, bound_by).  The
     function reads only the bytes below each row's length (`row_bytes`, the
     sum of the lengths), plus the lengths and the program, and writes
-    ok/cap_off/cap_len for all B rows."""
-    moved = row_bytes + 4 * B + 4 * prog_words + B * (8 * C + 1)
+    ok/cap_off/cap_len for all B rows; K8 (``shards`` > 0) also writes its
+    three 8-byte counts a shard."""
+    moved = row_bytes + 4 * B + 4 * prog_words + B * (8 * C + 1) \
+        + 24 * shards
     t_bytes = moved / HBM_BYTES_PER_S
     t_ops = row_bytes / INT_OPS_PER_S
     if t_bytes >= t_ops:
@@ -808,8 +1010,8 @@ def phase_timing() -> dict:
     import torch
     from loongcollector_tpu_torch.ops.device_batch import pack_rows
     from loongcollector_tpu_torch.ops.kernels import field_extract_cuda as fxc
-    from loongcollector_tpu_torch.ops.kernels.field_extract import \
-        ExtractKernel
+    from loongcollector_tpu_torch.ops.kernels.field_extract import (
+        ExtractKernel, extract_stats_plain, plain_counts)
     from loongcollector_tpu_torch.ops.regex.program import compile_tier1
     from loongcollector_tpu_torch.testdata import gen_lines
     kern = ExtractKernel(compile_tier1(APACHE))
@@ -841,25 +1043,63 @@ def phase_timing() -> dict:
         cold_ms = graph_ms([lambda r=r, n=n: kern(r, n) for r, n in copies],
                            reps=n_copies * -(-50 // n_copies), iters=5,
                            keep_outputs=True)
+        # K8 (phase 24) at the same shape: one shard, K1's walk and the
+        # count epilogue; held against K1 and the plain K8 first
+        got8 = [t.cpu().numpy() for t in kern.with_stats(rows, lengths)]
+        want8 = plain_counts(torch.from_numpy(want[0]).to(rows.device),
+                             lengths).cpu().numpy()
+        if not all((g == w).all() for g, w in zip(got8, got)) \
+                or not (got8[3] == want8).all():
+            fail(f"K8 timing B={B}: K8 != K1 or counts {got8[3]} != "
+                 f"{want8}")
+        k8_ms = graph_ms([lambda: kern.with_stats(rows, lengths)])
+        k8_cold_ms = graph_ms([lambda r=r, n=n: kern.with_stats(r, n)
+                               for r, n in copies],
+                              reps=n_copies * -(-50 // n_copies), iters=5,
+                              keep_outputs=True)
+        k8_call_ms = time_cuda(lambda: kern.with_stats(rows, lengths), 200)
         del copies
         plain_ms = time_cuda(lambda: kern.plain(rows, lengths), 20)
+        k8_plain_ms = time_cuda(lambda: extract_stats_plain(
+            rows, lengths, kern.plain), 20)
         b_ms, by = bound_ms(B, 9, prog_words, int(lens.sum()))
+        k8_b_ms, k8_by = bound_ms(B, 9, prog_words, int(lens.sum()),
+                                  shards=1)
         mbps = int(lens.sum()) / (ms * 1e-3) / 1e6
-        shapes = checked_shapes(dict(fxc.launch_shapes), f"timing B={B}")
-        if len(shapes) != 1:
-            fail(f"timing B={B}: launches of more than one shape: {shapes}")
+        all_shapes = checked_shapes(dict(fxc.launch_shapes),
+                                    f"timing B={B}")
+        shapes = [(sh, n) for sh, n in all_shapes
+                  if sh.entry_point in fxc.ENTRY_POINTS]
+        k8_shapes = [(sh, n) for sh, n in all_shapes
+                     if sh.entry_point in fxc.STATS_ENTRY_POINTS]
+        if len(shapes) != 1 or len(k8_shapes) != 1:
+            fail(f"timing B={B}: launches of more than one shape: "
+                 f"{all_shapes}")
         sh = shapes[0][0]
         out[B] = {"ms": ms, "cold_ms": cold_ms, "call_ms": call_ms,
                   "parse_mbps": mbps, "plain_ms": plain_ms,
                   "bound_ms": b_ms, "bound_by": by, "real_rows": n_real,
                   "blocks": sh.blocks, "threads": sh.threads,
-                  "smem": sh.smem, "copies": n_copies}
+                  "smem": sh.smem, "copies": n_copies,
+                  "k8": {"ms": k8_ms, "cold_ms": k8_cold_ms,
+                         "call_ms": k8_call_ms, "plain_ms": k8_plain_ms,
+                         "bound_ms": k8_b_ms, "bound_by": k8_by,
+                         "over_k1": k8_ms / ms,
+                         "cold_over_k1": k8_cold_ms / cold_ms,
+                         "entry_point": k8_shapes[0][0].entry_point,
+                         "blocks": k8_shapes[0][0].blocks,
+                         "threads": k8_shapes[0][0].threads}}
         log(f"timing B={B} L=128 C=9 ({n_real} Apache rows; as launched: "
             f"{sh.blocks} blocks of {sh.threads} threads, {sh.smem} bytes "
             f"of shared memory): kernel {ms:.5f} ms warm and {cold_ms:.5f} "
             f"ms cold ({n_copies} copies) on the device (graph replay), "
             f"{call_ms:.4f} ms per wrapper call, plain {plain_ms:.3f} ms, "
             f"bound {b_ms:.5f} ms ({by}); regex-parse {mbps:.1f} MB/s")
+        log(f"K8 timing B={B} L=128 C=9 (one shard, same rows): "
+            f"{k8_ms:.5f} ms warm and {k8_cold_ms:.5f} ms cold (graph "
+            f"replay) = {k8_ms / ms:.3f} / {k8_cold_ms / cold_ms:.3f} x K1; "
+            f"{k8_call_ms:.4f} ms per wrapper call, plain K8 "
+            f"{k8_plain_ms:.3f} ms, bound {k8_b_ms:.5f} ms ({k8_by})")
     return out
 
 
@@ -1913,6 +2153,167 @@ def phase_apache_filter(tmp, log_path, lines, n_bytes, threads) -> dict:
     os.unlink(out_path)
     return {"stats": st, "mbps": mbps, "wall_s": wall, "shapes": shapes,
             "records": n}
+
+
+def phase_logical_mesh(tmp, log_path, lines, base_out, filt) -> dict:
+    """Phase 26, in this process: the JAX tests' multiple-device scenario
+    (``tests/test_loongmesh.py:212-260``) on the one card, whose device
+    list repeats ``cuda:0``.  (a) Four chip lanes
+    (``chip_lanes.reset_for_testing([cuda:0] * 4)``) under four workers:
+    the lanes' dispatches add up to the engines' device batches and K1's
+    launches, and the NDJSON is byte-identical to phase 3's one-worker
+    run.  (b) A four-shard mesh on the card (the engine's sharded kernel
+    over ``[cuda:0] * 4``): four K8 launches a dispatch, an h2d leg a
+    shard, one exec leg a dispatch, totals equal to the log's, the NDJSON
+    byte-identical again.  (c) The Apache-filter config with four lanes:
+    K7 launches = fused dispatches = the lanes' dispatches, and the records
+    equal phase 12's."""
+    import torch
+    from loongcollector_tpu_torch import testdata as td
+    from loongcollector_tpu_torch.application import run_once
+    from loongcollector_tpu_torch.ops import chip_lanes
+    from loongcollector_tpu_torch.ops.regex import engine as engine_mod
+    from loongcollector_tpu_torch.parallel.mesh import (ShardedKernel,
+                                                        make_mesh)
+    from loongcollector_tpu_torch.utils.device import resolve_device
+    device = resolve_device(None)
+    card = torch.device("cuda", torch.cuda.current_device())
+    with open(base_out, "rb") as f:
+        base = f.read()
+    out = {}
+
+    def run(tag, threads, cfg_text=None):
+        run_dir = os.path.join(tmp, f"logical_{tag}")
+        os.makedirs(run_dir)
+        out_path = os.path.join(run_dir, "out.json")
+        if cfg_text is None:
+            cfg_dir = write_config(run_dir, log_path, out_path)
+        else:
+            cfg_dir = os.path.join(run_dir, "config")
+            os.makedirs(cfg_dir)
+            with open(os.path.join(cfg_dir, "p.yaml"), "w") as f:
+                f.write(cfg_text(out_path))
+        old = os.environ.get("LOONG_PROCESS_THREADS")
+        os.environ["LOONG_PROCESS_THREADS"] = str(threads)
+        try:
+            st = run_once(cfg_dir, device)
+        finally:
+            if old is None:
+                os.environ.pop("LOONG_PROCESS_THREADS")
+            else:
+                os.environ["LOONG_PROCESS_THREADS"] = old
+        with open(out_path, "rb") as f:
+            data = f.read()
+        os.unlink(out_path)
+        return data, st
+
+    def lanes_of(st):
+        router = (st["mesh"] or {}).get("router")
+        if not router or router["lane_count"] != 4:
+            fail(f"logical lanes: no four lanes in the run's stats: "
+                 f"{st['mesh']}")
+        return router["lanes"]
+
+    # (a) four lanes on the card, four workers
+    engine_mod.clear_engine_cache()
+    chip_lanes.reset_for_testing([card] * 4)
+    data, st = run("lanes", 4)
+    lanes = lanes_of(st)
+    per_lane = [ln["dispatches"] for ln in lanes]
+    if data != base \
+            or not (0 < st["launches"] == st["device_batches"]
+                    == sum(per_lane) == st["plane"]["dispatches"]) \
+            or any(ln["inflight_bytes"] for ln in lanes) or st["mesh"][
+                "kernels"]:
+        fail(f"logical lanes (a): NDJSON equal {data == base}, lane "
+             f"dispatches {per_lane}, device batches "
+             f"{st['device_batches']}, K1 launches {st['launches']}")
+    log(f"logical lanes (a): four lanes on {card}, four workers: NDJSON "
+        f"byte-identical to the one-worker run ({len(data)} bytes); lane "
+        f"dispatches {per_lane} = {st['device_batches']} device batches = "
+        f"K1 launches; pipeline {st['seconds']:.3f} s")
+    out["lanes_dispatches"] = per_lane
+    out["lanes_seconds"] = st["seconds"]
+
+    # (b) a four-shard mesh on the card, one worker
+    engine_mod.clear_engine_cache()
+    chip_lanes.reset_for_testing()
+    eng = engine_mod.get_engine(APACHE, device)
+    eng._sharded = ShardedKernel(eng.kernel.program,
+                                 make_mesh(devices=[card] * 4),
+                                 kernel=eng.kernel)
+    # the mesh counters are the process's, per chip count (phase 24's
+    # four-shard meshes added to them): this run's are the differences
+    before = eng._sharded.status()
+    data, st = run("mesh4", 1)
+    mesh = st["mesh"] or {"kernels": []}
+    k4 = [k for k in mesh["kernels"] if k["chips"] == 4
+          and k["launches"]]
+    if len(k4) != 1:
+        fail(f"logical mesh (b): the agent did not run the four-shard "
+             f"kernel: {st['mesh']}")
+    k = dict(k4[0])
+    for key in ("dispatches", "pad_fallbacks"):
+        k[key] -= before[key]
+    k["totals"] = {key: v - before["totals"][key]
+                   for key, v in k["totals"].items()}
+    h2d = mesh["shard_legs"].get("h2d", {})
+    legs = st["timeline"]["legs"]
+    want = {"matched": len(lines), "events": len(lines),
+            "bytes": sum(len(x) for x in lines)}
+    if data != base or k["totals"] != want \
+            or not (0 < k["dispatches"] == st["device_batches"]
+                    == st["plane"]["dispatches"] == legs["exec"]["count"])\
+            or k["launches"] != 4 * k["dispatches"] \
+            or sorted(h2d) != ["0", "1", "2", "3"] \
+            or any(v["count"] != k["dispatches"] for v in h2d.values()) \
+            or st["launches"] or k["pad_fallbacks"]:
+        fail(f"logical mesh (b): NDJSON equal {data == base}, {k}, h2d "
+             f"legs {h2d}, exec legs {legs['exec']}, device batches "
+             f"{st['device_batches']}, standalone K1 {st['launches']}")
+    out["mesh4"] = {"dispatches": k["dispatches"], "launches": k["launches"],
+                    "seconds": st["seconds"],
+                    "submit_median_ms": legs["submit"]["median_s"] * 1e3,
+                    "h2d_median_ms": {s_: v["median_s"] * 1e3
+                                      for s_, v in h2d.items()},
+                    "exec_median_ms": legs["exec"]["median_s"] * 1e3,
+                    "stage_seconds": st["stage_seconds"]}
+    log(f"logical mesh (b): four shards on {card}: NDJSON byte-identical; "
+        f"{k['dispatches']} dispatches x 4 = {k['launches']} K8 launches, an "
+        f"h2d leg a shard (medians ms "
+        + ", ".join(f"{s_} {v['median_s'] * 1e3:.4f}"
+                    for s_, v in sorted(h2d.items()))
+        + f"), exec legs {legs['exec']['count']} (median "
+        f"{legs['exec']['median_s'] * 1e3:.4f} ms), submit median "
+        f"{legs['submit']['median_s'] * 1e3:.4f} ms; totals {k['totals']}; "
+        f"pipeline {st['seconds']:.3f} s; stage seconds "
+        + json.dumps(st["stage_seconds"]))
+
+    # (c) the Apache-filter path on four lanes
+    engine_mod.clear_engine_cache()
+    chip_lanes.reset_for_testing([card] * 4)
+    data, st = run("filter_lanes", 4,
+                   lambda o: td.apache_filter_config(log_path, o))
+    lanes = lanes_of(st)
+    fu = st["fusion"]
+    recs = [json.loads(r) for r in data.splitlines()]
+    got = [{k_: r.get(k_) for k_ in td.APACHE_KEYS} for r in recs]
+    per_lane = [ln["dispatches"] for ln in lanes]
+    if len(got) != filt["records"] or got != td.apache_filter_oracle(lines) \
+            or not (0 < fu["k7_launches"] == fu["fused_dispatches"]
+                    == sum(per_lane) == st["plane"]["dispatches"]) \
+            or st["launches"]:
+        fail(f"logical lanes (c): {len(got)} records (phase 12: "
+             f"{filt['records']}), K7 {fu['k7_launches']}, fused "
+             f"{fu['fused_dispatches']}, lanes {per_lane}, standalone K1 "
+             f"{st['launches']}")
+    log(f"logical lanes (c): the Apache-filter path on four lanes: "
+        f"{len(got)} records equal phase 12's; {fu['k7_launches']} K7 "
+        f"launches = fused dispatches = lane dispatches {per_lane}")
+    chip_lanes.reset_for_testing()
+    engine_mod.clear_engine_cache()
+    out["filter_lanes_dispatches"] = per_lane
+    return out
 
 
 def fused_bound_ms(B, row_bytes, walked, desc_words, C, n_keep):
@@ -3058,6 +3459,66 @@ def k5_kernel_entry(parity, k7_parity, csv, timing, build) -> dict:
     }
 
 
+def k8_kernel_entry(parity, timing, sharded, sharded4, logical, main_path,
+                    build) -> dict:
+    """The ``kernels`` line's K8 entry: timed at K1's shapes (phase 24),
+    launched on the sharded main path (phase 25) and on the four-shard
+    mesh of phase 26."""
+    t8, t64 = timing[8192]["k8"], timing[65536]["k8"]
+    st = sharded["stats"]
+    k = st["mesh"]["kernels"][0]
+    return {
+        "name": "sharded_extract",
+        "route": "cuda",
+        "source": "loongcollector_tpu_torch/ops/kernels/csrc/field_extract.cu",
+        "replaces": "loongcollector_tpu/parallel/mesh.py:73",
+        "parity": "bit-exact",
+        "geometry": [8192, 128, 9],
+        "shards": 1,
+        "launches": st["mesh"]["k8_launches"],
+        "max_abs_err": parity["k8_max_abs_err"],
+        "ms": t8["ms"],
+        "kernel_ms": t8["ms"],
+        "cold_ms": t8["cold_ms"],
+        "call_ms": t8["call_ms"],
+        "plain_ms": t8["plain_ms"],
+        "bound_ms": t8["bound_ms"],
+        "bound_by": t8["bound_by"],
+        # no single PyTorch call computes a segment-program match; the
+        # torch.sum of the counts is the plain version's last step
+        "library_ms": None,
+        "over_k1": t8["over_k1"],
+        "cold_over_k1": t8["cold_over_k1"],
+        "entry_point": t8["entry_point"],
+        "blocks": [t8["blocks"], t64["blocks"]],
+        "threads": [t8["threads"], t64["threads"]],
+        "bench_geometry": [65536, 128, 9],
+        "bench_ms": t64["ms"],
+        "bench_cold_ms": t64["cold_ms"],
+        "bench_call_ms": t64["call_ms"],
+        "bench_plain_ms": t64["plain_ms"],
+        "bench_bound_ms": t64["bound_ms"],
+        "bench_over_k1": t64["over_k1"],
+        "parity_batches": parity["k8_checks"],
+        "parity_launches": parity["k8_launches"],
+        "parity_pad_rows": parity["k8_pad_rows"],
+        "sharded_path_mbps": sharded["mbps"],
+        "sharded_path_mbps_4_workers_ledger_on": sharded4["mbps"],
+        "main_path_mbps": main_path["mbps"],
+        "sharded_path_kernel_s": st["kernel_seconds"],
+        "sharded_path_busy_share": st["busy_share"],
+        "sharded_path_totals": k["totals"],
+        "sharded_path_leg_median_ms": {
+            n: v["median_s"] * 1e3 for n, v in st["timeline"]["legs"].items()},
+        "logical_mesh4": logical["mesh4"],
+        "logical_lane_dispatches": logical["lanes_dispatches"],
+        "logical_filter_lane_dispatches": logical["filter_lanes_dispatches"],
+        "build_s": build["build_s"]["field_extract"],
+        "ptxas": {n: v for n, v in build["ptxas"].items()
+                  if n.startswith("stats_")},
+    }
+
+
 def main() -> int:
     t_start = time.perf_counter()
     if len(sys.argv) > 1:
@@ -3079,7 +3540,8 @@ def main() -> int:
     build = phase_build(fxc, dsc, fpc, src, sic, native)
     parity = phase_parity()
     tmp, log_path, lines, n_bytes = main_path_log()
-    main_path = phase_main_path(tmp, log_path, lines, n_bytes, threads=1)
+    main_path = phase_main_path(tmp, log_path, lines, n_bytes, threads=1,
+                                keep=True)
     main_path4 = phase_main_path(tmp, log_path, lines, n_bytes, threads=4)
     main_led = phase_main_path(tmp, log_path, lines, n_bytes, threads=1,
                                ledger=True)
@@ -3099,6 +3561,13 @@ def main() -> int:
     grok = phase_grok(tmp, log_path, lines, n_bytes)
     filt = phase_apache_filter(tmp, log_path, lines, n_bytes, threads=1)
     filt4 = phase_apache_filter(tmp, log_path, lines, n_bytes, threads=4)
+    sharded = phase_main_path(tmp, log_path, lines, n_bytes, threads=1,
+                              sharded=True)
+    sharded4 = phase_main_path(tmp, log_path, lines, n_bytes, threads=4,
+                               ledger=True, sharded=True)
+    logical = phase_logical_mesh(tmp, log_path, lines,
+                                 main_path["out_path"], filt)
+    os.unlink(main_path["out_path"])
     os.unlink(log_path)
     mtmp, mlog_path, mlines, m_bytes, oracle, invalid, fold_rows = \
         metrics_log()
@@ -3187,7 +3656,8 @@ def main() -> int:
         "largest_smem_bytes": parity["largest_smem"],
         "main_path_blocks": sorted({sh.blocks for sh, _ in
                                     main_path["shapes"]}),
-        "ptxas": build["ptxas"],
+        "ptxas": {n: v for n, v in build["ptxas"].items()
+                  if not n.startswith("stats_")},
     }, dfa_kernel_entry(
         "dfa_match", "match",
         "loongcollector_tpu/ops/kernels/dfa_scan.py:88", dfa_parity,
@@ -3200,7 +3670,9 @@ def main() -> int:
         build, k7_struct, pipe) + [k6_kernel_entry(
             k6_parity, k6_path, k6_timing, roll, roll4, roll_np, roll_led,
             build), k5_kernel_entry(k5_parity, k7_struct, csv, k5_timing,
-                                    build)]}
+                                    build),
+        k8_kernel_entry(parity, timing, sharded, sharded4, logical,
+                        main_path, build)]}
 
     log(f"total: {time.perf_counter() - t_start:.1f} s")
     print(nvidia_smi())

@@ -40,7 +40,14 @@ and on the card sum, median and largest), and the rollup's folded,
 invalid, late, emitted and evicted rows; ``parse``: the structural-index
 parsers' rows, fallback rows and drift rows; and ``ledger``: with
 ``LOONG_LEDGER=1``, each pipeline's event-conservation residual after the
-run and the ledger's totals by boundary.
+run and the ledger's totals by boundary; and ``mesh`` (several devices,
+the counterpart of the reference's ``/debug/status`` ``mesh``): each live
+sharded kernel's status (chips and devices, dispatches, K8 launches, pad
+fallbacks, the folded totals, per-chip row occupancy and padding share),
+K8's launch shapes, the sharded dispatches' h2d legs per shard, and the
+chip-lane router's status (lanes, each one's dispatches, rows and bytes in
+flight); null when no sharded kernel was built and no lane is active.
+``launch_shapes`` at the top holds K1's launches only.
 """
 
 from __future__ import annotations
@@ -186,7 +193,8 @@ def run_once(config_dir: str, device) -> Dict[str, Any]:
         "launches": sum(e.kernel.launches for e in engines
                         if e.kernel is not None),
         "launch_shapes": [dict(asdict(shape), launches=n)
-                          for shape, n in fxc.launch_shapes.items()],
+                          for shape, n in fxc.launch_shapes.items()
+                          if shape.entry_point in fxc.ENTRY_POINTS],
         "device_batches": sum(e.device_batches for e in engines),
         "re_oversize_rows": sum(e.re_oversize_rows for e in engines),
         "re_tier_rows": sum(e.re_tier_rows for e in engines),
@@ -226,6 +234,31 @@ def run_once(config_dir: str, device) -> Dict[str, Any]:
         "parse": parse_telemetry.status(),
         "k5": _k5_stats(timeline, on_card),
         "ledger": _ledger_stats(),
+        "mesh": _mesh_stats(timeline),
+    }
+
+
+def _mesh_stats(timeline: xprof.DeviceTimeline) -> Optional[Dict[str, Any]]:
+    """The sharded plane's and the chip lanes' counts for ``--stats``, or
+    None when no sharded kernel was built and no lane is active."""
+    from .ops import chip_lanes
+    from .ops.kernels import field_extract_cuda as fxc
+    from .parallel.mesh import mesh_status
+    mesh = mesh_status()
+    router = chip_lanes.active_router()
+    lanes = router.status() if router is not None and router.lane_count() \
+        else None
+    if mesh is None and lanes is None:
+        return None
+    kernels = mesh["kernels"] if mesh is not None else []
+    return {
+        "kernels": kernels,
+        "k8_launches": sum(k["launches"] for k in kernels),
+        "launch_shapes": [dict(asdict(shape), launches=n) for shape, n
+                          in fxc.launch_shapes.items()
+                          if shape.entry_point in fxc.STATS_ENTRY_POINTS],
+        "shard_legs": timeline.shard_leg_summary(),
+        "router": lanes,
     }
 
 

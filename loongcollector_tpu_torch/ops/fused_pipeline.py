@@ -39,11 +39,16 @@ outputs come back in one copy.
 * Programs are cached in memory, keyed by the sha256 of the stage
   identities (``get_fused_program``).
 
-Left out, as in the port's plane: chip lanes, the chaos fault point, the
-demotion of a failed chunk to the per-stage path, and the on-disk plan
-cache (which waits for tail mode).  ``LOONG_FUSED`` is the reference's
-switch: ``1`` forces fusion, ``0`` disables it, and unset it is on exactly
-when the pipeline's device is CUDA.
+A worker bound to a chip lane (``ops/chip_lanes.py``) runs its fused
+chunks on the lane's device (``FusedProgramKernel.for_lane``), accounted
+against the lane's share of the budget, with the lane's tuner floors, as
+the engines' chunks (reference ``fused_pipeline.py:296-305, 680-681``).
+
+Left out, as in the port's plane: the lane breaker's respill, the chaos
+fault point, the demotion of a failed chunk to the per-stage path, and the
+on-disk plan cache (which waits for tail mode).  ``LOONG_FUSED`` is the
+reference's switch: ``1`` forces fusion, ``0`` disables it, and unset it is
+on exactly when the pipeline's device is CUDA.
 """
 
 from __future__ import annotations
@@ -58,7 +63,7 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from . import xprof
+from . import chip_lanes, xprof
 from .device_batch import (LENGTH_BUCKETS, MAX_BATCH, pad_batch,
                            pick_length_bucket)
 from .device_plane import DevicePlane, mem_note_alloc, mem_note_free
@@ -333,6 +338,12 @@ class FusedProgramKernel:
             got = self._staged.setdefault(device, StagedKernel(self, device))
         return got
 
+    def for_lane(self, lane) -> StagedKernel:
+        """The plane's call on a chip lane's device, the descriptor
+        uploaded there first."""
+        self.warm(lane.device)
+        return self.staged_kernel(lane.device)
+
     def host_outputs(self, slot) -> Tuple[torch.Tensor]:
         """The slot's buffer the flat output is copied back into."""
         return (slot.flat_output(
@@ -553,7 +564,7 @@ class FusedDispatch:
         self.lengths = np.asarray(lengths, dtype=np.int32)
         self.depth = max(1, depth if depth is not None else stream_depth())
         self._n = len(self.offsets)
-        # [(chunk_idx, DeviceBatch, BatchSlot, DeviceFuture)]
+        # [(chunk_idx, DeviceBatch, BatchSlot, DeviceFuture, ChipLane)]
         self._pending: List = []
         self._stage_bufs = self._alloc_stage_bufs()
         # struct_index stage -> [(chunk, packed masks, L)]
@@ -582,15 +593,27 @@ class FusedDispatch:
         ring = batch_ring()
         tuner = auto_tuner()
         program = self.program
-        staged = program.staged_kernel(self.device)
-        pinned = self.device.type == "cuda"
-        lane = f"fused:{program.signature[:8]}"
+        chip = chip_lanes.current_lane()
+        lane_count = chip_lanes.router().lane_count() if chip is not None \
+            else 0
+        if chip is None:
+            staged = program.staged_kernel(self.device)
+            pinned = self.device.type == "cuda"
+            lane = f"fused:{program.signature[:8]}"
+        else:
+            staged = program.for_lane(chip)
+            pinned = chip.device.type == "cuda"
+            lane = f"chip:{chip.index}"
         max_bucket = LENGTH_BUCKETS[-1]
         idx = np.arange(self._n)
         try:
             for start in range(0, self._n, MAX_BATCH):
                 chunk = idx[start:start + MAX_BATCH]
                 while len(self._pending) >= self.depth:
+                    self._drain_one()
+                while chip is not None \
+                        and chip.over_share(self._plane, lane_count) \
+                        and self._pending:
                     self._drain_one()
                 d_off = self.offsets[chunk]
                 d_len = self.lengths[chunk]
@@ -614,7 +637,10 @@ class FusedDispatch:
                 # the chunk's stage columns live on the device while it is
                 # in flight, booked at its rows' bytes
                 mem_note_alloc("resident_columns", batch.rows.nbytes)
-                self._pending.append((chunk, batch, slot, fut))
+                if chip is not None:
+                    chip.note_pack(B, batch.n_real)
+                    chip.note_dispatch(batch.rows.nbytes)
+                self._pending.append((chunk, batch, slot, fut, chip))
         except BaseException:
             self._abandon(consume=False)
             raise
@@ -629,7 +655,7 @@ class FusedDispatch:
     def _abandon(self, consume: bool) -> None:
         """Release every chunk still pending; with ``consume`` each future
         is waited on first (its error dropped: the caller raises one)."""
-        for _c, batch, slot, fut in self._pending:
+        for _c, batch, slot, fut, chip in self._pending:
             if consume:
                 try:
                     fut.result()
@@ -638,6 +664,8 @@ class FusedDispatch:
             else:
                 fut.release()
             mem_note_free("resident_columns", batch.rows.nbytes)
+            if chip is not None:
+                chip.note_done(batch.rows.nbytes)
             slot.release()
         self._pending.clear()
 
@@ -648,12 +676,14 @@ class FusedDispatch:
         return True
 
     def _drain_one(self) -> None:
-        chunk, batch, slot, fut = self._pending.pop(0)
+        chunk, batch, slot, fut, chip = self._pending.pop(0)
         try:
             (flat,) = fut.result()
             self._assemble(chunk, batch, flat)
         finally:
             mem_note_free("resident_columns", batch.rows.nbytes)
+            if chip is not None:
+                chip.note_done(batch.rows.nbytes)
             slot.release()
 
     def _assemble(self, chunk: np.ndarray, batch, flat) -> None:

@@ -42,6 +42,21 @@
 // the fused stage program (fused_program.cu) shares.  The staging and the
 // write-back below stay inline: taking the header's copies instead moved
 // this kernel's registers (PERF.md, PR 5).
+//
+// K8, the sharded parse step (lct_sharded_extract_*), is this kernel with
+// STATS on.  It replaces the TPU program loongcollector_tpu/parallel/mesh.py:73
+// (ShardedParsePlane: K1's XLA body under shard_map, then three psum'd
+// counts, :90-98), one launch per shard.  The walk is K1's; an epilogue adds
+// the shard's three counts: matched = sum(ok) over every row of the launch,
+// padding rows included (a pattern that matches the empty string makes them
+// ok, and the reference counts them), events = the rows with len > 0, bytes
+// = sum(len).  Each warp reduces its 32 rows with shuffles and lane 0 adds
+// to stats[3] with three atomics; the launcher zeroes stats on the stream
+// first.  The host sums the shards' vectors (parallel/mesh.py), the psum's
+// counterpart.  The counts are 64-bit; the reference's are int32 (x64 off),
+// equal while sum(len) < 2^31, which holds for B <= 65,536 rows of L <= 4,096
+// bytes (2^28).  Bound: K1's bytes plus 24 bytes a shard.  With STATS off
+// the epilogue compiles away, and the six K1 entry points are what they were.
 
 #include "extract_walk.cuh"
 
@@ -52,14 +67,15 @@ namespace {
 //   [reverse caps T * (3C | 1), pivot programs only]
 // A warp stages, walks and writes back its own 32 rows, so the block
 // synchronises once, after the program and the tile are in.
-template <bool NESTED, int PIVOT>
+template <bool NESTED, int PIVOT, bool STATS>
 __global__ void __launch_bounds__(kMaxThreads, kMinBlocks)
 field_extract_kernel(const uint8_t* __restrict__ rows,
                      const int32_t* __restrict__ lens, int64_t B, int32_t L,
                      const int32_t* __restrict__ prog, int32_t prog_words,
                      uint8_t* __restrict__ ok_out,
                      int32_t* __restrict__ off_out,
-                     int32_t* __restrict__ len_out) {
+                     int32_t* __restrict__ len_out,
+                     unsigned long long* __restrict__ stats) {
   extern __shared__ int32_t smem[];
   const int32_t T = blockDim.x, tid = threadIdx.x, lane = tid & 31;
   const int64_t row0 = (int64_t)blockIdx.x * T;
@@ -161,17 +177,41 @@ field_extract_kernel(const uint8_t* __restrict__ rows,
       cl[e] = rok ? fin[i * cw + C + k] : -1;
     }
   }
+
+  if constexpr (STATS) {
+    // the whole warp: lanes past nrows hold ok = false and len = 0
+    uint32_t m = ok, ev = len > 0;
+    int32_t by = len;
+#pragma unroll
+    for (int s = 16; s > 0; s >>= 1) {
+      m += __shfl_xor_sync(0xffffffffu, m, s);
+      ev += __shfl_xor_sync(0xffffffffu, ev, s);
+      by += __shfl_xor_sync(0xffffffffu, by, s);
+    }
+    if (lane == 0 && wrows > 0) {
+      atomicAdd(stats, (unsigned long long)m);
+      atomicAdd(stats + 1, (unsigned long long)ev);
+      // a signed sum: two's complement wraps to the same 64-bit total
+      atomicAdd(stats + 2, (unsigned long long)(long long)by);
+    }
+  }
 }
 
-template <bool NESTED, int PIVOT>
+template <bool NESTED, int PIVOT, bool STATS>
 int launch(const uint8_t* rows, const int32_t* lens, int64_t B, int32_t L,
            const int32_t* prog, int32_t prog_words, uint8_t* ok_out,
-           int32_t* off_out, int32_t* len_out, int32_t threads,
+           int32_t* off_out, int32_t* len_out,
+           unsigned long long* stats, int32_t threads,
            int32_t smem_bytes, void* stream) {
+  if constexpr (STATS) {
+    cudaError_t z = cudaMemsetAsync(stats, 0, 3 * sizeof(unsigned long long),
+                                    (cudaStream_t)stream);
+    if (z != cudaSuccess) return (int)z;
+  }
   if (B <= 0) return 0;
   if (threads < 32 || threads > kMaxThreads || threads % 32)
     return (int)cudaErrorInvalidValue;
-  auto kernel = field_extract_kernel<NESTED, PIVOT>;
+  auto kernel = field_extract_kernel<NESTED, PIVOT, STATS>;
   // The attribute is a cap, not a reservation: each instantiation opts into
   // the whole budget once per device and no launch lowers it again, so two
   // threads launching at once can only set the same value twice.
@@ -190,7 +230,7 @@ int launch(const uint8_t* rows, const int32_t* lens, int64_t B, int32_t L,
   const int64_t blocks = (B + threads - 1) / threads;
   kernel<<<(unsigned)blocks, threads, (size_t)smem_bytes,
            (cudaStream_t)stream>>>(rows, lens, B, L, prog, prog_words, ok_out,
-                                   off_out, len_out);
+                                   off_out, len_out, stats);
   return (int)cudaGetLastError();
 }
 
@@ -205,9 +245,22 @@ int launch(const uint8_t* rows, const int32_t* lens, int64_t B, int32_t L,
            const int32_t* prog, int32_t prog_words, uint8_t* ok_out,         \
            int32_t* off_out, int32_t* len_out, int32_t threads,              \
            int32_t smem_bytes, void* stream) {                               \
-    return launch<NESTED, PIVOT>(rows, lens, B, L, prog, prog_words, ok_out, \
-                                 off_out, len_out, threads, smem_bytes,      \
-                                 stream);                                    \
+    return launch<NESTED, PIVOT, false>(rows, lens, B, L, prog, prog_words,   \
+                                        ok_out, off_out, len_out, nullptr,   \
+                                        threads, smem_bytes, stream);        \
+  }
+
+// K8: the same walk, and the launch's three counts added into `stats`
+// (u64 [3]: matched, events, bytes), which the launcher zeroes first on
+// `stream`.  The launch writes through the pointers of the current device.
+#define LCT_SHARDED_EXTRACT(NAME, NESTED, PIVOT)                             \
+  int NAME(const uint8_t* rows, const int32_t* lens, int64_t B, int32_t L,   \
+           const int32_t* prog, int32_t prog_words, uint8_t* ok_out,         \
+           int32_t* off_out, int32_t* len_out, unsigned long long* stats,    \
+           int32_t threads, int32_t smem_bytes, void* stream) {              \
+    return launch<NESTED, PIVOT, true>(rows, lens, B, L, prog, prog_words,    \
+                                       ok_out, off_out, len_out, stats,      \
+                                       threads, smem_bytes, stream);         \
   }
 
 extern "C" {
@@ -218,6 +271,13 @@ LCT_FIELD_EXTRACT(lct_field_extract_d0_p2, false, 2)
 LCT_FIELD_EXTRACT(lct_field_extract_d1_p0, true, 0)
 LCT_FIELD_EXTRACT(lct_field_extract_d1_p1, true, 1)
 LCT_FIELD_EXTRACT(lct_field_extract_d1_p2, true, 2)
+
+LCT_SHARDED_EXTRACT(lct_sharded_extract_d0_p0, false, 0)
+LCT_SHARDED_EXTRACT(lct_sharded_extract_d0_p1, false, 1)
+LCT_SHARDED_EXTRACT(lct_sharded_extract_d0_p2, false, 2)
+LCT_SHARDED_EXTRACT(lct_sharded_extract_d1_p0, true, 0)
+LCT_SHARDED_EXTRACT(lct_sharded_extract_d1_p1, true, 1)
+LCT_SHARDED_EXTRACT(lct_sharded_extract_d1_p2, true, 2)
 
 const char* lct_cuda_error_string(int code) {
   return cudaGetErrorString((cudaError_t)code);

@@ -11,7 +11,10 @@ it is what runs for tensors on the CPU.
 
 ``ExtractKernel`` is the one surface callers use: a CPU tensor takes the
 plain version, a CUDA tensor launches the hand-written kernel — or raises.
-There is no fallback from one to the other.
+There is no fallback from one to the other.  ``ExtractKernel.with_stats``
+is K8, one shard of the sharded parse step (``parallel/mesh.py``): the
+same extraction and the shard's three counts; ``extract_stats_plain`` is
+its plain version.
 """
 
 from __future__ import annotations
@@ -430,15 +433,36 @@ def build_extract_fn(program: SegmentProgram):
     return extract
 
 
+def plain_counts(ok: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
+    """K8's counts of one shard, i64 [3]: matched (rows with ``ok``,
+    padding rows included, as the reference's ``jnp.sum(ok)``), events
+    (rows with a length above 0) and bytes (the sum of the lengths)."""
+    return torch.stack([ok.sum(dtype=torch.int64),
+                        (lengths > 0).sum(dtype=torch.int64),
+                        lengths.sum(dtype=torch.int64)])
+
+
+def extract_stats_plain(rows: torch.Tensor, lengths: torch.Tensor,
+                        program) -> Tuple[torch.Tensor, ...]:
+    """K8's plain version (reference ``parallel/mesh.py:90-98`` on one
+    shard): the plain extraction of ``program`` (a SegmentProgram, or the
+    function ``build_extract_fn`` made of one), then ``torch.sum`` for each
+    of the three counts.  Returns (ok, cap_off, cap_len, counts i64 [3])."""
+    extract = program if callable(program) else build_extract_fn(program)
+    ok, off, length = extract(rows, lengths)
+    return ok, off, length, plain_counts(ok, lengths)
+
+
 class ExtractKernel:
     """One compiled program's extraction, dispatched by tensor device.
 
     ``kernel(rows, lengths)`` with CPU tensors runs the plain version
     (``plain``); with CUDA tensors it launches the hand-written CUDA kernel
     (``field_extract_cuda``) on the current stream and counts the launch in
-    ``launches`` — it never falls back.  Several runner workers share one
-    engine's kernel, so the count is taken under a lock.  Device time comes
-    from the dispatch timeline (``ops/xprof.py``), not from here."""
+    ``launches`` — it never falls back.  ``with_stats`` is the same choice
+    for K8 (counted in ``stats_launches``).  Several runner workers share
+    one engine's kernel, so the counts are taken under a lock.  Device time
+    comes from the dispatch timeline (``ops/xprof.py``), not from here."""
 
     # the wrapper records the exec leg's events right around its launch
     brackets_launch = True
@@ -452,6 +476,7 @@ class ExtractKernel:
         self.kernel_program = (kernel_program if kernel_program is not None
                                else fxc.program_arrays(program))
         self.launches = 0
+        self.stats_launches = 0
         self._count_lock = threading.Lock()
         self._device_prog: Dict[torch.device, torch.Tensor] = {}
 
@@ -462,6 +487,7 @@ class ExtractKernel:
     def reset_counts(self) -> None:
         with self._count_lock:
             self.launches = 0
+            self.stats_launches = 0
 
     def warm(self, device: torch.device) -> None:
         """Build the kernel library and upload the program ahead of the
@@ -494,4 +520,23 @@ class ExtractKernel:
                          self.kernel_program, events)
         with self._count_lock:
             self.launches += 1
+        return out
+
+    def with_stats(self, rows: torch.Tensor, lengths: torch.Tensor,
+                   events=None) -> Tuple[torch.Tensor, ...]:
+        """K8 on one shard: (ok, cap_off, cap_len, counts i64 [3]).  CPU
+        tensors take ``extract_stats_plain``; CUDA tensors launch
+        ``lct_sharded_extract_*`` on the current stream of the current
+        device (which must be the rows' device), counted in
+        ``stats_launches``."""
+        if rows.device.type == "cpu":
+            return extract_stats_plain(rows, lengths, self.plain)
+        if rows.device.type != "cuda":
+            raise ValueError(f"no sharded_extract kernel for {rows.device}")
+        from . import field_extract_cuda as fxc
+        out = fxc.launch_stats(rows, lengths,
+                               self.device_program(rows.device),
+                               self.kernel_program, events)
+        with self._count_lock:
+            self.stats_launches += 1
         return out

@@ -20,7 +20,10 @@ A block holds the blob, its rows and their capture state in shared memory
 and ``MAX_PROGRAM_BYTES`` is what is left of the card's budget at the
 largest row bucket.  The kernel is instantiated for depth-0 or nested
 programs and for no, single or double pivot; the header picks one
-(``KernelProgram.entry_point``).  A program over a limit (captures,
+(``KernelProgram.entry_point``).  Each instantiation has a second entry
+point, ``lct_sharded_extract_*`` (K8, ``launch_stats``): the same walk,
+plus the launch's three counts (matched, events, bytes) added into a
+u64 [3] that the launcher zeroes first.  A program over a limit (captures,
 classes, nesting depth, blob size) raises ``KernelUnsupported`` when the
 engine is built; the engine then runs the pattern on Python ``re``
 (counted and logged).  Importing this module needs no CUDA: only
@@ -142,6 +145,11 @@ class KernelProgram:
     def entry_point(self) -> str:
         """The C entry point of the instantiation this program takes."""
         return f"lct_field_extract_d{int(self.depth > 0)}_p{self.pivot}"
+
+    @property
+    def stats_entry_point(self) -> str:
+        """The same instantiation's K8 entry point (``launch_stats``)."""
+        return f"lct_sharded_extract_d{int(self.depth > 0)}_p{self.pivot}"
 
 
 def _ops_depth(words, lo: int, hi: int) -> int:
@@ -294,6 +302,9 @@ def _nvcc() -> str:
 
 ENTRY_POINTS = [f"lct_field_extract_d{d}_p{p}" for d in (0, 1)
                 for p in (0, 1, 2)]
+# K8: the same instantiations with the count epilogue
+STATS_ENTRY_POINTS = [e.replace("lct_field_extract_", "lct_sharded_extract_")
+                      for e in ENTRY_POINTS]
 
 
 _INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.M)
@@ -379,6 +390,11 @@ def build() -> ctypes.CDLL:
             fn.restype = ctypes.c_int
             fn.argtypes = [vp, vp, ctypes.c_int64, i32, vp, i32, vp, vp, vp,
                            i32, i32, vp]
+        for name in STATS_ENTRY_POINTS:
+            fn = getattr(lib, name)
+            fn.restype = ctypes.c_int
+            fn.argtypes = [vp, vp, ctypes.c_int64, i32, vp, i32, vp, vp, vp,
+                           vp, i32, i32, vp]
         lib.lct_cuda_error_string.restype = ctypes.c_char_p
         lib.lct_cuda_error_string.argtypes = [ctypes.c_int]
         _lib = lib
@@ -387,14 +403,18 @@ def build() -> ctypes.CDLL:
 
 _PTXAS_FUNC = re.compile(r"(?:Compiling entry function|Function properties "
                          r"for) '?([\w.$]+)")
-_PTXAS_KERNEL = re.compile(r"field_extract_kernelILb([01])ELi([0-2])E")
+# K1's instantiations, and K8's (the count epilogue on); a source from
+# before K8 has no third template argument
+_PTXAS_KERNEL = re.compile(
+    r"field_extract_kernelILb([01])ELi([0-2])E(?:Lb([01])E)?")
 _PTXAS_FRAME = re.compile(r"(\d+) bytes stack frame, (\d+) bytes spill "
                           r"stores, (\d+) bytes spill loads")
 _PTXAS_REGS = re.compile(r"Used (\d+) registers")
 
 
 def _extract_key(m: "re.Match") -> str:
-    return f"d{m.group(1)}_p{m.group(2)}"
+    stats = "stats_" if m.group(3) == "1" else ""
+    return f"{stats}d{m.group(1)}_p{m.group(2)}"
 
 
 def ptxas_report(log: str, kernel: "re.Pattern" = _PTXAS_KERNEL,
@@ -402,8 +422,8 @@ def ptxas_report(log: str, kernel: "re.Pattern" = _PTXAS_KERNEL,
     """What ``nvcc -Xptxas -v`` reported for each function: registers,
     stack frame and spill bytes.  A function whose mangled name matches
     ``kernel`` is keyed ``key_of(match)`` (here like the entry points:
-    ``d0_p0`` = depth 0, no pivot), any other function by its mangled
-    name."""
+    ``d0_p0`` = depth 0, no pivot; K8's ``stats_d0_p0``), any other
+    function by its mangled name."""
     out: Dict[str, Dict[str, int]] = {}
     key = None
     for ln in log.splitlines():
@@ -462,9 +482,39 @@ def launch(rows: torch.Tensor, lengths: torch.Tensor, prog: torch.Tensor,
     returns (ok bool [B], cap_off i32 [B, C], cap_len i32 [B, C]), allocated
     on the current stream.  ``events``, a (start, end) pair of CUDA events
     when given, is recorded on the stream right around the entry point's
-    call: the dispatch timeline's exec leg.  Each launch is counted in ``launch_shapes``
-    under the geometry it was given, and the first launch of each (entry
-    point, B, L) is recorded by ``compile_watch``."""
+    call: the dispatch timeline's exec leg.  Each launch is counted in
+    ``launch_shapes`` under the geometry it was given, and the first launch
+    of each (entry point, B, L) is recorded by ``compile_watch``."""
+    ok, off, length, _ = _launch(rows, lengths, prog, kprog, events,
+                                 kprog.entry_point, False)
+    return ok, off, length
+
+
+def launch_stats(rows: torch.Tensor, lengths: torch.Tensor,
+                 prog: torch.Tensor, kprog: KernelProgram, events=None
+                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                            torch.Tensor]:
+    """One K8 launch, a shard of the sharded parse step: ``launch`` plus
+    the launch's counts as a fourth output, i64 [3] on the device: matched
+    (rows with ok, padding rows included), events (rows with a length
+    above 0) and bytes (the sum of the lengths), zeroed and filled on the
+    current stream.  The C entry point launches on the current CUDA
+    device, so the rows must lie on it: a launch for another device would
+    write through that device's pointers, and raises instead.  Counted in
+    ``launch_shapes`` under K8's entry point.  Either event of ``events``
+    may be None: a sharded dispatch brackets a device's several launches
+    with the first's start and the last's end."""
+    if rows.device.type == "cuda" \
+            and rows.device.index != torch.cuda.current_device():
+        raise ValueError(f"sharded_extract: rows on {rows.device}, but the "
+                         f"current device is cuda:"
+                         f"{torch.cuda.current_device()}")
+    return _launch(rows, lengths, prog, kprog, events,
+                   kprog.stats_entry_point, True)
+
+
+def _launch(rows, lengths, prog, kprog: KernelProgram, events, entry: str,
+            with_stats: bool):
     if rows.device.type != "cuda" or lengths.device != rows.device \
             or prog.device != rows.device:
         raise ValueError("field_extract: rows, lengths and program must lie "
@@ -482,26 +532,29 @@ def launch(rows: torch.Tensor, lengths: torch.Tensor, prog: torch.Tensor,
     lib = build()
     C = kprog.num_caps
     threads, smem = launch_geometry(B, L, C, kprog.pivot, prog.numel())
-    shape = LaunchShape(kprog.entry_point, B, L, threads, smem,
-                        -(-B // threads))
+    shape = LaunchShape(entry, B, L, threads, smem, -(-B // threads))
     ok = torch.empty(B, dtype=torch.bool, device=rows.device)
     off = torch.empty((B, C), dtype=torch.int32, device=rows.device)
     length = torch.empty((B, C), dtype=torch.int32, device=rows.device)
+    args = [rows.data_ptr(), lengths.data_ptr(), B, L, prog.data_ptr(),
+            prog.numel(), ok.data_ptr(), off.data_ptr(), length.data_ptr()]
+    stats = None
+    if with_stats:
+        stats = torch.empty(3, dtype=torch.int64, device=rows.device)
+        args.append(stats.data_ptr())
     stream = torch.cuda.current_stream(rows.device)
-    if events is not None:
-        events[0].record(stream)
+    start, end = events if events is not None else (None, None)
+    if start is not None:
+        start.record(stream)
     t0 = time.perf_counter()
-    rc = getattr(lib, shape.entry_point)(
-        rows.data_ptr(), lengths.data_ptr(), B, L, prog.data_ptr(),
-        prog.numel(), ok.data_ptr(), off.data_ptr(), length.data_ptr(),
-        shape.threads, shape.smem, stream.cuda_stream)
-    if events is not None:
-        events[1].record(stream)
+    rc = getattr(lib, entry)(*args, shape.threads, shape.smem,
+                             stream.cuda_stream)
+    if end is not None:
+        end.record(stream)
     if rc != 0:
-        raise RuntimeError("field_extract launch failed: "
+        raise RuntimeError(f"{entry} launch failed: "
                            + lib.lct_cuda_error_string(rc).decode())
-    compile_watch.note_call(LAUNCH_FAMILY, f"{shape.entry_point}:{B}x{L}",
-                            t0)
+    compile_watch.note_call(LAUNCH_FAMILY, f"{entry}:{B}x{L}", t0)
     with _shapes_lock:
         launch_shapes[shape] = launch_shapes.get(shape, 0) + 1
-    return ok, off, length
+    return ok, off, length, stats

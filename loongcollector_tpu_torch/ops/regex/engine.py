@@ -35,10 +35,30 @@ slot returns to the ring.  ``parse_batch`` is
 ``DeviceFuture.result()`` and from here: nothing re-runs a chunk on the
 plain version or on ``re``, and every in-flight future and slot is released
 on the way out.
+
+Several devices (reference ``engine.py:252-276, 338-409``):
+
+* ``LOONG_SHARDED`` (``_maybe_sharded``): ``1`` forces the sharded parse
+  plane (``parallel/mesh.ShardedKernel``: each chunk's rows split over the
+  mesh, one K8 launch a shard), ``0`` turns it off, and unset it is on
+  when the mesh (``make_mesh`` for the engine's device) has more than one
+  shard.  Its chunks are counted as ``device_batches``, as K1's.
+* Chip lanes (``ops/chip_lanes.py``): a dispatch from a worker bound to a
+  lane runs on a ``_LanePlacedKernel``, the staged K1 on the lane's
+  device; each chunk is accounted against the lane's share of the plane's
+  budget (``note_pack`` / ``note_dispatch`` / ``note_done``), and a lane
+  over its share drains its own oldest chunk first.  The tuner's floors
+  are kept per lane (``chip:<i>``).
+
+Neither degrades quietly: a mesh that cannot be built, or a lane kernel
+that fails, raises (the reference falls back to one device, and pins a
+failing path off).  Left out with the lane breaker: the respill of an open
+lane's chunks to host parsing and the chip-lane chaos points.
 """
 
 from __future__ import annotations
 
+import os
 import re
 import threading
 from collections import OrderedDict
@@ -49,7 +69,7 @@ import torch
 
 from ...utils.device import resolve_device
 from ...utils.logger import get_logger
-from .. import xprof
+from .. import chip_lanes, xprof
 from ..device_batch import (LENGTH_BUCKETS, MAX_BATCH, pad_batch,
                             pick_length_bucket)
 from ..device_plane import DevicePlane
@@ -92,6 +112,13 @@ def cached_engines():
         return list(_engine_cache.values())
 
 
+def clear_engine_cache() -> None:
+    """Drop every cached engine (tests, and a change of the mesh or lane
+    settings)."""
+    with _engine_cache_lock:
+        _engine_cache.clear()
+
+
 def get_engine(pattern: Union[str, bytes],
                device: Union[str, torch.device, None] = None
                ) -> "RegexEngine":
@@ -112,6 +139,19 @@ def get_engine(pattern: Union[str, bytes],
         while len(_engine_cache) > _ENGINE_CACHE_MAX:
             _engine_cache.popitem(last=False)  # evict least-recently used
     return eng
+
+
+class _LanePlacedKernel(StagedKernel):
+    """The staged K1 placed on one chip lane's device: a lane-bound
+    worker's chunks run there, on that device's streams, so distinct
+    workers drive distinct devices with nothing shared on the batch path
+    (reference ``_LanePlacedKernel``).  The program is uploaded to the
+    device when the kernel is made."""
+
+    def __init__(self, kernel: ExtractKernel, lane):
+        kernel.warm(lane.device)
+        super().__init__(kernel, lane.device)
+        self.lane = lane
 
 
 class RegexEngine:
@@ -137,6 +177,9 @@ class RegexEngine:
         self._count_lock = threading.Lock()
         self._kernel_override = None
         self._staged: Optional[StagedKernel] = None
+        self._sharded = None                # None = unresolved, False = off
+        self._lane_kernels = {}     # (lane, device) -> _LanePlacedKernel
+        self._select_lock = threading.Lock()
         try:
             self.kernel = ExtractKernel(compile_tier1(pattern))
             self.tier = PatternTier.SEGMENT
@@ -177,10 +220,47 @@ class RegexEngine:
         restores the staged kernel."""
         self._kernel_override = kern
 
-    def _device_kernel(self):
-        """What a chunk's dispatch calls: ``kern(slot, C)``."""
+    def _maybe_sharded(self):
+        """The sharded parse plane, when on (see the module docstring);
+        built once, on first use.  A mesh that cannot be built raises."""
+        if self._sharded is not None:
+            return self._sharded or None
+        with self._select_lock:
+            if self._sharded is not None:
+                return self._sharded or None
+            env = os.environ.get("LOONG_SHARDED", "").strip()
+            if env == "0" or self.kernel is None:
+                self._sharded = False
+                return None
+            from ...parallel.mesh import ShardedKernel, make_mesh
+            mesh = make_mesh(device=self.device)
+            if mesh.size <= 1 and env != "1":
+                self._sharded = False
+                return None
+            self._sharded = ShardedKernel(self.kernel.program, mesh,
+                                          kernel=self.kernel)
+            return self._sharded
+
+    def _device_kernel(self, lane=None):
+        """What a chunk's dispatch calls: ``kern(slot, C)``.  A lane-bound
+        dispatch gets the staged K1 placed on its lane's device; an
+        unbound one the sharded plane when it is on, else the staged K1 on
+        the engine's device."""
         if self._kernel_override is not None:
             return self._kernel_override
+        if lane is not None:
+            key = (lane.index, lane.device)
+            k = self._lane_kernels.get(key)
+            if k is None:
+                with self._select_lock:
+                    k = self._lane_kernels.get(key)
+                    if k is None:
+                        k = _LanePlacedKernel(self.kernel, lane)
+                        self._lane_kernels[key] = k
+            return k
+        sharded = self._maybe_sharded()
+        if sharded is not None:
+            return sharded
         return self._staged
 
     def parse_batch(self, arena: np.ndarray, offsets: np.ndarray,
@@ -280,7 +360,10 @@ class PendingParse:
     wait in submit while owning the budget waited for).  ``result()`` runs
     the ``re`` rows (host work, overlapping the device), then consumes the
     remaining chunks in order.  Any failure releases every in-flight future
-    and slot and raises."""
+    and slot and raises.  A chunk of a lane-bound worker is accounted
+    against its lane: ``note_pack`` / ``note_dispatch`` when it is
+    submitted, ``note_done`` when it is consumed or released (reference
+    ``engine.py:699-815``)."""
 
     __slots__ = ("engine", "arena", "offsets", "lengths", "ok", "cap_off",
                  "cap_len", "cpu_idx", "_chunks_pending", "_result", "depth")
@@ -295,7 +378,7 @@ class PendingParse:
         self.cap_off = cap_off
         self.cap_len = cap_len
         self.cpu_idx = cpu_idx
-        # [(chunk_idx, DeviceBatch, BatchSlot, DeviceFuture)]
+        # [(chunk_idx, DeviceBatch, BatchSlot, DeviceFuture, ChipLane)]
         self._chunks_pending = []
         self._result = None
         self.depth = max(1, depth if depth is not None else stream_depth())
@@ -317,23 +400,43 @@ class PendingParse:
         ring = batch_ring()
         tuner = auto_tuner()
         eng = self.engine
-        kern = eng._device_kernel()
-        pinned = eng.device.type == "cuda"
+        # a lane-bound worker dispatches on its lane's device; an unbound
+        # one on the sharded plane or the engine's device
+        lane = chip_lanes.current_lane()
+        lane_count = chip_lanes.router().lane_count() if lane is not None \
+            else 0
+        kern = eng._device_kernel(lane)
+        call = getattr(kern, "donated_call", None) or kern
+        multiple = getattr(kern, "batch_multiple", 1)
+        lane_key = f"chip:{lane.index}" if lane is not None else None
+        device = lane.device if lane is not None else eng.device
+        pinned = device.type == "cuda"
         C = max(eng.num_caps, 1)
         max_bucket = LENGTH_BUCKETS[-1]
         try:
-            for chunk in _chunks(device_idx, MAX_BATCH):
+            # whole mesh multiples a chunk: every slot splits evenly
+            for chunk in _chunks(device_idx,
+                                 MAX_BATCH - MAX_BATCH % multiple):
                 # a full window consumes its oldest chunk before packing
                 while len(self._chunks_pending) >= self.depth:
+                    self._drain_one()
+                # a lane past its share of the budget drains its own
+                # oldest chunk first: one slow device backs up its lane
+                while lane is not None \
+                        and lane.over_share(plane, lane_count) \
+                        and self._chunks_pending:
                     self._drain_one()
                 d_off = self.offsets[chunk]
                 d_len = self.lengths[chunk]
                 L = pick_length_bucket(int(d_len.max())) or max_bucket
-                B = pad_batch(len(chunk), min_batch=tuner.min_batch_for(L))
+                B = pad_batch(len(chunk),
+                              min_batch=tuner.min_batch_for(L, lane_key),
+                              multiple_of=multiple)
                 slot = ring.lease(B, L, pinned=pinned)
                 try:
-                    batch = slot.pack(self.arena, d_off, d_len)
-                    fut = plane.submit(kern, (slot, C),
+                    batch = slot.pack(self.arena, d_off, d_len,
+                                      lane=lane_key)
+                    fut = plane.submit(call, (slot, C),
                                        batch.rows.nbytes,
                                        on_wait=self._drain_if_pending)
                 except BaseException:
@@ -342,7 +445,10 @@ class PendingParse:
                 eng._count("device_batches", 1)
                 xprof.note_dispatch(fut, "regex", f"{B}x{L}",
                                     slot.pack_t0, slot.pack_dur)
-                self._chunks_pending.append((chunk, batch, slot, fut))
+                if lane is not None:
+                    lane.note_pack(B, batch.n_real)
+                    lane.note_dispatch(batch.rows.nbytes)
+                self._chunks_pending.append((chunk, batch, slot, fut, lane))
         except BaseException:
             # the caller abandons this parse: release what is in flight
             self._abandon(consume=False)
@@ -353,7 +459,7 @@ class PendingParse:
         is waited on first (its error, if any, is dropped: the caller is
         already raising one); a slot whose copies may still run is kept out
         of its pool by the ring until they complete."""
-        for _chunk, _batch, slot, fut in self._chunks_pending:
+        for _chunk, batch, slot, fut, lane in self._chunks_pending:
             if consume:
                 try:
                     fut.result()
@@ -361,6 +467,8 @@ class PendingParse:
                     pass
             else:
                 fut.release()
+            if lane is not None:
+                lane.note_done(batch.rows.nbytes)
             slot.release()
         self._chunks_pending.clear()
 
@@ -373,7 +481,7 @@ class PendingParse:
         return True
 
     def _drain_one(self) -> None:
-        chunk, batch, slot, fut = self._chunks_pending.pop(0)
+        chunk, batch, slot, fut, lane = self._chunks_pending.pop(0)
         try:
             k_ok, k_off, k_len = fut.result()
             n = batch.n_real
@@ -382,6 +490,8 @@ class PendingParse:
             self.cap_off[chunk] = k_off[:n] + batch.origins[:n, None]
             self.cap_len[chunk] = k_len[:n]
         finally:
+            if lane is not None:
+                lane.note_done(batch.rows.nbytes)
             # the slot may be repacked once it is back: its spans were
             # copied out above
             slot.release()

@@ -22,8 +22,15 @@ read with ``Event.elapsed_time`` only when the dispatch settles
 adds no synchronisation; an event pair that has not completed by then (a
 dispatch released on an error path) is dropped and counted in
 ``unresolved``.  Device leg starts are relative to a CUDA event recorded
-when the timeline is enabled.  On the CPU the legs are host stopwatches,
-relative to the host epoch.
+when the timeline is enabled, one on each CUDA device.  On the CPU the
+legs are host stopwatches, relative to the host epoch.
+
+A sharded dispatch (``parallel/mesh.ShardedKernel``) records an h2d leg
+for each shard, tagged with the shard's index, and one exec leg (and one
+d2h leg) for each device of the mesh, from before its first shard's launch
+to after its last: the exec legs stay one a dispatch on one device, so the
+busy share stays the union of the device's exec intervals.  The shard-
+tagged legs are also kept per shard (``shard_leg_summary``).
 
 Settled legs feed the decomposition: per (program, geometry, leg) samples
 (``decomposition``), per-leg counts, sums and medians (``leg_summary``),
@@ -47,7 +54,7 @@ from typing import Dict, List, Optional, Tuple
 import torch
 
 _DISPATCH_CAP = 50_000        # bounded like the reference's span ring
-_MAX_LEGS_PER_DISPATCH = 16
+_MAX_LEGS_PER_DISPATCH = 48   # a sharded dispatch: a leg a shard
 
 #: the decomposition legs in pipeline order
 LEGS = ("pack", "submit", "h2d", "exec", "d2h")
@@ -61,7 +68,7 @@ class DispatchRecord:
     ``(leg, start_event, end_event)`` until the dispatch settles."""
 
     __slots__ = ("id", "nbytes", "program", "geometry", "legs", "events",
-                 "closed")
+                 "closed", "shard_legs")
 
     def __init__(self, xid: int, nbytes: int):
         self.id = xid
@@ -71,6 +78,8 @@ class DispatchRecord:
         self.legs: List[Tuple[str, float, float, str]] = []
         self.events: list = []
         self.closed = False
+        # (leg, shard, start_s, dur_s) of the shard-tagged device legs
+        self.shard_legs: List[Tuple[str, int, float, float]] = []
 
     def leg(self, name: str) -> Optional[Tuple[float, float, str]]:
         for leg, t0, dur, clock in self.legs:
@@ -95,9 +104,17 @@ class DeviceTimeline:
         self._samples: Dict[Tuple[str, str, str], List[float]] = {}
         self.epoch = time.perf_counter()
         self.device_epoch = None
+        # an epoch on every CUDA device: a mesh's or a lane's legs are
+        # timed against their own device's epoch
+        self._device_epochs: Dict[int, object] = {}
         if device is not None and device.type == "cuda":
-            self.device_epoch = torch.cuda.Event(enable_timing=True)
-            self.device_epoch.record(torch.cuda.current_stream(device))
+            for i in range(torch.cuda.device_count()):
+                ev = torch.cuda.Event(enable_timing=True)
+                ev.record(torch.cuda.current_stream(i))
+                self._device_epochs[i] = ev
+            if device.index is None:
+                device = torch.device("cuda", torch.cuda.current_device())
+            self.device_epoch = self._device_epochs[device.index]
 
     # -- recording ----------------------------------------------------------
 
@@ -132,14 +149,24 @@ class DeviceTimeline:
                 return
             rec.legs.append((name, t_start - self.epoch, dur_s, HOST))
 
-    def event_leg(self, xid: int, name: str, start, end) -> None:
-        """A device leg between two CUDA events (read at settle)."""
+    def event_leg(self, xid: int, name: str, start, end,
+                  shard: Optional[int] = None,
+                  device: Optional[torch.device] = None) -> None:
+        """A device leg between two CUDA events (read at settle), on
+        ``device`` (default: the timeline's), of shard ``shard`` of a
+        sharded dispatch when given."""
         with self._lock:
             rec = self._records.get(xid)
             if rec is None or rec.closed \
                     or len(rec.events) >= _MAX_LEGS_PER_DISPATCH:
                 return
-            rec.events.append((name, start, end))
+            rec.events.append((name, start, end, shard,
+                               None if device is None else device.index))
+
+    def _epoch(self, device_index: Optional[int]):
+        if device_index is None:
+            return self.device_epoch
+        return self._device_epochs.get(device_index, self.device_epoch)
 
     def close(self, xid: int) -> None:
         """The dispatch settled: resolve its device legs and fold every
@@ -150,16 +177,20 @@ class DeviceTimeline:
                 return
             rec.closed = True
             events, rec.events = rec.events, []
-        resolved, unresolved = [], 0
-        epoch = self.device_epoch
-        for name, start, end in events:
+        resolved, unresolved, by_shard = [], 0, []
+        for name, start, end, shard, dev in events:
+            epoch = self._epoch(dev)
             if epoch is None or not (start.query() and end.query()):
                 unresolved += 1
                 continue
-            resolved.append((name, epoch.elapsed_time(start) / 1e3,
-                             start.elapsed_time(end) / 1e3, DEVICE))
+            leg = (name, epoch.elapsed_time(start) / 1e3,
+                   start.elapsed_time(end) / 1e3, DEVICE)
+            resolved.append(leg)
+            if shard is not None:
+                by_shard.append((name, shard, leg[1], leg[2]))
         with self._lock:
             rec.legs.extend(resolved)
+            rec.shard_legs.extend(by_shard)
             self._closed_total += 1
             self._unresolved += unresolved
             key = (rec.program or "unattributed", rec.geometry or "-")
@@ -199,6 +230,20 @@ class DeviceTimeline:
         for (leg, clock), durs in sorted(by_leg.items()):
             out[leg] = {"count": len(durs), "sum_s": sum(durs),
                         "median_s": statistics.median(durs), "clock": clock}
+        return out
+
+    def shard_leg_summary(self) -> Dict[str, Dict[str, dict]]:
+        """Per shard-tagged leg and shard, over every settled dispatch:
+        count, sum and median seconds (device clock)."""
+        by: Dict[Tuple[str, int], List[float]] = {}
+        for rec in self._closed():
+            for leg, shard, _t0, dur in rec.shard_legs:
+                by.setdefault((leg, shard), []).append(dur)
+        out: Dict[str, Dict[str, dict]] = {}
+        for (leg, shard), durs in sorted(by.items()):
+            out.setdefault(leg, {})[str(shard)] = {
+                "count": len(durs), "sum_s": sum(durs),
+                "median_s": statistics.median(durs)}
         return out
 
     def leg_seconds(self, leg: str, clock: Optional[str] = None) -> float:
@@ -302,11 +347,12 @@ def leg(xid: int, name: str, t_start: float, dur_s: float) -> None:
     t.leg(xid, name, t_start, dur_s)
 
 
-def event_leg(xid: int, name: str, start, end) -> None:
+def event_leg(xid: int, name: str, start, end, shard: Optional[int] = None,
+              device: Optional[torch.device] = None) -> None:
     t = _timeline
     if t is None or not xid:
         return
-    t.event_leg(xid, name, start, end)
+    t.event_leg(xid, name, start, end, shard, device)
 
 
 def annotate(xid: int, program: str, geometry: str) -> None:

@@ -29,6 +29,14 @@ On CUDA each worker binds its own pair of streams (``ThreadStreams``: H2D
 copies, kernel and D2H) and runs under its compute stream, so workers do
 not serialise behind one stream.
 
+Chip lanes (reference ``processor_runner.py:617-669``): with several
+workers, each one binds to its home lane (``ops/chip_lanes``: ``worker_id
+% n_lanes``) for its whole loop, so every device dispatch it makes lands
+on that lane's device, and its stream pair is bound there.  The lookup
+raises rather than leave a worker unbound (the reference's is fail-soft).
+A lane of another device kind than the runner's (CUDA lanes under a
+``--cpu`` run) binds nothing.
+
 A processing or send failure is logged, the group dropped, and the first
 failure kept in ``error``: the agent's ``--once`` run then stops feeding
 and exits non-zero.  Nothing re-runs a group another way.
@@ -37,7 +45,7 @@ With the ledger on, a group whose device work stays in flight is booked
 device_submit when it enters its lane and device_materialize when it
 completes, and a failed group is a reason-tagged drop.  Left out of the
 port: the SLO, ack-watermark, tracer, profiler and flight-recorder hooks,
-the chip lanes and the alarms.  Once a second a worker (the dispatch loop
+the lane breaker and the alarms.  Once a second a worker (the dispatch loop
 when sharded) pumps the ``TimeoutFlushManager`` and the auto-tuner.
 """
 
@@ -55,6 +63,7 @@ import torch
 
 from ..models import EventGroupMetaKey, PipelineEventGroup
 from ..monitor import ledger
+from ..ops import chip_lanes
 from ..ops.device_plane import (bind_thread_streams, current_tenant,
                                 note_host_backlog, set_budget_relief,
                                 set_thread_tenant)
@@ -436,14 +445,35 @@ class ProcessorRunner:
 
     # -- workers ------------------------------------------------------------
 
-    def _worker_context(self, lane: WorkerLane):
-        """Bind this worker's relief hook and, on CUDA, its stream pair;
-        the worker runs under its compute stream."""
+    def _worker_context(self, lane: WorkerLane, device=None):
+        """Bind this worker's relief hook and, on CUDA, its stream pair on
+        ``device`` (default the runner's); the worker runs under its
+        compute stream."""
         set_budget_relief(self._make_relief(lane))
-        if self.device is None or self.device.type != "cuda":
+        device = device if device is not None else self.device
+        if device is None or device.type != "cuda":
             return contextlib.nullcontext()
-        streams = bind_thread_streams(self.device)
+        streams = bind_thread_streams(device)
         return torch.cuda.stream(streams.compute)
+
+    def _chip_lane_for(self, worker_id: int):
+        """This worker's home chip lane (source → worker by the affinity
+        hash, worker → lane by ``worker_id % n_lanes``), or None when lane
+        routing is inactive or the lanes' devices are not the runner's
+        kind.  Raises when the router does."""
+        lane = chip_lanes.router().lane_for_worker(worker_id)
+        if lane is not None and self.device is not None \
+                and lane.device.type != self.device.type:
+            return None
+        return lane
+
+    def chip_lane_map(self) -> List[Optional[int]]:
+        """Worker index -> bound lane index (None: unbound)."""
+        out: List[Optional[int]] = []
+        for i in range(self.thread_count if self.thread_count > 1 else 0):
+            lane = self._chip_lane_for(i)
+            out.append(lane.index if lane is not None else None)
+        return out
 
     def _make_relief(self, lane: WorkerLane):
         """Budget-relief hook bound to one lane: complete the oldest group
@@ -501,8 +531,11 @@ class ProcessorRunner:
         discipline as the single-worker loop."""
         lane = self._lanes[worker_id]
         inbox = self._inboxes[worker_id]
+        chip = self._chip_lane_for(worker_id)
+        chip_lanes.set_thread_lane(chip)
         try:
-            with self._worker_context(lane):
+            with self._worker_context(
+                    lane, chip.device if chip is not None else None):
                 while True:
                     run = inbox.get_run(
                         timeout=0.0 if lane.busy() else 0.2,
@@ -517,6 +550,7 @@ class ProcessorRunner:
                     self._handle_run(run[0], run[1], lane)
                 self._complete_lane(lane)
         finally:
+            chip_lanes.set_thread_lane(None)
             set_budget_relief(None)
 
     def _handle_run(self, key: int, groups: List[PipelineEventGroup],

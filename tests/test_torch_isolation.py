@@ -3,7 +3,8 @@
 * importing every module of ``loongcollector_tpu_torch`` (in a fresh
   subprocess) loads neither ``jax`` nor ``loongcollector_tpu``;
 * an AST scan of the port and of ``chip_smoke.py`` finds no import of
-  either;
+  either; nor does importing the sharded parse plane (``parallel.mesh``)
+  or the chip lanes (``ops.chip_lanes``) on their own;
 * entry points asked for no device default to CUDA and raise on a machine
   without one, rather than running on the CPU;
 * ``ExtractKernel`` sends a CUDA tensor to the kernel launch, never to the
@@ -75,6 +76,12 @@ STRUCT_MODULES = [
     "testdata",
 ]
 
+MESH_MODULES = [
+    "parallel", "parallel.mesh", "ops.chip_lanes", "ops.regex.engine",
+    "ops.fused_pipeline", "runner.processor_runner", "ops.xprof",
+    "application",
+]
+
 _PROBE_EACH = """
 import importlib, json, sys
 out = {}
@@ -117,6 +124,18 @@ def test_struct_index_modules_load_no_jax():
                          text=True, timeout=120, check=True)
     res = json.loads(out.stdout.strip().splitlines()[-1])
     assert sorted(res) == sorted(STRUCT_MODULES)
+    assert all(bad == [] for bad in res.values()), res
+
+
+def test_mesh_modules_load_no_jax():
+    """The modules of the multiple-device slice (the sharded parse plane,
+    the chip lanes and their callers), imported one after the other in a
+    fresh interpreter, load neither JAX nor the JAX package."""
+    out = subprocess.run([sys.executable, "-c", _PROBE_EACH,
+                          *MESH_MODULES], cwd=REPO, capture_output=True,
+                         text=True, timeout=120, check=True)
+    res = json.loads(out.stdout.strip().splitlines()[-1])
+    assert sorted(res) == sorted(MESH_MODULES)
     assert all(bad == [] for bad in res.values()), res
 
 
