@@ -1,10 +1,12 @@
 #!/usr/bin/env python3
-"""Where the CUDA field-extraction kernel spends its time, on one H100.
+"""Where the CUDA kernels spend their time, on one H100.
 
     python3 chip_probe.py            # run from the repo root
     python3 chip_probe.py dispatch   # the host cost of one plane dispatch
     python3 chip_probe.py ab OTHER/field_extract.cu   # K1 built two ways
     python3 chip_probe.py k8         # K8's epilogue and its memset, timed
+    python3 chip_probe.py k2 OTHER/dfa_scan.cu   # K2/K4 against another build
+    python3 chip_probe.py k7         # K7's time by phase, and its exit
 
 Builds the kernel ``loongcollector_tpu_torch/ops/kernels/csrc/
 field_extract.cu`` as it is, and ``stamped``, an edited copy with
@@ -32,6 +34,31 @@ the headers beside it: a checkout of an earlier commit, say) and from this
 tree, checks both bit-exact on the same rows, and times the Apache
 instantiation of each in turns (other, this, this, other) at ``B=8192``
 and ``B=65536``, ``L=128``, printing each build's ptxas figures.
+
+``k2 OTHER/dfa_scan.cu`` builds K2 and K4 from ``OTHER`` (another
+``dfa_scan.cu`` with its headers beside it, e.g. the parent commit's,
+unpacked with ``git archive`` under the git-ignored ``build/``: the chip's
+copy of the repo has no git) and from this tree, checks both against the
+plain version, and times them in turns (other, this, this, other) on
+path 2's own rows at ``B=2048, L=4096`` (``chip_smoke.path_rows`` over the
+Java log's messages), at the adversarial point (``B=2048, L=4096``, no row
+settling), at ``L=128`` (``B=8192`` and ``65536``) and K4 at ``B=8192,
+L=256``, printing both bounds (row bytes to the settle points, and every
+byte below the lengths).
+
+``k7`` splits K7's time by phase on the Apache-filter program's
+``B=8192, L=128`` chunk (5,500 rows) and on the delimiter filter's
+(the pipe log's first 512 KB): a copy of ``fused_program.cu`` with
+``clock64()`` stamps by thread 0 of each block (entry, the barrier after
+the descriptor and row staging, the end of the extract stage's walk, the
+end of ``write_warp_caps``, the end of the keep stage, exit) gives the
+median and largest cycles per block of each phase, beside K1's phases on
+the same chunk (its stamped copy, as the default mode builds it); K7's
+``d0_p0`` and K1's ptxas registers, dynamic shared memory per block and
+``cudaOccupancyMaxActiveBlocksPerMultiprocessor``; and K7 built with and
+without the settled exit (a copy of the headers whose tile walk never
+exits) timed in turns, after checking every build against the plain
+version.
 
 ``k8`` splits what K8 (``lct_sharded_extract_*``, K1's walk with the count
 epilogue) costs over K1: it builds this tree's source and ``nomemset``, a
@@ -77,8 +104,9 @@ def stamped(src: str) -> str:
                 "  return (int)cudaMemcpyFromSymbol(dst, g_stamp, n);\n}\n")
 
 
-def build(fxc, name: str, src: str, include: str = ""):
-    """``src`` compiled into ``build/probe/<name>.so``; ``include`` is the
+def compile_so(fxc, name: str, src: str, include: str = ""):
+    """``src`` compiled into ``build/probe/<name>.so``, loaded; returns the
+    library and nvcc's output (the ptxas report).  ``include`` is the
     directory of the headers it includes (the kernel sources' own by
     default)."""
     os.makedirs(OUT, exist_ok=True)
@@ -91,13 +119,19 @@ def build(fxc, name: str, src: str, include: str = ""):
     if proc.returncode:
         raise SystemExit(f"chip_probe: nvcc failed on {name}:\n"
                          f"{proc.stderr[-3000:]}")
-    report = fxc.ptxas_report(proc.stdout + proc.stderr)
+    return ctypes.CDLL(so), proc.stdout + proc.stderr
+
+
+def build(fxc, name: str, src: str, include: str = ""):
+    """K1's ``src`` compiled (``compile_so``) with its entry points bound;
+    prints the ptxas figures of its instantiations."""
+    lib, log = compile_so(fxc, name, src, include)
+    report = fxc.ptxas_report(log)
     print(f"chip_probe: {name}: ptxas d0_p0 {report.get('d0_p0')}; "
           f"registers " + ", ".join(
               f"{k} {r.get('registers')}" for k, r in sorted(report.items())
               if k in ("d0_p0", "d0_p1", "d0_p2", "d1_p0", "d1_p1",
                        "d1_p2")), flush=True)
-    lib = ctypes.CDLL(so)
     vp, i32 = ctypes.c_void_p, ctypes.c_int32
     for entry in fxc.ENTRY_POINTS:
         fn = getattr(lib, entry)
@@ -284,12 +318,359 @@ def k8_split() -> int:
     return 0
 
 
+# -- K2: this tree's walk against another's ---------------------------------
+
+def dfa_binding(lib, src: str) -> bool:
+    """Binds K2's and K4's entry points of a ``dfa_scan.cu`` build by that
+    source's own signature; True when it takes the first settled state
+    (since the settled exit), False for the older one."""
+    import re
+    m = re.search(r"int lct_dfa_match\(([^)]*)\)", src)
+    new = "first_settled" in m.group(1)
+    vp, i32 = ctypes.c_void_p, ctypes.c_int32
+    for name in ("lct_dfa_match", "lct_fused_scan"):
+        fn = getattr(lib, name)
+        fn.restype = ctypes.c_int
+        fn.argtypes = [vp, vp, ctypes.c_int64, i32, vp, i32, vp, i32] + (
+            [i32, vp, i32, i32] if new else [vp, i32, i32]) \
+            + [vp, vp, vp]
+    return new
+
+
+def dfa_caller(dsc, lib, new: bool, kern):
+    """A launch of ``kern``'s walk (K2 or K4) through ``lib``, with the
+    first settled state for a build that takes it."""
+    import torch
+    entry = getattr(lib, dsc.ENTRY_POINTS[kern.mode])
+    a = kern.arrays
+    S = a.num_states
+
+    def call(rows, lengths):
+        B, L = rows.shape
+        t256, accept = kern.tables(rows.device)
+        threads, smem = dsc.launch_geometry(B), dsc.smem_bytes(S)
+        out = torch.empty(B, dtype=torch.int32 if kern.mode == "tags"
+                          else torch.uint8, device=rows.device)
+        head = (rows.data_ptr(), lengths.data_ptr(), B, L, t256.data_ptr(),
+                S, accept.data_ptr(), a.start)
+        stream = torch.cuda.current_stream().cuda_stream
+        tail = (out.data_ptr(), threads, smem, stream, None, None)
+        rc = entry(*head, a.first_settled, *tail) if new \
+            else entry(*head, *tail)
+        if rc:
+            raise SystemExit(f"chip_probe: DFA launch failed ({rc})")
+        return out
+    return call
+
+
+def dfa_batch(lines, B, L):
+    """``lines`` packed at (B, L), on the card, and the host rows."""
+    import numpy as np
+    import torch
+    from loongcollector_tpu_torch.ops.device_batch import pack_rows
+    lens = np.array([len(x) for x in lines], np.int32)
+    arena = np.frombuffer(b"".join(lines) or b"\0", np.uint8)
+    offs = np.concatenate([[0], np.cumsum(lens[:-1])]).astype(np.int64)
+    batch = pack_rows(arena, offs, lens, L, B)
+    return (batch, torch.from_numpy(batch.rows).cuda(),
+            torch.from_numpy(batch.lengths).cuda())
+
+
+def k2_compare(other: str) -> int:
+    """K2 and K4 built from ``other`` against this tree's, in turns."""
+    import numpy as np
+    import chip_smoke
+    from loongcollector_tpu_torch import testdata as td
+    from loongcollector_tpu_torch.ops.kernels import dfa_scan_cuda as dsc
+    from loongcollector_tpu_torch.ops.kernels import field_extract_cuda as fxc
+    from loongcollector_tpu_torch.ops.kernels.dfa_scan import (
+        DFAMatchKernel, FusedScanKernel, settle_points)
+    from loongcollector_tpu_torch.ops.regex.dfa import compile_dfa
+    from loongcollector_tpu_torch.ops.regex.fuse import compile_fused
+    print(f"chip_probe: card: {chip_smoke.nvidia_smi()}", flush=True)
+    with open(other) as f:
+        other_src = f.read()
+    with open(dsc._SRC) as f:
+        this_src = f.read()
+    libs = {}
+    for name, src, inc in (("other", other_src,
+                            os.path.dirname(os.path.abspath(other))),
+                           ("this", this_src, "")):
+        lib, log = compile_so(fxc, "dfa_" + name, src, inc)
+        rep = dsc.ptxas_report(log)
+        print(f"chip_probe: dfa_{name}: ptxas " + ", ".join(
+            f"{k} {r.get('registers')} registers, {r.get('stack')} stack, "
+            f"{r.get('spill_stores')} spills"
+            for k, r in sorted(rep.items())), flush=True)
+        libs[name] = (lib, dfa_binding(lib, src))
+    java = td.gen_java_log(chip_smoke.MAIN_PATH_LINES, seed=13)
+    msgs = [r["message"].encode()
+            for r in td.java_oracle(td.java_records(java, td.JAVA_CONTINUE))
+            if "message" in r]
+    k2 = DFAMatchKernel(compile_dfa(td.JAVA_FILTER))
+    k4 = FusedScanKernel(compile_fused([td.JAVA_START, td.JAVA_CONTINUE]))
+    points = [("K2 path", k2, chip_smoke.path_rows(msgs, 2048, 4096),
+               2048, 4096),
+              ("K2 adversarial", k2, chip_smoke.adversarial_rows(2048, 4096),
+               2048, 4096),
+              ("K2 bench", k2, chip_smoke.bench_rows(msgs, 8192, 128),
+               8192, 128),
+              ("K2 bench", k2, chip_smoke.bench_rows(msgs, 65536, 128),
+               65536, 128),
+              ("K4 path", k4, chip_smoke.path_rows(java, 8192, 256),
+               8192, 256)]
+    for tag, kern, lines, B, L in points:
+        batch, rows, lengths = dfa_batch(lines, B, L)
+        calls = {k: dfa_caller(dsc, lib, new, kern)
+                 for k, (lib, new) in libs.items()}
+        want = kern.plain(rows, lengths).cpu().numpy()
+        for k, fn in calls.items():
+            got = kern._epilogue(fn(rows, lengths)).cpu().numpy()
+            if not (got == want).all():
+                raise SystemExit(f"chip_probe: {tag} {k} != plain at "
+                                 f"B={B} L={L}")
+        turns = [(k, chip_smoke.graph_ms([lambda fn=calls[k]: fn(rows,
+                                                                 lengths)]))
+                 for k in ("other", "this", "this", "other")]
+        walked = int(settle_points(kern.arrays, batch.rows,
+                                   batch.lengths).sum())
+        out_b = 1 if kern.mode == "match" else 4
+        S = kern.arrays.num_states
+        b_ms, _ = chip_smoke.dfa_bound_ms(B, S, walked, out_b)
+        b_len, _ = chip_smoke.dfa_bound_ms(B, S, int(batch.lengths.sum()),
+                                           out_b)
+        print(f"chip_probe: k2 {tag} B={B} L={L} ("
+              f"{int(batch.lengths.sum())} row bytes, {walked} to the "
+              f"settle points): device ms per launch in turns: "
+              + ", ".join(f"{k} {ms:.5f}" for k, ms in turns)
+              + f"; bound {b_ms:.6f} ms (settle points), {b_len:.6f} ms "
+              f"(lengths)", flush=True)
+    return 0
+
+
+# -- K7: its time by phase, and with and without the settled exit ----------
+
+K7_STAMPS = 6
+
+
+def k7_stamped(src: str) -> str:
+    """K7 with ``clock64()`` stamps by thread 0 of each block: entry, the
+    barrier after the descriptor and row staging, the end of the extract
+    stage's walk, the end of ``write_warp_caps``, the end of the keep stage,
+    and exit (with several stages of a kind, the last one's)."""
+    src = edit(src, "namespace {\n", "namespace {\n"
+               "__device__ long long g_stamp[65536 * 6];\n"
+               "#define STAMP(k) do { if (threadIdx.x == 0) "
+               "g_stamp[blockIdx.x * 6 + (k)] = clock64(); } while (0)\n")
+    src = edit(src, "  extern __shared__ int32_t smem[];\n",
+               "  extern __shared__ int32_t smem[];\n  STAMP(0);\n")
+    src = edit(src, "  stage_warp_rows(rows, row0, wrow, wrows, lane, L, len, "
+               "tile, ws);\n  __syncthreads();\n",
+               "  stage_warp_rows(rows, row0, wrow, wrows, lane, L, len, "
+               "tile, ws);\n  __syncthreads();\n  STAMP(1);\n")
+    src = edit(src, "      ext_ok |= static_cast<uint32_t>(ok) << si;\n",
+               "      STAMP(2);\n      ext_ok |= static_cast<uint32_t>(ok) "
+               "<< si;\n")
+    src = edit(src, "    } else if (kind == ST_SCAN) {\n",
+               "      STAMP(3);\n    } else if (kind == ST_SCAN) {\n")
+    src = edit(src, "      out[B * st[S_OUT0] + bshift + row0 + tid] = keep;"
+               "\n    }\n  }\n}\n",
+               "      out[B * st[S_OUT0] + bshift + row0 + tid] = keep;\n"
+               "      STAMP(4);\n    }\n  }\n  STAMP(5);\n}\n")
+    return edit(src, 'extern "C" {\n', 'extern "C" {\n'
+                "int probe_stamps(void* dst, size_t n) {\n"
+                "  return (int)cudaMemcpyFromSymbol(dst, g_stamp, n);\n}\n")
+
+
+def with_occupancy(src: str, kernel: str) -> str:
+    """``src`` with ``probe_occupancy(n, a, b, threads, smem)`` exported:
+    the blocks an SM holds at once
+    (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``) of ``kernel``, a C
+    expression of the ints ``a`` and ``b``."""
+    return edit(src, 'extern "C" {\n', 'extern "C" {\n'
+                "int probe_occupancy(int* n, int a, int b, int threads, "
+                "int smem) {\n"
+                "  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor("
+                f"n, {kernel}, threads, smem);\n}}\n")
+
+
+def noexit_headers(src_dir: str) -> str:
+    """A copy of the kernel headers with the settled exit taken out of the
+    tile walk K7 runs; returns its directory."""
+    out = os.path.join(OUT, "noexit")
+    os.makedirs(out, exist_ok=True)
+    for name in os.listdir(src_dir):
+        if name.endswith(".cuh"):
+            with open(os.path.join(src_dir, name)) as f:
+                text = f.read()
+            if name == "dfa_walk.cuh":
+                text = edit(text, "  while (lo < hi && s < fs) {\n",
+                            "  while (lo < hi) {\n")
+            with open(os.path.join(out, name), "w") as f:
+                f.write(text)
+    return out
+
+
+def occupancy(lib, a: int, b: int, threads: int, smem: int) -> int:
+    """``with_occupancy``'s query of ``lib``."""
+    n = ctypes.c_int(0)
+    lib.probe_occupancy.argtypes = [ctypes.c_void_p] + [ctypes.c_int] * 4
+    if lib.probe_occupancy(ctypes.byref(n), a, b, threads, smem):
+        raise SystemExit("chip_probe: the occupancy query failed")
+    return n.value
+
+
+def k7_split() -> int:
+    """K7's cycles by phase, its registers, shared memory and occupancy
+    beside K1's, and K7 with and without the settled exit in turns."""
+    import numpy as np
+    import torch
+    import chip_smoke
+    from loongcollector_tpu_torch import testdata as td
+    from loongcollector_tpu_torch.ops import fused_pipeline as fp
+    from loongcollector_tpu_torch.ops.kernels import field_extract_cuda as fxc
+    from loongcollector_tpu_torch.ops.kernels import fused_program_cuda as fpc
+    from loongcollector_tpu_torch.ops.kernels.field_extract import \
+        ExtractKernel
+    from loongcollector_tpu_torch.ops.regex.program import compile_tier1
+    print(f"chip_probe: card: {chip_smoke.nvidia_smi()}", flush=True)
+    with open(fpc._SRC) as f:
+        src = f.read()
+    libs, logs = {}, {}
+    for name, text, inc in (
+            ("k7", src, ""),
+            ("k7_noexit", src, noexit_headers(os.path.dirname(fpc._SRC))),
+            ("k7_stamped", k7_stamped(src), "")):
+        # a: the first extract stage's pivot kind (FIRST), b: GENERAL
+        text = with_occupancy(text, "kKernels[a + 1][b]")
+        libs[name], logs[name] = compile_so(fxc, name, text, inc)
+        fn = libs[name].lct_fused_program
+        vp, i32 = ctypes.c_void_p, ctypes.c_int32
+        fn.restype = ctypes.c_int
+        fn.argtypes = [vp, vp, ctypes.c_int64, i32, vp, i32, i32, vp, i32,
+                       i32, vp, vp, vp]
+    with open(fxc._SRC) as f:
+        k1_src = f.read()
+    # a: the depth-0 program's pivot kind
+    k1_kernel = ("(a == 0 ? field_extract_kernel<false, 0, false> : a == 1 ? "
+                 "field_extract_kernel<false, 1, false> : "
+                 "field_extract_kernel<false, 2, false>)")
+    k1_lib, k1_log = compile_so(fxc, "k1_occupancy",
+                                with_occupancy(k1_src, k1_kernel))
+    k1_stamp_lib = build(fxc, "k1_stamped", stamped(k1_src))
+    k1_stamp_lib.probe_stamps.argtypes = [ctypes.c_void_p, ctypes.c_size_t]
+    k7_regs = fpc.ptxas_report(logs["k7"])
+    k1_regs = fxc.ptxas_report(k1_log)
+    apache = dict((n, s) for n, s, _ in td.fused_stage_lists())[
+        "apache_filter"]
+    delim = dict((n, s) for n, s, _ in td.struct_stage_lists())[
+        "delim_struct_keep"]
+    pipe_lines = td.gen_pipe_log(8192, seed=23)
+    n_pipe = int((np.cumsum([len(x) + 1 for x in pipe_lines])
+                  <= 512 * 1024).sum())
+    cases = [("apache_filter", apache, td.gen_lines(5500, seed=5)),
+             ("delimiter_filter", [delim[0], delim[2]],
+              pipe_lines[:n_pipe])]
+    B, L = 8192, 128
+    for tag, specs, lines in cases:
+        program = fp.FusedProgramKernel(specs, tag)
+        desc = program.descriptor
+        blob = torch.from_numpy(desc.blob).cuda()
+        batch, rows, lengths = dfa_batch(lines, B, L)
+        threads, smem = fpc.launch_geometry(B, L, desc)
+
+        def k7_launcher(lib):
+            def call(r=rows, n=lengths):
+                out = torch.empty(desc.flat_bytes(B, L), dtype=torch.uint8,
+                                  device=r.device)
+                rc = lib.lct_fused_program(
+                    r.data_ptr(), n.data_ptr(), B, L, blob.data_ptr(),
+                    desc.first, int(desc.general), out.data_ptr(), threads,
+                    smem, torch.cuda.current_stream().cuda_stream, None,
+                    None)
+                if rc:
+                    raise SystemExit(f"chip_probe: K7 launch failed ({rc})")
+                return out
+            return call
+        calls = {k: k7_launcher(lib) for k, lib in libs.items()}
+        want = [t.cpu().numpy() for t in program.plain(rows, lengths)]
+        for k, fn in calls.items():
+            got = [t.cpu().numpy() for t in program.split(fn(), B)]
+            if not all((g.reshape(w.shape) == w).all()
+                       for g, w in zip(got, want)):
+                raise SystemExit(f"chip_probe: {k} != plain on {tag}")
+        turns = [(k, chip_smoke.graph_ms([calls[k]]))
+                 for k in ("k7_noexit", "k7", "k7", "k7_noexit")]
+        print(f"chip_probe: k7 {tag} B={B} L={L} ({len(lines)} rows, "
+              f"{-(-B // threads)} blocks of {threads}): device ms per "
+              f"launch in turns (without / with the settled exit): "
+              + ", ".join(f"{k} {ms:.5f}" for k, ms in turns), flush=True)
+        stamp_lib = libs["k7_stamped"]
+        calls["k7_stamped"]()
+        torch.cuda.synchronize()
+        blocks = -(-B // threads)
+        buf = np.zeros(65536 * K7_STAMPS, np.int64)
+        stamp_lib.probe_stamps.argtypes = [ctypes.c_void_p, ctypes.c_size_t]
+        if stamp_lib.probe_stamps(buf.ctypes.data, buf.nbytes):
+            raise SystemExit("chip_probe: cannot read the stamps")
+        st = buf[:blocks * K7_STAMPS].reshape(blocks, K7_STAMPS)
+        st = st[:-(-len(lines) // threads)]        # blocks with real rows
+        phases = {"staging": st[:, 1] - st[:, 0],
+                  "extract walk": st[:, 2] - st[:, 1],
+                  "write caps": st[:, 3] - st[:, 2],
+                  "keep": st[:, 4] - st[:, 3], "exit": st[:, 5] - st[:, 4],
+                  "block": st[:, 5] - st[:, 0]}
+        print(f"chip_probe: k7 {tag} cycles per block (median / largest, "
+              f"{len(st)} blocks with real rows): "
+              + "; ".join(f"{k} {int(np.median(v))} / {int(v.max())}"
+                          for k, v in phases.items()), flush=True)
+        k1 = ExtractKernel(compile_tier1(chip_smoke.APACHE if tag ==
+                                         "apache_filter" else td.PIPE_PATTERN))
+        kp = k1.kernel_program
+        k1_threads, k1_smem = fxc.launch_geometry(B, L, kp.num_caps,
+                                                  kp.pivot, len(kp.blob))
+        # K1 alone on the same chunk, stamped as the default mode stamps
+        # it, for the same call's comparison
+        prog = torch.from_numpy(kp.blob).cuda()
+        launcher(fxc, k1_stamp_lib, k1, prog)(rows, lengths)
+        torch.cuda.synchronize()
+        buf = np.zeros(65536 * STAMPS, np.int64)
+        if k1_stamp_lib.probe_stamps(buf.ctypes.data, buf.nbytes):
+            raise SystemExit("chip_probe: cannot read K1's stamps")
+        k1st = buf[:-(-B // k1_threads) * STAMPS].reshape(-1, STAMPS)
+        k1st = k1st[:-(-len(lines) // k1_threads)]
+        k1_phases = {"staging": k1st[:, 1] - k1st[:, 0],
+                     "walk": k1st[:, 2] - k1st[:, 1],
+                     "write-back": k1st[:, 3] - k1st[:, 2],
+                     "block": k1st[:, 3] - k1st[:, 0]}
+        print(f"chip_probe: k7 {tag}: K1 alone on the chunk, cycles per "
+              f"block (median / largest): " + "; ".join(
+                  f"{k} {int(np.median(v))} / {int(v.max())}"
+                  for k, v in k1_phases.items()), flush=True)
+        k1_key = kp.entry_point.replace("lct_field_extract_", "")
+        n7 = occupancy(libs["k7"], desc.first, int(desc.general), threads,
+                       smem)
+        n1 = occupancy(k1_lib, kp.pivot, 0, k1_threads, k1_smem)
+        print(f"chip_probe: k7 {tag}: K7 {desc.instantiation} "
+              f"{k7_regs.get(desc.instantiation, {}).get('registers')} "
+              f"registers, {smem} bytes of dynamic shared memory a block of "
+              f"{threads}, {n7} blocks an SM; K1 {k1_key} "
+              f"{k1_regs.get(k1_key, {}).get('registers')} registers, "
+              f"{k1_smem} bytes a block of {k1_threads}, {n1} blocks an SM",
+              flush=True)
+    return 0
+
+
 def main() -> int:
     sys.path.insert(0, REPO)
     if sys.argv[1:] == ["dispatch"]:
         return dispatch_cost()
     if sys.argv[1:] == ["k8"]:
         return k8_split()
+    if sys.argv[1:] == ["k7"]:
+        return k7_split()
+    if sys.argv[1:2] == ["k2"] and len(sys.argv) == 3:
+        return k2_compare(sys.argv[2])
     if sys.argv[1:2] == ["ab"] and len(sys.argv) == 3:
         return ab(sys.argv[2])
     import numpy as np

@@ -66,8 +66,12 @@ Phases, each of which exits non-zero on failure:
    the patterns and sets of the JAX package's DFA and fusion tests
    (copied), the multiline paths' own, a single DFA at 64 states and 32
    classes, a fused set of 124 states and 48 classes, and a 32-member set
-   whose bit 31 is set on real rows; both agree with ``re.fullmatch``, and
-   both entry points launch.
+   whose bit 31 is set on real rows; both agree with ``re.fullmatch``;
+   then the settled exit's adversarial rows (``testdata.settle_rows``:
+   rows that never settle, settle on their last byte or at 16- and
+   512-byte edges +-1, lengths 0, 1, 511..513, 4096) for K2 and K4 and an
+   automaton at the 128-state cap (``testdata.cap_automaton``), at L =
+   128, 1024 and 4096.  Both entry points launch.
 7. multiline paths on a seeded 600,000-line Java log
    (``testdata.gen_java_log``): path 1, the stock ``multiline_java.yaml``
    (K1 as the start gate and the parse), at one worker; path 2, start and
@@ -88,20 +92,23 @@ Phases, each of which exits non-zero on failure:
    launched in phase 7's path-2 runs, a batch of that run's own rows (Java
    lines for K4, record messages for K2: consecutive rows in file order no
    longer than L, from a row over L/2, with padding rows) through the
-   kernel and its plain version, bit-exact, and against ``re.fullmatch``;
-   then each kernel warm and cold, its plain version and bound, at each of
-   those shapes, and on the path-2 automata at B=8192 and B=65536, L=128,
-   and for K2 at L=1024.  The ``kernels`` line gives K2 and K4 at the
-   shape path 2 launched most.
-10. K3 parity (before phase 7): ``lct_dfa_span_match`` against its plain
-   version, bit-exact, and against ``re.fullmatch`` of each span cut at its
-   row's length, at every length bucket, at L=100 and on misaligned rows,
-   on phase 6's single automata: spans at a row's start, middle and end,
-   past its length, from a negative start, absent (-1) and empty, padding
-   rows.
-11. K7 parity (before phase 7): each stage list of
-   ``testdata.fused_stage_lists`` (THREE_STAGE; extract + extract_ok;
-   match + grok's scan + the multiline terminal scan; the Apache-filter
+   kernel and its plain version, bit-exact, and against
+   ``re.fullmatch``; then the kernel warm and cold, the plain version and
+   the bound (row bytes to each row's settle point, and beside it every
+   byte below the lengths), at each of those shapes, on the path-2
+   automata at B=8192 and B=65536, L=128, for K2 at L=1024, and for K2 at
+   the adversarial point, B=2048, L=4096, no row settling.  The
+   ``kernels`` line gives K2 and K4 at the shape path 2 launched most.
+10. K3 parity (before phase 7): ``lct_dfa_span_match`` (its walk stopping
+   at a settled state) against its plain version, bit-exact, and against
+   ``re.fullmatch`` of each span cut at its row's length, at every length
+   bucket, at L=100 and on misaligned rows, on phase 6's single automata:
+   spans at a row's start, middle and end, past its length, from a
+   negative start, absent (-1) and empty, padding rows.
+11. K7 parity (before phase 7; its DFA conditions and scans stop at a
+   settled state): each stage list of ``testdata.fused_stage_lists``
+   (THREE_STAGE; extract + extract_ok; match + grok's scan + the
+   multiline terminal scan; the Apache-filter
    program; a keep stage whose tables pass the shared-memory budget at
    L=4096; a 32-member scan, bit 31; a nested program) through the kernel,
    its plain version and ``FusedProgramKernel.staged_run`` (one
@@ -1297,7 +1304,8 @@ def dfa_lines(rng, patterns, java, L):
 
 def check_dfa_batch(kern, patterns, lines, L, stats, misalign=False):
     """K2/K4 against its plain version on the card, bit-exact, and both
-    against re.fullmatch, for one (automaton, L) batch."""
+    against re.fullmatch (``patterns`` None: no regex, the plain version
+    alone), for one (automaton, L) batch."""
     import numpy as np
     import torch
     from loongcollector_tpu_torch.ops.device_batch import pack_rows
@@ -1321,6 +1329,10 @@ def check_dfa_batch(kern, patterns, lines, L, stats, misalign=False):
              f"rows {bad[:5].tolist()}")
     stats["max_abs_err"] = max(stats["max_abs_err"], int(np.abs(
         got.astype(np.int64) - want.astype(np.int64)).max(initial=0)))
+    stats["checks"] += 1
+    stats["rows"] += len(lines)
+    if patterns is None:
+        return
     rxs = [re.compile(p.encode("latin-1")) for p in patterns]
     for i, line in enumerate(lines):
         if kern.mode == "match":
@@ -1331,8 +1343,6 @@ def check_dfa_batch(kern, patterns, lines, L, stats, misalign=False):
             tags = sum(1 << b for b, r in enumerate(rxs) if r.fullmatch(line))
             if int(got.view(np.uint32)[i]) != tags:
                 fail(f"K4 disagrees with re on {patterns!r} {line!r}")
-    stats["checks"] += 1
-    stats["rows"] += len(lines)
     if kern.mode == "tags":
         stats["bit31_rows"] += int((got.view(np.uint32)[:len(lines)]
                                     >> 31 & 1).sum())
@@ -1356,6 +1366,50 @@ def checked_dfa_shapes(shapes, phase: str) -> list:
     if not out:
         fail(f"{phase}: no DFA kernel launch recorded")
     return out
+
+
+def table_kernel(cls, arrays):
+    """A ``cls`` (K2 or K4 wrapper) over bare ``AutomatonArrays``."""
+    from loongcollector_tpu_torch.ops.kernels.dfa_scan import \
+        _TableWalkKernel
+    kern = cls.__new__(cls)
+    _TableWalkKernel.__init__(kern, arrays)
+    return kern
+
+
+def settle_batches(cases, stats) -> None:
+    """The settled exit's adversarial batches (``testdata.settle_rows``:
+    rows that never settle, settle on their last byte or at 16- and
+    512-byte edges +-1, lengths 0, 1, 511..513 and 4096) for K2 on
+    JAVA_FILTER and K4 on the start/continue set, and a seeded automaton at
+    the 128-state cap (``testdata.cap_automaton``, held against the plain
+    version only), at L = 128, 1024 and 4096."""
+    import numpy as np
+    from loongcollector_tpu_torch import testdata as td
+    from loongcollector_tpu_torch.ops.kernels.dfa_scan import (
+        FusedScanKernel, settled_last)
+    by_pats = {tuple(p): k for k, p in cases}
+    rng = np.random.default_rng(9)
+    stats["settle_rows"] = 0
+    for L in (128, 1024, 4096):
+        for kind, pats in (("java_filter", [td.JAVA_FILTER]),
+                           ("java_start_continue",
+                            [td.JAVA_START, td.JAVA_CONTINUE])):
+            kern = by_pats[tuple(pats)]
+            if kern.arrays.first_settled >= kern.arrays.num_states:
+                fail(f"{kind}: no settled state to exit at")
+            lines = td.settle_rows(kind, L, seed=L)
+            check_dfa_batch(kern, pats, lines, L, stats)
+            stats["settle_rows"] += len(lines)
+        cap = table_kernel(FusedScanKernel,
+                           settled_last(*td.cap_automaton(seed=L)))
+        lines = [bytes(rng.integers(65, 91, int(n), dtype=np.uint8))
+                 for n in rng.integers(0, L + 1, 200)]
+        lines += [bytes(rng.integers(65, 90, n, dtype=np.uint8))
+                  for n in (L, 511, 512, 513) if n <= L]
+        check_dfa_batch(cap, None, lines, L, stats)
+        stats["settle_rows"] += len(lines)
+    stats["automata"].append(("cap", 128, cap.arrays.first_settled))
 
 
 def phase_dfa_parity(java) -> dict:
@@ -1401,6 +1455,7 @@ def phase_dfa_parity(java) -> dict:
                         stats, misalign=True)
     if not stats["bit31_rows"]:
         fail("no row set tag bit 31")
+    settle_batches(cases, stats)
     shapes = checked_dfa_shapes(dict(dsc.launch_shapes), "dfa parity")
     if sum(n for _, n in shapes) != stats["checks"]:
         fail(f"dfa parity: {sum(n for _, n in shapes)} launches recorded "
@@ -1410,8 +1465,9 @@ def phase_dfa_parity(java) -> dict:
     if launched != walks:
         fail(f"DFA entry points never launched: {walks - launched}")
     log(f"dfa parity: {stats['checks']} (automaton, L) batches over "
-        f"{len(cases)} automata {stats['automata']}, {stats['rows']} rows: "
-        f"K2 and K4 bit-exact with their plain versions and with re; "
+        f"{len(cases)} automata {stats['automata']}, {stats['rows']} rows "
+        f"({stats['settle_rows']} of them the settled exit's): K2 and K4 "
+        f"bit-exact with their plain versions and with re; "
         f"{stats['bit31_rows']} rows with tag bit 31; entry points "
         f"launched {sorted(launched)}")
     return stats
@@ -1713,10 +1769,10 @@ def dfa_bound_ms(B, S, row_bytes, out_bytes):
 def path_rows(pool, B, L):
     """A batch like one the path launched at (B, L): consecutive rows of the
     run's own pool in file order, each no longer than L, starting at a row
-    over L/2 (so the batch needs its bucket), cycled to 7/8 of B; the rest
-    are padding rows."""
+    over L/2 (so the batch needs its bucket; at the pool's first row if
+    none is), cycled to 7/8 of B; the rest are padding rows."""
     fit = [x for x in pool if len(x) <= L]
-    first = next(i for i, x in enumerate(fit) if len(x) > L // 2)
+    first = next((i for i, x in enumerate(fit) if len(x) > L // 2), 0)
     n = B - B // 8
     return [fit[(first + i) % len(fit)] for i in range(n)]
 
@@ -1729,17 +1785,30 @@ def bench_rows(pool, B, L):
     return (src * (B // max(len(src), 1) + 1))[:B]
 
 
+def adversarial_rows(B, L):
+    """K2's adversarial point: ``B`` rows of ``L`` lowercase letters, none
+    holding "Exception" or "Error", so no walk settles."""
+    import numpy as np
+    rng = np.random.default_rng(4096)
+    data = rng.integers(0x61, 0x7B, (B, L), dtype=np.uint8)
+    return [bytes(r) for r in data]
+
+
 def phase_dfa_path_shapes(java, path2_runs) -> dict:
     """K2 and K4 at every (B, L) path 2 launched, on that run's own rows,
     against the plain version (bit-exact) and re, then warm and cold
-    timing there and at the fixed bench points."""
+    timing there, at the fixed bench points and (K2) at the adversarial
+    point: B=2048, L=4096, every row 4096 bytes, none
+    settling.  The bound counts the row bytes up to each row's settle point
+    (``dfa_scan.settle_points``); ``bound_ms_lengths`` counts every byte
+    below the lengths."""
     import numpy as np
     import torch
     from loongcollector_tpu_torch import testdata as td
     from loongcollector_tpu_torch.ops.device_batch import pack_rows
     from loongcollector_tpu_torch.ops.kernels import dfa_scan_cuda as dsc
     from loongcollector_tpu_torch.ops.kernels.dfa_scan import (
-        DFAMatchKernel, FusedScanKernel)
+        DFAMatchKernel, FusedScanKernel, settle_points)
     from loongcollector_tpu_torch.ops.regex.dfa import compile_dfa
     from loongcollector_tpu_torch.ops.regex.fuse import compile_fused
     fd = compile_fused([td.JAVA_START, td.JAVA_CONTINUE])
@@ -1758,10 +1827,13 @@ def phase_dfa_path_shapes(java, path2_runs) -> dict:
     points += [(name, B, L, "bench") for name, L in
                (("K4", 128), ("K2", 128), ("K2", 1024))
                for B in (8192, 65536)]
+    points.append(("K2", 2048, 4096, "adversarial"))
     out = {}
     for name, B, L, kind in points:
         kern, pool, pats = kerns[name]
-        lines = (path_rows if kind == "path" else bench_rows)(pool, B, L)
+        lines = (adversarial_rows(B, L) if kind == "adversarial"
+                 else (path_rows if kind == "path" else bench_rows)(
+                     pool, B, L))
         lens = np.array([len(x) for x in lines], np.int32)
         arena = np.frombuffer(b"".join(lines), np.uint8)
         offs = np.concatenate([[0], np.cumsum(lens[:-1])]).astype(np.int64)
@@ -1789,8 +1861,10 @@ def phase_dfa_path_shapes(java, path2_runs) -> dict:
                                        f"{name} B={B} L={L}")
         call_ms = time_cuda(lambda: kern(rows, lengths), 200)
         ms = graph_ms([lambda: kern(rows, lengths)])
+        walked = int(settle_points(kern.arrays, batch.rows,
+                                   batch.lengths).sum())
         out_bytes = 1 if name == "K2" else 4
-        touched = int(lens.sum()) + 4 * B + out_bytes * B
+        touched = walked + 4 * B + out_bytes * B
         n_copies = max(8, -(-2 * L2_BYTES // touched))
         copies = [(rows.clone(), lengths.clone()) for _ in range(n_copies)]
         cold_ms = graph_ms([lambda r=r, n=n: kern(r, n) for r, n in copies],
@@ -1798,23 +1872,28 @@ def phase_dfa_path_shapes(java, path2_runs) -> dict:
                            keep_outputs=True)
         del copies
         plain_ms = time_cuda(lambda: kern.plain(rows, lengths), 5)
-        b_ms, by = dfa_bound_ms(B, kern.arrays.num_states, int(lens.sum()),
-                                out_bytes)
+        S = kern.arrays.num_states
+        b_ms, by = dfa_bound_ms(B, S, walked, out_bytes)
+        b_len_ms, by_len = dfa_bound_ms(B, S, int(lens.sum()), out_bytes)
         out[(name, B, L, kind)] = {
             "ms": ms, "cold_ms": cold_ms, "call_ms": call_ms,
             "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": by,
+            "bound_ms_lengths": b_len_ms, "bound_by_lengths": by_len,
             "rows": len(lines), "row_bytes": int(lens.sum()),
+            "walked_bytes": walked,
             "longest": int(lens.max()), "blocks": sh.blocks,
             "threads": sh.threads, "smem": sh.smem, "S": sh.S,
+            "first_settled": kern.arrays.first_settled,
             "copies": n_copies}
         log(f"{name} {kind} B={B} L={L} S={sh.S} ({len(lines)} rows, longest "
-            f"{int(lens.max())}, {int(lens.sum())} row bytes; {sh.blocks} "
-            f"blocks of {sh.threads} threads, {sh.smem} bytes of shared "
-            f"memory): bit-exact with the plain version and re; kernel "
-            f"{ms:.5f} ms warm and {cold_ms:.5f} ms cold ({n_copies} copies) "
-            f"on the device (graph replay), {call_ms:.4f} ms per wrapper "
-            f"call, plain {plain_ms:.3f} ms, bound {b_ms:.6f} ms ({by}); "
-            f"{int(lens.sum()) / (ms * 1e-3) / 1e6:.1f} MB/s walked")
+            f"{int(lens.max())}, {int(lens.sum())} row bytes, {walked} up "
+            f"to the settle points; {sh.blocks} blocks of {sh.threads} "
+            f"threads, {sh.smem} bytes of shared memory): bit-exact with the "
+            f"plain version and re; kernel {ms:.5f} ms warm and "
+            f"{cold_ms:.5f} ms cold ({n_copies} copies) on the device (graph "
+            f"replay), {call_ms:.4f} ms per wrapper call, plain "
+            f"{plain_ms:.3f} ms, bound {b_ms:.6f} ms ({by}; {b_len_ms:.6f} ms "
+            f"over every byte below the lengths)")
     return out
 
 
@@ -2901,14 +2980,16 @@ def dfa_kernel_entry(name, mode, replaces, parity, timing, path2, path2_4,
     """The ``kernels`` line's entry of K2 (``key`` "K2") or K4 ("K4"): its
     numbers at the shape path 2 launched most (ties: the larger B)."""
     k = path2["stats"][key.lower()]
-    (main_sh, _n) = max(path2["shapes"][key],
-                        key=lambda kv: (kv[1], kv[0].B))
+    shapes = path2["shapes"][key]
+    (main_sh, _n) = max(shapes, key=lambda kv: (kv[1], kv[0].B))
     t = timing[(key, main_sh.B, main_sh.L, "path")]
-    bench = {f"{B}x{L}": {f: timing[(key, B, L, "bench")][f] for f in
-                          ("ms", "cold_ms", "plain_ms", "bound_ms",
-                           "blocks", "threads")}
-             for (k_, B, L, kind) in sorted(timing) if k_ == key
-             and kind == "bench"}
+    fields = ("ms", "cold_ms", "plain_ms", "bound_ms", "bound_ms_lengths",
+              "blocks", "threads")
+
+    def points(kind):
+        return {f"{B}x{L}": {g: v[g] for g in fields}
+                for (k_, B, L, kd), v in sorted(timing.items())
+                if k_ == key and kd == kind}
     return {
         "name": name,
         "route": "cuda",
@@ -2924,14 +3005,14 @@ def dfa_kernel_entry(name, mode, replaces, parity, timing, path2, path2_4,
         "plain_ms": t["plain_ms"],
         "bound_ms": t["bound_ms"],
         "bound_by": t["bound_by"],
+        "bound_ms_lengths": t["bound_ms_lengths"],
+        "walked_bytes": t["walked_bytes"],
+        "row_bytes": t["row_bytes"],
         # no single PyTorch call computes a DFA walk
         "library_ms": None,
-        "path_points": {f"{B}x{L}": {f: v[f] for f in
-                                     ("ms", "cold_ms", "plain_ms",
-                                      "bound_ms", "blocks", "threads")}
-                        for (k_, B, L, kind), v in sorted(timing.items())
-                        if k_ == key and kind == "path"},
-        "bench_points": bench,
+        "path_points": points("path"),
+        "bench_points": points("bench"),
+        "adversarial_points": points("adversarial"),
         "path_device_batches": k["device_batches"],
         "path_host_rows": k["host_rows"],
         "path_kernel_s": k["kernel_seconds"],
@@ -2939,10 +3020,10 @@ def dfa_kernel_entry(name, mode, replaces, parity, timing, path2, path2_4,
         "path_exec_max_ms": k["exec_max_s"] * 1e3,
         "path_launches_4_workers": path2_4["stats"][key.lower()]["launches"],
         "path_launch_shapes": [[sh.B, sh.L, sh.S, sh.blocks, n]
-                               for sh, n in path2["shapes"][key]],
-        "threads": t["threads"],
-        "blocks": t["blocks"],
-        "smem_bytes": t["smem"],
+                               for sh, n in shapes],
+        "threads": main_sh.threads,
+        "blocks": main_sh.blocks,
+        "smem_bytes": main_sh.smem,
         "build_s": build["build_s"]["dfa_scan"],
         "ptxas": build["dfa_ptxas"][mode],
     }

@@ -4,7 +4,7 @@
 //   K2  build_dfa_match_fn       full DFA match per row  -> bool  [B]
 //   K3  build_dfa_span_match_fn  K2 over a span per row  -> bool  [B]
 //   K4  build_fused_scan_fn      fused multi-accept DFA  -> int32 [B] (u32)
-// Both run one automaton over u8 rows [B, L] with i32 lengths [B]:
+// Each runs one automaton over u8 rows [B, L] with i32 lengths [B]:
 //   state = start; for p < length: state = delta(state, class(row[p]))
 // K2 writes accept[state] != 0, K4 writes accept[state] (the u32 tag mask
 // carried as i32; bit 31 included).  Positions at or past the length do not
@@ -17,37 +17,37 @@
 // [(K+1)S, S] matrix once per byte under lax.scan, because a per-element
 // gather was slow there.  Here the automaton is a table walk.  The host
 // folds the class map into a byte-indexed table t256[S][256] (S <= 128, the
-// fused set's device cap, so a block's tables stay under 48 KB) and the
-// per-state outputs into accept[S]; the table is an argument, so one build
-// serves every pattern.
+// fused set's device cap) and the per-state outputs into accept[S], and
+// numbers the settled states (every state reachable from one has its accept
+// value) from first_settled up; the tables are arguments, so one build
+// serves every pattern.  Each block copies t256 and accept into shared
+// memory once, as asynchronous 16-byte copies (cp.async) waited for once.
 //
-// What bounds it: the serial per-byte dependency, not bytes.  Each step is
-// one shared-memory load whose address depends on the previous load, so a
-// row of n bytes costs n dependent loads (~30 cycles each); the rows
-// themselves are a few hundred KB per batch.  The design follows from that:
-//   * each block copies t256 and accept into shared memory once (S*256 +
-//     4S bytes: 8.75 KB for the 35-state multiline set), so every step hits
-//     shared memory, not L1 or L2.  The copy is queued as asynchronous
-//     16-byte copies (cp.async) and waited for once: a one-warp block
-//     copying through registers waited out an L2 round trip per 16 bytes,
-//     18 of them for that set, longer than a 128-byte row's walk;
+// What bounds it on this card: the latency chain, not bytes.  Each step is
+// one shared-memory load whose address depends on the previous load (~37
+// cycles a byte measured), so a row of n bytes costs n dependent loads,
+// while the rows are a few hundred KB a batch (0.0002 ms at 3.35 TB/s).  A
+// warp runs until its longest row is done: a batch of B = 2048 rows of up
+// to 4096 bytes ran 4096 * 37 cycles, ~0.09 ms.  What acts on that chain:
+//   * the settled exit (dfa_walk.cuh): a walk stops once its state is
+//     settled, checked once a 16-byte word, off the chain.  It is exact: no
+//     later byte can change the accept value.  A Java message that holds
+//     "Exception" settles by its ~100th byte however long it is;
 //   * rows are read straight from device memory with 16-byte loads when the
-//     row is 16-byte aligned (L a multiple of 16, as every length bucket
-//     is), else byte by byte.  Staging rows per warp in shared memory, as
-//     K1 does, would add a barrier and compete with the table for shared
-//     memory, and buys nothing here: one 16-byte load feeds 16 dependent
-//     steps, so the load hides under the walk;
+//     row is 16-byte aligned (L a multiple of 16, as every bucket is), else
+//     byte by byte, and the next word is loaded while this one is walked;
 //   * one row a thread, 32 to 128 threads a block: the wrapper halves the
 //     block from 128 while the batch would leave an SM without one
-//     (dfa_scan_cuda.launch_geometry), so a batch of 8192 rows runs 256
-//     blocks of one warp, not 64 blocks of four.  Rows of one warp walk
-//     different lengths; the warp runs until its longest row is done.
+//     (dfa_scan_cuda.launch_geometry).
+// A row that never settles still walks all its bytes on one thread.  A warp
+// a row (each lane a 16-byte chunk's transition map from every state, the
+// maps composed 32 chunks at a time) was faster only on long rows that
+// never settle, which no path sends, and level on the paths' own rows
+// (PERF.md section 6), so it is not built.
 // The caller's timing events, when given, are recorded on the stream right
-// around the launch, so a kernel's time holds no host latency.
-// The byte walk is in dfa_walk.cuh, which the fused stage program
-// (fused_program.cu) shares.
-// Speed is later work (several rows a thread to hide the chain's latency,
-// a warp per long row with a parallel-prefix over transition vectors).
+// around the launch, so a kernel's time holds no host latency.  The byte
+// walk is in dfa_walk.cuh, which the fused stage program (fused_program.cu)
+// shares.
 
 #include <cuda_pipeline.h>
 #include <cuda_runtime.h>
@@ -60,47 +60,75 @@ namespace {
 constexpr int kMaxThreads = 128;
 constexpr int kMaxStates = 128;
 
+// The block's copy of t256 and accept into shared memory.
+__device__ __forceinline__ void copy_tables(uint8_t* tab, int32_t* acc,
+                                            const uint8_t* t256,
+                                            const int32_t* accept, int S) {
+  for (int i = threadIdx.x; i < S * 16; i += blockDim.x)
+    __pipeline_memcpy_async(tab + 16 * i, t256 + 16 * i, 16);
+  for (int i = threadIdx.x; i < S; i += blockDim.x)
+    __pipeline_memcpy_async(acc + i, accept + i, 4);
+  __pipeline_commit();
+  __pipeline_wait_prior(0);
+  __syncthreads();
+}
+
+// Rows read as 16-byte words: the row 16-byte aligned and L a multiple of
+// 16, so every word that holds a byte below the length lies in the row.
+__device__ __forceinline__ bool aligned_rows(const uint8_t* row, int32_t L) {
+  return (reinterpret_cast<uintptr_t>(row) & 15) == 0 && (L & 15) == 0;
+}
+
+// Bytes [0, n) of a row from state s, stopping at a settled state: whole
+// 16-byte words, then the last partial word, when `vec`; else byte by
+// byte.  The next word is loaded before this one is walked: the exit's
+// branch would keep the compiler from hoisting it.
+__device__ __forceinline__ uint32_t walk_prefix(const uint8_t* tab,
+                                                uint32_t s, const uint8_t* row,
+                                                int n, bool vec, uint32_t fs) {
+  if (!vec) return walk_row_range(tab, s, row, 0, n, false, fs);
+  const uint4* v = reinterpret_cast<const uint4*>(row);
+  const int full = n >> 4, rem = n & 15;
+  const int last = full - (rem == 0);
+  if (last < 0) return s;
+  uint4 q = __ldg(v);
+  int w = 0;
+  for (; w < full && s < fs; ++w) {
+    const uint4 next = __ldg(v + min(w + 1, last));
+    s = walk_vec(tab, s, q, 16);
+    q = next;
+  }
+  if (rem && w == full && s < fs) s = walk_vec(tab, s, q, rem);
+  return s;
+}
+
+// K2 and K4: one row a thread.
 template <bool kTags>
 __global__ void __launch_bounds__(kMaxThreads)
 dfa_walk_kernel(const uint8_t* __restrict__ rows,
                 const int32_t* __restrict__ lengths, int64_t B, int32_t L,
                 const uint8_t* __restrict__ t256, int32_t S,
                 const int32_t* __restrict__ accept, int32_t start,
-                void* __restrict__ out) {
-    extern __shared__ __align__(16) uint8_t smem[];
-    uint8_t* tab = smem;
-    int32_t* acc = reinterpret_cast<int32_t*>(smem + S * 256);
-    for (int i = threadIdx.x; i < S * 16; i += blockDim.x)
-        __pipeline_memcpy_async(tab + 16 * i, t256 + 16 * i, 16);
-    for (int i = threadIdx.x; i < S; i += blockDim.x)
-        __pipeline_memcpy_async(acc + i, accept + i, 4);
-    __pipeline_commit();
-    __pipeline_wait_prior(0);
-    __syncthreads();
+                int32_t first_settled, void* __restrict__ out) {
+  extern __shared__ __align__(16) uint8_t smem[];
+  uint8_t* tab = smem;
+  int32_t* acc = reinterpret_cast<int32_t*>(smem + S * 256);
+  copy_tables(tab, acc, t256, accept, S);
 
-    const int64_t r = static_cast<int64_t>(blockIdx.x) * blockDim.x
-                      + threadIdx.x;
-    if (r >= B) return;
-    int len = lengths[r];
-    len = len < 0 ? 0 : (len > L ? L : len);
-    const uint8_t* row = rows + r * L;
-    uint32_t s = static_cast<uint32_t>(start);
-    if ((reinterpret_cast<uintptr_t>(row) & 15) == 0 && (L & 15) == 0) {
-        // aligned: whole 16-byte words, then the last partial word, which
-        // lies inside the row because L is a multiple of 16
-        const uint4* v = reinterpret_cast<const uint4*>(row);
-        const int full = len >> 4;
-        for (int w = 0; w < full; ++w) s = walk_vec(tab, s, __ldg(v + w), 16);
-        const int rem = len & 15;
-        if (rem) s = walk_vec(tab, s, __ldg(v + full), rem);
-    } else {
-        for (int p = 0; p < len; ++p) s = tab[(s << 8) | __ldg(row + p)];
-    }
-    if (kTags) {
-        static_cast<int32_t*>(out)[r] = acc[s];
-    } else {
-        static_cast<uint8_t*>(out)[r] = acc[s] != 0;
-    }
+  const int64_t r = static_cast<int64_t>(blockIdx.x) * blockDim.x
+                    + threadIdx.x;
+  if (r >= B) return;
+  int len = lengths[r];
+  len = len < 0 ? 0 : (len > L ? L : len);
+  const uint8_t* row = rows + r * L;
+  const uint32_t s = walk_prefix(tab, static_cast<uint32_t>(start), row,
+                                 len, aligned_rows(row, L),
+                                 static_cast<uint32_t>(first_settled));
+  if (kTags) {
+    static_cast<int32_t*>(out)[r] = acc[s];
+  } else {
+    static_cast<uint8_t*>(out)[r] = acc[s] != 0;
+  }
 }
 
 // K3: the walk over bytes [max(start, 0), start + max(spanlen, 0)) of each
@@ -110,124 +138,130 @@ dfa_span_kernel(const uint8_t* __restrict__ rows,
                 const int32_t* __restrict__ lengths, int64_t B, int32_t L,
                 const uint8_t* __restrict__ t256, int32_t S,
                 const int32_t* __restrict__ accept, int32_t start,
-                const int32_t* __restrict__ starts,
+                int32_t first_settled, const int32_t* __restrict__ starts,
                 const int32_t* __restrict__ spanlens,
                 uint8_t* __restrict__ out) {
-    extern __shared__ __align__(16) uint8_t smem[];
-    uint8_t* tab = smem;
-    int32_t* acc = reinterpret_cast<int32_t*>(smem + S * 256);
-    for (int i = threadIdx.x; i < S * 16; i += blockDim.x)
-        __pipeline_memcpy_async(tab + 16 * i, t256 + 16 * i, 16);
-    for (int i = threadIdx.x; i < S; i += blockDim.x)
-        __pipeline_memcpy_async(acc + i, accept + i, 4);
-    __pipeline_commit();
-    __pipeline_wait_prior(0);
-    __syncthreads();
+  extern __shared__ __align__(16) uint8_t smem[];
+  uint8_t* tab = smem;
+  int32_t* acc = reinterpret_cast<int32_t*>(smem + S * 256);
+  copy_tables(tab, acc, t256, accept, S);
 
-    const int64_t r = static_cast<int64_t>(blockIdx.x) * blockDim.x
-                      + threadIdx.x;
-    if (r >= B) return;
-    int len = lengths[r];
-    len = len < 0 ? 0 : (len > L ? L : len);
-    const int32_t st = starts[r], sl = spanlens[r];
-    const int64_t end = static_cast<int64_t>(st) + (sl < 0 ? 0 : sl);
-    const int lo = st < 0 ? 0 : st;
-    const int hi = static_cast<int>(end < len ? end : len);
-    const uint8_t* row = rows + r * L;
-    const bool vec = (reinterpret_cast<uintptr_t>(row) & 15) == 0
-                     && (L & 15) == 0;
-    const uint32_t s = walk_row_range(tab, static_cast<uint32_t>(start), row,
-                                      lo, hi, vec);
-    out[r] = sl >= 0 && acc[s] != 0;
+  const int64_t r = static_cast<int64_t>(blockIdx.x) * blockDim.x
+                    + threadIdx.x;
+  if (r >= B) return;
+  int len = lengths[r];
+  len = len < 0 ? 0 : (len > L ? L : len);
+  const int32_t st = starts[r], sl = spanlens[r];
+  const int64_t end = static_cast<int64_t>(st) + (sl < 0 ? 0 : sl);
+  const int lo = st < 0 ? 0 : st;
+  const int hi = static_cast<int>(end < len ? end : len);
+  const uint8_t* row = rows + r * L;
+  const uint32_t s = walk_row_range(tab, static_cast<uint32_t>(start), row,
+                                    lo, hi, aligned_rows(row, L),
+                                    static_cast<uint32_t>(first_settled));
+  out[r] = sl >= 0 && acc[s] != 0;
+}
+
+// The automaton's arguments, checked as every entry point checks them.
+bool bad_automaton(int32_t S, int32_t start, int32_t first_settled) {
+  return S < 1 || S > kMaxStates || start < 0 || start >= S
+         || first_settled < 0 || first_settled > S;
 }
 
 template <bool kTags>
 int launch(const uint8_t* rows, const int32_t* lengths, int64_t B, int32_t L,
            const uint8_t* t256, int32_t S, const int32_t* accept,
-           int32_t start, void* out, int32_t threads, int32_t smem,
-           cudaStream_t stream, cudaEvent_t ev_start, cudaEvent_t ev_end) {
-    if (B <= 0) return 0;
-    if (threads < 32 || threads > kMaxThreads || threads % 32 || S < 1
-        || S > kMaxStates || start < 0 || start >= S)
-        return static_cast<int>(cudaErrorInvalidValue);
-    const int64_t blocks = (B + threads - 1) / threads;
-    cudaError_t e;
-    if (ev_start && (e = cudaEventRecord(ev_start, stream)) != cudaSuccess)
-        return static_cast<int>(e);
-    dfa_walk_kernel<kTags><<<static_cast<unsigned>(blocks), threads, smem,
-                             stream>>>(rows, lengths, B, L, t256, S, accept,
-                                       start, out);
-    if ((e = cudaGetLastError()) != cudaSuccess) return static_cast<int>(e);
-    if (ev_end) e = cudaEventRecord(ev_end, stream);
+           int32_t start, int32_t first_settled, void* out, int32_t threads,
+           int32_t smem, cudaStream_t stream, cudaEvent_t ev_start,
+           cudaEvent_t ev_end) {
+  if (B <= 0) return 0;
+  if (threads < 32 || threads > kMaxThreads || threads % 32
+      || bad_automaton(S, start, first_settled))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int64_t blocks = (B + threads - 1) / threads;
+  cudaError_t e;
+  if (ev_start && (e = cudaEventRecord(ev_start, stream)) != cudaSuccess)
     return static_cast<int>(e);
+  dfa_walk_kernel<kTags><<<static_cast<unsigned>(blocks), threads, smem,
+                           stream>>>(rows, lengths, B, L, t256, S, accept,
+                                     start, first_settled, out);
+  if ((e = cudaGetLastError()) != cudaSuccess) return static_cast<int>(e);
+  if (ev_end) e = cudaEventRecord(ev_end, stream);
+  return static_cast<int>(e);
 }
 
 }  // namespace
 
 extern "C" {
 
+// first_settled: the automaton's first settled state (S: none).
 // ev_start / ev_end: CUDA events recorded around the launch, or null.
 
 // K2: out is bool [B] (one byte a row).
 int lct_dfa_match(const uint8_t* rows, const int32_t* lengths, int64_t B,
                   int32_t L, const uint8_t* t256, int32_t S,
-                  const int32_t* accept, int32_t start, uint8_t* out,
-                  int32_t threads, int32_t smem, void* stream,
+                  const int32_t* accept, int32_t start, int32_t first_settled,
+                  uint8_t* out, int32_t threads, int32_t smem, void* stream,
                   void* ev_start, void* ev_end) {
-    return launch<false>(rows, lengths, B, L, t256, S, accept, start, out,
-                         threads, smem, static_cast<cudaStream_t>(stream),
-                         static_cast<cudaEvent_t>(ev_start),
-                         static_cast<cudaEvent_t>(ev_end));
+  return launch<false>(rows, lengths, B, L, t256, S, accept, start,
+                       first_settled, out, threads, smem,
+                       static_cast<cudaStream_t>(stream),
+                       static_cast<cudaEvent_t>(ev_start),
+                       static_cast<cudaEvent_t>(ev_end));
 }
 
 // K4: out is int32 [B], the u32 accept-tag mask of each row.
 int lct_fused_scan(const uint8_t* rows, const int32_t* lengths, int64_t B,
                    int32_t L, const uint8_t* t256, int32_t S,
-                   const int32_t* accept, int32_t start, int32_t* out,
-                   int32_t threads, int32_t smem, void* stream,
+                   const int32_t* accept, int32_t start,
+                   int32_t first_settled, int32_t* out, int32_t threads,
+                   int32_t smem, void* stream,
                    void* ev_start, void* ev_end) {
-    return launch<true>(rows, lengths, B, L, t256, S, accept, start, out,
-                        threads, smem, static_cast<cudaStream_t>(stream),
-                        static_cast<cudaEvent_t>(ev_start),
-                        static_cast<cudaEvent_t>(ev_end));
+  return launch<true>(rows, lengths, B, L, t256, S, accept, start,
+                      first_settled, out, threads, smem,
+                      static_cast<cudaStream_t>(stream),
+                      static_cast<cudaEvent_t>(ev_start),
+                      static_cast<cudaEvent_t>(ev_end));
 }
 
 // K3: out is bool [B]; starts and spanlens are int32 [B], row-relative.
 int lct_dfa_span_match(const uint8_t* rows, const int32_t* lengths,
                        int64_t B, int32_t L, const uint8_t* t256, int32_t S,
                        const int32_t* accept, int32_t start,
-                       const int32_t* starts, const int32_t* spanlens,
-                       uint8_t* out, int32_t threads, int32_t smem,
-                       void* stream, void* ev_start, void* ev_end) {
-    if (B <= 0) return 0;
-    if (threads < 32 || threads > kMaxThreads || threads % 32 || S < 1
-        || S > kMaxStates || start < 0 || start >= S)
-        return static_cast<int>(cudaErrorInvalidValue);
-    const int64_t blocks = (B + threads - 1) / threads;
-    cudaStream_t st = static_cast<cudaStream_t>(stream);
-    cudaError_t e;
-    if (ev_start && (e = cudaEventRecord(static_cast<cudaEvent_t>(ev_start),
-                                         st)) != cudaSuccess)
-        return static_cast<int>(e);
-    dfa_span_kernel<<<static_cast<unsigned>(blocks), threads, smem, st>>>(
-        rows, lengths, B, L, t256, S, accept, start, starts, spanlens, out);
-    if ((e = cudaGetLastError()) != cudaSuccess) return static_cast<int>(e);
-    if (ev_end) e = cudaEventRecord(static_cast<cudaEvent_t>(ev_end), st);
+                       int32_t first_settled, const int32_t* starts,
+                       const int32_t* spanlens, uint8_t* out, int32_t threads,
+                       int32_t smem, void* stream,
+                       void* ev_start, void* ev_end) {
+  if (B <= 0) return 0;
+  if (threads < 32 || threads > kMaxThreads || threads % 32
+      || bad_automaton(S, start, first_settled))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int64_t blocks = (B + threads - 1) / threads;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaError_t e;
+  if (ev_start && (e = cudaEventRecord(static_cast<cudaEvent_t>(ev_start),
+                                       st)) != cudaSuccess)
     return static_cast<int>(e);
+  dfa_span_kernel<<<static_cast<unsigned>(blocks), threads, smem, st>>>(
+      rows, lengths, B, L, t256, S, accept, start, first_settled, starts,
+      spanlens, out);
+  if ((e = cudaGetLastError()) != cudaSuccess) return static_cast<int>(e);
+  if (ev_end) e = cudaEventRecord(static_cast<cudaEvent_t>(ev_end), st);
+  return static_cast<int>(e);
 }
 
 // Loads the walkers' code now: CUDA loads a module's kernels lazily, at
 // their first launch, and the first batch's time would hold the load.
 int lct_dfa_prepare(void) {
-    cudaFuncAttributes a;
-    cudaError_t e = cudaFuncGetAttributes(&a, dfa_walk_kernel<false>);
-    if (e == cudaSuccess) e = cudaFuncGetAttributes(&a, dfa_walk_kernel<true>);
-    if (e == cudaSuccess) e = cudaFuncGetAttributes(&a, dfa_span_kernel);
-    return static_cast<int>(e);
+  cudaFuncAttributes a;
+  cudaError_t e = cudaFuncGetAttributes(&a, dfa_walk_kernel<false>);
+  if (e == cudaSuccess) e = cudaFuncGetAttributes(&a, dfa_walk_kernel<true>);
+  if (e == cudaSuccess) e = cudaFuncGetAttributes(&a, dfa_span_kernel);
+  return static_cast<int>(e);
 }
 
 const char* lct_dfa_error_string(int code) {
-    return cudaGetErrorString(static_cast<cudaError_t>(code));
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
 }  // extern "C"

@@ -98,7 +98,8 @@ enum : int { CK_MATCH = 0, CK_EXTRACT_OK = 1, CK_SPAN = 2 };
 
 // The descriptor: its first `shared_words` words copied to shared memory,
 // all of it in device memory.  An automaton section is
-// [S, start, 0, 0][t256: S * 64 words][accept: S words].
+// [S, start, first_settled, 0][t256: S * 64 words][accept: S words], its
+// settled states numbered from first_settled up (dfa_walk.cuh).
 struct Blob {
   const int32_t* s;
   const int32_t* g;
@@ -111,19 +112,21 @@ __device__ __forceinline__ const int32_t* section(const Blob& b,
 }
 
 // The accept value of the automaton at `off` after bytes [lo, hi) of the
-// tile row `w`.
+// tile row `w`; the walk stops at a settled state.
 __device__ __forceinline__ int32_t dfa_tile(const Blob& b, int32_t off,
                                             const uint32_t* w, int lo,
                                             int hi) {
   if (off < b.shared_words) {
     const int32_t* a = b.s + off;
     const uint32_t s = walk_tile(reinterpret_cast<const uint8_t*>(a + 4),
-                                 static_cast<uint32_t>(a[1]), w, lo, hi);
+                                 static_cast<uint32_t>(a[1]), w, lo, hi,
+                                 static_cast<uint32_t>(a[2]));
     return a[4 + 64 * a[0] + s];
   }
   const int32_t* a = b.g + off;
   const uint32_t s = walk_tile(LdgTab{reinterpret_cast<const uint8_t*>(a + 4)},
-                               static_cast<uint32_t>(__ldg(a + 1)), w, lo, hi);
+                               static_cast<uint32_t>(__ldg(a + 1)), w, lo, hi,
+                               static_cast<uint32_t>(__ldg(a + 2)));
   return __ldg(a + 4 + 64 * __ldg(a) + s);
 }
 

@@ -18,9 +18,15 @@ condition's per-stage twin.
 ``automaton_arrays_from_reference`` folds an automaton's
 ``byte_class``/``transitions`` (the port's ``DFA``/``FusedDFA`` or the
 reference's, as numpy) into the kernel inputs: the byte-indexed table
-``t256`` u8 ``[S, 256]`` and ``accept`` i32 ``[S]``.  ``walk_plain`` is the
-lockstep gather over the ``L`` columns (the reference's
-``fuse._scan_numpy`` on tensors): what the tests and ``--cpu`` run.
+``t256`` u8 ``[S, 256]`` and ``accept`` i32 ``[S]``, with the states
+renumbered so that the *settled* ones (``settled_states``: every state
+reachable from them has their accept value, so no later byte can change a
+walk's result) take the highest ids, from ``first_settled`` on.  The
+kernels stop a walk at the first settled state; state ids never leave a
+kernel, so the result is the same under any numbering.  ``walk_plain`` is
+the lockstep gather over the ``L`` columns (the reference's
+``fuse._scan_numpy`` on tensors), with no exit: what the tests and
+``--cpu`` run.
 
 ``DFAMatchKernel``, ``DFASpanMatchKernel`` (and ``LazySpanMatchKernel``,
 built at its first call) and ``FusedScanKernel`` are the surfaces callers
@@ -62,18 +68,50 @@ class AutomatonArrays:
     t256: np.ndarray          # u8 [S, 256]: next state by (state, byte)
     accept: np.ndarray        # i32 [S]: 0/1 (K2) or the u32 tags as i32 (K4)
     start: int
+    first_settled: int        # states from here up are settled (S: none)
 
     @property
     def num_states(self) -> int:
         return self.t256.shape[0]
 
 
+def settled_states(t256: np.ndarray, accept: np.ndarray) -> np.ndarray:
+    """bool [S]: the states from which every reachable state (the state
+    itself included) has the state's accept value — for K4 the same u32 tag
+    mask.  The greatest fixed point of "every successor has my value and
+    is settled"."""
+    succ = np.asarray(t256, dtype=np.int64)
+    acc = np.asarray(accept)
+    same = (acc[succ] == acc[:, None]).all(axis=1)
+    settled = same
+    while True:
+        nxt = same & settled[succ].all(axis=1)
+        if (nxt == settled).all():
+            return settled
+        settled = nxt
+
+
+def settled_last(t256: np.ndarray, accept: np.ndarray,
+                 start: int) -> AutomatonArrays:
+    """The automaton with its settled states renumbered to the highest ids
+    (the others keep their order, then the settled ones theirs), and
+    ``first_settled`` the first of them."""
+    settled = settled_states(t256, accept)
+    order = np.concatenate([np.nonzero(~settled)[0], np.nonzero(settled)[0]])
+    new_id = np.empty(len(order), np.int64)
+    new_id[order] = np.arange(len(order))
+    t256 = np.ascontiguousarray(new_id[t256[order]].astype(np.uint8))
+    return AutomatonArrays(t256, np.ascontiguousarray(accept[order]),
+                           int(new_id[start]), int((~settled).sum()))
+
+
 def automaton_arrays_from_reference(byte_class, transitions, start,
                                     accept) -> AutomatonArrays:
     """Kernel inputs from an automaton's arrays (either package's ``DFA``
     — ``accept`` its bool ``accepting`` — or ``FusedDFA`` — ``accept`` its
-    u32 ``accept_tags``).  The kernel's own cap on states
-    (``dfa_scan_cuda.MAX_STATES``) is checked at launch."""
+    u32 ``accept_tags``), its settled states last (``settled_last``).  The
+    kernel's own cap on states (``dfa_scan_cuda.MAX_STATES``) is checked at
+    launch."""
     byte_class = np.asarray(byte_class, dtype=np.int64)
     transitions = np.asarray(transitions, dtype=np.int64)
     accept = np.asarray(accept)
@@ -88,7 +126,30 @@ def automaton_arrays_from_reference(byte_class, transitions, start,
         acc = accept.astype(np.int32)
     else:
         acc = accept.astype(np.uint32).view(np.int32)
-    return AutomatonArrays(t256, np.ascontiguousarray(acc), int(start))
+    return settled_last(t256, acc, int(start))
+
+
+def settle_points(arrays: AutomatonArrays, rows: np.ndarray,
+                  lengths: np.ndarray) -> np.ndarray:
+    """i64 [B]: the bytes each row's walk needs with the settled exit —
+    the position after which its state is first settled, else its length
+    (clamped to ``[0, L]``).  What a bound counts as the row bytes these
+    inputs need."""
+    B, L = rows.shape
+    lens = np.clip(np.asarray(lengths, np.int64), 0, L)
+    state = np.full(B, arrays.start, np.int64)
+    need = lens.copy()
+    done = np.full(B, arrays.start >= arrays.first_settled)
+    need[done] = 0
+    for p in range(int(lens.max(initial=0))):
+        live = ~done & (lens > p)
+        if not live.any():
+            break
+        state[live] = arrays.t256[state[live], rows[live, p]]
+        hit = live & (state >= arrays.first_settled)
+        need[hit] = p + 1
+        done |= hit
+    return need
 
 
 def walk_plain(t256: torch.Tensor, accept: torch.Tensor, start: int,
@@ -186,7 +247,8 @@ class _TableWalkKernel:
         from . import dfa_scan_cuda
         t256, accept = self.tables(rows.device)
         out = dfa_scan_cuda.launch(self.mode, rows, lengths, t256, accept,
-                                   self.arrays.start, events)
+                                   self.arrays.start,
+                                   self.arrays.first_settled, events)
         with self._count_lock:
             self.launches += 1
         return out
@@ -236,7 +298,8 @@ class DFASpanMatchKernel(_TableWalkKernel):
         from . import dfa_scan_cuda
         t256, accept = self.tables(rows.device)
         out = dfa_scan_cuda.launch(self.mode, rows, lengths, t256, accept,
-                                   self.arrays.start, events,
+                                   self.arrays.start,
+                                   self.arrays.first_settled, events,
                                    spans=(starts, spanlens))
         with self._count_lock:
             self.launches += 1

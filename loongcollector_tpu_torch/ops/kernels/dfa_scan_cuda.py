@@ -9,10 +9,10 @@ or launch failure raises; nothing here falls back to the plain version.
 
 A launch takes the automaton as two device tables (``AutomatonArrays``):
 ``t256`` u8 ``[S, 256]`` and ``accept`` i32 ``[S]``, which each block copies
-into shared memory; K3 also takes each row's span, ``starts`` and
-``spanlens`` i32 ``[B]``.  ``launch_geometry`` picks threads per block so
-that a batch of at least 32 rows an SM gives every SM a block.  Importing
-this module needs no CUDA.
+into shared memory, and its first settled state, where a walk stops; K3
+also takes each row's span, ``starts`` and ``spanlens`` i32 ``[B]``.
+``launch_geometry`` picks threads per block so that a batch of at least 32
+rows an SM gives every SM a block.  Importing this module needs no CUDA.
 """
 
 from __future__ import annotations
@@ -93,7 +93,7 @@ def build() -> ctypes.CDLL:
             fn.restype = ctypes.c_int
             spans = [vp, vp] if mode == "span" else []
             fn.argtypes = [vp, vp, ctypes.c_int64, i32, vp, i32, vp, i32,
-                           *spans, vp, i32, i32, vp, vp, vp]
+                           i32, *spans, vp, i32, i32, vp, vp, vp]
         lib.lct_dfa_error_string.restype = ctypes.c_char_p
         lib.lct_dfa_error_string.argtypes = [ctypes.c_int]
         lib.lct_dfa_prepare.restype = ctypes.c_int
@@ -134,15 +134,16 @@ def reset_launch_shapes() -> None:
 
 def launch(mode: str, rows: torch.Tensor, lengths: torch.Tensor,
            t256: torch.Tensor, accept: torch.Tensor, start: int,
-           events=None, spans=None) -> torch.Tensor:
+           first_settled: int, events=None, spans=None) -> torch.Tensor:
     """One launch of K2 (``mode="match"``, bool ``[B]``), K3
     (``mode="span"``, bool ``[B]``; ``spans`` the (starts, spanlens) i32
     ``[B]`` pair) or K4 (``mode="tags"``, i32 ``[B]``) on PyTorch's current
     stream, without a synchronise.  rows u8 ``[B, L]``, lengths i32
     ``[B]``, t256 u8 ``[S, 256]`` and accept i32 ``[S]`` on one CUDA
-    device, contiguous.  ``events``, a (start, end) pair of timing CUDA
-    events when given, is recorded on the stream by the entry point
-    itself, right around the kernel."""
+    device, contiguous; states ``first_settled`` and above are settled
+    (``S``: none is).  ``events``, a (start, end) pair of timing CUDA
+    events when given, is recorded on the stream by the entry point itself,
+    right around the kernel."""
     dev = rows.device
     span_args = tuple(spans or ()) if mode == "span" else ()
     if mode == "span" and len(span_args) != 2:
@@ -162,10 +163,12 @@ def launch(mode: str, rows: torch.Tensor, lengths: torch.Tensor,
                          f"{lengths.dtype} {tuple(lengths.shape)}")
     if t256.dtype != torch.uint8 or tuple(t256.shape) != (S, 256) \
             or accept.dtype != torch.int32 or tuple(accept.shape) != (S,) \
-            or not 1 <= S <= MAX_STATES or not 0 <= start < S:
+            or not 1 <= S <= MAX_STATES or not 0 <= start < S \
+            or not 0 <= first_settled <= S:
         raise ValueError(f"dfa_scan: bad tables: t256 {t256.dtype} "
                          f"{tuple(t256.shape)}, accept {accept.dtype} "
-                         f"{tuple(accept.shape)}, start {start}")
+                         f"{tuple(accept.shape)}, start {start}, first "
+                         f"settled {first_settled}")
     if any(t.dtype != torch.int32 or tuple(t.shape) != (B,)
            for t in span_args):
         raise ValueError(f"dfa_scan: starts and spanlens must be i32 [{B}]")
@@ -190,9 +193,9 @@ def launch(mode: str, rows: torch.Tensor, lengths: torch.Tensor,
     t0 = time.perf_counter()
     rc = getattr(lib, entry)(
         rows.data_ptr(), lengths.data_ptr(), B, L, t256.data_ptr(), S,
-        accept.data_ptr(), start, *(t.data_ptr() for t in span_args),
-        out.data_ptr(), shape.threads, shape.smem, stream.cuda_stream,
-        *handles)
+        accept.data_ptr(), start, first_settled,
+        *(t.data_ptr() for t in span_args), out.data_ptr(), shape.threads,
+        shape.smem, stream.cuda_stream, *handles)
     if rc != 0:
         raise RuntimeError(f"dfa_scan launch failed ({entry}): "
                            + lib.lct_dfa_error_string(rc).decode())

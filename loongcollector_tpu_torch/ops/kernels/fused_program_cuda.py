@@ -26,8 +26,9 @@ descriptor (``FusedDescriptor.blob``)::
     condition records    8 words each: kind, negate, section, producer
                          stage, capture
     sections             Tier-1 programs (``KernelProgram.blob``) and
-                         automata ([S, start, 0, 0], t256 [S][256] as
-                         words, accept [S])
+                         automata ([S, start, first_settled, 0], t256
+                         [S][256] as words, accept [S]; the settled states
+                         numbered from first_settled up)
 
 The header, the records and the sections that fit come first: the kernel
 copies those ``shared_words`` into shared memory, and reads the rest from
@@ -205,7 +206,7 @@ def _automaton_words(arrays) -> np.ndarray:
     if not 1 <= S <= MAX_STATES:
         raise FusedUnsupported(f"automaton of {S} states outside "
                                f"1..{MAX_STATES}")
-    head = np.array([S, arrays.start, 0, 0], np.int32)
+    head = np.array([S, arrays.start, arrays.first_settled, 0], np.int32)
     t256 = np.ascontiguousarray(arrays.t256, dtype=np.uint8).reshape(-1)
     return np.concatenate([head, t256.view(np.int32),
                            np.asarray(arrays.accept, np.int32)])

@@ -5,7 +5,8 @@
 * A multiline Java service log (``gen_java_log``), the patterns of the
   multiline paths, and a ``re`` oracle of their records
   (``java_records``, ``java_oracle``).
-* Automata at the DFA kernels' limits.
+* Automata at the DFA kernels' limits, and rows for the settled exit
+  (``settle_rows``, ``cap_automaton``).
 * The Apache-filter path (``apache_filter_config``: parse, then keep the
   4xx/5xx responses that are not health checks) and its ``re`` oracle
   (``apache_filter_oracle``).
@@ -66,6 +67,63 @@ NEAR_CAP_SET = [
 # 32 members (tests/test_fuse.py): member 31 sets bit 31
 BIT31_SET = [chr(ord("a") + i % 26) * (1 + i // 26) + str(i)
              for i in range(32)]
+
+# rows for the settled exit (settle_rows): a prefix that ends in a settled
+# state of the automaton, and a filler byte run that never reaches one
+SETTLE_KINDS = {
+    # JAVA_FILTER: "Error" settles the walk on its last byte; lowercase
+    # letters never do
+    "java_filter": (lambda n: b"Error", 0x61, 0x7B),
+    # the fused start/continue set: spaces keep `\s+at ` open, and an "x"
+    # after them is the dead state; spaces alone never settle
+    "java_start_continue": (lambda n: b"x", 0x20, 0x21),
+}
+SETTLE_LENGTHS = (0, 1, 15, 16, 17, 511, 512, 513, 1023, 1024, 1025, 4096)
+# positions (the byte the walk settles on, counted from 1) at 16-byte word
+# edges (where the exit is checked) and 512-byte edges, +-1
+SETTLE_EDGES = (15, 16, 17, 31, 32, 33, 511, 512, 513, 1023, 1024, 1025)
+
+
+def settle_rows(kind, L, seed=0):
+    """Rows of at most ``L`` bytes for the settled exit of one automaton
+    (``SETTLE_KINDS``): rows that never settle, at every length of
+    ``SETTLE_LENGTHS``; rows that settle on their last byte; rows that
+    settle at each of ``SETTLE_EDGES`` and run on to ``L``; seeded ones."""
+    tail, lo, hi = SETTLE_KINDS[kind]
+    rng = np.random.default_rng(seed)
+
+    def filler(n):
+        return bytes(rng.integers(lo, hi, n, dtype=np.uint8))
+
+    def settled_at(p, n):
+        t = tail(p)
+        return filler(p - len(t)) + t + filler(n - p)
+
+    out = [filler(n) for n in SETTLE_LENGTHS if n <= L]
+    out += [settled_at(n, n) for n in SETTLE_LENGTHS if 5 <= n <= L]
+    out += [settled_at(p, L) for p in SETTLE_EDGES if 5 <= p <= L]
+    for _ in range(24):
+        n = int(rng.integers(0, L + 1))
+        out.append(settled_at(int(rng.integers(5, n + 1)), n) if n >= 5
+                   and rng.integers(2) else filler(n))
+    return out
+
+
+def cap_automaton(seed=0, S=128, settled=28):
+    """A seeded automaton at the DFA kernels' 128-state cap, as (t256 u8
+    [S, 256], accept i32 [S], start): the last ``settled`` states are
+    closed under every byte and share one accept value, and only ``Z``
+    (from any open state) enters them; the open states' accept values are
+    0, 1 or 2."""
+    rng = np.random.default_rng(seed)
+    n_open = S - settled
+    t256 = rng.integers(0, n_open, (S, 256)).astype(np.uint8)
+    t256[:n_open, ord("Z")] = n_open
+    t256[n_open:] = rng.integers(n_open, S, (settled, 256)).astype(np.uint8)
+    accept = rng.integers(0, 3, S).astype(np.int32)
+    accept[n_open:] = 7
+    return t256, accept, 3
+
 
 _LOGGERS = ["com.example.order.OrderService", "com.example.http.Dispatcher",
             "com.example.db.ConnectionPool", "org.acme.cache.LruCache",

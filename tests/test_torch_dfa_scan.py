@@ -293,3 +293,191 @@ def test_timeline_splits_exec_legs_by_program():
     assert tl.leg_seconds("exec") == pytest.approx(0.010)
     assert not xprof.is_active()
     xprof.annotate(1, "dfa_match", "-")      # off: a no-op
+
+
+# -- the settled exit -------------------------------------------------------
+
+def _reachable_settled(t256, accept):
+    """Brute force: a state is settled when every state it reaches (itself
+    included) has its accept value."""
+    S = len(t256)
+    out = np.zeros(S, bool)
+    for s in range(S):
+        seen, todo = {s}, [s]
+        while todo:
+            for v in set(t256[todo.pop()].tolist()) - seen:
+                seen.add(v)
+                todo.append(v)
+        out[s] = all(accept[v] == accept[s] for v in seen)
+    return out
+
+
+def _settle_automata():
+    from loongcollector_tpu_torch.testdata import (APACHE_FILTER_EXCLUDE,
+                                                   APACHE_FILTER_INCLUDE)
+    dfas = {"java_filter": JAVA_FILTER,
+            "status": APACHE_FILTER_INCLUDE["status"],
+            "health": APACHE_FILTER_EXCLUDE["url"], "limit_dfa": LIMIT_DFA}
+    sets = {"java_start_continue": JAVA_SET, "near_cap": NEAR_CAP_SET,
+            "bit31": BIT31_SET}
+    return dfas, sets
+
+
+@pytest.mark.parametrize("name", ["java_filter", "status", "health",
+                                  "limit_dfa", "java_start_continue",
+                                  "near_cap", "bit31"])
+def test_settled_set_equals_reachability(name):
+    """``settled_states`` equals a brute-force reachability set, on the
+    port's automaton and the reference's; after the renumbering the settled
+    states are exactly the ids from ``first_settled`` on."""
+    dfas, sets = _settle_automata()
+    if name in dfas:
+        ours, ref = compile_dfa(dfas[name]), ref_compile_dfa(dfas[name])
+        acc_of = lambda d: d.accepting                    # noqa: E731
+    else:
+        ours = compile_fused(sets[name], note_demotions=False)
+        ref = ref_fuse.compile_fused(sets[name], note_demotions=False)
+        acc_of = lambda d: d.accept_tags                  # noqa: E731
+    for d in (ours, ref):
+        t256 = np.asarray(d.transitions)[:, np.asarray(d.byte_class)]
+        acc = np.asarray(acc_of(d))
+        want = _reachable_settled(t256, acc)
+        np.testing.assert_array_equal(dfa_scan.settled_states(t256, acc),
+                                      want)
+        arrays = automaton_arrays_from_reference(
+            d.byte_class, d.transitions, d.start, acc)
+        S = arrays.num_states
+        assert arrays.first_settled == S - int(want.sum())
+        np.testing.assert_array_equal(
+            _reachable_settled(arrays.t256, arrays.accept),
+            np.arange(S) >= arrays.first_settled)
+        # the renumbering keeps the automaton: state s -> new_id[s]
+        ids = np.concatenate([np.nonzero(~want)[0], np.nonzero(want)[0]])
+        new_id = np.argsort(ids)
+        np.testing.assert_array_equal(arrays.t256, new_id[t256[ids]])
+        assert arrays.start == new_id[d.start]
+    # what the exit can use, per automaton ("." is not "\n", so the
+    # fused set's `.*` tails stay open: only its dead state is settled)
+    assert {"java_filter": 17, "java_start_continue": 1}.get(
+        name, arrays.num_states - arrays.first_settled) \
+        == arrays.num_states - arrays.first_settled
+
+
+def _batch(lines, L, B=None):
+    lens = np.array([len(x) for x in lines], np.int32)
+    arena = np.frombuffer(b"".join(lines) or b"\0", np.uint8)
+    offs = np.concatenate([[0], np.cumsum(lens[:-1])]).astype(np.int64)
+    batch = pack_rows(arena, offs, lens, L, B or len(lines) + 3)
+    return batch.rows, batch.lengths
+
+
+@pytest.mark.parametrize("kernel", ["K2", "K3", "K4"])
+def test_renumbered_plain_equals_reference_on_settle_rows(kernel):
+    """The plain K2, K3 and K4 on renumbered tables against the JAX
+    programs (``dfa_scan.py:88``, ``:105``, ``:172``) on the settled exit's
+    adversarial rows at L=4096: rows that never settle, settle on their
+    last byte or at 16- and 512-byte edges +-1, lengths 0, 1, 511..513,
+    4096."""
+    from loongcollector_tpu.ops.kernels.dfa_scan import \
+        build_dfa_span_match_fn
+    from loongcollector_tpu_torch.ops.kernels.dfa_scan import \
+        DFASpanMatchKernel
+    from loongcollector_tpu_torch.testdata import settle_rows
+    L = 4096
+    kind = "java_start_continue" if kernel == "K4" else "java_filter"
+    lines = settle_rows(kind, L, seed=11)
+    rows, lengths = _batch(lines, L)
+    rt, rl = torch.from_numpy(rows), torch.from_numpy(lengths)
+    if kernel == "K2":
+        want = _check_match(JAVA_FILTER, lines, rows, lengths)
+        assert want.any() and not want[:len(lines)].all()
+        assert DFAMatchKernel(compile_dfa(JAVA_FILTER)).arrays.first_settled \
+            < 30
+    elif kernel == "K4":
+        tags = _check_tags(JAVA_SET, lines, rows, lengths)
+        assert (tags[:len(lines)] == 0).any()
+    else:
+        rng = np.random.default_rng(12)
+        B = rows.shape[0]
+        starts = rng.integers(-3, L, B).astype(np.int32)
+        starts[:B // 3] = 0
+        spans = rng.integers(-1, L + 1, B).astype(np.int32)
+        spans[:B // 3] = lengths[:B // 3]
+        ref = ref_compile_dfa(JAVA_FILTER)
+        want = np.asarray(jax.jit(build_dfa_span_match_fn(ref))(
+            rows, lengths, starts, spans))
+        got = DFASpanMatchKernel(compile_dfa(JAVA_FILTER)).plain(
+            rt, rl, torch.from_numpy(starts), torch.from_numpy(spans))
+        np.testing.assert_array_equal(got.numpy(), want)
+        assert want.any() and not want.all()
+
+
+def _exit_twin(arrays, rows, lengths):
+    """The thread form's walk in numpy: byte by byte from the start state,
+    checking for a settled state once a 16-byte word, as ``walk_prefix``
+    does.  Returns accept[final state] per row and the bytes each row
+    walked."""
+    t = arrays.t256.astype(np.int64)
+    fs = arrays.first_settled
+    B, L = rows.shape
+    out, walked = np.empty(B, np.int32), np.zeros(B, np.int64)
+    for r in range(B):
+        n = int(np.clip(lengths[r], 0, L))
+        s, p = arrays.start, 0
+        while p < n and s < fs:
+            for b in rows[r, p:min(p + 16, n)]:
+                s = int(t[s, b])
+            p = min(p + 16, n)
+        out[r], walked[r] = arrays.accept[s], p
+    return out, walked
+
+
+@pytest.mark.parametrize("S", [1, 30, 128])
+@pytest.mark.parametrize("L", [1024, 4096])
+def test_exit_walk_twin_equals_plain_walk(S, L):
+    """The settled exit, checked once a word, gives the plain walk's result
+    and walks each row to its settle point rounded up to a word."""
+    from loongcollector_tpu_torch.testdata import (cap_automaton,
+                                                   settle_rows)
+    rng = np.random.default_rng(S + L)
+    if S == 30:
+        arrays = DFAMatchKernel(compile_dfa(JAVA_FILTER)).arrays
+        lines = settle_rows("java_filter", L, seed=S + L)
+    elif S == 128:
+        arrays = dfa_scan.settled_last(*cap_automaton(seed=L))
+        lines = [bytes(rng.integers(65, 91, int(n), dtype=np.uint8))
+                 for n in rng.integers(0, L + 1, 24)]
+        lines += [bytes(rng.integers(65, 90, n, dtype=np.uint8))
+                  for n in (L, 511, 512, 513)]        # no Z: never settle
+    else:
+        arrays = dfa_scan.settled_last(np.zeros((1, 256), np.uint8),
+                                       np.ones(1, np.int32), 0)
+        lines = [b"", b"a", b"x" * 700, b"y" * L]
+    assert arrays.num_states == S
+    rows, lengths = _batch(lines, L)
+    got, walked = _exit_twin(arrays, rows, lengths)
+    want = dfa_scan.walk_plain(torch.from_numpy(arrays.t256),
+                               torch.from_numpy(arrays.accept), arrays.start,
+                               torch.from_numpy(rows),
+                               torch.from_numpy(lengths)).numpy()
+    np.testing.assert_array_equal(got, want)
+    need = dfa_scan.settle_points(arrays, rows, lengths)
+    lens = np.clip(lengths, 0, L)
+    np.testing.assert_array_equal(walked, np.minimum(-(-need // 16) * 16,
+                                                     lens))
+    if S == 1:
+        assert not walked.any()           # the start state is settled
+    else:
+        # some rows settle early, and (the cap) some never do
+        assert (walked < lens).any()
+    if S == 128:
+        assert ((walked == lens) & (lens == L)).any()
+
+
+def test_settle_points_are_where_the_state_settles():
+    arrays = DFAMatchKernel(compile_dfa(JAVA_FILTER)).arrays
+    lines = [b"", b"xx", b"an Error here", b"Error", b"x" * 600 + b"Error",
+             b"no match at all"]
+    rows, lengths = _batch(lines, 1024, B=len(lines))
+    need = dfa_scan.settle_points(arrays, rows, lengths)
+    assert need.tolist() == [0, 2, 8, 5, 605, 15]

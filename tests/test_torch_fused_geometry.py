@@ -190,7 +190,7 @@ def test_refused_stage_lists():
     with pytest.raises(fpc.FusedUnsupported):
         fpc.pack_descriptor([ext] * (fpc.MAX_STAGES + 1))
     big = AutomatonArrays(np.zeros((129, 256), np.uint8),
-                          np.zeros(129, np.int32), 0)
+                          np.zeros(129, np.int32), 0, 129)
     with pytest.raises(fpc.FusedUnsupported, match="states"):
         fpc.pack_descriptor([fpc.KernelStage("scan", big)])
 

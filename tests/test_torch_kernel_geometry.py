@@ -204,3 +204,20 @@ def test_ptxas_report_reads_each_instantiation():
         "d1_p2": {"stack": 3232, "spill_stores": 8, "spill_loads": 4,
                   "registers": 72},
     }
+
+
+def test_dfa_ptxas_report_keys_each_walker():
+    from loongcollector_tpu_torch.ops.kernels import dfa_scan_cuda as dsc
+    log = "".join(
+        f"ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_1{name}"
+        f"EvPKhPKilS2_iS4_iiPv' for 'sm_90a'\n"
+        f"ptxas info    : Function properties for _ZN12_GLOBAL__N_1{name}"
+        f"EvPKhPKilS2_iS4_iiPv\n    0 bytes stack frame, 0 bytes spill "
+        f"stores, 0 bytes spill loads\nptxas info    : Used {regs} "
+        f"registers\n"
+        for name, regs in (("15dfa_walk_kernelILb0E", 20),
+                           ("15dfa_walk_kernelILb1E", 21),
+                           ("15dfa_span_kernel", 24)))
+    rep = dsc.ptxas_report(log)
+    assert {k: v["registers"] for k, v in rep.items()} == {
+        "match": 20, "tags": 21, "span": 24}

@@ -64,6 +64,10 @@ PATTERNS = [APACHE, PAT, EMPTY]
 @pytest.fixture(autouse=True)
 def _clean(monkeypatch):
     monkeypatch.setenv("LOONG_NATIVE_T1", "0")
+    # the JAX mesh's process-wide counters (mesh_*_total, pad fallbacks per
+    # chip count) stay as this file found them: its own tests read them as
+    # absolute values
+    monkeypatch.setattr(ref_mesh, "_mesh_records", {})
     port_engine.clear_engine_cache()
     ref_engine_mod.clear_engine_cache()
     yield

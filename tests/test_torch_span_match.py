@@ -133,11 +133,12 @@ def test_span_entry_point_matches_its_binding():
     src = open(dfa_scan_cuda._SRC).read()
     m = re.search(r"int lct_dfa_span_match\(([^)]*)\)", src)
     params = [p.strip() for p in m.group(1).split(",")]
-    assert len(params) == 16
-    # rows, lengths, B, L, t256, S, accept, start, starts, spanlens, out,
-    # threads, smem, stream, ev_start, ev_end
-    assert params[8].startswith("const int32_t* starts")
-    assert params[9].startswith("const int32_t* spanlens")
+    assert len(params) == 17
+    # rows, lengths, B, L, t256, S, accept, start, first_settled, starts,
+    # spanlens, out, threads, smem, stream, ev_start, ev_end
+    assert params[8] == "int32_t first_settled"
+    assert params[9].startswith("const int32_t* starts")
+    assert params[10].startswith("const int32_t* spanlens")
     assert dfa_scan_cuda.ENTRY_POINTS["span"] == "lct_dfa_span_match"
     assert DFASpanMatchKernel.mode == "span"
     assert "dfa_span_kernel" in src
@@ -162,9 +163,9 @@ def test_launch_rejects_bad_spans():
     rows = torch.zeros((4, 128), dtype=torch.uint8)
     lens = torch.zeros(4, dtype=torch.int32)
     with pytest.raises(ValueError):
-        dfa_scan_cuda.launch("span", rows, lens, t256, acc, 0)
+        dfa_scan_cuda.launch("span", rows, lens, t256, acc, 0, 2)
     with pytest.raises(ValueError, match="CUDA"):
-        dfa_scan_cuda.launch("span", rows, lens, t256, acc, 0,
+        dfa_scan_cuda.launch("span", rows, lens, t256, acc, 0, 2,
                              spans=(lens, lens))
     assert os.path.isfile(dfa_scan_cuda._SRC)
     assert dfa_scan.span_walk_plain is not None
