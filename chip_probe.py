@@ -6,7 +6,8 @@
     python3 chip_probe.py ab OTHER/field_extract.cu   # K1 built two ways
     python3 chip_probe.py k8         # K8's epilogue and its memset, timed
     python3 chip_probe.py k2 OTHER/dfa_scan.cu   # K2/K4 against another build
-    python3 chip_probe.py k7         # K7's time by phase, and its exit
+    python3 chip_probe.py k7 OTHER/fused_program.cu  # K7 against another
+    python3 chip_probe.py k5 OTHER/struct_index.cu   # K5 against another
 
 Builds the kernel ``loongcollector_tpu_torch/ops/kernels/csrc/
 field_extract.cu`` as it is, and ``stamped``, an edited copy with
@@ -46,19 +47,30 @@ settling), at ``L=128`` (``B=8192`` and ``65536``) and K4 at ``B=8192,
 L=256``, printing both bounds (row bytes to the settle points, and every
 byte below the lengths).
 
-``k7`` splits K7's time by phase on the Apache-filter program's
-``B=8192, L=128`` chunk (5,500 rows) and on the delimiter filter's
-(the pipe log's first 512 KB): a copy of ``fused_program.cu`` with
-``clock64()`` stamps by thread 0 of each block (entry, the barrier after
-the descriptor and row staging, the end of the extract stage's walk, the
-end of ``write_warp_caps``, the end of the keep stage, exit) gives the
-median and largest cycles per block of each phase, beside K1's phases on
-the same chunk (its stamped copy, as the default mode builds it); K7's
-``d0_p0`` and K1's ptxas registers, dynamic shared memory per block and
-``cudaOccupancyMaxActiveBlocksPerMultiprocessor``; and K7 built with and
-without the settled exit (a copy of the headers whose tile walk never
-exits) timed in turns, after checking every build against the plain
-version.
+``k7 OTHER/fused_program.cu`` builds K7 from ``OTHER`` (with its headers
+beside it, e.g. the parent commit's, unpacked with ``git archive`` under
+``build/``) and packs its descriptors with that checkout's own host code,
+beside this tree's K7 and a form of it whose descriptor copy is one TMA
+bulk copy (``TMA_COPY``); checks all three against the plain version and
+times them in turns (other, this, TMA, TMA, this, other) on the
+Apache-filter program's ``B=8192, L=128`` chunk (5,500 rows) and on the
+delimiter filter's (the pipe log's first 512 KB).  A copy of this tree's
+``fused_program.cu`` with ``clock64()`` stamps by thread 0 of each block
+(entry, rows staged, the barrier after the rows and the descriptor, the
+end of the extract stage's walk, the end of ``write_warp_caps``, the end
+of the keep stage, exit) gives the median and largest cycles per block of
+each phase, beside K1's phases on the same chunk (its stamped copy, as the
+default mode builds it); then K7's ``d0_p0`` and K1's ptxas registers,
+dynamic shared memory per block and
+``cudaOccupancyMaxActiveBlocksPerMultiprocessor``.
+
+``k5 OTHER/struct_index.cu`` builds K5 from ``OTHER``, from this tree, and
+``direct``, this tree's without the row staging (each step's bytes read
+from device memory, ``k5_direct``), checks all three against the plain
+version and times them in turns (other, this, direct, direct, this, other)
+at the CSV path's shapes (``B=4096``, ``L=512`` and ``256``), at ``L=128``
+(``B=8192`` and ``65536``) and on long JSON rows (``B=1024, L=4096``),
+beside the bound.
 
 ``k8`` splits what K8 (``lct_sharded_extract_*``, K1's walk with the count
 epilogue) costs over K1: it builds this tree's source and ``nomemset``, a
@@ -448,38 +460,146 @@ def k2_compare(other: str) -> int:
     return 0
 
 
-# -- K7: its time by phase, and with and without the settled exit ----------
+# -- K7 and K5 against another tree's ----------------------------------------
 
-K7_STAMPS = 6
+K7_STAMPS = 11
+
+
+def other_root(src: str) -> str:
+    """The checkout that holds the kernel source ``src`` (``<root>/
+    loongcollector_tpu_torch/ops/kernels/csrc/<name>``)."""
+    root = os.path.abspath(src)
+    for _ in range(5):
+        root = os.path.dirname(root)
+    if not os.path.isdir(os.path.join(root, "loongcollector_tpu_torch")):
+        raise SystemExit(f"chip_probe: {src} is not inside a checkout")
+    return root
+
+
+def other_package(root: str, alias: str):
+    """The port package of the checkout ``root``, imported as ``alias``
+    beside this tree's (its modules import each other relatively), so its
+    own host code packs what its own kernels read."""
+    import importlib.util
+    pkg = os.path.join(root, "loongcollector_tpu_torch")
+    spec = importlib.util.spec_from_file_location(
+        alias, os.path.join(pkg, "__init__.py"),
+        submodule_search_locations=[pkg])
+    mod = importlib.util.module_from_spec(spec)
+    sys.modules[alias] = mod
+    spec.loader.exec_module(mod)
+    return mod
 
 
 def k7_stamped(src: str) -> str:
-    """K7 with ``clock64()`` stamps by thread 0 of each block: entry, the
-    barrier after the descriptor and row staging, the end of the extract
-    stage's walk, the end of ``write_warp_caps``, the end of the keep stage,
-    and exit (with several stages of a kind, the last one's)."""
+    """K7 with ``clock64()`` stamps by thread 0 of each block: entry (0),
+    its rows staged (6), the barrier after the rows and the descriptor (1),
+    the end of the extract stage's walk (2), the end of ``write_warp_caps``
+    (3), the end of the keep stage (4), and exit (5) (with several stages
+    of a kind, the last one's); inside the keep, for its first two
+    conditions, the record loaded (7, 9: the stamp waits on its words) and
+    the condition's result (8, 10), where thread 0 evaluates them."""
     src = edit(src, "namespace {\n", "namespace {\n"
-               "__device__ long long g_stamp[65536 * 6];\n"
+               f"__device__ long long g_stamp[65536 * {K7_STAMPS}];\n"
                "#define STAMP(k) do { if (threadIdx.x == 0) "
-               "g_stamp[blockIdx.x * 6 + (k)] = clock64(); } while (0)\n")
-    src = edit(src, "  extern __shared__ int32_t smem[];\n",
-               "  extern __shared__ int32_t smem[];\n  STAMP(0);\n")
+               f"g_stamp[blockIdx.x * {K7_STAMPS} + (k)] = clock64(); "
+               "} while (0)\n")
+    src = edit(src, "  extern __shared__ __align__(16) int32_t smem[];\n",
+               "  extern __shared__ __align__(16) int32_t smem[];\n"
+               "  STAMP(0);\n")
     src = edit(src, "  stage_warp_rows(rows, row0, wrow, wrows, lane, L, len, "
-               "tile, ws);\n  __syncthreads();\n",
+               "tile, ws);\n  desc_copy_wait();\n  __syncthreads();\n",
                "  stage_warp_rows(rows, row0, wrow, wrows, lane, L, len, "
-               "tile, ws);\n  __syncthreads();\n  STAMP(1);\n")
+               "tile, ws);\n  STAMP(6);\n  desc_copy_wait();\n"
+               "  __syncthreads();\n  STAMP(1);\n")
     src = edit(src, "      ext_ok |= static_cast<uint32_t>(ok) << si;\n",
                "      STAMP(2);\n      ext_ok |= static_cast<uint32_t>(ok) "
                "<< si;\n")
     src = edit(src, "    } else if (kind == ST_SCAN) {\n",
                "      STAMP(3);\n    } else if (kind == ST_SCAN) {\n")
+    ck = "(7 + 2 * (ci - st[S_SEC]))"
+    src = edit(src, "        const int4 c0 = cr[0], c1 = cr[1], c2 = cr[2], "
+               "c3 = cr[3];\n",
+               "        const int4 c0 = cr[0], c1 = cr[1], c2 = cr[2], "
+               "c3 = cr[3];\n"
+               f"        if (threadIdx.x == 0 && {ck} < 11 && (c0.x | c1.x "
+               "| c2.x | c3.x) != -7) "
+               f"g_stamp[blockIdx.x * 11 + {ck}] = clock64();\n")
+    src = edit(src, "        keep = c0.y ? !ok : ok;\n",
+               "        keep = c0.y ? !ok : ok;\n"
+               f"        if (threadIdx.x == 0 && {ck} + 1 < 11 && "
+               f"(int)keep != 7) g_stamp[blockIdx.x * 11 + {ck} + 1] = clock64();\n")
     src = edit(src, "      out[B * st[S_OUT0] + bshift + row0 + tid] = keep;"
                "\n    }\n  }\n}\n",
                "      out[B * st[S_OUT0] + bshift + row0 + tid] = keep;\n"
                "      STAMP(4);\n    }\n  }\n  STAMP(5);\n}\n")
     return edit(src, 'extern "C" {\n', 'extern "C" {\n'
                 "int probe_stamps(void* dst, size_t n) {\n"
-                "  return (int)cudaMemcpyFromSymbol(dst, g_stamp, n);\n}\n")
+                "  return (int)cudaMemcpyFromSymbol(dst, g_stamp, n);\n}\n"
+                "int probe_clear(void) {\n  void* p = nullptr;\n"
+                "  cudaError_t e = cudaGetSymbolAddress(&p, g_stamp);\n"
+                "  return (int)(e ? e : cudaMemset(p, 0, sizeof(g_stamp)));"
+                "\n}\n")
+
+
+# The descriptor's other copy: one 1-D TMA bulk copy issued by thread 0,
+# completing on an mbarrier that thread 0 waits on before the barrier.
+TMA_COPY = """__shared__ __align__(8) uint64_t desc_bar;
+
+__device__ __forceinline__ void desc_copy_begin(int32_t* dst,
+                                                const int32_t* src,
+                                                int32_t words, int32_t tid,
+                                                int32_t T) {
+  if (tid != 0) return;
+  const uint32_t bar =
+      static_cast<uint32_t>(__cvta_generic_to_shared(&desc_bar));
+  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  const uint32_t bytes = 4u * static_cast<uint32_t>(words);
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" :: "r"(bar)
+               : "memory");
+  asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
+               :: "r"(bar), "r"(bytes) : "memory");
+  asm volatile("cp.async.bulk.shared::cluster.global.mbarrier::complete_tx"
+               "::bytes [%0], [%1], %2, [%3];"
+               :: "r"(d), "l"(src), "r"(bytes), "r"(bar) : "memory");
+}
+
+__device__ __forceinline__ void desc_copy_wait() {
+  if (threadIdx.x != 0) return;
+  const uint32_t bar =
+      static_cast<uint32_t>(__cvta_generic_to_shared(&desc_bar));
+  uint32_t done = 0;
+  while (!done)
+    asm volatile("{\\n .reg .pred p;\\n"
+                 " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], 0;\\n"
+                 " selp.u32 %0, 1, 0, p;\\n}"
+                 : "=r"(done) : "r"(bar) : "memory");
+}
+"""
+
+
+def tma_copy(src: str) -> str:
+    """``fused_program.cu`` with its descriptor copy taken by ``TMA_COPY``
+    in place of the 16-byte cp.async copies; the barrier's static shared
+    memory comes off the dynamic budget each instantiation opts into."""
+    a = src.index("__device__ __forceinline__ void desc_copy_begin(")
+    b = src.index("__device__ __forceinline__ void desc_copy_wait() {")
+    b = src.index("}\n", b) + 2
+    src = src[:a] + TMA_COPY + src[b:]
+    return edit(src, "                             kSmemBudget);",
+                "                             kSmemBudget - 16);")
+
+
+def k5_direct(src: str) -> str:
+    """``struct_index.cu`` with its row staging taken out: the walk reads
+    each step's bytes from device memory (``__ldg``), as the parent's did,
+    and keeps the exit at the length and the coalesced stores."""
+    a = src.index("  uint8_t* const tb = tile")
+    b = src.index("  struct_row<MODE>(")
+    src = src[:a] + src[b:]
+    return edit(src, "struct_row<MODE>([tb](int32_t p) { return tb[p]; }",
+                "struct_row<MODE>([r](int32_t p) { return __ldg(r + p); }")
 
 
 def with_occupancy(src: str, kernel: str) -> str:
@@ -494,23 +614,6 @@ def with_occupancy(src: str, kernel: str) -> str:
                 f"n, {kernel}, threads, smem);\n}}\n")
 
 
-def noexit_headers(src_dir: str) -> str:
-    """A copy of the kernel headers with the settled exit taken out of the
-    tile walk K7 runs; returns its directory."""
-    out = os.path.join(OUT, "noexit")
-    os.makedirs(out, exist_ok=True)
-    for name in os.listdir(src_dir):
-        if name.endswith(".cuh"):
-            with open(os.path.join(src_dir, name)) as f:
-                text = f.read()
-            if name == "dfa_walk.cuh":
-                text = edit(text, "  while (lo < hi && s < fs) {\n",
-                            "  while (lo < hi) {\n")
-            with open(os.path.join(out, name), "w") as f:
-                f.write(text)
-    return out
-
-
 def occupancy(lib, a: int, b: int, threads: int, smem: int) -> int:
     """``with_occupancy``'s query of ``lib``."""
     n = ctypes.c_int(0)
@@ -520,9 +623,29 @@ def occupancy(lib, a: int, b: int, threads: int, smem: int) -> int:
     return n.value
 
 
-def k7_split() -> int:
-    """K7's cycles by phase, its registers, shared memory and occupancy
-    beside K1's, and K7 with and without the settled exit in turns."""
+def bind_k7(lib) -> None:
+    vp, i32 = ctypes.c_void_p, ctypes.c_int32
+    fn = lib.lct_fused_program
+    fn.restype = ctypes.c_int
+    fn.argtypes = [vp, vp, ctypes.c_int64, i32, vp, i32, i32, vp, i32, i32,
+                   vp, vp, vp]
+
+
+def stamp_phases(lib, n_stamps, blocks, real_blocks):
+    """The stamped build's clock stamps, [real_blocks, n_stamps]."""
+    import numpy as np
+    buf = np.zeros(65536 * n_stamps, np.int64)
+    lib.probe_stamps.argtypes = [ctypes.c_void_p, ctypes.c_size_t]
+    if lib.probe_stamps(buf.ctypes.data, buf.nbytes):
+        raise SystemExit("chip_probe: cannot read the stamps")
+    return buf[:blocks * n_stamps].reshape(blocks, n_stamps)[:real_blocks]
+
+
+def k7_compare(other: str) -> int:
+    """K7 built from ``other`` (with its own host code packing its
+    descriptors) against this tree's K7 and its TMA-copy form, in turns;
+    this tree's cycles by phase beside K1's, registers, shared memory and
+    occupancy."""
     import numpy as np
     import torch
     import chip_smoke
@@ -534,21 +657,30 @@ def k7_split() -> int:
         ExtractKernel
     from loongcollector_tpu_torch.ops.regex.program import compile_tier1
     print(f"chip_probe: card: {chip_smoke.nvidia_smi()}", flush=True)
+    other_package(other_root(other), "other_port")
+    from other_port.ops.kernels import fused_program_cuda as ofpc
+    with open(other) as f:
+        other_src = f.read()
     with open(fpc._SRC) as f:
         src = f.read()
+    # a: the first extract stage's pivot kind (FIRST), b: GENERAL
+    occ = "kKernels[a + 1][b]"
     libs, logs = {}, {}
     for name, text, inc in (
-            ("k7", src, ""),
-            ("k7_noexit", src, noexit_headers(os.path.dirname(fpc._SRC))),
-            ("k7_stamped", k7_stamped(src), "")):
-        # a: the first extract stage's pivot kind (FIRST), b: GENERAL
-        text = with_occupancy(text, "kKernels[a + 1][b]")
-        libs[name], logs[name] = compile_so(fxc, name, text, inc)
-        fn = libs[name].lct_fused_program
-        vp, i32 = ctypes.c_void_p, ctypes.c_int32
-        fn.restype = ctypes.c_int
-        fn.argtypes = [vp, vp, ctypes.c_int64, i32, vp, i32, i32, vp, i32,
-                       i32, vp, vp, vp]
+            ("other", with_occupancy(other_src, occ),
+             os.path.dirname(os.path.abspath(other))),
+            ("this", with_occupancy(src, occ), ""),
+            ("this_tma", with_occupancy(tma_copy(src), occ), ""),
+            ("this_stamped", k7_stamped(src), "")):
+        libs[name], logs[name] = compile_so(fxc, "k7_" + name, text, inc)
+        bind_k7(libs[name])
+    for name in ("other", "this", "this_tma"):
+        rep = fpc.ptxas_report(logs[name])
+        print(f"chip_probe: k7_{name}: ptxas " + ", ".join(
+            f"{k} {r.get('registers')} registers, {r.get('stack')} stack, "
+            f"{r.get('spill_stores')} spills"
+            for k, r in sorted(rep.items()) if k in ("d0_p0", "d0_p0_g",
+                                                     "none")), flush=True)
     with open(fxc._SRC) as f:
         k1_src = f.read()
     # a: the depth-0 program's pivot kind
@@ -558,8 +690,7 @@ def k7_split() -> int:
     k1_lib, k1_log = compile_so(fxc, "k1_occupancy",
                                 with_occupancy(k1_src, k1_kernel))
     k1_stamp_lib = build(fxc, "k1_stamped", stamped(k1_src))
-    k1_stamp_lib.probe_stamps.argtypes = [ctypes.c_void_p, ctypes.c_size_t]
-    k7_regs = fpc.ptxas_report(logs["k7"])
+    k7_regs = fpc.ptxas_report(logs["this"])
     k1_regs = fxc.ptxas_report(k1_log)
     apache = dict((n, s) for n, s, _ in td.fused_stage_lists())[
         "apache_filter"]
@@ -574,12 +705,19 @@ def k7_split() -> int:
     B, L = 8192, 128
     for tag, specs, lines in cases:
         program = fp.FusedProgramKernel(specs, tag)
-        desc = program.descriptor
-        blob = torch.from_numpy(desc.blob).cuda()
+        stages = fp.kernel_stages(specs)
+        descs = {"other": ofpc.pack_descriptor(stages),
+                 "this": program.descriptor}
+        descs["this_tma"] = descs["this_stamped"] = descs["this"]
+        geoms = {k: (ofpc if k == "other" else fpc).launch_geometry(B, L, d)
+                 for k, d in descs.items()}
+        blobs = {k: torch.from_numpy(d.blob).cuda() for k, d in descs.items()}
         batch, rows, lengths = dfa_batch(lines, B, L)
-        threads, smem = fpc.launch_geometry(B, L, desc)
 
-        def k7_launcher(lib):
+        def k7_launcher(k):
+            lib, desc, blob = libs[k], descs[k], blobs[k]
+            threads, smem = geoms[k]
+
             def call(r=rows, n=lengths):
                 out = torch.empty(desc.flat_bytes(B, L), dtype=torch.uint8,
                                   device=r.device)
@@ -589,37 +727,50 @@ def k7_split() -> int:
                     smem, torch.cuda.current_stream().cuda_stream, None,
                     None)
                 if rc:
-                    raise SystemExit(f"chip_probe: K7 launch failed ({rc})")
+                    raise SystemExit(f"chip_probe: K7 {k} launch failed "
+                                     f"({rc})")
                 return out
             return call
-        calls = {k: k7_launcher(lib) for k, lib in libs.items()}
+        calls = {k: k7_launcher(k) for k in libs}
         want = [t.cpu().numpy() for t in program.plain(rows, lengths)]
         for k, fn in calls.items():
             got = [t.cpu().numpy() for t in program.split(fn(), B)]
             if not all((g.reshape(w.shape) == w).all()
                        for g, w in zip(got, want)):
-                raise SystemExit(f"chip_probe: {k} != plain on {tag}")
-        turns = [(k, chip_smoke.graph_ms([calls[k]]))
-                 for k in ("k7_noexit", "k7", "k7", "k7_noexit")]
+                raise SystemExit(f"chip_probe: K7 {k} != plain on {tag}")
+        order = ("other", "this", "this_tma", "this_tma", "this", "other")
+        turns = [(k, chip_smoke.graph_ms([calls[k]])) for k in order]
+        threads = geoms["this"][0]
         print(f"chip_probe: k7 {tag} B={B} L={L} ({len(lines)} rows, "
-              f"{-(-B // threads)} blocks of {threads}): device ms per "
-              f"launch in turns (without / with the settled exit): "
+              f"{-(-B // threads)} blocks of {threads}; descriptor "
+              f"{descs['other'].shared_words} / {descs['this'].shared_words} "
+              f"shared words other / this): device ms per launch in turns: "
               + ", ".join(f"{k} {ms:.5f}" for k, ms in turns), flush=True)
-        stamp_lib = libs["k7_stamped"]
-        calls["k7_stamped"]()
+        # stamps of one launch only: clock64 is an SM's own counter, so a
+        # stamp left by another launch does not compare with this one's
+        if libs["this_stamped"].probe_clear():
+            raise SystemExit("chip_probe: cannot clear the stamps")
+        calls["this_stamped"]()
         torch.cuda.synchronize()
         blocks = -(-B // threads)
-        buf = np.zeros(65536 * K7_STAMPS, np.int64)
-        stamp_lib.probe_stamps.argtypes = [ctypes.c_void_p, ctypes.c_size_t]
-        if stamp_lib.probe_stamps(buf.ctypes.data, buf.nbytes):
-            raise SystemExit("chip_probe: cannot read the stamps")
-        st = buf[:blocks * K7_STAMPS].reshape(blocks, K7_STAMPS)
-        st = st[:-(-len(lines) // threads)]        # blocks with real rows
+        st = stamp_phases(libs["this_stamped"], K7_STAMPS, blocks,
+                          -(-len(lines) // threads))
         phases = {"staging": st[:, 1] - st[:, 0],
+                  "rows staged": st[:, 6] - st[:, 0],
+                  "descriptor wait": st[:, 1] - st[:, 6],
                   "extract walk": st[:, 2] - st[:, 1],
                   "write caps": st[:, 3] - st[:, 2],
                   "keep": st[:, 4] - st[:, 3], "exit": st[:, 5] - st[:, 4],
                   "block": st[:, 5] - st[:, 0]}
+        # the keep's first condition, and its second where thread 0's row
+        # reached it
+        two = (st[:, 9] > 0) & (st[:, 10] > 0)
+        phases.update({"keep: first record": st[:, 7] - st[:, 3],
+                       "keep: first condition": st[:, 8] - st[:, 7]})
+        if two.any():
+            phases.update({"keep: second record": (st[:, 9] - st[:, 8])[two],
+                           "keep: second condition":
+                               (st[:, 10] - st[:, 9])[two]})
         print(f"chip_probe: k7 {tag} cycles per block (median / largest, "
               f"{len(st)} blocks with real rows): "
               + "; ".join(f"{k} {int(np.median(v))} / {int(v.max())}"
@@ -634,11 +785,8 @@ def k7_split() -> int:
         prog = torch.from_numpy(kp.blob).cuda()
         launcher(fxc, k1_stamp_lib, k1, prog)(rows, lengths)
         torch.cuda.synchronize()
-        buf = np.zeros(65536 * STAMPS, np.int64)
-        if k1_stamp_lib.probe_stamps(buf.ctypes.data, buf.nbytes):
-            raise SystemExit("chip_probe: cannot read K1's stamps")
-        k1st = buf[:-(-B // k1_threads) * STAMPS].reshape(-1, STAMPS)
-        k1st = k1st[:-(-len(lines) // k1_threads)]
+        k1st = stamp_phases(k1_stamp_lib, STAMPS, -(-B // k1_threads),
+                            -(-len(lines) // k1_threads))
         k1_phases = {"staging": k1st[:, 1] - k1st[:, 0],
                      "walk": k1st[:, 2] - k1st[:, 1],
                      "write-back": k1st[:, 3] - k1st[:, 2],
@@ -648,7 +796,9 @@ def k7_split() -> int:
                   f"{k} {int(np.median(v))} / {int(v.max())}"
                   for k, v in k1_phases.items()), flush=True)
         k1_key = kp.entry_point.replace("lct_field_extract_", "")
-        n7 = occupancy(libs["k7"], desc.first, int(desc.general), threads,
+        desc = descs["this"]
+        smem = geoms["this"][1]
+        n7 = occupancy(libs["this"], desc.first, int(desc.general), threads,
                        smem)
         n1 = occupancy(k1_lib, kp.pivot, 0, k1_threads, k1_smem)
         print(f"chip_probe: k7 {tag}: K7 {desc.instantiation} "
@@ -661,14 +811,102 @@ def k7_split() -> int:
     return 0
 
 
+def k5_compare(other: str) -> int:
+    """K5 built from ``other`` (a ``struct_index.cu`` with its header
+    beside it) against this tree's, checked against the plain version and
+    timed in turns (other, this, direct, direct, this, other) on the CSV
+    path's shapes (``B=4096``, ``L=512`` and ``256``, 2,439 quote-mode CSV
+    rows, as a path group), at ``L=128`` (``B=8192`` and ``65536``) and on
+    long JSON rows at ``B=1024, L=4096``, beside the bound."""
+    import numpy as np
+    import torch
+    import chip_smoke
+    from loongcollector_tpu_torch import testdata as td
+    from loongcollector_tpu_torch.ops.kernels import field_extract_cuda as fxc
+    from loongcollector_tpu_torch.ops.kernels import struct_index as si
+    from loongcollector_tpu_torch.ops.kernels import struct_index_cuda as sic
+    print(f"chip_probe: card: {chip_smoke.nvidia_smi()}", flush=True)
+    with open(other) as f:
+        other_src = f.read()
+    with open(sic._SRC) as f:
+        this_src = f.read()
+    libs = {}
+    for name, text, inc in (("other", other_src,
+                             os.path.dirname(os.path.abspath(other))),
+                            ("this", this_src, ""),
+                            ("direct", k5_direct(this_src), "")):
+        lib, log = compile_so(fxc, "k5_" + name, text, inc)
+        rep = sic.ptxas_report(log)
+        print(f"chip_probe: k5_{name}: ptxas " + ", ".join(
+            f"{k} {r.get('registers')} registers, {r.get('stack')} stack, "
+            f"{r.get('spill_stores')} spills"
+            for k, r in sorted(rep.items())), flush=True)
+        vp, i32 = ctypes.c_void_p, ctypes.c_int32
+        fn = lib.lct_struct_index_cuda
+        fn.restype = ctypes.c_int
+        fn.argtypes = [vp, vp, ctypes.c_int64, i32, i32, i32, vp, vp, vp, vp]
+        libs[name] = lib
+    rng = np.random.default_rng(5)
+    json_rows = td.gen_json_events(1024, seed=29)
+    json_rows = [(r * (4096 // max(len(r), 1) + 1))[:int(rng.integers(
+        1, 4097))] for r in json_rows]
+    points = [("csv path", si.MODE_DELIM, 0x2C,
+               td.gen_quoted_csv(2439, seed=7), 4096, 512),
+              ("csv path", si.MODE_DELIM, 0x2C,
+               td.gen_quoted_csv(2439, seed=7), 4096, 256),
+              ("csv", si.MODE_DELIM, 0x2C, td.gen_quoted_csv(8192, seed=7),
+               8192, 128),
+              ("csv", si.MODE_DELIM, 0x2C, td.gen_quoted_csv(65536, seed=7),
+               65536, 128),
+              ("json long", si.MODE_JSON, 0x2C, json_rows, 1024, 4096)]
+    for tag, mode, sep, lines, B, L in points:
+        mat, lens = chip_smoke.k5_matrix(lines, L, B - len(lines))
+        lens[1] = len(lines[1][:L])
+        lens[len(lines) // 2] = len(lines[len(lines) // 2][:L])
+        rd = torch.from_numpy(mat).cuda()
+        ld = torch.from_numpy(lens).cuda()
+        kern = si.StructIndexKernel(mode, sep)
+        want = np.stack([t.cpu().numpy() for t in kern.plain(rd, ld)])
+
+        def caller(lib):
+            def call():
+                out = torch.empty((4, B, sic.words16(L)), dtype=torch.int32,
+                                  device=rd.device)
+                rc = lib.lct_struct_index_cuda(
+                    rd.data_ptr(), ld.data_ptr(), B, L, sic.MODES[mode], sep,
+                    out.data_ptr(), torch.cuda.current_stream().cuda_stream,
+                    None, None)
+                if rc:
+                    raise SystemExit(f"chip_probe: K5 launch failed ({rc})")
+                return out
+            return call
+        calls = {k: caller(lib) for k, lib in libs.items()}
+        for k, fn in calls.items():
+            if not np.array_equal(fn().cpu().numpy(), want):
+                raise SystemExit(f"chip_probe: K5 {k} != plain on {tag} "
+                                 f"B={B} L={L}")
+        turns = [(k, chip_smoke.graph_ms([calls[k]]))
+                 for k in ("other", "this", "direct", "direct", "this",
+                           "other")]
+        row_bytes = int(np.clip(lens, 0, L).sum())
+        b_ms, by = chip_smoke.k5_bound_ms(B, L, row_bytes)
+        print(f"chip_probe: k5 {tag} B={B} L={L} ({len(lines)} rows, "
+              f"{row_bytes} row bytes): device ms per launch in turns: "
+              + ", ".join(f"{k} {ms:.5f}" for k, ms in turns)
+              + f"; bound {b_ms:.6f} ms ({by})", flush=True)
+    return 0
+
+
 def main() -> int:
     sys.path.insert(0, REPO)
     if sys.argv[1:] == ["dispatch"]:
         return dispatch_cost()
     if sys.argv[1:] == ["k8"]:
         return k8_split()
-    if sys.argv[1:] == ["k7"]:
-        return k7_split()
+    if sys.argv[1:2] == ["k7"] and len(sys.argv) == 3:
+        return k7_compare(sys.argv[2])
+    if sys.argv[1:2] == ["k5"] and len(sys.argv) == 3:
+        return k5_compare(sys.argv[2])
     if sys.argv[1:2] == ["k2"] and len(sys.argv) == 3:
         return k2_compare(sys.argv[2])
     if sys.argv[1:2] == ["ab"] and len(sys.argv) == 3:

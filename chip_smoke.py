@@ -2104,6 +2104,18 @@ def phase_fused_parity() -> dict:
             f"in shared memory; placement {d.placement}")
     if not stats["bit31_rows"]:
         fail("fused parity: no row set tag bit 31")
+    # programs and automata in device memory, and a keep of three or more
+    # conditions, among the lists the kernel held
+    placed = {k for p in programs.values()
+              for k, where in p.descriptor.placement.items()
+              if where == "device"}
+    if not any("." not in k for k in placed) \
+            or not any(".cond" in k for k in placed):
+        fail(f"fused parity: no stage list left a program and an automaton "
+             f"in device memory: {sorted(placed)}")
+    if max(len(st.conds) for _, specs, _ in td.fused_stage_lists()
+           for st in fp.kernel_stages(specs)) < 3:
+        fail("fused parity: no keep stage of three or more conditions")
     shapes = checked_fused_shapes(dict(fpc.launch_shapes), "fused parity")
     if sum(n for _, n in shapes) != stats["checks"]:
         fail(f"fused parity: {sum(n for _, n in shapes)} launches recorded "
@@ -3033,6 +3045,7 @@ def dfa_kernel_entry(name, mode, replaces, parity, timing, path2, path2_4,
 # -- quote-mode CSV, delimiter-filter and json_filter.yaml paths -----------
 
 K5_ODD_L = (1, 15, 16, 17, 33, 100)
+K5_EDGE_L = (16, 128, 512, 4096)
 K5_SHAPES = ((8192, 128), (65536, 128))
 CSV_LINES = 300_000
 PIPE_LINES = 600_000
@@ -3076,13 +3089,32 @@ def k5_matrix(rows, L, extra):
     return mat, lens
 
 
+def k5_edge_matrix(rng, L):
+    """Rows for K5's walk exit: one at each 32-byte step edge and one byte
+    either side, at 0, L, L - 1 and -1 (absent), over ``ab\\",{}[]:|``;
+    the bytes past each length are quotes and backslashes, which change
+    every mask if a walk read them."""
+    import numpy as np
+    lens = sorted({e for k in range(0, L + 33, 32) for e in (k - 1, k, k + 1)
+                   if 0 <= e <= L} | {0, L - 1, L}) + [-1]
+    alpha = np.frombuffer(b'ab\\",{}[]:|', np.uint8)
+    mat = alpha[rng.integers(0, len(alpha), (len(lens), L))]
+    junk = np.frombuffer(b'"\\', np.uint8)[np.arange(L) % 2]
+    for i, n in enumerate(lens):
+        mat[i, max(n, 0):] = junk[max(n, 0):]
+    return mat, np.array(lens, np.int32)
+
+
 def phase_k5_parity() -> dict:
     """K5 (``lct_struct_index_cuda``) against its plain version on the card
     and the native ``lct_struct_index`` (as 16-bit words), bit-exact, in
     JSON mode and in delimiter mode on ``,`` and ``|``, at every length
     bucket and at L = 1, 15, 16, 17, 33, 100, on ``k5_rows``, with absent
     rows, padding rows and a batch that is not a multiple of the eight rows
-    a block."""
+    a block.  Then the walk's exit: ``k5_edge_matrix`` rows at L = 16,
+    128, 512 and 4096, in both modes, against the plain version, the numpy
+    twin of the kernel's schedule (``struct_index_cuda.schedule_twin``) and
+    the native index."""
     import numpy as np
     import torch
     from loongcollector_tpu_torch import native
@@ -3120,14 +3152,44 @@ def phase_k5_parity() -> dict:
                     fail(f"K5 parity: {mode} sep={sep:#x} L={L}: {name} "
                          f"differs on rows {bad[:8].tolist()}")
             checks += 1
+    edges = 0
+    for L in K5_EDGE_L:
+        mat, lens = k5_edge_matrix(rng, L)
+        B = len(mat)
+        rd = torch.from_numpy(mat).cuda()
+        ld = torch.from_numpy(lens).cuda()
+        for mode, sep in ((si.MODE_JSON, 0x2C), (si.MODE_DELIM, 0x7C)):
+            kern = si.StructIndexKernel(mode, sep)
+            got = np.stack([t.cpu().numpy() for t in kern(rd, ld)])
+            torch.cuda.synchronize()
+            want = np.stack([t.cpu().numpy() for t in kern.plain(rd, ld)])
+            twin, steps = sic.schedule_twin(mat, lens, mode, sep)
+            if not np.array_equal(steps, (np.clip(lens, 0, L) + 31) // 32):
+                fail(f"K5 twin: steps past the length at L={L}")
+            nat = native.struct_index(
+                mat.reshape(-1), np.arange(B, dtype=np.int64) * L, lens,
+                native.STRUCT_MODE_JSON if mode == si.MODE_JSON
+                else native.STRUCT_MODE_DELIM, sep, W=-(-L // 64))
+            nw = np.stack([si.native_masks_as_words16(nat[k])[
+                :, :got.shape[2]] for k in range(4)])
+            for other, what in ((want, "plain version"),
+                                (twin, "schedule twin"), (nw, "native")):
+                if not np.array_equal(got, other):
+                    bad = np.nonzero((got != other).any(axis=(0, 2)))[0]
+                    fail(f"K5 step edges: {mode} L={L} != {what} on rows "
+                         f"with lengths {lens[bad[:8]].tolist()}")
+            checks += 1
+            edges += B
     launched = sum(sic.launch_shapes.values())
     if launched != checks:
         fail(f"K5 parity: {launched} launches recorded for {checks} batches")
     log(f"K5 parity: {checks} batches ({len(rows) + 13} rows each, JSON "
         f"and delimiter modes, L {list(K5_ODD_L + LENGTH_BUCKETS)}) "
         f"bit-exact with the plain version and the native lct_struct_index "
-        f"on the card; {launched} launches")
-    return {"checks": checks, "max_abs_err": 0}
+        f"on the card; {edges} step-edge rows at L {list(K5_EDGE_L)} equal "
+        f"to the plain version, the schedule twin and the native index; "
+        f"{launched} launches")
+    return {"checks": checks, "edge_rows": edges, "max_abs_err": 0}
 
 
 def phase_k7_struct_parity() -> dict:

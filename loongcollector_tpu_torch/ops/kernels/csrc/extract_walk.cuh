@@ -6,9 +6,9 @@
 // Optional_/Alt nesting with a save stack in local memory) and on the pivots
 // (none, single, double), picked on the host from the program header; a
 // row's match, pivots included, is extract_row.  The program is one int32
-// blob (layout in field_extract_cuda.py).  copy_words, stage_warp_rows and
-// write_warp_caps are K7's program copy, row staging and capture write-back;
-// K1 keeps the same loops inline (see field_extract.cu).  Everything here is
+// blob (layout in field_extract_cuda.py).  stage_warp_rows and
+// write_warp_caps are K7's row staging and capture write-back; K1 keeps
+// the same loops inline (see field_extract.cu).  Everything here is
 // force-inlined into the kernels, so a kernel's registers, stack and spills
 // are its own.
 
@@ -357,23 +357,6 @@ __device__ __forceinline__ Prog make_prog(const int32_t* h) {
   return Prog{h, reinterpret_cast<const uint32_t*>(h + h[M_BITS_OFF]),
               h + h[M_LOFFS_OFF], h + h[M_LLENS_OFF],
               reinterpret_cast<const uint8_t*>(h + h[M_BLOB_OFF])};
-}
-
-// Copies `words` int32 words from device memory to shared memory, every
-// thread of the block kBatch loads in flight.
-__device__ __forceinline__ void copy_words(int32_t* dst,
-                                           const int32_t* __restrict__ src,
-                                           int32_t words, int32_t tid,
-                                           int32_t T) {
-  for (int32_t i0 = tid; i0 < words; i0 += kBatch * T) {
-    int32_t v[kBatch];
-#pragma unroll
-    for (int j = 0; j < kBatch; ++j)
-      if (i0 + j * T < words) v[j] = __ldg(src + i0 + j * T);
-#pragma unroll
-    for (int j = 0; j < kBatch; ++j)
-      if (i0 + j * T < words) dst[i0 + j * T] = v[j];
-  }
 }
 
 // A warp copies its `wrows` rows (from global row row0 + wrow) into its part

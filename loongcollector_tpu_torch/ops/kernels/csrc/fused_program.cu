@@ -41,10 +41,18 @@
 //    a header, a record a stage and a record a condition, then the sections
 //    (Tier-1 programs, automata as t256[S][256] with their accept values).
 //    One build serves every pipeline.  The host packs the header, the
-//    records and the sections that fit first; the block copies those words
-//    into shared memory.  Sections that would not fit beside the rows of the
-//    smallest block at the largest bucket stay in device memory: automata
-//    read through the read-only cache, programs through L1.
+//    records and the sections that fit first, padded to 16 bytes; the block
+//    copies those words into shared memory with 16-byte cp.async copies,
+//    issued before the rows are staged and waited for once, so the copy
+//    runs beside the staging.  Sections that would not fit beside the rows
+//    of the smallest block at the largest bucket stay in device memory:
+//    automata read through the read-only cache, programs through L1.
+//  * A keep condition's record holds what its test needs, resolved on the
+//    host: the producer's final capture state (offset, stride, count), the
+//    automaton's start, first settled state, table and accept offsets and
+//    its placement.  A row reads the record (four 16-byte shared loads,
+//    the same for every row) and then only its own capture state and
+//    bytes: no stage record or automaton header on the row's chain.
 //  * Capture spans never leave the block: each extract stage keeps its
 //    capture state in shared memory ((3C | 1) words a row, as K1), and a
 //    later span condition reads it from there.  The warp writes the spans
@@ -66,6 +74,7 @@
 
 #include <atomic>
 #include <cstdint>
+#include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 
 #include "dfa_walk.cuh"
@@ -82,6 +91,7 @@ enum : int {
 };
 constexpr int32_t kMagic = 0x4B375046;
 constexpr int kRecordWords = 8;
+constexpr int kCondWords = 16;
 constexpr int kMaxStages = 32;
 // stage record: kind; section (extract, scan) or first condition (keep) or
 // mode (struct_index); captures (extract) or conditions (keep) or separator
@@ -92,8 +102,17 @@ enum : int {
   S_KIND = 0, S_SEC, S_COUNT, S_CAPS_OFF, S_PIVOT, S_OUT0, S_OUT1, S_OUT2
 };
 enum : int { ST_EXTRACT = 0, ST_SCAN = 1, ST_KEEP = 2, ST_STRUCT_INDEX = 3 };
-// condition record: kind, negate, section, producer stage, capture
-enum : int { C_KIND = 0, C_NEG, C_SEC, C_PROD, C_CAP };
+// condition record (kCondWords, 16-byte aligned): kind, negate, section,
+// producer stage, capture; span: the producer's final capture state, in
+// words of T from the capture state's start (its offset, past the forward
+// copy for a pivot program), its stride (3C | 1) and capture count C
+// (extract_ok: the program's stride and count); match and span: the
+// automaton's states, start, first settled state, accept and table offsets,
+// and 1 when the section lies in the shared part
+enum : int {
+  C_KIND = 0, C_NEG, C_SEC, C_PROD, C_CAP, C_FIN, C_PCW, C_PC, C_S, C_START,
+  C_FS, C_ACC, C_TAB, C_SHARED
+};
 enum : int { CK_MATCH = 0, CK_EXTRACT_OK = 1, CK_SPAN = 2 };
 
 // The descriptor: its first `shared_words` words copied to shared memory,
@@ -111,23 +130,54 @@ __device__ __forceinline__ const int32_t* section(const Blob& b,
   return off < b.shared_words ? b.s + off : b.g + off;
 }
 
-// The accept value of the automaton at `off` after bytes [lo, hi) of the
-// tile row `w`; the walk stops at a settled state.
+// The accept value of an automaton after bytes [lo, hi) of the tile row
+// `w`, from its resolved fields: table and accept offsets in the descriptor,
+// in its shared part or not, start and first settled state; the walk stops
+// at a settled state.
+__device__ __forceinline__ int32_t dfa_resolved(const Blob& b, bool shared,
+                                                int32_t tab, int32_t acc,
+                                                uint32_t start, uint32_t fs,
+                                                const uint32_t* w, int lo,
+                                                int hi) {
+  if (shared) {
+    const uint32_t s = walk_tile(reinterpret_cast<const uint8_t*>(b.s + tab),
+                                 start, w, lo, hi, fs);
+    return b.s[acc + s];
+  }
+  const uint32_t s = walk_tile(
+      LdgTab{reinterpret_cast<const uint8_t*>(b.g + tab)}, start, w, lo, hi,
+      fs);
+  return __ldg(b.g + acc + s);
+}
+
+// The same for the automaton section at `off`, read from its header.
 __device__ __forceinline__ int32_t dfa_tile(const Blob& b, int32_t off,
                                             const uint32_t* w, int lo,
                                             int hi) {
-  if (off < b.shared_words) {
-    const int32_t* a = b.s + off;
-    const uint32_t s = walk_tile(reinterpret_cast<const uint8_t*>(a + 4),
-                                 static_cast<uint32_t>(a[1]), w, lo, hi,
-                                 static_cast<uint32_t>(a[2]));
-    return a[4 + 64 * a[0] + s];
-  }
-  const int32_t* a = b.g + off;
-  const uint32_t s = walk_tile(LdgTab{reinterpret_cast<const uint8_t*>(a + 4)},
-                               static_cast<uint32_t>(__ldg(a + 1)), w, lo, hi,
-                               static_cast<uint32_t>(__ldg(a + 2)));
-  return __ldg(a + 4 + 64 * __ldg(a) + s);
+  const int32_t* a = section(b, off);
+  const bool shared = off < b.shared_words;
+  const int32_t S = shared ? a[0] : __ldg(a);
+  const int32_t start = shared ? a[1] : __ldg(a + 1);
+  const int32_t fs = shared ? a[2] : __ldg(a + 2);
+  return dfa_resolved(b, shared, off + 4, off + 4 + 64 * S,
+                      static_cast<uint32_t>(start), static_cast<uint32_t>(fs),
+                      w, lo, hi);
+}
+
+// The shared part of the descriptor, `words` (a multiple of 4) from `src`
+// (16-byte aligned) into `dst`: 16-byte cp.async copies spread over the
+// block, left in flight; desc_copy_wait() waits for this thread's.
+__device__ __forceinline__ void desc_copy_begin(int32_t* dst,
+                                                const int32_t* src,
+                                                int32_t words, int32_t tid,
+                                                int32_t T) {
+  for (int32_t i = 4 * tid; i < words; i += 4 * T)
+    __pipeline_memcpy_async(dst + i, src + i, 16);
+  __pipeline_commit();
+}
+
+__device__ __forceinline__ void desc_copy_wait() {
+  __pipeline_wait_prior(0);
 }
 
 // A Tier-1 program on the general walker: nested, the pivot kind from its
@@ -154,7 +204,7 @@ fused_program_kernel(const uint8_t* __restrict__ rows,
                      const int32_t* __restrict__ lens, int64_t B, int32_t L,
                      const int32_t* __restrict__ desc,
                      uint8_t* __restrict__ out) {
-  extern __shared__ int32_t smem[];
+  extern __shared__ __align__(16) int32_t smem[];
   const int32_t T = blockDim.x, tid = threadIdx.x, lane = tid & 31;
   const int64_t row0 = (int64_t)blockIdx.x * T;
   const int32_t nrows = B - row0 < T ? (int32_t)(B - row0) : T;
@@ -168,8 +218,9 @@ fused_program_kernel(const uint8_t* __restrict__ rows,
   int32_t* const scaps = reinterpret_cast<int32_t*>(tile + T * ws);
 
   const int32_t len = tid < nrows ? __ldg(lens + row0 + tid) : 0;
-  copy_words(sdesc, desc, shared_words, tid, T);
+  desc_copy_begin(sdesc, desc, shared_words, tid, T);
   stage_warp_rows(rows, row0, wrow, wrows, lane, L, len, tile, ws);
+  desc_copy_wait();
   __syncthreads();
 
   const int32_t* d = sdesc;
@@ -178,10 +229,11 @@ fused_program_kernel(const uint8_t* __restrict__ rows,
   // the host picks the instantiation and the size from the same descriptor
   if (d[D_MAGIC] != kMagic || d[D_FIRST] != FIRST ||
       (d[D_GENERAL] != 0) != GENERAL || nst > kMaxStages ||
-      need > dynamic_smem_bytes())
+      (shared_words & 3) != 0 || need > dynamic_smem_bytes())
     __trap();
 
   const Blob b{sdesc, desc, shared_words};
+  // 16-byte aligned: the header and each stage record are 8 words
   const int32_t* conds = d + D_HEADER + kRecordWords * nst;
   const bool live = tid < nrows;
   const Row r{tile + tid * ws, L, len};
@@ -250,37 +302,45 @@ fused_program_kernel(const uint8_t* __restrict__ rows,
       bool keep = true;
       const int32_t c_end = st[S_SEC] + st[S_COUNT];
       for (int32_t ci = st[S_SEC]; keep && ci < c_end; ++ci) {
-        const int32_t* c = conds + kRecordWords * ci;
+        // the record, resolved on the host: four 16-byte loads, the same
+        // address in every lane.  c0 = {C_KIND, C_NEG, C_SEC, C_PROD},
+        // c1 = {C_CAP, C_FIN, C_PCW, C_PC}, c2 = {C_S, C_START, C_FS,
+        // C_ACC}, c3 = {C_TAB, C_SHARED, 0, 0}
+        const int4* cr =
+            reinterpret_cast<const int4*>(conds + kCondWords * ci);
+        const int4 c0 = cr[0], c1 = cr[1], c2 = cr[2], c3 = cr[3];
+        const int32_t kind = c0.x;
         bool ok;
-        if (c[C_KIND] == CK_MATCH) {
-          ok = len >= 0 && dfa_tile(b, c[C_SEC], r.w, 0, clen) != 0;
-        } else if (c[C_KIND] == CK_SPAN) {
+        if (kind == CK_MATCH) {
+          ok = len >= 0 &&
+               dfa_resolved(b, c3.y, c3.x, c2.w, c2.y, c2.z, r.w, 0,
+                            clen) != 0;
+        } else if (kind == CK_SPAN) {
           // the producer's final capture state, as its write-back reads it
-          const int32_t* ps = d + D_HEADER + kRecordWords * c[C_PROD];
-          const int32_t pC = ps[S_COUNT], pcw = (3 * pC) | 1;
-          const int32_t* fin = scaps + T * (ps[S_CAPS_OFF]
-                                            + (ps[S_PIVOT] ? pcw : 0))
-                               + tid * pcw;
-          const bool pok = (ext_ok >> c[C_PROD]) & 1u;
-          const int32_t so = pok ? fin[c[C_CAP]] : 0;
-          const int32_t sl = pok ? fin[pC + c[C_CAP]] : -1;
+          const int32_t cap = c1.x;
+          const int32_t* fin = scaps + T * c1.y + tid * c1.z;
+          const bool pok = (ext_ok >> c0.w) & 1u;
+          const int32_t so = pok ? fin[cap] : 0;
+          const int32_t sl = pok ? fin[c1.w + cap] : -1;
           const int64_t end = (int64_t)so + (sl < 0 ? 0 : sl);
           const int32_t lo = so < 0 ? 0 : so;
           const int32_t hi = (int32_t)(end < clen ? end : clen);
-          ok = sl >= 0 && dfa_tile(b, c[C_SEC], r.w, lo, hi) != 0;
+          ok = sl >= 0 &&
+               dfa_resolved(b, c3.y, c3.x, c2.w, c2.y, c2.z, r.w, lo,
+                            hi) != 0;
         } else {
           if constexpr (GENERAL) {
-            const int32_t* h = section(b, c[C_SEC]);
-            const int32_t pC = h[M_NCAPS], pcw = (3 * pC) | 1;
+            const int32_t* h = c3.y ? sdesc + c0.z : desc + c0.z;
+            const int32_t pcw = c1.z;
             int32_t* const sf = scaps + T * d[D_SCRATCH_OFF];
             ok = len >= 0 &&
-                 extract_any(h, r, Caps{sf + tid * pcw, pC},
-                             Caps{sf + T * pcw + tid * pcw, pC});
+                 extract_any(h, r, Caps{sf + tid * pcw, c1.w},
+                             Caps{sf + T * pcw + tid * pcw, c1.w});
           } else {
             __trap();
           }
         }
-        keep = c[C_NEG] ? !ok : ok;
+        keep = c0.y ? !ok : ok;
       }
       out[B * st[S_OUT0] + bshift + row0 + tid] = keep;
     }

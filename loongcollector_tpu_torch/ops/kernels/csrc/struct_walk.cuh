@@ -20,8 +20,12 @@
 // masked complement); with none, the run continues the previous step's
 // trailing run, of which only the parity is carried.  The in-string mask is
 // a prefix-XOR inside the step, flipped by the carried parity, which then
-// takes the parity of the step's real quotes.  Lanes 0-7 write the step's
-// two 16-bit words of each mask.  Everything here is force-inlined.
+// takes the parity of the step's real quotes.  The walk stops at the row's
+// length: a row of n bytes takes ceil(n / 32) steps, and reads no byte at or
+// past n.  Lane w % 32 keeps word w of each mask (a step makes two words);
+// every 32 words (16 steps, 512 bytes) the warp stores them, one coalesced
+// row of words a mask, and the words past the length go out as zeros in the
+// same stores.  Everything here is force-inlined.
 
 #pragma once
 
@@ -85,28 +89,43 @@ __device__ __forceinline__ void struct_step(uint32_t b, bool valid,
   m[3] = q;
 }
 
-// One row as one warp: `fetch(p)` gives the row's byte p for p < L (called
+// One row as one warp: `fetch(p)` gives the row's byte p for p < n (called
 // only there), `n` is the row's length cut to [0, L].  Mask k's word w goes
-// to out[k * plane + w], for the row's W = ceil(L / 16) words.
+// to out[k * plane + w], for the row's W = ceil(L / 16) words.  Every lane
+// of the warp calls it with the same n.
 template <int MODE, class Fetch>
 __device__ __forceinline__ void struct_row(Fetch fetch, int32_t L, int32_t n,
                                            uint32_t sep, int lane,
                                            int32_t* __restrict__ out,
                                            int64_t plane) {
   const int32_t W = (L + 15) >> 4;
+  const int32_t steps = (n + 31) >> 5;     // the walk stops at the length
   StructCarry c{0u, 0u};
-  // lanes 0-7 write: mask lane / 2, the low (even lane) or high half
-  const int k = (lane >> 1) & 3, half = lane & 1;
-  int32_t* const dst = out + k * plane + half;
-  for (int32_t base = 0; base < L; base += 32) {
-    const int32_t p = base + lane;
-    const uint32_t b = p < L ? static_cast<uint32_t>(fetch(p)) : 0u;
-    uint32_t m[4];
-    struct_step<MODE>(b, p < n, sep, lane, c, m);
-    const uint32_t v = k == 0 ? m[0] : k == 1 ? m[1] : k == 2 ? m[2] : m[3];
-    const int32_t w = (base >> 4) + half;
-    if (lane < 8 && w < W)
-      dst[base >> 4] = static_cast<int32_t>((v >> (16 * half)) & 0xffffu);
+  // the high half (odd lane) or low half of a step's masks
+  const uint32_t shift = 16u * static_cast<uint32_t>(lane & 1);
+  for (int32_t w0 = 0; w0 < W; w0 += 32) {
+    // the masks of the step that makes this lane's word w0 + lane of each
+    // mask: zero unless the walk reaches that step
+    uint32_t kw[4] = {0u, 0u, 0u, 0u};
+    const int32_t s1 = min(steps, (w0 + 32) >> 1);
+    for (int32_t s = w0 >> 1; s < s1; ++s) {
+      const int32_t p = 32 * s + lane;
+      const uint32_t b = p < n ? static_cast<uint32_t>(fetch(p)) : 0u;
+      uint32_t m[4];
+      struct_step<MODE>(b, p < n, sep, lane, c, m);
+      // step s makes words 2s (low halves) and 2s + 1 (high halves)
+      if ((lane >> 1) == (s & 15)) {
+#pragma unroll
+        for (int k = 0; k < 4; ++k) kw[k] = m[k];
+      }
+    }
+    const int32_t w = w0 + lane;
+    if (w < W) {
+#pragma unroll
+      for (int k = 0; k < 4; ++k)
+        out[k * plane + w] =
+            static_cast<int32_t>((kw[k] >> shift) & 0xffffu);
+    }
   }
 }
 

@@ -23,19 +23,29 @@ descriptor (``FusedDescriptor.blob``)::
                          before each (a struct_index stage: the bytes a
                          row of the fixed i32 arrays, and its first mask's
                          index among the mask arrays)
-    condition records    8 words each: kind, negate, section, producer
-                         stage, capture
+    condition records    16 words each (``COND_FIELDS``), 16-byte
+                         aligned: kind, negate, section, producer stage,
+                         capture, then what the test needs resolved: a
+                         span condition's producer's final capture state
+                         (its offset in words of T, past the forward copy
+                         for a pivot program; its stride (3C | 1); its
+                         capture count), an extract_ok condition's stride
+                         and count, an automaton's states, start, first
+                         settled state, accept and table offsets, and
+                         whether its section lies in the shared part
     sections             Tier-1 programs (``KernelProgram.blob``) and
                          automata ([S, start, first_settled, 0], t256
                          [S][256] as words, accept [S]; the settled states
                          numbered from first_settled up)
 
-The header, the records and the sections that fit come first: the kernel
-copies those ``shared_words`` into shared memory, and reads the rest from
-device memory.  A section goes to shared memory when it fits beside the
-rows and capture state of the smallest block (one warp) at the largest
-length bucket, the first extract stage's program before every other, so
-every geometry ``launch_geometry`` picks holds it.  A stage list is never
+The header, the records and the sections that fit come first, padded with
+zeros to a multiple of 4 words: the kernel copies those ``shared_words``
+into shared memory with 16-byte copies, so the row tile after them starts
+16-byte aligned, and reads the rest from device memory.  A section goes to
+shared memory when it fits beside the rows and capture state of the
+smallest block (one warp) at the largest length bucket (``shared_cap``),
+the first extract stage's program before every other, so every geometry
+``launch_geometry`` picks holds it.  A stage list is never
 refused for its size at a launch.
 
 The outputs are one flat byte buffer of ``B * row_bytes_at(L)`` bytes: the
@@ -69,7 +79,8 @@ from .struct_index_cuda import MODES as STRUCT_MODES
 
 MAGIC = 0x4B375046
 HEADER_WORDS = 16
-RECORD_WORDS = 8
+RECORD_WORDS = 8              # a stage record
+COND_WORDS = 16               # a condition record
 MAX_STAGES = 32               # kMaxStages in fused_program.cu
 MAX_CONDS = 64
 MAX_STATES = 128              # the DFA walk's cap (dfa_scan_cuda.MAX_STATES)
@@ -81,6 +92,9 @@ H = {name: i for i, name in enumerate(_HEADER)}
 STAGE_KINDS = {"extract": 0, "scan": 1, "keep": 2, "struct_index": 3}
 STRUCT_MASKS = ("in_string", "structural", "escaped", "quote")
 COND_KINDS = {"match": 0, "extract_ok": 1, "span_match": 2}
+COND_FIELDS = ["KIND", "NEG", "SEC", "PROD", "CAP", "FIN", "PCW", "PC", "S",
+               "START", "FS", "ACC", "TAB", "SHARED"]
+CF = {name: i for i, name in enumerate(COND_FIELDS)}
 
 _SRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc",
                     "fused_program.cu")
@@ -250,9 +264,21 @@ def output_arrays(stages: Sequence[KernelStage]) -> Tuple[List[OutputArray],
              for i, (si, name, dtype, width) in enumerate(arrays)], unit)
 
 
+def _round4(words: int) -> int:
+    return (words + 3) & ~3
+
+
 def tile_words(L: int) -> int:
     """A staged row's stride in words: ceil(L / 4) + 1."""
     return (L + 3) // 4 + 1
+
+
+def shared_cap(caps_words: int) -> int:
+    """The descriptor words that fit in shared memory beside one warp's
+    rows at the largest length bucket and their ``caps_words`` of capture
+    state a row."""
+    return fxc.SMEM_BUDGET // 4 - fxc.MIN_THREADS * (
+        tile_words(LENGTH_BUCKETS[-1]) + caps_words)
 
 
 def pack_descriptor(stages: Sequence[KernelStage]) -> FusedDescriptor:
@@ -317,24 +343,25 @@ def pack_descriptor(stages: Sequence[KernelStage]) -> FusedDescriptor:
                      else _automaton_words(c.obj))
             sections.append((f"stage{si}.cond{ci}", words))
 
-    records = HEADER_WORDS + RECORD_WORDS * (len(stages) + n_conds)
-    cap = fxc.SMEM_BUDGET // 4 - fxc.MIN_THREADS * (
-        tile_words(LENGTH_BUCKETS[-1]) + caps_words)
-    if records > cap:
+    records = HEADER_WORDS + RECORD_WORDS * len(stages) + COND_WORDS * n_conds
+    cap = shared_cap(caps_words)
+    if _round4(records) > cap:
         raise FusedUnsupported(f"{records} descriptor words and {caps_words} "
                                f"capture words a row do not fit one warp's "
                                f"block at L={LENGTH_BUCKETS[-1]}")
     shared, device = [], []
     used = records
     for name, words in sections:
-        if used + len(words) <= cap:
+        if _round4(used + len(words)) <= cap:
             shared.append((name, words))
             used += len(words)
         else:
             device.append((name, words))
+    pad = np.zeros(_round4(used) - used, np.int32)
+    used += len(pad)
     offsets: Dict[str, int] = {}
     pos = records
-    for name, words in shared + device:
+    for name, words in shared + [("pad", pad)] + device:
         offsets[name] = pos
         pos += len(words)
     placement = {name: "shared" for name, _ in shared}
@@ -363,7 +390,7 @@ def pack_descriptor(stages: Sequence[KernelStage]) -> FusedDescriptor:
     hdr[H["NCONDS"]] = n_conds
     hdr[H["NWIDE"]] = n_wide
     stage_rec = np.zeros((len(stages), RECORD_WORDS), np.int32)
-    cond_rec = np.zeros((n_conds, RECORD_WORDS), np.int32)
+    cond_rec = np.zeros((n_conds, COND_WORDS), np.int32)
     ci_all = 0
     for si, st in enumerate(stages):
         rec = stage_rec[si]
@@ -390,15 +417,35 @@ def pack_descriptor(stages: Sequence[KernelStage]) -> FusedDescriptor:
             rec[2] = len(st.conds)
             rec[5] = out_units[(si, "keep")]
             for ci, c in enumerate(st.conds):
+                sec = f"stage{si}.cond{ci}"
                 crec = cond_rec[ci_all]
-                crec[0] = COND_KINDS[c.kind]
-                crec[1] = int(c.negate)
-                crec[2] = offsets[f"stage{si}.cond{ci}"]
-                crec[3] = c.prod
-                crec[4] = c.cap
+                crec[CF["KIND"]] = COND_KINDS[c.kind]
+                crec[CF["NEG"]] = int(c.negate)
+                crec[CF["SEC"]] = offsets[sec]
+                crec[CF["PROD"]] = c.prod
+                crec[CF["CAP"]] = c.cap
+                crec[CF["SHARED"]] = int(placement[sec] == "shared")
+                if c.kind == "extract_ok":
+                    crec[CF["PCW"]] = _cap_words(c.obj.num_caps)
+                    crec[CF["PC"]] = c.obj.num_caps
+                else:
+                    a = c.obj
+                    crec[CF["S"]] = a.num_states
+                    crec[CF["START"]] = a.start
+                    crec[CF["FS"]] = a.first_settled
+                    crec[CF["TAB"]] = offsets[sec] + 4
+                    crec[CF["ACC"]] = offsets[sec] + 4 + 64 * a.num_states
+                if c.kind == "span_match":
+                    prod = stages[c.prod].obj
+                    pcw = _cap_words(prod.num_caps)
+                    crec[CF["FIN"]] = caps_off[c.prod] + (pcw if prod.pivot
+                                                          else 0)
+                    crec[CF["PCW"]] = pcw
+                    crec[CF["PC"]] = prod.num_caps
                 ci_all += 1
     blob = np.concatenate([hdr, stage_rec.reshape(-1), cond_rec.reshape(-1)]
-                          + [w for _, w in shared + device]).astype(np.int32)
+                          + [w for _, w in shared] + [pad]
+                          + [w for _, w in device]).astype(np.int32)
     assert len(blob) == pos
     return FusedDescriptor(blob, used, first, hdr[H["FIRST_STAGE"]].item(),
                            general, caps_words, row_bytes, outputs,
@@ -558,6 +605,9 @@ def launch(rows: torch.Tensor, lengths: torch.Tensor, blob: torch.Tensor,
     if blob.dtype != torch.int32 or blob.numel() != len(desc.blob):
         raise ValueError("fused_program: the descriptor on the card is not "
                          "the packed one")
+    if blob.data_ptr() % 16:
+        raise ValueError("fused_program: the descriptor must be 16-byte "
+                         "aligned (it is copied 16 bytes at a time)")
     if not (rows.is_contiguous() and lengths.is_contiguous()
             and blob.is_contiguous()):
         raise ValueError("fused_program: inputs must be contiguous")

@@ -371,7 +371,15 @@ def fused_stage_lists():
       match condition;
     * ``nested`` — a nested first extract program (Optional_ and Alt: the
       general walker), a span condition on its optional capture, and a
-      double-pivot ``extract_ok`` condition.
+      double-pivot ``extract_ok`` condition;
+    * ``device_sections`` — the Apache parse, a keep of negated conditions
+      (five 64-state automata and a literal sized to fill the shared part
+      of K7's descriptor), then a pivot extract program, a span automaton
+      on each extract stage and an ``extract_ok`` program, which all sit
+      in device memory;
+    * ``four_conds`` — the Apache parse and a keep of four conditions of
+      every kind: a row match, a pivot ``extract_ok``, a negated span and
+      a span.
 
     The specs are built from the patterns as the processors build them."""
     from .ops import fused_pipeline as fp
@@ -441,7 +449,45 @@ def fused_stage_lists():
          [extract(NESTED_RX),
           keep(span(r"\d+7", 0, 1, negate=True),
                extract_ok(DOUBLE_PIVOT, negate=True))], _nested_rows),
+        ("device_sections", _fill_shared(
+            [extract(APACHE)], [match(LIMIT_DFA, negate=True)] * 5,
+            lambda k: match("q" * k, negate=True),
+            [extract(IP_PIVOT),
+             keep(span(APACHE_FILTER_INCLUDE["status"], 0, status),
+                  extract_ok(DOUBLE_PIVOT, negate=True),
+                  span(r"\d*[02468]", 2, 0))], keep), _apache_rows),
+        ("four_conds",
+         [extract(APACHE),
+          keep(match(r"\d+\.\d+\.\d+\.\d+ .*"), extract_ok(IP_PIVOT),
+               span(APACHE_FILTER_EXCLUDE["url"], 0, url, negate=True),
+               span(APACHE_FILTER_INCLUDE["status"], 0, status))],
+         _apache_rows),
     ]
+
+
+def _fill_shared(head, fillers, literal, tail, keep):
+    """``head``, a keep stage of ``fillers`` and one ``literal(k)``
+    condition, then ``tail``: k picked so that the shared part of K7's
+    descriptor ends less than one automaton state (65 words) short of its
+    cap, so that every section of ``tail`` lies in device memory."""
+    from .ops import fused_pipeline as fp
+    from .ops.kernels import fused_program_cuda as fpc
+
+    def stages(k):
+        return head + [keep(*fillers, literal(k))] + tail
+
+    ks = fp.kernel_stages(stages(1))
+    desc = fpc.pack_descriptor(ks)
+    n_conds = sum(len(st.conds) for st in ks)
+    used = fpc.HEADER_WORDS + fpc.RECORD_WORDS * len(ks) \
+        + fpc.COND_WORDS * n_conds
+    used += sum(len(st.obj.blob) for st in ks[:len(head)])
+    used += sum(len(fpc._automaton_words(c.obj))
+                for c in ks[len(head)].conds[:-1])
+    # the literal of k bytes is a (k + 2)-state automaton: 4 + 65 (k + 2)
+    # words, and the shared part is a multiple of 4 words
+    room = fpc.shared_cap(desc.caps_words) - used - 3
+    return stages((room - 4) // 65 - 2)
 
 
 def _fit(rng, pool, n, L):

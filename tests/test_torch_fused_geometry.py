@@ -5,7 +5,9 @@ The kernel (``csrc/fused_program.cu``) runs only on the card; what it is
 given is plain Python (``ops/kernels/fused_program_cuda.py``) and is held
 here: every record of the descriptor points at the section it names and
 the sections hold the programs and tables they were packed from; the i32
-outputs lie 4-byte aligned ahead of the byte outputs; a stage list whose
+outputs lie 4-byte aligned ahead of the byte outputs; the shared part of
+the descriptor is padded to 16 bytes, and each keep condition's record
+holds, resolved, what the kernel used to follow from it; a stage list whose
 tables pass the shared-memory budget at L=4096 keeps some in device memory
 and still fits one warp's block there; the block gives every SM a block
 once a batch holds 32 rows an SM; the source's constants are the
@@ -75,7 +77,7 @@ def test_records_point_at_their_sections(name):
         else:
             assert rec[2] == len(st.conds) and rec[5] == units[(si, "keep")]
             for k, c in enumerate(st.conds):
-                crec = blob[conds + fpc.RECORD_WORDS * (rec[1] + k):][:5]
+                crec = blob[conds + fpc.COND_WORDS * (rec[1] + k):][:5]
                 assert list(crec[:2]) == [fpc.COND_KINDS[c.kind],
                                           int(c.negate)]
                 assert list(crec[3:5]) == [c.prod, c.cap]
@@ -166,7 +168,7 @@ def test_first_program_in_device_memory_runs_general(monkeypatch):
     # memory, so the first extract program runs on the general walker
     stages = fp.kernel_stages(LISTS["apache_filter"][0])
     monkeypatch.setattr(fxc, "SMEM_BUDGET", 4 * (
-        fpc.HEADER_WORDS + 4 * fpc.RECORD_WORDS + 32 * (
+        fpc.HEADER_WORDS + fpc.RECORD_WORDS + 2 * fpc.COND_WORDS + 8 + 32 * (
             fpc.tile_words(LENGTH_BUCKETS[-1]) + 27)))
     desc = fpc.pack_descriptor(stages)
     assert set(desc.placement.values()) == {"device"}
@@ -196,6 +198,113 @@ def test_refused_stage_lists():
 
 
 STRUCT_LISTS = {name: specs for name, specs, _ in td.struct_stage_lists()}
+ALL_LISTS = {**{n: s for n, (s, _) in LISTS.items()}, **STRUCT_LISTS}
+
+
+def _all_device_budget(stages):
+    """A shared-memory budget that holds the records of ``stages`` beside
+    one warp's rows at the largest bucket, and no section."""
+    desc = fpc.pack_descriptor(stages)
+    records = fpc.HEADER_WORDS + fpc.RECORD_WORDS * len(stages) \
+        + fpc.COND_WORDS * sum(len(st.conds) for st in stages)
+    return 4 * (fpc._round4(records) + 32 * (
+        fpc.tile_words(LENGTH_BUCKETS[-1]) + desc.caps_words))
+
+
+def _section_end(desc, stages, name):
+    """One past the last word of section ``name`` (``stage<i>`` or
+    ``stage<i>.cond<k>``), found through the record that points at it."""
+    base = fpc.HEADER_WORDS
+    conds = base + fpc.RECORD_WORDS * len(stages)
+    si, _, ck = name.partition(".cond")
+    st = stages[int(si[len("stage"):])]
+    rec = desc.blob[base + fpc.RECORD_WORDS * int(si[len("stage"):]):]
+    if ck:
+        obj = st.conds[int(ck)].obj
+        off = int(desc.blob[conds + fpc.COND_WORDS * (rec[1] + int(ck))
+                            + fpc.CF["SEC"]])
+    else:
+        obj, off = st.obj, int(rec[1])
+    return off + (len(obj.blob) if hasattr(obj, "blob")
+                  else 4 + 65 * obj.num_states)
+
+
+@pytest.mark.parametrize("placed", ["packed", "device"])
+@pytest.mark.parametrize("name", sorted(ALL_LISTS))
+def test_shared_part_is_padded_to_16_bytes(name, placed, monkeypatch):
+    stages = fp.kernel_stages(ALL_LISTS[name])
+    if placed == "device":
+        monkeypatch.setattr(fxc, "SMEM_BUDGET", _all_device_budget(stages))
+    desc = fpc.pack_descriptor(stages)
+    assert desc.shared_words % 4 == 0
+    assert _header(desc)["SHARED_WORDS"] == desc.shared_words
+    # the condition records and the tile after the shared part start at
+    # 16-byte boundaries of the block's shared memory
+    conds = fpc.HEADER_WORDS + fpc.RECORD_WORDS * len(stages)
+    assert conds % 4 == 0
+    for L in LENGTH_BUCKETS:
+        t, smem = fpc.launch_geometry(8192, L, desc)
+        assert smem == 4 * (desc.shared_words + t * (
+            fpc.tile_words(L) + desc.caps_words))
+    # zeros pad the records and the shared sections up to shared_words
+    shared_end = max([conds + fpc.COND_WORDS * sum(
+        len(st.conds) for st in stages)] + [
+        _section_end(desc, stages, sec)
+        for sec, where in desc.placement.items() if where == "shared"])
+    assert shared_end <= desc.shared_words < shared_end + 4
+    assert not desc.blob[shared_end:desc.shared_words].any()
+    if placed == "device":
+        assert "shared" not in desc.placement.values()
+
+
+@pytest.mark.parametrize("placed", ["packed", "device"])
+@pytest.mark.parametrize("name", sorted(LISTS))
+def test_condition_records_are_resolved(name, placed, monkeypatch):
+    """Each condition's resolved fields are what the kernel used to follow
+    from it for every row: the producer's stage record (its capture-state
+    offset, past the forward copy for a pivot program; its capture count)
+    and the automaton's header (S, start, first settled state; the accept
+    array after the table), with the sections in shared or device
+    memory."""
+    stages = fp.kernel_stages(LISTS[name][0])
+    if placed == "device":
+        monkeypatch.setattr(fxc, "SMEM_BUDGET", _all_device_budget(stages))
+    desc = fpc.pack_descriptor(stages)
+    blob = desc.blob
+    base = fpc.HEADER_WORDS
+    conds = base + fpc.RECORD_WORDS * len(stages)
+    F = fpc.CF
+    for si, st in enumerate(stages):
+        rec = blob[base + fpc.RECORD_WORDS * si:][:fpc.RECORD_WORDS]
+        for k, c in enumerate(st.conds):
+            at = conds + fpc.COND_WORDS * (rec[1] + k)
+            assert at % 4 == 0                      # 16-byte vector loads
+            crec = blob[at:at + fpc.COND_WORDS]
+            sec = int(crec[F["SEC"]])
+            shared = sec < desc.shared_words
+            assert crec[F["SHARED"]] == int(shared) == int(
+                desc.placement[f"stage{si}.cond{k}"] == "shared")
+            if placed == "device":
+                assert not shared
+            if c.kind == "extract_ok":
+                C = int(blob[sec])                  # the program's M_NCAPS
+                assert (crec[F["PCW"]], crec[F["PC"]]) == ((3 * C) | 1, C)
+                continue
+            S, start, fs = (int(v) for v in blob[sec:sec + 3])
+            assert (crec[F["S"]], crec[F["START"]], crec[F["FS"]]) \
+                == (S, start, fs) == (c.obj.num_states, c.obj.start,
+                                      c.obj.first_settled)
+            assert crec[F["TAB"]] == sec + 4
+            assert crec[F["ACC"]] == sec + 4 + 64 * S
+            assert np.array_equal(blob[crec[F["ACC"]]:][:S], c.obj.accept)
+            if c.kind == "span_match":
+                ps = blob[base + fpc.RECORD_WORDS * c.prod:]
+                pC = int(ps[2])                     # S_COUNT
+                pcw = (3 * pC) | 1
+                fin = int(ps[3]) + (pcw if ps[4] else 0)  # S_CAPS_OFF, PIVOT
+                assert (crec[F["FIN"]], crec[F["PCW"]], crec[F["PC"]]) \
+                    == (fin, pcw, pC)
+                assert (crec[F["PROD"]], crec[F["CAP"]]) == (c.prod, c.cap)
 
 
 def test_struct_index_stage_is_accepted():
@@ -297,6 +406,16 @@ def test_source_agrees_with_the_wrapper():
     ck = dict(re.findall(r"CK_(\w+) = (\d)", src))
     assert {"match": int(ck["MATCH"]), "extract_ok": int(ck["EXTRACT_OK"]),
             "span_match": int(ck["SPAN"])} == fpc.COND_KINDS
+    assert int(re.search(r"kCondWords = (\d+)", src).group(1)) \
+        == fpc.COND_WORDS
+    assert _enum(src, "C_KIND") == ["C_" + f for f in fpc.COND_FIELDS]
+    assert len(fpc.COND_FIELDS) <= fpc.COND_WORDS and fpc.COND_WORDS % 4 == 0
+    # shared memory: the descriptor's padded part, copied 16 bytes at a
+    # time, then the tile at a 16-byte boundary; an unpadded part traps
+    assert "extern __shared__ __align__(16) int32_t smem[];" in src
+    assert "reinterpret_cast<uint32_t*>(sdesc + shared_words)" in src
+    assert "(shared_words & 3) != 0" in src
+    assert "__pipeline_memcpy_async(dst + i, src + i, 16)" in src
     m = re.search(r"int lct_fused_program\(([^)]*)\)", src)
     assert len(m.group(1).split(",")) == 13
     assert "fused_program_kernel<2, true>" in src

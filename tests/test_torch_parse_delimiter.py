@@ -294,8 +294,11 @@ def _agent(who, cfg_dir, tmp_path, env_vars):
     env = dict(os.environ, JAX_PLATFORMS="cpu", PYTHONPATH=REPO,
                **env_vars)
     if who == "ref":
+        # its own data dir: the reference keeps file checkpoints by (dev,
+        # inode) in ~/.loongcollector_tpu, shared by every reference run
         cmd = [sys.executable, "-m", "loongcollector_tpu", "--config",
-               str(cfg_dir), "--once"]
+               str(cfg_dir), "--once", "--data-dir",
+               str(tmp_path / "ref_data")]
     else:
         cmd = [sys.executable, "-m", "loongcollector_tpu_torch", "--config",
                str(cfg_dir), "--once", "--cpu", "--stats",

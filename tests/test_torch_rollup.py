@@ -342,8 +342,13 @@ def test_rollup_agents_agree_end_to_end(tmp_path, monkeypatch):
         if who == "ref":
             env = dict(os.environ, JAX_PLATFORMS="cpu", PYTHONPATH=REPO)
             env.pop("LOONG_AGG_SUBSTRATE", None)
+            # its own data dir: the default one (~/.loongcollector_tpu) is
+            # shared by every reference run, and its file checkpoints are
+            # keyed by (dev, inode), so a new corpus on a recycled inode
+            # would resume at the old file's end and read nothing
             subprocess.run([sys.executable, "-m", "loongcollector_tpu",
-                            "--config", str(cfg_dir), "--once"],
+                            "--config", str(cfg_dir), "--once",
+                            "--data-dir", str(tmp_path / "ref_data")],
                            cwd=str(tmp_path), env=env, check=True,
                            capture_output=True, timeout=300)
         else:

@@ -81,6 +81,17 @@ def _make_group(n_events, line=b"abc 123", source=None):
     return g
 
 
+# A push the bounded queue refuses is retried every 10 ms until the workers
+# drain it below its low watermark; on a loaded host that takes longer than
+# the runner's default 10 retries, so a test waits up to 30 s, as it waits
+# for its lines.
+PUSH_RETRIES = 3000
+
+
+def _push(runner, key, group):
+    return runner.push_queue(key, group, retry_times=PUSH_RETRIES)
+
+
 def _lines(path):
     return path.read_text().count("\n") if path.exists() else 0
 
@@ -135,12 +146,12 @@ def test_cross_group_overlap(stack):
         runner = make_runner()
         runner.init()
         key = pipeline.process_queue_key
-        assert runner.push_queue(key, _make_group(4))
+        assert _push(runner, key, _make_group(4))
         assert wait_for(lambda: _lines(out_path) >= 4)
         groups = 12
         t0 = time.perf_counter()
         for _ in range(groups):
-            assert runner.push_queue(key, _make_group(4))
+            assert _push(runner, key, _make_group(4))
         assert wait_for(lambda: _lines(out_path) >= 4 * (groups + 1),
                         timeout=groups * rtt * 2 + 5)
         elapsed = time.perf_counter() - t0
@@ -212,7 +223,7 @@ def test_four_workers_keep_per_source_order(stack):
         for seq in range(12):
             for src in (b"alpha", b"beta", b"gamma", b"delta", b"eps"):
                 line = src + b" " + str(seq).encode()
-                assert runner.push_queue(key, _make_group(2, line, src))
+                assert _push(runner, key, _make_group(2, line, src))
                 n += 2
         assert wait_for(lambda: _lines(out_path) >= n, timeout=30)
         seqs = {}
@@ -308,7 +319,7 @@ def test_runner_pumps_the_timeout_flush_hooks(stack, threads):
         ev = g.add_log_event(1)
         ev.set_content(sb.copy_string(b"__name__"), sb.copy_string(b"m"))
         ev.set_content(sb.copy_string(b"value"), sb.copy_string(v))
-    assert runner.push_queue(pipeline.process_queue_key, g)
+    assert _push(runner, pipeline.process_queue_key, g)
     assert wait_for(lambda: _lines(out_path) >= 1, timeout=5)
     row = json.loads(out_path.read_text().splitlines()[0])
     assert (row["__name__"], row["count"], row["sum"]) == ("m", "2", "7")

@@ -15,6 +15,13 @@
   in the plane's length buckets, its masks equal to the reference's
   ``index_batch``; a group one batch cannot hold returns None and is
   counted in ``host_groups`` by reason.
+* The kernel's schedule (``struct_index_cuda.schedule_twin``, its numpy
+  twin): a row walks ``ceil(n / 32)`` steps and reads no byte at or past
+  its length, step s makes words 2s and 2s + 1 for lanes 2(s % 16) and
+  2(s % 16) + 1, and the lanes store every 32 words, zeros past the
+  walk; it equals the plain K5 and the JAX ``build_index_fn``, exactly,
+  in both modes, at ``L`` of 16, 48, 128, 512, 1024 and 4096, on rows
+  whose lengths sit at every 32-byte step edge and one byte either side.
 * The CUDA wrapper's host side (``struct_index_cuda``): the source's
   constants are the wrapper's, the grid is a warp a row, and ptxas's
   report parses.  The kernel itself runs only on the card
@@ -190,6 +197,51 @@ def test_device_kernels_are_shared_by_mode_separator_and_device():
     assert a in si.device_kernels()
 
 
+SCHEDULE_L = [16, 48, 128, 512, 1024, 4096]
+
+
+def _edge_rows(L, seed):
+    """Rows over ``ab\\",{}[]:|`` with lengths at every 32-byte step edge
+    and one byte either side, 0, L - 1, L and -1 (absent); the bytes past
+    each length are quotes and backslashes, which would change every mask
+    if the walk read them."""
+    rng = np.random.default_rng(seed)
+    lens = sorted({e for k in range(0, L + 33, 32) for e in (k - 1, k, k + 1)
+                   if 0 <= e <= L} | {0, L - 1, L}) + [-1]
+    alpha = np.frombuffer(b'ab\\",{}[]:|', np.uint8)
+    mat = alpha[rng.integers(0, len(alpha), (len(lens), L))]
+    for i, n in enumerate(lens):
+        mat[i, max(n, 0):] = np.frombuffer(b'"\\', np.uint8)[
+            np.arange(max(n, 0), L) % 2]
+    return mat, np.array(lens, np.int32)
+
+
+@pytest.mark.parametrize("L", SCHEDULE_L)
+@pytest.mark.parametrize("mode,sep", [(si.MODE_JSON, 0x2C),
+                                      (si.MODE_DELIM, 0x7C)],
+                         ids=["json", "delim_pipe"])
+def test_schedule_twin_equals_plain_and_jax(mode, sep, L):
+    mat, lens = _edge_rows(L, L)
+    got, steps = sic.schedule_twin(mat, lens, mode, sep)
+    n = np.clip(lens, 0, L)
+    assert np.array_equal(steps, (n + 31) // 32)        # the exit step
+    want = np.stack([t.numpy() for t in si.build_index_fn(mode, sep)(
+        torch.from_numpy(mat), torch.from_numpy(lens))])
+    jax_fn = jax.jit(ref_si.build_index_fn(mode, sep))
+    ref = np.stack([np.asarray(a) for a in jax_fn(jnp.asarray(mat),
+                                                  jnp.asarray(lens))])
+    assert got.shape == (4, len(mat), sic.words16(L)) and got.dtype == np.int32
+    assert np.array_equal(got, want) and np.array_equal(got, ref)
+    # the words past each walk's end are the zeros of its flushes
+    for i, s in enumerate(steps):
+        assert not got[:, i, 2 * s:].any()
+    # bytes past the lengths are never read: zeroing them changes nothing
+    clean = mat.copy()
+    for i, k in enumerate(n):
+        clean[i, k:] = 0
+    assert np.array_equal(sic.schedule_twin(clean, lens, mode, sep)[0], got)
+
+
 def test_cuda_wrapper_matches_its_source():
     with open(sic._SRC) as f:
         src = f.read()
@@ -203,6 +255,10 @@ def test_cuda_wrapper_matches_its_source():
     assert sic.words16(1) == 1 and sic.words16(16) == 1 \
         and sic.words16(17) == 2 and sic.words16(4096) == 256
     assert sic.ROWS_PER_BLOCK * 32 == sic.THREADS
+    assert int(re.search(r"kMaxL = (\d+)", src).group(1)) == sic.MAX_L \
+        == LENGTH_BUCKETS[-1]
+    # the walk stops at the length and stores 32 words at a time
+    assert "(n + 31) >> 5" in walk and "w0 += 32" in walk
     log = ("ptxas info    : Compiling entry function "
            "'_ZN12_GLOBAL__N_119struct_index_kernelILi1EEEvPKhPKilijPi' "
            "for 'sm_90a'\nptxas info    : Function properties for "
@@ -218,6 +274,9 @@ def test_cuda_launch_refuses_what_the_kernel_does_not_take():
     lens = torch.zeros(4, dtype=torch.int32)
     with pytest.raises(ValueError, match="CUDA device"):
         sic.launch(rows, lens, si.MODE_JSON, 0x2C)
+    big = torch.zeros((4, sic.MAX_L + 16), dtype=torch.uint8)
+    with pytest.raises(ValueError, match="L=4112"):
+        sic.launch(big, lens, si.MODE_JSON, 0x2C)
 
 
 def test_reference_native_masks_agree_with_the_port_bridge():
