@@ -71,7 +71,12 @@ Phases, each of which exits non-zero on failure:
    rows that never settle, settle on their last byte or at 16- and
    512-byte edges +-1, lengths 0, 1, 511..513, 4096) for K2 and K4 and an
    automaton at the 128-state cap (``testdata.cap_automaton``), at L =
-   128, 1024 and 4096.  Both entry points launch.
+   128, 1024 and 4096; then K4's skip rows (``testdata.skip_rows``: an
+   escape byte at each 16-byte word edge +-1, exactly at the length and
+   one past it, inside the row, or none, the bytes past each length left
+   in the tile) on the path's start/continue set and on ``SKIP4_SET``
+   (states of exactly four and five escape bytes), at L = 128, 256 and
+   4096 (K4's two kernels).  Both entry points launch.
 7. multiline paths on a seeded 600,000-line Java log
    (``testdata.gen_java_log``): path 1, the stock ``multiline_java.yaml``
    (K1 as the start gate and the parse), at one worker; path 2, start and
@@ -138,7 +143,11 @@ Phases, each of which exits non-zero on failure:
    and ``SegmentReduceKernel.fold_batch`` on the card against the host
    numpy twin on the gate's device corpora (``testdata.agg_batch_corpus``)
    at 41 and 1 buckets: group ids, rows, counts and histograms exact, min,
-   max and last equal to the twin's through f32, sums within tolerance.
+   max and last equal to the twin's through f32, sums within tolerance;
+   and the edge batches (``testdata.k6_edge_batch``) at the smallest Gq,
+   B = 0, the path's Gq 2048 and 4096, an odd G and B = Gq = 65536: rows
+   over every segment with segments and buckets out of range, every row in
+   one segment, rows on either side of every 1024th segment, no valid row.
 15. the metric-rollup path (after phase 12): ``testdata.metric_rollup_config``
    (parse_json, parse_timestamp, ``aggregator_metric_rollup`` with
    ``Substrate: device``, flusher_file) on a seeded 600,000-line
@@ -155,8 +164,9 @@ Phases, each of which exits non-zero on failure:
    ran on the host; on the
    numpy run no K6 launch.  Prints MB/s, rows/s, the fold's host seconds,
    K6's h2d, exec and d2h leg medians and the busy share.
-16. K6 timing (last): at the path's fold shape (B=8192, 5,000 real rows
-   over 1,600 segments, Gq=2048) and at B = Gq = 65536, 41 buckets, warm
+16. K6 timing (last): at the path's fold shapes (B=8192, 5,000 real rows
+   over 1,600 segments at Gq=2048 and over 3,200 at Gq=4096), with every
+   row in one segment, and at B = Gq = 65536, 41 buckets, warm
    and cold (graph replay), beside the plain version graph-replayed (its
    ``index_add_`` / ``scatter_reduce_`` calls are also the library
    yardstick) and the bound ``B + 12 V + 20 Gq + 4 n_hist Gq`` bytes (V
@@ -502,7 +512,7 @@ def phase_build(fxc, dsc, fpc, src, sic, native) -> dict:
                if e.replace("lct_field_extract_", "") not in ptxas]
     missing += [e for e in fxc.STATS_ENTRY_POINTS
                 if e.replace("lct_sharded_extract_", "stats_") not in ptxas]
-    missing += [m for m in dsc.ENTRY_POINTS if m not in dfa_ptxas]
+    missing += [m for m in dsc.KERNELS if m not in dfa_ptxas]
     missing += [k for k in fpc.INSTANTIATIONS if k not in k7_ptxas]
     missing += [k for k in src.KERNELS if k not in k6_ptxas]
     missing += [k for k in sic.MODES if k not in k5_ptxas]
@@ -525,7 +535,7 @@ def phase_build(fxc, dsc, fpc, src, sic, native) -> dict:
     for name, r in [("d0_p0", ptxas["d0_p0"])] + [
             (f"K8 {k}", ptxas[k]) for k in sorted(ptxas)
             if k.startswith("stats_d0_")] + [
-            (m, dfa_ptxas[m]) for m in dsc.ENTRY_POINTS] + [
+            (m, dfa_ptxas[m]) for m in dsc.KERNELS] + [
             (f"fused_program {k}", k7_ptxas[k]) for k in fpc.INSTANTIATIONS
             if not k.endswith("_g")] + [
             (f"segment_reduce {k}", k6_ptxas[k]) for k in src.KERNELS] + [
@@ -1350,18 +1360,24 @@ def check_dfa_batch(kern, patterns, lines, L, stats, misalign=False):
 
 def checked_dfa_shapes(shapes, phase: str) -> list:
     """K2/K4 launches as (shape, launches): whole warps within the block
-    limit, a block for every ``threads`` rows and for each SM once a batch
-    holds 32 rows an SM, the tables within 48 KB."""
+    limit, as ``dsc.geometry`` gives them (K2 and K3: a block for each SM
+    once a batch holds 32 rows an SM; K4: 128 threads), a block for every
+    ``threads`` rows, the tables within 48 KB."""
     from loongcollector_tpu_torch.ops.kernels import dfa_scan_cuda as dsc
     from loongcollector_tpu_torch.ops.kernels import field_extract_cuda as fxc
+    mode_of = {e: m for m, e in dsc.ENTRY_POINTS.items()}
     out = sorted(shapes.items(), key=lambda kv: (kv[0].entry_point,
                                                  kv[0].B, kv[0].L))
     for sh, _n in out:
+        mode = mode_of[sh.entry_point]
         if (sh.threads % 32 or not dsc.MIN_THREADS <= sh.threads
                 <= dsc.MAX_THREADS or sh.S > dsc.MAX_STATES
-                or sh.smem != dsc.smem_bytes(sh.S) or sh.smem > 48 * 1024
+                or sh.threads != dsc.geometry(mode, sh.B)
+                or sh.smem != dsc.smem_bytes(sh.S, skip=mode == "tags")
+                or sh.smem > 48 * 1024
                 or sh.blocks != -(-sh.B // sh.threads)
-                or sh.B >= 32 * fxc.NUM_SMS and sh.blocks < fxc.NUM_SMS):
+                or mode != "tags" and sh.B >= 32 * fxc.NUM_SMS
+                and sh.blocks < fxc.NUM_SMS):
             fail(f"{phase}: DFA launch outside the card's limits: {sh}")
     if not out:
         fail(f"{phase}: no DFA kernel launch recorded")
@@ -1412,6 +1428,52 @@ def settle_batches(cases, stats) -> None:
     stats["automata"].append(("cap", 128, cap.arrays.first_settled))
 
 
+def skip_batches(cases, stats) -> None:
+    """K4's skip rows (``testdata.skip_rows``: one escape byte at each
+    16-byte word edge +-1, exactly at the length and one past it, inside
+    the row, or none; bytes past each length left in the tile) for the
+    path's start/continue set (header lines and frames, whose `.*` tails
+    only `\\n` leaves) and for ``SKIP4_SET`` (a state of exactly four
+    escape bytes, a skip state, and one of five, not one), at L = 128, 256
+    and 4096: bit-exact with the plain version and with ``re.fullmatch``
+    of each row cut at its length."""
+    import numpy as np
+    import torch
+    from loongcollector_tpu_torch import testdata as td
+    from loongcollector_tpu_torch.ops.kernels.dfa_scan import FusedScanKernel
+    from loongcollector_tpu_torch.ops.regex.fuse import compile_fused
+    by_pats = {tuple(p): k for k, p in cases}
+    skip4 = FusedScanKernel(compile_fused(td.SKIP4_SET))
+    if sorted(skip4.arrays.n_escapes[skip4.arrays.n_escapes > 0]) != [4]:
+        fail(f"SKIP4_SET's skip states changed: {skip4.arrays.n_escapes}")
+    stats["skip_rows"] = 0
+    for L in (128, 256, 4096):
+        for pats, kinds in (((td.JAVA_START, td.JAVA_CONTINUE),
+                             ("java", "java_frame")),
+                            (tuple(td.SKIP4_SET), ("skip4", "skip5"))):
+            kern = by_pats.get(pats, skip4)
+            pairs = [pr for k in kinds for pr in td.skip_rows(k, L, seed=L)]
+            rows_h, lens_h = td.skip_matrix(pairs, L)
+            rows = torch.from_numpy(rows_h).cuda()
+            lengths = torch.from_numpy(lens_h).cuda()
+            got = kern(rows, lengths).cpu().numpy()
+            torch.cuda.synchronize()
+            want = kern.plain(rows, lengths).cpu().numpy()
+            if not (got == want).all():
+                bad = np.nonzero(got != want)[0]
+                fail(f"K4 skip rows {kinds} L={L}: kernel != plain at rows "
+                     f"{bad[:5].tolist()}")
+            rxs = [re.compile(p.encode("latin-1")) for p in pats]
+            for i, (row, n) in enumerate(pairs):
+                tags = sum(1 << b for b, r in enumerate(rxs)
+                           if r.fullmatch(row[:n]))
+                if int(got.view(np.uint32)[i]) != tags:
+                    fail(f"K4 disagrees with re on {pats!r} {row[:n]!r}")
+            stats["checks"] += 1
+            stats["rows"] += len(pairs)
+            stats["skip_rows"] += len(pairs)
+
+
 def phase_dfa_parity(java) -> dict:
     import numpy as np
     from loongcollector_tpu_torch.ops.device_batch import LENGTH_BUCKETS
@@ -1456,6 +1518,7 @@ def phase_dfa_parity(java) -> dict:
     if not stats["bit31_rows"]:
         fail("no row set tag bit 31")
     settle_batches(cases, stats)
+    skip_batches(cases, stats)
     shapes = checked_dfa_shapes(dict(dsc.launch_shapes), "dfa parity")
     if sum(n for _, n in shapes) != stats["checks"]:
         fail(f"dfa parity: {sum(n for _, n in shapes)} launches recorded "
@@ -1466,7 +1529,8 @@ def phase_dfa_parity(java) -> dict:
         fail(f"DFA entry points never launched: {walks - launched}")
     log(f"dfa parity: {stats['checks']} (automaton, L) batches over "
         f"{len(cases)} automata {stats['automata']}, {stats['rows']} rows "
-        f"({stats['settle_rows']} of them the settled exit's): K2 and K4 "
+        f"({stats['settle_rows']} of them the settled exit's, "
+        f"{stats['skip_rows']} K4's skip rows): K2 and K4 "
         f"bit-exact with their plain versions and with re; "
         f"{stats['bit31_rows']} rows with tag bit 31; entry points "
         f"launched {sorted(launched)}")
@@ -2529,7 +2593,13 @@ def phase_fused_timing() -> dict:
 
 K6_TOL = 1e-5       # rtol = atol on sums: scripts/agg_equivalence.py:163
 K6_PATH_SHAPE = (8192, 2048)       # B, Gq of a rollup-path fold
+K6_PATH_SHAPE_4096 = (8192, 4096)  # the path's other fold shape
 K6_BENCH_SHAPE = (65536, 65536)
+# (label, (B, Gq), (real rows, segments they take; 1: one hot segment))
+K6_TIMED = (("path", K6_PATH_SHAPE, (5000, 1600)),
+            ("path_4096", K6_PATH_SHAPE_4096, (5000, 3200)),
+            ("hot", K6_PATH_SHAPE, (5000, 1)),
+            ("bench", K6_BENCH_SHAPE, (65536, 65536)))
 
 
 def _k6_compare(got, want, what):
@@ -2609,19 +2679,55 @@ def phase_k6_parity() -> dict:
                 fail(f"K6 fold [{label}] n_hist={n_hist}: sums out of "
                      f"tolerance")
             folds += 1
+    edges, edge_err = k6_edge_parity(kerns[41])
+    max_err = max(max_err, edge_err)
     launches = sum(k.launches for k in kerns.values())
     shapes = dict(src.launch_shapes)
-    if launches != checks + folds or sum(shapes.values()) != launches:
+    if launches != checks + folds + edges \
+            or sum(shapes.values()) != launches:
         fail(f"K6 parity: {launches} launches, {sum(shapes.values())} in "
-             f"the shapes, for {checks} batches and {folds} folds")
+             f"the shapes, for {checks} batches, {folds} folds and {edges} "
+             f"edge batches")
     big = max(shapes, key=lambda sh: (sh.B, sh.G))
     log(f"K6 parity: {checks} batches equal the plain version on the card "
         f"(count, min, max, last, hist exact; sums within rtol = atol = "
         f"{K6_TOL}, largest difference {max_err:.3g}), {folds} folds of the "
-        f"gate's device corpora equal the numpy twin; {launches} launches "
-        f"of {len(shapes)} shapes, the largest B={big.B} G={big.G}: "
-        f"{big.blocks} scatter blocks, {big.init_blocks} init blocks")
-    return {"checks": checks, "folds": folds, "max_abs_err": max_err}
+        f"gate's device corpora equal the numpy twin, {edges} edge batches "
+        f"equal the plain version; {launches} launches of {len(shapes)} "
+        f"shapes, the largest B={big.B} G={big.G}: {big.blocks} scatter "
+        f"blocks, {big.init_blocks} init blocks")
+    return {"checks": checks, "folds": folds, "edges": edges,
+            "max_abs_err": max_err}
+
+
+# (B, G) of K6's edge batches at 41 buckets: the smallest Gq (16), an empty
+# batch, the path's Gq 2048 and 4096, an odd G, and B = G = 65536; their
+# "boundaries" rows sit on either side of every K6_EDGE_RANGE-th segment
+K6_EDGE_GEOMETRIES = ((8192, 16), (0, 2048), (8192, 2048), (8192, 4096),
+                      (4096, 2049), (65536, 65536))
+K6_EDGE_RANGE = 1024
+
+
+def k6_edge_parity(kern):
+    """K6 against its plain version on the card on the edge batches
+    (``testdata.k6_edge_batch``: mixed rows with segments and buckets out of
+    range, every row in one segment, rows on either side of every 1024th
+    segment with the others empty, no valid row) at
+    ``K6_EDGE_GEOMETRIES``.  Returns (batches, largest sum difference)."""
+    import torch
+    from loongcollector_tpu_torch import testdata as td
+    n, max_err = 0, 0.0
+    for B, G in K6_EDGE_GEOMETRIES:
+        for kind in td.K6_EDGE_KINDS if B else ("empty",):
+            arrays = td.k6_edge_batch(kind, B + G, B, G, 41, K6_EDGE_RANGE)
+            args = [torch.from_numpy(a).cuda() for a in arrays]
+            got = [t.cpu().numpy() for t in kern(*args, G)]
+            torch.cuda.synchronize()
+            want = [t.cpu().numpy() for t in kern.plain(*args, G)]
+            max_err = max(max_err, _k6_compare(
+                got, want, f"K6 edge {kind} B={B} G={G}"))
+            n += 1
+    return n, max_err
 
 
 def phase_k6_path_parity(fold_rows, runs) -> dict:
@@ -2694,8 +2800,7 @@ def phase_k6_timing() -> dict:
     from loongcollector_tpu_torch.ops.kernels import segment_reduce_cuda as src
     kern = sr.SegmentReduceKernel(41)
     out = {}
-    for (B, G), (n_real, n_seg) in ((K6_PATH_SHAPE, (5000, 1600)),
-                                    (K6_BENCH_SHAPE, (65536, 65536))):
+    for label, (B, G), (n_real, n_seg) in K6_TIMED:
         vals, seg, buckets, valid = td.k6_batch(7, B, n_seg, 41,
                                                 n_real=n_real)
         seg[n_real:] = G
@@ -2725,13 +2830,14 @@ def phase_k6_timing() -> dict:
                    if sh.B == B and sh.G == G), None)
         if sh is None:
             fail(f"K6 timing: no launch recorded at B={B} G={G}")
-        out[(B, G)] = {"ms": ms, "cold_ms": cold_ms, "call_ms": call_ms,
-                       "plain_ms": plain_ms, "plain_call_ms": plain_call_ms,
-                       "bound_ms": b_ms, "bound_by": by, "copies": n_copies,
-                       "blocks": sh.blocks, "init_blocks": sh.init_blocks,
-                       "real_rows": n_real, "segments": n_seg}
-        log(f"K6 timing B={B} Gq={G} n_hist=41 ({n_real} real rows over "
-            f"{n_seg} segments; {sh.blocks} scatter blocks and "
+        out[label] = {"ms": ms, "cold_ms": cold_ms, "call_ms": call_ms,
+                      "plain_ms": plain_ms, "plain_call_ms": plain_call_ms,
+                      "bound_ms": b_ms, "bound_by": by, "copies": n_copies,
+                      "blocks": sh.blocks, "init_blocks": sh.init_blocks,
+                      "B": B, "G": G, "real_rows": n_real,
+                      "segments": n_seg}
+        log(f"K6 timing {label} B={B} Gq={G} n_hist=41 ({n_real} real rows "
+            f"over {n_seg} segments; {sh.blocks} scatter blocks and "
             f"{sh.init_blocks} init blocks of {src.THREADS} threads): "
             f"kernel {ms:.5f} ms warm and {cold_ms:.5f} ms cold ({n_copies} "
             f"copies) on the device (graph replay), {call_ms:.4f} ms per "
@@ -2846,7 +2952,7 @@ def k6_kernel_entry(parity, path_parity, timing, roll, roll4, roll_np,
                     roll_led, build) -> dict:
     """The ``kernels`` line's entry of K6: launches from the rollup path at
     one worker, times at its fold shape (B=8192, Gq=2048)."""
-    t, tb = timing[K6_PATH_SHAPE], timing[K6_BENCH_SHAPE]
+    t, tb = timing["path"], timing["bench"]
     agg = roll["stats"]["aggregation"]
     legs = agg["legs"]
     return {
@@ -2870,6 +2976,10 @@ def k6_kernel_entry(parity, path_parity, timing, roll, roll4, roll_np,
         # the program directly: one measurement for both columns
         "library_ms": t["plain_ms"],
         "plain_call_ms": t["plain_call_ms"],
+        "points": {label: {k: v[k] for k in (
+            "B", "G", "real_rows", "segments", "ms", "cold_ms", "plain_ms",
+            "bound_ms", "bound_by")}
+            for label, v in timing.items()},
         "bench_geometry": [*K6_BENCH_SHAPE, 41],
         "bench_ms": tb["ms"],
         "bench_cold_ms": tb["cold_ms"],
@@ -2893,6 +3003,7 @@ def k6_kernel_entry(parity, path_parity, timing, roll, roll4, roll_np,
             roll4["stats"]["aggregation"]["k6_launches"],
         "parity_batches": parity["checks"],
         "parity_folds": parity["folds"],
+        "parity_edge_batches": parity["edges"],
         "path_parity_folds": path_parity["folds"],
         "blocks": t["blocks"],
         "init_blocks": t["init_blocks"],
@@ -3038,7 +3149,21 @@ def dfa_kernel_entry(name, mode, replaces, parity, timing, path2, path2_4,
         "smem_bytes": main_sh.smem,
         "build_s": build["build_s"]["dfa_scan"],
         "ptxas": build["dfa_ptxas"][mode],
+        **({"skip_states": skip_states(), "parity_skip_rows":
+            parity["skip_rows"]} if key == "K4" else {}),
     }
+
+
+def skip_states() -> list:
+    """K4's skip states on path 2's start/continue set, as (state, escape
+    bytes)."""
+    from loongcollector_tpu_torch import testdata as td
+    from loongcollector_tpu_torch.ops.kernels.dfa_scan import FusedScanKernel
+    from loongcollector_tpu_torch.ops.regex.fuse import compile_fused
+    a = FusedScanKernel(compile_fused([td.JAVA_START,
+                                       td.JAVA_CONTINUE])).arrays
+    return [[int(st), int(a.n_escapes[st])]
+            for st in range(a.num_states) if a.n_escapes[st]]
 
 
 # -- the structural index (K5), K7's struct_index stage, and the

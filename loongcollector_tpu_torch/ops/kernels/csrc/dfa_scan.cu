@@ -36,14 +36,33 @@
 //   * rows are read straight from device memory with 16-byte loads when the
 //     row is 16-byte aligned (L a multiple of 16, as every bucket is), else
 //     byte by byte, and the next word is loaded while this one is walked;
-//   * one row a thread, 32 to 128 threads a block: the wrapper halves the
-//     block from 128 while the batch would leave an SM without one
-//     (dfa_scan_cuda.launch_geometry).
+//   * one row a thread, 32 to 128 threads a block: for K2 and K3 the
+//     wrapper halves the block from 128 while the batch would leave an SM
+//     without one (dfa_scan_cuda.launch_geometry); K4 takes 128.
 // A row that never settles still walks all its bytes on one thread.  A warp
 // a row (each lane a 16-byte chunk's transition map from every state, the
 // maps composed 32 chunks at a time) was faster only on long rows that
 // never settle, which no path sends, and level on the paths' own rows
 // (PERF.md section 6), so it is not built.
+//
+// K4 adds the skip (fused_scan_kernel, fused_scan_walk): a state s below
+// the settled ones whose escape set E(s) = { b : t256[s][b] != s } holds
+// one to four bytes is a skip state, and the host packs E(s) for each state
+// (dfa_scan.py skip_escapes: the bytes in the low word, |E(s)| in the high
+// word, 0 for any other state).  Once a word, where the walk already checks
+// for a settled state, it reads its state's skip word (beside the word's
+// first table step: both loads hang on the state alone, so a state that is
+// not a skip state adds no step to the chain).  In a skip state, a word
+// that holds none of its escape bytes is not walked: the walk scans the
+// following words, eight loaded at once, for the first that holds one
+// below the length (each 32-bit lane XORed with each escape byte
+// broadcast, a zero-byte test, ORed, and __ffs), and walks that word
+// through the table from its first byte; with none, the state is the
+// row's.  A byte outside E(s) leaves the state at s, so the skip changes
+// no result.  Path 2's start/continue set sits in a `.*` tail after ~11
+// bytes of a header line, which only `\n` leaves, so a 250-byte row walks
+// ~16 bytes through the table and scans ~14 words.  K2, K3 and K7 keep the
+// plain walk.
 // The caller's timing events, when given, are recorded on the stream right
 // around the launch, so a kernel's time holds no host latency.  The byte
 // walk is in dfa_walk.cuh, which the fused stage program (fused_program.cu)
@@ -68,6 +87,23 @@ __device__ __forceinline__ void copy_tables(uint8_t* tab, int32_t* acc,
     __pipeline_memcpy_async(tab + 16 * i, t256 + 16 * i, 16);
   for (int i = threadIdx.x; i < S; i += blockDim.x)
     __pipeline_memcpy_async(acc + i, accept + i, 4);
+  __pipeline_commit();
+  __pipeline_wait_prior(0);
+  __syncthreads();
+}
+
+// K4's copy: t256, the skip table (u64: |E(s)| << 32 | the escape bytes)
+// and accept, as one batch of cp.async copies waited for once.
+__device__ __forceinline__ void copy_skip_tables(
+    uint8_t* tab, unsigned long long* skip, int32_t* acc,
+    const uint8_t* t256, const unsigned long long* skips,
+    const int32_t* accept, int S) {
+  for (int i = threadIdx.x; i < S * 16; i += blockDim.x)
+    __pipeline_memcpy_async(tab + 16 * i, t256 + 16 * i, 16);
+  for (int i = threadIdx.x; i < S; i += blockDim.x) {
+    __pipeline_memcpy_async(skip + i, skips + i, 8);
+    __pipeline_memcpy_async(acc + i, accept + i, 4);
+  }
   __pipeline_commit();
   __pipeline_wait_prior(0);
   __syncthreads();
@@ -102,14 +138,98 @@ __device__ __forceinline__ uint32_t walk_prefix(const uint8_t* tab,
   return s;
 }
 
-// K2 and K4: one row a thread.
-template <bool kTags>
+// The escape bytes of one 32-bit lane x: the high bit of a byte is set
+// where the byte equals one of the first n (1..4) bytes of e, by the
+// zero-byte test on x ^ the escape byte broadcast.  Only the lowest set
+// bit is exact (a borrow may mark a byte above a match), and that is the
+// one the scan reads.
+__device__ __forceinline__ uint32_t lane_hits(uint32_t x, uint32_t e, int n) {
+  uint32_t h = 0;
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    if (j < n) {
+      const uint32_t y = x ^ (((e >> (8 * j)) & 0xFFu) * 0x01010101u);
+      h |= (y - 0x01010101u) & ~y & 0x80808080u;
+    }
+  }
+  return h;
+}
+
+// The first byte of q that is one of the escape bytes; 16: none.
+__device__ __forceinline__ int first_escape(uint4 q, uint32_t e, int n) {
+  const uint32_t h0 = lane_hits(q.x, e, n), h1 = lane_hits(q.y, e, n);
+  const uint32_t h2 = lane_hits(q.z, e, n), h3 = lane_hits(q.w, e, n);
+  if (!(h0 | h1 | h2 | h3)) return 16;
+  if (h0) return (__ffs(h0) - 1) >> 3;
+  if (h1) return 4 + ((__ffs(h1) - 1) >> 3);
+  if (h2) return 8 + ((__ffs(h2) - 1) >> 3);
+  return 12 + ((__ffs(h3) - 1) >> 3);
+}
+
+constexpr int kScanWords = 8;     // words a scan loads at once: 128 bytes
+
+// K4's walk of bytes [0, n) of an aligned row from state s, a word at a
+// time, from its first word q.  At each word it stops at a settled state,
+// as walk_prefix does; else it reads the state's skip word and, beside it,
+// the step on the word's first byte (both loads hang on s alone).  A state
+// that is not a skip state, or a skip state whose word holds one of its
+// escape bytes, walks the word through the table.  A skip state whose word
+// holds none scans the following words, kScanWords at a time (their loads
+// all in flight at once, not one word ahead), for the first that holds an
+// escape byte below the length (none: the walk is done), and walks that
+// word from its first byte: the bytes before the escape leave the state
+// as it is.
+__device__ __forceinline__ uint32_t fused_scan_walk(
+    const uint8_t* tab, const unsigned long long* skip, uint32_t s,
+    const uint8_t* row, int n, uint32_t fs, uint4 q) {
+  if (n <= 0) return s;
+  const uint4* v = reinterpret_cast<const uint4*>(row);
+  const int last = (n - 1) >> 4;
+  int w = 0;
+  for (;;) {
+    if (s >= fs) return s;
+    const unsigned long long e = skip[s];
+    uint32_t t = tab[(s << 8) | (q.x & 0xFFu)];
+    uint4 next = __ldg(v + min(w + 1, last));
+    if (e >> 32) {
+      const uint32_t eb = static_cast<uint32_t>(e);
+      const int ne = static_cast<int>(e >> 32);
+      int p = first_escape(q, eb, ne);
+      if (p == 16) {                      // none in this word: skip it
+        for (int w0 = w + 1; p == 16 && w0 <= last; w0 += kScanWords) {
+          uint4 c[kScanWords];
+#pragma unroll
+          for (int j = 0; j < kScanWords; ++j)
+            c[j] = __ldg(v + min(w0 + j, last));
+#pragma unroll
+          for (int j = 0; j < kScanWords; ++j) {
+            if (p == 16 && w0 + j <= last) {
+              p = first_escape(c[j], eb, ne);
+              w = w0 + j;
+              q = c[j];
+            }
+          }
+        }
+        if (p == 16) return s;            // no escape byte to the row's end
+        next = __ldg(v + min(w + 1, last));
+        t = tab[(s << 8) | (q.x & 0xFFu)];
+      }
+      if (16 * w + p >= n) return s;      // no escape byte below the length
+    }
+    s = walk_vec_range(tab, t, q, 1, w == last ? n - 16 * w : 16);
+    if (w == last) return s;
+    ++w;
+    q = next;
+  }
+}
+
+// K2: one row a thread.
 __global__ void __launch_bounds__(kMaxThreads)
 dfa_walk_kernel(const uint8_t* __restrict__ rows,
                 const int32_t* __restrict__ lengths, int64_t B, int32_t L,
                 const uint8_t* __restrict__ t256, int32_t S,
                 const int32_t* __restrict__ accept, int32_t start,
-                int32_t first_settled, void* __restrict__ out) {
+                int32_t first_settled, uint8_t* __restrict__ out) {
   extern __shared__ __align__(16) uint8_t smem[];
   uint8_t* tab = smem;
   int32_t* acc = reinterpret_cast<int32_t*>(smem + S * 256);
@@ -124,11 +244,45 @@ dfa_walk_kernel(const uint8_t* __restrict__ rows,
   const uint32_t s = walk_prefix(tab, static_cast<uint32_t>(start), row,
                                  len, aligned_rows(row, L),
                                  static_cast<uint32_t>(first_settled));
-  if (kTags) {
-    static_cast<int32_t*>(out)[r] = acc[s];
-  } else {
-    static_cast<uint8_t*>(out)[r] = acc[s] != 0;
+  out[r] = acc[s] != 0;
+}
+
+// K4: one row a thread, with the skip (fused_scan_walk) on aligned rows.
+// The row's length and first word are loaded before the block waits for
+// its tables, so their latency runs beside the copy.
+__global__ void __launch_bounds__(kMaxThreads)
+fused_scan_kernel(const uint8_t* __restrict__ rows,
+                  const int32_t* __restrict__ lengths, int64_t B, int32_t L,
+                  const uint8_t* __restrict__ t256, int32_t S,
+                  const int32_t* __restrict__ accept, int32_t start,
+                  int32_t first_settled,
+                  const unsigned long long* __restrict__ skips,
+                  int32_t* __restrict__ out) {
+  extern __shared__ __align__(16) uint8_t smem[];
+  uint8_t* tab = smem;
+  unsigned long long* skip =
+      reinterpret_cast<unsigned long long*>(smem + S * 256);
+  int32_t* acc = reinterpret_cast<int32_t*>(skip + S);
+  const int64_t r = static_cast<int64_t>(blockIdx.x) * blockDim.x
+                    + threadIdx.x;
+  const uint8_t* row = rows + r * L;
+  const bool vec = L > 0 && aligned_rows(row, L);
+  int len = 0;
+  uint4 q = make_uint4(0u, 0u, 0u, 0u);
+  if (r < B) {
+    len = lengths[r];
+    if (vec) q = __ldg(reinterpret_cast<const uint4*>(row));
   }
+  copy_skip_tables(tab, skip, acc, t256, skips, accept, S);
+
+  if (r >= B) return;
+  len = len < 0 ? 0 : (len > L ? L : len);
+  const uint32_t fs = static_cast<uint32_t>(first_settled);
+  const uint32_t s = vec
+      ? fused_scan_walk(tab, skip, static_cast<uint32_t>(start), row, len,
+                        fs, q)
+      : walk_prefix(tab, static_cast<uint32_t>(start), row, len, false, fs);
+  out[r] = acc[s];
 }
 
 // K3: the walk over bytes [max(start, 0), start + max(spanlen, 0)) of each
@@ -171,20 +325,28 @@ bool bad_automaton(int32_t S, int32_t start, int32_t first_settled) {
 template <bool kTags>
 int launch(const uint8_t* rows, const int32_t* lengths, int64_t B, int32_t L,
            const uint8_t* t256, int32_t S, const int32_t* accept,
-           int32_t start, int32_t first_settled, void* out, int32_t threads,
+           int32_t start, int32_t first_settled,
+           const unsigned long long* skips, void* out, int32_t threads,
            int32_t smem, cudaStream_t stream, cudaEvent_t ev_start,
            cudaEvent_t ev_end) {
   if (B <= 0) return 0;
   if (threads < 32 || threads > kMaxThreads || threads % 32
-      || bad_automaton(S, start, first_settled))
+      || bad_automaton(S, start, first_settled) || (kTags && !skips))
     return static_cast<int>(cudaErrorInvalidValue);
   const int64_t blocks = (B + threads - 1) / threads;
   cudaError_t e;
   if (ev_start && (e = cudaEventRecord(ev_start, stream)) != cudaSuccess)
     return static_cast<int>(e);
-  dfa_walk_kernel<kTags><<<static_cast<unsigned>(blocks), threads, smem,
-                           stream>>>(rows, lengths, B, L, t256, S, accept,
-                                     start, first_settled, out);
+  if (kTags) {
+    fused_scan_kernel<<<static_cast<unsigned>(blocks), threads, smem,
+                        stream>>>(rows, lengths, B, L, t256, S, accept, start,
+                                  first_settled, skips,
+                                  static_cast<int32_t*>(out));
+  } else {
+    dfa_walk_kernel<<<static_cast<unsigned>(blocks), threads, smem,
+                      stream>>>(rows, lengths, B, L, t256, S, accept, start,
+                                first_settled, static_cast<uint8_t*>(out));
+  }
   if ((e = cudaGetLastError()) != cudaSuccess) return static_cast<int>(e);
   if (ev_end) e = cudaEventRecord(ev_end, stream);
   return static_cast<int>(e);
@@ -204,21 +366,23 @@ int lct_dfa_match(const uint8_t* rows, const int32_t* lengths, int64_t B,
                   uint8_t* out, int32_t threads, int32_t smem, void* stream,
                   void* ev_start, void* ev_end) {
   return launch<false>(rows, lengths, B, L, t256, S, accept, start,
-                       first_settled, out, threads, smem,
+                       first_settled, nullptr, out, threads, smem,
                        static_cast<cudaStream_t>(stream),
                        static_cast<cudaEvent_t>(ev_start),
                        static_cast<cudaEvent_t>(ev_end));
 }
 
-// K4: out is int32 [B], the u32 accept-tag mask of each row.
+// K4: out is int32 [B], the u32 accept-tag mask of each row; skips is the
+// u64 [S] skip table (|E(s)| << 32 | escape bytes; 0: not a skip state),
+// smem at least 264 S bytes.
 int lct_fused_scan(const uint8_t* rows, const int32_t* lengths, int64_t B,
                    int32_t L, const uint8_t* t256, int32_t S,
                    const int32_t* accept, int32_t start,
-                   int32_t first_settled, int32_t* out, int32_t threads,
-                   int32_t smem, void* stream,
+                   int32_t first_settled, const unsigned long long* skips,
+                   int32_t* out, int32_t threads, int32_t smem, void* stream,
                    void* ev_start, void* ev_end) {
   return launch<true>(rows, lengths, B, L, t256, S, accept, start,
-                      first_settled, out, threads, smem,
+                      first_settled, skips, out, threads, smem,
                       static_cast<cudaStream_t>(stream),
                       static_cast<cudaEvent_t>(ev_start),
                       static_cast<cudaEvent_t>(ev_end));
@@ -254,8 +418,8 @@ int lct_dfa_span_match(const uint8_t* rows, const int32_t* lengths,
 // their first launch, and the first batch's time would hold the load.
 int lct_dfa_prepare(void) {
   cudaFuncAttributes a;
-  cudaError_t e = cudaFuncGetAttributes(&a, dfa_walk_kernel<false>);
-  if (e == cudaSuccess) e = cudaFuncGetAttributes(&a, dfa_walk_kernel<true>);
+  cudaError_t e = cudaFuncGetAttributes(&a, dfa_walk_kernel);
+  if (e == cudaSuccess) e = cudaFuncGetAttributes(&a, fused_scan_kernel);
   if (e == cudaSuccess) e = cudaFuncGetAttributes(&a, dfa_span_kernel);
   return static_cast<int>(e);
 }

@@ -41,8 +41,19 @@
 // At B = G = 65536 with 41 buckets it is 12.9 MB, 3.9 us, most of it the
 // histogram the init writes and the host reads back.  A hot segment
 // serialises its rows' atomics in L2.
-// Speed is later work (a shared-memory privatised pass for small G, one
-// persistent launch).
+// Forms that keep the segments on the chip or fold in one launch were
+// measured against this one on the H100 and were all slower at the rollup
+// path's B = 8192, G = 2048 (chip_probe.py k6 builds and times them):
+//   * one thread-block cluster holding the segments in its blocks' shared
+//     memory, rows folded into the owner block with distributed
+//     shared-memory reductions: 2.8-4.5x; its fold is most of its time,
+//     and the reductions compile to generic ATOM instructions that return
+//     a value, the f32 add a compare-and-swap loop (a 64-bit max into
+//     another block's shared memory also lost updates);
+//   * blocks that each own a range in their shared memory and read the
+//     whole batch: 1.5-1.7x at 128 blocks, worse with fewer;
+//   * one cluster over device memory, cluster barriers in place of the
+//     launch boundaries: 1.6-1.8x.
 //
 // The caller's timing events, when given, are recorded on the stream right
 // around the three launches.

@@ -48,7 +48,7 @@ from __future__ import annotations
 
 import threading
 from dataclasses import dataclass
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -59,6 +59,7 @@ from ..device_batch import (LENGTH_BUCKETS, MAX_BATCH, pack_rows, pad_batch,
 
 
 TABLE_MAX_STATES = 256        # u8 state ids in t256; the kernel takes 128
+MAX_ESCAPES = 4               # escape bytes of a skip state (K4's scan)
 
 
 @dataclass(frozen=True)
@@ -69,10 +70,27 @@ class AutomatonArrays:
     accept: np.ndarray        # i32 [S]: 0/1 (K2) or the u32 tags as i32 (K4)
     start: int
     first_settled: int        # states from here up are settled (S: none)
+    # u32 [S]: a skip state's escape bytes (K4); i32 [S]: how many, 0 for
+    # a state that is not one (none given: no skip state)
+    escapes: Optional[np.ndarray] = None
+    n_escapes: Optional[np.ndarray] = None
+
+    def __post_init__(self):
+        S = self.t256.shape[0]
+        if self.escapes is None:
+            object.__setattr__(self, "escapes", np.zeros(S, np.uint32))
+        if self.n_escapes is None:
+            object.__setattr__(self, "n_escapes", np.zeros(S, np.int32))
 
     @property
     def num_states(self) -> int:
         return self.t256.shape[0]
+
+    def skip_table(self) -> np.ndarray:
+        """u64 [S], what K4 reads a state's skip from: ``n_escapes << 32
+        | escapes`` (0 for a state that is not a skip state)."""
+        return (self.n_escapes.astype(np.uint64) << np.uint64(32)) \
+            | self.escapes.astype(np.uint64)
 
 
 def settled_states(t256: np.ndarray, accept: np.ndarray) -> np.ndarray:
@@ -91,18 +109,43 @@ def settled_states(t256: np.ndarray, accept: np.ndarray) -> np.ndarray:
         settled = nxt
 
 
+def skip_escapes(t256: np.ndarray, first_settled: int):
+    """(escapes u32 [S], n_escapes i32 [S]) of K4's skip: the escape set
+    of a state s is ``E(s) = {b : t256[s, b] != s}``; a state below
+    ``first_settled`` with 1 to ``MAX_ESCAPES`` escape bytes is a skip
+    state, and gets them packed lowest byte first (the first repeated into
+    the unused bytes, so four compares match escape bytes alone whatever
+    the count) and their count.  Every other state gets 0 and 0.  A walk in a skip state
+    leaves it only on an escape byte, so K4 may scan for the next one."""
+    t = np.asarray(t256, dtype=np.int64)
+    S = t.shape[0]
+    moves = t != np.arange(S)[:, None]
+    count = moves.sum(axis=1)
+    skip = (np.arange(S) < first_settled) & (count >= 1) \
+        & (count <= MAX_ESCAPES)
+    escapes = np.zeros(S, np.uint32)
+    for s in np.nonzero(skip)[0]:
+        esc = np.nonzero(moves[s])[0].tolist()
+        esc += esc[:1] * (MAX_ESCAPES - len(esc))
+        escapes[s] = sum(b << (8 * k) for k, b in enumerate(esc))
+    return escapes, np.where(skip, count, 0).astype(np.int32)
+
+
 def settled_last(t256: np.ndarray, accept: np.ndarray,
                  start: int) -> AutomatonArrays:
     """The automaton with its settled states renumbered to the highest ids
     (the others keep their order, then the settled ones theirs), and
-    ``first_settled`` the first of them."""
+    ``first_settled`` the first of them; its skip states' escape bytes
+    (``skip_escapes``) under the new ids."""
     settled = settled_states(t256, accept)
     order = np.concatenate([np.nonzero(~settled)[0], np.nonzero(settled)[0]])
     new_id = np.empty(len(order), np.int64)
     new_id[order] = np.arange(len(order))
     t256 = np.ascontiguousarray(new_id[t256[order]].astype(np.uint8))
+    first_settled = int((~settled).sum())
     return AutomatonArrays(t256, np.ascontiguousarray(accept[order]),
-                           int(new_id[start]), int((~settled).sum()))
+                           int(new_id[start]), first_settled,
+                           *skip_escapes(t256, first_settled))
 
 
 def automaton_arrays_from_reference(byte_class, transitions, start,
@@ -244,14 +287,17 @@ class _TableWalkKernel:
             return self.plain(rows, lengths)
         if rows.device.type != "cuda":
             raise ValueError(f"no dfa_scan kernel for {rows.device}")
-        from . import dfa_scan_cuda
         t256, accept = self.tables(rows.device)
-        out = dfa_scan_cuda.launch(self.mode, rows, lengths, t256, accept,
-                                   self.arrays.start,
-                                   self.arrays.first_settled, events)
+        out = self._launch(rows, lengths, t256, accept, events)
         with self._count_lock:
             self.launches += 1
         return out
+
+    def _launch(self, rows, lengths, t256, accept, events):
+        from . import dfa_scan_cuda
+        return dfa_scan_cuda.launch(self.mode, rows, lengths, t256, accept,
+                                    self.arrays.start,
+                                    self.arrays.first_settled, events)
 
 
 class DFAMatchKernel(_TableWalkKernel):
@@ -339,7 +385,8 @@ class LazySpanMatchKernel:
 
 
 class FusedScanKernel(_TableWalkKernel):
-    """K4: i32 [B], the u32 accept-tag mask of each row (view it as u32)."""
+    """K4: i32 [B], the u32 accept-tag mask of each row (view it as u32).
+    Its kernel also reads the skip table (``AutomatonArrays.skip_table``)."""
 
     mode = "tags"
     program = "fused_scan"
@@ -347,6 +394,31 @@ class FusedScanKernel(_TableWalkKernel):
     def __init__(self, fdfa):
         super().__init__(automaton_arrays_from_reference(
             fdfa.byte_class, fdfa.transitions, fdfa.start, fdfa.accept_tags))
+
+    def skips(self, device: torch.device) -> torch.Tensor:
+        """The skip table, u64 as i64 ``[S]``, on ``device``, uploaded
+        once."""
+        key = ("skips", device)
+        got = self._tables.get(key)
+        if got is None:
+            got = torch.from_numpy(
+                self.arrays.skip_table().view(np.int64)).to(device)
+            got = self._tables.setdefault(key, got)
+        return got
+
+    def warm(self, device: torch.device) -> None:
+        super().warm(device)
+        if device.type == "cuda":
+            if device.index is None:
+                device = torch.device("cuda", torch.cuda.current_device())
+            self.skips(device)
+
+    def _launch(self, rows, lengths, t256, accept, events):
+        from . import dfa_scan_cuda
+        return dfa_scan_cuda.launch(self.mode, rows, lengths, t256, accept,
+                                    self.arrays.start,
+                                    self.arrays.first_settled, events,
+                                    skips=self.skips(rows.device))
 
 
 def _run_batch(kern: _TableWalkKernel, arena: np.ndarray,

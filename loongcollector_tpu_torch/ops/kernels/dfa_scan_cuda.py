@@ -10,7 +10,10 @@ or launch failure raises; nothing here falls back to the plain version.
 A launch takes the automaton as two device tables (``AutomatonArrays``):
 ``t256`` u8 ``[S, 256]`` and ``accept`` i32 ``[S]``, which each block copies
 into shared memory, and its first settled state, where a walk stops; K3
-also takes each row's span, ``starts`` and ``spanlens`` i32 ``[B]``.
+also takes each row's span, ``starts`` and ``spanlens`` i32 ``[B]``; K4
+its skip table (``AutomatonArrays.skip_table``, u64 ``[S]``), copied
+beside the other two, from which its walk scans past the bytes that
+cannot move a skip state.
 ``launch_geometry`` picks threads per block so that a batch of at least 32
 rows an SM gives every SM a block.  Importing this module needs no CUDA.
 """
@@ -44,12 +47,17 @@ LAUNCH_FAMILY = "dfa_scan_cuda.launch"
 ENTRY_POINTS = {"match": "lct_dfa_match", "tags": "lct_fused_scan",
                 "span": "lct_dfa_span_match"}
 
-_PTXAS_KERNEL = re.compile(r"dfa_(?:walk_kernelILb([01])E|span_kernel)")
+# the kernels ptxas reports (``ptxas_report``'s keys)
+KERNELS = ("match", "span", "tags")
+
+_PTXAS_KERNEL = re.compile(
+    r"dfa_walk_kernel(?:ILb([01])E)?|dfa_span_kernel|fused_scan_kernel")
 
 
-def smem_bytes(S: int) -> int:
-    """Dynamic shared memory of one block: t256, then accept."""
-    return S * 256 + 4 * S
+def smem_bytes(S: int, skip: bool = False) -> int:
+    """Dynamic shared memory of one block: t256, then accept; with
+    ``skip`` (K4), t256, the u64 skip table, then accept."""
+    return S * 256 + (12 if skip else 4) * S
 
 
 def launch_geometry(B: int) -> int:
@@ -61,13 +69,24 @@ def launch_geometry(B: int) -> int:
     return t
 
 
+def geometry(mode: str, B: int) -> int:
+    """Threads per block of an entry point: ``launch_geometry`` for K2 and
+    K3; K4 takes ``MAX_THREADS`` whatever the batch, since after its skip
+    a row is a short walk, and a block's table copy, shared by more rows in
+    a larger block, is what its time hangs on."""
+    return MAX_THREADS if mode == "tags" else launch_geometry(B)
+
+
 def ptxas_report(log: str) -> Dict[str, Dict[str, int]]:
-    """ptxas's registers, stack and spills per walker: ``match`` (K2),
-    ``span`` (K3) and ``tags`` (K4)."""
+    """ptxas's registers, stack and spills per walker: ``match`` (K2:
+    ``dfa_walk_kernel``, in an earlier form ``dfa_walk_kernel<false>``),
+    ``span`` (K3) and ``tags`` (K4: ``fused_scan_kernel``, in an earlier
+    form ``dfa_walk_kernel<true>``)."""
     return fxc.ptxas_report(
         log, _PTXAS_KERNEL,
-        lambda m: ("span" if m.group(1) is None
-                   else "tags" if m.group(1) == "1" else "match"))
+        lambda m: ("span" if "span" in m.group(0)
+                   else "tags" if m.group(0).startswith("fused")
+                   or m.group(1) == "1" else "match"))
 
 
 _lib = None
@@ -92,8 +111,9 @@ def build() -> ctypes.CDLL:
             fn = getattr(lib, name)
             fn.restype = ctypes.c_int
             spans = [vp, vp] if mode == "span" else []
+            skip = [vp] if mode == "tags" else []
             fn.argtypes = [vp, vp, ctypes.c_int64, i32, vp, i32, vp, i32,
-                           i32, *spans, vp, i32, i32, vp, vp, vp]
+                           i32, *spans, *skip, vp, i32, i32, vp, vp, vp]
         lib.lct_dfa_error_string.restype = ctypes.c_char_p
         lib.lct_dfa_error_string.argtypes = [ctypes.c_int]
         lib.lct_dfa_prepare.restype = ctypes.c_int
@@ -134,23 +154,28 @@ def reset_launch_shapes() -> None:
 
 def launch(mode: str, rows: torch.Tensor, lengths: torch.Tensor,
            t256: torch.Tensor, accept: torch.Tensor, start: int,
-           first_settled: int, events=None, spans=None) -> torch.Tensor:
+           first_settled: int, events=None, spans=None,
+           skips=None) -> torch.Tensor:
     """One launch of K2 (``mode="match"``, bool ``[B]``), K3
     (``mode="span"``, bool ``[B]``; ``spans`` the (starts, spanlens) i32
     ``[B]`` pair) or K4 (``mode="tags"``, i32 ``[B]``) on PyTorch's current
     stream, without a synchronise.  rows u8 ``[B, L]``, lengths i32
     ``[B]``, t256 u8 ``[S, 256]`` and accept i32 ``[S]`` on one CUDA
     device, contiguous; states ``first_settled`` and above are settled
-    (``S``: none is).  ``events``, a (start, end) pair of timing CUDA
+    (``S``: none is); K4 also takes ``skips``, the i64 ``[S]`` view of the
+    automaton's skip table.  ``events``, a (start, end) pair of timing CUDA
     events when given, is recorded on the stream by the entry point itself,
     right around the kernel."""
     dev = rows.device
     span_args = tuple(spans or ()) if mode == "span" else ()
     if mode == "span" and len(span_args) != 2:
         raise ValueError("dfa_scan: K3 takes (starts, spanlens)")
+    skip_args = (skips,) if mode == "tags" else ()
+    if mode == "tags" and skips is None:
+        raise ValueError("dfa_scan: K4 takes its skip table")
     if dev.type != "cuda" or any(t.device != dev
                                  for t in (lengths, t256, accept,
-                                           *span_args)):
+                                           *span_args, *skip_args)):
         raise ValueError("dfa_scan: rows, lengths and tables must lie on "
                          "one CUDA device")
     if rows.dtype != torch.uint8 or rows.dim() != 2:
@@ -172,14 +197,17 @@ def launch(mode: str, rows: torch.Tensor, lengths: torch.Tensor,
     if any(t.dtype != torch.int32 or tuple(t.shape) != (B,)
            for t in span_args):
         raise ValueError(f"dfa_scan: starts and spanlens must be i32 [{B}]")
+    if any(t.dtype != torch.int64 or tuple(t.shape) != (S,)
+           for t in skip_args):
+        raise ValueError(f"dfa_scan: the skip table must be i64 [{S}]")
     if not all(t.is_contiguous() for t in (rows, lengths, t256, accept,
-                                           *span_args)):
+                                           *span_args, *skip_args)):
         raise ValueError("dfa_scan: inputs must be contiguous")
     lib = build()
     entry = ENTRY_POINTS[mode]
-    threads = launch_geometry(B)
-    shape = LaunchShape(entry, B, L, S, threads, smem_bytes(S),
-                        -(-B // threads))
+    threads = geometry(mode, B)
+    shape = LaunchShape(entry, B, L, S, threads,
+                        smem_bytes(S, skip=mode == "tags"), -(-B // threads))
     out = torch.empty(B, dtype=torch.int32 if mode == "tags"
                       else torch.bool, device=dev)
     stream = torch.cuda.current_stream(dev)
@@ -194,8 +222,8 @@ def launch(mode: str, rows: torch.Tensor, lengths: torch.Tensor,
     rc = getattr(lib, entry)(
         rows.data_ptr(), lengths.data_ptr(), B, L, t256.data_ptr(), S,
         accept.data_ptr(), start, first_settled,
-        *(t.data_ptr() for t in span_args), out.data_ptr(), shape.threads,
-        shape.smem, stream.cuda_stream, *handles)
+        *(t.data_ptr() for t in span_args + skip_args), out.data_ptr(),
+        shape.threads, shape.smem, stream.cuda_stream, *handles)
     if rc != 0:
         raise RuntimeError(f"dfa_scan launch failed ({entry}): "
                            + lib.lct_dfa_error_string(rc).decode())

@@ -417,7 +417,9 @@ def reduce_plain(values: torch.Tensor, seg: torch.Tensor,
     last_idx = torch.full((G + 1,), -1, dtype=torch.int64,
                           device=dev).scatter_reduce_(
         0, seg, torch.where(keep, idx, -1), "amax", include_self=True)
-    last = torch.where(last_idx >= 0, values[last_idx.clamp(min=0)], zero)
+    # an empty segment gathers the appended zero (a batch may be empty)
+    last = torch.cat([values, zero.reshape(1)])[
+        torch.where(last_idx >= 0, last_idx, B)]
     in_hist = keep & (buckets >= 0) & (buckets < n_hist)
     hidx = torch.where(in_hist, seg * n_hist + buckets, G * n_hist)
     hist = torch.zeros((G + 1) * n_hist, dtype=torch.int32,

@@ -125,6 +125,62 @@ def cap_automaton(seed=0, S=128, settled=28):
     return t256, accept, 3
 
 
+#: K4's skip automata beside path 2's set: after ``x`` (``y``) a state
+#: that only b, c, d, e (and f) leave: four escape bytes, a skip state; five,
+#: not one
+SKIP4_SET = [r"x[^bcde]*", r"y[^bcdef]*"]
+SKIP_HEADS = {"java": (b"2024-03-01 12:00:01 INFO ", b"\n"),
+              "java_frame": (b"\tat com.example.Foo.bar(Foo.java:", b"\n"),
+              "skip4": (b"x", b"bcde"), "skip5": (b"y", b"bcdef")}
+
+
+def skip_rows(kind, L, seed=0):
+    """Rows for K4's skip (``SKIP_HEADS``: a head that leads the fused
+    walk into a state few bytes leave, and those escape bytes), as (bytes,
+    length) pairs whose bytes may run past the length: filler without an
+    escape byte after the head, then one escape byte at each 16-byte word
+    edge +-1 with the row cut after it, exactly at the length, and one
+    past the length; rows with an escape byte inside and more filler after
+    it; rows with no escape byte; lengths 0 and 1."""
+    rng = np.random.default_rng(seed)
+    head, escapes = SKIP_HEADS[kind]
+    keep = np.array([b for b in range(32, 127) if b not in escapes], np.uint8)
+
+    def filler(n):
+        return bytes(rng.choice(keep, n))
+
+    out = []
+    for p in sorted({q for k in range(1, L // 16 + 1)
+                     for q in (16 * k - 1, 16 * k, 16 * k + 1)}):
+        if not len(head) <= p < L:
+            continue
+        e = escapes[int(rng.integers(len(escapes)))]
+        row = head + filler(p - len(head)) + bytes([e]) \
+            + filler(L - p - 1)
+        out += [(row, L), (row, p + 1), (row, p), (row, max(p - 1, 0))]
+    for _ in range(24):
+        n = int(rng.integers(len(head), L + 1))
+        row = bytearray(head + filler(L - len(head)))
+        for q in rng.integers(len(head), L, int(rng.integers(1, 4))):
+            row[q] = escapes[int(rng.integers(len(escapes)))]
+        out.append((bytes(row), n))
+        out.append((head + filler(n - len(head)), n))
+    out += [(head[:1], 1), (b"", 0), (head, len(head))]
+    return [(r[:L], min(n, L)) for r, n in out]
+
+
+def skip_matrix(pairs, L, B=None):
+    """(rows u8 [B, L], lengths i32 [B]) of ``skip_rows`` pairs: each row's
+    bytes from column 0 (past its length too), then padding rows."""
+    B = B or len(pairs) + 3
+    rows = np.zeros((B, L), np.uint8)
+    lengths = np.zeros(B, np.int32)
+    for i, (r, n) in enumerate(pairs):
+        rows[i, :len(r)] = np.frombuffer(r, np.uint8)
+        lengths[i] = n
+    return rows, lengths
+
+
 _LOGGERS = ["com.example.order.OrderService", "com.example.http.Dispatcher",
             "com.example.db.ConnectionPool", "org.acme.cache.LruCache",
             "org.acme.auth.TokenFilter", "io.shop.cart.CartController"]
@@ -972,6 +1028,51 @@ def k6_cases(max_rows=65536):
                                   f"{'_spread' if spread else ''}",
                                   B, G, n_hist, invalid, hot, inf, spread))
     return cases
+
+
+def k6_edge_segments(G, R):
+    """Segment ids on either side of each owner boundary of blocks that
+    own ``R`` segments each (``k R - 1``, ``k R``, ``k R + 1``), the first
+    and last segment, and ids outside ``[0, G)`` (-1, ``G``, ``G + 7``)."""
+    ids = {0, G - 1, -1, G, G + 7}
+    for k in range(1, -(-G // R)):
+        ids |= {k * R - 1, k * R, k * R + 1}
+    return np.array(sorted(ids), np.int32)
+
+
+K6_EDGE_KINDS = ("mixed", "hot_all", "boundaries", "empty")
+
+
+def k6_edge_batch(kind, seed, B, G, n_hist, R):
+    """One K6 batch of an edge kind (``K6_EDGE_KINDS``) for a cluster
+    whose blocks own ``R`` segments each: ``mixed`` rows over every
+    segment with a tenth invalid and a few segments and buckets out of
+    range; ``hot_all`` every valid row in one segment; ``boundaries`` every
+    row on a segment of ``k6_edge_segments`` (so the others stay empty),
+    buckets -1 and ``n_hist`` among them; ``empty`` no valid row.  Values
+    are sixteenths below 16 (exact f32 sums in any order)."""
+    rng = np.random.default_rng(seed)
+    vals = (rng.integers(-255, 256, B) / 16.0).astype(np.float32)
+    seg = rng.integers(0, G, B).astype(np.int32)
+    buckets = rng.integers(0, n_hist, B).astype(np.int32)
+    valid = rng.random(B) >= 0.1
+    if kind == "mixed":
+        k = rng.permutation(B)[:B // 50]
+        seg[k[:len(k) // 2]] = rng.choice([-1, G, G + 3], len(k) // 2)
+        buckets[k[len(k) // 2:]] = rng.choice([-1, n_hist], len(k) - len(k)
+                                              // 2)
+    elif kind == "hot_all":
+        seg[:] = G // 2
+        valid[:] = True
+    elif kind == "boundaries":
+        seg = rng.choice(k6_edge_segments(G, R), B).astype(np.int32)
+        k = rng.permutation(B)[:B // 20]
+        buckets[k] = rng.choice([-1, n_hist], len(k))
+    elif kind == "empty":
+        valid[:] = False
+    else:
+        raise ValueError(f"no K6 edge kind {kind!r}")
+    return vals, seg, buckets, valid
 
 
 # -- the structural-index slice: quote-mode CSV, pipe-delimited, JSON ---------

@@ -201,11 +201,15 @@ def test_cuda_tensor_launches_kernel_never_plain(monkeypatch, mode):
     calls = []
     kern.plain = plain
     monkeypatch.setattr(kern, "tables", lambda dev: ("t256", "accept"))
+    if mode == "tags":                # K4 also reads its skip table
+        monkeypatch.setattr(kern, "skips", lambda dev: "skips")
     monkeypatch.setattr(dfa_scan_cuda, "launch",
-                        lambda *a: calls.append(a) or "out")
+                        lambda *a, **kw: calls.append((a, kw)) or "out")
     rows = _FakeCudaTensor()
     assert kern(rows, rows) == "out" and kern(rows, rows) == "out"
-    assert kern.launches == 2 and [c[0] for c in calls] == [mode, mode]
+    assert kern.launches == 2 and [c[0][0] for c in calls] == [mode, mode]
+    assert [c[1].get("skips") for c in calls] == [
+        "skips" if mode == "tags" else None] * 2
     kern.reset_counts()
     assert kern.launches == 0
 
@@ -481,3 +485,171 @@ def test_settle_points_are_where_the_state_settles():
     rows, lengths = _batch(lines, 1024, B=len(lines))
     need = dfa_scan.settle_points(arrays, rows, lengths)
     assert need.tolist() == [0, 2, 8, 5, 605, 15]
+
+
+# -- K4's skip ---------------------------------------------------------------
+
+def _brute_escapes(t256, first_settled):
+    """Each state's escape set {b : t256[s, b] != s}, and whether it is a
+    skip state (below the settled ones, one to four escape bytes)."""
+    out = []
+    for s in range(len(t256)):
+        esc = {b for b in range(256) if t256[s, b] != s}
+        out.append((esc, s < first_settled and 1 <= len(esc) <= 4))
+    return out
+
+
+def _skip_automata():
+    from loongcollector_tpu_torch.testdata import SKIP4_SET, cap_automaton
+    dfas, sets = _settle_automata()
+    out = {name: DFAMatchKernel(compile_dfa(p)).arrays
+           for name, p in dfas.items()}
+    out.update({name: FusedScanKernel(compile_fused(
+        p, note_demotions=False)).arrays for name, p in sets.items()})
+    out["cap"] = dfa_scan.settled_last(*cap_automaton(seed=3))
+    out["skip4"] = FusedScanKernel(compile_fused(
+        SKIP4_SET, note_demotions=False)).arrays
+    return out
+
+
+@pytest.mark.parametrize("name", ["java_filter", "status", "health",
+                                  "limit_dfa", "java_start_continue",
+                                  "near_cap", "bit31", "cap", "skip4"])
+def test_skip_escapes_equal_brute_force(name):
+    """``skip_escapes`` (in every ``AutomatonArrays``) gives each skip
+    state its escape bytes, packed lowest first with the first repeated,
+    and their count, and 0 / 0 to every other state; the skip table K4
+    reads is ``count << 32 | bytes``."""
+    arrays = _skip_automata()[name]
+    brute = _brute_escapes(arrays.t256, arrays.first_settled)
+    for s, (esc, skip) in enumerate(brute):
+        n = int(arrays.n_escapes[s])
+        packed = int(arrays.escapes[s])
+        if not skip:
+            assert n == 0 and packed == 0, (name, s)
+            continue
+        got = [(packed >> (8 * k)) & 0xFF for k in range(4)]
+        assert n == len(esc) and set(got) == esc, (name, s)
+        assert got[:n] == sorted(esc) and got[n:] == got[:1] * (4 - n)
+    table = arrays.skip_table()
+    assert table.dtype == np.uint64
+    np.testing.assert_array_equal(table >> np.uint64(32), arrays.n_escapes)
+    n_skip = int((arrays.n_escapes > 0).sum())
+    assert n_skip == {"java_start_continue": 2, "skip4": 1, "cap": 0,
+                      "bit31": 0, "near_cap": n_skip}.get(name, n_skip)
+
+
+def test_five_escape_bytes_make_no_skip_state():
+    """A state that five bytes leave is not a skip state; four is one."""
+    t = np.zeros((3, 256), np.uint8)
+    t[0] = 0
+    t[0, [1, 2, 3, 4, 5]] = 1          # five escape bytes
+    t[1] = 1
+    t[1, [7, 8, 9, 10]] = 2            # four
+    t[2] = 2                           # absorbing: settled
+    esc, n = dfa_scan.skip_escapes(t, first_settled=2)
+    assert n.tolist() == [0, 4, 0] and esc[0] == 0
+    assert esc[1] == 7 | 8 << 8 | 9 << 16 | 10 << 24
+    _, n1 = dfa_scan.skip_escapes(t[:, :], first_settled=1)
+    assert n1.tolist() == [0, 0, 0]    # from first_settled on: no skip
+
+
+def _skip_twin(arrays, rows, lengths, ignore_length=False,
+               resume_late=False):
+    """K4's walk in numpy, as ``fused_scan_walk`` runs it on aligned rows:
+    a 16-byte word at a time; where a word starts in a settled state, stop;
+    in a skip state, find the first escape byte below the length from this
+    word on, in 16-byte words (none: stop), and walk that byte's word
+    through the table from its first byte (the bytes before the escape
+    leave the state as it is); else walk the word.  Returns the accept
+    value per row and the bytes each row walked through the table.
+    ``ignore_length`` scans to the row's end; ``resume_late`` walks from
+    the byte after the escape byte."""
+    t = arrays.t256.astype(np.int64)
+    fs = arrays.first_settled
+    B, L = rows.shape
+    out, walked = np.empty(B, np.int32), np.zeros(B, np.int64)
+    for r in range(B):
+        n = int(np.clip(lengths[r], 0, L))
+        limit = L if ignore_length else n
+        s, w = arrays.start, 0
+        while 16 * w < n and s < fs:
+            a = 0
+            if arrays.n_escapes[s]:
+                esc = {(int(arrays.escapes[s]) >> (8 * k)) & 0xFF
+                       for k in range(4)}
+                hit = [p for p in range(16 * w, limit)
+                       if rows[r, p] in esc]
+                if not hit:
+                    break
+                w, a = divmod(hit[0], 16)
+                a = a + 1 if resume_late else 0
+            for p in range(16 * w + a, min(16 * w + 16, limit)):
+                s = int(t[s, rows[r, p]])
+                walked[r] += 1
+            w += 1
+        out[r] = arrays.accept[s]
+    return out, walked
+
+
+def _skip_batches(L):
+    """(label, patterns, rows, lengths): path 2's Java lines, and the skip
+    rows (``testdata.skip_rows``) of the start/continue set and of the
+    four- and five-escape set."""
+    from loongcollector_tpu_torch.testdata import (SKIP4_SET, skip_matrix,
+                                                   skip_rows)
+    java = [x[:L] for x in gen_java_log(300, seed=L)]
+    lens = np.array([len(x) for x in java], np.int32)
+    arena = np.frombuffer(b"".join(java), np.uint8)
+    offs = np.concatenate([[0], np.cumsum(lens[:-1])]).astype(np.int64)
+    batch = pack_rows(arena, offs, lens, L, len(java) + 5)
+    out = [("path2", JAVA_SET, batch.rows, batch.lengths)]
+    pairs = skip_rows("java", L, seed=L) + skip_rows("java_frame", L,
+                                                     seed=L + 1)
+    out.append(("skip_java", JAVA_SET, *skip_matrix(pairs, L)))
+    pairs = skip_rows("skip4", L, seed=L) + skip_rows("skip5", L, seed=L)
+    out.append(("skip_4_5", SKIP4_SET, *skip_matrix(pairs, L)))
+    return out
+
+
+@pytest.mark.parametrize("L", [128, 256])
+def test_skip_walk_twin_equals_plain_and_jax(L):
+    """The twin of K4's skip walk equals the plain K4 and the JAX
+    ``build_fused_scan_fn`` on path 2's rows and on the skip rows (escape
+    bytes at word edges +-1, at the length and one past it, inside the
+    row); a Java header line walks ~a word through the table, not its
+    length."""
+    for label, pats, rows, lengths in _skip_batches(L):
+        ref = ref_fuse.compile_fused(pats, note_demotions=False)
+        want = np.asarray(jax.jit(build_fused_scan_fn(ref))(rows, lengths))
+        kern = FusedScanKernel(compile_fused(pats, note_demotions=False))
+        plain = kern.plain(torch.from_numpy(rows),
+                           torch.from_numpy(lengths)).numpy()
+        np.testing.assert_array_equal(plain, want, err_msg=label)
+        got, walked = _skip_twin(kern.arrays, rows, lengths)
+        np.testing.assert_array_equal(got, want, err_msg=label)
+        lens = np.clip(lengths, 0, L)
+        assert (walked <= lens).all()
+        if label == "path2":
+            heads = np.array([bool(re.match(rb"\d{4}-", bytes(rows[i, :5])))
+                              for i in range(len(rows))])
+            long_heads = heads & (lens >= 64)
+            assert long_heads.any()
+            assert (walked[long_heads] <= 32).all()
+
+
+@pytest.mark.parametrize("mutation", ["ignore_length", "resume_late"])
+def test_skip_walk_twin_mutations_fail(mutation):
+    """Two faults of the twin each show on the skip rows: a scan that
+    ignores the length (an escape byte past it resumes the walk), and a
+    resume one byte after the escape byte (the escape byte never walked)."""
+    failed = 0
+    for L in (128, 256):
+        for label, pats, rows, lengths in _skip_batches(L):
+            kern = FusedScanKernel(compile_fused(pats, note_demotions=False))
+            want = kern.plain(torch.from_numpy(rows),
+                              torch.from_numpy(lengths)).numpy()
+            got, _ = _skip_twin(kern.arrays, rows, lengths,
+                                **{mutation: True})
+            failed += int((got != want).any())
+    assert failed >= 3
