@@ -4,7 +4,8 @@
     python3 chip_probe.py            # run from the repo root
     python3 chip_probe.py dispatch   # the host cost of one plane dispatch
     python3 chip_probe.py ab OTHER/field_extract.cu   # K1 built two ways
-    python3 chip_probe.py k8         # K8's epilogue and its memset, timed
+    python3 chip_probe.py k8 OTHER/field_extract.cu   # K8 against another
+    python3 chip_probe.py k3 OTHER/dfa_scan.cu   # K3, its gate and forms
     python3 chip_probe.py k2 OTHER/dfa_scan.cu   # K2/K4 against another build
     python3 chip_probe.py k7 OTHER/fused_program.cu  # K7 against another
     python3 chip_probe.py k5 OTHER/struct_index.cu   # K5 against another
@@ -79,11 +80,13 @@ each form's cycles a block by phase at the path's fold.
 ``k7 OTHER/fused_program.cu`` builds K7 from ``OTHER`` (with its headers
 beside it, e.g. the parent commit's, unpacked with ``git archive`` under
 ``build/``) and packs its descriptors with that checkout's own host code,
-beside this tree's K7 and a form of it whose descriptor copy is one TMA
-bulk copy (``TMA_COPY``); checks all three against the plain version and
-times them in turns (other, this, TMA, TMA, this, other) on the
-Apache-filter program's ``B=8192, L=128`` chunk (5,500 rows) and on the
-delimiter filter's (the pipe log's first 512 KB).  A copy of this tree's
+beside this tree's K7, a form of it whose descriptor copy is one TMA
+bulk copy (``TMA_COPY``) and one whose span conditions take K3's length
+gate (``k7_gate``, the hull written into each record by
+``gate_descriptor``); checks all four against the plain version and
+times them in turns (other, this, TMA, gate, gate, TMA, this, other, twice)
+on the Apache-filter program's ``B=8192, L=128`` chunk (5,500 rows) and on
+the delimiter filter's (the pipe log's first 512 KB).  A copy of this tree's
 ``fused_program.cu`` with ``clock64()`` stamps by thread 0 of each block
 (entry, rows staged, the barrier after the rows and the descriptor, the
 end of the extract stage's walk, the end of ``write_warp_caps``, the end
@@ -101,12 +104,34 @@ at the CSV path's shapes (``B=4096``, ``L=512`` and ``256``), at ``L=128``
 (``B=8192`` and ``65536``) and on long JSON rows (``B=1024, L=4096``),
 beside the bound.
 
-``k8`` splits what K8 (``lct_sharded_extract_*``, K1's walk with the count
-epilogue) costs over K1: it builds this tree's source and ``nomemset``, a
-copy whose launcher skips the ``cudaMemsetAsync`` that zeroes the counts
-(its counts then accumulate; its ok, cap_off and cap_len stay K1's), checks
-K8's outputs bit-exact with K1's, and times K1, K8 and K8 without the
-memset in turns (K1, K8, nomemset, nomemset, K8, K1) at phase 4's shapes.
+``k7`` also stamps the other tree's K7 and the gate form (their keep's
+cycles a block beside this tree's, on both filter chunks).
+
+``k8 OTHER/field_extract.cu`` builds K8 (``lct_sharded_extract_*``, K1's
+walk with the count epilogue) from ``OTHER`` and from this tree, prints
+both builds' ``stats_*`` ptxas figures, checks each shard's counts of both
+against the plain K8 and their outputs against the plain K1, and times
+K1, the other K8 and this one in turns (K1, other, this, this, other, K1)
+at phase 4's shapes, at one shard and at the four shards of a one-card
+mesh: a build from before the one-launch form (its counts a u64 [3] the
+launcher zeroes with ``cudaMemsetAsync``) takes four launches of ``B/4``
+rows, this tree's one launch over the four shards.  Beside the graph
+replay it prints each dispatch's exec leg as the timeline records it
+(CUDA events right before the first launch and after the last, host time
+between launches included; median of 200).
+
+``k3 OTHER/dfa_scan.cu`` builds K3 from ``OTHER``, from this tree (the
+table copy issued first, the length gate and the span's first word
+loaded beside it, the wait only where a row of the block walks) and ``K3_LDG`` appended to this tree's source (the gate
+and no table copy: the walk through the read-only cache), checks all
+three and ``word_after`` (``k3_word_after``: the span's first word
+loaded only after the block waits for its table) against the plain K3,
+and times them in turns (other, this, ldg, word_after, word_after, ldg,
+this, other) at shape (a), ``[45]\\d\\d`` over the Apache status spans
+(every span passes the gate), shape (b), ``/health`` over the url spans
+(most spans turned away), both at ``B=8192`` (5,500 rows) and ``65536``,
+``L=128``, and ``healthcheck`` over the delimiter filter's service spans
+(the pipe log's first 512 KB), printing how many spans pass the gate.
 """
 
 from __future__ import annotations
@@ -137,9 +162,8 @@ def stamped(src: str) -> str:
                "  extern __shared__ int32_t smem[];\n  STAMP(0);\n")
     src = edit(src, "  __syncthreads();\n", "  __syncthreads();\n  STAMP(1);\n")
     src = edit(src, "  __syncwarp();\n", "  __syncwarp();\n  STAMP(2);\n")
-    src = edit(src, "\n  if constexpr (STATS) {\n    // the whole warp",
-               "\n  STAMP(3);\n  if constexpr (STATS) {\n    // the whole "
-               "warp")
+    src = edit(src, "\n  if constexpr (STATS) {\n    // the warp",
+               "\n  STAMP(3);\n  if constexpr (STATS) {\n    // the warp")
     return edit(src, 'extern "C" {\n', 'extern "C" {\n'
                 "int probe_stamps(void* dst, size_t n) {\n"
                 "  return (int)cudaMemcpyFromSymbol(dst, g_stamp, n);\n}\n")
@@ -167,6 +191,7 @@ def build(fxc, name: str, src: str, include: str = ""):
     """K1's ``src`` compiled (``compile_so``) with its entry points bound;
     prints the ptxas figures of its instantiations."""
     lib, log = compile_so(fxc, name, src, include)
+    lib.ptxas_log = log
     report = fxc.ptxas_report(log)
     print(f"chip_probe: {name}: ptxas d0_p0 {report.get('d0_p0')}; "
           f"registers " + ", ".join(
@@ -179,17 +204,24 @@ def build(fxc, name: str, src: str, include: str = ""):
         fn.restype = ctypes.c_int
         fn.argtypes = [vp, vp, ctypes.c_int64, i32, vp, i32, vp, vp, vp, i32,
                        i32, vp]
+    # K8 since its one launch a device writes pieces (shard_rows and
+    # lcm_rows follow the pointer); before, a u64 [3] the launcher zeroed
+    pieces = "long long* pieces" in src
+    lib.k8_pieces = pieces
+    i64 = ctypes.c_int64
     for entry in fxc.STATS_ENTRY_POINTS:
         fn = getattr(lib, entry)
         fn.restype = ctypes.c_int
-        fn.argtypes = [vp, vp, ctypes.c_int64, i32, vp, i32, vp, vp, vp, vp,
-                       i32, i32, vp]
+        fn.argtypes = [vp, vp, i64, i32, vp, i32, vp, vp, vp, vp] + (
+            [i64, i64] if pieces else []) + [i32, i32, vp]
     return lib
 
 
-def launcher(fxc, lib, kern, prog, stats: bool = False):
+def launcher(fxc, lib, kern, prog, stats: bool = False, shards: int = 1):
     """K1's entry point of ``lib`` for ``kern``'s program, or with
-    ``stats`` K8's (its counts then come back as a fifth output)."""
+    ``stats`` K8's (its counts then come back as a fifth output: the
+    pieces of one launch over ``shards`` shards, or a build from before
+    the pieces the u64 [3] of one shard)."""
     import torch
     kp = kern.kernel_program
     entry = kp.stats_entry_point if stats else kp.entry_point
@@ -206,7 +238,12 @@ def launcher(fxc, lib, kern, prog, stats: bool = False):
                 prog.numel(), ok.data_ptr(), off.data_ptr(),
                 length.data_ptr()]
         counts = None
-        if stats:
+        if stats and lib.k8_pieces:
+            n, lcm = fxc.stat_pieces(B, B // shards)
+            counts = torch.empty((n, 3), dtype=torch.int64,
+                                 device=rows.device)
+            args += [counts.data_ptr(), B // shards, lcm]
+        elif stats:
             counts = torch.empty(3, dtype=torch.int64, device=rows.device)
             args.append(counts.data_ptr())
         rc = getattr(lib, entry)(*args, threads, smem,
@@ -325,37 +362,290 @@ def ab(other: str) -> int:
     return 0
 
 
-def k8_split() -> int:
-    """K1, K8 and K8 without its memset, timed in turns."""
+def exec_leg_ms(fn, reps: int = 200) -> float:
+    """Median ms between CUDA events recorded right before and right after
+    ``fn``'s launches, as the dispatch timeline records a sharded
+    dispatch's exec leg (host time between launches included)."""
+    import numpy as np
+    import torch
+    for _ in range(10):
+        fn()
+    got = []
+    for _ in range(reps):
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        fn()
+        e1.record()
+        e1.synchronize()
+        got.append(e0.elapsed_time(e1))
+    return float(np.median(got))
+
+
+def k8_compare(other: str) -> int:
+    """K1, the other tree's K8 and this tree's, in turns, at one shard and
+    at the four shards of a one-card mesh (the other tree's: four launches
+    of B/4 rows, each with its memset; this one's: one launch)."""
+    import numpy as np
     import torch
     import chip_smoke
     from loongcollector_tpu_torch.ops.kernels import field_extract_cuda as fxc
-    from loongcollector_tpu_torch.ops.kernels.field_extract import \
-        ExtractKernel
+    from loongcollector_tpu_torch.ops.kernels.field_extract import (
+        ExtractKernel, fold_pieces, plain_counts)
     from loongcollector_tpu_torch.ops.regex.program import compile_tier1
     print(f"chip_probe: card: {chip_smoke.nvidia_smi()}", flush=True)
     kern = ExtractKernel(compile_tier1(chip_smoke.APACHE))
     prog = torch.from_numpy(kern.kernel_program.blob).cuda()
+    with open(other) as f:
+        other_src = f.read()
     with open(fxc._SRC) as f:
         src = f.read()
-    nomemset = edit(src, "  if constexpr (STATS) {\n    cudaError_t z",
-                    "  if constexpr (false) {\n    cudaError_t z")
-    lib, lib_nm = build(fxc, "k8", src), build(fxc, "nomemset", nomemset)
-    calls = {"K1": launcher(fxc, lib, kern, prog),
-             "K8": launcher(fxc, lib, kern, prog, stats=True),
-             "nomemset": launcher(fxc, lib_nm, kern, prog, stats=True)}
+    libs = {}
+    for name, text, inc in (("other", other_src,
+                             os.path.dirname(os.path.abspath(other))),
+                            ("this", src, "")):
+        libs[name] = build(fxc, "k8_" + name, text, inc)
+        rep = fxc.ptxas_report(libs[name].ptxas_log)
+        print(f"chip_probe: k8 {name}: ptxas " + ", ".join(
+            f"{k} {r.get('registers')} registers, {r.get('stack')} stack, "
+            f"{r.get('spill_stores')} spills" for k, r in sorted(rep.items())
+            if k.startswith("stats_")), flush=True)
+    k1 = launcher(fxc, libs["this"], kern, prog)
     for B, n_real, rows, lengths in apache_batches():
-        outs = {k: [t.cpu() for t in fn(rows, lengths)[:3]]
-                for k, fn in calls.items()}
-        if not all(bool((a == b).all()) for k in ("K8", "nomemset")
-                   for a, b in zip(outs["K1"], outs[k])):
-            raise SystemExit(f"chip_probe: K8 differs from K1 at B={B}")
-        turns = [(k, chip_smoke.graph_ms([lambda fn=calls[k]: fn(rows,
-                                                                 lengths)]))
-                 for k in ("K1", "K8", "nomemset", "nomemset", "K8", "K1")]
-        print(f"chip_probe: k8 B={B} L=128 ({n_real} Apache rows): device "
-              f"ms per launch in turns: " + ", ".join(
-                  f"{k} {ms:.5f}" for k, ms in turns), flush=True)
+        want = [t.cpu() for t in kern.plain(rows, lengths)]
+        for m in (1, 4):
+            s = B // m
+            parts = [(rows[i * s:(i + 1) * s], lengths[i * s:(i + 1) * s])
+                     for i in range(m)]
+            k8_other = launcher(fxc, libs["other"], kern, prog, stats=True)
+            k8_this = launcher(fxc, libs["this"], kern, prog, stats=True,
+                               shards=m)
+            calls = {"K1": lambda: k1(rows, lengths),
+                     "other": lambda: [k8_other(r, n) for r, n in parts],
+                     "this": lambda: k8_this(rows, lengths)}
+            # both against the plain K8, shard by shard
+            per = [plain_counts(want[0][i * s:(i + 1) * s],
+                                lengths[i * s:(i + 1) * s].cpu()).tolist()
+                   for i in range(m)]
+            outs = calls["other"]()
+            torch.cuda.synchronize()
+            got_o = [o[4].cpu().tolist() for o in outs]
+            cat = [torch.cat([o[j].cpu() for o in outs]) for j in range(3)]
+            o = calls["this"]()
+            got_t = fold_pieces(o[4].cpu(), B, s).tolist()
+            if got_o != per or got_t != per or not all(
+                    bool((a == w).all()) for a, w in zip(cat, want)) \
+                    or not all(bool((a.cpu() == w).all())
+                               for a, w in zip(o[:3], want)):
+                raise SystemExit(f"chip_probe: K8 at B={B}, {m} shards: "
+                                 f"other {got_o}, this {got_t}, plain {per}")
+            turns = [(k, chip_smoke.graph_ms([calls[k]]))
+                     for k in ("K1", "other", "this", "this", "other", "K1")]
+            legs = [(k, exec_leg_ms(calls[k]))
+                    for k in ("other", "this", "this", "other")]
+            print(f"chip_probe: k8 B={B} L=128 ({n_real} Apache rows), {m} "
+                  f"shard(s) (other: {m} launch(es) of {s} rows; this: one "
+                  f"launch): device ms per dispatch in turns (graph "
+                  f"replay): " + ", ".join(f"{k} {ms:.5f}" for k, ms in turns)
+                  + "; exec leg (events around the launches, median): "
+                  + ", ".join(f"{k} {ms:.5f}" for k, ms in legs), flush=True)
+    return 0
+
+
+# -- K3: the length gate, and the table copy off the row's chain -----------
+
+# K3 with no table copy: the gate, then the walk through the read-only
+# cache (``LdgTab``), for blocks where few rows pass the gate.
+K3_LDG = """
+namespace {
+__global__ void __launch_bounds__(kMaxThreads)
+dfa_span_ldg_kernel(const uint8_t* __restrict__ rows,
+                    const int32_t* __restrict__ lengths, int64_t B, int32_t L,
+                    const uint8_t* __restrict__ t256, int32_t S,
+                    const int32_t* __restrict__ accept, int32_t start,
+                    int32_t first_settled, const int32_t* __restrict__ starts,
+                    const int32_t* __restrict__ spanlens, int32_t gate_lo,
+                    int32_t gate_hi, const uint32_t* __restrict__ gate_bits,
+                    uint8_t* __restrict__ out) {
+  const int64_t r = static_cast<int64_t>(blockIdx.x) * blockDim.x
+                    + threadIdx.x;
+  if (r >= B) return;
+  int len = lengths[r];
+  len = len < 0 ? 0 : (len > L ? L : len);
+  const int32_t st = starts[r], sl = spanlens[r];
+  const int64_t end = static_cast<int64_t>(st) + (sl < 0 ? 0 : sl);
+  const int lo = st < 0 ? 0 : st;
+  const int hi = static_cast<int>(end < len ? end : len);
+  bool m = false;
+  if (sl >= 0 && gate_passes(max(hi - lo, 0), gate_lo, gate_hi, gate_bits)) {
+    const uint8_t* row = rows + r * L;
+    const uint32_t s = walk_row_range(LdgTab{t256},
+                                      static_cast<uint32_t>(start), row, lo,
+                                      hi, aligned_rows(row, L),
+                                      static_cast<uint32_t>(first_settled));
+    m = __ldg(accept + s) != 0;
+  }
+  out[r] = m;
+}
+}  // namespace
+
+extern "C" int lct_dfa_span_match_ldg(
+    const uint8_t* rows, const int32_t* lengths, int64_t B, int32_t L,
+    const uint8_t* t256, int32_t S, const int32_t* accept, int32_t start,
+    int32_t first_settled, const int32_t* starts, const int32_t* spanlens,
+    int32_t gate_lo, int32_t gate_hi, const uint32_t* gate_bits,
+    uint8_t* out, int32_t threads, int32_t smem, void* stream,
+    void* ev_start, void* ev_end) {
+  if (B <= 0) return 0;
+  const int64_t blocks = (B + threads - 1) / threads;
+  dfa_span_ldg_kernel<<<static_cast<unsigned>(blocks), threads, 0,
+                        static_cast<cudaStream_t>(stream)>>>(
+      rows, lengths, B, L, t256, S, accept, start, first_settled, starts,
+      spanlens, gate_lo, gate_hi, gate_bits, out);
+  return static_cast<int>(cudaGetLastError());
+}
+"""
+
+
+def k3_word_after(src: str) -> str:
+    """``dfa_scan.cu`` with K3's first span word loaded only after the
+    block has waited for its table (the walk of ``dfa_walk.cuh`` from the
+    span's start), as the first gated form had it; slower than loading it
+    beside the copy at every timed shape (PERF.md §6)."""
+    src = edit(src, """  const uint8_t* row = rows + r * L;
+  const bool vec = aligned_rows(row, L);
+  uint4 q = make_uint4(0u, 0u, 0u, 0u);
+  if (walk && vec && hi > lo)
+    q = __ldg(reinterpret_cast<const uint4*>(row) + (lo >> 4));
+  if (!__syncthreads_or(walk)) {""", """  const uint8_t* row = rows + r * L;
+  if (!__syncthreads_or(walk)) {""")
+    return edit(src, """    if (!vec)
+      s = walk_row_range(tab, s, row, lo, hi, false, fs);
+    else if (hi > lo)
+      s = walk_span(tab, s, row, lo, hi, fs, q);""", """    s = walk_row_range(tab, s, row, lo, hi, aligned_rows(row, L), fs);""")
+
+
+def k3_binding(lib, name: str, gated: bool) -> None:
+    vp, i32 = ctypes.c_void_p, ctypes.c_int32
+    fn = getattr(lib, name)
+    fn.restype = ctypes.c_int
+    fn.argtypes = [vp, vp, ctypes.c_int64, i32, vp, i32, vp, i32, i32, vp,
+                   vp] + ([i32, i32, vp] if gated else []) \
+        + [vp, i32, i32, vp, vp, vp]
+
+
+def k3_caller(dsc, lib, name: str, gated: bool, kern, smem=True):
+    """A K3 launch of ``kern``'s automaton through ``lib``'s entry point
+    ``name``: with its length gate where the build takes one."""
+    import torch
+    entry = getattr(lib, name)
+    a = kern.arrays
+
+    def call(rows, lengths, starts, spans):
+        B, L = rows.shape
+        t256, accept = kern.tables(rows.device)
+        threads = dsc.launch_geometry(B)
+        out = torch.empty(B, dtype=torch.uint8, device=rows.device)
+        gate = ()
+        if gated:
+            lo, hi, bits = kern.gate(rows.device, L)
+            gate = (lo, hi, None if bits is None else bits.data_ptr())
+        rc = entry(rows.data_ptr(), lengths.data_ptr(), B, L, t256.data_ptr(),
+                   a.num_states, accept.data_ptr(), a.start, a.first_settled,
+                   starts.data_ptr(), spans.data_ptr(), *gate, out.data_ptr(),
+                   threads, dsc.smem_bytes(a.num_states) if smem else 0,
+                   torch.cuda.current_stream().cuda_stream, None, None)
+        if rc:
+            raise SystemExit(f"chip_probe: K3 {name} launch failed ({rc})")
+        return out
+    return call
+
+
+def k3_compare(other: str) -> int:
+    """K3 built from ``other`` against this tree's (the table copy issued
+    first, the gate, the wait only where a row walks) and ``K3_LDG`` (no
+    copy, the walk through the read-only cache), in turns, at shape (a)
+    (the status spans: every span passes the gate), shape (b) (``/health``
+    over the url spans: most spans turned away) and on the delimiter
+    filter's ``healthcheck`` over its service spans."""
+    import numpy as np
+    import torch
+    import chip_smoke
+    from loongcollector_tpu_torch import testdata as td
+    from loongcollector_tpu_torch.ops.kernels import dfa_scan_cuda as dsc
+    from loongcollector_tpu_torch.ops.kernels import field_extract_cuda as fxc
+    from loongcollector_tpu_torch.ops.kernels.dfa_scan import (
+        DFASpanMatchKernel, length_gate)
+    from loongcollector_tpu_torch.ops.kernels.field_extract import \
+        ExtractKernel
+    from loongcollector_tpu_torch.ops.regex.dfa import compile_dfa
+    from loongcollector_tpu_torch.ops.regex.program import compile_tier1
+    print(f"chip_probe: card: {chip_smoke.nvidia_smi()}", flush=True)
+    with open(other) as f:
+        other_src = f.read()
+    with open(dsc._SRC) as f:
+        src = f.read()
+    libs = {}
+    for name, text, inc in (("other", other_src,
+                             os.path.dirname(os.path.abspath(other))),
+                            ("this", src + K3_LDG, ""),
+                            ("word_after", k3_word_after(src), "")):
+        libs[name], log = compile_so(fxc, "k3_" + name, text, inc)
+        rep = dsc.ptxas_report(log)
+        print(f"chip_probe: k3 {name}: ptxas span {rep.get('span')}",
+              flush=True)
+    k3_binding(libs["other"], "lct_dfa_span_match", False)
+    k3_binding(libs["this"], "lct_dfa_span_match", True)
+    k3_binding(libs["this"], "lct_dfa_span_match_ldg", True)
+    k3_binding(libs["word_after"], "lct_dfa_span_match", True)
+    pipe_lines = td.gen_pipe_log(8192, seed=23)
+    n_pipe = int((np.cumsum([len(x) + 1 for x in pipe_lines])
+                  <= 512 * 1024).sum())
+    base = td.gen_lines(65536, seed=5)
+    cases = [("a status", r"[45]\d\d", chip_smoke.APACHE,
+              td.APACHE_KEYS.index("status"), B, base[:n])
+             for B, n in ((8192, 5500), (65536, 65536))]
+    cases += [("b /health", "/health", chip_smoke.APACHE,
+               td.APACHE_KEYS.index("url"), B, base[:n])
+              for B, n in ((8192, 5500), (65536, 65536))]
+    cases.append(("delimiter healthcheck", "healthcheck", td.PIPE_PATTERN,
+                  td.PIPE_KEYS.index("service"), 8192, pipe_lines[:n_pipe]))
+    for tag, pat, parse, cap, B, lines in cases:
+        kern = DFASpanMatchKernel(compile_dfa(pat))
+        batch, rows, lengths = dfa_batch(lines, B, 128)
+        ext = ExtractKernel(compile_tier1(parse))
+        _, off, ln = ext.plain(torch.from_numpy(batch.rows),
+                               torch.from_numpy(batch.lengths))
+        st_h = np.ascontiguousarray(off[:, cap].numpy())
+        sp_h = np.ascontiguousarray(ln[:, cap].numpy())
+        starts = torch.from_numpy(st_h).cuda()
+        spans = torch.from_numpy(sp_h).cuda()
+        calls = {"other": k3_caller(dsc, libs["other"], "lct_dfa_span_match",
+                                    False, kern),
+                 "this": k3_caller(dsc, libs["this"], "lct_dfa_span_match",
+                                   True, kern),
+                 "ldg": k3_caller(dsc, libs["this"],
+                                  "lct_dfa_span_match_ldg", True, kern,
+                                  smem=False),
+                 "word_after": k3_caller(dsc, libs["word_after"],
+                                         "lct_dfa_span_match", True, kern)}
+        want = kern.plain(rows, lengths, starts, spans).cpu().numpy()
+        for k, fn in calls.items():
+            got = fn(rows, lengths, starts, spans).cpu().numpy().astype(bool)
+            if not (got == want).all():
+                raise SystemExit(f"chip_probe: K3 {k} != plain on {tag} "
+                                 f"B={B}")
+        walk = (sp_h >= 0) & length_gate(kern.arrays, 128).passes(
+            np.maximum(sp_h, 0))
+        turns = [(k, chip_smoke.graph_ms(
+            [lambda fn=calls[k]: fn(rows, lengths, starts, spans)]))
+            for k in ("other", "this", "ldg", "word_after", "word_after",
+                      "ldg", "this", "other")]
+        print(f"chip_probe: k3 {tag} B={B} L=128 ({len(lines)} rows, "
+              f"{int((sp_h >= 0).sum())} spans, {int(walk.sum())} pass the "
+              f"gate; {-(-B // dsc.launch_geometry(B))} blocks of "
+              f"{dsc.launch_geometry(B)}): device ms per launch in turns: "
+              + ", ".join(f"{k} {ms:.5f}" for k, ms in turns), flush=True)
     return 0
 
 
@@ -917,6 +1207,41 @@ def stamp_phases(lib, n_stamps, blocks, real_blocks):
     return buf[:blocks * n_stamps].reshape(blocks, n_stamps)[:real_blocks]
 
 
+def k7_gate(src: str) -> str:
+    """``fused_program.cu`` with K3's length gate in its span condition: a
+    walked length outside the hull of the automaton's accepted lengths
+    (``dfa_scan.length_gate`` to the largest bucket, in the record's last
+    two words, which ``gate_descriptor`` fills) gives false before the
+    walk.  Measured
+    slower than the condition without it on both filter chunks (PERF.md
+    §6), so K7 keeps its walk ungated."""
+    return edit(src, """          ok = sl >= 0 &&
+               dfa_resolved(b, c3.y, c3.x, c2.w, c2.y, c2.z, r.w, lo,
+                            hi) != 0;""", """          const int32_t n = hi > lo ? hi - lo : 0;
+          ok = sl >= 0 && n >= c3.z && n <= c3.w &&
+               dfa_resolved(b, c3.y, c3.x, c2.w, c2.y, c2.z, r.w, lo,
+                            hi) != 0;""")
+
+
+def gate_descriptor(fpc, desc, stages):
+    """``desc`` with each span condition's record holding its automaton's
+    accepted-length hull in its last two words, for ``k7_gate``."""
+    import dataclasses
+    from loongcollector_tpu_torch.ops.device_batch import LENGTH_BUCKETS
+    from loongcollector_tpu_torch.ops.kernels.dfa_scan import length_gate
+    blob = desc.blob.copy()
+    conds = fpc.HEADER_WORDS + fpc.RECORD_WORDS * len(stages)
+    for si, st in enumerate(stages):
+        first = int(blob[fpc.HEADER_WORDS + fpc.RECORD_WORDS * si + 1])
+        for k, c in enumerate(st.conds):
+            if c.kind == "span_match":
+                at = conds + fpc.COND_WORDS * (first + k)
+                g = length_gate(c.obj, LENGTH_BUCKETS[-1])
+                blob[at + fpc.COND_WORDS - 2:at + fpc.COND_WORDS] = \
+                    (g.lo, g.hi)
+    return dataclasses.replace(desc, blob=blob)
+
+
 def k7_compare(other: str) -> int:
     """K7 built from ``other`` (with its own host code packing its
     descriptors) against this tree's K7 and its TMA-copy form, in turns;
@@ -947,10 +1272,14 @@ def k7_compare(other: str) -> int:
              os.path.dirname(os.path.abspath(other))),
             ("this", with_occupancy(src, occ), ""),
             ("this_tma", with_occupancy(tma_copy(src), occ), ""),
-            ("this_stamped", k7_stamped(src), "")):
+            ("this_gate", with_occupancy(k7_gate(src), occ), ""),
+            ("this_stamped", k7_stamped(src), ""),
+            ("gate_stamped", k7_stamped(k7_gate(src)), ""),
+            ("other_stamped", k7_stamped(other_src),
+             os.path.dirname(os.path.abspath(other)))):
         libs[name], logs[name] = compile_so(fxc, "k7_" + name, text, inc)
         bind_k7(libs[name])
-    for name in ("other", "this", "this_tma"):
+    for name in ("other", "this", "this_tma", "this_gate"):
         rep = fpc.ptxas_report(logs[name])
         print(f"chip_probe: k7_{name}: ptxas " + ", ".join(
             f"{k} {r.get('registers')} registers, {r.get('stack')} stack, "
@@ -985,8 +1314,11 @@ def k7_compare(other: str) -> int:
         descs = {"other": ofpc.pack_descriptor(stages),
                  "this": program.descriptor}
         descs["this_tma"] = descs["this_stamped"] = descs["this"]
-        geoms = {k: (ofpc if k == "other" else fpc).launch_geometry(B, L, d)
-                 for k, d in descs.items()}
+        descs["this_gate"] = descs["gate_stamped"] = gate_descriptor(
+            fpc, descs["this"], stages)
+        descs["other_stamped"] = descs["other"]
+        geoms = {k: (ofpc if k.startswith("other") else fpc).launch_geometry(
+            B, L, d) for k, d in descs.items()}
         blobs = {k: torch.from_numpy(d.blob).cuda() for k, d in descs.items()}
         batch, rows, lengths = dfa_batch(lines, B, L)
 
@@ -1014,7 +1346,8 @@ def k7_compare(other: str) -> int:
             if not all((g.reshape(w.shape) == w).all()
                        for g, w in zip(got, want)):
                 raise SystemExit(f"chip_probe: K7 {k} != plain on {tag}")
-        order = ("other", "this", "this_tma", "this_tma", "this", "other")
+        order = ("other", "this", "this_tma", "this_gate", "this_gate",
+                 "this_tma", "this", "other") * 2
         turns = [(k, chip_smoke.graph_ms([calls[k]])) for k in order]
         threads = geoms["this"][0]
         print(f"chip_probe: k7 {tag} B={B} L={L} ({len(lines)} rows, "
@@ -1023,34 +1356,41 @@ def k7_compare(other: str) -> int:
               f"shared words other / this): device ms per launch in turns: "
               + ", ".join(f"{k} {ms:.5f}" for k, ms in turns), flush=True)
         # stamps of one launch only: clock64 is an SM's own counter, so a
-        # stamp left by another launch does not compare with this one's
-        if libs["this_stamped"].probe_clear():
-            raise SystemExit("chip_probe: cannot clear the stamps")
-        calls["this_stamped"]()
-        torch.cuda.synchronize()
-        blocks = -(-B // threads)
-        st = stamp_phases(libs["this_stamped"], K7_STAMPS, blocks,
-                          -(-len(lines) // threads))
-        phases = {"staging": st[:, 1] - st[:, 0],
-                  "rows staged": st[:, 6] - st[:, 0],
-                  "descriptor wait": st[:, 1] - st[:, 6],
-                  "extract walk": st[:, 2] - st[:, 1],
-                  "write caps": st[:, 3] - st[:, 2],
-                  "keep": st[:, 4] - st[:, 3], "exit": st[:, 5] - st[:, 4],
-                  "block": st[:, 5] - st[:, 0]}
-        # the keep's first condition, and its second where thread 0's row
-        # reached it
-        two = (st[:, 9] > 0) & (st[:, 10] > 0)
-        phases.update({"keep: first record": st[:, 7] - st[:, 3],
-                       "keep: first condition": st[:, 8] - st[:, 7]})
-        if two.any():
-            phases.update({"keep: second record": (st[:, 9] - st[:, 8])[two],
-                           "keep: second condition":
-                               (st[:, 10] - st[:, 9])[two]})
-        print(f"chip_probe: k7 {tag} cycles per block (median / largest, "
-              f"{len(st)} blocks with real rows): "
-              + "; ".join(f"{k} {int(np.median(v))} / {int(v.max())}"
-                          for k, v in phases.items()), flush=True)
+        # stamp left by another launch does not compare with this one's;
+        # the other tree's K7 stamped beside this one's (the keep's split
+        # before and after)
+        for stamped_name in ("other_stamped", "this_stamped", "gate_stamped"):
+            if libs[stamped_name].probe_clear():
+                raise SystemExit("chip_probe: cannot clear the stamps")
+            calls[stamped_name]()
+            torch.cuda.synchronize()
+            threads = geoms[stamped_name][0]
+            blocks = -(-B // threads)
+            st = stamp_phases(libs[stamped_name], K7_STAMPS, blocks,
+                              -(-len(lines) // threads))
+            phases = {"staging": st[:, 1] - st[:, 0],
+                      "rows staged": st[:, 6] - st[:, 0],
+                      "descriptor wait": st[:, 1] - st[:, 6],
+                      "extract walk": st[:, 2] - st[:, 1],
+                      "write caps": st[:, 3] - st[:, 2],
+                      "keep": st[:, 4] - st[:, 3],
+                      "exit": st[:, 5] - st[:, 4],
+                      "block": st[:, 5] - st[:, 0]}
+            # the keep's first condition, and its second where thread 0's
+            # row reached it
+            two = (st[:, 9] > 0) & (st[:, 10] > 0)
+            phases.update({"keep: first record": st[:, 7] - st[:, 3],
+                           "keep: first condition": st[:, 8] - st[:, 7]})
+            if two.any():
+                phases.update({
+                    "keep: second record": (st[:, 9] - st[:, 8])[two],
+                    "keep: second condition": (st[:, 10] - st[:, 9])[two]})
+            print(f"chip_probe: k7 {tag} {stamped_name.split('_')[0]} "
+                  f"cycles per block (median / largest, {len(st)} blocks "
+                  f"with real rows): "
+                  + "; ".join(f"{k} {int(np.median(v))} / {int(v.max())}"
+                              for k, v in phases.items()), flush=True)
+        threads = geoms["this"][0]
         k1 = ExtractKernel(compile_tier1(chip_smoke.APACHE if tag ==
                                          "apache_filter" else td.PIPE_PATTERN))
         kp = k1.kernel_program
@@ -1899,8 +2239,10 @@ def main() -> int:
     sys.path.insert(0, REPO)
     if sys.argv[1:] == ["dispatch"]:
         return dispatch_cost()
-    if sys.argv[1:] == ["k8"]:
-        return k8_split()
+    if sys.argv[1:2] == ["k8"] and len(sys.argv) == 3:
+        return k8_compare(sys.argv[2])
+    if sys.argv[1:2] == ["k3"] and len(sys.argv) == 3:
+        return k3_compare(sys.argv[2])
     if sys.argv[1:2] == ["k7"] and len(sys.argv) == 3:
         return k7_compare(sys.argv[2])
     if sys.argv[1:2] == ["k5"] and len(sys.argv) == 3:

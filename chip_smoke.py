@@ -107,9 +107,12 @@ Phases, each of which exits non-zero on failure:
 10. K3 parity (before phase 7): ``lct_dfa_span_match`` (its walk stopping
    at a settled state) against its plain version, bit-exact, and against
    ``re.fullmatch`` of each span cut at its row's length, at every length
-   bucket, at L=100 and on misaligned rows, on phase 6's single automata:
-   spans at a row's start, middle and end, past its length, from a
-   negative start, absent (-1) and empty, padding rows.
+   bucket, at L=100 and on misaligned rows, on phase 6's single automata
+   and on automata whose length gate turns rows away (the two filter
+   paths' literals, ``a{2,5}``, ``ab|abcd`` and ``(?:ab)*``, the last two
+   through the gate's bitmap), beside words of the gated lengths and the
+   lengths next to them: spans at a row's start, middle and end, past its
+   length, from a negative start, absent (-1) and empty, padding rows.
 11. K7 parity (before phase 7; its DFA conditions and scans stop at a
    settled state): each stage list of ``testdata.fused_stage_lists``
    (THREE_STAGE; extract + extract_ok; match + grok's scan + the
@@ -132,8 +135,11 @@ Phases, each of which exits non-zero on failure:
    each kind must be those the log's chunks give
    (``testdata.java_groups``).
 13. K7 and K3 timing: K7 on the Apache-filter program and K3 on its
-   status condition over the status spans, at B=8192 and B=65536, L=128,
-   warm and cold, beside the plain versions and the bounds.
+   status condition over the status spans (shape a: every row passes the
+   length gate), and K3 on ``/health`` over the url spans (shape b: the
+   gate turns most rows away; the share it turns away is printed), at
+   B=8192 and B=65536, L=128, warm and cold, beside the plain versions and
+   the bounds.
 14. K6 parity (after phase 11): ``lct_segment_reduce`` against its plain
    version on the card over ``testdata.k6_cases`` (B 256..65536, Gq
    16..65536, 41 buckets and 1, invalid shares 0 / 10% / 100%, a hot
@@ -217,14 +223,15 @@ Phases, each of which exits non-zero on failure:
 
 24. K8, the sharded parse step (run inside phases 2 and 4): every batch
    of phase 2, whole and cut to an odd row count, through
-   ``ShardedKernel``'s direct call on meshes of 1 and 4 shards that repeat
-   the card (one ``lct_sharded_extract_*`` launch a shard, the private pad
-   buffer for an odd B), with an empty-matching pattern (``(\\w*)``) among
-   them: ok, cap_off and cap_len bit-exact with K1, and each shard's
-   counts (matched, padding rows included; events; bytes) exact with the
-   plain K8's; every K8 instantiation launches.  Then K8 at phase 4's
-   shapes, warm and cold, beside K1 (the epilogue's cost), the plain K8
-   and the bound (K1's bytes and 24 a shard).
+   ``ShardedKernel``'s direct call on meshes of 1, 3 and 4 shards that
+   repeat the card (one ``lct_sharded_extract_*`` launch for the card's
+   shards, the private pad buffer for an odd B), with an empty-matching
+   pattern (``(\\w*)``) among them: ok, cap_off and cap_len bit-exact with
+   K1, and each shard's counts (matched, padding rows included; events;
+   bytes) exact with the plain K8's; every K8 instantiation launches.
+   Then K8 at phase 4's shapes, warm and cold, beside K1 (the epilogue's
+   cost), the plain K8 and the bound (K1's bytes and 24 a shard), and its
+   launch over the four shards of a one-card mesh.
 25. the sharded Apache main path (after phase 12): phase 3's run with
    ``LOONG_SHARDED=1`` at one worker, and at four with the ledger on
    (residual 0): every record equals ``re``; ``--stats`` ``mesh`` holds
@@ -235,8 +242,9 @@ Phases, each of which exits non-zero on failure:
 26. logical lanes and shards on the card, in this process: four chip
    lanes over ``[cuda:0] * 4`` under four workers (lane dispatches = device
    batches = K1 launches, NDJSON byte-identical to phase 3's one-worker
-   run), a four-shard mesh on the card (four K8 launches and four h2d legs
-   a dispatch, one exec leg, the same NDJSON), and the Apache-filter path
+   run), a four-shard mesh on the card (one K8 launch and one h2d leg a
+   dispatch for the four shards, one exec leg, the same NDJSON), and the
+   Apache-filter path
    on four lanes (K7 launches = fused dispatches = lane dispatches, the
    records of phase 12).
 
@@ -584,8 +592,9 @@ def check_batch(kern, pattern, lines, L, stats, misalign=False,
     """Kernel vs plain on the card, and both vs re, for one (pattern, L).
     With `misalign` the rows start one byte past a 16-byte boundary.  With
     `k8`, a list of ``ShardedKernel``s over ``kern`` (meshes that repeat
-    the card), each one's direct call (K8, one launch a shard) must give
-    K1's outputs bit for bit and, per shard, the plain K8's counts."""
+    the card), each one's direct call (K8, one launch for the card's
+    shards) must give K1's outputs bit for bit and, per shard, the plain
+    K8's counts."""
     import numpy as np
     import torch
     from loongcollector_tpu_torch.ops.device_batch import pack_rows
@@ -644,18 +653,22 @@ def check_k8(sk, pattern, rows, lengths, k1_out, plain_ok, rx,
     and its counts against the plain K8's: the plain K1's ok (a padding
     row of the pad buffer is ok exactly when the pattern matches the empty
     string, as K1's own padding rows show) summed per shard with the
-    lengths, as ``extract_stats_plain`` sums them."""
+    lengths, as ``extract_stats_plain`` sums them — the totals through the
+    kernel's counters, and each shard's vector through the plane's own
+    direct step.  One launch a device (``DeviceMesh.runs``) each time."""
     import numpy as np
     import torch
     from loongcollector_tpu_torch.ops.kernels.field_extract import \
         plain_counts
     m = sk.batch_multiple
+    n_runs = len(sk.plane.mesh.runs())
     B = rows.shape[0]
     before = sk.launches
     base = sk.materialize_stats()
     ok, off, ln = (t.numpy() for t in sk(rows, lengths))
-    if sk.launches - before != m:
-        fail(f"K8 on {m} shards made {sk.launches - before} launches")
+    if sk.launches - before != n_runs:
+        fail(f"K8 on {m} shards made {sk.launches - before} launches, not "
+             f"{n_runs} (one a device)")
     for g, w, what in zip((ok, off, ln), k1_out, ("ok", "cap_off",
                                                    "cap_len")):
         stats["k8_max_abs_err"] = max(stats["k8_max_abs_err"], int(np.abs(
@@ -669,14 +682,22 @@ def check_k8(sk, pattern, rows, lengths, k1_out, plain_ok, rx,
                                                 rx.fullmatch(b"") is not None)])
     lens = np.concatenate([lengths, np.zeros(Bp - B, np.int32)])
     s = Bp // m
-    want = sum(plain_counts(torch.from_numpy(want_ok[i * s:(i + 1) * s]),
-                            torch.from_numpy(lens[i * s:(i + 1) * s]))
-               for i in range(m)).tolist()
+    per_shard = [plain_counts(torch.from_numpy(want_ok[i * s:(i + 1) * s]),
+                              torch.from_numpy(lens[i * s:(i + 1) * s]))
+                 for i in range(m)]
+    want = sum(per_shard).tolist()
     tot = sk.materialize_stats()
     got = [tot[k] - base[k] for k in ("matched", "events", "bytes")]
     if got != want:
         fail(f"K8 ({m} shards) counts {got} != the plain K8's {want} for "
              f"{pattern!r} at L={rows.shape[1]}, B={B}")
+    prows = np.zeros((Bp, rows.shape[1]), np.uint8)
+    prows[:B] = rows
+    *_, counts = sk.plane(torch.from_numpy(prows), torch.from_numpy(lens))
+    if counts.tolist() != [c.tolist() for c in per_shard]:
+        fail(f"K8 ({m} shards) per-shard counts {counts.tolist()} != the "
+             f"plain K8's {[c.tolist() for c in per_shard]} for {pattern!r} "
+             f"at L={rows.shape[1]}, B={B}")
     stats["k8_checks"] += 1
     stats["k8_pad_rows"] += Bp - B
 
@@ -784,7 +805,7 @@ def phase_parity() -> dict:
     for pat, lines in cases:
         kern = ExtractKernel(compile_tier1(pat))
         k8 = [ShardedKernel(kern.program, make_mesh(devices=[card] * m),
-                            kernel=kern) for m in (1, 4)]
+                            kernel=kern) for m in (1, 3, 4)]
         stats["patterns"] += 1
         lines = list(lines) + [b"", b""]
         need = pick_length_bucket(max(len(x) for x in lines))
@@ -801,9 +822,9 @@ def phase_parity() -> dict:
     log(f"parity: {stats['checks']} (pattern, L) batches over "
         f"{stats['patterns']} patterns, {stats['rows']} rows: kernel "
         f"bit-exact with the plain version and with re")
-    log(f"K8 parity: {stats['k8_checks']} batches through meshes of 1 and "
-        f"4 shards on {card} (one launch a shard): ok, cap_off, cap_len "
-        f"bit-exact with K1, counts exact with the plain K8 "
+    log(f"K8 parity: {stats['k8_checks']} batches through meshes of 1, 3 "
+        f"and 4 shards on {card} (one launch a mesh): ok, cap_off, cap_len "
+        f"bit-exact with K1, each shard's counts exact with the plain K8 "
         f"({stats['k8_pad_rows']} padding rows of the pad buffer counted)")
     k8_shapes = {sh: n for sh, n in fxc.launch_shapes.items()
                  if sh.entry_point in fxc.STATS_ENTRY_POINTS}
@@ -1028,7 +1049,7 @@ def phase_timing() -> dict:
     from loongcollector_tpu_torch.ops.device_batch import pack_rows
     from loongcollector_tpu_torch.ops.kernels import field_extract_cuda as fxc
     from loongcollector_tpu_torch.ops.kernels.field_extract import (
-        ExtractKernel, extract_stats_plain, plain_counts)
+        ExtractKernel, extract_stats_plain, fold_pieces, plain_counts)
     from loongcollector_tpu_torch.ops.regex.program import compile_tier1
     from loongcollector_tpu_torch.testdata import gen_lines
     kern = ExtractKernel(compile_tier1(APACHE))
@@ -1060,21 +1081,29 @@ def phase_timing() -> dict:
         cold_ms = graph_ms([lambda r=r, n=n: kern(r, n) for r, n in copies],
                            reps=n_copies * -(-50 // n_copies), iters=5,
                            keep_outputs=True)
-        # K8 (phase 24) at the same shape: one shard, K1's walk and the
-        # count epilogue; held against K1 and the plain K8 first
-        got8 = [t.cpu().numpy() for t in kern.with_stats(rows, lengths)]
-        want8 = plain_counts(torch.from_numpy(want[0]).to(rows.device),
-                             lengths).cpu().numpy()
-        if not all((g == w).all() for g, w in zip(got8, got)) \
-                or not (got8[3] == want8).all():
-            fail(f"K8 timing B={B}: K8 != K1 or counts {got8[3]} != "
-                 f"{want8}")
+        # K8 (phase 24) at the same shape: one shard, and the four shards of
+        # the one-card mesh in the same launch; K1's walk and the count
+        # epilogue, held against K1 and the plain K8 per shard first
+        for m in (1, 4):
+            s = B // m
+            got8 = [t.cpu().numpy() for t in kern.with_stats(
+                rows, lengths, shard_rows=s)]
+            folded = fold_pieces(got8[3], B, s).numpy()
+            want8 = np.stack([plain_counts(
+                torch.from_numpy(want[0][i * s:(i + 1) * s]),
+                lengths[i * s:(i + 1) * s].cpu()).numpy() for i in range(m)])
+            if not all((g == w).all() for g, w in zip(got8, got)) \
+                    or not (folded == want8).all():
+                fail(f"K8 timing B={B}, {m} shards: K8 != K1 or counts "
+                     f"{folded.tolist()} != {want8.tolist()}")
         k8_ms = graph_ms([lambda: kern.with_stats(rows, lengths)])
         k8_cold_ms = graph_ms([lambda r=r, n=n: kern.with_stats(r, n)
                                for r, n in copies],
                               reps=n_copies * -(-50 // n_copies), iters=5,
                               keep_outputs=True)
         k8_call_ms = time_cuda(lambda: kern.with_stats(rows, lengths), 200)
+        k8_4_ms = graph_ms([lambda: kern.with_stats(rows, lengths,
+                                                    shard_rows=B // 4)])
         del copies
         plain_ms = time_cuda(lambda: kern.plain(rows, lengths), 20)
         k8_plain_ms = time_cuda(lambda: extract_stats_plain(
@@ -1100,6 +1129,7 @@ def phase_timing() -> dict:
                   "smem": sh.smem, "copies": n_copies,
                   "k8": {"ms": k8_ms, "cold_ms": k8_cold_ms,
                          "call_ms": k8_call_ms, "plain_ms": k8_plain_ms,
+                         "four_shards_ms": k8_4_ms,
                          "bound_ms": k8_b_ms, "bound_by": k8_by,
                          "over_k1": k8_ms / ms,
                          "cold_over_k1": k8_cold_ms / cold_ms,
@@ -1115,6 +1145,7 @@ def phase_timing() -> dict:
         log(f"K8 timing B={B} L=128 C=9 (one shard, same rows): "
             f"{k8_ms:.5f} ms warm and {k8_cold_ms:.5f} ms cold (graph "
             f"replay) = {k8_ms / ms:.3f} / {k8_cold_ms / cold_ms:.3f} x K1; "
+            f"four shards in the launch {k8_4_ms:.5f} ms warm; "
             f"{k8_call_ms:.4f} ms per wrapper call, plain K8 "
             f"{k8_plain_ms:.3f} ms, bound {k8_b_ms:.5f} ms ({k8_by})")
     return out
@@ -1985,6 +2016,17 @@ def span_cases(rng, lens, L):
     return starts, spans
 
 
+# automata whose length gate turns rows away (phase 10): the delimiter
+# filter's literals, a bounded repeat, and two whose accepted lengths have
+# holes (the gate's bitmap; the second accepts the empty span); words of
+# the gated lengths and of the lengths beside them
+GATED_PATTERNS = ["ERROR|WARN", "healthcheck", "a{2,5}", "ab|abcd",
+                  "(?:ab)*"]
+GATED_WORDS = [b"ERROR", b"WARN", b"WARNS", b"ERRO", b"healthcheck",
+               b"healthchecks", b"aa", b"aaaaa", b"aaaaaa", b"ab", b"abc",
+               b"abcd", b"abab", b""]
+
+
 def phase_span_parity(java) -> dict:
     """K3 (``lct_dfa_span_match``) against its plain version, bit-exact, and
     against ``re.fullmatch`` of each span cut at its row's length, at every
@@ -1996,22 +2038,23 @@ def phase_span_parity(java) -> dict:
     from loongcollector_tpu_torch.ops.device_batch import (LENGTH_BUCKETS,
                                                             pack_rows)
     from loongcollector_tpu_torch.ops.kernels import dfa_scan_cuda as dsc
-    from loongcollector_tpu_torch.ops.kernels.dfa_scan import \
-        DFASpanMatchKernel
+    from loongcollector_tpu_torch.ops.kernels.dfa_scan import (
+        DFASpanMatchKernel, length_gate)
     from loongcollector_tpu_torch.ops.regex.dfa import compile_dfa
     rng = np.random.default_rng(20261018)
     stats = {"checks": 0, "rows": 0, "max_abs_err": 0, "matched": 0}
     dsc.reset_launch_shapes()
     pats = DFA_PATTERNS + [td.JAVA_FILTER, td.JAVA_CONTINUE, td.LIMIT_DFA,
                            td.APACHE_FILTER_INCLUDE["status"],
-                           td.APACHE_FILTER_EXCLUDE["url"]]
+                           td.APACHE_FILTER_EXCLUDE["url"]] + GATED_PATTERNS
+    stats["gated"] = {}
     for pat in pats:
         kern = DFASpanMatchKernel(compile_dfa(pat))
         rx = re.compile(pat.encode())
         for L, mis in [(L, False) for L in LENGTH_BUCKETS] + [
                 (100, False), (128, True)]:
             lines = dfa_lines(rng, [pat], java, L) + [
-                b"404", b"/health", b"500", b"x/health"]
+                b"404", b"/health", b"500", b"x/health"] + GATED_WORDS
             lens = np.array([len(x) for x in lines], np.int32)
             arena = np.frombuffer(b"".join(lines), np.uint8)
             offs = np.concatenate([[0], np.cumsum(lens[:-1])]).astype(
@@ -2044,6 +2087,18 @@ def phase_span_parity(java) -> dict:
             stats["checks"] += 1
             stats["rows"] += len(lines)
             stats["matched"] += int(got.sum())
+            if pat in GATED_PATTERNS:
+                # the rows the gate turns away: a span present, its walked
+                # length outside the accepted lengths
+                ln = np.clip(batch.lengths.astype(np.int64), 0, L)
+                lo = np.maximum(starts.astype(np.int64), 0)
+                hi = np.minimum(starts.astype(np.int64)
+                                + np.maximum(spans, 0), ln)
+                gate = length_gate(kern.arrays, L)
+                away = (spans >= 0) & ~gate.passes(np.maximum(hi - lo, 0))
+                g = stats["gated"].setdefault(pat, [0, 0])
+                g[0] += int(away.sum())
+                g[1] += len(spans)
     shapes = checked_dfa_shapes(dict(dsc.launch_shapes), "span parity")
     if sum(n for sh, n in shapes if sh.entry_point
            == dsc.ENTRY_POINTS["span"]) != stats["checks"]:
@@ -2051,7 +2106,10 @@ def phase_span_parity(java) -> dict:
              f"{stats['checks']} batches")
     log(f"span parity: {stats['checks']} (automaton, L) batches over "
         f"{len(pats)} automata, {stats['rows']} rows ({stats['matched']} "
-        f"spans matched): K3 bit-exact with its plain version and with re")
+        f"spans matched): K3 bit-exact with its plain version and with re; "
+        f"rows the length gate turned away / rows, by gated automaton: "
+        + ", ".join(f"{p!r} {a} / {n}" for p, (a, n) in
+                    stats["gated"].items()))
     return stats
 
 
@@ -2318,9 +2376,9 @@ def phase_logical_mesh(tmp, log_path, lines, base_out, filt) -> dict:
     the lanes' dispatches add up to the engines' device batches and K1's
     launches, and the NDJSON is byte-identical to phase 3's one-worker
     run.  (b) A four-shard mesh on the card (the engine's sharded kernel
-    over ``[cuda:0] * 4``): four K8 launches a dispatch, an h2d leg a
-    shard, one exec leg a dispatch, totals equal to the log's, the NDJSON
-    byte-identical again.  (c) The Apache-filter config with four lanes:
+    over ``[cuda:0] * 4``): one K8 launch a dispatch for the card's four
+    shards, one h2d leg (one copy an input), one exec leg a dispatch,
+    totals equal to the log's, the NDJSON byte-identical again.  (c) The Apache-filter config with four lanes:
     K7 launches = fused dispatches = the lanes' dispatches, and the records
     equal phase 12's."""
     import torch
@@ -2419,8 +2477,8 @@ def phase_logical_mesh(tmp, log_path, lines, base_out, filt) -> dict:
     if data != base or k["totals"] != want \
             or not (0 < k["dispatches"] == st["device_batches"]
                     == st["plane"]["dispatches"] == legs["exec"]["count"])\
-            or k["launches"] != 4 * k["dispatches"] \
-            or sorted(h2d) != ["0", "1", "2", "3"] \
+            or k["launches"] != k["dispatches"] \
+            or sorted(h2d) != ["0"] \
             or any(v["count"] != k["dispatches"] for v in h2d.values()) \
             or st["launches"] or k["pad_fallbacks"]:
         fail(f"logical mesh (b): NDJSON equal {data == base}, {k}, h2d "
@@ -2434,8 +2492,8 @@ def phase_logical_mesh(tmp, log_path, lines, base_out, filt) -> dict:
                     "exec_median_ms": legs["exec"]["median_s"] * 1e3,
                     "stage_seconds": st["stage_seconds"]}
     log(f"logical mesh (b): four shards on {card}: NDJSON byte-identical; "
-        f"{k['dispatches']} dispatches x 4 = {k['launches']} K8 launches, an "
-        f"h2d leg a shard (medians ms "
+        f"{k['dispatches']} dispatches = {k['launches']} K8 launches (one a "
+        f"dispatch for the four shards), one h2d leg a dispatch (medians ms "
         + ", ".join(f"{s_} {v['median_s'] * 1e3:.4f}"
                     for s_, v in sorted(h2d.items()))
         + f"), exec legs {legs['exec']['count']} (median "
@@ -2498,11 +2556,26 @@ def span_bound_ms(B, S, span_bytes):
     return t_ops * 1e3, "operations"
 
 
+def span_gate_bound_ms(B, S, walked_bytes, n_walked):
+    """Least time for one K3 launch counting only what a gated launch must
+    read: the lengths, starts and span lengths of every row (12B), the
+    bytes of the spans that pass the gate, the table where a row walks,
+    and B bytes out — a second column beside ``span_bound_ms``."""
+    moved = 12 * B + walked_bytes + (S * 256 + 4 * S if n_walked else 0) + B
+    t_bytes = moved / HBM_BYTES_PER_S
+    t_ops = walked_bytes / INT_OPS_PER_S
+    if t_bytes >= t_ops:
+        return t_bytes * 1e3, "bytes"
+    return t_ops * 1e3, "operations"
+
+
 def phase_fused_timing() -> dict:
-    """K7 on the Apache-filter program and K3 on the status condition over
-    the status spans, at B=8192 (5,500 Apache rows: one main-path chunk)
-    and B=65536, L=128: warm and cold (graph replay), each beside its plain
-    version and bound."""
+    """K7 on the Apache-filter program, K3 on the status condition over
+    the status spans (shape a) and K3 on the url condition (``/health``)
+    over the url spans (shape b), at B=8192 (5,500 Apache rows: one
+    main-path chunk) and B=65536, L=128: warm and cold (graph replay),
+    each beside its plain version and bound; for K3 the share of rows its
+    length gate turns away."""
     import numpy as np
     import torch
     from loongcollector_tpu_torch import testdata as td
@@ -2510,11 +2583,14 @@ def phase_fused_timing() -> dict:
     from loongcollector_tpu_torch.ops.device_batch import pack_rows
     from loongcollector_tpu_torch.ops.kernels import fused_program_cuda as fpc
     from loongcollector_tpu_torch.ops.kernels import dfa_scan_cuda as dsc
+    from loongcollector_tpu_torch.ops.kernels.dfa_scan import length_gate
     specs = dict((n, s) for n, s, _ in td.fused_stage_lists())[
         "apache_filter"]
     program = fp.FusedProgramKernel(specs, "apache_filter")
     span = specs[1].payload[0].staged.kernel
+    span_b = specs[1].payload[1].staged.kernel
     status = td.APACHE_KEYS.index("status")
+    url = td.APACHE_KEYS.index("url")
     out = {}
     base = td.gen_lines(65536, seed=5)
     for B, n_real in ((8192, 5500), (65536, 65536)):
@@ -2534,25 +2610,39 @@ def phase_fused_timing() -> dict:
                    for g, w in zip(got, want)):
             fail(f"fused timing B={B}: K7 != plain")
         ok, off, ln = want[0], want[1], want[2]
-        starts = torch.from_numpy(np.ascontiguousarray(off[:, status])).cuda()
-        spans = torch.from_numpy(np.ascontiguousarray(ln[:, status])).cuda()
-        k3 = span(rows, lengths, starts, spans).cpu().numpy()
-        if not (k3 == span.plain(rows, lengths, starts, spans)
-                .cpu().numpy()).all():
-            fail(f"fused timing B={B}: K3 != plain")
+        k3_in = {}
+        for name, kern, cap in (("K3", span, status), ("K3b", span_b, url)):
+            st_h = np.ascontiguousarray(off[:, cap])
+            sp_h = np.ascontiguousarray(ln[:, cap])
+            st_d = torch.from_numpy(st_h).cuda()
+            sp_d = torch.from_numpy(sp_h).cuda()
+            k3 = kern(rows, lengths, st_d, sp_d).cpu().numpy()
+            if not (k3 == kern.plain(rows, lengths, st_d, sp_d)
+                    .cpu().numpy()).all():
+                fail(f"fused timing B={B}: {name} != plain")
+            # the spans lie inside the rows: the walked length is the span's
+            walk = (sp_h >= 0) & length_gate(kern.arrays, 128).passes(
+                np.maximum(sp_h, 0))
+            k3_in[name] = (kern, st_d, sp_d,
+                           int(np.clip(sp_h, 0, None).sum()),
+                           int(np.clip(sp_h, 0, None)[walk].sum()),
+                           int(walk.sum()), int((sp_h >= 0).sum()))
         row_bytes = int(lens.sum())
-        span_bytes = int(np.clip(ln[:, 7], 0, None).sum())
-        walked = row_bytes + span_bytes + int(np.clip(ln[:, 5], 0, None)
-                                              .sum())
+        span_bytes = k3_in["K3"][3]
+        walked = row_bytes + span_bytes + k3_in["K3b"][3]
+        cases = [("K7", lambda r, n: program(r, n),
+                  lambda: program.plain(rows, lengths),
+                  fused_bound_ms(B, row_bytes, walked,
+                                 len(program.descriptor.blob), 9, 1))]
+        for name in ("K3", "K3b"):
+            kern, st_d, sp_d, sb, _, _, _ = k3_in[name]
+            cases.append((name,
+                          lambda r, n, k=kern, a=st_d, b=sp_d: k(r, n, a, b),
+                          lambda k=kern, a=st_d, b=sp_d: k.plain(
+                              rows, lengths, a, b),
+                          span_bound_ms(B, kern.arrays.num_states, sb)))
         res = {}
-        for name, fn, plain, bound in (
-                ("K7", lambda r, n: program(r, n),
-                 lambda: program.plain(rows, lengths),
-                 fused_bound_ms(B, row_bytes, walked,
-                                len(program.descriptor.blob), 9, 1)),
-                ("K3", lambda r, n: span(r, n, starts, spans),
-                 lambda: span.plain(rows, lengths, starts, spans),
-                 span_bound_ms(B, span.arrays.num_states, span_bytes))):
+        for name, fn, plain, bound in cases:
             call_ms = time_cuda(lambda: fn(rows, lengths), 200)
             ms = graph_ms([lambda: fn(rows, lengths)])
             touched = row_bytes + 4 * B + B * (
@@ -2571,12 +2661,21 @@ def phase_fused_timing() -> dict:
                          "bound_by": by, "copies": n_copies}
         (k7_sh, _), = checked_fused_shapes(dict(fpc.launch_shapes),
                                            f"fused timing B={B}")
-        k3_sh = next(sh for sh in dsc.launch_shapes
-                     if sh.entry_point == dsc.ENTRY_POINTS["span"])
         res["K7"].update(blocks=k7_sh.blocks, threads=k7_sh.threads,
                          smem=k7_sh.smem, instantiation=k7_sh.instantiation)
-        res["K3"].update(blocks=k3_sh.blocks, threads=k3_sh.threads,
-                         smem=k3_sh.smem, S=k3_sh.S)
+        for name in ("K3", "K3b"):
+            kern, _, _, _, walked_b, n_walk, n_present = k3_in[name]
+            k3_sh = next(sh for sh in dsc.launch_shapes
+                         if sh.entry_point == dsc.ENTRY_POINTS["span"]
+                         and sh.S == kern.arrays.num_states)
+            g_ms, g_by = span_gate_bound_ms(B, kern.arrays.num_states,
+                                            walked_b, n_walk)
+            res[name].update(blocks=k3_sh.blocks, threads=k3_sh.threads,
+                             smem=k3_sh.smem, S=k3_sh.S,
+                             walked_rows=n_walk, span_rows=n_present,
+                             gated_share=1 - n_walk / B,
+                             gated_span_share=1 - n_walk / max(n_present, 1),
+                             gate_bound_ms=g_ms, gate_bound_by=g_by)
         out[B] = res
         for name, r in res.items():
             log(f"{name} timing B={B} L=128 ({n_real} Apache rows; "
@@ -2585,7 +2684,12 @@ def phase_fused_timing() -> dict:
                 f"{r['cold_ms']:.5f} ms cold ({r['copies']} copies) on the "
                 f"device (graph replay), {r['call_ms']:.4f} ms per wrapper "
                 f"call, plain {r['plain_ms']:.3f} ms, bound "
-                f"{r['bound_ms']:.6f} ms ({r['bound_by']})")
+                f"{r['bound_ms']:.6f} ms ({r['bound_by']})"
+                + ("" if name == "K7" else
+                   f"; {r['walked_rows']} of {B} rows walk ("
+                   f"{r['span_rows']} with a span): the gate turns away "
+                   f"{r['gated_span_share']:.4f} of the spans, bound of "
+                   f"what a gated launch reads {r['gate_bound_ms']:.6f} ms"))
     return out
 
 
@@ -3043,6 +3147,21 @@ def fused_kernel_entries(span_parity, fused_parity, timing, filt, filt4,
         "bench_cold_ms": t64["K3"]["cold_ms"],
         "bench_plain_ms": t64["K3"]["plain_ms"],
         "bench_bound_ms": t64["K3"]["bound_ms"],
+        # the bound of what a gated launch must read, beside the bound
+        "gate_bound_ms": t8["K3"]["gate_bound_ms"],
+        # shape b: /health over the url spans, most rows turned away by
+        # the length gate before a byte is read
+        "shape_b_ms": t8["K3b"]["ms"],
+        "shape_b_cold_ms": t8["K3b"]["cold_ms"],
+        "shape_b_bound_ms": t8["K3b"]["bound_ms"],
+        "shape_b_gate_bound_ms": t8["K3b"]["gate_bound_ms"],
+        "shape_b_bench_ms": t64["K3b"]["ms"],
+        "gated_row_share": [t8["K3"]["gated_share"], t8["K3b"]["gated_share"],
+                            t64["K3"]["gated_share"],
+                            t64["K3b"]["gated_share"]],
+        "gated_span_share": [t8["K3"]["gated_span_share"],
+                             t8["K3b"]["gated_span_share"]],
+        "gated_parity_rows": span_parity["gated"],
         "parity_batches": span_parity["checks"],
         "threads": t8["K3"]["threads"],
         "blocks": t8["K3"]["blocks"],
@@ -3779,6 +3898,10 @@ def k8_kernel_entry(parity, timing, sharded, sharded4, logical, main_path,
         "sharded_path_leg_median_ms": {
             n: v["median_s"] * 1e3 for n, v in st["timeline"]["legs"].items()},
         "logical_mesh4": logical["mesh4"],
+        # the four-shard dispatch on one card: one launch, its exec leg
+        "four_shard_dispatch_exec_ms": logical["mesh4"]["exec_median_ms"],
+        "four_shard_launch_ms": t8["four_shards_ms"],
+        "bench_four_shard_launch_ms": t64["four_shards_ms"],
         "logical_lane_dispatches": logical["lanes_dispatches"],
         "logical_filter_lane_dispatches": logical["filter_lanes_dispatches"],
         "build_s": build["build_s"]["field_extract"],

@@ -63,6 +63,19 @@
 // bytes of a header line, which only `\n` leaves, so a 250-byte row walks
 // ~16 bytes through the table and scans ~14 words.  K2, K3 and K7 keep the
 // plain walk.
+//
+// K3 adds the length gate (dfa_span_kernel): the host computes, for each
+// automaton, the span lengths n for which some walk of exactly n bytes from
+// the start ends in an accepting state (dfa_scan.length_gate: their hull
+// [lo, hi] and, where the hull is not exact, their bitmap).  A row whose
+// walked length (the span cut at the row's length) fails the gate gives 0
+// without loading a row byte or a table byte: a fullmatch of /health
+// accepts only 7 bytes, of [45]\d\d only 3.  The gate is a necessary
+// condition, so it changes no result.  The table copy is issued before the
+// row's length, start and span length and the span's first word are
+// loaded, and a block waits for it only if one of its rows passes.  A form
+// that walks through the read-only cache with no copy measured slower at
+// the paths' B=8192 (chip_probe.py K3_LDG, PERF.md section 6).
 // The caller's timing events, when given, are recorded on the stream right
 // around the launch, so a kernel's time holds no host latency.  The byte
 // walk is in dfa_walk.cuh, which the fused stage program (fused_program.cu)
@@ -79,17 +92,35 @@ namespace {
 constexpr int kMaxThreads = 128;
 constexpr int kMaxStates = 128;
 
-// The block's copy of t256 and accept into shared memory.
-__device__ __forceinline__ void copy_tables(uint8_t* tab, int32_t* acc,
-                                            const uint8_t* t256,
-                                            const int32_t* accept, int S) {
+// The block's copy of t256 and accept into shared memory, issued: each
+// thread's share as cp.async copies in one batch, not waited for.
+__device__ __forceinline__ void copy_tables_begin(uint8_t* tab, int32_t* acc,
+                                                  const uint8_t* t256,
+                                                  const int32_t* accept,
+                                                  int S) {
   for (int i = threadIdx.x; i < S * 16; i += blockDim.x)
     __pipeline_memcpy_async(tab + 16 * i, t256 + 16 * i, 16);
   for (int i = threadIdx.x; i < S; i += blockDim.x)
     __pipeline_memcpy_async(acc + i, accept + i, 4);
   __pipeline_commit();
+}
+
+// The block's copy of t256 and accept into shared memory, waited for.
+__device__ __forceinline__ void copy_tables(uint8_t* tab, int32_t* acc,
+                                            const uint8_t* t256,
+                                            const int32_t* accept, int S) {
+  copy_tables_begin(tab, acc, t256, accept, S);
   __pipeline_wait_prior(0);
   __syncthreads();
+}
+
+// K3's length gate: a walked span length n can be accepted only inside the
+// hull [lo, hi] of the lengths the automaton accepts and, where the hull is
+// not exact, with bit n of the host's bitmap set (dfa_scan.length_gate).
+__device__ __forceinline__ bool gate_passes(int n, int32_t lo, int32_t hi,
+                                            const uint32_t* bits) {
+  if (n < lo || n > hi) return false;
+  return bits == nullptr || ((__ldg(bits + (n >> 5)) >> (n & 31)) & 1u);
 }
 
 // K4's copy: t256, the skip table (u64: |E(s)| << 32 | the escape bytes)
@@ -285,35 +316,83 @@ fused_scan_kernel(const uint8_t* __restrict__ rows,
   out[r] = acc[s];
 }
 
+// K3's walk of bytes [lo, hi) (lo < hi) of an aligned row from state s,
+// stopping at a settled state once a 16-byte word, from the first word q
+// (the one that holds byte lo), already loaded.
+__device__ __forceinline__ uint32_t walk_span(const uint8_t* tab, uint32_t s,
+                                              const uint8_t* row, int lo,
+                                              int hi, uint32_t fs, uint4 q) {
+  const uint4* v = reinterpret_cast<const uint4*>(row);
+  const int w0 = lo >> 4, w1 = (hi - 1) >> 4;
+  for (int w = w0; w <= w1 && s < fs; ++w) {
+    if (w != w0) q = __ldg(v + w);
+    const int a = w == w0 ? lo & 15 : 0;
+    const int b = w == w1 ? hi - 16 * w : 16;
+    s = a == 0 ? walk_vec(tab, s, q, b) : walk_vec_range(tab, s, q, a, b);
+  }
+  return s;
+}
+
 // K3: the walk over bytes [max(start, 0), start + max(spanlen, 0)) of each
-// row, cut at the row's length; a row with spanlen < 0 gives 0.
+// row, cut at the row's length; a row with spanlen < 0 gives 0, and so does
+// a row whose walked length fails the gate, before it reads a row byte or a
+// table byte.  The table copy is issued first; the row's length, start and
+// span length, then (a row that walks, aligned) the span's first 16-byte
+// word are loaded while it is in flight.  A block whose rows all fail
+// writes its zeros and only drains its copies (a block leaves no copy in
+// flight into shared memory that the next block may take).
 __global__ void __launch_bounds__(kMaxThreads)
 dfa_span_kernel(const uint8_t* __restrict__ rows,
                 const int32_t* __restrict__ lengths, int64_t B, int32_t L,
                 const uint8_t* __restrict__ t256, int32_t S,
                 const int32_t* __restrict__ accept, int32_t start,
                 int32_t first_settled, const int32_t* __restrict__ starts,
-                const int32_t* __restrict__ spanlens,
+                const int32_t* __restrict__ spanlens, int32_t gate_lo,
+                int32_t gate_hi, const uint32_t* __restrict__ gate_bits,
                 uint8_t* __restrict__ out) {
   extern __shared__ __align__(16) uint8_t smem[];
   uint8_t* tab = smem;
   int32_t* acc = reinterpret_cast<int32_t*>(smem + S * 256);
-  copy_tables(tab, acc, t256, accept, S);
+  copy_tables_begin(tab, acc, t256, accept, S);
 
   const int64_t r = static_cast<int64_t>(blockIdx.x) * blockDim.x
                     + threadIdx.x;
-  if (r >= B) return;
-  int len = lengths[r];
-  len = len < 0 ? 0 : (len > L ? L : len);
-  const int32_t st = starts[r], sl = spanlens[r];
-  const int64_t end = static_cast<int64_t>(st) + (sl < 0 ? 0 : sl);
-  const int lo = st < 0 ? 0 : st;
-  const int hi = static_cast<int>(end < len ? end : len);
+  int lo = 0, hi = 0;
+  bool walk = false;
+  if (r < B) {
+    int len = lengths[r];
+    len = len < 0 ? 0 : (len > L ? L : len);
+    const int32_t st = starts[r], sl = spanlens[r];
+    const int64_t end = static_cast<int64_t>(st) + (sl < 0 ? 0 : sl);
+    lo = st < 0 ? 0 : st;
+    hi = static_cast<int>(end < len ? end : len);
+    walk = sl >= 0 && gate_passes(max(hi - lo, 0), gate_lo, gate_hi,
+                                  gate_bits);
+  }
   const uint8_t* row = rows + r * L;
-  const uint32_t s = walk_row_range(tab, static_cast<uint32_t>(start), row,
-                                    lo, hi, aligned_rows(row, L),
-                                    static_cast<uint32_t>(first_settled));
-  out[r] = sl >= 0 && acc[s] != 0;
+  const bool vec = aligned_rows(row, L);
+  uint4 q = make_uint4(0u, 0u, 0u, 0u);
+  if (walk && vec && hi > lo)
+    q = __ldg(reinterpret_cast<const uint4*>(row) + (lo >> 4));
+  if (!__syncthreads_or(walk)) {
+    if (r < B) out[r] = 0;
+    __pipeline_wait_prior(0);
+    return;
+  }
+  __pipeline_wait_prior(0);
+  __syncthreads();
+  if (r >= B) return;
+  bool m = false;
+  if (walk) {
+    uint32_t s = static_cast<uint32_t>(start);
+    const uint32_t fs = static_cast<uint32_t>(first_settled);
+    if (!vec)
+      s = walk_row_range(tab, s, row, lo, hi, false, fs);
+    else if (hi > lo)
+      s = walk_span(tab, s, row, lo, hi, fs, q);
+    m = acc[s] != 0;
+  }
+  out[r] = m;
 }
 
 // The automaton's arguments, checked as every entry point checks them.
@@ -388,12 +467,16 @@ int lct_fused_scan(const uint8_t* rows, const int32_t* lengths, int64_t B,
                       static_cast<cudaEvent_t>(ev_end));
 }
 
-// K3: out is bool [B]; starts and spanlens are int32 [B], row-relative.
+// K3: out is bool [B]; starts and spanlens are int32 [B], row-relative;
+// gate_lo, gate_hi and gate_bits the length gate (gate_bits: u32 words over
+// lengths 0..L at least, or null where the hull is exact).
 int lct_dfa_span_match(const uint8_t* rows, const int32_t* lengths,
                        int64_t B, int32_t L, const uint8_t* t256, int32_t S,
                        const int32_t* accept, int32_t start,
                        int32_t first_settled, const int32_t* starts,
-                       const int32_t* spanlens, uint8_t* out, int32_t threads,
+                       const int32_t* spanlens, int32_t gate_lo,
+                       int32_t gate_hi, const uint32_t* gate_bits,
+                       uint8_t* out, int32_t threads,
                        int32_t smem, void* stream,
                        void* ev_start, void* ev_end) {
   if (B <= 0) return 0;
@@ -408,7 +491,7 @@ int lct_dfa_span_match(const uint8_t* rows, const int32_t* lengths,
     return static_cast<int>(e);
   dfa_span_kernel<<<static_cast<unsigned>(blocks), threads, smem, st>>>(
       rows, lengths, B, L, t256, S, accept, start, first_settled, starts,
-      spanlens, out);
+      spanlens, gate_lo, gate_hi, gate_bits, out);
   if ((e = cudaGetLastError()) != cudaSuccess) return static_cast<int>(e);
   if (ev_end) e = cudaEventRecord(static_cast<cudaEvent_t>(ev_end), st);
   return static_cast<int>(e);

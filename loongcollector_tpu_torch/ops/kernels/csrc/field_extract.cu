@@ -46,17 +46,24 @@
 // K8, the sharded parse step (lct_sharded_extract_*), is this kernel with
 // STATS on.  It replaces the TPU program loongcollector_tpu/parallel/mesh.py:73
 // (ShardedParsePlane: K1's XLA body under shard_map, then three psum'd
-// counts, :90-98), one launch per shard.  The walk is K1's; an epilogue adds
-// the shard's three counts: matched = sum(ok) over every row of the launch,
-// padding rows included (a pattern that matches the empty string makes them
-// ok, and the reference counts them), events = the rows with len > 0, bytes
-// = sum(len).  Each warp reduces its 32 rows with shuffles and lane 0 adds
-// to stats[3] with three atomics; the launcher zeroes stats on the stream
-// first.  The host sums the shards' vectors (parallel/mesh.py), the psum's
-// counterpart.  The counts are 64-bit; the reference's are int32 (x64 off),
-// equal while sum(len) < 2^31, which holds for B <= 65,536 rows of L <= 4,096
-// bytes (2^28).  Bound: K1's bytes plus 24 bytes a shard.  With STATS off
-// the epilogue compiles away, and the six K1 entry points are what they were.
+// counts, :90-98).  One launch covers every shard a device holds: the
+// launch's B rows are shards of shard_rows consecutive rows each.  The walk
+// is K1's; an epilogue gives each shard its three counts: matched = sum(ok)
+// over every row of the shard, padding rows included (a pattern that
+// matches the empty string makes them ok, and the reference counts them),
+// events = the rows with len > 0, bytes = sum(len).  No count is zeroed
+// first and none is added to with an atomic: the rows split into pieces,
+// where a warp's 32 rows meet a shard (a warp straddles a shard boundary
+// when shard_rows is not a multiple of 32), and each piece's counts are
+// written once, by the last lane of a segmented shuffle sum over the
+// warp's lanes, at the piece's index (ordered by first row: the warp and
+// shard starts below it, field_extract_cuda.stat_pieces).  The host folds
+// the pieces per shard when it folds the counts (parallel/mesh.py), the
+// psum's counterpart.  The counts are 64-bit; the reference's are int32 (x64
+// off), equal while sum(len) < 2^31, which holds for B <= 65,536 rows of
+// L <= 4,096 bytes (2^28).  Bound: K1's bytes plus 24 bytes a shard.  With
+// STATS off the epilogue compiles away, and the six K1 entry points are what
+// they were.
 
 #include "extract_walk.cuh"
 
@@ -75,7 +82,8 @@ field_extract_kernel(const uint8_t* __restrict__ rows,
                      uint8_t* __restrict__ ok_out,
                      int32_t* __restrict__ off_out,
                      int32_t* __restrict__ len_out,
-                     unsigned long long* __restrict__ stats) {
+                     long long* __restrict__ pieces, uint32_t shard_rows,
+                     uint32_t lcm_rows) {
   extern __shared__ int32_t smem[];
   const int32_t T = blockDim.x, tid = threadIdx.x, lane = tid & 31;
   const int64_t row0 = (int64_t)blockIdx.x * T;
@@ -179,20 +187,38 @@ field_extract_kernel(const uint8_t* __restrict__ rows,
   }
 
   if constexpr (STATS) {
-    // the whole warp: lanes past nrows hold ok = false and len = 0
+    // the warp's rows by shard: each lane sums the lanes from its shard's
+    // first row in the warp (seg) up to its own; lanes past nrows hold
+    // ok = false and len = 0 and write nothing (B < 2^31: the launcher
+    // checks)
+    const uint32_t wfirst = static_cast<uint32_t>(row0 + wrow);
+    const uint32_t row = wfirst + lane;
+    const uint32_t sh = row / shard_rows;
+    const int32_t seg = static_cast<int32_t>(
+        sh * shard_rows > wfirst ? sh * shard_rows - wfirst : 0);
     uint32_t m = ok, ev = len > 0;
     int32_t by = len;
 #pragma unroll
-    for (int s = 16; s > 0; s >>= 1) {
-      m += __shfl_xor_sync(0xffffffffu, m, s);
-      ev += __shfl_xor_sync(0xffffffffu, ev, s);
-      by += __shfl_xor_sync(0xffffffffu, by, s);
+    for (int d = 1; d < 32; d <<= 1) {
+      const uint32_t m2 = __shfl_up_sync(0xffffffffu, m, d);
+      const uint32_t e2 = __shfl_up_sync(0xffffffffu, ev, d);
+      const int32_t b2 = __shfl_up_sync(0xffffffffu, by, d);
+      if (lane - d >= seg) {
+        m += m2;
+        ev += e2;
+        by += b2;
+      }
     }
-    if (lane == 0 && wrows > 0) {
-      atomicAdd(stats, (unsigned long long)m);
-      atomicAdd(stats + 1, (unsigned long long)ev);
-      // a signed sum: two's complement wraps to the same 64-bit total
-      atomicAdd(stats + 2, (unsigned long long)(long long)by);
+    // the last lane of a piece writes it
+    if (lane < wrows && (lane == 31 || lane + 1 == wrows
+                         || (row + 1) % shard_rows == 0)) {
+      const uint32_t r = wfirst + seg;     // the piece's first row
+      const uint32_t p = (r + 31) / 32 + (r + shard_rows - 1) / shard_rows
+                         - (r + lcm_rows - 1) / lcm_rows;
+      long long* o = pieces + 3 * static_cast<int64_t>(p);
+      o[0] = m;
+      o[1] = ev;
+      o[2] = by;
     }
   }
 }
@@ -200,15 +226,13 @@ field_extract_kernel(const uint8_t* __restrict__ rows,
 template <bool NESTED, int PIVOT, bool STATS>
 int launch(const uint8_t* rows, const int32_t* lens, int64_t B, int32_t L,
            const int32_t* prog, int32_t prog_words, uint8_t* ok_out,
-           int32_t* off_out, int32_t* len_out,
-           unsigned long long* stats, int32_t threads,
+           int32_t* off_out, int32_t* len_out, long long* pieces,
+           int64_t shard_rows, int64_t lcm_rows, int32_t threads,
            int32_t smem_bytes, void* stream) {
-  if constexpr (STATS) {
-    cudaError_t z = cudaMemsetAsync(stats, 0, 3 * sizeof(unsigned long long),
-                                    (cudaStream_t)stream);
-    if (z != cudaSuccess) return (int)z;
-  }
   if (B <= 0) return 0;
+  if (STATS && (B >= (1ll << 31) || shard_rows < 1 || B % shard_rows
+                || lcm_rows < 1 || lcm_rows > B || lcm_rows % shard_rows))
+    return (int)cudaErrorInvalidValue;
   if (threads < 32 || threads > kMaxThreads || threads % 32)
     return (int)cudaErrorInvalidValue;
   auto kernel = field_extract_kernel<NESTED, PIVOT, STATS>;
@@ -230,7 +254,8 @@ int launch(const uint8_t* rows, const int32_t* lens, int64_t B, int32_t L,
   const int64_t blocks = (B + threads - 1) / threads;
   kernel<<<(unsigned)blocks, threads, (size_t)smem_bytes,
            (cudaStream_t)stream>>>(rows, lens, B, L, prog, prog_words, ok_out,
-                                   off_out, len_out, stats);
+                                   off_out, len_out, pieces,
+                                   (uint32_t)shard_rows, (uint32_t)lcm_rows);
   return (int)cudaGetLastError();
 }
 
@@ -247,20 +272,25 @@ int launch(const uint8_t* rows, const int32_t* lens, int64_t B, int32_t L,
            int32_t smem_bytes, void* stream) {                               \
     return launch<NESTED, PIVOT, false>(rows, lens, B, L, prog, prog_words,   \
                                         ok_out, off_out, len_out, nullptr,   \
-                                        threads, smem_bytes, stream);        \
+                                        1, 1, threads, smem_bytes, stream);  \
   }
 
-// K8: the same walk, and the launch's three counts added into `stats`
-// (u64 [3]: matched, events, bytes), which the launcher zeroes first on
-// `stream`.  The launch writes through the pointers of the current device.
+// K8: the same walk over shards of `shard_rows` rows (B a multiple), and
+// each piece's three counts (i64 [pieces][3]: matched, events, bytes)
+// written into `pieces`, every piece once, nothing zeroed first;
+// `lcm_rows` = min(lcm(32, shard_rows), B), from which a piece's index
+// follows (field_extract_cuda.stat_pieces).  The launch writes through the
+// pointers of the current device.
 #define LCT_SHARDED_EXTRACT(NAME, NESTED, PIVOT)                             \
   int NAME(const uint8_t* rows, const int32_t* lens, int64_t B, int32_t L,   \
            const int32_t* prog, int32_t prog_words, uint8_t* ok_out,         \
-           int32_t* off_out, int32_t* len_out, unsigned long long* stats,    \
-           int32_t threads, int32_t smem_bytes, void* stream) {              \
+           int32_t* off_out, int32_t* len_out, long long* pieces,            \
+           int64_t shard_rows, int64_t lcm_rows, int32_t threads,            \
+           int32_t smem_bytes, void* stream) {                               \
     return launch<NESTED, PIVOT, true>(rows, lens, B, L, prog, prog_words,    \
-                                       ok_out, off_out, len_out, stats,      \
-                                       threads, smem_bytes, stream);         \
+                                       ok_out, off_out, len_out, pieces,     \
+                                       shard_rows, lcm_rows, threads,        \
+                                       smem_bytes, stream);                  \
   }
 
 extern "C" {

@@ -195,6 +195,82 @@ def settle_points(arrays: AutomatonArrays, rows: np.ndarray,
     return need
 
 
+def _step_graph(t256: np.ndarray) -> np.ndarray:
+    """bool [S, S]: some byte leads from state s to state t."""
+    t = np.asarray(t256, dtype=np.int64)
+    S = t.shape[0]
+    g = np.zeros((S, S), bool)
+    g[np.repeat(np.arange(S), t.shape[1]), t.reshape(-1)] = True
+    return g
+
+
+def accepted_lengths(arrays: AutomatonArrays, n_max: int) -> np.ndarray:
+    """bool [n_max + 1]: whether some walk of exactly n bytes from the
+    start ends in a state whose accept value is not 0 — the span lengths
+    K3's walk can accept.  Layer by layer: the states n bytes reach, a
+    matrix step a layer, and once a layer repeats an earlier one the rest
+    repeats with its period."""
+    g = _step_graph(arrays.t256).astype(np.int32)
+    acc = np.asarray(arrays.accept) != 0
+    S = g.shape[0]
+    out = np.zeros(n_max + 1, bool)
+    reach = np.zeros(S, bool)
+    reach[arrays.start] = True
+    seen = {}
+    for n in range(n_max + 1):
+        key = reach.tobytes()
+        if key in seen:
+            first = seen[key]
+            period = n - first
+            idx = first + (np.arange(n, n_max + 1) - first) % period
+            out[n:] = out[idx]
+            return out
+        seen[key] = n
+        out[n] = (reach & acc).any()
+        reach = (reach.astype(np.int32) @ g) > 0
+    return out
+
+
+@dataclass(frozen=True)
+class LengthGate:
+    """K3's length gate for spans of up to ``n_max`` bytes: a walked
+    length n can be accepted only if ``lo <= n <= hi`` (the least and the
+    greatest accepted length up to ``n_max``; ``lo > hi`` where none is)
+    and, where not every length between them is accepted, bit n of
+    ``bits`` (u32 words, bit n of word n // 32) is set; ``bits`` is None
+    when the hull is exact."""
+
+    lo: int
+    hi: int
+    n_max: int
+    bits: Optional[np.ndarray]
+
+    def passes(self, n: np.ndarray) -> np.ndarray:
+        n = np.asarray(n, np.int64)
+        ok = (n >= self.lo) & (n <= self.hi)
+        if self.bits is not None:
+            word = self.bits[np.clip(n, 0, self.n_max) >> 5]
+            ok &= ((word >> (n & 31).astype(np.uint32)) & 1).astype(bool)
+        return ok
+
+
+def length_gate(arrays: AutomatonArrays, n_max: int) -> LengthGate:
+    """The gate of ``arrays`` for walked lengths ``0..n_max``: the hull of
+    ``accepted_lengths`` and, unless every length inside it is accepted,
+    their bitmap."""
+    lengths = accepted_lengths(arrays, n_max)
+    got = np.nonzero(lengths)[0]
+    if not len(got):
+        return LengthGate(n_max + 1, -1, n_max, None)
+    lo, hi = int(got[0]), int(got[-1])
+    if lengths[lo:hi + 1].all():
+        return LengthGate(lo, hi, n_max, None)
+    padded = np.zeros(-(-(n_max + 1) // 32) * 32, bool)
+    padded[:n_max + 1] = lengths
+    bits = np.packbits(padded, bitorder="little").view(np.uint32)
+    return LengthGate(lo, hi, n_max, bits.copy())
+
+
 def walk_plain(t256: torch.Tensor, accept: torch.Tensor, start: int,
                rows: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
     """accept[final state] per row, i32 [B]: every row advances one byte
@@ -334,6 +410,22 @@ class DFASpanMatchKernel(_TableWalkKernel):
         return span_walk_plain(t256, accept, self.arrays.start, rows,
                                lengths, starts, spanlens)
 
+    def gate(self, device: torch.device, L: int):
+        """(lo, hi, bits) of the length gate (``length_gate``) for spans
+        cut at rows of ``L`` bytes: bits a u32 ``[ceil((n_max + 1) / 32)]``
+        tensor (as i32) on ``device``, or None where the hull is exact;
+        computed once for ``n_max`` = the largest length bucket (or ``L``
+        when larger), uploaded once per device."""
+        n_max = max(L, LENGTH_BUCKETS[-1])
+        key = ("gate", device, n_max)
+        got = self._tables.get(key)
+        if got is None:
+            g = length_gate(self.arrays, n_max)
+            bits = None if g.bits is None else torch.from_numpy(
+                g.bits.view(np.int32)).to(device)
+            got = self._tables.setdefault(key, (g.lo, g.hi, bits))
+        return got
+
     def __call__(self, rows: torch.Tensor, lengths: torch.Tensor,
                  starts: torch.Tensor, spanlens: torch.Tensor,
                  events=None) -> torch.Tensor:
@@ -346,7 +438,9 @@ class DFASpanMatchKernel(_TableWalkKernel):
         out = dfa_scan_cuda.launch(self.mode, rows, lengths, t256, accept,
                                    self.arrays.start,
                                    self.arrays.first_settled, events,
-                                   spans=(starts, spanlens))
+                                   spans=(starts, spanlens),
+                                   gate=self.gate(rows.device,
+                                                  rows.shape[1]))
         with self._count_lock:
             self.launches += 1
         return out

@@ -10,7 +10,10 @@ or launch failure raises; nothing here falls back to the plain version.
 A launch takes the automaton as two device tables (``AutomatonArrays``):
 ``t256`` u8 ``[S, 256]`` and ``accept`` i32 ``[S]``, which each block copies
 into shared memory, and its first settled state, where a walk stops; K3
-also takes each row's span, ``starts`` and ``spanlens`` i32 ``[B]``; K4
+also takes each row's span, ``starts`` and ``spanlens`` i32 ``[B]``, and
+the automaton's length gate (``dfa_scan.length_gate``: the accepted span
+lengths' hull and, where the hull is not exact, their bitmap), which a row
+passes before it reads a row byte or a table byte; K4
 its skip table (``AutomatonArrays.skip_table``, u64 ``[S]``), copied
 beside the other two, from which its walk scans past the bytes that
 cannot move a skip state.
@@ -110,7 +113,8 @@ def build() -> ctypes.CDLL:
         for mode, name in ENTRY_POINTS.items():
             fn = getattr(lib, name)
             fn.restype = ctypes.c_int
-            spans = [vp, vp] if mode == "span" else []
+            # K3: starts, spanlens, then its length gate (lo, hi, bits)
+            spans = [vp, vp, i32, i32, vp] if mode == "span" else []
             skip = [vp] if mode == "tags" else []
             fn.argtypes = [vp, vp, ctypes.c_int64, i32, vp, i32, vp, i32,
                            i32, *spans, *skip, vp, i32, i32, vp, vp, vp]
@@ -155,10 +159,12 @@ def reset_launch_shapes() -> None:
 def launch(mode: str, rows: torch.Tensor, lengths: torch.Tensor,
            t256: torch.Tensor, accept: torch.Tensor, start: int,
            first_settled: int, events=None, spans=None,
-           skips=None) -> torch.Tensor:
+           skips=None, gate=None) -> torch.Tensor:
     """One launch of K2 (``mode="match"``, bool ``[B]``), K3
     (``mode="span"``, bool ``[B]``; ``spans`` the (starts, spanlens) i32
-    ``[B]`` pair) or K4 (``mode="tags"``, i32 ``[B]``) on PyTorch's current
+    ``[B]`` pair, ``gate`` its length gate ``(lo, hi, bits)``,
+    ``DFASpanMatchKernel.gate``: bits an i32 tensor on the device or None)
+    or K4 (``mode="tags"``, i32 ``[B]``) on PyTorch's current
     stream, without a synchronise.  rows u8 ``[B, L]``, lengths i32
     ``[B]``, t256 u8 ``[S, 256]`` and accept i32 ``[S]`` on one CUDA
     device, contiguous; states ``first_settled`` and above are settled
@@ -168,8 +174,9 @@ def launch(mode: str, rows: torch.Tensor, lengths: torch.Tensor,
     right around the kernel."""
     dev = rows.device
     span_args = tuple(spans or ()) if mode == "span" else ()
-    if mode == "span" and len(span_args) != 2:
-        raise ValueError("dfa_scan: K3 takes (starts, spanlens)")
+    if mode == "span" and (len(span_args) != 2 or gate is None):
+        raise ValueError("dfa_scan: K3 takes (starts, spanlens) and its "
+                         "length gate")
     skip_args = (skips,) if mode == "tags" else ()
     if mode == "tags" and skips is None:
         raise ValueError("dfa_scan: K4 takes its skip table")
@@ -183,6 +190,13 @@ def launch(mode: str, rows: torch.Tensor, lengths: torch.Tensor,
                          f"{rows.dtype} {tuple(rows.shape)}")
     B, L = rows.shape
     S = t256.shape[0]
+    gate_bits = gate[2] if mode == "span" else None
+    if gate_bits is not None and (gate_bits.device != dev
+                                  or gate_bits.dtype != torch.int32
+                                  or gate_bits.numel() * 32 <= L
+                                  or not gate_bits.is_contiguous()):
+        raise ValueError(f"dfa_scan: the gate's bitmap must be i32 words "
+                         f"over lengths 0..{L} on {dev}")
     if lengths.dtype != torch.int32 or tuple(lengths.shape) != (B,):
         raise ValueError(f"dfa_scan: lengths must be i32 [{B}], got "
                          f"{lengths.dtype} {tuple(lengths.shape)}")
@@ -222,7 +236,11 @@ def launch(mode: str, rows: torch.Tensor, lengths: torch.Tensor,
     rc = getattr(lib, entry)(
         rows.data_ptr(), lengths.data_ptr(), B, L, t256.data_ptr(), S,
         accept.data_ptr(), start, first_settled,
-        *(t.data_ptr() for t in span_args + skip_args), out.data_ptr(),
+        *(t.data_ptr() for t in span_args + skip_args),
+        *(() if mode != "span" else (
+            gate[0], gate[1],
+            None if gate_bits is None else gate_bits.data_ptr())),
+        out.data_ptr(),
         shape.threads, shape.smem, stream.cuda_stream, *handles)
     if rc != 0:
         raise RuntimeError(f"dfa_scan launch failed ({entry}): "

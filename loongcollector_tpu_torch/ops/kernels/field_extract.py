@@ -12,9 +12,10 @@ it is what runs for tensors on the CPU.
 ``ExtractKernel`` is the one surface callers use: a CPU tensor takes the
 plain version, a CUDA tensor launches the hand-written kernel — or raises.
 There is no fallback from one to the other.  ``ExtractKernel.with_stats``
-is K8, one shard of the sharded parse step (``parallel/mesh.py``): the
-same extraction and the shard's three counts; ``extract_stats_plain`` is
-its plain version.
+is K8, the sharded parse step of one device (``parallel/mesh.py``): the
+same extraction over one or more shards of equal size, and each shard's
+three counts, as pieces (``plain_pieces``) that ``fold_pieces`` sums per
+shard; ``extract_stats_plain`` is its plain version on one shard.
 """
 
 from __future__ import annotations
@@ -27,6 +28,7 @@ import torch
 
 from ..regex.program import (INF, Alt, CapEnd, CapStart, FixedSpan, Lit,
                              Optional_, SegmentProgram, Span)
+from .field_extract_cuda import piece_starts
 
 
 def _membership(rows: torch.Tensor, intervals, complement_intervals
@@ -453,6 +455,29 @@ def extract_stats_plain(rows: torch.Tensor, lengths: torch.Tensor,
     return ok, off, length, plain_counts(ok, lengths)
 
 
+def plain_pieces(ok: torch.Tensor, lengths: torch.Tensor,
+                 shard_rows: int) -> torch.Tensor:
+    """K8's pieces, i64 [pieces, 3], from the plain extraction's ``ok``:
+    each piece's ``plain_counts``, as differences of running sums."""
+    B = ok.shape[0]
+    vals = torch.stack([ok.to(torch.int64), (lengths > 0).to(torch.int64),
+                        lengths.to(torch.int64)], dim=1)
+    run = torch.cat([vals.new_zeros((1, 3)), vals.cumsum(dim=0)])
+    ends = torch.from_numpy(np.append(piece_starts(B, shard_rows), B)
+                            ).to(ok.device)
+    return run[ends[1:]] - run[ends[:-1]]
+
+
+def fold_pieces(pieces, B: int, shard_rows: int) -> torch.Tensor:
+    """The shards' counts, i64 [B / shard_rows, 3], from K8's pieces (a
+    host tensor or array [pieces, 3]): each shard's pieces summed."""
+    pieces = np.asarray(pieces, np.int64).reshape(-1, 3)
+    shard = piece_starts(B, shard_rows) // shard_rows
+    out = np.zeros((B // shard_rows, 3), np.int64)
+    np.add.at(out, shard, pieces)
+    return torch.from_numpy(out)
+
+
 class ExtractKernel:
     """One compiled program's extraction, dispatched by tensor device.
 
@@ -523,20 +548,25 @@ class ExtractKernel:
         return out
 
     def with_stats(self, rows: torch.Tensor, lengths: torch.Tensor,
-                   events=None) -> Tuple[torch.Tensor, ...]:
-        """K8 on one shard: (ok, cap_off, cap_len, counts i64 [3]).  CPU
-        tensors take ``extract_stats_plain``; CUDA tensors launch
+                   events=None, shard_rows: int = 0
+                   ) -> Tuple[torch.Tensor, ...]:
+        """K8 over shards of ``shard_rows`` rows (0: one shard): (ok,
+        cap_off, cap_len, pieces i64 [pieces, 3]), the pieces'
+        counts (``fold_pieces`` sums them per shard).  CPU tensors take
+        the plain extraction and ``plain_pieces``; CUDA tensors launch
         ``lct_sharded_extract_*`` on the current stream of the current
         device (which must be the rows' device), counted in
         ``stats_launches``."""
         if rows.device.type == "cpu":
-            return extract_stats_plain(rows, lengths, self.plain)
+            ok, off, length = self.plain(rows, lengths)
+            return ok, off, length, plain_pieces(
+                ok, lengths, shard_rows or max(rows.shape[0], 1))
         if rows.device.type != "cuda":
             raise ValueError(f"no sharded_extract kernel for {rows.device}")
         from . import field_extract_cuda as fxc
         out = fxc.launch_stats(rows, lengths,
                                self.device_program(rows.device),
-                               self.kernel_program, events)
+                               self.kernel_program, events, shard_rows)
         with self._count_lock:
             self.stats_launches += 1
         return out

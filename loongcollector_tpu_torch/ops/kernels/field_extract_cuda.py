@@ -21,9 +21,10 @@ and ``MAX_PROGRAM_BYTES`` is what is left of the card's budget at the
 largest row bucket.  The kernel is instantiated for depth-0 or nested
 programs and for no, single or double pivot; the header picks one
 (``KernelProgram.entry_point``).  Each instantiation has a second entry
-point, ``lct_sharded_extract_*`` (K8, ``launch_stats``): the same walk,
-plus the launch's three counts (matched, events, bytes) added into a
-u64 [3] that the launcher zeroes first.  A program over a limit (captures,
+point, ``lct_sharded_extract_*`` (K8, ``launch_stats``): the same walk
+over one or more shards of equal size, plus each piece's three counts
+(matched, events, bytes; ``stat_pieces``), each written once, nothing
+zeroed first.  A program over a limit (captures,
 classes, nesting depth, blob size) raises ``KernelUnsupported`` when the
 engine is built; the engine then runs the pattern on Python ``re``
 (counted and logged).  Importing this module needs no CUDA: only
@@ -35,6 +36,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import hashlib
+import math
 import os
 import re
 import shutil
@@ -390,11 +392,12 @@ def build() -> ctypes.CDLL:
             fn.restype = ctypes.c_int
             fn.argtypes = [vp, vp, ctypes.c_int64, i32, vp, i32, vp, vp, vp,
                            i32, i32, vp]
+        i64 = ctypes.c_int64
         for name in STATS_ENTRY_POINTS:
             fn = getattr(lib, name)
             fn.restype = ctypes.c_int
-            fn.argtypes = [vp, vp, ctypes.c_int64, i32, vp, i32, vp, vp, vp,
-                           vp, i32, i32, vp]
+            fn.argtypes = [vp, vp, i64, i32, vp, i32, vp, vp, vp, vp, i64,
+                           i64, i32, i32, vp]
         lib.lct_cuda_error_string.restype = ctypes.c_char_p
         lib.lct_cuda_error_string.argtypes = [ctypes.c_int]
         _lib = lib
@@ -490,31 +493,58 @@ def launch(rows: torch.Tensor, lengths: torch.Tensor, prog: torch.Tensor,
     return ok, off, length
 
 
+@functools.lru_cache(maxsize=256)
+def stat_pieces(B: int, shard_rows: int) -> Tuple[int, int]:
+    """(pieces, lcm_rows) of a K8 launch of ``B`` rows in shards of
+    ``shard_rows``: a piece is where a warp's 32 rows meet a shard, the
+    pieces ordered by first row.  The piece that starts at row r (a
+    multiple of 32 or of ``shard_rows``) has index ``ceil(r / 32) + ceil(r
+    / shard_rows) - ceil(r / lcm_rows)``, the starts below it; ``lcm_rows``
+    is ``min(lcm(32, shard_rows), B)``, which counts the same common
+    starts below B.  The number of pieces is that index at r = B."""
+    if B == 0:
+        return 0, 1
+    if shard_rows < 1 or B % shard_rows:
+        raise ValueError(f"sharded_extract: B={B} is not a multiple of the "
+                         f"shard's {shard_rows} rows")
+    lcm_rows = min(math.lcm(32, shard_rows), B)
+    n = -(-B // 32) + -(-B // shard_rows) - -(-B // lcm_rows)
+    return n, lcm_rows
+
+
+def piece_starts(B: int, shard_rows: int) -> np.ndarray:
+    """i64 [pieces]: the first row of each of K8's pieces, in order: the
+    rows below ``B`` that are a multiple of 32 or of ``shard_rows``."""
+    starts = np.union1d(np.arange(0, B, 32), np.arange(0, B, shard_rows))
+    return starts.astype(np.int64)
+
+
 def launch_stats(rows: torch.Tensor, lengths: torch.Tensor,
-                 prog: torch.Tensor, kprog: KernelProgram, events=None
+                 prog: torch.Tensor, kprog: KernelProgram, events=None,
+                 shard_rows: int = 0
                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
                             torch.Tensor]:
-    """One K8 launch, a shard of the sharded parse step: ``launch`` plus
-    the launch's counts as a fourth output, i64 [3] on the device: matched
-    (rows with ok, padding rows included), events (rows with a length
-    above 0) and bytes (the sum of the lengths), zeroed and filled on the
-    current stream.  The C entry point launches on the current CUDA
-    device, so the rows must lie on it: a launch for another device would
-    write through that device's pointers, and raises instead.  Counted in
-    ``launch_shapes`` under K8's entry point.  Either event of ``events``
-    may be None: a sharded dispatch brackets a device's several launches
-    with the first's start and the last's end."""
+    """One K8 launch over shards of ``shard_rows`` rows (0: one shard of
+    all ``B``): ``launch`` plus the pieces' counts as a fourth output, i64
+    [pieces, 3] on the device (``stat_pieces``): matched (rows with ok,
+    padding rows included), events (rows with a length above 0) and bytes
+    (the sum of the lengths) of each piece, every piece written by the
+    kernel, nothing zeroed; ``field_extract.fold_pieces`` sums them per
+    shard.  The C entry point launches on the current CUDA device, so the
+    rows must lie on it: a launch for another device would write through
+    that device's pointers, and raises instead.  Counted in
+    ``launch_shapes`` under K8's entry point."""
     if rows.device.type == "cuda" \
             and rows.device.index != torch.cuda.current_device():
         raise ValueError(f"sharded_extract: rows on {rows.device}, but the "
                          f"current device is cuda:"
                          f"{torch.cuda.current_device()}")
     return _launch(rows, lengths, prog, kprog, events,
-                   kprog.stats_entry_point, True)
+                   kprog.stats_entry_point, True, shard_rows)
 
 
 def _launch(rows, lengths, prog, kprog: KernelProgram, events, entry: str,
-            with_stats: bool):
+            with_stats: bool, shard_rows: int = 0):
     if rows.device.type != "cuda" or lengths.device != rows.device \
             or prog.device != rows.device:
         raise ValueError("field_extract: rows, lengths and program must lie "
@@ -540,8 +570,11 @@ def _launch(rows, lengths, prog, kprog: KernelProgram, events, entry: str,
             prog.numel(), ok.data_ptr(), off.data_ptr(), length.data_ptr()]
     stats = None
     if with_stats:
-        stats = torch.empty(3, dtype=torch.int64, device=rows.device)
-        args.append(stats.data_ptr())
+        s = shard_rows or max(B, 1)
+        n_pieces, lcm_rows = stat_pieces(B, s)
+        stats = torch.empty((n_pieces, 3), dtype=torch.int64,
+                            device=rows.device)
+        args += [stats.data_ptr(), s, lcm_rows]
     stream = torch.cuda.current_stream(rows.device)
     start, end = events if events is not None else (None, None)
     if start is not None:

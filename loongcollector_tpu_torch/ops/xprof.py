@@ -26,10 +26,11 @@ when the timeline is enabled, one on each CUDA device.  On the CPU the
 legs are host stopwatches, relative to the host epoch.
 
 A sharded dispatch (``parallel/mesh.ShardedKernel``) records an h2d leg
-for each shard, tagged with the shard's index, and one exec leg (and one
-d2h leg) for each device of the mesh, from before its first shard's launch
-to after its last: the exec legs stay one a dispatch on one device, so the
-busy share stays the union of the device's exec intervals.  The shard-
+for each device's run of shards (one copy an input), tagged with the
+run's first shard, and one exec leg (and one d2h leg) for each device of
+the mesh, right around its one K8 launch: the exec legs stay one a
+dispatch on one device, so the busy share stays the union of the device's
+exec intervals.  The shard-
 tagged legs are also kept per shard (``shard_leg_summary``).
 
 Settled legs feed the decomposition: per (program, geometry, leg) samples

@@ -4,17 +4,20 @@ Reference: loongcollector_tpu/parallel/mesh.py.  Events are independent,
 so the batch dimension shards cleanly: ``ShardedParsePlane`` splits a
 batch of ``B`` rows into ``m`` contiguous row ranges ``[i·B/m,
 (i+1)·B/m)``, one per device of a 1-D ``("dp",)`` mesh (the reference's
-``shard_map`` with ``P(axis, None)``), and runs one K8 launch on each: K1's
-extraction plus the shard's three counts, ``matched = Σ ok`` (padding rows
-included), ``events = Σ (len > 0)`` and ``bytes = Σ len``
+``shard_map`` with ``P(axis, None)``), and gives each device one K8
+launch over its shards (a mesh that repeats a device, as a mesh of four
+shards on one card does, holds several; ``DeviceMesh.runs``): K1's
+extraction plus each shard's three counts, ``matched = Σ ok`` (padding
+rows included), ``events = Σ (len > 0)`` and ``bytes = Σ len``
 (``ExtractKernel.with_stats``; plain version ``extract_stats_plain``).
 
 The reference adds the counts across chips with ``psum`` inside the
 program (``mesh.py:93-97``).  Here one process owns every device, as the
 JAX single controller does, so no process group or collective is needed:
-each shard's i64 [3] vector is copied back with the shard's outputs, and
-the ``m`` vectors are summed on the host when the telemetry queue is
-folded — the ``psum``'s counterpart.
+each launch's count pieces (``field_extract_cuda.stat_pieces``) are
+copied back with its outputs, folded into one i64 [3] vector a shard
+(``ShardCounts``), and the ``m`` vectors are summed on the host when the
+telemetry queue is folded — the ``psum``'s counterpart.
 
 * ``DeviceMesh`` stands in for ``jax.sharding.Mesh``: an ordered tuple of
   ``torch.device``s and the axis name ``"dp"``.  ``make_mesh`` takes the
@@ -25,12 +28,12 @@ folded — the ``psum``'s counterpart.
   on one card that way.
 * ``ShardedKernel`` is what the regex engine dispatches (``LOONG_SHARDED``,
   ``ops/regex/engine.py``).  Staged, as ``StagedKernel``: ``kern(slot,
-  C)`` copies each shard's rows and lengths to its device on that
-  device's H2D stream (``thread_streams``), launches K8 once a shard on
-  the device's compute stream, copies every output back into the slot's
-  pinned buffers at the shard's offset and the counts into pinned host
-  memory; the slot's fence covers every device's last event, and nothing
-  synchronises the host.  Direct, as the reference: ``kern(rows,
+  C)`` copies each device's rows and lengths to it on that device's H2D
+  stream (``thread_streams``), one copy an input, launches K8 once on the
+  device's compute stream, copies its outputs back into the slot's pinned
+  buffers at its first shard's offset and its count pieces into pinned
+  host memory; the slot's fence covers every device's last event, and
+  nothing synchronises the host.  Direct, as the reference: ``kern(rows,
   lengths) -> (ok, off, len)`` on host arrays, synchronous, through a
   kernel-private pad buffer when ``B % m != 0`` (counted in
   ``pad_fallbacks``).  ``batch_multiple`` (= m) feeds
@@ -62,7 +65,7 @@ import torch
 from ..ops import xprof
 from ..ops.device_plane import mem_note_alloc, mem_note_free
 from ..ops.device_stream import BatchSlot
-from ..ops.kernels.field_extract import ExtractKernel
+from ..ops.kernels.field_extract import ExtractKernel, fold_pieces
 from ..ops.regex.program import SegmentProgram
 from ..utils.device import resolve_device
 
@@ -87,6 +90,19 @@ class DeviceMesh:
         for i, d in enumerate(self.devices):
             out.setdefault(d, []).append(i)
         return list(out.items())
+
+    def runs(self) -> List[Tuple[torch.device, int, int]]:
+        """(device, first shard, shards): each device's consecutive shards,
+        the rows of one K8 launch — one a device, whenever each device's
+        shards are consecutive in the mesh (as ``make_mesh`` builds it)."""
+        out = []
+        for dev, shards in self.groups():
+            first = shards[0]
+            for prev, i in zip(shards, shards[1:] + [None]):
+                if i != prev + 1:
+                    out.append((dev, first, prev - first + 1))
+                    first = i
+        return out
 
     def __repr__(self) -> str:
         return f"DeviceMesh({[str(d) for d in self.devices]})"
@@ -116,6 +132,28 @@ def make_mesh(n_devices: Optional[int] = None, devices: Optional[list] = None,
             devs = devs[:n_devices]
         return DeviceMesh(devs)
     return DeviceMesh([torch.device("cpu")] * (n_devices or 1))
+
+
+class ShardCounts:
+    """A dispatch's counts: each K8 launch's pieces (host i64 [pieces, 3],
+    filled once the dispatch's fence has completed), folded into one i64
+    [3] vector a shard on demand (``fold``)."""
+
+    __slots__ = ("m", "s", "runs")
+
+    def __init__(self, m: int, shard_rows: int):
+        self.m, self.s = m, shard_rows
+        self.runs: List[Tuple[int, int, torch.Tensor]] = []
+
+    def add(self, first: int, shards: int, pieces: torch.Tensor) -> None:
+        self.runs.append((first, shards, pieces))
+
+    def fold(self) -> torch.Tensor:
+        """i64 [m, 3]: each shard's matched, events and bytes."""
+        out = torch.zeros((self.m, 3), dtype=torch.int64)
+        for first, k, pieces in self.runs:
+            out[first:first + k] = fold_pieces(pieces, k * self.s, self.s)
+        return out
 
 
 class _Fence:
@@ -168,92 +206,90 @@ class ShardedParsePlane:
         rows = torch.as_tensor(rows)
         lengths = torch.as_tensor(lengths)
         s = self._shard_rows(rows.shape[0])
+        counts = ShardCounts(self.mesh.size, s)
         parts = []
-        for i, dev in enumerate(self.mesh.devices):
-            r = rows[i * s:(i + 1) * s]
-            n = lengths[i * s:(i + 1) * s]
+        for dev, first, k in self.mesh.runs():
+            r = rows[first * s:(first + k) * s]
+            n = lengths[first * s:(first + k) * s]
             if dev.type == "cuda":
                 with torch.cuda.device(dev):
-                    out = self.kernel.with_stats(r.to(dev), n.to(dev))
-                parts.append([t.cpu() for t in out])
+                    out = self.kernel.with_stats(r.to(dev), n.to(dev),
+                                                 shard_rows=s)
+                out = [t.cpu() for t in out]
             else:
-                parts.append(self.kernel.with_stats(r.contiguous(),
-                                                    n.contiguous()))
-        ok, off, length = (torch.cat([p[k] for p in parts]) for k in range(3))
-        return ok, off, length, torch.stack([p[3] for p in parts])
+                out = self.kernel.with_stats(r.contiguous(), n.contiguous(),
+                                             shard_rows=s)
+            parts.append((first, out[:3]))
+            counts.add(first, k, out[3])
+        parts.sort(key=lambda p: p[0])
+        ok, off, length = (torch.cat([p[1][j] for p in parts])
+                           for j in range(3))
+        return ok, off, length, counts.fold()
 
     def staged(self, slot: BatchSlot, C: int):
-        """One dispatch of a packed slot: (outputs, counts i64 [m, 3] host
-        tensor, fence or None).  On CUDA the outputs are ``HostOutput``s of
-        the slot's buffers and the counts are filled once the fence has
+        """One dispatch of a packed slot: (outputs, ``ShardCounts``, fence
+        or None).  On CUDA the outputs are ``HostOutput``s of the slot's
+        buffers and the counts' pieces are filled once the fence has
         completed; on the CPU everything is filled on return."""
         s = self._shard_rows(slot.B)
         outs = slot.outputs(C)
         m = self.mesh.size
+        counts = ShardCounts(m, s)
         xid = xprof.current_dispatch()
+        runs = self.mesh.runs()
         if self.mesh.devices[0].type == "cpu":
             slot.fence = None
-            counts = torch.empty((m, 3), dtype=torch.int64)
             t0 = time.perf_counter()
-            results = [self.kernel.with_stats(slot.rows[i * s:(i + 1) * s],
-                                              slot.lengths[i * s:(i + 1) * s])
-                       for i in range(m)]
+            results = [self.kernel.with_stats(
+                slot.rows[first * s:(first + k) * s],
+                slot.lengths[first * s:(first + k) * s], shard_rows=s)
+                for _, first, k in runs]
             t1 = time.perf_counter()
-            for i, res in enumerate(results):
+            for (_, first, k), res in zip(runs, results):
                 for dst, src in zip(outs, res[:3]):
-                    dst[i * s:(i + 1) * s].copy_(src)
-                counts[i] = res[3]
+                    dst[first * s:(first + k) * s].copy_(src)
+                counts.add(first, k, res[3])
             if xid:
                 xprof.leg(xid, "exec", t0, t1 - t0)
                 xprof.leg(xid, "d2h", t1, time.perf_counter() - t1)
             return outs, counts, None
         from ..ops.device_plane import HostOutput, thread_streams
-        counts = torch.empty((m, 3), dtype=torch.int64, pin_memory=True)
         timed = bool(xid)
-        # every shard's rows and lengths to its device, on that device's
-        # H2D stream
-        staged = []
-        for i, dev in enumerate(self.mesh.devices):
+        # each device's rows and lengths to it, one copy an input, on the
+        # device's H2D stream; then its one launch on its compute stream,
+        # once the copies are in, and the copies back
+        dones = []
+        for dev, first, k in runs:
+            lo, hi = first * s, (first + k) * s
             streams = thread_streams(dev)
             e0 = torch.cuda.Event(enable_timing=timed)
             e1 = torch.cuda.Event(enable_timing=timed)
             with torch.cuda.stream(streams.h2d):
                 e0.record(streams.h2d)
-                rows = slot.rows[i * s:(i + 1) * s].to(dev, non_blocking=True)
-                lengths = slot.lengths[i * s:(i + 1) * s].to(
-                    dev, non_blocking=True)
+                rows = slot.rows[lo:hi].to(dev, non_blocking=True)
+                lengths = slot.lengths[lo:hi].to(dev, non_blocking=True)
                 e1.record(streams.h2d)
-            staged.append((rows, lengths, e1))
             if xid:
-                xprof.event_leg(xid, "h2d", e0, e1, shard=i, device=dev)
-        # each device's launches back to back on its compute stream, once
-        # its shards' copies are in, then the copies back
-        dones = []
-        for dev, shards in self.mesh.groups():
-            streams = thread_streams(dev)
-            for i in shards:
-                streams.compute.wait_event(staged[i][2])
+                xprof.event_leg(xid, "h2d", e0, e1, shard=first, device=dev)
+            streams.compute.wait_event(e1)
             x0 = torch.cuda.Event(enable_timing=timed)
             x1 = torch.cuda.Event(enable_timing=timed)
             done = torch.cuda.Event(enable_timing=timed)
             with torch.cuda.stream(streams.compute):
-                results = []
-                for j, i in enumerate(shards):
-                    rows, lengths, _ = staged[i]
-                    # allocated on the H2D stream, read on the compute one
-                    rows.record_stream(streams.compute)
-                    lengths.record_stream(streams.compute)
-                    # the exec leg: from right before the device's first
-                    # launch to right after its last, recorded by the
-                    # wrapper around the entry points, as K1's is
-                    ev = (x0 if j == 0 else None,
-                          x1 if j == len(shards) - 1 else None)
-                    results.append(self.kernel.with_stats(rows, lengths, ev))
-                for i, res in zip(shards, results):
-                    for dst, src in zip(outs, res[:3]):
-                        dst[i * s:(i + 1) * s].copy_(src, non_blocking=True)
-                    counts[i].copy_(res[3], non_blocking=True)
+                # allocated on the H2D stream, read on the compute one
+                rows.record_stream(streams.compute)
+                lengths.record_stream(streams.compute)
+                # the exec leg, recorded by the wrapper right around the
+                # entry point, as K1's is
+                res = self.kernel.with_stats(rows, lengths, (x0, x1),
+                                             shard_rows=s)
+                for dst, src in zip(outs, res[:3]):
+                    dst[lo:hi].copy_(src, non_blocking=True)
+                pieces = torch.empty(res[3].shape, dtype=torch.int64,
+                                     pin_memory=True)
+                pieces.copy_(res[3], non_blocking=True)
                 done.record(streams.compute)
+            counts.add(first, k, pieces)
             dones.append(done)
             if xid:
                 xprof.event_leg(xid, "exec", x0, x1, device=dev)
@@ -337,7 +373,8 @@ class ShardedKernel:
 
     @property
     def launches(self) -> int:
-        """K8 launches of this kernel's program (one a shard)."""
+        """K8 launches of this kernel's program (one a device a dispatch;
+        ``DeviceMesh.runs``)."""
         return self.plane.kernel.stats_launches
 
     # -- padding (direct calls only: the engine's slots arrive aligned) ----
@@ -368,7 +405,7 @@ class ShardedKernel:
         self._chip_real_rows += (per > 0).sum(axis=1)
         self._chip_rows += per.shape[1]
 
-    def _queue_stats(self, counts: torch.Tensor, fence) -> None:
+    def _queue_stats(self, counts: ShardCounts, fence) -> None:
         with self._stats_lock:
             self._stats_pending.append((counts, fence))
             overflow = len(self._stats_pending) > self.STATS_QUEUE_MAX
@@ -388,6 +425,8 @@ class ShardedKernel:
                 max_entries -= 1
             if fence is not None:
                 fence.synchronize()
+            if isinstance(counts, ShardCounts):
+                counts = counts.fold()
             matched, events, nbytes = (int(v) for v in counts.sum(dim=0))
             self._matched_total.add(matched)
             self._events_total.add(events)

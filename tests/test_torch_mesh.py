@@ -508,3 +508,148 @@ def test_with_stats_sends_cuda_tensors_to_k8_never_plain(monkeypatch):
     rows = _OtherDeviceRows()
     assert kern.with_stats(rows, rows) == ("o", "f", "l", "s")
     assert kern.stats_launches == 1 and kern.launches == 0 and len(calls) == 1
+
+
+# -- K8's one launch a device: the pieces' schedule -------------------------------
+
+
+def _k8_twin(ok, lengths, shard_rows, threads, pieces, mutation=None):
+    """K8's count epilogue in numpy, as one launch over shards of
+    ``shard_rows`` rows runs it: block b holds rows [b·T, (b+1)·T), each
+    warp 32 of them; a lane's shard is its row // shard_rows; each lane
+    sums, by shuffles up 1, 2, 4, 8, 16 lanes, the lanes from its shard's
+    first row in the warp to its own; the last lane of each piece (the
+    warp's last row, or a shard's) writes the piece's three counts at
+    ``ceil(r/32) + ceil(r/s) - ceil(r/lcm)`` for its first row r, over
+    whatever the buffer held.  ``mutation``: "boundary" puts the shard
+    boundaries one row late; "accumulate" adds to the buffer instead of
+    writing it."""
+    B = len(ok)
+    _, lcm = fxc.stat_pieces(B, shard_rows)
+    shift = 1 if mutation == "boundary" else 0
+    vals = np.stack([np.asarray(ok, np.int64),
+                     (np.asarray(lengths) > 0).astype(np.int64),
+                     np.asarray(lengths, np.int64)], axis=1)
+    for row0 in range(0, B, threads):
+        nrows = min(threads, B - row0)
+        for wrow in range(0, threads, 32):
+            wrows = max(0, min(32, nrows - wrow))
+            if not wrows:
+                continue
+            first = row0 + wrow
+            lane = np.arange(32)
+            row = first + lane
+            sh = (row - shift) // shard_rows
+            seg = np.maximum(sh * shard_rows + shift - first, 0)
+            v = np.zeros((32, 3), np.int64)
+            v[:wrows] = vals[first:first + wrows]
+            for d in (1, 2, 4, 8, 16):
+                up = np.roll(v, d, axis=0)
+                take = lane - d >= seg
+                v = v + np.where(take[:, None], up, 0)
+            for ln in range(wrows):
+                if ln == 31 or ln + 1 == wrows \
+                        or (row[ln] + 1 - shift) % shard_rows == 0:
+                    r = first + int(seg[ln])
+                    p = -(-r // 32) + -(-r // shard_rows) - -(-r // lcm)
+                    if mutation == "accumulate":
+                        pieces[p] += v[ln]
+                    else:
+                        pieces[p] = v[ln]
+    return pieces
+
+
+def _k8_shards(rows, lengths, m, prog):
+    s = len(rows) // m
+    return [extract_stats_plain(torch.from_numpy(rows[i * s:(i + 1) * s]),
+                                torch.from_numpy(lengths[i * s:(i + 1) * s]),
+                                prog)[3].tolist() for i in range(m)]
+
+
+@pytest.mark.parametrize("m", [1, 2, 3, 4])
+@pytest.mark.parametrize("threads", ["geometry", 128])
+def test_k8_one_launch_twin_equals_plain_and_jax(m, threads):
+    """The twin of K8's one launch over a device's m shards (B/m not a
+    multiple of 32: warps straddle shard boundaries) folds, per shard, to
+    the plain K8 of the shard's rows and, summed, to the JAX plane's psum'd
+    totals; a second launch on the same buffer (the first launch's pieces
+    in it) folds to the second batch's counts.  The plain pieces of
+    ``ExtractKernel.with_stats`` are the twin's."""
+    prog = compile_tier1(EMPTY)
+    kern = ExtractKernel(prog)
+    ref = ref_mesh.ShardedParsePlane(ref_compile(EMPTY),
+                                     ref_mesh.make_mesh(m))
+    B = 300
+    s = B // m
+    assert s % 32
+    n_pieces, _ = fxc.stat_pieces(B, s)
+    T = threads if threads == 128 else fxc.launch_geometry(
+        B, 128, kern.num_caps, kern.kernel_program.pivot,
+        len(kern.kernel_program.blob))[0]
+    buf = np.full((n_pieces, 3), -7, np.int64)          # stale memory
+    for seed in (m, m + 10):
+        rows, lengths = _rows(EMPTY, B, 128, seed=seed)
+        ok = kern.plain(torch.from_numpy(rows), torch.from_numpy(lengths))[0]
+        buf = _k8_twin(ok.numpy(), lengths, s, T, buf)
+        got = port_mesh.fold_pieces(buf, B, s)
+        assert got.tolist() == _k8_shards(rows, lengths, m, prog)
+        *_, stats = ref(*ref.put(rows, lengths))
+        assert got.sum(dim=0).tolist() == _ref_counts(stats)
+        plain = kern.with_stats(torch.from_numpy(rows),
+                                torch.from_numpy(lengths), shard_rows=s)[3]
+        np.testing.assert_array_equal(plain.numpy(), buf)
+
+
+@pytest.mark.parametrize("mutation", ["boundary", "accumulate"])
+def test_k8_twin_mutations_fail(mutation):
+    """Two faults of the twin each show at every mesh size: shard
+    boundaries one row off, and pieces added to the buffer's old contents
+    (the second launch then counts the first's rows too)."""
+    prog = compile_tier1(EMPTY)
+    kern = ExtractKernel(prog)
+    for m in (1, 2, 3, 4):
+        B = 300
+        s = B // m
+        n_pieces, _ = fxc.stat_pieces(B, s)
+        buf = np.zeros((n_pieces, 3), np.int64)
+        wrong = 0
+        for seed in (m, m + 10):
+            rows, lengths = _rows(EMPTY, B, 128, seed=seed)
+            ok = kern.plain(torch.from_numpy(rows),
+                            torch.from_numpy(lengths))[0]
+            buf = _k8_twin(ok.numpy(), lengths, s, 32, buf, mutation)
+            got = port_mesh.fold_pieces(buf, B, s).tolist()
+            wrong += got != _k8_shards(rows, lengths, m, prog)
+        assert wrong, (mutation, m)
+
+
+def test_mesh_runs_give_each_device_one_launch():
+    """``DeviceMesh.runs``: a device's consecutive shards are one run (one
+    K8 launch), a repeated device out of order a run each."""
+    c0, c1 = torch.device("cuda", 0), torch.device("cuda", 1)
+    assert port_mesh.DeviceMesh([c0] * 4).runs() == [(c0, 0, 4)]
+    assert port_mesh.DeviceMesh([c0, c0, c1, c1]).runs() == [
+        (c0, 0, 2), (c1, 2, 2)]
+    assert port_mesh.DeviceMesh([c0, c1, c0]).runs() == [
+        (c0, 0, 1), (c0, 2, 1), (c1, 1, 1)]
+
+
+def test_staged_cpu_dispatch_folds_counts_per_shard():
+    """A staged dispatch of a four-shard CPU mesh returns its counts as
+    ``ShardCounts``, whose fold is each shard's plain K8 counts."""
+    prog = compile_tier1(EMPTY)
+    plane = port_mesh.ShardedParsePlane(
+        prog, port_mesh.make_mesh(4, device="cpu"))
+    rows, lengths = _rows(EMPTY, 96, 128, seed=5)
+    slot = device_stream.batch_ring().lease(96, 128)
+    try:
+        slot.rows.numpy()[:] = rows
+        slot.lengths.numpy()[:] = lengths
+        outs, counts, fence = plane.staged(slot, prog.num_caps)
+        assert fence is None and isinstance(counts, port_mesh.ShardCounts)
+        assert counts.fold().tolist() == _k8_shards(rows, lengths, 4, prog)
+        np.testing.assert_array_equal(
+            outs[0].numpy(), ExtractKernel(prog).plain(
+                torch.from_numpy(rows), torch.from_numpy(lengths))[0])
+    finally:
+        slot.release()
