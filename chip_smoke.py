@@ -248,13 +248,42 @@ Phases, each of which exits non-zero on failure:
    on four lanes (K7 launches = fused dispatches = lane dispatches, the
    records of phase 12).
 
+27. the URL-classified Apache path (after phase 20): phase 3's log
+   through ``testdata.url_classify_config`` (the Apache parse,
+   ``processor_drop`` of the ``/favicon.ico`` urls, then
+   ``processor_classify_url_tpu`` of the url by ``testdata.URL_RULES``) at
+   one and four workers: every record equals ``url_classify_oracle`` in
+   file order; the classify rules run on their tiers (``api`` and
+   ``health`` on K1, ``static`` on K2), each with launches = device
+   batches > 0, and no row of a rule or of the drop on ``re``.  Prints
+   MB/s.
+28. the eBPF network observer (after phase 27), in this process, through
+   ``application.run_configs``: two pipelines (``input_process_security``
+   → ``flusher_file``; ``input_network_observer`` →
+   ``processor_classify_url_tpu`` on ``path`` → ``flusher_file``), the
+   simulation driver ``native/libloong_ebpf_sim.so`` built by ``make``
+   and loaded explicitly (``SoAdapter``; a load or handshake failure
+   fails the phase), and ``testdata.ebpf_stream``'s events injected
+   through it: 64 exec'd processes, 256 connections and 100,000
+   exchanges (80% HTTP with 5% 5xx, 10% Redis, 10% MySQL; 200,576
+   events).  The driver's
+   delivered callbacks must equal the injected events with no callback
+   error and no group refused by a queue, and the records those of the
+   generator (``testdata.ebpf_mismatches``: one log record a payload
+   event, ``comm`` of the exec'd process, each HTTP request's category
+   by ``re``, the spans' latencies, the rollup cells).  The observer's
+   groups are object groups, so the classify rules run on ``re``, as in
+   the reference, and no kernel launches.  Prints events/s and the rows
+   classified on ``re``.
+
 In every phase each recorded launch must be whole warps within the block
 limit and the shared-memory budget, with a block for each SM once a batch
 holds 32 rows an SM; the geometry in the ``kernels`` line is the one
 ``launch()`` passed to the kernel in this run.
 
 An earlier line prints the script's total seconds.  The line before the
-last is the ``kernels`` JSON line (K1, K2, K4, K3, K7, K6, K5 and K8), the
+last is the ``kernels`` JSON line (K1, K2, K4, K3, K7, K6, K5 and K8; K1
+and K2 carry phase 27's launches beside their own), the
 last line the ``{"ok": true, "device": ...}`` object.  It imports nothing of JAX
 or of the JAX package.
 """
@@ -3910,6 +3939,218 @@ def k8_kernel_entry(parity, timing, sharded, sharded4, logical, main_path,
     }
 
 
+# -- slice 13: URL classification and the eBPF network observer -------------
+
+EBPF_SEED = 13
+# ~5 s of a busy host's L7 traffic: half the 200,000 exchanges (~10 s) of
+# the slice's plan, so that the script stays under half its time limit
+# (PERF.md §4)
+EBPF_EXCHANGES = 100_000
+EBPF_PROCS = 64
+EBPF_CONNS = 256
+
+
+def phase_url_classify(tmp, log_path, lines, n_bytes, want, threads) -> dict:
+    """Phase 27: the URL-classified Apache path through the agent, every
+    record against ``url_classify_oracle`` (``want``) in file order."""
+    from loongcollector_tpu_torch import testdata as td
+    tag = f"url classify, {threads} worker{'s' if threads > 1 else ''}"
+    run_dir = os.path.join(tmp, f"url_classify_threads{threads}")
+    cfg_dir = os.path.join(run_dir, "config")
+    os.makedirs(cfg_dir)
+    out_path = os.path.join(run_dir, "out.json")
+    with open(os.path.join(cfg_dir, "url_classify.yaml"), "w") as f:
+        f.write(td.url_classify_config(log_path, out_path))
+    st, wall = run_agent(tag, cfg_dir, os.path.join(run_dir, "stats.json"),
+                         threads)
+    n = 0
+    with open(out_path, "rb") as f:
+        for n, rec in enumerate(f, 1):
+            if n > len(want):
+                fail(f"{tag}: more records than the oracle's {len(want)}")
+            obj = json.loads(rec)
+            del obj["__time__"]
+            if obj != want[n - 1]:
+                fail(f"{tag}: record {n}: {obj} != re {want[n - 1]}")
+    if n != len(want) or st["events"] != n:
+        fail(f"{tag}: {n} records ({st['events']} events) for the oracle's "
+             f"{len(want)}")
+    shapes = check_settled(tag, st)
+    engines = {e["pattern"]: e for e in st["engines"]}
+    tiers = {"api": "SEGMENT", "static": "DFA", "health": "SEGMENT",
+             "drop": "SEGMENT", "parse": "SEGMENT"}
+    rules = dict(td.URL_RULES, drop=td.URL_DROP, parse=td.APACHE)
+    for name, rx in rules.items():
+        e = engines.get(rx)
+        if e is None or e["tier"] != tiers[name]:
+            fail(f"{tag}: the {name} engine is not on tier {tiers[name]}: "
+                 f"{e}")
+        if e["re_tier_rows"] or e["dfa_re_rows"] or e["re_oversize_rows"]:
+            fail(f"{tag}: rows of the {name} engine on re: {e}")
+        k1 = e["tier"] == "SEGMENT"
+        launches = e["launches"] if k1 else e["dfa_launches"]
+        batches = e["device_batches"] if k1 else e["dfa_batches"]
+        if not 0 < launches == batches:
+            fail(f"{tag}: the {name} engine launched {launches} times for "
+                 f"{batches} device batches")
+    k2 = st["k2"]
+    static = engines[rules["static"]]
+    if k2["launches"] != static["dfa_launches"] \
+            or k2["device_batches"] != static["dfa_batches"]:
+        fail(f"{tag}: K2 {k2['launches']} launches / "
+             f"{k2['device_batches']} batches, the static rule's "
+             f"{static['dfa_launches']} / {static['dfa_batches']}")
+    if st["classify"]["re_rows"]:
+        fail(f"{tag}: {st['classify']['re_rows']} rows classified on re")
+    k2_shapes = dfa_stats_line(tag, "K2", k2)
+    rule_k1 = {name: engines[rx]["launches"] for name, rx in rules.items()
+               if engines[rx]["tier"] == "SEGMENT"}
+    mbps = n_bytes / st["seconds"] / 1e6
+    cats = {}
+    for rec in want:
+        cats[rec.get("category")] = cats.get(rec.get("category"), 0) + 1
+    log(f"{tag}: {len(lines)} lines in, {n} records out (the /favicon.ico "
+        f"urls dropped), equal to the re oracle in order; categories "
+        f"{json.dumps(cats)}; K1 launches by engine {json.dumps(rule_k1)} "
+        f"(all {st['launches']}), K2 (static) {k2['launches']} launches; "
+        f"no row on re; {mbps:.2f} MB/s end to end ({st['seconds']:.3f} s, "
+        f"agent process {wall:.1f} s) on {nvidia_smi()}; exec legs "
+        f"{st['kernel_seconds']:.6f} s, traced busy share "
+        f"{st['busy_share'] * 100:.2f}%")
+    log(f"{tag}: stage seconds (host): " + json.dumps(st["stage_seconds"]))
+    os.unlink(out_path)
+    return {"stats": st, "mbps": mbps, "rule_k1": rule_k1,
+            "k1_shapes": shapes, "k2_shapes": k2_shapes}
+
+
+def phase_ebpf() -> dict:
+    """Phase 28: the eBPF network observer through the simulation driver,
+    in this process, every record against the generator's."""
+    import torch
+    from loongcollector_tpu_torch import application
+    from loongcollector_tpu_torch import testdata as td
+    from loongcollector_tpu_torch.input.ebpf import adapter as ad
+    from loongcollector_tpu_torch.input.ebpf.server import EBPFServer
+    from loongcollector_tpu_torch.pipeline.queue import bounded_queue as bq
+    tag = "ebpf"
+    native_dir = os.path.join(REPO, "native")
+    so_path = os.path.join(native_dir, "libloong_ebpf_sim.so")
+    t0 = time.perf_counter()
+    proc = subprocess.run(["make", "-C", native_dir, "-s",
+                           "libloong_ebpf_sim.so"], capture_output=True,
+                          text=True, timeout=300)
+    if proc.returncode != 0:
+        fail(f"{tag}: the simulation driver did not build:\n"
+             f"{proc.stderr[-2000:]}")
+    build_s = time.perf_counter() - t0
+    try:
+        drv = ad.SoAdapter(so_path)
+    except (OSError, ad.AbiMismatch) as e:
+        fail(f"{tag}: the simulation driver did not load: {e!r}")
+    EBPFServer.instance().adapter = drv
+    t0 = time.perf_counter()
+    events, expected = td.ebpf_stream(EBPF_SEED, EBPF_EXCHANGES,
+                                      n_procs=EBPF_PROCS,
+                                      n_conns=EBPF_CONNS)
+    raw = [ad.RawKernelEvent(**dict(e, source=ad.EventSource(e["source"])))
+           for e in events]
+    payload_bytes = sum(len(e.payload) for e in raw)
+    gen_s = time.perf_counter() - t0
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_ebpf_")
+    net_path = os.path.join(tmp, "net.json")
+    sec_path = os.path.join(tmp, "sec.json")
+    rules = [{"Name": n, "Regex": r} for n, r in td.URL_RULES]
+    configs = [
+        ("process_security", {
+            "inputs": [{"Type": "input_process_security"}],
+            "flushers": [{"Type": "flusher_file", "FilePath": sec_path}]}),
+        ("network_observer", {
+            "inputs": [{"Type": "input_network_observer"}],
+            "processors": [{"Type": "processor_classify_url_tpu",
+                            "SourceKey": "path", "TargetKey": "category",
+                            "DefaultCategory": td.URL_DEFAULT,
+                            "Rules": rules}],
+            "flushers": [{"Type": "flusher_file", "FilePath": net_path}]}),
+    ]
+    low_groups = int(bq.DEFAULT_CAPACITY * bq.LOW_WATERMARK_RATIO)
+    low_bytes = int(bq.DEFAULT_MAX_BYTES * bq.LOW_WATERMARK_RATIO)
+    timing = {}
+
+    def settled(n_injected, deadline):
+        while drv.delivered + drv.callback_errors < n_injected:
+            if time.monotonic() > deadline:
+                fail(f"{tag}: {drv.delivered} callbacks of {n_injected} "
+                     f"injected events after the deadline")
+            time.sleep(0.0005)
+
+    def feed():
+        """Inject every event through the driver, 1,024 at a time: before
+        each block the driver has delivered the last one and the
+        observer's queue is under its low watermark, so no push of the
+        block can find the queue full."""
+        srv = EBPFServer.instance()
+        pqm = srv.process_queue_manager
+        key = srv._managers[ad.EventSource.NETWORK_OBSERVE].queue_key
+        q = pqm.get_queue(key)
+        deadline = time.monotonic() + 600
+        t = time.perf_counter()
+        for i in range(0, len(raw), 1024):
+            settled(i, deadline)
+            while q.size() > low_groups or q.bytes_queued() > low_bytes:
+                if time.monotonic() > deadline:
+                    fail(f"{tag}: the observer's queue never drained")
+                time.sleep(0.0005)
+            for ev in raw[i: i + 1024]:
+                if not drv.feed(ev):
+                    fail(f"{tag}: the driver refused an event: {ev}")
+        settled(len(raw), deadline)
+        timing["feed_s"] = time.perf_counter() - t
+
+    st = application.run_configs(configs, torch.device("cuda"), feed=feed)
+    eb = st["ebpf"]
+    if (drv.delivered, drv.callback_errors) != (len(raw), 0) \
+            or eb["delivered"] != len(raw):
+        fail(f"{tag}: {drv.delivered} callbacks delivered and "
+             f"{drv.callback_errors} raised for {len(raw)} injected events")
+    if any(v["groups_dropped"] for v in eb["inputs"].values()):
+        fail(f"{tag}: groups refused by a queue: {eb['inputs']}")
+
+    def records(path):
+        with open(path) as f:
+            return [json.loads(line) for line in f]
+    net, sec = records(net_path), records(sec_path)
+    bad = td.ebpf_mismatches(net, sec, expected)
+    if bad:
+        fail(f"{tag}: the records differ from the generator's: {bad}")
+    n_req = sum(expected["http_paths"].values())
+    if st["classify"]["re_rows"] != n_req:
+        fail(f"{tag}: {st['classify']['re_rows']} rows classified on re, "
+             f"want the {n_req} HTTP requests")
+    if st["launches"] or st["k2"]["launches"]:
+        fail(f"{tag}: a kernel launched on the object groups: K1 "
+             f"{st['launches']}, K2 {st['k2']['launches']}")
+    kinds = {"log": 0, "span": 0, "metric": 0}
+    for r in net:
+        kinds["span" if "spanId" in r else
+              "metric" if "__name__" in r else "log"] += 1
+    eps = len(raw) / st["seconds"]
+    log(f"{tag}: driver built in {build_s:.2f} s; {len(raw)} events "
+        f"injected ({EBPF_PROCS} execs, {2 * EBPF_CONNS} connect/close, "
+        f"{expected['payload_events']} payload events, {payload_bytes} "
+        f"payload bytes; generated in {gen_s:.1f} s) = {drv.delivered} "
+        f"delivered; out: {json.dumps(kinds)} records of the observer, "
+        f"{len(sec)} of process security, equal to the generator's; "
+        f"{st['classify']['re_rows']} rows classified on re; "
+        f"{eps:.0f} events/s ({st['seconds']:.3f} s from the runner's "
+        f"start to the drain, the feed {timing['feed_s']:.3f} s) on "
+        f"{nvidia_smi()}; groups {json.dumps(eb['inputs'])}")
+    log(f"{tag}: stage seconds (host): " + json.dumps(st["stage_seconds"]))
+    os.unlink(net_path)
+    os.unlink(sec_path)
+    return {"stats": st, "events": len(raw), "events_per_s": eps,
+            "re_rows": st["classify"]["re_rows"], "records": kinds}
+
+
 def main() -> int:
     t_start = time.perf_counter()
     if len(sys.argv) > 1:
@@ -3927,7 +4168,8 @@ def main() -> int:
     from loongcollector_tpu_torch.ops.kernels import fused_program_cuda as fpc
     from loongcollector_tpu_torch.ops.kernels import segment_reduce_cuda as src
     from loongcollector_tpu_torch.ops.kernels import struct_index_cuda as sic
-    from loongcollector_tpu_torch.testdata import rollup_mismatches
+    from loongcollector_tpu_torch.testdata import (rollup_mismatches,
+                                                   url_classify_oracle)
     build = phase_build(fxc, dsc, fpc, src, sic, native)
     parity = phase_parity()
     tmp, log_path, lines, n_bytes = main_path_log()
@@ -3959,7 +4201,6 @@ def main() -> int:
     logical = phase_logical_mesh(tmp, log_path, lines,
                                  main_path["out_path"], filt)
     os.unlink(main_path["out_path"])
-    os.unlink(log_path)
     mtmp, mlog_path, mlines, m_bytes, oracle, invalid, fold_rows = \
         metrics_log()
     m_args = (mtmp, mlog_path, mlines, m_bytes, oracle, invalid,
@@ -3991,6 +4232,11 @@ def main() -> int:
     pipe = phase_pipe_filter()
     jsonf = phase_json_filter()
     k5_timing = phase_k5_timing(csv)
+    url_want = url_classify_oracle(lines)
+    url1 = phase_url_classify(tmp, log_path, lines, n_bytes, url_want, 1)
+    url4 = phase_url_classify(tmp, log_path, lines, n_bytes, url_want, 4)
+    os.unlink(log_path)
+    ebpf = phase_ebpf()
     mp = main_path["stats"]
     t8, t64 = timing[8192], timing[65536]
     kernels = {"kernels": [{
@@ -4034,12 +4280,20 @@ def main() -> int:
         "path_launches": {"multiline_java": path1["stats"]["launches"],
                           "java_filter": path2["stats"]["launches"],
                           "grok_nginx": grok["stats"]["launches"],
-                          "json_filter": jsonf["stats"]["launches"]},
+                          "json_filter": jsonf["stats"]["launches"],
+                          "url_classify": url1["stats"]["launches"],
+                          "url_classify_4_workers":
+                              url4["stats"]["launches"]},
+        # phase 27's K1 launches by engine: the parse, the drop and the
+        # api and health rules
+        "url_classify_engine_launches": url1["rule_k1"],
         "path_mbps": {"multiline_java": path1["mbps"],
                       "java_filter": path2["mbps"],
                       "java_filter_4_workers": path2_4["mbps"],
                       "grok_nginx": grok["mbps"],
-                      "json_filter": jsonf["mbps"]},
+                      "json_filter": jsonf["mbps"],
+                      "url_classify": url1["mbps"],
+                      "url_classify_4_workers": url4["mbps"]},
         "build_s": build["build_s"]["field_extract"],
         "blocks": [t8["blocks"], t64["blocks"]],
         "threads": [t8["threads"], t64["threads"]],
@@ -4064,6 +4318,16 @@ def main() -> int:
                                     build),
         k8_kernel_entry(parity, timing, sharded, sharded4, logical,
                         main_path, build)]}
+    # K2 runs phase 27's static rule
+    k2_entry = kernels["kernels"][1]
+    k2_entry["url_classify_launches"] = url1["stats"]["k2"]["launches"]
+    k2_entry["url_classify_launches_4_workers"] = \
+        url4["stats"]["k2"]["launches"]
+    k2_entry["url_classify_launch_shapes"] = [
+        [sh.B, sh.L, sh.S, sh.blocks, n] for sh, n in url1["k2_shapes"]]
+    log(f"ebpf: {ebpf['events']} events at {ebpf['events_per_s']:.0f} "
+        f"events/s, {ebpf['re_rows']} rows classified on re, no kernel "
+        f"launch (object groups, as the reference's)")
 
     log(f"total: {time.perf_counter() - t_start:.1f} s")
     print(nvidia_smi())

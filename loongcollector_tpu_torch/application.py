@@ -10,13 +10,20 @@ and the process exits.  Tail mode comes with the file-server slice.
 pipelines and their bounded process queues, the processor runner's workers
 (``LOONG_PROCESS_THREADS``) pop them and dispatch through the device plane
 (``LOONG_STREAM_DEPTH``, ``LOONG_DEVICE_INFLIGHT_BYTES``), and the inputs
-push what they read, waiting at the queues' high watermark.  The run ends
-once every group the inputs pushed has settled, every process queue is
-empty and every pipeline's in-process count is 0; then the records the
-processors still hold (split_multiline's open record of each file) ship
-through the rest of their chain on the calling thread (``drain_held``),
-and the run ends once they are sent.  A processing failure (a kernel
-failure included) ends the run with exit code 1.
+push what they read, waiting at the queues' high watermark.  Once every
+group the inputs pushed has settled, every process queue is empty and
+every pipeline's in-process count is 0, the inputs stop before the final
+drain, as in the reference's ``Application.exit``: the singleton input
+runners first (``runner/input_registry.InputRunnerRegistry.stop_all``:
+the eBPF server flushes the events it holds into the queues), then each
+pipeline's inputs.  The runner processes what that pushed; then the
+records the processors still hold (split_multiline's open record of each
+file) ship through the rest of their chain on the calling thread
+(``drain_held``), and the run ends once they are sent.  A processing
+failure (a kernel failure included) ends the run with exit code 1.
+``run_configs`` is the same run over (name, config) pairs, with an
+optional ``feed`` called once the inputs have started (a library caller
+driving an eBPF driver, say).
 
 The pipelines run on the CUDA device unless ``--cpu`` is given; with no
 CUDA device and no ``--cpu`` the CLI exits with an error.  ``--stats PATH``
@@ -47,7 +54,12 @@ fallbacks, the folded totals, per-chip row occupancy and padding share),
 K8's launch shapes, the sharded dispatches' h2d legs per shard, and the
 chip-lane router's status (lanes, each one's dispatches, rows and bytes in
 flight); null when no sharded kernel was built and no lane is active.
-``launch_shapes`` at the top holds K1's launches only.
+``launch_shapes`` at the top holds K1's launches only.  ``engines``: each
+cached regex engine's pattern, tier and counts (K1 launches and device
+batches, K2 launches and batches, rows on ``re`` by route); ``classify``:
+the rows ``processor_classify_url`` classified on ``re`` (object groups);
+``ebpf``: each eBPF input's groups pushed and refused, and the driver's
+delivered callbacks and callback errors.
 """
 
 from __future__ import annotations
@@ -59,7 +71,7 @@ import statistics
 import sys
 import time
 from dataclasses import asdict
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 from .utils.device import NoCudaDevice, resolve_device
 from .utils.logger import get_logger
@@ -97,9 +109,34 @@ def _drained(pqm, manager, runner) -> bool:
             and all(p.in_process_count() == 0 for p in manager.pipelines()))
 
 
+def _wait_drained(pqm, manager, runner) -> None:
+    while not runner.failed() and not _drained(pqm, manager, runner):
+        time.sleep(0.002)
+
+
+def _stop_inputs(manager) -> None:
+    """Inputs stop before the final drain (reference ``Application.exit``):
+    the singleton runners first, in their stop order, then each
+    pipeline's inputs."""
+    from .runner.input_registry import InputRunnerRegistry
+    InputRunnerRegistry.stop_all()
+    manager.stop_inputs()
+
+
 def run_once(config_dir: str, device) -> Dict[str, Any]:
     """Run every pipeline of the directory once through the processor
     runner; returns the run's counts."""
+    configs = load_config_dir(config_dir)
+    if not configs:
+        raise FileNotFoundError(f"no pipeline config in {config_dir}")
+    return run_configs(configs, device)
+
+
+def run_configs(configs: List[Tuple[str, Dict[str, Any]]], device,
+                feed: Optional[Callable[[], None]] = None) -> Dict[str, Any]:
+    """Run the (name, config) pipelines once through the processor runner,
+    calling ``feed()`` on this thread once their inputs have started;
+    returns the run's counts."""
     from .ops import compile_watch, xprof
     from .ops import fused_pipeline
     from .ops.device_plane import DevicePlane, device_memory_status
@@ -110,20 +147,22 @@ def run_once(config_dir: str, device) -> Dict[str, Any]:
     from .ops.kernels import segment_reduce, segment_reduce_cuda
     from .ops.kernels import struct_index, struct_index_cuda
     from .processor import parse_telemetry
+    from .processor.classify_url import ProcessorClassifyUrl
     from .ops.regex.engine import cached_engines
     from .ops.regex.fuse import live_sets
     from .pipeline.pipeline_manager import CollectionPipelineManager
     from .pipeline.queue.process_queue_manager import ProcessQueueManager
+    from .runner.input_registry import (InputRunnerRegistry,
+                                        register_builtin_runners)
     from .runner.processor_runner import ProcessorRunner
-    configs = load_config_dir(config_dir)
-    if not configs:
-        raise FileNotFoundError(f"no pipeline config in {config_dir}")
     if ledger.install_from_env():
         # this run's totals only: the residual is read after it drains
         ledger.active_ledger().reset()
     pqm = ProcessQueueManager()
     manager = CollectionPipelineManager(pqm, device)
     manager.update_pipelines(configs)
+    register_builtin_runners()
+    InputRunnerRegistry.wire_all(pqm)
     engines = cached_engines()
     sets = live_sets()
     fxc.reset_launch_shapes()
@@ -149,10 +188,15 @@ def run_once(config_dir: str, device) -> Dict[str, Any]:
     runner.init()
     drained_groups = 0
     drain_error: Optional[BaseException] = None
+    inputs_stopped = False
     try:
         manager.start_inputs(should_abort=runner.failed)
-        while not runner.failed() and not _drained(pqm, manager, runner):
-            time.sleep(0.002)
+        if feed is not None:
+            feed()
+        _wait_drained(pqm, manager, runner)
+        _stop_inputs(manager)
+        inputs_stopped = True
+        _wait_drained(pqm, manager, runner)
         if not runner.failed():
             try:
                 drained_groups = manager.drain_held()
@@ -160,6 +204,8 @@ def run_once(config_dir: str, device) -> Dict[str, Any]:
                 log.error("stop-time drain failed", exc_info=e)
                 drain_error = e
     finally:
+        if not inputs_stopped:
+            _stop_inputs(manager)
         runner.stop()
         seconds = time.perf_counter() - t0
         drained = _drained(pqm, manager, runner)
@@ -235,6 +281,46 @@ def run_once(config_dir: str, device) -> Dict[str, Any]:
         "k5": _k5_stats(timeline, on_card),
         "ledger": _ledger_stats(),
         "mesh": _mesh_stats(timeline),
+        "engines": [_engine_stats(e) for e in engines],
+        "classify": {"re_rows": sum(
+            p.re_rows for pl in manager_pipelines for p in pl.processors
+            if isinstance(p, ProcessorClassifyUrl))},
+        "ebpf": _ebpf_stats(manager_pipelines),
+    }
+
+
+def _engine_stats(e) -> Dict[str, Any]:
+    """One regex engine's counts for ``--stats``."""
+    return {
+        "pattern": e.pattern,
+        "tier": e.tier.name,
+        "launches": e.kernel.launches if e.kernel is not None else 0,
+        "device_batches": e.device_batches,
+        "dfa_launches": (e.dfa_kernel.launches
+                         if e.dfa_kernel is not None else 0),
+        "dfa_batches": e.dfa_batches,
+        "re_tier_rows": e.re_tier_rows,
+        "re_oversize_rows": e.re_oversize_rows,
+        "dfa_re_rows": e.dfa_re_rows,
+    }
+
+
+def _ebpf_stats(pipelines) -> Optional[Dict[str, Any]]:
+    """The eBPF inputs' groups pushed and refused, and the driver's
+    delivered callbacks; None when no pipeline has an eBPF input."""
+    from .input.ebpf.server import EBPFServer, _EBPFInputBase
+    inputs = [inp for p in pipelines for inp in p.inputs
+              if isinstance(inp, _EBPFInputBase)]
+    if not inputs:
+        return None
+    adapter = EBPFServer.instance().adapter
+    return {
+        "inputs": {inp.name: {"groups_pushed": inp.groups_pushed,
+                              "groups_dropped": inp.groups_dropped}
+                   for inp in inputs},
+        "adapter": type(adapter).__name__,
+        "delivered": getattr(adapter, "delivered", None),
+        "callback_errors": getattr(adapter, "callback_errors", None),
     }
 
 

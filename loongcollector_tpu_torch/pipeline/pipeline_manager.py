@@ -3,8 +3,10 @@
 Reference: loongcollector_tpu/pipeline/pipeline_manager.py.  The port
 builds one pipeline per config of the config directory, gives each its
 bounded process queue and its tenant share of the device plane's byte
-budget, starts its inputs (a one-shot read into the queue), drains what
-its processors hold at stop, and stops them.
+budget, starts its inputs (a one-shot read into the queue, or a source
+bound to a singleton runner such as the eBPF server), stops them before
+the final drain, drains what its processors hold at stop, and stops the
+pipelines.
 Hot reload (generations, drain and hand-off), onetime configs and the
 sender queues come with later slices.
 """
@@ -48,6 +50,12 @@ class CollectionPipelineManager:
                      ) -> None:
         for p in self.pipelines():
             p.start_inputs(should_abort)
+
+    def stop_inputs(self) -> None:
+        """Stop every pipeline's inputs; the pipelines stay, so what the
+        inputs flush at their stop is still processed."""
+        for p in self.pipelines():
+            p.stop_inputs()
 
     def drain_held(self) -> int:
         """Each pipeline's stop-time drain (``CollectionPipeline.drain_held``)

@@ -6,6 +6,9 @@ one pipeline YAML drives either package.
 
 
 def register_all(registry) -> None:
+    from .classify_url import ProcessorClassifyUrl
+    from .field_ops import (ProcessorAddFields, ProcessorDrop,
+                            ProcessorRenameFields, ProcessorStrReplace)
     from .filter import ProcessorFilter
     from .grok import ProcessorGrok
     from .parse_delimiter import ProcessorParseDelimiter
@@ -34,3 +37,11 @@ def register_all(registry) -> None:
                                 ProcessorParseTimestamp)
     registry.register_processor("processor_filter_native", ProcessorFilter)
     registry.register_processor("processor_grok", ProcessorGrok)
+    registry.register_processor("processor_classify_url_tpu",
+                                ProcessorClassifyUrl)
+    registry.register_processor("processor_classify_url_native",
+                                ProcessorClassifyUrl)
+    registry.register_processor("processor_add_fields", ProcessorAddFields)
+    registry.register_processor("processor_rename", ProcessorRenameFields)
+    registry.register_processor("processor_drop", ProcessorDrop)
+    registry.register_processor("processor_strreplace", ProcessorStrReplace)

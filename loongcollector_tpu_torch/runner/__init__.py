@@ -1,1 +1,2 @@
-"""Runners of the port: the processor runner."""
+"""Runners of the port: the processor runner and the input-runner
+registry."""

@@ -12,6 +12,11 @@
   (``apache_filter_oracle``).
 * Named stage lists of the fused stage program (K7) and rows for them
   (``fused_stage_lists``).
+* The URL-classified Apache path (``url_classify_config``: parse, drop
+  ``/favicon.ico``, classify the url by ``URL_RULES``) and its ``re``
+  oracle (``url_classify_oracle``); the eBPF network observer's raw-event
+  stream (``ebpf_stream``: exec'd processes, connections, HTTP, Redis and
+  MySQL exchanges) and what the observer must make of it.
 """
 
 from __future__ import annotations
@@ -26,11 +31,15 @@ APACHE_KEYS = ["ip", "ident", "user", "time", "method", "url", "protocol",
                "status", "size"]
 
 
+APACHE_PATHS = ["/index.html", "/api/v1/users", "/static/app.js",
+                "/favicon.ico", "/health", "/api/v2/orders/12345",
+                "/assets/logo.png"]
+
+
 def gen_lines(n, seed=0):
     rng = np.random.default_rng(seed)
     methods = ["GET", "POST", "PUT", "DELETE", "HEAD"]
-    paths = ["/index.html", "/api/v1/users", "/static/app.js", "/favicon.ico",
-             "/health", "/api/v2/orders/12345", "/assets/logo.png"]
+    paths = APACHE_PATHS
     lines = []
     for i in range(n):
         ip = f"{rng.integers(1, 255)}.{rng.integers(256)}.{rng.integers(256)}.{rng.integers(1, 255)}"
@@ -1450,3 +1459,341 @@ def reader_chunks(lines, chunk_size=512 * 1024):
         off += aligned
         i += k
     return groups
+
+
+# -- URL classification (BASELINE.json config 5) -----------------------------
+
+# (category, regex) in rule order: the first rule that fully matches wins
+URL_RULES = [("api", r"/api/v1/.*|/api/v2/orders/\d+"),
+             ("static", r"/static/.*|.*\.(?:js|css)"),
+             ("health", r"/health")]
+URL_DEFAULT = "other"
+URL_DROP = r"/favicon\.ico"
+
+
+def url_classify_config(log_path, out_path):
+    """The URL-classified Apache path, as YAML: ``input_file``,
+    ``processor_parse_regex_native`` with the shipped Apache pattern and
+    keys (``file_regex_apache.yaml``), ``processor_drop`` of the
+    ``/favicon.ico`` urls, ``processor_classify_url_tpu`` of the url into
+    ``category`` by ``URL_RULES``, ``flusher_file``."""
+    keys = ", ".join(APACHE_KEYS)
+    rules = "".join(f"      - Name: {name}\n        Regex: '{rx}'\n"
+                    for name, rx in URL_RULES)
+    return f"""inputs:
+  - Type: input_file
+    FilePaths: [{log_path}]
+processors:
+  - Type: processor_parse_regex_native
+    SourceKey: content
+    Regex: '{APACHE}'
+    Keys: [{keys}]
+  - Type: processor_drop
+    Match:
+      url: '{URL_DROP}'
+  - Type: processor_classify_url_tpu
+    SourceKey: url
+    TargetKey: category
+    DefaultCategory: {URL_DEFAULT}
+    Rules:
+{rules}flushers:
+  - Type: flusher_file
+    FilePath: {out_path}
+"""
+
+
+def url_category(path, rules=None):
+    """The category the first fully matching rule gives ``path`` (bytes),
+    or ``URL_DEFAULT``."""
+    for name, rx in rules or _url_rules_re():
+        if rx.fullmatch(path):
+            return name
+    return URL_DEFAULT
+
+
+def _url_rules_re():
+    return [(name, re.compile(rx.encode())) for name, rx in URL_RULES]
+
+
+def url_classify_oracle(lines):
+    """The records of the URL-classified Apache path (but ``__time__``),
+    in file order: ``re.fullmatch`` of the Apache pattern (a line that
+    fails it keeps its text under ``rawLog``, with no url to drop or
+    classify), the ``/favicon.ico`` urls dropped, and the category of the
+    first rule that fully matches the url."""
+    rx = re.compile(APACHE.encode())
+    drop = re.compile(URL_DROP.encode())
+    rules = _url_rules_re()
+    url = APACHE_KEYS.index("url")
+    out = []
+    for line in lines:
+        m = rx.fullmatch(line)
+        if m is None:
+            out.append({"rawLog": line.decode()})
+            continue
+        if drop.fullmatch(m.group(url + 1)):
+            continue
+        rec = {k: v.decode() for k, v in zip(APACHE_KEYS, m.groups())}
+        rec["category"] = url_category(m.group(url + 1), rules)
+        out.append(rec)
+    return out
+
+
+# -- the eBPF network observer's event stream --------------------------------
+
+EBPF_BINARIES = ["/usr/sbin/nginx", "/usr/bin/python3", "/usr/bin/java",
+                 "/usr/bin/node", "/usr/local/bin/envoy", "/usr/bin/ruby",
+                 "/usr/sbin/php-fpm", "/usr/bin/gunicorn"]
+EBPF_T0_NS = 1_700_000_000 * 1_000_000_000
+# the mix of exchanges: HTTP, Redis, MySQL
+EBPF_MIX = (0.8, 0.1, 0.1)
+_REMOTES = {"http": (80, 8), "redis": (6379, 4), "mysql": (3306, 4)}
+_HTTP_METHODS = ["GET", "GET", "GET", "POST", "PUT", "DELETE"]
+_REDIS_KEYS = [f"session:{i}" for i in range(40)] + ["cart:7", "rate:ip"]
+_SQL = ["select * from orders where id = {n}",
+        "select name, price from items where sku = 'k{n}' limit 20",
+        "update users set last_seen = now() where id = {n}",
+        "insert into audit (uid, action) values ({n}, 'login')"]
+# first bytes a payload may not start with: HTTP or RESP would take it
+_RESP_MARKERS = frozenset(b"*+-:$")
+
+
+def _http_exchange(rng):
+    method = _HTTP_METHODS[int(rng.integers(len(_HTTP_METHODS)))]
+    path = APACHE_PATHS[int(rng.integers(len(APACHE_PATHS)))]
+    host = f"shop-{int(rng.integers(4))}.example"
+    req = (f"{method} {path} HTTP/1.1\r\nHost: {host}\r\n"
+           f"User-Agent: loong-load/1.0\r\nAccept: */*\r\n\r\n").encode()
+    u = rng.random()
+    status, reason = ((503, "Service Unavailable") if u < 0.025 else
+                      (500, "Internal Server Error") if u < 0.05 else
+                      (404, "Not Found") if u < 0.10 else (200, "OK"))
+    body = b"x" * int(rng.integers(0, 96))
+    resp = (f"HTTP/1.1 {status} {reason}\r\nContent-Type: text/html\r\n"
+            f"Content-Length: {len(body)}\r\n\r\n").encode() + body
+    span = {"name": f"{method} {path}", "status_code": str(status),
+            "error": status >= 400}
+    return req, resp, span, path.encode()
+
+
+def _redis_exchange(rng):
+    key = _REDIS_KEYS[int(rng.integers(len(_REDIS_KEYS)))].encode()
+    u = rng.random()
+    if u < 0.5:
+        val = b"v" * int(rng.integers(1, 40))
+        req = (b"*3\r\n$3\r\nSET\r\n$%d\r\n%s\r\n$%d\r\n%s\r\n"
+               % (len(key), key, len(val), val))
+        resp, cmd, err = b"+OK\r\n", "SET", False
+    elif u < 0.97:
+        req = b"*2\r\n$3\r\nGET\r\n$%d\r\n%s\r\n" % (len(key), key)
+        val = b"h" * int(rng.integers(1, 60))
+        resp, cmd, err = b"$%d\r\n%s\r\n" % (len(val), val), "GET", False
+    else:
+        req = b"*2\r\n$4\r\nINCR\r\n$%d\r\n%s\r\n" % (len(key), key)
+        resp = b"-ERR value is not an integer or out of range\r\n"
+        cmd, err = "INCR", True
+    return req, resp, {"name": cmd, "status_code": "", "error": err}, None
+
+
+def _mysql_packet(seq, body):
+    n = len(body)
+    return bytes([n & 0xFF, (n >> 8) & 0xFF, (n >> 16) & 0xFF, seq]) + body
+
+
+def _mysql_exchange(rng):
+    while True:
+        sql = _SQL[int(rng.integers(len(_SQL)))].format(
+            n=int(rng.integers(1, 10**6))).encode()
+        if (len(sql) + 1) & 0xFF not in _RESP_MARKERS:
+            break
+    req = _mysql_packet(0, b"\x03" + sql)
+    u = rng.random()
+    code = ""
+    if u < 0.03:
+        msg = b"#42S02Table 'shop.order' doesn't exist"
+        resp = _mysql_packet(1, b"\xff" + (1146).to_bytes(2, "little") + msg)
+        code = "1146"
+    elif sql.startswith(b"select"):
+        resp = _mysql_packet(1, bytes([int(rng.integers(1, 9))]))
+    else:
+        resp = _mysql_packet(1, b"\x00\x01\x00\x02\x00\x00\x00")
+    return req, resp, {"name": "QUERY", "status_code": code,
+                       "error": bool(code)}, None
+
+
+_EXCHANGES = {"http": _http_exchange, "redis": _redis_exchange,
+              "mysql": _mysql_exchange}
+
+
+def ebpf_stream(seed, n_exchanges, n_procs=64, n_conns=256):
+    """The raw-event stream of the eBPF phase and what the observer must
+    make of it.
+
+    ``n_procs`` processes exec (``process_security`` ``sys_execve``
+    events: binary in ``path``, arguments in ``payload``), then
+    ``n_conns`` client connections (``conn_connect`` ... ``conn_close``),
+    each owned by one process and speaking one protocol (``EBPF_MIX`` of
+    the connections), carry ``n_exchanges`` request/response exchanges,
+    one at a time a connection, in timestamp order across connections.
+
+    Returns ``(events, expected)``: ``events`` a list of keyword dicts of
+    ``RawKernelEvent`` (``source`` as the ``EventSource`` value string),
+    in delivery order; ``expected`` holds the exec'd processes (pid →
+    comm), the count of payload events, the HTTP request paths, the
+    completed exchanges as spans (name, status code, latency) and the
+    rollup cells per (protocol, remote, status) with their count, errors,
+    latency sum and largest latency, and bytes received and sent."""
+    rng = np.random.default_rng(seed)
+    procs = []
+    events = []
+    for i in range(n_procs):
+        binary = EBPF_BINARIES[i % len(EBPF_BINARIES)]
+        pid, ktime = 20_000 + 17 * i, 5_000_000 + 1_000 * i
+        args = f"{binary.rsplit('/', 1)[-1]} --worker {i}"
+        procs.append((pid, ktime, binary.rsplit("/", 1)[-1]))
+        events.append(dict(source="process_security", pid=pid, ppid=1,
+                           ktime=ktime, timestamp_ns=EBPF_T0_NS + i,
+                           call_name="sys_execve", path=binary,
+                           payload=args.encode()))
+    n_http = round(n_conns * EBPF_MIX[0])
+    n_redis = round(n_conns * EBPF_MIX[1])
+    protos = (["http"] * n_http + ["redis"] * n_redis
+              + ["mysql"] * (n_conns - n_http - n_redis))
+    conns = []
+    for j, proto in enumerate(protos):
+        pid, ktime, _comm = procs[j % n_procs]
+        port, n_remote = _REMOTES[proto]
+        pidx = ("http", "redis", "mysql").index(proto)
+        conns.append(dict(pid=pid, ktime=ktime, fd=100 + j, proto=proto,
+                          local=f"10.0.{j // 250}.{j % 250 + 1}:"
+                                f"{40_000 + j}",
+                          remote=f"10.9.{pidx}.{j % n_remote + 1}:{port}"))
+    by_proto = {p: [c for c in conns if c["proto"] == p]
+                for p in ("http", "redis", "mysql")}
+    # each exchange's protocol by EBPF_MIX, then one connection of it
+    kinds = rng.choice(3, size=n_exchanges, p=list(EBPF_MIX))
+    plan = [[] for _ in conns]
+    for k in kinds:
+        pool = by_proto[("http", "redis", "mysql")[int(k)]]
+        c = pool[int(rng.integers(len(pool)))]
+        plan[c["fd"] - 100].append(c)
+    timed = []      # (ts, seq, event); seq keeps a connection's order
+    seq = 0
+    spans, cells, paths = [], {}, {}
+    for j, c in enumerate(conns):
+        base = dict(source="network_observe", pid=c["pid"], fd=c["fd"],
+                    ktime=c["ktime"], local_addr=c["local"],
+                    remote_addr=c["remote"])
+        t = EBPF_T0_NS + 1_000_000 + int(rng.integers(0, 50_000_000))
+        timed.append((t, seq, dict(base, call_name="conn_connect",
+                                   timestamp_ns=t)))
+        seq += 1
+        rx = tx = 0
+        for _ in plan[j]:
+            req, resp, span, path = _EXCHANGES[c["proto"]](rng)
+            t += int(rng.integers(10_000, 2_000_000))
+            lat = int(rng.integers(50_000, 20_000_000))
+            timed.append((t, seq, dict(base, direction="egress",
+                                       payload=req, timestamp_ns=t)))
+            timed.append((t + lat, seq + 1, dict(
+                base, direction="ingress", payload=resp,
+                timestamp_ns=t + lat)))
+            seq += 2
+            t += lat
+            tx += len(req)
+            rx += len(resp)
+            if path is not None:
+                paths[path] = paths.get(path, 0) + 1
+            spans.append((span["name"], span["status_code"], lat))
+            status = (span["status_code"][:1] + "xx" if span["status_code"]
+                      else ("error" if span["error"] else "ok"))
+            cell = cells.setdefault((c["proto"], c["remote"], status), {
+                "count": 0, "errors": 0, "latency_sum_ns": 0,
+                "latency_max_ns": 0, "rx_bytes": 0, "tx_bytes": 0})
+            cell["count"] += 1
+            cell["errors"] += span["error"]
+            cell["latency_sum_ns"] += lat
+            cell["latency_max_ns"] = max(cell["latency_max_ns"], lat)
+            cell["rx_bytes"] += rx
+            cell["tx_bytes"] += tx
+            rx = tx = 0
+        t += 1_000
+        timed.append((t, seq, dict(base, call_name="conn_close",
+                                   timestamp_ns=t)))
+        seq += 1
+    timed.sort(key=lambda e: (e[0], e[1]))
+    events.extend(e for _t, _s, e in timed)
+    expected = {
+        "procs": {pid: comm for pid, _k, comm in procs},
+        "payload_events": 2 * n_exchanges,
+        "http_paths": paths,
+        "spans": sorted(spans),
+        "cells": cells,
+    }
+    return events, expected
+
+
+def ebpf_mismatches(net_records, sec_records, expected, limit=10):
+    """What the observer's NDJSON records (``flusher_file`` of the network
+    observer's pipeline, ``net_records``, and of the process-security
+    pipeline, ``sec_records``) get wrong against ``ebpf_stream``'s
+    ``expected``, as messages (empty when they agree): one log record a
+    payload event, ``comm`` from the exec'd process, each HTTP request's
+    ``category`` by ``URL_RULES`` and no category on any other record,
+    the request paths, the spans' names and latencies, and the
+    ``ebpf_l7_requests`` cells summed per (protocol, remote, status)."""
+    bad = []
+    procs = {str(pid): comm for pid, comm in expected["procs"].items()}
+    execs = {r.get("pid"): r.get("comm") for r in sec_records
+             if r.get("call_name") == "sys_execve"}
+    if execs != procs:
+        bad.append(f"exec records: {len(execs)} processes, want "
+                   f"{len(procs)}; first differing: "
+                   f"{sorted(set(execs.items()) ^ set(procs.items()))[:3]}")
+    logs, spans, cells = [], [], {}
+    for r in net_records:
+        if "spanId" in r:
+            spans.append((r["name"], r["endTimeNs"] - r["startTimeNs"]))
+        elif r.get("__name__") == "ebpf_l7_requests":
+            lab = r["__labels__"]
+            key = (lab["protocol"], lab["remote"], lab["status"])
+            cell = cells.setdefault(key, dict.fromkeys(
+                ("count", "errors", "latency_sum_ns", "latency_max_ns",
+                 "rx_bytes", "tx_bytes"), 0))
+            for k, v in r["__values__"].items():
+                cell[k] = (max(cell[k], int(v)) if k == "latency_max_ns"
+                           else cell[k] + int(v))
+        else:
+            logs.append(r)
+    if len(logs) != expected["payload_events"]:
+        bad.append(f"{len(logs)} log records, want "
+                   f"{expected['payload_events']} (one a payload event)")
+    rules = _url_rules_re()
+    paths = {}
+    for r in logs:
+        if r.get("comm") != procs.get(r.get("pid")):
+            bad.append(f"comm {r.get('comm')!r} for pid {r.get('pid')}")
+        if r.get("protocol") == "http" and r.get("kind") == "request":
+            path = r["path"].encode()
+            paths[path] = paths.get(path, 0) + 1
+            want = url_category(path, rules)
+            if r.get("category") != want:
+                bad.append(f"category {r.get('category')!r} of "
+                           f"{r['path']!r}, want {want!r}")
+        elif "category" in r:
+            bad.append(f"a category on a {r.get('protocol')} "
+                       f"{r.get('kind')}: {r}")
+        if len(bad) >= limit:
+            return bad
+    if paths != expected["http_paths"]:
+        bad.append(f"request paths {paths}, want {expected['http_paths']}")
+    want_spans = sorted((n, lat) for n, _code, lat in expected["spans"])
+    if sorted(spans) != want_spans:
+        bad.append(f"{len(spans)} spans, want {len(want_spans)}, or their "
+                   f"names and latencies differ")
+    want_cells = {k: dict(v) for k, v in expected["cells"].items()}
+    if cells != want_cells:
+        diff = sorted(set(cells) ^ set(want_cells)) or [
+            k for k in want_cells if cells[k] != want_cells[k]]
+        bad.append(f"rollup cells differ at {diff[:3]}")
+    return bad[:limit]

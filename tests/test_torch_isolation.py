@@ -4,7 +4,9 @@
   subprocess) loads neither ``jax`` nor ``loongcollector_tpu``;
 * an AST scan of the port and of ``chip_smoke.py`` finds no import of
   either; nor does importing the sharded parse plane (``parallel.mesh``)
-  or the chip lanes (``ops.chip_lanes``) on their own;
+  or the chip lanes (``ops.chip_lanes``) on their own, nor the eBPF
+  input plane, the input-runner registry or the classify and field
+  processors;
 * entry points asked for no device default to CUDA and raise on a machine
   without one, rather than running on the CPU;
 * ``ExtractKernel`` sends a CUDA tensor to the kernel launch, never to the
@@ -82,6 +84,14 @@ MESH_MODULES = [
     "application",
 ]
 
+EBPF_MODULES = [
+    "input.ebpf", "input.ebpf.protocol_http", "input.ebpf.protocol_redis",
+    "input.ebpf.protocol_mysql", "input.ebpf.connections",
+    "input.ebpf.proc_tree", "input.ebpf.adapter", "input.ebpf.server",
+    "input", "runner.input_registry", "processor.classify_url",
+    "processor.field_ops", "processor", "application", "testdata",
+]
+
 _PROBE_EACH = """
 import importlib, json, sys
 out = {}
@@ -136,6 +146,19 @@ def test_mesh_modules_load_no_jax():
                          text=True, timeout=120, check=True)
     res = json.loads(out.stdout.strip().splitlines()[-1])
     assert sorted(res) == sorted(MESH_MODULES)
+    assert all(bad == [] for bad in res.values()), res
+
+
+def test_ebpf_and_classify_modules_load_no_jax():
+    """The modules of the eBPF and URL-classification slice (the eBPF
+    input plane, the input-runner registry, the classify and field
+    processors), imported one after the other in a fresh interpreter, load
+    neither JAX nor the JAX package."""
+    out = subprocess.run([sys.executable, "-c", _PROBE_EACH,
+                          *EBPF_MODULES], cwd=REPO, capture_output=True,
+                         text=True, timeout=120, check=True)
+    res = json.loads(out.stdout.strip().splitlines()[-1])
+    assert sorted(res) == sorted(EBPF_MODULES)
     assert all(bad == [] for bad in res.values()), res
 
 
