@@ -28,7 +28,8 @@ Phases, each of which exits non-zero on failure:
    padding rows.  Bit-exact on (ok, cap_off, cap_len), and both agree with
    a ``re.fullmatch`` oracle.  Every kernel instantiation must launch, as
    ``field_extract_cuda.launch()`` records its launches.
-3. main path: a seeded 600,000-line Apache access log runs through
+3. main path: a seeded 300,000-line Apache access log (the first half of
+   the tail phases' 600,000 lines) runs through
    ``python -m loongcollector_tpu_torch --config DIR --once`` on the card
    (``example_config/quick_start/file_regex_apache.yaml`` with FilePaths
    pointed at the log and a flusher_file sink): the input pushes into the
@@ -77,7 +78,7 @@ Phases, each of which exits non-zero on failure:
    in the tile) on the path's start/continue set and on ``SKIP4_SET``
    (states of exactly four and five escape bytes), at L = 128, 256 and
    4096 (K4's two kernels).  Both entry points launch.
-7. multiline paths on a seeded 600,000-line Java log
+7. multiline paths on a seeded 150,000-line Java log
    (``testdata.gen_java_log``): path 1, the stock ``multiline_java.yaml``
    (K1 as the start gate and the parse), at one worker; path 2, start and
    continue patterns with an exception filter
@@ -156,7 +157,7 @@ Phases, each of which exits non-zero on failure:
    one segment, rows on either side of every 1024th segment, no valid row.
 15. the metric-rollup path (after phase 12): ``testdata.metric_rollup_config``
    (parse_json, parse_timestamp, ``aggregator_metric_rollup`` with
-   ``Substrate: device``, flusher_file) on a seeded 600,000-line
+   ``Substrate: device``, flusher_file) on a seeded 150,000-line
    ``testdata.gen_metrics_jsonl`` corpus at one and four workers, at one
    worker with ``LOONG_AGG_SUBSTRATE=numpy``, and at one worker with the
    ledger on (residual 0, its ingest the log's reader chunks): the rows
@@ -199,7 +200,7 @@ Phases, each of which exits non-zero on failure:
    keep) against the plain version and ``staged_run`` (K1, K5, K3), at
    L = 128, 512 and 4096, bit-exact.
 20. quote-mode CSV (after phase 16): ``testdata.quoted_csv_config`` on
-   ``gen_quoted_csv(300_000, seed=19)`` in the index tier
+   ``gen_quoted_csv(100_000, seed=19)`` in the index tier
    (``LOONG_DISABLE_NATIVE=1``: K5 indexes each group) at one and four
    workers and in the native tier at one: every record equals the FSM
    oracle (``testdata.csv_oracle``) in order, the three runs' NDJSON bytes
@@ -209,11 +210,11 @@ Phases, each of which exits non-zero on failure:
    on the path's own groups against its plain version, whose (B, L) must
    be those the index runs launched.
 21. the delimiter-filter path: ``testdata.pipe_filter_config`` on
-   ``gen_pipe_log(600_000, seed=23)`` at one worker: the kept records equal
+   ``gen_pipe_log(300_000, seed=23)`` at one worker: the kept records equal
    the ``split`` + ``re`` oracle in order; one K7 launch a group, no
    standalone K1, K2, K3 or K5.
 22. ``json_filter.yaml`` (``BASELINE.json`` config 4) with ``flusher_file``
-   on ``gen_json_events(100_000, seed=29)``: the kept events equal the
+   on ``gen_json_events(50_000, seed=29)``: the kept events equal the
    ``json.loads`` + ``re`` oracle in order; the filter's kernel (K1 for
    the Tier-1 ``ERROR|WARN``) launches once a group; no parse fallback.
 23. K5 timing (last): at B=8192 and B=65536, L=128, and at the CSV path's
@@ -264,8 +265,8 @@ Phases, each of which exits non-zero on failure:
    simulation driver ``native/libloong_ebpf_sim.so`` built by ``make``
    and loaded explicitly (``SoAdapter``; a load or handshake failure
    fails the phase), and ``testdata.ebpf_stream``'s events injected
-   through it: 64 exec'd processes, 256 connections and 100,000
-   exchanges (80% HTTP with 5% 5xx, 10% Redis, 10% MySQL; 200,576
+   through it: 64 exec'd processes, 256 connections and 10,000
+   exchanges (80% HTTP with 5% 5xx, 10% Redis, 10% MySQL; 20,576
    events).  The driver's
    delivered callbacks must equal the injected events with no callback
    error and no group refused by a queue, and the records those of the
@@ -276,30 +277,72 @@ Phases, each of which exits non-zero on failure:
    the reference, and no kernel launches.  Prints events/s and the rows
    classified on ``re``.
 
+29. the Apache main path in tail mode (after phase 28): the agent
+   without ``--once`` (``--data-dir`` of its own, one worker, the ledger
+   off), ``testdata.apache_config`` (the shipped
+   ``file_regex_apache.yaml`` with a ``flusher_file`` sink) over a log
+   that holds 256 warm-up lines; once their records are in the sink a
+   writer thread appends the 600,000 Apache lines (phase 3's log is
+   their first half) at 4 MB/s (one
+   ``write()`` every 10 ms of what is due; ~14 s) and rotates the log at
+   the midpoint (rename to ``.1``, a new file); the agent is stopped by
+   SIGTERM once every record is in the sink.  A watcher thread polls the
+   sink every 2 ms; each line's event-to-flush latency is the time the
+   watcher saw its record minus the time the ``write()`` that held it
+   returned (the polling period bounds the error).  Every line's record
+   must be in the sink exactly once across the rotation; K1's launches =
+   its device batches = the plane's dispatches > 0, the plane settles, no
+   row on ``re``.  Prints p50, p99 and max latency, the MB/s written and
+   to the last record, K1's launches and the card's name and power limit.
+30. SIGKILL and restart (after phase 29): the tail agent as a subprocess
+   on a log the writer appends at 2 MB/s (the first ~30 MB of phase 29's
+   lines, ~15 s), killed by SIGKILL 5 s into the writer, restarted at
+   once on the same data dir while the writer goes on, stopped by SIGTERM
+   once every line's record is in the sink.  No line may be lost; a
+   duplicate is allowed only for a line delivered before the kill whose
+   span neither the checkpoint nor the ack journal held then (a sink line
+   the kill tore is cut off: its group was never acked, and the restart
+   writes it again).  The restart must see the unclean shutdown.  Prints
+   the duplicates, ``replay_duplicate_events`` and the checkpoint offsets
+   recovered and at exit.
+
 In every phase each recorded launch must be whole warps within the block
 limit and the shared-memory budget, with a block for each SM once a batch
 holds 32 rows an SM; the geometry in the ``kernels`` line is the one
 ``launch()`` passed to the kernel in this run.
 
-An earlier line prints the script's total seconds.  The line before the
+After each phase a line prints its seconds; a line before the last two
+prints the script's total seconds.  The line before the
 last is the ``kernels`` JSON line (K1, K2, K4, K3, K7, K6, K5 and K8; K1
-and K2 carry phase 27's launches beside their own), the
+and K2 carry phase 27's launches beside their own, K1 phase 29's and
+30's under ``path_launches`` ``tail`` and ``tail_restart`` and phase 29's
+latency), the
 last line the ``{"ok": true, "device": ...}`` object.  It imports nothing of JAX
 or of the JAX package.
 """
 
 from __future__ import annotations
 
+import functools
 import json
 import os
 import re
+import signal
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 REPO = os.path.dirname(os.path.abspath(__file__))
-MAIN_PATH_LINES = 600_000   # the size of bench.py:bench_pipeline_e2e
+# the tail phases' lines (phase 29: ~57 MB at 4 MB/s, the size of
+# bench.py:bench_pipeline_e2e); the ``--once`` paths take the first half,
+# and the Java and metrics corpora a quarter, since the tail phases
+# joined the script, which keeps its time from before them (PERF.md §4)
+TAIL_LINES = 600_000
+MAIN_PATH_LINES = 300_000
+JAVA_LINES = 150_000
+METRICS_LINES = 150_000
 
 # H100 SXM peaks from NVIDIA's data sheet (dense, at the 700 W limit)
 HBM_BYTES_PER_S = 3.35e12
@@ -909,18 +952,34 @@ def write_config(tmp: str, log_path: str, out_path: str) -> str:
 
 
 def main_path_log():
-    """The seeded main-path log, written once for both runs."""
+    """The seeded Apache lines of the tail phases (``TAIL_LINES``), and
+    the main-path log of the ``--once`` runs, their first
+    ``MAIN_PATH_LINES``, written once for all of them."""
     from loongcollector_tpu_torch.testdata import gen_lines
     tmp = tempfile.mkdtemp(prefix="chip_smoke_")
     log_path = os.path.join(tmp, "access.log")
     t0 = time.perf_counter()
-    lines = gen_lines(MAIN_PATH_LINES, seed=11)
+    tail_lines = gen_lines(TAIL_LINES, seed=11)
+    lines = tail_lines[:MAIN_PATH_LINES]
     data = b"\n".join(lines) + b"\n"
     with open(log_path, "wb") as f:
         f.write(data)
     log(f"main path: {len(lines)} lines, {len(data)} bytes written in "
         f"{time.perf_counter() - t0:.1f} s")
-    return tmp, log_path, lines, len(data)
+    return tmp, log_path, lines, len(data), tail_lines
+
+
+_APACHE_WANT: dict = {}
+
+
+def apache_want(lines) -> list:
+    """``re.fullmatch``'s fields of each line (``testdata.apache_oracle``),
+    computed once for the main path's runs."""
+    from loongcollector_tpu_torch.testdata import apache_oracle
+    key = (id(lines), len(lines))
+    if key not in _APACHE_WANT:
+        _APACHE_WANT[key] = apache_oracle(lines)
+    return _APACHE_WANT[key]
 
 
 def phase_main_path(tmp: str, log_path: str, lines, n_bytes: int,
@@ -941,15 +1000,14 @@ def phase_main_path(tmp: str, log_path: str, lines, n_bytes: int,
            f"worker{'s' if threads > 1 else ''}{', ledger on' * ledger}")
     env = {"LOONG_SHARDED": "1"} if sharded else {}
     st, wall = run_agent(tag, cfg_dir, stats_path, threads, ledger, **env)
-    rx = re.compile(APACHE.encode())
+    oracle = apache_want(lines)
     n = 0
     with open(out_path, "rb") as f:
         for n, rec in enumerate(f, 1):
             if n > len(lines):
                 fail("more records than lines")
             obj = json.loads(rec)
-            m = rx.fullmatch(lines[n - 1])
-            want = {k: v.decode() for k, v in zip(APACHE_KEYS, m.groups())}
+            want = oracle[n - 1]
             got = {k: obj.get(k) for k in APACHE_KEYS}
             if got != want:
                 fail(f"record {n}: {got} != re {want}")
@@ -1603,7 +1661,7 @@ def java_log():
     tmp = tempfile.mkdtemp(prefix="chip_smoke_java_")
     log_path = os.path.join(tmp, "app.log")
     t0 = time.perf_counter()
-    lines = gen_java_log(MAIN_PATH_LINES, seed=13)
+    lines = gen_java_log(JAVA_LINES, seed=13)
     data = b"\n".join(lines) + b"\n"
     with open(log_path, "wb") as f:
         f.write(data)
@@ -2981,13 +3039,13 @@ def phase_k6_timing() -> dict:
 
 
 def metrics_log():
-    """The seeded 600,000-line metrics corpus, its f64 oracle and the
+    """The seeded 150,000-line metrics corpus, its f64 oracle and the
     fold rows of each reader chunk (``testdata.metrics_fold_rows``)."""
     from loongcollector_tpu_torch import testdata as td
     tmp = tempfile.mkdtemp(prefix="chip_smoke_metrics_")
     log_path = os.path.join(tmp, "metrics.jsonl")
     t0 = time.perf_counter()
-    lines = td.gen_metrics_jsonl(MAIN_PATH_LINES, seed=17)
+    lines = td.gen_metrics_jsonl(METRICS_LINES, seed=17)
     data = b"\n".join(lines) + b"\n"
     with open(log_path, "wb") as f:
         f.write(data)
@@ -3320,9 +3378,11 @@ def skip_states() -> list:
 K5_ODD_L = (1, 15, 16, 17, 33, 100)
 K5_EDGE_L = (16, 128, 512, 4096)
 K5_SHAPES = ((8192, 128), (65536, 128))
-CSV_LINES = 300_000
-PIPE_LINES = 600_000
-JSON_EVENTS = 100_000
+# a third (CSV) and half (pipe, JSON) of the sizes before the tail phases
+# joined the script (PERF.md §4)
+CSV_LINES = 100_000
+PIPE_LINES = 300_000
+JSON_EVENTS = 50_000
 _TIME_FIELD = re.compile(rb'"__time__": \d+')
 
 
@@ -3564,7 +3624,7 @@ def k5_stats_line(tag, st) -> dict:
 
 def phase_csv_path() -> dict:
     """Quote-mode CSV (``testdata.quoted_csv_config``) on
-    ``gen_quoted_csv(300_000, seed=19)``: the index tier
+    ``gen_quoted_csv(100_000, seed=19)``: the index tier
     (``LOONG_DISABLE_NATIVE=1``) at one and four workers, then the native
     tier at one.  Every record equals the FSM oracle (``csv_oracle``) in
     order; the NDJSON bytes of the three runs are equal (the read time in
@@ -3655,7 +3715,7 @@ def phase_csv_path() -> dict:
 def phase_pipe_filter() -> dict:
     """The delimiter-filter path (``testdata.pipe_filter_config``: the
     non-quote ``|`` parse, then keep ``level`` ERROR or WARN and drop
-    ``service`` healthcheck) on ``gen_pipe_log(600_000, seed=23)`` at one
+    ``service`` healthcheck) on ``gen_pipe_log(300_000, seed=23)`` at one
     worker: the kept records equal the ``split`` + ``re.fullmatch`` oracle
     in order; one K7 launch a group (= fused dispatches = plane dispatches
     = groups), no standalone K1, K2 or K3 launch."""
@@ -3706,7 +3766,7 @@ def phase_pipe_filter() -> dict:
 
 def phase_json_filter() -> dict:
     """``example_config/quick_start/json_filter.yaml`` (``BASELINE.json``
-    config 4) with ``flusher_file`` on ``gen_json_events(100_000,
+    config 4) with ``flusher_file`` on ``gen_json_events(50_000,
     seed=29)``: the kept events equal the ``json.loads`` +
     ``re.fullmatch`` oracle in order; the filter's kernel and launches come
     from ``--stats`` (K1 for a Tier-1 ``level`` pattern, K2 for a DFA one),
@@ -3942,10 +4002,11 @@ def k8_kernel_entry(parity, timing, sharded, sharded4, logical, main_path,
 # -- slice 13: URL classification and the eBPF network observer -------------
 
 EBPF_SEED = 13
-# ~5 s of a busy host's L7 traffic: half the 200,000 exchanges (~10 s) of
-# the slice's plan, so that the script stays under half its time limit
+# ~0.5 s of a busy host's L7 traffic: a twentieth of the 200,000
+# exchanges first planned (100,000 ran before the tail phases), so that
+# the script with phases 29-30 keeps its time from before them
 # (PERF.md §4)
-EBPF_EXCHANGES = 100_000
+EBPF_EXCHANGES = 10_000
 EBPF_PROCS = 64
 EBPF_CONNS = 256
 
@@ -4151,6 +4212,458 @@ def phase_ebpf() -> dict:
             "re_rows": st["classify"]["re_rows"], "records": kinds}
 
 
+TAIL_RATE = 4e6             # phase 29: bytes a second appended to the log
+KILL_RATE = 2e6             # phase 30
+TAIL_SECONDS = 15.0         # each phase's writer, in all
+KILL_AT_S = 5.0             # phase 30: SIGKILL this far into the writer
+WATCH_PERIOD_S = 0.002      # the sink watcher's polling period
+WARM_LINES = 256            # written before the writer starts
+WRITE_PERIOD_S = 0.01       # the writer's pacing step
+
+
+class PacedWriter(threading.Thread):
+    """Appends ``lines`` to ``path`` at ``rate`` bytes a second, in one
+    ``write()`` every ``WRITE_PERIOD_S`` of what is due, and records for
+    each write the lines it held and the monotonic time it returned.  At
+    line ``rotate_at`` the file is renamed to ``path + ".1"`` and a new
+    one is started."""
+
+    def __init__(self, path, lines, rate, rotate_at=None):
+        super().__init__(name="paced-writer", daemon=True)
+        self.path, self.lines, self.rate = path, lines, rate
+        self.rotate_at = rotate_at
+        self.batches = []           # (first line, end line, returned at)
+        self.bytes = 0
+        self.t0 = self.seconds = 0.0
+        self.error = None
+
+    def _write(self, fd, i, j):
+        data = b"\n".join(self.lines[i:j]) + b"\n"
+        view = memoryview(data)
+        while view:
+            view = view[os.write(fd, view):]
+        self.batches.append((i, j, time.monotonic()))
+        self.bytes += len(data)
+
+    def run(self):
+        try:
+            flags = os.O_WRONLY | os.O_APPEND | os.O_CREAT
+            fd = os.open(self.path, flags, 0o644)
+            n = len(self.lines)
+            i = 0
+            self.t0 = time.monotonic()
+            while i < n:
+                due = self.rate * (time.monotonic() - self.t0) - self.bytes
+                j, size = i, 0
+                while j < n and size < due:
+                    size += len(self.lines[j]) + 1
+                    j += 1
+                if j == i:
+                    time.sleep(WRITE_PERIOD_S)
+                    continue
+                if self.rotate_at is not None and i < self.rotate_at <= j:
+                    if i < self.rotate_at:
+                        self._write(fd, i, self.rotate_at)
+                    os.rename(self.path, self.path + ".1")
+                    os.close(fd)
+                    fd = os.open(self.path, flags, 0o644)
+                    i = self.rotate_at
+                    self.rotate_at = None
+                    continue
+                self._write(fd, i, j)
+                i = j
+            os.close(fd)
+            self.seconds = time.monotonic() - self.t0
+        except BaseException as e:  # noqa: BLE001 — reported by the phase
+            self.error = e
+
+
+class SinkWatcher(threading.Thread):
+    """Tails the agent's NDJSON sink every ``WATCH_PERIOD_S``: each
+    complete line with the monotonic time this thread first saw it (the
+    period bounds the error of the time)."""
+
+    def __init__(self, path):
+        super().__init__(name="sink-watcher", daemon=True)
+        self.path = path
+        self.lines, self.times = [], []
+        self._halt = threading.Event()
+
+    def stop(self):
+        self._halt.set()
+        self.join()
+
+    def run(self):
+        f, buf = None, b""
+        while True:
+            stopping = self._halt.is_set()
+            if f is None and os.path.exists(self.path):
+                f = open(self.path, "rb")
+            data = f.read() if f is not None else b""
+            if data:
+                t = time.monotonic()
+                buf += data
+                *done, buf = buf.split(b"\n")
+                self.lines.extend(done)
+                self.times.extend([t] * len(done))
+            elif stopping:
+                break
+            else:
+                time.sleep(WATCH_PERIOD_S)
+        if f is not None:
+            f.close()
+
+
+def tail_agent(cfg_dir, data_dir, stats_path, err_path):
+    """A tail-mode agent on the card (one worker, the ledger off)."""
+    env = dict(os.environ, LOONG_PROCESS_THREADS="1")
+    env.pop("LOONG_LEDGER", None)
+    cmd = [sys.executable, "-m", "loongcollector_tpu_torch", "--config",
+           cfg_dir, "--data-dir", data_dir]
+    if stats_path:
+        cmd += ["--stats", stats_path]
+    return subprocess.Popen(cmd, cwd=REPO, env=env,
+                            stdout=subprocess.DEVNULL,
+                            stderr=open(err_path, "wb"))
+
+
+def wait_until(tag, cond, timeout, procs=()):
+    """Poll ``cond`` every 20 ms until it holds; fail at the deadline or
+    when an agent of ``procs`` has exited."""
+    deadline = time.monotonic() + timeout
+    while not cond():
+        for p, err in procs:
+            if p.poll() is not None:
+                with open(err, "rb") as f:
+                    fail(f"{tag}: the agent exited {p.returncode}:\n"
+                         f"{f.read()[-4000:].decode(errors='replace')}")
+        if time.monotonic() > deadline:
+            fail(f"{tag}: not done within {timeout} s")
+        time.sleep(0.02)
+
+
+def stop_agent(tag, proc, err_path, timeout=300):
+    """SIGTERM, then the agent must exit 0 within ``timeout``."""
+    proc.send_signal(signal.SIGTERM)
+    try:
+        rc = proc.wait(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait()
+        fail(f"{tag}: the agent did not exit {timeout} s after SIGTERM")
+    if rc != 0:
+        with open(err_path, "rb") as f:
+            fail(f"{tag}: the agent exited {rc} after SIGTERM:\n"
+                 f"{f.read()[-4000:].decode(errors='replace')}")
+
+
+def tail_setup(name, seed):
+    """A run directory with the main path's config (the shipped Apache
+    config, ``flusher_file``) over ``access.log``, and the warm-up lines
+    written to the log."""
+    from loongcollector_tpu_torch import testdata as td
+    tmp = tempfile.mkdtemp(prefix=f"chip_smoke_{name}_")
+    paths = {k: os.path.join(tmp, v) for k, v in (
+        ("log", "access.log"), ("out", "out.json"), ("data", "data"),
+        ("cfg", "config"), ("stats", "stats.json"), ("err", "agent.err"),
+        ("err2", "agent2.err"))}
+    os.makedirs(paths["cfg"])
+    with open(os.path.join(paths["cfg"], "file_regex_apache.yaml"), "w") as f:
+        f.write(td.apache_config(paths["log"], paths["out"]))
+    warm = td.gen_lines(WARM_LINES, seed=seed)
+    with open(paths["log"], "wb") as f:
+        f.write(b"\n".join(warm) + b"\n")
+    return tmp, paths, warm
+
+
+def record_keys(raw_lines, tag):
+    from loongcollector_tpu_torch.testdata import APACHE_KEYS
+    keys = []
+    for raw in raw_lines:
+        try:
+            rec = json.loads(raw)
+        except ValueError:
+            fail(f"{tag}: a sink line is not JSON: {raw[:200]!r}")
+        keys.append(tuple(rec.get(k) for k in APACHE_KEYS))
+    return keys
+
+
+def line_index(warm, lines):
+    """Record fields → the indexes of the lines (``warm`` then ``lines``)
+    that give them."""
+    from loongcollector_tpu_torch.testdata import APACHE_KEYS, apache_oracle
+    index = {}
+    recs = apache_oracle(warm) + apache_want(lines)
+    for i, rec in enumerate(recs):
+        if rec is None:
+            fail(f"a corpus line does not match the Apache pattern: "
+                 f"{(warm + lines)[i][:200]!r}")
+        index.setdefault(tuple(rec[k] for k in APACHE_KEYS), []).append(i)
+    return index
+
+
+def check_tail_stats(tag, st, n_lines):
+    """The agent ran on CUDA at one worker in tail mode, K1's launches =
+    its device batches > 0 and the plane settled (``check_settled``), no
+    row on ``re``, the marker gone; returns K1's shapes."""
+    if st["device"] != "cuda" or st["threads"] != 1 or st["tail"] is None:
+        fail(f"{tag}: the agent ran on {st['device']} with {st['threads']} "
+             f"workers, tail {st['tail'] is not None}")
+    if st["re_oversize_rows"] or st["re_tier_rows"]:
+        fail(f"{tag}: rows routed to re")
+    if st["events"] < n_lines:
+        fail(f"{tag}: {st['events']} events sent for {n_lines} lines")
+    return check_settled(tag, st)
+
+
+def phase_tail(lines) -> dict:
+    """Phase 29: the Apache main path in tail mode on the card.  The
+    writer appends the main path's lines at ``TAIL_RATE`` and rotates the
+    log at the midpoint; each line's event-to-flush latency is the time
+    the watcher saw its record in the sink minus the time the write that
+    held it returned."""
+    from collections import Counter
+    tag = "tail"
+    tmp, p, warm = tail_setup("tail", 290)
+    n = len(lines)
+    index = line_index(warm, lines)
+    proc = tail_agent(p["cfg"], p["data"], p["stats"], p["err"])
+    watcher = SinkWatcher(p["out"])
+    watcher.start()
+    writer = PacedWriter(p["log"], lines, TAIL_RATE, rotate_at=n // 2)
+    t_start = time.monotonic()
+    try:
+        wait_until(tag, lambda: len(watcher.lines) >= WARM_LINES, 300,
+                   [(proc, p["err"])])
+        ready_s = time.monotonic() - t_start
+        writer.start()
+        writer.join()
+        if writer.error is not None:
+            fail(f"{tag}: the writer failed: {writer.error!r}")
+        wait_until(tag, lambda: len(watcher.lines) >= WARM_LINES + n, 300,
+                   [(proc, p["err"])])
+        stop_agent(tag, proc, p["err"])
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        watcher.stop()
+    keys = record_keys(watcher.lines, tag)
+    got = Counter(keys)
+    want = Counter({k: len(v) for k, v in index.items()})
+    if got != want:
+        missing = sum((want - got).values())
+        extra = sum((got - want).values())
+        fail(f"{tag}: {missing} lines missing, {extra} records extra or "
+             f"duplicated in the sink")
+    written = [0.0] * n
+    for i, j, t in writer.batches:
+        written[i:j] = [t] * (j - i)
+    free = {k: list(v) for k, v in index.items()}
+    lat = []
+    for key, t in zip(keys, watcher.times):
+        i = free[key].pop(0) - WARM_LINES
+        if i >= 0:
+            lat.append(t - written[i])
+    lat.sort()
+    with open(p["stats"]) as f:
+        st = json.load(f)
+    shapes = check_tail_stats(tag, st, WARM_LINES + n)
+    t_last = max(watcher.times)
+    agent_mbps = writer.bytes / (t_last - writer.t0) / 1e6
+    res = {
+        "stats": st, "shapes": shapes, "records": len(keys),
+        "p50_ms": lat[len(lat) // 2] * 1e3,
+        "p99_ms": lat[min(len(lat) - 1, int(len(lat) * 0.99))] * 1e3,
+        "max_ms": lat[-1] * 1e3,
+        "write_mbps": writer.bytes / writer.seconds / 1e6,
+        "agent_mbps": agent_mbps, "bytes": writer.bytes,
+        "writer_s": writer.seconds, "ready_s": ready_s,
+        "rotations": st["tail"]["rotations"],
+    }
+    # a discovery round that falls between the rename and the new file
+    # drains the old reader to its end and opens the new file as a new
+    # path (no rotation counted); either way each line is checked above
+    log(f"{tag}: {len(keys)} records, each line exactly once across the "
+        f"rotation at line {n // 2} (the file server counted "
+        f"{res['rotations']} rotation(s)); "
+        f"{writer.bytes} bytes appended in {writer.seconds:.2f} s "
+        f"({res['write_mbps']:.2f} MB/s written, {agent_mbps:.2f} MB/s to "
+        f"the last record in the sink); agent ready after {ready_s:.1f} s")
+    log(f"{tag}: event-to-flush latency over {len(lat)} lines: p50 "
+        f"{res['p50_ms']:.2f} ms, p99 {res['p99_ms']:.2f} ms, max "
+        f"{res['max_ms']:.2f} ms (the sink watcher polls every "
+        f"{WATCH_PERIOD_S * 1e3:.0f} ms, the writer writes every "
+        f"{WRITE_PERIOD_S * 1e3:.0f} ms); card {nvidia_smi()}")
+    log(f"{tag}: K1 {st['launches']} launches = {st['device_batches']} "
+        f"device batches = {st['plane']['dispatches']} plane dispatches; "
+        f"{st['tail']['groups_pushed']} groups read, read "
+        f"{st['tail']['read_seconds']:.3f} s; kernel "
+        f"{st['kernel_seconds']:.6f} s (exec legs); busy share "
+        f"{st['busy_share']:.6f}; file server {st['tail']['file_server']}")
+    return res
+
+
+def covered_lines(data_dir, log_path, offsets):
+    """Indexes of the lines (by start offset) that the checkpoint or the
+    ack journal in ``data_dir`` holds: a restart does not deliver them
+    again.  Also returns the checkpoint offsets by (dev:inode)."""
+    st = os.stat(log_path)
+    ranges, cps = [], {}
+    cp_file = os.path.join(data_dir, "checkpoints.json")
+    if os.path.exists(cp_file):
+        with open(cp_file) as f:
+            for key, c in json.load(f)["check_point"].items():
+                cps[key] = c["offset"]
+                if (c["dev"], c["inode"]) == (st.st_dev, st.st_ino):
+                    ranges.append((0, c["offset"]))
+    journal = os.path.join(data_dir, "ack_journal.jsonl")
+    if os.path.exists(journal):
+        with open(journal) as f:
+            for line in f:
+                try:
+                    rec = json.loads(line)
+                except ValueError:
+                    continue          # a line the kill tore
+                if (rec["d"], rec["i"]) == (st.st_dev, st.st_ino):
+                    ranges.append((rec["o"], rec["o"] + rec["l"]))
+    ranges.sort()
+    covered, k = set(), 0
+    for i, off in enumerate(offsets):
+        while k < len(ranges) and ranges[k][1] <= off:
+            k += 1
+        if any(a <= off < b for a, b in ranges[k:k + 64]):
+            covered.add(i)
+    return covered, cps
+
+
+def phase_kill_restart(lines) -> dict:
+    """Phase 30: the tail agent on the card killed by SIGKILL about
+    ``KILL_AT_S`` into a ``KILL_RATE`` writer, restarted on its data dir
+    while the writer goes on: no line lost, and every duplicate a line
+    whose span neither the checkpoint nor the ack journal held at the
+    kill."""
+    from collections import Counter
+    tag = "kill and restart"
+    tmp, p, warm = tail_setup("kill", 300)
+    n, size = 0, 0
+    while n < len(lines) and size < KILL_RATE * TAIL_SECONDS:
+        size += len(lines[n]) + 1
+        n += 1
+    body = lines[:n]
+    everything = warm + body
+    index = line_index(warm, body)
+    offsets, pos = [], 0
+    for ln in everything:
+        offsets.append(pos)
+        pos += len(ln) + 1
+    first = tail_agent(p["cfg"], p["data"], None, p["err"])
+    second = None
+    writer = PacedWriter(p["log"], body, KILL_RATE)
+
+    def sink_lines():
+        if not os.path.exists(p["out"]):
+            return 0
+        with open(p["out"], "rb") as f:
+            return f.read().count(b"\n")
+
+    try:
+        wait_until(tag, lambda: sink_lines() >= WARM_LINES, 300,
+                   [(first, p["err"])])
+        writer.start()
+        time.sleep(KILL_AT_S)
+        first.kill()
+        first.wait()
+        t_kill = time.monotonic() - writer.t0
+        # a write the kill cut short was never acked: the restart writes
+        # its group again, so the torn line is cut off the sink
+        with open(p["out"], "rb") as f:
+            data = f.read()
+        with open(p["out"], "wb") as f:
+            f.write(data[:data.rfind(b"\n") + 1])
+        before = record_keys(data[:data.rfind(b"\n")].split(b"\n"), tag)
+        covered, cps_at_kill = covered_lines(p["data"], p["log"], offsets)
+        second = tail_agent(p["cfg"], p["data"], p["stats"], p["err2"])
+        writer.join()
+        if writer.error is not None:
+            fail(f"{tag}: the writer failed: {writer.error!r}")
+        wait_until(tag, lambda: sink_lines() >= len(everything), 300,
+                   [(second, p["err2"])])
+        stop_agent(tag, second, p["err2"])
+    finally:
+        for proc in (first, second):
+            if proc is not None and proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    with open(p["out"], "rb") as f:
+        keys = record_keys(f.read().splitlines(), tag)
+    got = Counter(keys)
+    want = Counter({k: len(v) for k, v in index.items()})
+    lost = sum((want - got).values())
+    if lost:
+        fail(f"{tag}: {lost} lines lost")
+    dup_lines = set()
+    for key, c in got.items():
+        if c > want[key]:
+            dup_lines.update(index[key])
+    delivered_before = {i for key in before for i in index[key]}
+    outside = dup_lines - (delivered_before - covered)
+    if outside:
+        fail(f"{tag}: {len(outside)} duplicated lines outside the bound "
+             f"(delivered before the kill, held by neither the checkpoint "
+             f"nor the journal)")
+    with open(p["stats"]) as f:
+        st = json.load(f)
+    check_tail_stats(tag, st, len(everything) - len(delivered_before))
+    rec = st["tail"]["recovery"]
+    if not rec["unclean_shutdown"]:
+        fail(f"{tag}: the restart did not see the unclean shutdown: {rec}")
+    res = {"stats": st, "duplicates": sum((got - want).values()),
+           "duplicated_lines": len(dup_lines),
+           "delivered_before_kill": len(delivered_before),
+           "covered_at_kill": len(covered & delivered_before),
+           "replay_duplicate_events": rec["replay_duplicate_events"],
+           "replay_duplicate_spans": rec["replay_duplicate_spans"],
+           "checkpoints_at_kill": cps_at_kill,
+           "checkpoints_at_exit": {k: c["offset"] for k, c in
+                                   st["tail"]["checkpoints"].items()},
+           "kill_s": t_kill, "lines": len(everything),
+           "bytes": writer.bytes}
+    log(f"{tag}: {len(everything)} lines ({writer.bytes} bytes at "
+        f"{writer.bytes / writer.seconds / 1e6:.2f} MB/s); SIGKILL "
+        f"{t_kill:.2f} s into the writer with {len(delivered_before)} lines "
+        f"in the sink, {res['covered_at_kill']} of them held by the "
+        f"checkpoint or the journal; no line lost; {res['duplicates']} "
+        f"duplicate records ({len(dup_lines)} lines), all outside what the "
+        f"checkpoint and the journal held")
+    log(f"{tag}: the restart: replay_duplicate_events "
+        f"{rec['replay_duplicate_events']} in "
+        f"{rec['replay_duplicate_spans']} spans (journal window "
+        f"{rec['window_spans']} spans); checkpoint offsets recovered "
+        f"{cps_at_kill}, at exit {res['checkpoints_at_exit']}; K1 "
+        f"{st['launches']} launches = {st['device_batches']} device "
+        f"batches; card {nvidia_smi()}")
+    return res
+
+
+def _timed(name, fn):
+    """``fn``, logging its seconds (each phase's share of the script's
+    time limit)."""
+    @functools.wraps(fn)
+    def run(*args, **kwargs):
+        t0 = time.perf_counter()
+        try:
+            return fn(*args, **kwargs)
+        finally:
+            log(f"seconds: {name} {time.perf_counter() - t0:.1f}")
+    return run
+
+
+for _name in [n for n in list(globals()) if n.startswith("phase_")
+              or n in ("main_path_log", "java_log", "metrics_log")]:
+    globals()[_name] = _timed(_name, globals()[_name])
+
+
 def main() -> int:
     t_start = time.perf_counter()
     if len(sys.argv) > 1:
@@ -4162,6 +4675,13 @@ def main() -> int:
     import torch
     if not torch.cuda.is_available():
         fail("no CUDA device")
+    # every agent is a process of its own, and where bytecode is not
+    # written (PYTHONDONTWRITEBYTECODE) or torch's package dir has no
+    # cache, each compiles torch's Python sources anew (~5 s): one cache
+    # in the checkout's build dir serves them all
+    os.environ.pop("PYTHONDONTWRITEBYTECODE", None)
+    os.environ.setdefault("PYTHONPYCACHEPREFIX",
+                          os.path.join(REPO, "build", "pycache"))
     from loongcollector_tpu_torch import native
     from loongcollector_tpu_torch.ops.kernels import dfa_scan_cuda as dsc
     from loongcollector_tpu_torch.ops.kernels import field_extract_cuda as fxc
@@ -4170,9 +4690,26 @@ def main() -> int:
     from loongcollector_tpu_torch.ops.kernels import struct_index_cuda as sic
     from loongcollector_tpu_torch.testdata import (rollup_mismatches,
                                                    url_classify_oracle)
-    build = phase_build(fxc, dsc, fpc, src, sic, native)
+    # the main path's lines are generated while nvcc builds the kernels
+    # (this process only waits on the compilers then)
+    made = {}
+
+    def make_log():
+        try:
+            made["log"] = main_path_log()
+        except BaseException as e:  # noqa: BLE001 — raised again below
+            made["error"] = e
+
+    maker = threading.Thread(target=make_log, name="main-path-log")
+    maker.start()
+    try:
+        build = phase_build(fxc, dsc, fpc, src, sic, native)
+    finally:
+        maker.join()
+    if "error" in made:
+        raise made["error"]
+    tmp, log_path, lines, n_bytes, tail_lines = made["log"]
     parity = phase_parity()
-    tmp, log_path, lines, n_bytes = main_path_log()
     main_path = phase_main_path(tmp, log_path, lines, n_bytes, threads=1,
                                 keep=True)
     main_path4 = phase_main_path(tmp, log_path, lines, n_bytes, threads=4)
@@ -4237,6 +4774,8 @@ def main() -> int:
     url4 = phase_url_classify(tmp, log_path, lines, n_bytes, url_want, 4)
     os.unlink(log_path)
     ebpf = phase_ebpf()
+    tail = phase_tail(tail_lines)
+    kill = phase_kill_restart(tail_lines)
     mp = main_path["stats"]
     t8, t64 = timing[8192], timing[65536]
     kernels = {"kernels": [{
@@ -4283,7 +4822,17 @@ def main() -> int:
                           "json_filter": jsonf["stats"]["launches"],
                           "url_classify": url1["stats"]["launches"],
                           "url_classify_4_workers":
-                              url4["stats"]["launches"]},
+                              url4["stats"]["launches"],
+                          "tail": tail["stats"]["launches"],
+                          "tail_restart": kill["stats"]["launches"]},
+        # phase 29: each line's event-to-flush time, in tail mode at
+        # TAIL_RATE, the sink polled every WATCH_PERIOD_S
+        "tail_event_to_flush_ms": {"p50": tail["p50_ms"],
+                                   "p99": tail["p99_ms"],
+                                   "max": tail["max_ms"],
+                                   "watch_period_ms":
+                                       WATCH_PERIOD_S * 1e3},
+        "tail_mbps": tail["agent_mbps"],
         # phase 27's K1 launches by engine: the parse, the drop and the
         # api and health rules
         "url_classify_engine_launches": url1["rule_k1"],
@@ -4328,6 +4877,11 @@ def main() -> int:
     log(f"ebpf: {ebpf['events']} events at {ebpf['events_per_s']:.0f} "
         f"events/s, {ebpf['re_rows']} rows classified on re, no kernel "
         f"launch (object groups, as the reference's)")
+    log(f"tail: event-to-flush p50 {tail['p50_ms']:.2f} ms, p99 "
+        f"{tail['p99_ms']:.2f} ms, max {tail['max_ms']:.2f} ms at "
+        f"{tail['write_mbps']:.2f} MB/s appended; kill and restart: no line "
+        f"lost, {kill['duplicates']} duplicates, replay_duplicate_events "
+        f"{kill['replay_duplicate_events']}")
 
     log(f"total: {time.perf_counter() - t_start:.1f} s")
     print(nvidia_smi())

@@ -1,10 +1,23 @@
 """Agent entry point: ``python -m loongcollector_tpu_torch --config DIR``.
 
-Reference: core/application/Application.cpp.  The port's slice takes
-``--config``, ``--once`` and ``--cpu`` as the JAX CLI does: every pipeline
+Reference: core/application/Application.cpp.  The port takes ``--config``,
+``--data-dir``, ``--once`` and ``--cpu`` as the JAX CLI does: every pipeline
 config in the directory (one pipeline per ``.yaml``/``.yml``/``.json``
-file, named by its stem) runs once over the existing content of its inputs
-and the process exits.  Tail mode comes with the file-server slice.
+file, named by its stem, read once at start) runs until SIGTERM or SIGINT
+(tail mode), or once over the existing content of its inputs (``--once``).
+
+Tail mode keeps its state in ``--data-dir`` (default
+``~/.loongcollector_tpu_torch``, never the JAX package's directory): the
+file checkpoints (``checkpoints.json``, the JAX package's format), the ack
+journal and the crash marker.  It follows the JAX package's init and exit
+orders (``application.py:125-220``, ``:355-410``): the recovery manager
+begins (marker, journal window, torn-file sweep) before any reader opens;
+the file server (``input/file/file_server.py``) follows the inputs' files
+and pushes what it reads; at the signal the inputs stop (the file server
+drains its readers to their last line and dumps), the processor runner
+drains the queues and the held records ship, then the checkpoints are
+dumped once more — after the drain, so they hold every ack it made — and
+the marker is removed (``recovery.mark_clean_exit``).
 
 ``--once`` runs the streaming main path: the pipeline manager builds the
 pipelines and their bounded process queues, the processor runner's workers
@@ -59,7 +72,11 @@ cached regex engine's pattern, tier and counts (K1 launches and device
 batches, K2 launches and batches, rows on ``re`` by route); ``classify``:
 the rows ``processor_classify_url`` classified on ``re`` (object groups);
 ``ebpf``: each eBPF input's groups pushed and refused, and the driver's
-delivered callbacks and callback errors.
+delivered callbacks and callback errors; ``tail`` (tail mode, else null):
+the data dir, the file server's readers, suppressed groups and alarm
+counts, the groups its inputs pushed, their read seconds and rotations,
+the recovery manager's status (unclean start, ``replay_duplicate_events``,
+the watermark tracker) and the checkpoints as dumped at exit.
 """
 
 from __future__ import annotations
@@ -67,6 +84,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import signal
 import statistics
 import sys
 import time
@@ -77,6 +95,9 @@ from .utils.device import NoCudaDevice, resolve_device
 from .utils.logger import get_logger
 
 log = get_logger("application")
+
+DEFAULT_DATA_DIR = os.path.join(os.path.expanduser("~"),
+                                ".loongcollector_tpu_torch")
 
 
 def load_config_dir(config_dir: str) -> List[Tuple[str, Dict[str, Any]]]:
@@ -123,6 +144,38 @@ def _stop_inputs(manager) -> None:
     manager.stop_inputs()
 
 
+class _SignalStop:
+    """Tail mode's stop for the CLI: SIGTERM and SIGINT set a flag (the
+    handler takes no lock); the run polls it."""
+
+    def __init__(self) -> None:
+        self.signum: Optional[int] = None
+
+    def handle(self, signum, frame) -> None:  # noqa: ARG002
+        self.signum = signum
+
+    def is_set(self) -> bool:
+        return self.signum is not None
+
+    def wait(self, seconds: float) -> None:
+        if self.signum is None:
+            time.sleep(seconds)
+
+
+def run_tail(config_dir: str, device, data_dir: str) -> Dict[str, Any]:
+    """Tail mode: run every pipeline of the directory until SIGTERM or
+    SIGINT; returns the run's counts."""
+    configs = load_config_dir(config_dir)
+    if not configs:
+        raise FileNotFoundError(f"no pipeline config in {config_dir}")
+    stop = _SignalStop()
+    signal.signal(signal.SIGTERM, stop.handle)
+    signal.signal(signal.SIGINT, stop.handle)
+    stats = run_configs(configs, device, data_dir=data_dir, stop=stop)
+    log.info("signal %s received; exit complete", stop.signum)
+    return stats
+
+
 def run_once(config_dir: str, device) -> Dict[str, Any]:
     """Run every pipeline of the directory once through the processor
     runner; returns the run's counts."""
@@ -133,10 +186,16 @@ def run_once(config_dir: str, device) -> Dict[str, Any]:
 
 
 def run_configs(configs: List[Tuple[str, Dict[str, Any]]], device,
-                feed: Optional[Callable[[], None]] = None) -> Dict[str, Any]:
-    """Run the (name, config) pipelines once through the processor runner,
+                feed: Optional[Callable[[], None]] = None,
+                data_dir: Optional[str] = None,
+                stop=None) -> Dict[str, Any]:
+    """Run the (name, config) pipelines through the processor runner,
     calling ``feed()`` on this thread once their inputs have started;
-    returns the run's counts."""
+    returns the run's counts.  Without ``stop`` the run is ``--once``:
+    it ends once what the inputs read has drained.  With ``stop`` (an
+    object with ``is_set()`` and ``wait(seconds)``, such as a
+    ``threading.Event``) the run is tail mode, keeps its state in
+    ``data_dir`` (required) and ends once ``stop`` is set."""
     from .ops import compile_watch, xprof
     from .ops import fused_pipeline
     from .ops.device_plane import DevicePlane, device_memory_status
@@ -155,11 +214,27 @@ def run_configs(configs: List[Tuple[str, Dict[str, Any]]], device,
     from .runner.input_registry import (InputRunnerRegistry,
                                         register_builtin_runners)
     from .runner.processor_runner import ProcessorRunner
+    from . import recovery
+    from .input.file.checkpoint import CheckPointManager
+    from .input.file.file_server import FileServer
+    from .runner import ack_watermark
+    tail = stop is not None
+    fs = FileServer.instance()
+    if tail:
+        if not data_dir:
+            raise ValueError("tail mode needs a data dir")
+        os.makedirs(data_dir, exist_ok=True)
+        # this run's books only, and the journal window loaded before any
+        # reader opens
+        ack_watermark.tracker().reset()
+        recovery.begin(data_dir, os.path.join(data_dir, "buffer"))
+        fs.checkpoints = CheckPointManager(
+            os.path.join(data_dir, "checkpoints.json"))
     if ledger.install_from_env():
         # this run's totals only: the residual is read after it drains
         ledger.active_ledger().reset()
     pqm = ProcessQueueManager()
-    manager = CollectionPipelineManager(pqm, device)
+    manager = CollectionPipelineManager(pqm, device, tail=tail)
     manager.update_pipelines(configs)
     register_builtin_runners()
     InputRunnerRegistry.wire_all(pqm)
@@ -193,7 +268,11 @@ def run_configs(configs: List[Tuple[str, Dict[str, Any]]], device,
         manager.start_inputs(should_abort=runner.failed)
         if feed is not None:
             feed()
-        _wait_drained(pqm, manager, runner)
+        if tail:
+            while not stop.is_set() and not runner.failed():
+                stop.wait(0.2)
+        else:
+            _wait_drained(pqm, manager, runner)
         _stop_inputs(manager)
         inputs_stopped = True
         _wait_drained(pqm, manager, runner)
@@ -212,6 +291,9 @@ def run_configs(configs: List[Tuple[str, Dict[str, Any]]], device,
         manager_pipelines = manager.pipelines()
         manager.stop_all()
         xprof.disable()
+        tail_stats = None
+        if tail:
+            tail_stats = _tail_stats(fs, manager_pipelines, data_dir)
     if runner.error is not None:
         raise ProcessingFailed(
             f"{runner.groups_failed} group(s) failed: {runner.error!r}"
@@ -286,6 +368,31 @@ def run_configs(configs: List[Tuple[str, Dict[str, Any]]], device,
             p.re_rows for pl in manager_pipelines for p in pl.processors
             if isinstance(p, ProcessorClassifyUrl))},
         "ebpf": _ebpf_stats(manager_pipelines),
+        "tail": tail_stats,
+    }
+
+
+def _tail_stats(fs, pipelines, data_dir: str) -> Dict[str, Any]:
+    """Tail mode's exit: the checkpoints dumped once more after the drain
+    (so they hold every ack it made), the marker removed; returns the file
+    server's, the inputs' and the recovery manager's counts and the
+    checkpoints as dumped."""
+    from . import recovery
+    fs.checkpoints.dump()
+    status = recovery.status()
+    recovery.mark_clean_exit()
+    states = [inp._fs_state for p in pipelines for inp in p.inputs
+              if getattr(inp, "_fs_state", None) is not None]
+    with open(fs.checkpoints.path) as f:
+        checkpoints = json.load(f)["check_point"]
+    return {
+        "data_dir": data_dir,
+        "file_server": fs.status(),
+        "groups_pushed": sum(st.groups_pushed for st in states),
+        "read_seconds": sum(st.read_seconds for st in states),
+        "rotations": sum(st.rotations for st in states),
+        "recovery": status,
+        "checkpoints": checkpoints,
     }
 
 
@@ -499,6 +606,9 @@ def main(argv: Optional[List[str]] = None) -> int:
     parser = argparse.ArgumentParser(prog="loongcollector_tpu_torch")
     parser.add_argument("--config", required=True,
                         help="pipeline config directory")
+    parser.add_argument("--data-dir", default=DEFAULT_DATA_DIR,
+                        help="checkpoint and recovery state directory "
+                             "(tail mode)")
     parser.add_argument("--once", action="store_true",
                         help="process available data then exit")
     parser.add_argument("--cpu", action="store_true",
@@ -506,17 +616,16 @@ def main(argv: Optional[List[str]] = None) -> int:
     parser.add_argument("--stats", default="",
                         help="write the run's counts as JSON to this path")
     args = parser.parse_args(argv)
-    if not args.once:
-        print("loongcollector_tpu_torch: only --once is supported; tail mode "
-              "comes with the file-server slice", file=sys.stderr)
-        return 2
     try:
         device = resolve_device("cpu" if args.cpu else None)
     except NoCudaDevice as e:
         print(f"loongcollector_tpu_torch: {e}", file=sys.stderr)
         return 2
     try:
-        stats = run_once(args.config, device)
+        if args.once:
+            stats = run_once(args.config, device)
+        else:
+            stats = run_tail(args.config, device, args.data_dir)
     except ProcessingFailed as e:
         print(f"loongcollector_tpu_torch: {e}", file=sys.stderr)
         return 1

@@ -2,7 +2,9 @@
 core/plugin/flusher/file/FlusherFile.cpp: spdlog-based JSON sink).
 
 The port flushes once per group, in place of the JAX package's Batcher;
-the bytes written are the same.  With the ledger on, each group's
+the bytes written are the same.  Each write is the group's terminal ack
+(``runner/ack_watermark.ack_groups``, JAX package
+``pipeline/plugin/interface.py:209-217``).  With the ledger on, each group's
 serialized payload is booked at ``serialize`` (the pipeline books the
 send_ok once ``send`` returns)."""
 
@@ -13,6 +15,7 @@ from typing import Any, Dict
 
 from ..models import PipelineEventGroup
 from ..monitor import ledger
+from ..runner import ack_watermark
 from ..pipeline.plugin.interface import Flusher, PluginContext
 from ..pipeline.serializer.json_serializer import JsonSerializer
 
@@ -42,4 +45,6 @@ class FlusherFile(Flusher):
                           len(group), len(data))
         with open(self.file_path, "ab") as f:
             f.write(data)
+        # written: terminal for the group's source span
+        ack_watermark.ack_groups([group])
         return True

@@ -1,7 +1,9 @@
 """flusher_stdout — JSON lines to stdout (quick-start sink).
 
 The port flushes once per group, in place of the JAX package's Batcher;
-the bytes written are the same.  With the ledger on, each group's
+the bytes written are the same.  Each write is the group's terminal ack
+(``runner/ack_watermark.ack_groups``, JAX package
+``pipeline/plugin/interface.py:209-217``).  With the ledger on, each group's
 serialized payload is booked at ``serialize``."""
 
 from __future__ import annotations
@@ -10,6 +12,7 @@ import sys
 
 from ..models import PipelineEventGroup
 from ..monitor import ledger
+from ..runner import ack_watermark
 from ..pipeline.plugin.interface import Flusher
 from ..pipeline.serializer.json_serializer import JsonSerializer
 
@@ -28,4 +31,6 @@ class FlusherStdout(Flusher):
                           len(group), len(data))
         sys.stdout.write(data.decode("utf-8", "replace"))
         sys.stdout.flush()
+        # written: terminal for the group's source span
+        ack_watermark.ack_groups([group])
         return True

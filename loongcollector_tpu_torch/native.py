@@ -11,15 +11,29 @@ parse of ``processor/parse_json.py`` and its ``LOONG_STRUCT=0`` plane),
 ``delim_struct_parse`` (the quote-mode delimiter's native walk,
 ``processor/parse_delimiter.py``), and ``group_reduce`` (the native fold of
 the metric rollup, ``ops/kernels/segment_reduce.fold_batch_native``).  The library is built
-from the repo's sources with ``make -C native`` on first use; when neither
-the library nor a toolchain exists, every wrapper returns None and its
-caller runs the numpy fallback, with byte-identical results.
+from the repo's sources on first use, with the rule and flags of
+``native/Makefile``; when neither the library nor a toolchain exists, every
+wrapper returns None and its caller runs the numpy fallback, with
+byte-identical results.
+
+Several processes may want the library at once (test workers, an agent
+beside its tests), and the JAX package's bridge runs ``make`` on the same
+output path, whose linker writes the file in place.  So the port never
+loads a file it has not checked: it opens the library, checks that the ELF
+file is whole (its program headers, loaded segments and section headers
+all lie inside the file) and loads that very inode through
+``/proc/self/fd``; a library that is missing, incomplete or older than an
+entry point is rebuilt under an exclusive ``flock`` on
+``native/libloongcollector_native.so.lock``, into a temporary file beside
+it that ``os.replace`` then puts in place.
 """
 
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import os
+import struct
 import subprocess
 import threading
 from typing import Optional, Tuple
@@ -44,15 +58,86 @@ _ENTRY_POINTS = ("lct_split_lines", "lct_pack_rows", "lct_ndjson_serialize",
                  "lct_delim_struct_parse")
 
 
-def _try_build() -> bool:
+_LOCK_PATH = _SO_PATH + ".lock"
+# a make rule with the Makefile's compiler and flags, writing OUT
+_BUILD_RULE = ("lct_port_build: loongcollector_native.cpp ; "
+               "$(CXX) $(CXXFLAGS) -shared -o $(OUT) $<")
+_ELF64 = struct.Struct("<16sHHIQQQIHHHHHH")
+_PHDR64 = struct.Struct("<IIQQQQQQ")
+_loaded_fds: list = []
+
+
+def _elf_whole(fd: int) -> bool:
+    """True when the file behind ``fd`` is a 64-bit ELF object whose
+    program headers, loaded segments and section headers all lie inside
+    it: a file a linker is still writing fails this."""
+    size = os.fstat(fd).st_size
+    hdr = os.pread(fd, _ELF64.size, 0)
+    if len(hdr) < _ELF64.size or hdr[:5] != b"\x7fELF\x02":
+        return False
+    (_, _, _, _, _, phoff, shoff, _, _, phentsize, phnum, shentsize, shnum,
+     _) = _ELF64.unpack(hdr)
+    end = max(phoff + phentsize * phnum, shoff + shentsize * shnum)
+    if not phnum or phentsize < _PHDR64.size or end > size:
+        return False
+    table = os.pread(fd, phentsize * phnum, phoff)
+    for i in range(phnum):
+        ptype, _, off, _, _, filesz, _, _ = _PHDR64.unpack_from(
+            table, i * phentsize)
+        if ptype == 1 and off + filesz > size:      # PT_LOAD
+            return False
+    return True
+
+
+def _open_whole(path: str) -> Optional[ctypes.CDLL]:
+    """The library at ``path`` if it is whole and has every entry point;
+    the inode checked is the inode loaded.  A descriptor the loader has
+    seen stays open for the life of the process: the loader remembers a
+    library by the name it was opened under, and a closed descriptor's
+    number would name another file later."""
+    try:
+        fd = os.open(path, os.O_RDONLY)
+    except OSError:
+        return None
+    try:
+        if not _elf_whole(fd):
+            os.close(fd)
+            return None
+        _loaded_fds.append(fd)
+        lib = ctypes.CDLL(f"/proc/self/fd/{fd}")
+    except OSError as e:
+        log.warning("failed to load native library %s: %s", path, e)
+        return None
+    if not all(hasattr(lib, fn) for fn in _ENTRY_POINTS):
+        return None                 # a build predating an entry point
+    return lib
+
+
+def ensure_built() -> bool:
+    """Make sure a whole library with every entry point is in place,
+    building it under the lock when it is not; False when it cannot be
+    built (no Makefile or no toolchain)."""
     if not os.path.exists(os.path.join(_NATIVE_DIR, "Makefile")):
         return False
-    try:
-        subprocess.run(["make", "-C", _NATIVE_DIR, "-s", _LIB_NAME],
-                       check=True, timeout=600, capture_output=True)
-        return os.path.exists(_SO_PATH)
-    except (OSError, subprocess.SubprocessError):
-        return False
+    with open(_LOCK_PATH, "a") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        # another process may have built it while this one waited
+        if _open_whole(_SO_PATH) is not None:
+            return True
+        tmp = f"{_SO_PATH}.{os.getpid()}.tmp"
+        try:
+            subprocess.run(["make", "-C", _NATIVE_DIR, "-s",
+                            "--eval", _BUILD_RULE, "lct_port_build",
+                            f"OUT={tmp}"],
+                           check=True, timeout=600, capture_output=True)
+            os.replace(tmp, _SO_PATH)
+        except (OSError, subprocess.SubprocessError) as e:
+            log.warning("native library build failed: %s", e)
+            return False
+        finally:
+            if os.path.exists(tmp):
+                os.unlink(tmp)
+    return True
 
 
 def get_lib() -> Optional[ctypes.CDLL]:
@@ -65,19 +150,15 @@ def get_lib() -> Optional[ctypes.CDLL]:
         _load_attempted = True
         if os.environ.get("LOONG_DISABLE_NATIVE"):
             return None
-        if not os.path.exists(_SO_PATH) and not _try_build():
-            log.info("native library unavailable; using numpy fallbacks")
-            return None
-        try:
-            lib = ctypes.CDLL(_SO_PATH)
-        except OSError as e:
-            log.warning("failed to load native library: %s", e)
-            return None
-        if not all(hasattr(lib, fn) for fn in _ENTRY_POINTS):
-            # stale build predating an entry point: rebuild and reload
-            if not _try_build():
+        lib = _open_whole(_SO_PATH)
+        if lib is None:
+            if not ensure_built():
+                log.info("native library unavailable; using numpy fallbacks")
                 return None
-            lib = ctypes.CDLL(_SO_PATH)
+            lib = _open_whole(_SO_PATH)
+            if lib is None:
+                log.warning("native library %s does not load", _SO_PATH)
+                return None
         # pointer params bind as c_void_p and calls pass raw addresses
         # (arr.ctypes.data); ctypes POINTER casts cost microseconds each
         vp = ctypes.c_void_p

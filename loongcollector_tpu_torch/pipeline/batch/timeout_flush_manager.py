@@ -5,9 +5,11 @@ FlushTimeoutBatch is driven periodically by processor thread 0
 (runner/ProcessorRunner.cpp:109-112) rather than per-batcher timers.
 
 The port's copy of the JAX package's module.  A pipeline with an
-aggregator registers its timeout hook here, and the processor runner pumps
-the hooks once a second (``ProcessorRunner._pump_timeout_flush``).  A
-``--once`` run also force-closes what is still open at its stop-time
+aggregator registers its timeout hook here, and so does, in tail mode,
+each processor that holds records across groups (split_multiline's
+carried open records: ``CollectionPipeline``'s drain hooks); the processor
+runner pumps the hooks once a second (``ProcessorRunner._pump_timeout_flush``).
+A ``--once`` run also force-closes what is still open at its stop-time
 drain.
 """
 

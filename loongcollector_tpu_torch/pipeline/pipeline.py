@@ -19,8 +19,14 @@ group to its ``add`` and sends what it returns (closed windows) in place
 of the groups it took; its timeout hook is registered with the
 ``TimeoutFlushManager``, which the processor runner pumps once a second
 (idle windows close), and the stop-time drain (``drain_held``) sends
-what its ``flush`` force-closes.  The SLO and ack-watermark calls of the
-reference's stage wait for their slice.
+what its ``flush`` force-closes.
+
+The acked-offset hooks (``runner/ack_watermark.py``; JAX package
+``pipeline/pipeline.py:436-450``, ``:505-515``): the groups the aggregator
+absorbs and the groups filtered to nothing are terminal for their source
+spans and are acked at once (forced); with more than one flusher a span
+owes an ack from each (``note_fanout``, before the first send), and each
+flusher acks what it wrote.  The SLO plane's calls wait for its slice.
 
 With the ledger on (``monitor/ledger.py``, ``LOONG_LEDGER=1``) the
 pipeline books process_in at ``process_begin``, each stage's population
@@ -45,8 +51,11 @@ inline.  With fusion off the members run per-stage as before.
 Processors that hold records across groups (split_multiline's carry)
 release them at stop: ``drain_held`` runs every ``drain_groups()`` through
 the processors after the holder and the send path (``drain_from``; JAX
-package ``pipeline.py:294-330``).  The reference's timeout-flush
-registration of the same hook waits for tail mode.
+package ``pipeline.py:294-330``).  In tail mode each such processor's
+``flush_timeout_groups`` also rides the ``TimeoutFlushManager`` (JAX
+package ``pipeline.py:53-67``, ``:203-212``), so an idle source ships its
+open record once the processor's timeout passed; a ``--once`` run drains
+it at stop.
 """
 
 from __future__ import annotations
@@ -60,6 +69,7 @@ import torch
 
 from ..models import PipelineEventGroup
 from ..monitor import ledger
+from ..runner import ack_watermark
 from ..utils.logger import get_logger
 from .plugin.interface import Flusher, Input, PluginContext, Processor
 from .plugin.registry import PluginRegistry
@@ -93,16 +103,33 @@ class _AggTimeoutHook:
             self._pipeline._send_direct(hook())
 
 
+class _ProcDrainHook:
+    """Timeout drain for a processor holding cross-group state
+    (split_multiline's carried open records): what it releases runs
+    through the rest of the chain and the send path."""
+
+    def __init__(self, pipeline: "CollectionPipeline", chain_idx: int,
+                 processor: Processor):
+        self._pipeline = pipeline
+        self._chain_idx = chain_idx
+        self._processor = processor
+
+    def flush_timeout(self) -> None:
+        self._pipeline.drain_from(self._chain_idx,
+                                  self._processor.flush_timeout_groups())
+
+
 class CollectionPipeline:
     def __init__(self, name: str, config: Dict[str, Any],
-                 device: torch.device, process_queue_manager=None):
+                 device: torch.device, process_queue_manager=None,
+                 tail: bool = False):
         self.name = name
         self.config = config
         self.process_queue_key = next_queue_key()
         self.context = PluginContext(
             pipeline_name=name, config=config, device=device,
             process_queue_manager=process_queue_manager,
-            process_queue_key=self.process_queue_key)
+            process_queue_key=self.process_queue_key, tail=tail)
         self.inputs: List[Input] = []
         self.inner_processors: List[Processor] = []
         self.processors: List[Processor] = []
@@ -138,10 +165,16 @@ class CollectionPipeline:
         self.fused_runs = plan_fusion(self.inner_processors + self.processors,
                                       device)
         self._fused_by_head = {r.head: r for r in self.fused_runs}
+        # last, once nothing can refuse its config: release() undoes them
+        from .batch.timeout_flush_manager import TimeoutFlushManager
         if self.aggregator is not None:
-            # last, once nothing can refuse its config: release() undoes it
-            from .batch.timeout_flush_manager import TimeoutFlushManager
             TimeoutFlushManager.instance().register(self._agg_timeout_hook)
+        self._drain_hooks = [
+            _ProcDrainHook(self, idx, p) for idx, p in
+            enumerate(self.inner_processors + self.processors)
+            if tail and hasattr(p, "flush_timeout_groups")]
+        for hook in self._drain_hooks:
+            TimeoutFlushManager.instance().register(hook)
 
     def _make(self, create, cfg: Dict[str, Any]):
         typ = cfg.get("Type", "")
@@ -159,6 +192,8 @@ class CollectionPipeline:
         timeout hook and metrics record).  Called by the manager at stop."""
         from .batch.timeout_flush_manager import TimeoutFlushManager
         TimeoutFlushManager.instance().unregister(self._agg_timeout_hook)
+        for hook in self._drain_hooks:
+            TimeoutFlushManager.instance().unregister(hook)
         if self.aggregator is not None:
             self.aggregator.metrics.mark_deleted()
 
@@ -337,6 +372,11 @@ class CollectionPipeline:
             staged: List[PipelineEventGroup] = []
             for g in groups:
                 staged.extend(self._timed(agg.name, agg.add, g))
+            # groups the aggregator absorbed lose their span identity here:
+            # acked (forced), so their source bytes never pin the watermark
+            staged_ids = {id(g) for g in staged}
+            ack_watermark.ack_groups(
+                [g for g in groups if id(g) not in staged_ids], force=True)
             groups = staged
             if led and not getattr(agg, "ledger_self_accounting", False):
                 # a stateful aggregator holds events (process_drop, repaid
@@ -358,6 +398,8 @@ class CollectionPipeline:
                 ledger.record(self.name, ledger.B_PROCESS_EXPAND, n,
                               tag="aggregator_flush")
             ledger.record(self.name, ledger.B_PROCESS_OUT, n)
+        ack_watermark.ack_groups([g for g in groups if g.empty()],
+                                 force=True)
         groups = [g for g in groups if not g.empty()]
         self._flush_groups(groups)
         return len(groups)
@@ -368,6 +410,12 @@ class CollectionPipeline:
         extra copies of more than one flusher booked as fanout."""
         led = ledger.is_on()
         for g in groups:
+            if g.empty():
+                # filtered to nothing: terminal for its source span
+                ack_watermark.ack_groups([g], force=True)
+            elif len(self.flushers) > 1:
+                # each flusher owes an ack: raised before any copy can ack
+                ack_watermark.note_fanout(g, len(self.flushers))
             if led and len(self.flushers) > 1:
                 ledger.record(self.name, ledger.B_FANOUT,
                               (len(self.flushers) - 1) * len(g))

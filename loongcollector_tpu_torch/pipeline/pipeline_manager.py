@@ -4,7 +4,8 @@ Reference: loongcollector_tpu/pipeline/pipeline_manager.py.  The port
 builds one pipeline per config of the config directory, gives each its
 bounded process queue and its tenant share of the device plane's byte
 budget, starts its inputs (a one-shot read into the queue, or a source
-bound to a singleton runner such as the eBPF server), stops them before
+bound to a singleton runner such as the eBPF server or, in tail mode
+(``tail``), the file server), stops them before
 the final drain, drains what its processors hold at stop, and stops the
 pipelines.
 Hot reload (generations, drain and hand-off), onetime configs and the
@@ -25,9 +26,10 @@ from .queue.process_queue_manager import ProcessQueueManager
 
 class CollectionPipelineManager:
     def __init__(self, process_queue_manager: ProcessQueueManager,
-                 device: torch.device):
+                 device: torch.device, tail: bool = False):
         self.process_queue_manager = process_queue_manager
         self.device = device
+        self.tail = tail
         self._pipelines: Dict[str, CollectionPipeline] = {}
         self._by_key: Dict[int, CollectionPipeline] = {}
         self._lock = threading.Lock()
@@ -38,7 +40,8 @@ class CollectionPipelineManager:
         and tenant share.  A config that fails to build raises."""
         for name, cfg in configs:
             p = CollectionPipeline(name, cfg, self.device,
-                                   self.process_queue_manager)
+                                   self.process_queue_manager,
+                                   tail=self.tail)
             self.process_queue_manager.create_or_reuse_queue(
                 p.process_queue_key, pipeline_name=name)
             with self._lock:

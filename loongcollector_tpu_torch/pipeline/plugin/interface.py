@@ -6,7 +6,8 @@ processors, Send(group)/FlushAll for flushers — and the JAX package's
 dispatch/complete protocol for device-backed processors
 (``loongcollector_tpu/pipeline/plugin/interface.py:88-140``), with the
 default ``fused_stage_spec`` hook of resident stage fusion (reference
-``interface.py:126``).  No ledger, SLO or ack-watermark hooks yet.
+``interface.py:126``).  The ack-watermark's terminal hooks live in the
+flushers and the pipeline's drop boundaries; no ledger or SLO hooks here.
 """
 
 from __future__ import annotations
@@ -22,16 +23,20 @@ class PluginContext:
     """Per-pipeline context handed to every plugin instance (reference
     CollectionPipelineContext).  ``device`` is where device-backed plugins
     run their kernels; inputs push what they read into the pipeline's
-    process queue (``process_queue_manager``, ``process_queue_key``)."""
+    process queue (``process_queue_manager``, ``process_queue_key``);
+    ``tail`` is true when the agent runs in tail mode (without
+    ``--once``), where a file input follows its files."""
 
     def __init__(self, pipeline_name: str = "", config: Optional[dict] = None,
                  device: Optional[torch.device] = None,
-                 process_queue_manager=None, process_queue_key: int = 0):
+                 process_queue_manager=None, process_queue_key: int = 0,
+                 tail: bool = False):
         self.pipeline_name = pipeline_name
         self.config = config or {}
         self.device = device
         self.process_queue_manager = process_queue_manager
         self.process_queue_key = process_queue_key
+        self.tail = tail
 
 
 class Plugin:
@@ -56,7 +61,8 @@ class Input(Plugin):
     def start(self, should_abort: Callable[[], bool] = lambda: False
               ) -> bool:  # pragma: no cover - interface
         """One-shot read of everything available now into the pipeline's
-        process queue; stops early once ``should_abort()`` is true."""
+        process queue, stopping early once ``should_abort()`` is true; in
+        tail mode, bind the input to its singleton runner."""
         raise NotImplementedError
 
     def stop(self) -> bool:

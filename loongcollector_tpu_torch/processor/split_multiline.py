@@ -21,8 +21,8 @@ last record may continue in the next chunk) and the follow-up
 ``ML_CONTINUE``, the open record's bytes are stashed per source
 (``path:inode``) and stitched onto the next chunk's leading lines.  Held
 records ship on the pipeline's stop (``drain_groups``);
-``flush_timeout_groups`` releases those held past ``CARRY_FLUSH_S``, for
-the timeout tick that comes with tail mode.  With several patterns the
+``flush_timeout_groups`` releases those held past ``CARRY_FLUSH_S`` on
+the pipeline's timeout tick in tail mode (``TimeoutFlushManager``).  With several patterns the
 classify scan can end a fused run as its terminal ``scan`` stage
 (``fused_stage_spec``, reference ``split_multiline.py:121-152``): the block
 walk then reads the program's tag masks.

@@ -10,9 +10,9 @@ process-queue manager (``wire_all``) and stops them in order
 
 Each entry: name, instance getter, stop method name, stop order (lower
 stops first).  The port registers the runners it has: the eBPF server at
-the reference's order 40.  The reference's self-monitor (10), host monitor
-(20), Prometheus (30), gRPC forward (50) and file server (60) runners join
-with their modules.
+the reference's order 40 and the file server (tail mode's file input) at
+60.  The reference's self-monitor (10), host monitor (20), Prometheus (30)
+and gRPC forward (50) runners join with their modules.
 """
 
 from __future__ import annotations
@@ -77,5 +77,8 @@ class InputRunnerRegistry:
 def register_builtin_runners() -> None:
     """Declarative matrix of the port's singleton runners (idempotent)."""
     from ..input.ebpf.server import EBPFServer
+    from ..input.file.file_server import FileServer
 
     InputRunnerRegistry.register("ebpf", EBPFServer.instance, stop_order=40)
+    InputRunnerRegistry.register("file_server", FileServer.instance,
+                                 stop_order=60)

@@ -363,6 +363,43 @@ APACHE_FILTER_INCLUDE = {"status": r"[45]\d\d"}
 APACHE_FILTER_EXCLUDE = {"url": "/health"}
 
 
+def apache_config(log_path, out_path):
+    """The main path's config, as YAML: the shipped
+    ``example_config/quick_start/file_regex_apache.yaml`` (``input_file``,
+    ``processor_parse_regex_tpu`` with the Apache pattern and keys,
+    ``processor_parse_timestamp_native`` on ``time``) with ``FilePaths``
+    pointed at ``log_path`` and a ``flusher_file`` sink at ``out_path``."""
+    keys = ", ".join(APACHE_KEYS)
+    return f"""inputs:
+  - Type: input_file
+    FilePaths: [{log_path}]
+    TailingAllMatchedFiles: true
+processors:
+  - Type: processor_parse_regex_tpu
+    SourceKey: content
+    Regex: '{APACHE}'
+    Keys: [{keys}]
+  - Type: processor_parse_timestamp_native
+    SourceKey: time
+    SourceFormat: '%d/%b/%Y:%H:%M:%S %z'
+flushers:
+  - Type: flusher_file
+    FilePath: {out_path}
+"""
+
+
+def apache_oracle(lines):
+    """The fields ``re.fullmatch`` of the Apache pattern gives each line
+    (None for a line it does not match), in order."""
+    rx = re.compile(APACHE.encode())
+    out = []
+    for line in lines:
+        m = rx.fullmatch(line)
+        out.append(None if m is None else
+                   {k: v.decode() for k, v in zip(APACHE_KEYS, m.groups())})
+    return out
+
+
 def apache_filter_config(log_path, out_path):
     """The Apache-filter config, as YAML: ``input_file``,
     ``processor_parse_regex_tpu`` with the shipped Apache pattern and keys

@@ -210,6 +210,7 @@ def _run(tmp, cfg_text, tag, threads, monkeypatch):
     (cfg_dir / "p.yaml").write_text(cfg_text(str(out)))
     stats = tmp / f"stats_{tag}.json"
     assert port_main(["--config", str(cfg_dir), "--once", "--cpu",
+                      "--data-dir", str(tmp / f"data_{tag}"),
                       "--stats", str(stats)]) == 0
     return out.read_bytes(), json.loads(stats.read_text())
 

@@ -245,7 +245,8 @@ def _agent(who, cfg_dir, tmp_path):
                str(tmp_path / "ref_data")]
     else:
         cmd = [sys.executable, "-m", "loongcollector_tpu_torch", "--config",
-               str(cfg_dir), "--once", "--cpu", "--stats",
+               str(cfg_dir), "--once", "--cpu", "--data-dir",
+               str(tmp_path / "port_data"), "--stats",
                str(tmp_path / "stats.json")]
     subprocess.run(cmd, cwd=str(tmp_path), env=env, check=True,
                    capture_output=True, timeout=300)

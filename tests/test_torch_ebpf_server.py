@@ -40,6 +40,7 @@ from loongcollector_tpu.processor.classify_url import \
 from loongcollector_tpu_torch import application
 from loongcollector_tpu_torch.input.ebpf import adapter
 from loongcollector_tpu_torch.input.ebpf import server
+from loongcollector_tpu_torch.input.file.file_server import FileServer
 from loongcollector_tpu_torch.pipeline.plugin.interface import PluginContext
 from loongcollector_tpu_torch.pipeline.plugin.registry import PluginRegistry
 from loongcollector_tpu_torch.pipeline.queue.process_queue_manager import \
@@ -272,14 +273,21 @@ def test_input_registry_stops_in_order(monkeypatch):
     reg = input_registry.InputRunnerRegistry
     reg.register("late", lambda: late, stop_method="halt", stop_order=60)
     reg.register("early", lambda: early, stop_order=10)
-    assert [e.name for e in reg.entries()] == ["early", "ebpf", "late"]
+    # the file server (tail mode's file input) stops at the reference's 60
+    assert [e.name for e in reg.entries()] == ["early", "ebpf",
+                                               "file_server", "late"]
     assert reg.entries()[1].instance == server.EBPFServer.instance
+    assert reg.entries()[2].instance == FileServer.instance
     pqm = ProcessQueueManager()
-    reg.wire_all(pqm)
-    assert late.process_queue_manager is pqm
-    assert server.EBPFServer.instance().process_queue_manager is pqm
-    reg.stop_all()
-    assert stopped == ["early", "late.halt"]
+    try:
+        reg.wire_all(pqm)
+        assert late.process_queue_manager is pqm
+        assert server.EBPFServer.instance().process_queue_manager is pqm
+        assert FileServer.instance().process_queue_manager is pqm
+        reg.stop_all()
+        assert stopped == ["early", "late.halt"]
+    finally:
+        FileServer.reset_for_testing()
 
 
 def _configs(tmp_path):
@@ -323,7 +331,8 @@ def test_stop_flushes_held_events_before_the_drain(tmp_path):
         held.append(sum(len(m._pending) for m in mgrs.values()))
 
     st = application.run_configs(_configs(tmp_path), torch.device("cpu"),
-                                 feed=feed)
+                                 feed=feed,
+                                 data_dir=str(tmp_path / "port_data"))
     # every event but the 8 connections' connect and close is held
     assert held == [0, len(events) - 16]
     assert st["ebpf"]["inputs"] == {
@@ -356,7 +365,8 @@ def test_driver_phase_small(tmp_path):
             time.sleep(0.002)
 
     st = application.run_configs(_configs(tmp_path), torch.device("cpu"),
-                                 feed=feed)
+                                 feed=feed,
+                                 data_dir=str(tmp_path / "port_data"))
     assert (drv.delivered, drv.callback_errors) == (len(events), 0)
     assert st["ebpf"]["delivered"] == len(events)
     n_req = sum(expected["http_paths"].values())

@@ -238,6 +238,7 @@ def test_grok_nginx_once_cpu_equals_oracle(tmp_path, monkeypatch, threads):
     (tmp_path / "cfg" / "grok_nginx.yaml").write_text(text)
     stats = str(tmp_path / "stats.json")
     assert port_main(["--config", str(tmp_path / "cfg"), "--once", "--cpu",
+                      "--data-dir", str(tmp_path / "port_data"),
                       "--stats", stats]) == 0
     rx = re.compile(grok.expand("%{COMMONAPACHELOG}").encode())
     with open(out_path, "rb") as f:

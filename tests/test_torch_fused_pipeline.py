@@ -425,6 +425,7 @@ def test_apache_filter_config_end_to_end(tmp_path, monkeypatch):
             td.apache_filter_config(str(log_path), str(out)))
         stats_path = tmp_path / f"stats{fused}.json"
         assert port_main(["--config", str(cfg_dir), "--once", "--cpu",
+                          "--data-dir", str(tmp_path / f"data{fused}"),
                           "--stats", str(stats_path)]) == 0
         recs = [json.loads(x) for x in out.read_bytes().splitlines()]
         assert [{k: r[k] for k in td.APACHE_KEYS} for r in recs] == want
@@ -467,7 +468,8 @@ def test_java_filter_groups_fuse_unless_a_record_passes_4096(tmp_path,
     (cfg_dir / "p.yaml").write_text(td.java_filter_config(str(log_path),
                                                           str(out)))
     stats_path = tmp_path / "stats.json"
-    assert port_main(["--config", str(cfg_dir), "--once", "--cpu", "--stats",
+    assert port_main(["--config", str(cfg_dir), "--once", "--cpu",
+                      "--data-dir", str(tmp_path / "port_data"), "--stats",
                       str(stats_path)]) == 0
     records = td.java_records(lines, td.JAVA_CONTINUE)
     want = td.java_oracle(records, td.JAVA_FILTER)

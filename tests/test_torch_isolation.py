@@ -6,7 +6,8 @@
   either; nor does importing the sharded parse plane (``parallel.mesh``)
   or the chip lanes (``ops.chip_lanes``) on their own, nor the eBPF
   input plane, the input-runner registry or the classify and field
-  processors;
+  processors, nor tail mode's modules (the file server, polling, inotify,
+  checkpoints, the acked-offset tracker, recovery, the flags);
 * entry points asked for no device default to CUDA and raise on a machine
   without one, rather than running on the CPU;
 * ``ExtractKernel`` sends a CUDA tensor to the kernel launch, never to the
@@ -92,6 +93,15 @@ EBPF_MODULES = [
     "processor.field_ops", "processor", "application", "testdata",
 ]
 
+TAIL_MODULES = [
+    "utils.flags", "runner.ack_watermark", "recovery",
+    "input.file.reader", "input.file.checkpoint", "input.file.polling",
+    "input.file.event_listener", "input.file.file_server",
+    "input.file.input_file", "runner.input_registry",
+    "pipeline.batch.timeout_flush_manager", "flusher.file",
+    "flusher.stdout", "pipeline.pipeline", "application", "native",
+]
+
 _PROBE_EACH = """
 import importlib, json, sys
 out = {}
@@ -162,6 +172,19 @@ def test_ebpf_and_classify_modules_load_no_jax():
     assert all(bad == [] for bad in res.values()), res
 
 
+def test_tail_modules_load_no_jax():
+    """Tail mode's modules (the file server and its readers, discovery and
+    inotify, checkpoints, the acked-offset tracker, recovery, the flags,
+    the flushers' and the pipeline's ack hooks), imported one after the
+    other in a fresh interpreter, load neither JAX nor the JAX package."""
+    out = subprocess.run([sys.executable, "-c", _PROBE_EACH,
+                          *TAIL_MODULES], cwd=REPO, capture_output=True,
+                         text=True, timeout=120, check=True)
+    res = json.loads(out.stdout.strip().splitlines()[-1])
+    assert sorted(res) == sorted(TAIL_MODULES)
+    assert all(bad == [] for bad in res.values()), res
+
+
 def _sources():
     for root, _dirs, files in os.walk(PORT):
         for fn in files:
@@ -211,7 +234,9 @@ def test_entry_points_without_device_raise(tmp_path, capsys):
     (tmp_path / "p.json").write_text(json.dumps(cfg))
     assert main(["--config", str(tmp_path), "--once"]) == 2
     assert "no CUDA device" in capsys.readouterr().err
-    assert main(["--config", str(tmp_path)]) == 2      # tail mode: not yet
+    assert main(["--config", str(tmp_path), "--data-dir",
+                 str(tmp_path / "data")]) == 2      # tail mode too
+    assert not (tmp_path / "data").exists()
 
 
 class _FakeCudaTensor:

@@ -345,6 +345,7 @@ def _agent(tmp, log_path, tag, monkeypatch, **env):
     stats_path = str(tmp / f"stats_{tag}.json")
     cfg_dir = tp._config(tmp, log_path, out_path)
     assert port_main(["--config", cfg_dir, "--once", "--cpu",
+                      "--data-dir", str(tmp / f"data_{tag}"),
                       "--stats", stats_path]) == 0
     with open(out_path, "rb") as f, open(stats_path) as g:
         return f.read(), json.load(g)

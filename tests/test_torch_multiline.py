@@ -231,6 +231,7 @@ def test_once_cpu_equals_oracle(java_log, monkeypatch, path, threads):
     stats_path = str(tmp / f"stats_{name}.json")
     cfg = _config(tmp, name, log_path, out_path, path)
     assert port_main(["--config", cfg, "--once", "--cpu",
+                      "--data-dir", str(tmp / f"data_{name}"),
                       "--stats", stats_path]) == 0
     cont = JAVA_CONTINUE if path == 2 else None
     records = java_records(lines, cont)
@@ -283,7 +284,8 @@ def test_dfa_kernel_failure_fails_the_run(java_log, monkeypatch, capsys,
     monkeypatch.setattr(cls, "__call__", failing)
     name = f"fail_{kernel}"
     cfg = _config(tmp, name, log_path, str(tmp / f"out_{name}.json"), 2)
-    assert port_main(["--config", cfg, "--once", "--cpu"]) == 1
+    assert port_main(["--config", cfg, "--once", "--cpu",
+                      "--data-dir", str(tmp / f"data_{name}")]) == 1
     assert f"injected {kernel} fault" in capsys.readouterr().err
     # groups already queued may still run, but no batch runs twice
     assert len(calls) >= 2 and len(set(calls)) == len(calls)

@@ -8,7 +8,9 @@ serializer writes, and the parse telemetry (rows and fallback rows).  The
 three tiers of the processor are held:
 
 * non-quote: the Tier-1 delimiter program (K1's plain version here);
-* quote mode with the native walker (``lct_delim_struct_parse``);
+* quote mode with the native walker (``lct_delim_struct_parse``), both
+  bridges reset and loaded by the ``both_native`` fixture, so the case
+  does not depend on the bridge state its worker holds;
 * quote mode without it, ``LOONG_DISABLE_NATIVE=1`` in both packages (the
   native bridges reset, as the reference's
   ``test_numpy_tier_matches_native`` does): the port indexes the group
@@ -32,6 +34,7 @@ import os
 import re
 import subprocess
 import sys
+import time
 
 import numpy as np
 import pytest
@@ -114,6 +117,39 @@ def no_native(monkeypatch):
         monkeypatch.setattr(mod, "_load_attempted", False)
 
 
+@pytest.fixture
+def both_native(monkeypatch):
+    """Both packages on their native library, whatever bridge state this
+    worker holds: the bridges are reset, a whole library is put in place
+    through the port's locked build, and both bridges load it.  A bridge
+    that does not load fails the test by name (the JAX package's loader
+    may meet a file its own ``make`` in another process is still writing,
+    so it is given a few tries within a deadline)."""
+    monkeypatch.delenv("LOONG_DISABLE_NATIVE", raising=False)
+    for mod in (ref_native, port_native):
+        monkeypatch.setattr(mod, "_lib", None)
+        monkeypatch.setattr(mod, "_load_attempted", False)
+    assert port_native.ensure_built(), "the port's native build failed"
+    deadline = time.monotonic() + 10.0
+    while True:
+        loaded = {name: mod.get_lib() for name, mod in
+                  (("loongcollector_tpu", ref_native),
+                   ("loongcollector_tpu_torch", port_native))}
+        missing = sorted(name for name, lib in loaded.items()
+                         if lib is None
+                         or not hasattr(lib, "lct_delim_struct_parse"))
+        if not missing or time.monotonic() > deadline:
+            break
+        for mod in (ref_native, port_native):
+            mod._lib, mod._load_attempted = None, False
+        time.sleep(0.2)
+    assert not missing, f"native bridge not loaded: {missing}"
+    yield
+    for mod in (ref_native, port_native):
+        monkeypatch.setattr(mod, "_lib", None)
+        monkeypatch.setattr(mod, "_load_attempted", False)
+
+
 def _group(models, split_cls, ctx, lines):
     data = b"\n".join(lines) + b"\n"
     sb = models.SourceBuffer(len(data) + 64)
@@ -178,7 +214,7 @@ def _agree(lines, config, rows_path=False):
 
 @pytest.mark.parametrize("config", sorted(CONFIGS))
 @pytest.mark.parametrize("corpus", sorted(CORPORA))
-def test_native_tier_matches_reference(corpus, config):
+def test_native_tier_matches_reference(corpus, config, both_native):
     _agree(CORPORA[corpus](), CONFIGS[config])
 
 
@@ -301,7 +337,8 @@ def _agent(who, cfg_dir, tmp_path, env_vars):
                str(tmp_path / "ref_data")]
     else:
         cmd = [sys.executable, "-m", "loongcollector_tpu_torch", "--config",
-               str(cfg_dir), "--once", "--cpu", "--stats",
+               str(cfg_dir), "--once", "--cpu", "--data-dir",
+               str(tmp_path / "port_data"), "--stats",
                str(tmp_path / "stats.json")]
     subprocess.run(cmd, cwd=str(tmp_path), env=env, check=True,
                    capture_output=True, timeout=300)

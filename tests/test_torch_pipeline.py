@@ -97,6 +97,7 @@ def test_apache_once_cpu_matches_reference(tmp_path, monkeypatch):
     (cfg_dir / "file_regex_apache.yaml").write_text(text)
     stats_path = str(tmp_path / "stats.json")
     assert port_main(["--config", str(cfg_dir), "--once", "--cpu",
+                      "--data-dir", str(tmp_path / "port_data"),
                       "--stats", stats_path]) == 0
     with open(out_path, "rb") as f:
         got = f.read()
@@ -153,6 +154,7 @@ def test_streaming_once_cpu_matches_reference(apache_case, monkeypatch,
     stats_path = str(tmp / f"stats_{threads}_{depth}.json")
     cfg_dir = _config(tmp, log_path, out_path)
     assert port_main(["--config", cfg_dir, "--once", "--cpu",
+                      "--data-dir", str(tmp / f"data_{threads}_{depth}"),
                       "--stats", stats_path]) == 0
     with open(out_path, "rb") as f:
         assert f.read() == want
@@ -189,7 +191,8 @@ def test_kernel_failure_fails_the_run(apache_case, monkeypatch, capsys):
     monkeypatch.setattr(ExtractKernel, "__call__", failing)
     out_path = str(tmp / "out_fail.json")
     cfg_dir = _config(tmp, log_path, out_path)
-    assert port_main(["--config", cfg_dir, "--once", "--cpu"]) == 1
+    assert port_main(["--config", cfg_dir, "--once", "--cpu",
+                      "--data-dir", str(tmp / "data_fail")]) == 1
     assert "injected kernel fault" in capsys.readouterr().err
     # at most three groups (two chunks of lines and the final unterminated
     # line), one kernel call each: no chunk is run twice

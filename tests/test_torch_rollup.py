@@ -322,6 +322,7 @@ def test_device_substrate_on_cuda_never_folds_on_the_host(monkeypatch):
 def _run_port(cfg_dir, stats):
     from loongcollector_tpu_torch.application import main
     assert main(["--config", str(cfg_dir), "--once", "--cpu",
+                 "--data-dir", os.path.splitext(str(stats))[0] + "_data",
                  "--stats", str(stats)]) == 0
     with open(stats) as f:
         return json.load(f)
