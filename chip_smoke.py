@@ -305,6 +305,31 @@ Phases, each of which exits non-zero on failure:
    writes it again).  The restart must see the unclean shutdown.  Prints
    the duplicates, ``replay_duplicate_events`` and the checkpoint offsets
    recovered and at exit.
+31. the shipped rollup config through remote write (after phase 15, in
+   place of its ledger-on run): ``testdata.metric_rollup_remote_write_config``
+   (phase 15's changes, the shipped ``flusher_prometheus`` pointed at a
+   ``RemoteWriteReceiver`` on 127.0.0.1 that decodes every POST: snappy
+   through the port's native binding, then the WriteRequest by
+   ``decode_write_request``) on phase 15's metrics log, ``--once --stats``
+   with the ledger on: every ``<name>_sum/_count/_min/_max/_last`` sample
+   arrives once and equals phase 15's one-worker row and the f64 oracle
+   (sums within K6's tolerance, the rest exact); K6 launches = folds at
+   phase 15's (B, Gq) (phase 17 holds them); ledger residual 0, its
+   ``send_ok`` the rows; the sender queues empty at exit, nothing
+   dropped or spilled.  Prints rows/s, requests, bytes and the HTTP
+   round-trip and sender-queue-wait medians.
+32. a sink outage and an exit during one (after phase 31), on the first
+   quarter of the metrics log: (a) the receiver answers 503 for the
+   first ``OUTAGE_S`` seconds of requests, then 200: the breaker goes
+   closed → open → half_open → closed, at least one item is spilled to
+   ``<data dir>/buffer`` and every spilled item replayed (the ledger's
+   spill = replay), every sample arrives once and equals the oracle,
+   residual 0; (b) the receiver refuses every request and the agent
+   exits within ``exit_flush_timeout`` = ``OUTAGE_EXIT_S``
+   (``LOONG_EXIT_FLUSH_TIMEOUT``), leaving files in its buffer; a restart
+   on the same data dir with an empty log and the receiver answering 200
+   replays them all: every sample once, equal to the oracle, the buffer
+   empty.  Both steps print the card's name and power limit.
 
 In every phase each recorded launch must be whole warps within the block
 limit and the shared-memory budget, with a block for each SM once a batch
@@ -316,7 +341,8 @@ prints the script's total seconds.  The line before the
 last is the ``kernels`` JSON line (K1, K2, K4, K3, K7, K6, K5 and K8; K1
 and K2 carry phase 27's launches beside their own, K1 phase 29's and
 30's under ``path_launches`` ``tail`` and ``tail_restart`` and phase 29's
-latency), the
+latency, K6 phase 31's launches, requests, bytes and medians and phase
+32's spill, replay and transitions), the
 last line the ``{"ok": true, "device": ...}`` object.  It imports nothing of JAX
 or of the JAX package.
 """
@@ -327,6 +353,7 @@ import functools
 import json
 import os
 import re
+import shutil
 import signal
 import subprocess
 import sys
@@ -1670,12 +1697,13 @@ def java_log():
     return tmp, log_path, lines, len(data)
 
 
-def run_agent(tag, cfg_dir, stats_path, threads, ledger=False,
+def run_agent(tag, cfg_dir, stats_path, threads, ledger=False, args=(),
               **env_vars):
-    """One ``--once`` agent run on the card with ``threads`` workers; fails
-    unless the run exits 0 and ran on CUDA.  With ``ledger`` the
-    event-conservation ledger is on (``LOONG_LEDGER=1``) and every
-    pipeline's residual must be 0; without it the ledger must be off."""
+    """One ``--once`` agent run on the card with ``threads`` workers
+    (``args``: more of the agent's arguments); fails unless the run exits
+    0 and ran on CUDA.  With ``ledger`` the event-conservation ledger is
+    on (``LOONG_LEDGER=1``) and every pipeline's residual must be 0;
+    without it the ledger must be off."""
     env = dict(os.environ, LOONG_PROCESS_THREADS=str(threads), **env_vars)
     env.pop("LOONG_LEDGER", None)
     if ledger:
@@ -1683,7 +1711,7 @@ def run_agent(tag, cfg_dir, stats_path, threads, ledger=False,
     t0 = time.perf_counter()
     proc = subprocess.run(
         [sys.executable, "-m", "loongcollector_tpu_torch", "--config",
-         cfg_dir, "--once", "--stats", stats_path],
+         cfg_dir, "--once", "--stats", stats_path, *args],
         cwd=REPO, capture_output=True, text=True, timeout=900, env=env)
     wall = time.perf_counter() - t0
     if proc.returncode != 0:
@@ -3058,6 +3086,146 @@ def metrics_log():
     return tmp, log_path, lines, len(data), oracle, invalid, fold_rows
 
 
+def _pb_fields(buf: bytes):
+    """(field number, wire type, value) of a protobuf message's fields:
+    varints as ints, fixed64/fixed32 and length-delimited as bytes."""
+    i, n = 0, len(buf)
+    while i < n:
+        key, shift = 0, 0
+        while True:
+            b = buf[i]
+            i += 1
+            key |= (b & 0x7F) << shift
+            shift += 7
+            if not b & 0x80:
+                break
+        fno, wt = key >> 3, key & 7
+        if wt == 0:
+            v, shift = 0, 0
+            while True:
+                b = buf[i]
+                i += 1
+                v |= (b & 0x7F) << shift
+                shift += 7
+                if not b & 0x80:
+                    break
+        elif wt == 1:
+            v, i = buf[i:i + 8], i + 8
+        elif wt == 5:
+            v, i = buf[i:i + 4], i + 4
+        elif wt == 2:
+            ln, shift = 0, 0
+            while True:
+                b = buf[i]
+                i += 1
+                ln |= (b & 0x7F) << shift
+                shift += 7
+                if not b & 0x80:
+                    break
+            v, i = buf[i:i + ln], i + ln
+            if i > n:
+                raise ValueError("truncated length-delimited field")
+        else:
+            raise ValueError(f"wire type {wt}")
+        yield fno, wt, v
+
+
+def decode_write_request(body: bytes) -> list:
+    """The samples of a Prometheus remote-write WriteRequest (protobuf,
+    after snappy): [(labels {name: value} as str, value, timestamp ms)]."""
+    import struct
+    out = []
+    for fno, _, ts_body in _pb_fields(body):
+        if fno != 1:
+            continue
+        labels, samples = {}, []
+        for f2, _, v2 in _pb_fields(ts_body):
+            d = {f: v for f, _, v in _pb_fields(v2)}
+            if f2 == 1:
+                labels[d.get(1, b"").decode()] = d.get(2, b"").decode()
+            elif f2 == 2:
+                samples.append((struct.unpack("<d", d[1])[0], d.get(2, 0)))
+        out.extend((labels, value, ts) for value, ts in samples)
+    return out
+
+
+class RemoteWriteReceiver:
+    """A remote-write receiver on 127.0.0.1 (a stdlib ``http.server`` in a
+    thread of this process).  Each POST is answered ``status(t)``, ``t``
+    the seconds since the first POST (200 by default); a POST answered 200 is
+    decoded — snappy through the port's native binding, then the
+    WriteRequest — and its samples kept in ``samples``.  ``answers``
+    counts the answers by status, ``bytes`` the accepted bodies' bytes."""
+
+    def __init__(self, status=lambda t: 200):
+        self.status = status
+        self.samples: list = []
+        self.answers: dict = {}
+        self.requests = 0
+        self.bytes = 0
+        self.errors: list = []
+        self._lock = threading.Lock()
+        self._server = None
+        self._thread = None
+        self._t0 = None
+
+    @property
+    def url(self) -> str:
+        return (f"http://127.0.0.1:{self._server.server_address[1]}"
+                f"/api/v1/write")
+
+    def start(self) -> "RemoteWriteReceiver":
+        import http.server
+        from loongcollector_tpu_torch import native
+        recv = self
+
+        class Handler(http.server.BaseHTTPRequestHandler):
+            protocol_version = "HTTP/1.1"
+
+            def do_POST(self):
+                body = self.rfile.read(int(self.headers.get(
+                    "Content-Length", 0)))
+                with recv._lock:
+                    if recv._t0 is None:
+                        recv._t0 = time.monotonic()
+                status = recv.status(time.monotonic() - recv._t0)
+                if status == 200:
+                    raw = native.snappy_decompress(body)
+                    try:
+                        samples = decode_write_request(raw)
+                    except (TypeError, ValueError, IndexError) as e:
+                        samples, status = None, 400
+                        recv.errors.append(repr(e))
+                with recv._lock:
+                    recv.requests += 1
+                    recv.answers[status] = recv.answers.get(status, 0) + 1
+                    if status == 200:
+                        recv.samples.extend(samples)
+                        recv.bytes += len(body)
+                self.send_response(status)
+                self.send_header("Content-Length", "0")
+                self.end_headers()
+
+            def log_message(self, *args):
+                pass
+
+        self._server = http.server.ThreadingHTTPServer(("127.0.0.1", 0),
+                                                       Handler)
+        self._server.daemon_threads = True
+        self._thread = threading.Thread(target=self._server.serve_forever,
+                                        name="remote-write-receiver",
+                                        daemon=True)
+        self._thread.start()
+        return self
+
+    def stop(self) -> None:
+        if self._server is not None:
+            self._server.shutdown()
+            self._server.server_close()
+            self._thread.join(timeout=10)
+            self._server = None
+
+
 def phase_rollup(tmp, log_path, lines, n_bytes, oracle, invalid, groups,
                  threads, substrate=None, ledger=False) -> dict:
     """The metric-rollup path (``testdata.metric_rollup_config``: parse_json,
@@ -3139,10 +3307,215 @@ def phase_rollup(tmp, log_path, lines, n_bytes, oracle, invalid, groups,
             "groups": groups}
 
 
+OUTAGE_S = 8.0        # phase 32 (a): the receiver answers 503 this long
+OUTAGE_EXIT_S = 4     # phase 32 (b): the exit budget (exit_flush_timeout)
+
+
+def rollup_remote_write_run(tag, run_dir, log_path, recv, ledger=True,
+                            args=(), **env_vars):
+    """One ``--once --stats`` agent run of the shipped rollup config
+    (``testdata.metric_rollup_remote_write_config``) shipping to ``recv``;
+    returns (stats, agent process seconds)."""
+    from loongcollector_tpu_torch import testdata as td
+    cfg_dir = os.path.join(run_dir, "config")
+    os.makedirs(cfg_dir, exist_ok=True)
+    with open(os.path.join(cfg_dir, "rollup.yaml"), "w") as f:
+        f.write(td.metric_rollup_remote_write_config(log_path, recv.url))
+    return run_agent(tag, cfg_dir, os.path.join(run_dir, "stats.json"), 1,
+                     ledger, args=args, **env_vars)
+
+
+def check_rollup_run(tag, st, lines, oracle, invalid, groups) -> None:
+    """The rollup's counters (invalid rows the corpus's, no late row, no
+    parse fallback, the emitted rows the oracle's) and K6's launches =
+    dispatches = exec legs = ``groups``, every fold on the device."""
+    agg = st["aggregation"]
+    c = agg["counters"]
+    parse = st["parse"]["processor_parse_json_tpu/rollup"]
+    if c["agg_invalid_rows_total"] != invalid or c["agg_late_rows_total"] \
+            or c["agg_folded_rows_total"] + invalid != len(lines) \
+            or c["agg_emitted_rows_total"] != len(oracle) \
+            or parse["fallback_rows"] or parse["rows"] != len(lines):
+        fail(f"{tag}: counters {c}, parse {parse}, for {len(lines)} lines, "
+             f"{invalid} invalid, {len(oracle)} rollup rows")
+    if not (0 < agg["k6_launches"] == agg["k6_dispatches"] == groups
+            == agg["legs"]["exec"]["count"]) \
+            or agg["folds"] != {"device": agg["k6_launches"]}:
+        fail(f"{tag}: K6 launches {agg['k6_launches']}, dispatches "
+             f"{agg['k6_dispatches']}, exec legs "
+             f"{agg['legs']['exec']['count']}, folds {agg['folds']}, "
+             f"groups {groups}")
+
+
+def check_samples(tag, recv, oracle, other=None) -> dict:
+    """The receiver's samples as rollup rows (each sample once, each row
+    whole), equal to the f64 ``oracle`` (through f32) and to ``other``'s
+    rows (phase 15's), sums within K6's tolerance and the rest exact."""
+    from loongcollector_tpu_torch import testdata as td
+    if recv.errors:
+        fail(f"{tag}: the receiver could not decode: {recv.errors[:3]}")
+    try:
+        rows = td.rollup_sample_rows(recv.samples)
+    except ValueError as e:
+        fail(f"{tag}: {e}")
+    bad = td.rollup_mismatches(rows, oracle, f32_want=True, tol=K6_TOL)
+    if bad:
+        fail(f"{tag}: the samples differ from the f64 oracle: {bad}")
+    if other is not None:
+        bad = td.rollup_mismatches(rows, other, tol=K6_TOL)
+        if bad:
+            fail(f"{tag}: the samples differ from phase 15's rows: {bad}")
+    return rows
+
+
+def check_send(tag, st, spilled=False) -> dict:
+    """The send section: sender queues empty at exit, nothing dropped, no
+    file quarantined; without ``spilled`` nothing spilled either."""
+    snd = st["send"]
+    if not snd["sender_queues_empty"] or snd["dropped_items"] \
+            or snd["quarantined"] or (not spilled and snd["spilled"]):
+        fail(f"{tag}: send {json.dumps(snd)}")
+    return snd
+
+
+def phase_remote_write(tmp, log_path, lines, n_bytes, oracle, invalid,
+                       groups, roll) -> dict:
+    """Phase 31: the shipped rollup config through ``flusher_prometheus``
+    to a receiver on 127.0.0.1, on the metrics log, ledger on."""
+    tag = "remote write"
+    recv = RemoteWriteReceiver().start()
+    try:
+        st, wall = rollup_remote_write_run(
+            tag, os.path.join(tmp, "remote_write"), log_path, recv)
+    finally:
+        recv.stop()
+    rows = check_samples(tag, recv, oracle, roll["rows"])
+    check_rollup_run(tag, st, lines, oracle, invalid, groups)
+    led = st["ledger"]["snapshot"]["rollup"]
+    if led["ingest"]["events"] != groups \
+            or led["send_ok"]["events"] != len(rows) \
+            or len(recv.samples) != 5 * len(rows):
+        fail(f"{tag}: ledger ingest {led['ingest']}, send_ok "
+             f"{led['send_ok']}, for {groups} chunks, {len(rows)} rows, "
+             f"{len(recv.samples)} samples")
+    snd = check_send(tag, st)
+    secs = st["seconds"]
+    log(f"{tag}: {len(lines)} lines in, {len(recv.samples)} samples "
+        f"({len(rows)} rows) received once each, equal to phase 15's rows "
+        f"and the f64 oracle; K6 launches {st['aggregation']['k6_launches']}"
+        f" = folds; ledger residual 0, send_ok {led['send_ok']['events']}; "
+        f"{len(lines) / secs:.0f} rows/s, {n_bytes / secs / 1e6:.2f} MB/s "
+        f"({secs:.3f} s, agent process {wall:.1f} s); {snd['requests']} "
+        f"requests, {snd['request_bytes']} bytes, answers "
+        f"{snd['status_counts']}; median HTTP round trip "
+        f"{snd['rtt_median_s'] * 1e3:.3f} ms, median sender-queue wait "
+        f"{snd['sender_queue_wait_median_s'] * 1e3:.3f} ms")
+    return {"stats": st, "mbps": n_bytes / secs / 1e6, "wall_s": wall,
+            "rows": rows, "groups": groups, "samples": len(recv.samples),
+            "send": snd}
+
+
+def _subsequence(seq, want) -> bool:
+    it = iter(seq)
+    return all(any(x == w for x in it) for w in want)
+
+
+def phase_outage(tmp, lines) -> dict:
+    """Phase 32: the same config on ``lines`` (a quarter of the metrics
+    log) through (a) a sink outage and (b) an exit during one and a
+    restart."""
+    from loongcollector_tpu_torch import testdata as td
+    tmp, log_path, _ = write_log(os.path.join(tmp, "outage_"),
+                                 "outage.jsonl", lines)
+    oracle, _ = td.metrics_oracle(lines)
+    # (a) 503 for the first OUTAGE_S seconds of requests, 200 after
+    tag = "outage (a)"
+    data_a = os.path.join(tmp, "outage_a_data")
+    recv = RemoteWriteReceiver(
+        status=lambda t: 503 if t < OUTAGE_S else 200).start()
+    try:
+        st, wall = rollup_remote_write_run(
+            tag, os.path.join(tmp, "outage_a"), log_path, recv,
+            args=("--data-dir", data_a))
+    finally:
+        recv.stop()
+    snd = st["send"]
+    br = snd["breakers"]["rollup/flusher_prometheus"]
+    led = st["ledger"]["snapshot"]["rollup"]
+    log(f"{tag}: send {json.dumps(snd)}; receiver answers {recv.answers}, "
+        f"{len(recv.samples)} samples")
+    check_samples(tag, recv, oracle)
+    check_send(tag, st, spilled=True)
+    if not _subsequence(br["transitions"],
+                        ["closed", "open", "half_open", "closed"]) \
+            or br["state"] != "closed" or snd["spilled"] < 1 \
+            or snd["replayed"] != snd["spilled"] or snd["buffer_pending"] \
+            or led["spill"]["events"] != led["replay"]["events"] \
+            or not recv.answers.get(503):
+        fail(f"{tag}: breaker {br}, send {json.dumps(snd)}, ledger spill "
+             f"{led.get('spill')} replay {led.get('replay')}, receiver "
+             f"answers {recv.answers}")
+    log(f"{tag}: receiver 503 for {OUTAGE_S} s then 200 (answers "
+        f"{recv.answers}); breaker {' -> '.join(br['transitions'])}; "
+        f"{snd['spilled']} items spilled and {snd['replayed']} replayed "
+        f"(ledger spill {led['spill']['events']} = replay "
+        f"{led['replay']['events']} events), buffer empty; "
+        f"{len(recv.samples)} samples once each, equal to the oracle; "
+        f"{snd['retries']} retries; agent process {wall:.1f} s")
+    log(f"{tag}: {nvidia_smi()}")
+    # (b) every request refused: the agent exits with a short budget and
+    # leaves its payloads in the buffer; a restart on the same data dir,
+    # with no input line and the receiver answering 200, replays them
+    tag = "outage (b)"
+    data_b = os.path.join(tmp, "outage_b_data")
+    recv = RemoteWriteReceiver(status=lambda t: 503).start()
+    try:
+        st_b, wall_b = rollup_remote_write_run(
+            tag, os.path.join(tmp, "outage_b"), log_path, recv,
+            args=("--data-dir", data_b),
+            LOONG_EXIT_FLUSH_TIMEOUT=str(OUTAGE_EXIT_S))
+    finally:
+        recv.stop()
+    snd_b = check_send(tag, st_b, spilled=True)
+    left = snd_b["buffer_pending"]
+    if recv.samples or not left or not recv.answers.get(503):
+        fail(f"{tag}: {len(recv.samples)} samples accepted, {left} files "
+             f"left in the buffer, answers {recv.answers}")
+    tag = "outage (b) restart"
+    empty_log = os.path.join(tmp, "empty.jsonl")
+    open(empty_log, "wb").close()
+    recv = RemoteWriteReceiver().start()
+    try:
+        st_r, wall_r = rollup_remote_write_run(
+            tag, os.path.join(tmp, "outage_b_restart"), empty_log, recv,
+            args=("--data-dir", data_b))
+    finally:
+        recv.stop()
+    check_samples(tag, recv, oracle)
+    snd_r = check_send(tag, st_r)
+    if snd_r["replayed"] != left or snd_r["buffer_pending"] \
+            or os.listdir(os.path.join(data_b, "buffer", "rollup")):
+        fail(f"{tag}: {snd_r['replayed']} replayed of {left} files, "
+             f"{snd_r['buffer_pending']} left")
+    log(f"{tag}: the exit with every request refused (budget "
+        f"{OUTAGE_EXIT_S} s, agent process {wall_b:.1f} s) left {left} "
+        f"files in {data_b}/buffer (breaker "
+        f"{' -> '.join(snd_b['breakers']['rollup/flusher_prometheus']['transitions'])}"
+        f"); the restart with no input line replayed {snd_r['replayed']}: "
+        f"{len(recv.samples)} samples once each, equal to the oracle, the "
+        f"buffer empty (agent process {wall_r:.1f} s)")
+    log(f"{tag}: {nvidia_smi()}")
+    shutil.rmtree(tmp, ignore_errors=True)
+    return {"spilled_a": snd["spilled"], "replayed_a": snd["replayed"],
+            "transitions_a": br["transitions"], "exit_files_b": left,
+            "replayed_b": snd_r["replayed"]}
+
+
 def k6_kernel_entry(parity, path_parity, timing, roll, roll4, roll_np,
-                    roll_led, build) -> dict:
+                    rw, outage, build) -> dict:
     """The ``kernels`` line's entry of K6: launches from the rollup path at
-    one worker, times at its fold shape (B=8192, Gq=2048)."""
+    one worker, times at its fold shape (B=8192, Gq=2048); the remote-write
+    run (phase 31, ledger on) and the outage's (phase 32) figures."""
     t, tb = timing["path"], timing["bench"]
     agg = roll["stats"]["aggregation"]
     legs = agg["legs"]
@@ -3179,7 +3552,13 @@ def k6_kernel_entry(parity, path_parity, timing, roll, roll4, roll_np,
         "path_mbps": roll["mbps"],
         "path_mbps_4_workers": roll4["mbps"],
         "path_mbps_numpy_substrate": roll_np["mbps"],
-        "path_mbps_ledger_on": roll_led["mbps"],
+        "path_mbps_remote_write_ledger_on": rw["mbps"],
+        "remote_write_launches": rw["stats"]["aggregation"]["k6_launches"],
+        "remote_write": {k: rw["send"][k] for k in (
+            "requests", "request_bytes", "status_counts", "rtt_median_s",
+            "sender_queue_wait_median_s")},
+        "remote_write_samples": rw["samples"],
+        "outage": outage,
         "path_groups": roll["groups"],
         "path_rollup_rows": len(roll["rows"]),
         "path_fold_s": agg["fold_seconds"],
@@ -4745,23 +5124,27 @@ def main() -> int:
     roll = phase_rollup(*m_args, 1)
     roll4 = phase_rollup(*m_args, 4)
     roll_np = phase_rollup(*m_args, 1, substrate="numpy")
-    roll_led = phase_rollup(*m_args, 1, ledger=True)
+    # phase 31 is also the rollup's ledger-on run
+    rw = phase_remote_write(*m_args, roll)
+    outage = phase_outage(mtmp, mlines[:len(mlines) // 4])
     os.unlink(mlog_path)
     log(f"ledger cost (one worker, off / on): main path "
         f"{main_path['mbps']:.2f} / {main_led['mbps']:.2f} MB/s, rollup "
-        f"{roll['mbps']:.2f} / {roll_led['mbps']:.2f} MB/s")
+        f"to a file / to remote write with the ledger on "
+        f"{roll['mbps']:.2f} / {rw['mbps']:.2f} MB/s")
     for name, other in (("four workers", roll4), ("numpy substrate",
                                                    roll_np),
-                        ("ledger-on", roll_led)):
+                        ("remote-write", rw)):
         bad = rollup_mismatches(roll["rows"], other["rows"],
                                 f32_want=other is roll_np)
         if bad:
             fail(f"rollup: the device run's rows differ from the {name} "
                  f"run's: {bad}")
     log(f"rollup: the device run's {len(roll['rows'])} rows equal the four-"
-        f"worker run's, the numpy-substrate run's and the ledger-on run's "
-        f"(sums within rtol = atol = {K6_TOL}, the rest exact)")
-    k6_path = phase_k6_path_parity(fold_rows, [roll, roll4, roll_led])
+        f"worker run's, the numpy-substrate run's and the remote-write "
+        f"run's samples (sums within rtol = atol = {K6_TOL}, the rest "
+        f"exact)")
+    k6_path = phase_k6_path_parity(fold_rows, [roll, roll4, rw])
     dfa_timing = phase_dfa_path_shapes(jlines, [path2, path2_4])
     fused_timing = phase_fused_timing()
     k6_timing = phase_k6_timing()
@@ -4862,7 +5245,7 @@ def main() -> int:
         dfa_timing, path2, path2_4, build, "K4")] + fused_kernel_entries(
         span_parity, fused_parity, fused_timing, filt, filt4, path2,
         build, k7_struct, pipe) + [k6_kernel_entry(
-            k6_parity, k6_path, k6_timing, roll, roll4, roll_np, roll_led,
+            k6_parity, k6_path, k6_timing, roll, roll4, roll_np, rw, outage,
             build), k5_kernel_entry(k5_parity, k7_struct, csv, k5_timing,
                                     build),
         k8_kernel_entry(parity, timing, sharded, sharded4, logical,

@@ -19,6 +19,25 @@ drains the queues and the held records ship, then the checkpoints are
 dumped once more — after the drain, so they hold every ack it made — and
 the marker is removed (``recovery.mark_clean_exit``).
 
+The send path (JAX package ``application.py:63-86``, ``:305-306``,
+``:327``, ``:366-371``): a sender-queue manager, the HTTP sink, a disk
+buffer on ``<data dir>/buffer`` encrypted with ``<data dir>/spill_key``
+(``utils/payload_crypto.py``) and the flusher runner are built before the
+pipelines; the HTTP sink, then the flusher runner, then the processor
+runner start.  Tail mode replays the disk buffer once a second.  At the
+end of a run the processor runner drains, every flusher's batcher
+flushes, and the send path drains within ``exit_flush_timeout`` seconds
+(the JAX package's flag, 20 s, ``LOONG_EXIT_FLUSH_TIMEOUT``): a ``--once``
+run replays the buffer once a second until the sender queues are empty
+and no buffered payload of a live flusher is left; then the pipelines
+stop, the flusher runner stops (``drain=True`` with what is left of the
+budget; what it could not send it spills, ``enable_full_drain_mode``),
+the HTTP sink stops and the sender queues are retired.  ``--once``
+without ``--data-dir`` spills into a temporary data dir, removed at exit
+when its buffer is empty; a payload dropped by the send path (a
+permanent rejection, a spill the buffer refused) or left in such a
+temporary buffer ends the run with exit code 1 (the buffer is kept).
+
 ``--once`` runs the streaming main path: the pipeline manager builds the
 pipelines and their bounded process queues, the processor runner's workers
 (``LOONG_PROCESS_THREADS``) pop them and dispatch through the device plane
@@ -76,7 +95,14 @@ delivered callbacks and callback errors; ``tail`` (tail mode, else null):
 the data dir, the file server's readers, suppressed groups and alarm
 counts, the groups its inputs pushed, their read seconds and rotations,
 the recovery manager's status (unclean start, ``replay_duplicate_events``,
-the watermark tracker) and the checkpoints as dumped at exit.
+the watermark tracker) and the checkpoints as dumped at exit; ``send``:
+the flusher runner's requests, request bytes, answers by status (0: the
+host could not be reached), backoff retries, items sent, spilled and
+dropped, each breaker's state and transitions, the median sender-queue
+wait and HTTP round trip, the disk buffer's spilled, replayed and
+quarantined items and the payloads left in it, whether the sender queues
+were empty at exit, and the alarms the JAX package would have raised,
+counted by type.
 """
 
 from __future__ import annotations
@@ -84,17 +110,23 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import shutil
 import signal
 import statistics
 import sys
+import tempfile
 import time
 from dataclasses import asdict
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
+from .utils import flags
 from .utils.device import NoCudaDevice, resolve_device
 from .utils.logger import get_logger
 
 log = get_logger("application")
+
+flags.DEFINE_FLAG_DOUBLE("exit_flush_timeout", "flush-out budget on exit (s)",
+                         20.0)
 
 DEFAULT_DATA_DIR = os.path.join(os.path.expanduser("~"),
                                 ".loongcollector_tpu_torch")
@@ -176,13 +208,105 @@ def run_tail(config_dir: str, device, data_dir: str) -> Dict[str, Any]:
     return stats
 
 
-def run_once(config_dir: str, device) -> Dict[str, Any]:
+def run_once(config_dir: str, device,
+             data_dir: Optional[str] = None) -> Dict[str, Any]:
     """Run every pipeline of the directory once through the processor
-    runner; returns the run's counts."""
+    runner; returns the run's counts.  ``data_dir`` holds the send path's
+    disk buffer (a temporary one when None)."""
     configs = load_config_dir(config_dir)
     if not configs:
         raise FileNotFoundError(f"no pipeline config in {config_dir}")
-    return run_configs(configs, device)
+    return run_configs(configs, device, data_dir=data_dir)
+
+
+class _SendPath:
+    """The send path of one run: sender queues, HTTP sink, disk buffer
+    and flusher runner (JAX package ``application.py:63-86``)."""
+
+    def __init__(self, data_dir: str):
+        from .monitor import alarm_counts
+        from .pipeline.queue.sender_queue import SenderQueueManager
+        from .runner.disk_buffer import DiskBufferWriter
+        from .runner.flusher_runner import FlusherRunner
+        from .runner.http_sink import HttpSink
+        from .utils.payload_crypto import PayloadCipher
+        alarm_counts.reset()
+        self.sqm = SenderQueueManager()
+        self.http_sink = HttpSink()
+        self.disk_buffer = DiskBufferWriter(
+            os.path.join(data_dir, "buffer"),
+            cipher=PayloadCipher(os.path.join(data_dir, "spill_key")))
+        self.runner = FlusherRunner(self.sqm, self.http_sink,
+                                    disk_buffer=self.disk_buffer)
+        self.queues_empty_at_exit: Optional[bool] = None
+        self.queued_at_exit = 0
+
+    def start(self) -> None:
+        self.http_sink.init()
+        self.runner.init()
+
+    def replay(self, resolve) -> None:
+        self.disk_buffer.replay(resolve)
+
+    def drain(self, resolve, deadline: float) -> bool:
+        """Replay the buffer once a second until the sender queues are
+        empty and no buffered payload of a live flusher is left, or until
+        ``deadline``; True when drained."""
+        next_replay = 0.0
+        while True:
+            now = time.monotonic()
+            if now >= next_replay:
+                next_replay = now + 1.0
+                self.replay(resolve)
+            if self._settled(resolve):
+                return True
+            if now >= deadline:
+                return False
+            time.sleep(0.05)
+
+    def _settled(self, resolve) -> bool:
+        """No payload in a sender queue or the buffer.  A payload moves
+        between the two while this looks (the runner spills and replays
+        on its own thread), and each move counts a spill or a replay: the
+        answer holds only when neither count moved meanwhile."""
+        db = self.disk_buffer
+        moves = (db.spilled, db.replayed)
+        return (self.sqm.all_empty()
+                and db.pending_for(resolve) == 0
+                and self.sqm.all_empty()
+                and (db.spilled, db.replayed) == moves)
+
+    def stop(self, manager, deadline: float) -> None:
+        """Stop the flusher runner (drain within what is left of the
+        budget, then the exit spill), the HTTP sink, and retire the
+        sender queues."""
+        try:
+            self.runner.stop(drain=True,
+                             timeout=max(0.0, deadline - time.monotonic()))
+        finally:
+            self.http_sink.stop()
+            self.queues_empty_at_exit = self.sqm.all_empty()
+            self.queued_at_exit = sum(q.size() for q in
+                                      list(self.sqm._queues.values()))
+            manager.delete_sender_queues()
+
+    def undelivered(self) -> int:
+        """Payloads the send path dropped or left queued at exit."""
+        return (sum(self.runner.dropped.values())
+                + self.queued_at_exit)
+
+    def stats(self) -> Dict[str, Any]:
+        from .monitor import alarm_counts
+        db = self.disk_buffer
+        return dict(self.runner.send_stats(),
+                    buffer_dir=db.directory,
+                    spilled=db.spilled,
+                    replayed=db.replayed,
+                    quarantined=db.quarantined_files,
+                    buffer_pending=len(db.pending()),
+                    sender_queues_empty=self.queues_empty_at_exit,
+                    queued_at_exit=self.queued_at_exit,
+                    alarms=alarm_counts.counts())
 
 
 def run_configs(configs: List[Tuple[str, Dict[str, Any]]], device,
@@ -218,12 +342,18 @@ def run_configs(configs: List[Tuple[str, Dict[str, Any]]], device,
     from .input.file.checkpoint import CheckPointManager
     from .input.file.file_server import FileServer
     from .runner import ack_watermark
+    from .pipeline.batch.timeout_flush_manager import TimeoutFlushManager
     tail = stop is not None
     fs = FileServer.instance()
-    if tail:
-        if not data_dir:
+    temp_data_dir = None
+    if not data_dir:
+        if tail:
             raise ValueError("tail mode needs a data dir")
-        os.makedirs(data_dir, exist_ok=True)
+        # the send path's buffer of a --once run without a data dir
+        temp_data_dir = data_dir = tempfile.mkdtemp(prefix="lct-once-")
+    os.makedirs(data_dir, exist_ok=True)
+    send = _SendPath(data_dir)
+    if tail:
         # this run's books only, and the journal window loaded before any
         # reader opens
         ack_watermark.tracker().reset()
@@ -234,8 +364,10 @@ def run_configs(configs: List[Tuple[str, Dict[str, Any]]], device,
         # this run's totals only: the residual is read after it drains
         ledger.active_ledger().reset()
     pqm = ProcessQueueManager()
-    manager = CollectionPipelineManager(pqm, device, tail=tail)
+    manager = CollectionPipelineManager(pqm, device, tail=tail,
+                                        sender_queue_manager=send.sqm)
     manager.update_pipelines(configs)
+    resolve = manager.resolve_buffered_flusher
     register_builtin_runners()
     InputRunnerRegistry.wire_all(pqm)
     engines = cached_engines()
@@ -260,6 +392,7 @@ def run_configs(configs: List[Tuple[str, Dict[str, Any]]], device,
     timeline = xprof.enable(device)
     runner = ProcessorRunner(pqm, manager, device=device)
     t0 = time.perf_counter()
+    send.start()
     runner.init()
     drained_groups = 0
     drain_error: Optional[BaseException] = None
@@ -269,8 +402,12 @@ def run_configs(configs: List[Tuple[str, Dict[str, Any]]], device,
         if feed is not None:
             feed()
         if tail:
+            next_replay = time.monotonic() + 1.0
             while not stop.is_set() and not runner.failed():
                 stop.wait(0.2)
+                if time.monotonic() >= next_replay:
+                    next_replay = time.monotonic() + 1.0
+                    send.replay(resolve)
         else:
             _wait_drained(pqm, manager, runner)
         _stop_inputs(manager)
@@ -286,10 +423,24 @@ def run_configs(configs: List[Tuple[str, Dict[str, Any]]], device,
         if not inputs_stopped:
             _stop_inputs(manager)
         runner.stop()
-        seconds = time.perf_counter() - t0
         drained = _drained(pqm, manager, runner)
         manager_pipelines = manager.pipelines()
-        manager.stop_all()
+        # the send path's exit (JAX package application.py:366-371): the
+        # batchers flush, the queues and the buffer drain within the
+        # budget, the pipelines stop, the flusher runner stops
+        exit_deadline = (time.monotonic()
+                         + flags.get_flag("exit_flush_timeout"))
+        try:
+            for p in manager_pipelines:
+                for f in p.flushers:
+                    f.flush_all()
+            if not tail and runner.error is None and drain_error is None:
+                send.drain(resolve, exit_deadline)
+        finally:
+            manager.stop_all()
+            TimeoutFlushManager.instance().flush_timeout_batches()
+            send.stop(manager, exit_deadline)
+        seconds = time.perf_counter() - t0
         xprof.disable()
         tail_stats = None
         if tail:
@@ -303,6 +454,16 @@ def run_configs(configs: List[Tuple[str, Dict[str, Any]]], device,
                                ) from drain_error
     if not drained or runner.alive_threads():
         raise ProcessingFailed("the processor runner did not drain")
+    if send.undelivered():
+        raise ProcessingFailed(
+            f"{send.undelivered()} payload(s) undelivered: dropped "
+            f"{send.runner.dropped}, {send.queued_at_exit} left queued")
+    if temp_data_dir is not None:
+        if send.disk_buffer.pending():
+            raise ProcessingFailed(
+                f"{len(send.disk_buffer.pending())} payload(s) spilled and "
+                f"not delivered; kept in {temp_data_dir}")
+        shutil.rmtree(temp_data_dir, ignore_errors=True)
     ring_after = ring.totals()
     on_card = device.type == "cuda"
     legs = timeline.leg_summary()
@@ -369,6 +530,7 @@ def run_configs(configs: List[Tuple[str, Dict[str, Any]]], device,
             if isinstance(p, ProcessorClassifyUrl))},
         "ebpf": _ebpf_stats(manager_pipelines),
         "tail": tail_stats,
+        "send": send.stats(),
     }
 
 
@@ -606,9 +768,11 @@ def main(argv: Optional[List[str]] = None) -> int:
     parser = argparse.ArgumentParser(prog="loongcollector_tpu_torch")
     parser.add_argument("--config", required=True,
                         help="pipeline config directory")
-    parser.add_argument("--data-dir", default=DEFAULT_DATA_DIR,
-                        help="checkpoint and recovery state directory "
-                             "(tail mode)")
+    parser.add_argument("--data-dir", default=None,
+                        help="checkpoint, recovery and send-buffer state "
+                             f"directory (tail mode: default "
+                             f"{DEFAULT_DATA_DIR}; --once: a temporary "
+                             f"one)")
     parser.add_argument("--once", action="store_true",
                         help="process available data then exit")
     parser.add_argument("--cpu", action="store_true",
@@ -623,9 +787,10 @@ def main(argv: Optional[List[str]] = None) -> int:
         return 2
     try:
         if args.once:
-            stats = run_once(args.config, device)
+            stats = run_once(args.config, device, args.data_dir)
         else:
-            stats = run_tail(args.config, device, args.data_dir)
+            stats = run_tail(args.config, device,
+                             args.data_dir or DEFAULT_DATA_DIR)
     except ProcessingFailed as e:
         print(f"loongcollector_tpu_torch: {e}", file=sys.stderr)
         return 1

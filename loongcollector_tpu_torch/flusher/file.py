@@ -22,6 +22,7 @@ from ..pipeline.serializer.json_serializer import JsonSerializer
 
 class FlusherFile(Flusher):
     name = "flusher_file"
+    ledger_terminal = True
 
     def __init__(self) -> None:
         super().__init__()

@@ -19,6 +19,7 @@ from ..pipeline.serializer.json_serializer import JsonSerializer
 
 class FlusherStdout(Flusher):
     name = "flusher_stdout"
+    ledger_terminal = True
 
     def __init__(self) -> None:
         super().__init__()

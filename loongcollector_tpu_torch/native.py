@@ -10,7 +10,11 @@ parse of ``processor/parse_json.py`` and its ``LOONG_STRUCT=0`` plane),
 ``struct_index`` (the host structural index, K5's third reference) and
 ``delim_struct_parse`` (the quote-mode delimiter's native walk,
 ``processor/parse_delimiter.py``), and ``group_reduce`` (the native fold of
-the metric rollup, ``ops/kernels/segment_reduce.fold_batch_native``).  The library is built
+the metric rollup, ``ops/kernels/segment_reduce.fold_batch_native``), and
+for the send path ``sls_serialize`` (the SLS LogGroup wire bytes of
+``pipeline/serializer/sls_serializer.py``) and the ``lct_lz4_*`` /
+``lct_snappy_*`` block codecs (``pipeline/compression.py``; the JAX
+bridge's ``native.py:150-152``, ``:559-590``).  The library is built
 from the repo's sources on first use, with the rule and flags of
 ``native/Makefile``; when neither the library nor a toolchain exists, every
 wrapper returns None and its caller runs the numpy fallback, with
@@ -55,7 +59,11 @@ _SO_PATH = os.path.join(_NATIVE_DIR, _LIB_NAME)
 _ENTRY_POINTS = ("lct_split_lines", "lct_pack_rows", "lct_ndjson_serialize",
                  "lct_dfa_scan", "lct_json_struct_parse", "lct_json_extract",
                  "lct_group_reduce", "lct_struct_index",
-                 "lct_delim_struct_parse")
+                 "lct_delim_struct_parse", "lct_sls_serialize",
+                 "lct_sls_serialize_strided", "lct_lz4_bound",
+                 "lct_lz4_compress", "lct_lz4_decompress", "lct_snappy_bound",
+                 "lct_snappy_compress", "lct_snappy_uncompressed_len",
+                 "lct_snappy_decompress")
 
 
 _LOCK_PATH = _SO_PATH + ".lock"
@@ -203,6 +211,21 @@ def get_lib() -> Optional[ctypes.CDLL]:
         lib.lct_delim_struct_parse.argtypes = [
             vp, i64, vp, vp, i64, ctypes.c_uint8, ctypes.c_uint8, i64,
             vp, vp, vp, vp, i64, vp]
+        lib.lct_sls_serialize.restype = i64
+        lib.lct_sls_serialize.argtypes = [vp, i64, vp, i64, i64, vp, vp, vp,
+                                          vp, vp, i64]
+        lib.lct_sls_serialize_strided.restype = i64
+        lib.lct_sls_serialize_strided.argtypes = [
+            vp, i64, vp, i64, i64, vp, vp, vp, vp, i64, i64, vp, i64]
+        for fn in ("lct_lz4_bound", "lct_snappy_bound"):
+            getattr(lib, fn).restype = i64
+            getattr(lib, fn).argtypes = [i64]
+        for fn in ("lct_lz4_compress", "lct_lz4_decompress",
+                   "lct_snappy_compress", "lct_snappy_decompress"):
+            getattr(lib, fn).restype = i64
+            getattr(lib, fn).argtypes = [vp, i64, vp, i64]
+        lib.lct_snappy_uncompressed_len.restype = i64
+        lib.lct_snappy_uncompressed_len.argtypes = [vp, i64]
         _lib = lib
         log.info("native library loaded: %s", _SO_PATH)
         return _lib
@@ -530,3 +553,98 @@ def group_reduce(arena: np.ndarray, slots: np.ndarray,
         G = int(rc)
         return (group_id[:n], rep_row[:G], sums[:G], cnt[:G], mn[:G],
                 mx[:G], last[:G], hist[:G])
+
+
+def sls_serialize(arena: np.ndarray, timestamps: np.ndarray,
+                  keys: list, field_offs: np.ndarray, field_lens: np.ndarray,
+                  event_major: bool = False) -> Optional[memoryview]:
+    """SLS LogGroup ``Log`` messages from columnar spans.  keys: list[bytes]
+    (at most 64); field_offs/field_lens: int32 — [F, n] field-major by
+    default, [n, F] when event_major=True (the parse kernel's layout).
+    Returns a memoryview over the output buffer, or None when the library
+    is unavailable."""
+    lib = get_lib()
+    if lib is None or len(keys) > 64:
+        return None
+    arena = np.ascontiguousarray(arena)
+    timestamps = np.ascontiguousarray(timestamps, dtype=np.int64)
+    field_offs = np.ascontiguousarray(field_offs, dtype=np.int32)
+    field_lens = np.ascontiguousarray(field_lens, dtype=np.int32)
+    keys_blob, key_lens = _key_struct(tuple(keys))
+    F = len(keys)
+    n = len(timestamps)
+    sf, si = (1, F) if event_major else (n, 1)
+    # field values live in the arena, so its length bounds them unless
+    # spans overlap; then the call returns -needed and the retry sizes it
+    cap = int(len(arena) + n * (int(key_lens.sum()) + 12 * F + 16) + 64)
+
+    def call(buf, buf_cap):
+        if event_major:
+            return lib.lct_sls_serialize_strided(
+                _ptr(arena), len(arena), _ptr(timestamps), n, F,
+                _ptr(keys_blob), _ptr(key_lens), _ptr(field_offs),
+                _ptr(field_lens), sf, si, _ptr(buf), buf_cap)
+        return lib.lct_sls_serialize(
+            _ptr(arena), len(arena), _ptr(timestamps), n, F,
+            _ptr(keys_blob), _ptr(key_lens), _ptr(field_offs),
+            _ptr(field_lens), _ptr(buf), buf_cap)
+
+    out = np.empty(cap, dtype=np.uint8)
+    written = call(out, cap)
+    if written < 0:
+        # exact-size retry; the +16 keeps the 16-byte fast copies legal
+        out = np.empty(-written + 16, dtype=np.uint8)
+        written = call(out, -written + 16)
+        if written < 0:
+            return None
+    return memoryview(out)[:written]
+
+
+def _codec(fn_c: str, fn_bound: str, data: bytes) -> Optional[bytes]:
+    lib = get_lib()
+    if lib is None:
+        return None
+    src = np.frombuffer(data, dtype=np.uint8)
+    cap = int(getattr(lib, fn_bound)(len(src)))
+    out = np.empty(max(cap, 16), dtype=np.uint8)
+    n = getattr(lib, fn_c)(_ptr(src), len(src), _ptr(out), len(out))
+    if n < 0:
+        return None
+    return out[:n].tobytes()
+
+
+def lz4_compress(data: bytes) -> Optional[bytes]:
+    """LZ4 block format (raw, no frame): SLS's default wire codec."""
+    return _codec("lct_lz4_compress", "lct_lz4_bound", data)
+
+
+def lz4_decompress(data: bytes, raw_size: int) -> Optional[bytes]:
+    lib = get_lib()
+    if lib is None:
+        return None
+    src = np.frombuffer(data, dtype=np.uint8)
+    out = np.empty(max(raw_size, 1), dtype=np.uint8)
+    n = lib.lct_lz4_decompress(_ptr(src), len(src), _ptr(out), raw_size)
+    if n < 0:
+        return None
+    return out[:n].tobytes()
+
+
+def snappy_compress(data: bytes) -> Optional[bytes]:
+    """Snappy block format: required by Prometheus remote write."""
+    return _codec("lct_snappy_compress", "lct_snappy_bound", data)
+
+
+def snappy_decompress(data: bytes) -> Optional[bytes]:
+    lib = get_lib()
+    if lib is None:
+        return None
+    src = np.frombuffer(data, dtype=np.uint8)
+    raw = lib.lct_snappy_uncompressed_len(_ptr(src), len(src))
+    if raw < 0:
+        return None
+    out = np.empty(max(int(raw), 1), dtype=np.uint8)
+    n = lib.lct_snappy_decompress(_ptr(src), len(src), _ptr(out), int(raw))
+    if n != raw:
+        return None
+    return out[:n].tobytes()

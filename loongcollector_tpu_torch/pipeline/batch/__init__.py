@@ -1,0 +1,2 @@
+"""Batching of the port: flush strategies, the Batcher and the central
+timeout flush."""

@@ -26,13 +26,23 @@ The acked-offset hooks (``runner/ack_watermark.py``; JAX package
 absorbs and the groups filtered to nothing are terminal for their source
 spans and are acked at once (forced); with more than one flusher a span
 owes an ack from each (``note_fanout``, before the first send), and each
-flusher acks what it wrote.  The SLO plane's calls wait for its slice.
+flusher acks what it delivered: ``flusher_file`` and ``flusher_stdout``
+once written, the HTTP family once the sink took it or it was spilled
+(the flusher runner).  The SLO plane's calls wait for its slice.
 
 With the ledger on (``monitor/ledger.py``, ``LOONG_LEDGER=1``) the
 pipeline books process_in at ``process_begin``, each stage's population
 change (process_expand / process_drop, by plugin), process_out at
-``send``, and send_ok at each flusher; a self-accounting aggregator (the
-rollup) books its own agg_in / agg_fold / agg_emit.
+``send``, and send_ok for each flusher whose ``send`` is delivery
+(``Flusher.ledger_terminal``: ``flusher_file``, ``flusher_stdout``); the
+HTTP family (``flusher_http``, ``flusher_prometheus``) batches into its
+sender queue, and the flusher runner books send_ok, send_fail, spill,
+replay, quarantine and the tagged drops at delivery (JAX package
+``runner/flusher_runner.py``).  Each flusher gets its ``plugin_id``
+(``<type>/<index>``), a queue key and, given a sender-queue manager, its
+sender queue before its init, as in the JAX package
+(``pipeline.py:183-194``).  A self-accounting aggregator (the rollup)
+books its own agg_in / agg_fold / agg_emit.
 
 Fused runs (resident stage fusion, ``pipeline/fused_chain.py``): at init
 ``plan_fusion`` turns every run of two or more consecutive stages that can
@@ -122,7 +132,7 @@ class _ProcDrainHook:
 class CollectionPipeline:
     def __init__(self, name: str, config: Dict[str, Any],
                  device: torch.device, process_queue_manager=None,
-                 tail: bool = False):
+                 tail: bool = False, sender_queue_manager=None):
         self.name = name
         self.config = config
         self.process_queue_key = next_queue_key()
@@ -157,8 +167,11 @@ class CollectionPipeline:
         if agg_cfgs:
             self.aggregator = self._make(registry.create_aggregator,
                                          agg_cfgs[0])
-        for fcfg in config.get("flushers", []):
-            self.flushers.append(self._make(registry.create_flusher, fcfg))
+        for i, fcfg in enumerate(config.get("flushers", [])):
+            self.flushers.append(self._make(
+                registry.create_flusher, fcfg,
+                lambda f, i=i, typ=fcfg.get("Type", ""): self._wire_flusher(
+                    f, f"{typ}/{i}", sender_queue_manager)))
         # fused runs over the final chain: description only, the programs
         # are built at their first dispatch; LOONG_FUSED gates running them
         from .fused_chain import plan_fusion
@@ -176,16 +189,32 @@ class CollectionPipeline:
         for hook in self._drain_hooks:
             TimeoutFlushManager.instance().register(hook)
 
-    def _make(self, create, cfg: Dict[str, Any]):
+    def _make(self, create, cfg: Dict[str, Any], before_init=None):
         typ = cfg.get("Type", "")
         plugin = create(typ)
         if plugin is None:
             raise PipelineInitError(f"pipeline {self.name}: unknown plugin "
                                     f"type {typ!r}")
+        if before_init is not None:
+            before_init(plugin)
         if not plugin.init(cfg, self.context):
             raise PipelineInitError(f"pipeline {self.name}: {typ} refused "
                                     f"its config")
         return plugin
+
+    def _wire_flusher(self, flusher: Flusher, plugin_id: str,
+                      sender_queue_manager) -> None:
+        flusher.plugin_id = plugin_id
+        flusher.queue_key = next_queue_key()
+        if sender_queue_manager is not None:
+            flusher.sender_queue = sender_queue_manager.create_or_reuse_queue(
+                flusher.queue_key, pipeline_name=self.name)
+
+    def stop_flushers(self) -> None:
+        """Stop every flusher: a batching flusher flushes what its
+        batcher holds into its sender queue."""
+        for f in self.flushers:
+            f.stop()
 
     def release(self) -> None:
         """Free the pipeline's global registrations (the aggregator's
@@ -405,9 +434,11 @@ class CollectionPipeline:
         return len(groups)
 
     def _flush_groups(self, groups: List[PipelineEventGroup]) -> None:
-        """Every group to every flusher (the port has no router).  The
-        flushers write inline, so each send is terminal: send_ok, with the
-        extra copies of more than one flusher booked as fanout."""
+        """Every group to every flusher (the port has no router), with
+        the extra copies of more than one flusher booked as fanout.  A
+        ``ledger_terminal`` flusher writes inline, so its send is terminal
+        and booked send_ok here; the HTTP family's sends are booked by the
+        flusher runner at delivery."""
         led = ledger.is_on()
         for g in groups:
             if g.empty():
@@ -421,7 +452,7 @@ class CollectionPipeline:
                               (len(self.flushers) - 1) * len(g))
             for f in self.flushers:
                 self._timed(f.name, f.send, g)
-                if led:
+                if led and f.ledger_terminal:
                     ledger.record(self.name, ledger.B_SEND_OK, len(g),
                                   g.data_size(), tag=f.name)
         with self._stats_lock:

@@ -7,9 +7,14 @@ budget, starts its inputs (a one-shot read into the queue, or a source
 bound to a singleton runner such as the eBPF server or, in tail mode
 (``tail``), the file server), stops them before
 the final drain, drains what its processors hold at stop, and stops the
-pipelines.
-Hot reload (generations, drain and hand-off), onetime configs and the
-sender queues come with later slices.
+pipelines.  Given a sender-queue manager, each flusher of a pipeline gets
+its sender queue (``CollectionPipeline._wire_flusher``); ``stop_all``
+stops the flushers (a batcher flushes into its queue), and
+``delete_sender_queues`` retires the queues once the flusher runner has
+drained them (``SenderQueueManager.delete_queue``: what is still queued
+is booked as a ``queue_deleted`` drop).
+Hot reload (generations, drain and hand-off) and onetime configs come
+with later slices.
 """
 
 from __future__ import annotations
@@ -26,8 +31,11 @@ from .queue.process_queue_manager import ProcessQueueManager
 
 class CollectionPipelineManager:
     def __init__(self, process_queue_manager: ProcessQueueManager,
-                 device: torch.device, tail: bool = False):
+                 device: torch.device, tail: bool = False,
+                 sender_queue_manager=None):
         self.process_queue_manager = process_queue_manager
+        self.sender_queue_manager = sender_queue_manager
+        self._sender_queue_keys: List[int] = []
         self.device = device
         self.tail = tail
         self._pipelines: Dict[str, CollectionPipeline] = {}
@@ -41,12 +49,17 @@ class CollectionPipelineManager:
         for name, cfg in configs:
             p = CollectionPipeline(name, cfg, self.device,
                                    self.process_queue_manager,
-                                   tail=self.tail)
+                                   tail=self.tail,
+                                   sender_queue_manager=(
+                                       self.sender_queue_manager))
             self.process_queue_manager.create_or_reuse_queue(
                 p.process_queue_key, pipeline_name=name)
             with self._lock:
                 self._pipelines[name] = p
                 self._by_key[p.process_queue_key] = p
+                self._sender_queue_keys.extend(
+                    f.queue_key for f in p.flushers
+                    if f.sender_queue is not None)
             device_plane.register_tenant(name)
 
     def start_inputs(self, should_abort: Callable[[], bool] = lambda: False
@@ -78,9 +91,35 @@ class CollectionPipelineManager:
         with self._lock:
             return list(self._pipelines.values())
 
+    def resolve_buffered_flusher(self, identity: dict):
+        """The live flusher a spilled payload's identity names
+        (``plugin_id`` disambiguates same-type flushers of one pipeline),
+        or None (JAX package ``application.py:462-476``)."""
+        p = self.find_pipeline(identity.get("pipeline", ""))
+        if p is None:
+            return None
+        want_id = identity.get("plugin_id", "")
+        for f in p.flushers:
+            if want_id and f.plugin_id == want_id:
+                return f
+        if not want_id:  # buffers written without plugin_id
+            for f in p.flushers:
+                if f.name == identity.get("flusher_type"):
+                    return f
+        return None
+
+    def delete_sender_queues(self) -> None:
+        """Retire every sender queue the pipelines had."""
+        with self._lock:
+            keys, self._sender_queue_keys = self._sender_queue_keys, []
+        for key in keys:
+            self.sender_queue_manager.delete_queue(key)
+
     def stop_all(self) -> None:
         """Stop the inputs, release each pipeline's registrations, delete
-        the queues and release the tenant shares."""
+        the process queues, release the tenant shares and stop the
+        flushers.  The sender queues stay for the flusher runner's drain
+        (``delete_sender_queues``)."""
         with self._lock:
             pipelines = list(self._pipelines.items())
             self._pipelines.clear()
@@ -90,3 +129,4 @@ class CollectionPipelineManager:
             p.release()
             self.process_queue_manager.delete_queue(p.process_queue_key)
             device_plane.unregister_tenant(name)
+            p.stop_flushers()

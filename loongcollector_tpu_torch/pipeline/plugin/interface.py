@@ -7,7 +7,12 @@ dispatch/complete protocol for device-backed processors
 (``loongcollector_tpu/pipeline/plugin/interface.py:88-140``), with the
 default ``fused_stage_spec`` hook of resident stage fusion (reference
 ``interface.py:126``).  The ack-watermark's terminal hooks live in the
-flushers and the pipeline's drop boundaries; no ledger or SLO hooks here.
+flushers and the pipeline's drop boundaries.  ``Flusher`` carries the JAX
+package's send-path surface (``interface.py:148-253``):
+``ledger_terminal`` (a ``send`` that is delivery, booked ``send_ok`` by the
+pipeline), ``spill_identity`` (the disk buffer's header), ``flush`` /
+``flush_all`` and the ``_ledger_drop`` / ``_ledger_terminal_write``
+helpers; the SLO hooks wait for that plane.
 """
 
 from __future__ import annotations
@@ -17,6 +22,8 @@ from typing import Any, Callable, Dict, List, Optional
 import torch
 
 from ...models import PipelineEventGroup
+from ...monitor import ledger
+from ...runner import ack_watermark
 
 
 class PluginContext:
@@ -106,5 +113,88 @@ class Processor(Plugin):
 class Flusher(Plugin):
     name = "flusher_base"
 
+    #: True for sinks whose ``send()`` terminates delivery inline (local
+    #: file, stdout): the pipeline then books ``send_ok`` for them.  Sinks
+    #: that queue or batch toward a network hop keep False and book at
+    #: their real delivery boundary (the flusher runner).
+    ledger_terminal = False
+
+    #: True when this sink's serialize path consumes span columns
+    #: directly, so columnar groups reach the wire without per-event
+    #: objects.
+    supports_columnar = False
+
+    def __init__(self) -> None:
+        super().__init__()
+        self.queue_key: int = 0
+        self.sender_queue = None
+        self.plugin_id: str = ""  # set by the pipeline: "<type>/<index>"
+
+    def _ledger_pipeline(self) -> str:
+        """Pipeline attribution for this sink's ledger records ("" when
+        the flusher was never init()ed)."""
+        return getattr(getattr(self, "context", None),
+                       "pipeline_name", "") or ""
+
+    def _ledger_drop(self, tag: str, n_events: int = 0, n_bytes: int = 0,
+                     group: Optional[PipelineEventGroup] = None) -> None:
+        """Reason-tagged terminal ``drop`` record for events this flusher
+        discards.  Pass ``group`` to defer the count until the ledger is
+        confirmed on; a dropped group is acked (forced) either way."""
+        if group is not None:
+            ack_watermark.ack_groups([group], force=True)
+        if not ledger.is_on():
+            return
+        if group is not None:
+            n_events, n_bytes = len(group), group.data_size()
+        ledger.record(self._ledger_pipeline(), ledger.B_DROP,
+                      n_events, n_bytes, tag=tag)
+
+    def _ledger_terminal_write(self, groups: List[PipelineEventGroup],
+                               write_fn) -> bool:
+        """Run ``write_fn()`` — the sink's actual write of ``groups`` —
+        with the write-through terminal accounting around it: ``send_ok``
+        once the write lands, ``drop`` tagged ``flush_write_failed`` when
+        it raises (logged, not re-raised: nothing upstream can retry a
+        batch that left the batcher).  Returns False on a failed write."""
+        led = ledger.is_on()
+        n_events = sum(len(g) for g in groups)
+        n_bytes = sum(g.data_size() for g in groups) if led else 0
+        try:
+            write_fn()
+        except Exception:  # noqa: BLE001
+            from ...utils.logger import get_logger
+            get_logger("flusher").exception(
+                "%s flush write failed; %d events dropped", self.name,
+                n_events)
+            ack_watermark.ack_groups(groups)
+            if led:
+                ledger.record(self._ledger_pipeline(), ledger.B_DROP,
+                              n_events, n_bytes, tag="flush_write_failed")
+            return False
+        ack_watermark.ack_groups(groups)
+        if led:
+            ledger.record(self._ledger_pipeline(), ledger.B_SEND_OK,
+                          n_events, n_bytes, tag=self.name)
+        return True
+
+    def spill_identity(self) -> Dict[str, str]:
+        """Identity persisted with disk-buffered payloads; must uniquely
+        address this flusher instance within its pipeline."""
+        return {
+            "pipeline": getattr(self.context, "pipeline_name", ""),
+            "flusher_type": self.name,
+            "plugin_id": self.plugin_id,
+        }
+
     def send(self, group: PipelineEventGroup) -> bool:  # pragma: no cover
         raise NotImplementedError
+
+    def flush(self, key: int = 0) -> bool:
+        return True
+
+    def flush_all(self) -> bool:
+        return True
+
+    def stop(self, is_pipeline_removing: bool = False) -> bool:
+        return True

@@ -1,1 +1,2 @@
-"""Process queues of the port: bounded per-pipeline queues and their manager."""
+"""Queues of the port: the bounded per-pipeline process queues and their
+manager, the sender queues of serialized payloads and their limiters."""

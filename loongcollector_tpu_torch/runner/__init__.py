@@ -1,2 +1,3 @@
-"""Runners of the port: the processor runner and the input-runner
-registry."""
+"""Runners of the port: the processor runner, the input-runner registry
+and the send path (flusher runner, HTTP sink, circuit breaker, disk
+buffer)."""

@@ -740,13 +740,19 @@ def gen_metrics_jsonl(n, seed=0):
     return lines
 
 
-def metric_rollup_config(log_path, out_path):
-    """The shipped ``metric_rollup_remote_write.yaml``, as YAML, with three
-    changes: ``flusher_file`` in place of ``flusher_prometheus`` (no
-    network); ``Substrate: device``, so every fold is a segment reduce on
-    the pipeline's device; and ``processor_parse_timestamp_native`` on the
-    JSON ``time`` field (UTC), so windows come from event time and not from
-    the second the file was read."""
+def metric_rollup_remote_write_config(log_path, endpoint,
+                                      flusher=None):
+    """The shipped ``metric_rollup_remote_write.yaml``, as YAML, with the
+    changes of the rollup path and nothing else: ``FilePaths`` pointed at
+    ``log_path``; ``processor_parse_timestamp_native`` on the JSON ``time``
+    field (UTC), so windows come from event time and not from the second
+    the file was read; ``Substrate: device``, so every fold is a segment
+    reduce on the pipeline's device; and the shipped ``flusher_prometheus``
+    with its ``Endpoint`` at ``endpoint``.  ``flusher`` (YAML of one
+    flusher list entry) replaces the shipped sink."""
+    sink = flusher or (f"""  - Type: flusher_prometheus
+    Endpoint: {endpoint}
+""")
     return f"""inputs:
   - Type: input_file
     FilePaths: [{log_path}]
@@ -767,9 +773,16 @@ aggregators:
     MaxKeys: 65536
     Substrate: device
 flushers:
-  - Type: flusher_file
+{sink}"""
+
+
+def metric_rollup_config(log_path, out_path):
+    """``metric_rollup_remote_write_config`` with ``flusher_file`` in
+    place of ``flusher_prometheus`` (no network)."""
+    return metric_rollup_remote_write_config(
+        log_path, None, flusher=f"""  - Type: flusher_file
     FilePath: {out_path}
-"""
+""")
 
 
 _METRIC_VALUE = re.compile(
@@ -898,9 +911,39 @@ def rollup_rows(ndjson):
     return out
 
 
+ROLLUP_SAMPLE_FIELDS = ("sum", "count", "min", "max", "last")
+
+
+def rollup_sample_rows(samples, window=METRICS_WINDOW):
+    """The rollup rows of remote-write samples (``[(labels, value,
+    timestamp ms)]``, ``flusher_prometheus``'s ``<name>_sum`` / ``_count``
+    / ``_min`` / ``_max`` / ``_last`` at the window's end), keyed as
+    ``metrics_oracle``'s and without histograms (remote write carries
+    none); raises on a sample that arrived twice or a row that lacks one
+    of its five samples."""
+    rows = {}
+    for labels, value, ts_ms in samples:
+        name = labels["__name__"]
+        field = next((f for f in ROLLUP_SAMPLE_FIELDS
+                      if name.endswith("_" + f)), None)
+        if field is None:
+            raise ValueError(f"not a rollup sample: {name}")
+        end = int(ts_ms) // 1000
+        key = (end - window, end, name[:-len(field) - 1], labels.get("host"))
+        row = rows.setdefault(key, {})
+        if field in row:
+            raise ValueError(f"sample arrived twice: {key} {field}")
+        row[field] = int(value) if field == "count" else float(value)
+    for key, row in rows.items():
+        if len(row) != len(ROLLUP_SAMPLE_FIELDS):
+            raise ValueError(f"rollup row {key} lacks samples: {row}")
+    return rows
+
+
 def rollup_mismatches(got, want, f32_want=False, tol=1e-5, limit=10):
     """Differences between two rollup row sets (``rollup_rows`` /
-    ``metrics_oracle``): keys, counts and histograms exact, sums within
+    ``metrics_oracle``, or ``rollup_sample_rows``, which carry no
+    histograms): keys, counts and histograms exact, sums within
     ``rtol = atol = tol`` (the reference's device tolerance,
     ``scripts/agg_equivalence.py:163``), min, max and last equal, taking
     ``want``'s through f32 first when ``f32_want`` (a device fold against
@@ -913,7 +956,8 @@ def rollup_mismatches(got, want, f32_want=False, tol=1e-5, limit=10):
         if len(bad) >= limit:
             break
         g, w = got[key], want[key]
-        if g["count"] != w["count"] or g["hist"] != w["hist"]:
+        if g["count"] != w["count"] or ("hist" in g and "hist" in w
+                                        and g["hist"] != w["hist"]):
             bad.append(f"{key}: count/hist {g['count']} {g['hist']} != "
                        f"{w['count']} {w['hist']}")
             continue

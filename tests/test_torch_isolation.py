@@ -7,7 +7,10 @@
   or the chip lanes (``ops.chip_lanes``) on their own, nor the eBPF
   input plane, the input-runner registry or the classify and field
   processors, nor tail mode's modules (the file server, polling, inotify,
-  checkpoints, the acked-offset tracker, recovery, the flags);
+  checkpoints, the acked-offset tracker, recovery, the flags), nor the
+  send path (the Batcher, sender queues and limiters, codecs, spill
+  encryption, disk buffer, breaker, HTTP sink, flusher runner, the SLS
+  serializer, ``flusher_http`` and ``flusher_prometheus``);
 * entry points asked for no device default to CUDA and raise on a machine
   without one, rather than running on the CPU;
 * ``ExtractKernel`` sends a CUDA tensor to the kernel launch, never to the
@@ -102,6 +105,16 @@ TAIL_MODULES = [
     "flusher.stdout", "pipeline.pipeline", "application", "native",
 ]
 
+SEND_MODULES = [
+    "pipeline.batch.flush_strategy", "pipeline.batch.batcher",
+    "pipeline.queue.limiter", "pipeline.queue.sender_queue",
+    "pipeline.compression", "utils.payload_crypto", "runner.disk_buffer",
+    "runner.circuit", "runner.http_sink", "runner.flusher_runner",
+    "pipeline.serializer.sls_serializer", "flusher.http",
+    "flusher.http_base", "flusher.prometheus_rw", "monitor.alarm_counts",
+    "flusher", "application", "native",
+]
+
 _PROBE_EACH = """
 import importlib, json, sys
 out = {}
@@ -182,6 +195,17 @@ def test_tail_modules_load_no_jax():
                          text=True, timeout=120, check=True)
     res = json.loads(out.stdout.strip().splitlines()[-1])
     assert sorted(res) == sorted(TAIL_MODULES)
+    assert all(bad == [] for bad in res.values()), res
+
+
+def test_send_modules_load_no_jax():
+    """The send path's modules, imported one after the other in a fresh
+    interpreter, load neither JAX nor the JAX package."""
+    out = subprocess.run([sys.executable, "-c", _PROBE_EACH,
+                          *SEND_MODULES], cwd=REPO, capture_output=True,
+                         text=True, timeout=120, check=True)
+    res = json.loads(out.stdout.strip().splitlines()[-1])
+    assert sorted(res) == sorted(SEND_MODULES)
     assert all(bad == [] for bad in res.values()), res
 
 
