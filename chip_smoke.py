@@ -5025,6 +5025,502 @@ def phase_kill_restart(lines) -> dict:
     return res
 
 
+# ---------------------------------------------------------------------------
+# phases 32 (a) with the planes on, and 33: the self-observability planes
+# (the SLO plane, the ledger's auditor, the alarm plane, the self-monitor's
+# internal pipelines and the /metrics and /debug endpoint)
+
+OBSERVED_LINES = 150_000    # phase 33: Apache lines appended (~14.3 MB)
+OBSERVED_SEED = 33
+PLANES_OUTAGE_S = 4.0       # phase 32 (a) with the planes: 503s this long
+PLANES_CLEAR_S = 120        # ... and at most this long for the clear
+
+_PROM_NAME = re.compile(r"[a-zA-Z_:][a-zA-Z0-9_:]*")
+_PROM_LABEL = re.compile(r'([a-zA-Z_][a-zA-Z0-9_]*)="((?:[^"\\]|\\.)*)"')
+_PROM_TYPES = ("counter", "gauge", "histogram", "summary", "untyped")
+
+
+def parse_prometheus_text(text: str) -> list:
+    """Parse Prometheus text exposition format 0.0.4: ``# TYPE`` lines of
+    a known type, comments, and samples ``name{label="value",...} value``
+    (value a float, ``NaN`` or ``±Inf``).  Returns (name, labels, value)
+    for each sample; raises ``ValueError`` at the first malformed line."""
+    out = []
+    for n, line in enumerate(text.split("\n"), 1):
+        if not line:
+            continue
+        if line.startswith("#"):
+            parts = line.split()
+            if len(parts) >= 2 and parts[1] == "TYPE" and (
+                    len(parts) != 4 or not _PROM_NAME.fullmatch(parts[2])
+                    or parts[3] not in _PROM_TYPES):
+                raise ValueError(f"line {n}: bad TYPE line {line!r}")
+            continue
+        m = _PROM_NAME.match(line)
+        if m is None:
+            raise ValueError(f"line {n}: no metric name in {line!r}")
+        name, rest, labels = m.group(0), line[m.end():], {}
+        if rest.startswith("{"):
+            end = rest.find("}")
+            while end >= 0 and rest[:end].count('"') % 2:
+                end = rest.find("}", end + 1)
+            if end < 0:
+                raise ValueError(f"line {n}: unclosed labels in {line!r}")
+            body, rest = rest[1:end], rest[end + 1:]
+            pos = 0
+            while pos < len(body):
+                lm = _PROM_LABEL.match(body, pos)
+                if lm is None:
+                    raise ValueError(f"line {n}: bad label in {line!r}")
+                labels[lm.group(1)] = lm.group(2)
+                pos = lm.end()
+                if pos < len(body):
+                    if body[pos] != ",":
+                        raise ValueError(f"line {n}: bad labels {line!r}")
+                    pos += 1
+        fields = rest.split()
+        if not rest.startswith(" ") or len(fields) not in (1, 2):
+            raise ValueError(f"line {n}: bad sample {line!r}")
+        try:
+            value = float(fields[0])
+        except ValueError:
+            raise ValueError(f"line {n}: bad value in {line!r}") from None
+        out.append((name, labels, value))
+    return out
+
+
+def free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def http_get(port, path):
+    import urllib.request
+    with urllib.request.urlopen(f"http://127.0.0.1:{port}{path}",
+                                timeout=10) as r:
+        return r.read()
+
+
+def poll_json(port, path) -> dict:
+    """A ``/debug`` document, or {} while the endpoint is not up yet."""
+    import urllib.error
+    try:
+        return json.loads(http_get(port, path))
+    except (urllib.error.URLError, ConnectionError):
+        return {}
+
+
+def planes_agent(cfg_dir, data_dir, stats_path, err_path, **env_vars):
+    """A tail-mode agent on the card (one worker) with ``env_vars``."""
+    env = dict(os.environ, LOONG_PROCESS_THREADS="1", **env_vars)
+    env.pop("LOONG_LEDGER", None)
+    return subprocess.Popen(
+        [sys.executable, "-m", "loongcollector_tpu_torch", "--config",
+         cfg_dir, "--data-dir", data_dir, "--stats", stats_path],
+        cwd=REPO, env=env, stdout=subprocess.DEVNULL,
+        stderr=open(err_path, "wb"))
+
+
+def internal_configs(cfg_dir, tmp, metrics=True, alarms=True):
+    """The self-monitor's two pipelines, each to its own ``flusher_file``
+    (``metrics.json``, ``alarms.json`` in ``tmp``); the metrics input sets
+    the server's cadence to 1 s."""
+    paths = {"metrics": os.path.join(tmp, "metrics.json"),
+             "alarms": os.path.join(tmp, "alarms.json")}
+    if metrics:
+        with open(os.path.join(cfg_dir, "self_metrics.yaml"), "w") as f:
+            f.write("inputs:\n  - Type: input_internal_metrics\n"
+                    "    IntervalSeconds: 1\nflushers:\n"
+                    "  - Type: flusher_file\n"
+                    f"    FilePath: {paths['metrics']}\n")
+    if alarms:
+        with open(os.path.join(cfg_dir, "self_alarms.yaml"), "w") as f:
+            f.write("inputs:\n  - Type: input_internal_alarms\nflushers:\n"
+                    "  - Type: flusher_file\n"
+                    f"    FilePath: {paths['alarms']}\n")
+    return paths
+
+
+def read_ndjson(path) -> list:
+    if not os.path.exists(path):
+        return []
+    with open(path, "rb") as f:
+        return [json.loads(x) for x in f.read().split(b"\n") if x.strip()]
+
+
+def scrape_counts(tag, port):
+    """``/metrics`` after the drain, between two ``/debug/status`` reads
+    that agree on the groups popped (the self-monitor's own pipelines pop
+    a group on its cadence).  The instruments are cumulative, so the
+    scrape's counts are the run's.  Returns (samples, status)."""
+    for _ in range(10):
+        st1 = json.loads(http_get(port, "/debug/status"))
+        text = http_get(port, "/metrics").decode()
+        st2 = json.loads(http_get(port, "/debug/status"))
+        pops = [{k: v.get("queue_popped") for k, v in
+                 s.get("pipelines", {}).items()} for s in (st1, st2)]
+        if pops[0] == pops[1]:
+            return parse_prometheus_text(text), st2
+        time.sleep(0.1)
+    fail(f"{tag}: no scrape fell between two pops")
+
+
+def sample_value(samples, name, **labels) -> float:
+    got = [v for n, lab, v in samples if n == name
+           and all(lab.get(k) == w for k, w in labels.items())]
+    if len(got) != 1:
+        fail(f"{name}{labels}: {len(got)} samples in the scrape")
+    return got[0]
+
+
+def observed_inputs() -> tuple:
+    """Phase 33's run directory, corpus, line index and internal pipelines
+    (made while phase 32 (a) with the planes waits for its clear)."""
+    from loongcollector_tpu_torch.testdata import gen_lines
+    tmp, p, warm = tail_setup("observed", 330)
+    lines = gen_lines(OBSERVED_LINES, seed=OBSERVED_SEED)
+    return (tmp, p, warm, lines, line_index(warm, lines),
+            internal_configs(p["cfg"], tmp))
+
+
+def phase_observed_tail(tail, inputs) -> dict:
+    """Phase 33: phase 29's tail run with the self-observability planes
+    on — the SLO plane and its evaluator, the ledger's auditor, the
+    endpoint — and the self-monitor's metrics and alarms pipelines beside
+    the Apache pipeline.  ``tail`` is phase 29's result (its external
+    event-to-flush p50 / p99 are printed beside the SLO's own);
+    ``inputs`` is ``observed_inputs()``."""
+    from collections import Counter
+    tag = "observed tail"
+    tmp, p, warm, lines, index, sinks = inputs
+    n = len(lines)
+    port = free_port()
+    proc = planes_agent(p["cfg"], p["data"], p["stats"], p["err"],
+                        LOONG_SLO="1", LOONG_SLO_INTERVAL="0.25",
+                        LOONG_LEDGER_AUDIT="1",
+                        LOONG_LEDGER_AUDIT_INTERVAL="0.25",
+                        LOONG_EXPO_PORT=str(port))
+    watcher = SinkWatcher(p["out"])
+    watcher.start()
+    writer = PacedWriter(p["log"], lines, TAIL_RATE, rotate_at=n // 2)
+    agent = [(proc, p["err"])]
+    try:
+        wait_until(tag, lambda: len(watcher.lines) >= WARM_LINES, 300, agent)
+        writer.start()
+        time.sleep(0.5 * n * 95 / TAIL_RATE)
+        mid = parse_prometheus_text(http_get(port, "/metrics").decode())
+        writer.join()
+        if writer.error is not None:
+            fail(f"{tag}: the writer failed: {writer.error!r}")
+        wait_until(tag, lambda: len(watcher.lines) >= WARM_LINES + n, 300,
+                   agent)
+
+        def drained():
+            row = json.loads(http_get(port, "/debug/slo"))[
+                "pipelines"].get("file_regex_apache", {})
+            led = json.loads(http_get(port, "/debug/ledger"))
+            return (row.get("outstanding_stamps") == 0
+                    and led.get("inflight_live") == 0
+                    and led["pipelines"]["file_regex_apache"][
+                        "residual"] == 0)
+        wait_until(tag, drained, 60, agent)
+        samples, status = scrape_counts(tag, port)
+        slo_doc = json.loads(http_get(port, "/debug/slo"))
+        wait_until(tag, lambda: json.loads(http_get(port, "/debug/ledger"))[
+            "auditor"]["audits_total"] >= 24, 60, agent)
+        led_doc = json.loads(http_get(port, "/debug/ledger"))
+        stop_agent(tag, proc, p["err"])
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        watcher.stop()
+    got = Counter(record_keys(watcher.lines, tag))
+    want = Counter({k: len(v) for k, v in index.items()})
+    if got != want:
+        fail(f"{tag}: {sum((want - got).values())} lines missing, "
+             f"{sum((got - want).values())} records extra or duplicated")
+    with open(p["stats"]) as f:
+        st = json.load(f)
+    check_tail_stats(tag, st, WARM_LINES + n)
+    groups, launches = st["tail"]["groups_pushed"], st["launches"]
+    # the SLO plane: every ingested group's stamp reached its send_ok
+    # terminal, none spilled or dropped, nothing outstanding, no episode
+    sdoc = st["slo"]["debug"]["pipelines"]
+    row = sdoc["file_regex_apache"]
+    outcomes = st["slo"]["event_to_flush_ms"]["file_regex_apache"]
+    if not (row["ok_total"] + row["bad_total"] == outcomes["send_ok"][
+            "count"] == groups == launches) or set(outcomes) != {"send_ok"} \
+            or row["outstanding_stamps"] or row["freshness_s"] != 0.0:
+        fail(f"{tag}: SLO row {row}, outcomes {sorted(outcomes)}, groups "
+             f"{groups}, K1 launches {launches}")
+    live = slo_doc["pipelines"]["file_regex_apache"]
+    if (live["ok_total"], live["bad_total"]) != (row["ok_total"],
+                                                 row["bad_total"]) \
+            or live["outstanding_stamps"] or live["freshness_s"] != 0.0 \
+            or sample_value(samples, "loong_pipeline_freshness_seconds",
+                            pipeline="file_regex_apache") != 0.0:
+        fail(f"{tag}: /debug/slo after the drain {live}")
+    episodes = {k: v["episodes"] for k, v in sdoc.items()}
+    if any(episodes.values()):
+        fail(f"{tag}: SLO episodes {episodes} under the default objectives")
+    # the auditor: ticks, no residual alarm, residual 0 at exit
+    aud, res = st["ledger"]["auditor"], st["ledger"]["residuals"]
+    if aud["audits_total"] < 20 or aud["residual_alarms_total"] \
+            or any(res.values()) or led_doc["auditor"][
+                "residual_alarms_total"] \
+            or led_doc["pipelines"]["file_regex_apache"]["boundaries"][
+                "send_ok"]["events"] != WARM_LINES + n:
+        fail(f"{tag}: auditor {aud}, residuals {res}, /debug/ledger "
+             f"{json.dumps(led_doc)[:2000]}")
+    # /metrics after the drain: the hop histograms' counts are the K1
+    # device batches and the groups popped
+    rt = sample_value(samples, "loong_device_roundtrip_seconds_count",
+                      component="device_plane")
+    qw = sample_value(samples, "loong_queue_wait_seconds_count",
+                      component="process_queue")
+    popped = sum(r["queue_popped"] for r in status["pipelines"].values())
+    if rt != st["device_batches"] or qw != popped:
+        fail(f"{tag}: device round trips {rt} for {st['device_batches']} "
+             f"K1 device batches, queue waits {qw} for {popped} groups "
+             f"popped")
+    # the self-monitor's sinks: a record a second of the run (the agent's
+    # own seconds, inputs to exit), sends no more than 2 s apart (its loop
+    # looks every 0.5 s), no alarm
+    records = read_ndjson(sinks["metrics"])
+    stamps = [r["__time__"] for r in records
+              if "queue_wait_seconds_count" in r.get("__values__", {})]
+    sends = len(stamps)
+    gap = max((b - a for a, b in zip(stamps, stamps[1:])), default=None)
+    alarms = read_ndjson(sinks["alarms"])
+    if len(records) < st["seconds"] or sends < 2 or gap > 2 or alarms:
+        fail(f"{tag}: {len(records)} metric records in {sends} sends over "
+             f"{st['seconds']:.1f} s (largest gap {gap} s), alarms "
+             f"{alarms[:5]}")
+    hops = st["slo"]["hop_totals"]
+    split = {}
+    for hop, names in (("queue", ["queue_wait_seconds"]),
+                       ("stage", ["stage_seconds"]),
+                       ("device", ["device_roundtrip_seconds"]),
+                       ("sink", ["sender_queue_wait_seconds",
+                                 "sink_rtt_seconds"])):
+        s = sum(hops.get(k, {}).get("sum_s", 0.0) for k in names)
+        c = sum(hops.get(k, {}).get("count", 0) for k in names)
+        split[hop] = {"seconds": s, "count": c,
+                      "mean_ms": s / c * 1e3 if c else None}
+    ok = outcomes["send_ok"]
+    res = {"stats": st, "groups": groups, "launches": launches,
+           "split": split, "slo_p50_ms": ok["p50"], "slo_p99_ms": ok["p99"],
+           "sends": sends, "audits": aud["audits_total"],
+           "scrapes": [len(mid), len(samples)]}
+    log(f"{tag}: {WARM_LINES + n} records once each; SLO send_ok "
+        f"{ok['count']} = groups {groups} = K1 launches {launches}, no "
+        f"spill or drop, outstanding 0, freshness 0.0, no episode; auditor "
+        f"{aud['audits_total']} ticks ({aud['quiesced_audits_total']} "
+        f"quiesced), no residual alarm; /metrics parsed mid-run "
+        f"({len(mid)} samples) and after the drain ({len(samples)}): "
+        f"{int(rt)} device round trips = K1 device batches, {int(qw)} queue "
+        f"waits = groups popped; {len(records)} metric records in {sends} "
+        f"sends over the run's {st['seconds']:.1f} s (at most {gap} s "
+        f"apart), no alarm")
+    log(f"{tag}: budget split by hop: " + ", ".join(
+        f"{h} {v['seconds']:.3f} s / {v['count']} (mean "
+        + (f"{v['mean_ms']:.3f} ms)" if v["mean_ms"] is not None else "-)")
+        for h, v in split.items())
+        + f"; SLO send_ok p50 {ok['p50']:.3f} ms, p99 {ok['p99']:.3f} ms "
+        f"(log2 bucket bounds); phase 29 event-to-flush p50 "
+        f"{tail['p50_ms']:.2f} ms, p99 {tail['p99_ms']:.2f} ms; card "
+        f"{nvidia_smi()}")
+    shutil.rmtree(tmp, ignore_errors=True)
+    return res
+
+
+class ArmedOutage:
+    """A receiver's status: 200 until ``arm()``, then 503 for
+    ``PLANES_OUTAGE_S`` from the first POST after it, then 200 again."""
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self.armed = False
+        self.t0 = None
+
+    def arm(self):
+        with self._lock:
+            self.armed = True
+
+    def __call__(self, _t):
+        with self._lock:
+            if not self.armed:
+                return 200
+            now = time.monotonic()
+            if self.t0 is None:
+                self.t0 = now
+            return 503 if now - self.t0 < PLANES_OUTAGE_S else 200
+
+
+class OutageArming(threading.Thread):
+    """Arms ``outage`` once the agent on ``port`` has parsed ``lines`` lines
+    and delivered every rollup row minted so far (``/debug/ledger``:
+    process_out = lines, send_ok = agg_emit > 0); ``error`` when the agent
+    exited, an episode came first, or 300 s passed."""
+
+    def __init__(self, port, outage, lines, proc):
+        super().__init__(name="outage-arming", daemon=True)
+        self.port, self.outage, self.lines, self.proc = (port, outage, lines,
+                                                         proc)
+        self.error = None
+
+    def run(self):
+        deadline = time.monotonic() + 300
+        while time.monotonic() < deadline and self.proc.poll() is None:
+            rows = poll_json(self.port, "/debug/ledger").get(
+                "pipelines", {}).get("rollup", {}).get("boundaries", {})
+            ev = {b: r["events"] for b, r in rows.items()}
+            if ev.get("process_out") == self.lines \
+                    and ev.get("send_ok") == ev.get("agg_emit", 0) > 0:
+                self.outage.arm()
+                row = poll_json(self.port, "/debug/slo").get(
+                    "pipelines", {}).get("rollup", {})
+                if row.get("episodes"):
+                    self.error = f"an SLO episode before the outage: {row}"
+                return
+            time.sleep(0.02)
+        self.error = (f"not parsed and delivered within 300 s (agent exit "
+                      f"{self.proc.poll()})")
+
+
+def phase_outage_planes_start(mlines) -> dict:
+    """Phase 32 (a) once more with the planes on, in tail mode (the clear
+    needs the SLO's 30 s slow short window after the outage, which a
+    ``--once`` run ends before): the rollup of ``mlines`` to a receiver,
+    with the metrics and alarms pipelines.  The sink fails once the parse
+    has finished and every rollup row the watermark closed has been
+    delivered (``ArmedOutage``, armed by ``OutageArming``): those rows are
+    minted in ``send`` without an ingest stamp, as in the JAX package, and
+    only the windows the idle timer closes (``_send_direct``) are stamped,
+    so the outage meets the stamped payload alone and the episode's budget
+    goes to the sink.  The sink answers 503 for ``PLANES_OUTAGE_S`` from
+    its next POST, so that the breaker's first probe, 5 s after it opens,
+    finds it back.  Objectives: the freshness bound 3 s, the sojourn bound the
+    plane's default 5 s (a batch the Batcher's 1 s timeout flushes is
+    delivered 1-2 s after its window closed, so a 1 s bound would fire on
+    healthy traffic).  Starts the agent and returns; the finish waits for
+    the clear (phase 30 runs meanwhile)."""
+    from loongcollector_tpu_torch import testdata as td
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_outage_planes_")
+    p = {k: os.path.join(tmp, v) for k, v in (
+        ("log", "metrics.jsonl"), ("cfg", "config"), ("data", "data"),
+        ("stats", "stats.json"), ("err", "agent.err"))}
+    os.makedirs(p["cfg"])
+    with open(p["log"], "wb") as f:
+        f.write(b"\n".join(mlines) + b"\n")
+    outage = ArmedOutage()
+    recv = RemoteWriteReceiver(status=outage).start()
+    with open(os.path.join(p["cfg"], "rollup.yaml"), "w") as f:
+        f.write(td.metric_rollup_remote_write_config(p["log"], recv.url))
+    sinks = internal_configs(p["cfg"], tmp)
+    port = free_port()
+    proc = planes_agent(p["cfg"], p["data"], p["stats"], p["err"],
+                        LOONG_SLO="1", LOONG_SLO_INTERVAL="0.25",
+                        LOONG_SLO_FRESHNESS_S="3", LOONG_LEDGER_AUDIT="1",
+                        LOONG_EXPO_PORT=str(port))
+    arming = OutageArming(port, outage, len(mlines), proc)
+    arming.start()
+    return {"tmp": tmp, "p": p, "recv": recv, "outage": outage,
+            "arming": arming, "sinks": sinks, "port": port, "proc": proc,
+            "t0": time.monotonic(), "oracle": td.metrics_oracle(mlines)[0]}
+
+
+def phase_outage_planes_finish(ctx) -> dict:
+    """Phase 32 (a) with the planes, to its end: every sample once, spill =
+    replay, the breaker's cycle; one SLO_BURN_RATE episode, raised during
+    the outage with ``sink`` its dominant hop, cleared after it; the
+    alarms sink holds SINK_CIRCUIT_OPEN (once a breaker open) and
+    SLO_BURN_RATE (once); no residual alarm."""
+    tag = "outage (a), planes on"
+    p, recv, port, proc = ctx["p"], ctx["recv"], ctx["port"], ctx["proc"]
+    agent = [(proc, p["err"])]
+    want = len(ctx["oracle"]) * 5    # sum, count, min, max, last a row
+
+    def rollup_row():
+        return poll_json(port, "/debug/slo").get("pipelines", {}).get(
+            "rollup", {})
+
+    def alarm_types():
+        return {a["alarm_type"] for a in read_ndjson(ctx["sinks"]["alarms"])}
+    try:
+        ctx["arming"].join(timeout=300)
+        if ctx["arming"].error is not None:
+            fail(f"{tag}: {ctx['arming'].error}")
+        wait_until(tag, lambda: rollup_row().get("episodes", 0) >= 1
+                   and len(recv.samples) >= want, 300, agent)
+        t_raised = time.monotonic() - ctx["t0"]
+        wait_until(tag, lambda: not rollup_row()["firing"]
+                   and {"SINK_CIRCUIT_OPEN_ALARM", "SLO_BURN_RATE_ALARM"}
+                   <= alarm_types(), PLANES_CLEAR_S, agent)
+        t_cleared = time.monotonic() - ctx["t0"]
+        row = rollup_row()
+        led_doc = json.loads(http_get(port, "/debug/ledger"))
+        time.sleep(1.5)
+        stop_agent(tag, proc, p["err"])
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        recv.stop()
+    with open(p["stats"]) as f:
+        st = json.load(f)
+    check_samples(tag, recv, ctx["oracle"])
+    snd = st["send"]
+    br = snd["breakers"]["rollup/flusher_prometheus"]
+    led = st["ledger"]["snapshot"]["rollup"]
+    if not _subsequence(br["transitions"],
+                        ["closed", "open", "half_open", "closed"]) \
+            or snd["spilled"] < 1 or snd["replayed"] != snd["spilled"] \
+            or led["spill"]["events"] != led["replay"]["events"] \
+            or any(st["ledger"]["residuals"].values()):
+        fail(f"{tag}: breaker {br}, send {json.dumps(snd)}, ledger "
+             f"{st['ledger']['residuals']}")
+    bd = row.get("last_breakdown") or {}
+    if row["episodes"] != 1 or row["clears"] != 1 or row["firing"] \
+            or bd.get("dominant") != "sink":
+        fail(f"{tag}: /debug/slo rollup row {row}")
+    counts = {}
+    for a in read_ndjson(ctx["sinks"]["alarms"]):
+        counts[a["alarm_type"]] = counts.get(a["alarm_type"], 0) \
+            + int(a["alarm_count"])
+    opens = br["transitions"].count("open")
+    burn = [a for a in read_ndjson(ctx["sinks"]["alarms"])
+            if a["alarm_type"] == "SLO_BURN_RATE_ALARM"]
+    if counts.get("SLO_BURN_RATE_ALARM") != 1 \
+            or counts.get("SINK_CIRCUIT_OPEN_ALARM") != opens \
+            or "CONSERVATION_RESIDUAL_ALARM" in counts \
+            or burn[0].get("dominant_hop") != "sink" \
+            or st["ledger"]["auditor"]["residual_alarms_total"] \
+            or led_doc["auditor"]["residual_alarms_total"]:
+        fail(f"{tag}: alarms {counts} for {opens} breaker opens, burn "
+             f"{burn}, auditor {st['ledger']['auditor']}")
+    res = {"episodes": row["episodes"], "clears": row["clears"],
+           "dominant": bd["dominant"], "hops": bd["hops"],
+           "alarms": counts, "raised_s": t_raised, "cleared_s": t_cleared,
+           "spilled": snd["spilled"], "replayed": snd["replayed"],
+           "transitions": br["transitions"],
+           "k6_launches": st["aggregation"]["k6_launches"]}
+    log(f"{tag}: receiver 503 for {PLANES_OUTAGE_S} s then 200 (answers "
+        f"{recv.answers}); {len(recv.samples)} samples once each, equal to "
+        f"the oracle; breaker {' -> '.join(br['transitions'])}; "
+        f"{snd['spilled']} spilled = {snd['replayed']} replayed; one "
+        f"SLO_BURN_RATE episode, seen {t_raised:.1f} s after the agent "
+        f"started, dominant hop {bd['dominant']} (hops {bd['hops']}), "
+        f"cleared by {t_cleared:.1f} s; alarms sink {counts}; auditor "
+        f"{st['ledger']['auditor']['audits_total']} ticks, no residual "
+        f"alarm; card {nvidia_smi()}")
+    shutil.rmtree(ctx["tmp"], ignore_errors=True)
+    return res
+
+
 def _timed(name, fn):
     """``fn``, logging its seconds (each phase's share of the script's
     time limit)."""
@@ -5158,7 +5654,35 @@ def main() -> int:
     os.unlink(log_path)
     ebpf = phase_ebpf()
     tail = phase_tail(tail_lines)
-    kill = phase_kill_restart(tail_lines)
+    # phase 32 (a) with the planes waits ~30 s for its SLO episode to
+    # clear: its agent runs beside phase 30, and ends before phase 33,
+    # whose hop split and SLO sojourns are measured alone
+    planes = phase_outage_planes_start(mlines[:len(mlines) // 4])
+    try:
+        kill = phase_kill_restart(tail_lines)
+    except BaseException:
+        planes["proc"].kill()
+        planes["recv"].stop()
+        raise
+    # phase 33's corpus is made while this process only polls the
+    # planes' agent for its clear
+    prep = {}
+
+    def prepare():
+        try:
+            prep["inputs"] = observed_inputs()
+        except BaseException as e:  # noqa: BLE001 — raised again below
+            prep["error"] = e
+
+    maker = threading.Thread(target=prepare, name="observed-inputs")
+    maker.start()
+    try:
+        outage_planes = phase_outage_planes_finish(planes)
+    finally:
+        maker.join()
+    if "error" in prep:
+        raise prep["error"]
+    observed = phase_observed_tail(tail, prep["inputs"])
     mp = main_path["stats"]
     t8, t64 = timing[8192], timing[65536]
     kernels = {"kernels": [{
@@ -5207,7 +5731,8 @@ def main() -> int:
                           "url_classify_4_workers":
                               url4["stats"]["launches"],
                           "tail": tail["stats"]["launches"],
-                          "tail_restart": kill["stats"]["launches"]},
+                          "tail_restart": kill["stats"]["launches"],
+                          "observed_tail": observed["launches"]},
         # phase 29: each line's event-to-flush time, in tail mode at
         # TAIL_RATE, the sink polled every WATCH_PERIOD_S
         "tail_event_to_flush_ms": {"p50": tail["p50_ms"],
@@ -5216,6 +5741,11 @@ def main() -> int:
                                    "watch_period_ms":
                                        WATCH_PERIOD_S * 1e3},
         "tail_mbps": tail["agent_mbps"],
+        # phase 33: the SLO plane's own send_ok sojourn (log2 bucket
+        # bounds) and the budget split by hop over the run
+        "observed_tail_slo_ms": {"p50": observed["slo_p50_ms"],
+                                 "p99": observed["slo_p99_ms"]},
+        "observed_tail_hops": observed["split"],
         # phase 27's K1 launches by engine: the parse, the drop and the
         # api and health rules
         "url_classify_engine_launches": url1["rule_k1"],
@@ -5251,6 +5781,10 @@ def main() -> int:
         k8_kernel_entry(parity, timing, sharded, sharded4, logical,
                         main_path, build)]}
     # K2 runs phase 27's static rule
+    next(k for k in kernels["kernels"] if k["name"] == "segment_reduce")[
+        "outage_planes"] = {
+        k: outage_planes[k] for k in ("k6_launches", "episodes", "dominant",
+                                      "alarms", "spilled", "replayed")}
     k2_entry = kernels["kernels"][1]
     k2_entry["url_classify_launches"] = url1["stats"]["k2"]["launches"]
     k2_entry["url_classify_launches_4_workers"] = \

@@ -41,8 +41,8 @@ window so drain always reaches a clean quiesce.
 The port's copy of the JAX package's ``aggregator/metric_rollup.py``,
 without the chaos point ``aggregator.flush`` (the port has no chaos
 plane): every add and timeout tick may close windows.  The eviction alarm
-``AGG_WINDOW_EVICTION`` is a logged warning, once, as the port has no
-alarm plane yet.  Under ``Substrate: device`` the fold runs on the
+``AGG_WINDOW_EVICTION`` is raised (and logged) once, as the reference
+raises it.  Under ``Substrate: device`` the fold runs on the
 pipeline's device (``context.device``): on CUDA every fold with a valid
 row is one K6 launch (``ops/kernels/segment_reduce_cuda.py``), on the CPU
 the kernel's plain version.  ``fold_counts`` counts the folds by the
@@ -497,6 +497,13 @@ class AggregatorMetricRollup(Aggregator):
             log.warning("pipeline %s: rollup key cardinality hit MaxKeys=%d: "
                         "open partials are being emitted early (split "
                         "rollups)", self._pipeline_name, self.max_keys)
+            from ..monitor.alarms import (AlarmLevel, AlarmManager,
+                                          AlarmType)
+            AlarmManager.instance().send_alarm(
+                AlarmType.AGG_WINDOW_EVICTION,
+                f"rollup key cardinality hit MaxKeys={self.max_keys}: "
+                "open partials are being emitted early (split rollups)",
+                AlarmLevel.WARNING, pipeline=self._pipeline_name)
 
     # -- window close ---------------------------------------------------
 

@@ -101,8 +101,23 @@ host could not be reached), backoff retries, items sent, spilled and
 dropped, each breaker's state and transitions, the median sender-queue
 wait and HTTP round trip, the disk buffer's spilled, replayed and
 quarantined items and the payloads left in it, whether the sender queues
-were empty at exit, and the alarms the JAX package would have raised,
-counted by type.
+were empty at exit, and the alarms the run raised, by type (the alarm
+plane's totals); ``slo`` (with ``LOONG_SLO=1``, else null): the plane's
+``/debug/slo`` document after the drain, each (pipeline, outcome)
+``event_to_flush_ms`` histogram and the hop histograms' totals (seconds
+and count), both over the whole run (the instruments are cumulative:
+the self-monitor resets none of them); ``ledger`` also holds the auditor's
+counts (``LOONG_LEDGER_AUDIT=1``).
+
+The self-observability planes (JAX package ``application.py:106-127``,
+``:372-377``): ``LOONG_LEDGER`` / ``LOONG_LEDGER_AUDIT`` turn on the
+ledger and its auditor, ``LOONG_SLO`` the SLO plane and its evaluator, and
+``LOONG_EXPO_PORT`` the ``/metrics`` and ``/debug`` endpoint
+(``monitor/exposition.py``), all before the pipelines are built.  The
+``input_internal_metrics`` / ``input_internal_alarms`` pipelines are fed
+by the self-monitor server, a singleton runner stopped first.  At exit the
+endpoint stops, then the SLO evaluator and the auditor (the planes stay
+as they are, so a caller in the same process can still read them).
 """
 
 from __future__ import annotations
@@ -224,13 +239,11 @@ class _SendPath:
     and flusher runner (JAX package ``application.py:63-86``)."""
 
     def __init__(self, data_dir: str):
-        from .monitor import alarm_counts
         from .pipeline.queue.sender_queue import SenderQueueManager
         from .runner.disk_buffer import DiskBufferWriter
         from .runner.flusher_runner import FlusherRunner
         from .runner.http_sink import HttpSink
         from .utils.payload_crypto import PayloadCipher
-        alarm_counts.reset()
         self.sqm = SenderQueueManager()
         self.http_sink = HttpSink()
         self.disk_buffer = DiskBufferWriter(
@@ -296,7 +309,7 @@ class _SendPath:
                 + self.queued_at_exit)
 
     def stats(self) -> Dict[str, Any]:
-        from .monitor import alarm_counts
+        from .monitor.alarms import AlarmManager
         db = self.disk_buffer
         return dict(self.runner.send_stats(),
                     buffer_dir=db.directory,
@@ -306,7 +319,7 @@ class _SendPath:
                     buffer_pending=len(db.pending()),
                     sender_queues_empty=self.queues_empty_at_exit,
                     queued_at_exit=self.queued_at_exit,
-                    alarms=alarm_counts.counts())
+                    alarms=AlarmManager.instance().totals())
 
 
 def run_configs(configs: List[Tuple[str, Dict[str, Any]]], device,
@@ -324,7 +337,8 @@ def run_configs(configs: List[Tuple[str, Dict[str, Any]]], device,
     from .ops import fused_pipeline
     from .ops.device_plane import DevicePlane, device_memory_status
     from .ops.device_stream import auto_tuner, batch_ring, stream_depth
-    from .monitor import ledger
+    from .monitor import exposition, ledger, slo
+    from .monitor.alarms import AlarmManager
     from .ops.kernels import dfa_scan_cuda, fused_program_cuda
     from .ops.kernels import field_extract_cuda as fxc
     from .ops.kernels import segment_reduce, segment_reduce_cuda
@@ -352,6 +366,8 @@ def run_configs(configs: List[Tuple[str, Dict[str, Any]]], device,
         # the send path's buffer of a --once run without a data dir
         temp_data_dir = data_dir = tempfile.mkdtemp(prefix="lct-once-")
     os.makedirs(data_dir, exist_ok=True)
+    # this run's alarms only (--stats send.alarms reads the totals)
+    AlarmManager.instance().reset()
     send = _SendPath(data_dir)
     if tail:
         # this run's books only, and the journal window loaded before any
@@ -362,7 +378,15 @@ def run_configs(configs: List[Tuple[str, Dict[str, Any]]], device,
             os.path.join(data_dir, "checkpoints.json"))
     if ledger.install_from_env():
         # this run's totals only: the residual is read after it drains
-        ledger.active_ledger().reset()
+        ledger.reset()
+        log.info("loongledger ACTIVE (audit=%s)",
+                 ledger.auditor() is not None)
+    if slo.install_from_env():
+        # this run's stamps and episodes only
+        slo.reset()
+        log.info("loongslo ACTIVE (evaluator=%s)",
+                 slo.evaluator() is not None)
+    expo = exposition.start_from_env()
     pqm = ProcessQueueManager()
     manager = CollectionPipelineManager(pqm, device, tail=tail,
                                         sender_queue_manager=send.sqm)
@@ -437,10 +461,20 @@ def run_configs(configs: List[Tuple[str, Dict[str, Any]]], device,
             if not tail and runner.error is None and drain_error is None:
                 send.drain(resolve, exit_deadline)
         finally:
+            # read while the pipelines' stage records are live
+            slo_stats = _slo_stats()
             manager.stop_all()
             TimeoutFlushManager.instance().flush_timeout_batches()
             send.stop(manager, exit_deadline)
         seconds = time.perf_counter() - t0
+        ledger_stats = _ledger_stats()
+        # the JAX package's exit: the endpoint, then the SLO evaluator
+        # (and, in the port, the auditor, so no plane thread outlives the
+        # run)
+        if expo is not None:
+            expo.stop()
+        slo.stop_evaluator()
+        ledger.stop_auditor()
         xprof.disable()
         tail_stats = None
         if tail:
@@ -522,7 +556,8 @@ def run_configs(configs: List[Tuple[str, Dict[str, Any]]], device,
              if p.aggregator is not None], timeline, on_card),
         "parse": parse_telemetry.status(),
         "k5": _k5_stats(timeline, on_card),
-        "ledger": _ledger_stats(),
+        "ledger": ledger_stats,
+        "slo": slo_stats,
         "mesh": _mesh_stats(timeline),
         "engines": [_engine_stats(e) for e in engines],
         "classify": {"re_rows": sum(
@@ -697,13 +732,46 @@ def _aggregation_stats(aggs, timeline: xprof.DeviceTimeline,
 
 def _ledger_stats() -> Optional[Dict[str, Any]]:
     """With the ledger on: each pipeline's residual (read after the run
-    drained, when nothing is in flight) and the totals by boundary."""
+    drained, when nothing is in flight), the totals by boundary, and with
+    the auditor on its counts."""
     from .monitor import ledger
     led = ledger.active_ledger()
     if led is None:
         return None
     snap = led.snapshot()
-    return {"residuals": ledger.residuals(snap), "snapshot": snap}
+    out = {"residuals": ledger.residuals(snap), "snapshot": snap,
+           "auditor": None}
+    aud = ledger.auditor()
+    if aud is not None:
+        out["auditor"] = {
+            "interval_s": aud.interval_s,
+            "audits_total": aud.audits_total,
+            "quiesced_audits_total": aud.quiesced_audits_total,
+            "residual_alarms_total": aud.residual_alarms_total,
+            "device_memory_alarms_total": aud.device_memory_alarms_total,
+        }
+    return out
+
+
+def _slo_stats() -> Optional[Dict[str, Any]]:
+    """With the SLO plane on: its ``/debug/slo`` document, each
+    (pipeline, outcome) ``event_to_flush_ms`` histogram and the hop
+    histograms' totals, read after the drain and before the pipelines
+    stop (their stage records retire there)."""
+    from .monitor import slo
+    from .monitor.metrics import WriteMetrics
+    if not slo.is_on():
+        return None
+    hists: Dict[str, Dict[str, Any]] = {}
+    for rec in WriteMetrics.instance().records():
+        if rec.category != "slo" or "outcome" not in rec.labels:
+            continue
+        for h in rec.histograms():
+            hists.setdefault(rec.labels["pipeline"], {})[
+                rec.labels["outcome"]] = h.snapshot()
+    return {"debug": slo.debug_document(), "event_to_flush_ms": hists,
+            "hop_totals": {name: {"sum_s": s, "count": n} for name, (s, n)
+                           in slo._hop_totals().items()}}
 
 
 def _fusion_stats(runs, timeline: xprof.DeviceTimeline,

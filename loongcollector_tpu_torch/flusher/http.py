@@ -18,7 +18,7 @@ from __future__ import annotations
 from typing import Any, Dict, List
 
 from ..models import PipelineEventGroup
-from ..monitor import ledger
+from ..monitor import ledger, slo
 from ..runner import ack_watermark
 from ..pipeline.batch.batcher import Batcher
 from ..pipeline.compression import create_compressor
@@ -96,7 +96,8 @@ class FlusherHTTP(Flusher):
         payload = self.compressor.compress(data)
         item = SenderQueueItem(payload, raw_size, flusher=self,
                                queue_key=self.queue_key, event_cnt=n_events,
-                               spans=ack_watermark.spans_of(groups))
+                               spans=ack_watermark.spans_of(groups),
+                               stamps=slo.stamps_of(groups))
         push_refused(self, item)
 
     def build_request(self, item: SenderQueueItem) -> HttpRequest:

@@ -11,7 +11,10 @@ The port's copy of the JAX package's ``flusher/http_base.py``.  The port
 has no extension plane: a config that names an ``Authenticator``,
 ``RequestBreaker`` or ``FlushInterceptor`` is refused
 (``resolve_http_extensions`` returns False) rather than run without it.
-The SLO stamps wait for that plane.
+A payload carries the SLO ingest stamps of the groups it serialized
+(``SenderQueueItem.stamps``; JAX package ``http_base.py:91-122``), and a
+payload that is terminal before its queue (skipped, refused) is their drop
+terminal.
 """
 
 from __future__ import annotations
@@ -19,7 +22,7 @@ from __future__ import annotations
 from typing import Any, Dict, List, Optional, Tuple
 
 from ..models import PipelineEventGroup
-from ..monitor import ledger
+from ..monitor import ledger, slo
 from ..runner import ack_watermark
 from ..pipeline.batch.batcher import Batcher
 from ..pipeline.batch.flush_strategy import FlushStrategy
@@ -85,11 +88,16 @@ class HttpSinkFlusher(Flusher):
     def _serialize_and_push(self, groups: List[PipelineEventGroup]) -> None:
         n_events = sum(len(g) for g in groups)
         spans = ack_watermark.spans_of(groups)
+        # serialization erases group identity: the ingest stamps ride the
+        # item (the spans shape) so the real terminal observes the sojourn
+        stamps = slo.stamps_of(groups)
         built = self.build_payload(groups)
         if built is None:
             # the sink's payload builder skipped the whole batch: terminal
             self._ledger_drop("payload_skipped", n_events)
             ack_watermark.ack_spans(spans, force=True)
+            slo.observe_stamps(self._ledger_pipeline(), stamps,
+                               slo.OUTCOME_DROP)
             return
         body, item_headers = built
         raw_size = len(body)
@@ -100,7 +108,8 @@ class HttpSinkFlusher(Flusher):
         item = SenderQueueItem(payload, raw_size, flusher=self,
                                queue_key=self.queue_key,
                                tag={"headers": item_headers},
-                               event_cnt=n_events, spans=spans)
+                               event_cnt=n_events, spans=spans,
+                               stamps=stamps)
         push_refused(self, item)
 
     def build_request(self, item: SenderQueueItem) -> HttpRequest:
@@ -154,6 +163,8 @@ def push_refused(flusher: Flusher, item: SenderQueueItem) -> bool:
         return False
     flusher._ledger_drop(tag, item.event_cnt)
     ack_watermark.ack_spans(item.spans, force=True)
+    slo.observe_stamps(flusher._ledger_pipeline(), item.stamps,
+                       slo.OUTCOME_DROP)
     return True
 
 

@@ -16,8 +16,8 @@ actually stood.  Restoring seeks to ``offset``, so a crash re-reads exactly
 the unacked window: at-least-once, never loss.  A dump is a ``mkstemp``
 file, fsynced, then ``os.replace``d: a crash finds the old file or the new
 one, never a torn one.  A load that cannot parse the file moves it aside
-to ``.bad`` and counts it (``quarantined_loads``; the JAX package's
-``CHECKPOINT_FAIL`` alarm is logged, as the port has no alarm plane).
+to ``.bad``, counts it (``quarantined_loads``) and raises the JAX
+package's ``CHECKPOINT_FAIL`` alarm.
 """
 
 from __future__ import annotations
@@ -147,6 +147,11 @@ class CheckPointManager:
             bad = "<unlinkable>"
         self.quarantined_loads += 1
         log.error("corrupt checkpoint file quarantined to %s: %s", bad, err)
+        from ...monitor.alarms import AlarmLevel, AlarmManager, AlarmType
+        AlarmManager.instance().send_alarm(
+            AlarmType.CHECKPOINT_FAIL,
+            f"corrupt checkpoint file quarantined to {bad}: {err}",
+            AlarmLevel.ERROR)
 
     def dump_periodically(self, interval: float = 5.0) -> None:
         if time.monotonic() - self.last_dump >= interval:

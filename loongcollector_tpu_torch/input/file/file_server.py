@@ -30,8 +30,9 @@ dump for the new file is the read offset; ``ROADMAP.md`` Queue 3).  Past
 
 The JAX package's two alarms (``READ_LOG_DELAY`` past
 ``read_delay_alarm_bytes`` of backlog, ``FILE_READER_EXCEED`` at the reader
-ceiling) are rate-limited per path as there, counted (``alarm_counts``) and
-logged, as the port has no alarm plane.  Its CPU-level flow control waits
+ceiling) are rate-limited per path as there, logged and raised on the
+alarm plane with the JAX package's levels and messages (``status()``
+``alarms`` reads the plane's totals of the two).  Its CPU-level flow control waits
 for the port's watchdog.  ``reset_for_testing`` stops and joins the thread
 and drops the singleton.
 """
@@ -44,6 +45,7 @@ import time
 from typing import Dict, List, Optional
 
 from ... import recovery
+from ...monitor.alarms import AlarmLevel, AlarmManager, AlarmType
 from ...runner import ack_watermark
 from ...utils import flags
 from ...utils.logger import get_logger
@@ -73,8 +75,6 @@ IDLE_SLEEP_S = 0.05
 # events wake it at once and polling is only the discovery/rotation net
 IDLE_SLEEP_INOTIFY_S = 0.25
 
-READ_LOG_DELAY = "READ_LOG_DELAY"
-FILE_READER_EXCEED = "FILE_READER_EXCEED"
 
 
 class _ConfigState:
@@ -140,8 +140,6 @@ class FileServer:
         # path -> last alarm time (per-file alarm rate limiting)
         self._delay_alarms: Dict[str, float] = {}
         self._reader_limit_alarms: Dict[str, float] = {}
-        self.alarm_counts: Dict[str, int] = {READ_LOG_DELAY: 0,
-                                             FILE_READER_EXCEED: 0}
         self.suppressed_groups = 0
         self.inotify = False    # the last start found inotify
 
@@ -249,7 +247,9 @@ class FileServer:
             "inotify": self.inotify,
             "watch_complete": self._watch_complete,
             "suppressed_groups": self.suppressed_groups,
-            "alarms": dict(self.alarm_counts),
+            "alarms": {k: v for k, v in
+                       AlarmManager.instance().totals().items()
+                       if k in ("READ_LOG_DELAY", "FILE_READER_EXCEED")},
         }
 
     # -- main loop ----------------------------------------------------------
@@ -379,9 +379,6 @@ class FileServer:
             self._watch_complete = complete
         return busy
 
-    def _alarm(self, kind: str, msg: str) -> None:
-        self.alarm_counts[kind] += 1
-        log.warning("%s: %s", kind, msg)
 
     def _check_read_delay(self, st: _ConfigState, reader) -> None:
         """READ_LOG_DELAY (reference LogFileReader.cpp:1540-1559): the
@@ -396,9 +393,12 @@ class FileServer:
         if now - last < flags.get_flag("read_delay_alarm_duration"):
             return
         self._delay_alarms[reader.path] = now
-        self._alarm(READ_LOG_DELAY,
-                    f"fall behind {backlog} bytes, path: {reader.path} "
-                    f"({st.name})")
+        log.warning("read log delay: %s falls behind %d bytes",
+                    reader.path, backlog)
+        AlarmManager.instance().send_alarm(
+            AlarmType.READ_LOG_DELAY,
+            f"fall behind {backlog} bytes, path: {reader.path}",
+            AlarmLevel.ERROR, st.name)
 
     def _register_feedback(self, queue_key: int) -> None:
         # on EVERY refusal (set_feedback replaces the list, so this is
@@ -463,11 +463,14 @@ class FileServer:
         last = self._reader_limit_alarms.get(path, 0.0)
         if now - last >= flags.get_flag("read_delay_alarm_duration"):
             self._reader_limit_alarms[path] = now
-            self._alarm(FILE_READER_EXCEED,
-                        f"log reader count at limit "
-                        f"({flags.get_flag('max_file_reader_num')}); "
-                        + ("dropped an old rotated reader" if freed
-                           else f"skipping {path}") + f" ({st.name})")
+            msg = (f"log reader count at limit "
+                   f"({flags.get_flag('max_file_reader_num')}); "
+                   + ("dropped an old rotated reader" if freed
+                      else f"skipping {path}"))
+            log.warning("%s", msg)
+            AlarmManager.instance().send_alarm(
+                AlarmType.FILE_READER_EXCEED, msg,
+                AlarmLevel.WARNING, st.name)
         return freed
 
     def _open_reader(self, st: _ConfigState, path: str) -> None:

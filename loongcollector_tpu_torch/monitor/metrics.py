@@ -1,17 +1,22 @@
 """Agent self-metrics: the port's copy of the JAX package's
-``monitor/metrics.py``, unchanged in behaviour.
+``monitor/metrics.py``, with one change of semantics: every instrument is
+cumulative, as a Prometheus counter or histogram is, and no reader resets
+it.  In the JAX package the self-monitor's snapshot reads and resets every
+counter and histogram, so ``--stats`` totals, ``/metrics`` and the SLO
+plane's budget breakdown (a difference of two readings) lose whatever a
+send drained.  The port's self-monitor works out its deltas from the
+values it last sent (``DeltaReader``), and ships the same documents.
 
 Reference: core/monitor/MetricManager.h:33-94 — WriteMetrics holds a chain of
 MetricsRecords (created by every queue/runner/plugin/pipeline); ReadMetrics
 snapshots them for export.  Categories follow monitor/metric_constants/:
 agent / runner / pipeline / component / plugin.
 
-Concurrency contract (the PR-3 race fix): a record's registration dicts and
-every counter's read-and-reset are independently locked, so
+Concurrency contract: a record's registration dicts and every instrument's
+updates are independently locked, so
 
-  * `snapshot(reset_counters=True)` can run concurrently with `add()` on
-    any counter without losing increments — collect-and-reset is atomic
-    per counter;
+  * a read never loses an increment: what lands after it is in the next
+    read's delta;
   * `snapshot()` can run concurrently with first-touch registration
     (`counter()` / `gauge()` / `histogram()`) without the dict-mutation
     RuntimeError the old unlocked iteration could hit (the chaos plane
@@ -59,16 +64,6 @@ class Counter:
     def value(self) -> int:
         return self._value
 
-    def collect(self) -> int:
-        """Read and reset (delta semantics for export).  Atomic with
-        respect to `add`: an increment either lands before the read (and
-        is returned) or after the reset (and survives for the next
-        collect) — never in between."""
-        with self._lock:
-            v = self._value
-            self._value = 0
-            return v
-
 
 class Gauge:
     __slots__ = ("name", "_value")
@@ -103,7 +98,7 @@ class Histogram:
     """
 
     __slots__ = ("name", "base", "n_buckets", "_counts", "_sum", "_count",
-                 "_max", "_lock")
+                 "_max", "_window_max", "_lock")
 
     def __init__(self, name: str, base: float = HIST_BASE,
                  n_buckets: int = HIST_BUCKETS):
@@ -114,6 +109,9 @@ class Histogram:
         self._sum = 0.0
         self._count = 0
         self._max = 0.0
+        # the largest observation since the self-monitor's last read: a
+        # window's max is not a difference of two cumulative readings
+        self._window_max = 0.0
         self._lock = threading.Lock()
 
     def _index(self, v: float) -> int:
@@ -134,6 +132,8 @@ class Histogram:
             self._count += 1
             if v > self._max:
                 self._max = v
+            if v > self._window_max:
+                self._window_max = v
 
     @property
     def count(self) -> int:
@@ -156,14 +156,30 @@ class Histogram:
             out.append((self.upper_bound(i), cum))
         return out
 
-    def _percentiles(self, counts: List[int], count: int,
-                     mx: float, qs=(0.5, 0.9, 0.99)) -> List[float]:
+    def state(self, take_window_max: bool = False
+              ) -> Tuple[List[int], float, int, float]:
+        """(bucket counts, sum, count, max) since the histogram was made,
+        read atomically.  With ``take_window_max`` the max is the largest
+        observation since the last such read, and the next window starts
+        from nothing (the self-monitor's reader, the only one)."""
+        with self._lock:
+            if take_window_max:
+                mx, self._window_max = self._window_max, 0.0
+            else:
+                mx = self._max
+            return list(self._counts), self._sum, self._count, mx
+
+    def document(self, counts: List[int], s: float, n: int, mx: float,
+                 qs=(0.5, 0.9, 0.99)) -> dict:
+        """The exported document of ``n`` observations in ``counts``:
+        count, sum, max and bucket-upper-bound percentiles clipped at
+        ``mx``."""
         out = []
         for q in qs:
-            if count == 0:
+            if n == 0:
                 out.append(0.0)
                 continue
-            target = q * count
+            target = q * n
             cum = 0
             val = mx
             for i, c in enumerate(counts):
@@ -172,20 +188,12 @@ class Histogram:
                     val = min(self.upper_bound(i), mx)
                     break
             out.append(val)
-        return out
-
-    def snapshot(self, reset: bool = False) -> dict:
-        with self._lock:
-            counts = list(self._counts)
-            s, n, mx = self._sum, self._count, self._max
-            if reset:
-                self._counts = [0] * (self.n_buckets + 1)
-                self._sum = 0.0
-                self._count = 0
-                self._max = 0.0
-        p50, p90, p99 = self._percentiles(counts, n, mx)
+        p50, p90, p99 = out
         return {"count": n, "sum": s, "max": mx,
                 "p50": p50, "p90": p90, "p99": p99}
+
+    def snapshot(self) -> dict:
+        return self.document(*self.state())
 
 
 class MetricsRecord:
@@ -250,24 +258,27 @@ class MetricsRecord:
         with self._reg_lock:
             return list(self._histograms.values())
 
+    def instruments(self) -> Tuple[List[Tuple[str, Counter]],
+                                   List[Tuple[str, Gauge]],
+                                   List[Tuple[str, Histogram]]]:
+        """(name, instrument) pairs of each kind, copied under the lock
+        so concurrent first-touch registration never mutates what a
+        reader iterates."""
+        with self._reg_lock:
+            return (list(self._counters.items()), list(self._gauges.items()),
+                    list(self._histograms.items()))
+
     def mark_deleted(self) -> None:
         self._deleted = True
 
-    def snapshot(self, reset_counters: bool = False) -> dict:
-        # copy the registration dicts under the lock so concurrent
-        # first-touch registration can never mutate what we iterate
-        with self._reg_lock:
-            counters = list(self._counters.items())
-            gauges = list(self._gauges.items())
-            hists = list(self._histograms.items())
+    def snapshot(self) -> dict:
+        counters, gauges, hists = self.instruments()
         return {
             "category": self.category,
             "labels": dict(self.labels),
-            "counters": {n: (c.collect() if reset_counters else c.value)
-                         for n, c in counters},
+            "counters": {n: c.value for n, c in counters},
             "gauges": {n: g.value for n, g in gauges},
-            "histograms": {n: h.snapshot(reset=reset_counters)
-                           for n, h in hists},
+            "histograms": {n: h.snapshot() for n, h in hists},
             "time": int(time.time()),
         }
 
@@ -304,8 +315,52 @@ class ReadMetrics:
     """Snapshot side (reference ReadMetrics::UpdateMetrics)."""
 
     @staticmethod
-    def snapshot(reset_counters: bool = False) -> List[dict]:
-        return [r.snapshot(reset_counters) for r in WriteMetrics.instance().records()]
+    def snapshot() -> List[dict]:
+        return [r.snapshot() for r in WriteMetrics.instance().records()]
+
+
+class DeltaReader:
+    """Each live record's snapshot as the change since this reader's last
+    ``read()``: counters and histogram counts are differences of cumulative
+    readings, a histogram's max and percentiles are those of the window's
+    observations, gauges are as they stand.  The documents equal those of
+    the JAX package's draining ``snapshot(reset_counters=True)`` over the
+    same observations, and no instrument is reset.  A record's first read
+    covers everything since it was made; retired records are forgotten."""
+
+    def __init__(self) -> None:
+        # (record id, metric name) -> the cumulative reading last returned
+        self._last: Dict[Tuple[int, str], object] = {}
+
+    def read(self) -> List[dict]:
+        last: Dict[Tuple[int, str], object] = {}
+        out = []
+        for rec in WriteMetrics.instance().records():
+            counters, gauges, hists = rec.instruments()
+            cdoc = {}
+            for n, c in counters:
+                v = last[(rec.id, n)] = c.value
+                cdoc[n] = v - self._last.get((rec.id, n), 0)
+            hdoc = {}
+            for n, h in hists:
+                counts, s, cnt, mx = h.state(take_window_max=True)
+                last[(rec.id, n)] = (counts, s, cnt)
+                prev = self._last.get((rec.id, n))
+                if prev is not None:
+                    pc, ps, pn = prev
+                    counts = [a - b for a, b in zip(counts, pc)]
+                    s, cnt = s - ps, cnt - pn
+                hdoc[n] = h.document(counts, s, cnt, mx)
+            out.append({
+                "category": rec.category,
+                "labels": dict(rec.labels),
+                "counters": cdoc,
+                "gauges": {n: g.value for n, g in gauges},
+                "histograms": hdoc,
+                "time": int(time.time()),
+            })
+        self._last = last
+        return out
 
 
 # ---------------------------------------------------------------------------

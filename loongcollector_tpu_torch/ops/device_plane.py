@@ -265,16 +265,35 @@ class HostOutput:
         return a if dtype is None else a.astype(dtype)
 
 
+# dispatch → resolve stopwatch sink: one shared histogram (lazy, so importing
+# the plane never touches the metrics registry)
+_rtt_hist = None
+
+
+def roundtrip_histogram():
+    """The device round-trip histogram (``device_roundtrip_seconds``,
+    dispatch to materialise), observed by every DeviceFuture that
+    resolves successfully — the SLO budget breakdown's ``device`` hop."""
+    global _rtt_hist
+    if _rtt_hist is None:
+        from ..monitor.metrics import shared_histogram
+        _rtt_hist = shared_histogram("device_roundtrip_seconds",
+                                     labels={"component": "device_plane"})
+    return _rtt_hist
+
+
 class DeviceFuture:
     """A dispatched kernel call whose results are not yet consumed.
 
     ``result()`` waits for the dispatch (the final CUDA event of a CUDA
     dispatch), reads its host outputs as numpy, and releases the plane
-    budget exactly once.  A kernel that raised at dispatch surfaces its
-    error here: fail at consume."""
+    budget exactly once; a successful ``result()`` observes the round trip
+    since the dispatch returned (``roundtrip_histogram``, JAX package
+    ``device_plane.py:234-245``, ``:401``).  A kernel that raised at
+    dispatch surfaces its error here: fail at consume."""
 
     __slots__ = ("_plane", "_nbytes", "_outputs", "_error", "_done",
-                 "_materialised", "_tenant", "_xid", "__weakref__")
+                 "_materialised", "_tenant", "_xid", "_t0", "__weakref__")
 
     def __init__(self, plane: "DevicePlane", nbytes: int,
                  outputs: Optional[Sequence] = None,
@@ -288,6 +307,7 @@ class DeviceFuture:
         self._materialised: Optional[List[np.ndarray]] = None
         self._tenant = tenant
         self._xid = xid
+        self._t0 = time.perf_counter()
 
     @property
     def dispatch_id(self) -> int:
@@ -314,6 +334,7 @@ class DeviceFuture:
             if outputs and hasattr(outputs[0], "block_until_ready"):
                 outputs[0].block_until_ready()
             self._materialised = [to_host_array(o) for o in outputs]
+            roundtrip_histogram().observe(time.perf_counter() - self._t0)
             return self._materialised
         except BaseException as e:  # noqa: BLE001 — record, release, re-raise
             self._error = e

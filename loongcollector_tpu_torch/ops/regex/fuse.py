@@ -457,8 +457,8 @@ def _note_compile(fdfa: FusedDFA) -> None:
 
 def note_demotion(pattern: str, reason: str) -> None:
     """A pattern fell off a device tier (fused budget, DFA caps, a
-    capture-needing Tier-2 parse).  Counted always, logged once per
-    pattern; the alarm plane is not ported yet."""
+    capture-needing Tier-2 parse).  Counted always; logged and alarmed
+    (``REGEX_TIER_DEMOTED``) once per pattern, as the JAX package does."""
     with _stats_lock:
         _fusion_state["demotions"] += 1
         first = pattern not in demotions
@@ -466,6 +466,10 @@ def note_demotion(pattern: str, reason: str) -> None:
     if first:
         log.warning("pattern %r demoted off the device tier: %s", pattern,
                     reason)
+        from ...monitor.alarms import AlarmManager, AlarmType
+        AlarmManager.instance().send_alarm(
+            AlarmType.REGEX_TIER_DEMOTED,
+            f"regex demoted off device tier ({reason}): {pattern[:160]}")
 
 
 def fusion_status() -> Dict[str, object]:

@@ -306,6 +306,22 @@ def is_active() -> bool:
     return _timeline is not None
 
 
+def active_timeline() -> Optional[DeviceTimeline]:
+    return _timeline
+
+
+def status() -> Optional[dict]:
+    """The /debug/status ``xprof`` section (JAX package ``xprof.py:317``):
+    the timeline's counts and its per-(program, geometry) decomposition;
+    None while no timeline is recording."""
+    t = _timeline
+    if t is None:
+        return None
+    doc = t.stats()
+    doc["decomposition"] = t.decomposition()
+    return doc
+
+
 def enable(device: Optional[torch.device] = None) -> DeviceTimeline:
     """Start a fresh timeline; on a CUDA device its epoch event is recorded
     on that device's current stream."""

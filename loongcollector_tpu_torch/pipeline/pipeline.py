@@ -28,7 +28,19 @@ spans and are acked at once (forced); with more than one flusher a span
 owes an ack from each (``note_fanout``, before the first send), and each
 flusher acks what it delivered: ``flusher_file`` and ``flusher_stdout``
 once written, the HTTP family once the sink took it or it was spilled
-(the flusher runner).  The SLO plane's calls wait for its slice.
+(the flusher runner).
+
+The SLO plane's hooks (``monitor/slo.py``; JAX package
+``pipeline/pipeline.py:443-516``, ``plugin/instance.py:218-227``) sit
+beside them: the groups the aggregator absorbs and the groups filtered to
+nothing retire their ingest stamps without a sojourn sample, a rollup
+group gets its stamp at window close (``ensure_stamp`` in
+``_send_direct``), more than one flusher raises the stamp's refcount
+(``note_fanout``), and a ``ledger_terminal`` flusher's send observes its
+send_ok (or, refused, drop) terminal.  Each plugin's host seconds are
+also observed into its ``stage_seconds`` histogram (a record of category
+``plugin`` a stage and pipeline; JAX package ``plugin/instance.py:41``),
+the SLO budget breakdown's ``stage`` hop.
 
 With the ledger on (``monitor/ledger.py``, ``LOONG_LEDGER=1``) the
 pipeline books process_in at ``process_begin``, each stage's population
@@ -78,7 +90,8 @@ from typing import Any, Callable, Dict, List, Optional
 import torch
 
 from ..models import PipelineEventGroup
-from ..monitor import ledger
+from ..monitor import ledger, slo
+from ..monitor.metrics import MetricsRecord
 from ..runner import ack_watermark
 from ..utils.logger import get_logger
 from .plugin.interface import Flusher, Input, PluginContext, Processor
@@ -147,6 +160,9 @@ class CollectionPipeline:
         self.aggregator = None
         self._agg_timeout_hook = _AggTimeoutHook(self)
         self.stage_seconds: Dict[str, float] = {}
+        # per-stage host-seconds histograms, one record a stage name
+        self._stage_records: Dict[str, MetricsRecord] = {}
+        self._stage_hists: Dict[str, Any] = {}
         self.events_sent = 0
         self._stats_lock = threading.Lock()
         self._in_process_cnt = 0
@@ -225,18 +241,41 @@ class CollectionPipeline:
             TimeoutFlushManager.instance().unregister(hook)
         if self.aggregator is not None:
             self.aggregator.metrics.mark_deleted()
+        with self._stats_lock:
+            records = list(self._stage_records.values())
+            self._stage_records.clear()
+            self._stage_hists.clear()
+        for rec in records:
+            rec.mark_deleted()
 
     def add_stage_seconds(self, name: str, seconds: float) -> None:
         with self._stats_lock:
             self.stage_seconds[name] = (self.stage_seconds.get(name, 0.0)
                                         + seconds)
 
+    def _stage_hist(self, name: str):
+        """The ``stage_seconds`` histogram of stage ``name``."""
+        h = self._stage_hists.get(name)
+        if h is None:
+            with self._stats_lock:
+                h = self._stage_hists.get(name)
+                if h is None:
+                    rec = MetricsRecord(
+                        category="plugin",
+                        labels={"plugin_type": name, "pipeline": self.name})
+                    self._stage_records[name] = rec
+                    h = self._stage_hists[name] = rec.histogram(
+                        "stage_seconds")
+        return h
+
     def _timed(self, name: str, fn, *args):
         t0 = time.perf_counter()
         try:
             return fn(*args)
         finally:
-            self.add_stage_seconds(name, time.perf_counter() - t0)
+            dt = time.perf_counter() - t0
+            self.add_stage_seconds(name, dt)
+            self._stage_hist(name).observe(dt)
 
     def _stage(self, p, fn, group: PipelineEventGroup, *args):
         """``fn(group, *args)`` timed under the plugin's name; with the
@@ -404,8 +443,13 @@ class CollectionPipeline:
             # groups the aggregator absorbed lose their span identity here:
             # acked (forced), so their source bytes never pin the watermark
             staged_ids = {id(g) for g in staged}
-            ack_watermark.ack_groups(
-                [g for g in groups if id(g) not in staged_ids], force=True)
+            consumed = [g for g in groups if id(g) not in staged_ids]
+            ack_watermark.ack_groups(consumed, force=True)
+            if consumed and slo.is_on():
+                # absorbed into rollup state: the stamp retires without a
+                # sojourn sample; the rollup minted at window close gets
+                # its own stamp (_send_direct)
+                slo.retire_groups(consumed)
             groups = staged
             if led and not getattr(agg, "ledger_self_accounting", False):
                 # a stateful aggregator holds events (process_drop, repaid
@@ -427,9 +471,15 @@ class CollectionPipeline:
                 ledger.record(self.name, ledger.B_PROCESS_EXPAND, n,
                               tag="aggregator_flush")
             ledger.record(self.name, ledger.B_PROCESS_OUT, n)
-        ack_watermark.ack_groups([g for g in groups if g.empty()],
-                                 force=True)
+        empty = [g for g in groups if g.empty()]
+        ack_watermark.ack_groups(empty, force=True)
         groups = [g for g in groups if not g.empty()]
+        if slo.is_on():
+            slo.retire_groups(empty)
+            for g in groups:
+                # rollups are minted stampless: window close IS their
+                # ingest instant
+                slo.ensure_stamp(self.name, g)
         self._flush_groups(groups)
         return len(groups)
 
@@ -440,18 +490,30 @@ class CollectionPipeline:
         and booked send_ok here; the HTTP family's sends are booked by the
         flusher runner at delivery."""
         led = ledger.is_on()
+        slo_on = slo.is_on()
         for g in groups:
-            if g.empty():
+            empty = g.empty()
+            if empty:
                 # filtered to nothing: terminal for its source span
                 ack_watermark.ack_groups([g], force=True)
+                if slo_on:
+                    slo.retire_groups([g])
             elif len(self.flushers) > 1:
                 # each flusher owes an ack: raised before any copy can ack
                 ack_watermark.note_fanout(g, len(self.flushers))
+                if slo_on:
+                    # the stamp's refcount mirrors the fanout: each copy's
+                    # terminal observes its own sojourn
+                    slo.note_fanout(g, len(self.flushers))
             if led and len(self.flushers) > 1:
                 ledger.record(self.name, ledger.B_FANOUT,
                               (len(self.flushers) - 1) * len(g))
             for f in self.flushers:
-                self._timed(f.name, f.send, g)
+                ok = self._timed(f.name, f.send, g)
+                if slo_on and f.ledger_terminal and not empty:
+                    slo.observe_groups(self.name, [g],
+                                       slo.OUTCOME_SEND_OK if ok
+                                       else slo.OUTCOME_DROP)
                 if led and f.ledger_terminal:
                     ledger.record(self.name, ledger.B_SEND_OK, len(g),
                                   g.data_size(), tag=f.name)

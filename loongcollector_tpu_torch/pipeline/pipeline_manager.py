@@ -29,6 +29,12 @@ from .pipeline import CollectionPipeline
 from .queue.process_queue_manager import ProcessQueueManager
 
 
+# observe-only handle of the most recently constructed manager (the
+# ledger's occupancy probe, the lag watermarks, /debug/status); stop_all()
+# clears it
+_active_manager = None
+
+
 class CollectionPipelineManager:
     def __init__(self, process_queue_manager: ProcessQueueManager,
                  device: torch.device, tail: bool = False,
@@ -41,6 +47,8 @@ class CollectionPipelineManager:
         self._pipelines: Dict[str, CollectionPipeline] = {}
         self._by_key: Dict[int, CollectionPipeline] = {}
         self._lock = threading.Lock()
+        global _active_manager
+        _active_manager = self
 
     def update_pipelines(self, configs: List[Tuple[str, Dict[str, Any]]]
                          ) -> None:
@@ -120,6 +128,9 @@ class CollectionPipelineManager:
         the process queues, release the tenant shares and stop the
         flushers.  The sender queues stay for the flusher runner's drain
         (``delete_sender_queues``)."""
+        global _active_manager
+        if _active_manager is self:
+            _active_manager = None
         with self._lock:
             pipelines = list(self._pipelines.items())
             self._pipelines.clear()

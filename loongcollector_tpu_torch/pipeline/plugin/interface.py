@@ -12,7 +12,8 @@ package's send-path surface (``interface.py:148-253``):
 ``ledger_terminal`` (a ``send`` that is delivery, booked ``send_ok`` by the
 pipeline), ``spill_identity`` (the disk buffer's header), ``flush`` /
 ``flush_all`` and the ``_ledger_drop`` / ``_ledger_terminal_write``
-helpers; the SLO hooks wait for that plane.
+helpers, which observe the SLO plane's drop and send_ok terminals as the
+JAX package's do.
 """
 
 from __future__ import annotations
@@ -22,7 +23,7 @@ from typing import Any, Callable, Dict, List, Optional
 import torch
 
 from ...models import PipelineEventGroup
-from ...monitor import ledger
+from ...monitor import ledger, slo
 from ...runner import ack_watermark
 
 
@@ -143,6 +144,9 @@ class Flusher(Plugin):
         confirmed on; a dropped group is acked (forced) either way."""
         if group is not None:
             ack_watermark.ack_groups([group], force=True)
+            if slo.is_on():
+                slo.observe_groups(self._ledger_pipeline(), [group],
+                                   slo.OUTCOME_DROP)
         if not ledger.is_on():
             return
         if group is not None:
@@ -168,11 +172,17 @@ class Flusher(Plugin):
                 "%s flush write failed; %d events dropped", self.name,
                 n_events)
             ack_watermark.ack_groups(groups)
+            if slo.is_on():
+                slo.observe_groups(self._ledger_pipeline(), groups,
+                                   slo.OUTCOME_DROP)
             if led:
                 ledger.record(self._ledger_pipeline(), ledger.B_DROP,
                               n_events, n_bytes, tag="flush_write_failed")
             return False
         ack_watermark.ack_groups(groups)
+        if slo.is_on():
+            slo.observe_groups(self._ledger_pipeline(), groups,
+                               slo.OUTCOME_SEND_OK)
         if led:
             ledger.record(self._ledger_pipeline(), ledger.B_SEND_OK,
                           n_events, n_bytes, tag=self.name)

@@ -7,9 +7,13 @@ push fails above the high watermark; a pop that brings the queue under
 the low watermark fires the upstream ``FeedbackInterface`` so blocked
 inputs resume.  The queue is bounded in bytes as well as groups.
 
-Left out of the port: the ledger records, the chaos fault point, the
-queue-wait histogram and the drop-oldest ``CircularProcessQueue`` (for
-streaming inputs the port does not have yet).
+Every pop observes each group's wait (enqueue to pop) into the shared
+``queue_wait_seconds`` histogram (JAX package ``bounded_queue.py:44-53``,
+``:179``, ``:220``), the SLO budget breakdown's ``queue`` hop;
+``oldest_age`` is the ledger's ``queue_lag_seconds`` watermark.  Left out
+of the port: the chaos fault point and the drop-oldest
+``CircularProcessQueue`` (for streaming inputs the port does not have
+yet).
 """
 
 from __future__ import annotations
@@ -17,7 +21,7 @@ from __future__ import annotations
 import threading
 import time
 from collections import deque
-from typing import Deque, List, Optional
+from typing import Deque, List, Optional, Tuple
 
 from ...models import PipelineEventGroup
 from ...monitor import ledger
@@ -29,6 +33,19 @@ LOW_WATERMARK_RATIO = 2 / 3
 # (512 KiB reader chunks); the count bound guards many tiny groups.
 # 0 disables the byte bound.
 DEFAULT_MAX_BYTES = 2 * 1024 * 1024
+
+# shared queue-wait histogram (lazy: importing queues never touches the
+# metrics registry); every bounded process queue observes into it
+_wait_hist = None
+
+
+def queue_wait_histogram():
+    global _wait_hist
+    if _wait_hist is None:
+        from ...monitor.metrics import shared_histogram
+        _wait_hist = shared_histogram("queue_wait_seconds",
+                                      labels={"component": "process_queue"})
+    return _wait_hist
 
 
 class FeedbackInterface:
@@ -107,11 +124,12 @@ class BoundedProcessQueue:
 
     # -- consumer side ------------------------------------------------------
 
-    def _pop_locked(self) -> PipelineEventGroup:
-        self._enq_ts.popleft()
+    def _pop_locked(self) -> Tuple[PipelineEventGroup, float]:
+        """One popleft and its enqueue time (lock held)."""
+        enq = self._enq_ts.popleft()
         self._bytes -= self._sizes.popleft()
         self.total_popped += 1
-        return self._items.popleft()
+        return self._items.popleft(), enq
 
     def _feedbacks_locked(self) -> List[FeedbackInterface]:
         if not self._valid_to_push and self._under_low():
@@ -123,8 +141,9 @@ class BoundedProcessQueue:
         with self._lock:
             if not self._pop_enabled or not self._items:
                 return None
-            item = self._pop_locked()
+            item, enq = self._pop_locked()
             feedbacks = self._feedbacks_locked()
+        queue_wait_histogram().observe(time.perf_counter() - enq)
         if ledger.is_on():
             ledger.record(self.pipeline_name, ledger.B_DEQUEUE, len(item),
                           item.data_size())
@@ -137,6 +156,7 @@ class BoundedProcessQueue:
         """Pop up to ``max_groups`` / ``max_bytes`` of queued groups in one
         lock acquisition: a trickle pops one group, a backlog a run."""
         out: List[PipelineEventGroup] = []
+        enqs: List[float] = []
         nbytes = 0
         with self._lock:
             if not self._pop_enabled:
@@ -145,8 +165,15 @@ class BoundedProcessQueue:
                 if out and nbytes + self._sizes[0] > max_bytes:
                     break
                 nbytes += self._sizes[0]
-                out.append(self._pop_locked())
+                item, enq = self._pop_locked()
+                out.append(item)
+                enqs.append(enq)
             feedbacks = self._feedbacks_locked() if out else []
+        if enqs:
+            now = time.perf_counter()
+            hist = queue_wait_histogram()
+            for enq in enqs:
+                hist.observe(now - enq)
         if out and ledger.is_on():
             ledger.record(self.pipeline_name, ledger.B_DEQUEUE,
                           sum(len(g) for g in out),
@@ -154,6 +181,14 @@ class BoundedProcessQueue:
         for fb in feedbacks:
             fb.feedback(self.key)
         return out
+
+    def oldest_age(self) -> Optional[float]:
+        """Seconds the oldest queued group has waited (None when empty):
+        the per-pipeline ``queue_lag_seconds`` watermark."""
+        with self._lock:
+            if not self._enq_ts:
+                return None
+            return time.perf_counter() - self._enq_ts[0]
 
     def set_pop_enabled(self, enabled: bool) -> None:
         with self._lock:

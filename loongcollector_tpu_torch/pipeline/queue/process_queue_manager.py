@@ -3,8 +3,12 @@
 Reference: loongcollector_tpu/pipeline/queue/process_queue_manager.py
 (core/collection_pipeline/queue/ProcessQueueManager.{h,cpp}: PushQueue
 :148, priorities and round-robin within a priority :45,91).  Consumers
-block on one shared condition until any queue has data.  Left out of the
-port: the ledger and SLO hooks and the circular queues.
+block on one shared condition until any queue has data.  The admit
+(``push_queue``) is the ledger's single ``ingest`` boundary and the SLO
+plane's ingest stamp (minted before the push, cancelled when the push is
+refused; JAX package ``process_queue_manager.py:109-132``); a deleted
+queue's groups are the SLO plane's drop terminals (``:79-94``).  Left out
+of the port: the circular queues.
 """
 
 from __future__ import annotations
@@ -13,7 +17,7 @@ import threading
 from typing import Dict, List, Optional, Tuple
 
 from ...models import PipelineEventGroup
-from ...monitor import ledger
+from ...monitor import ledger, slo
 from .bounded_queue import DEFAULT_MAX_BYTES, BoundedProcessQueue
 
 PRIORITY_COUNT = 3  # 0 = highest
@@ -59,6 +63,12 @@ class ProcessQueueManager:
                 self._version += 1
         if q is not None:
             q.retire()
+            if slo.is_on():
+                # groups still queued die with their queue: their stamps
+                # terminate here, or the pipeline's freshness would age
+                with q._lock:
+                    dead = list(q._items)
+                slo.observe_groups(q.pipeline_name, dead, slo.OUTCOME_DROP)
 
     def get_queue(self, key: int) -> Optional[BoundedProcessQueue]:
         with self._lock:
@@ -71,6 +81,11 @@ class ProcessQueueManager:
             q = self._queues.get(key)
         if q is None:
             return False
+        # the ingest stamp is minted BEFORE the push: a consumer popping
+        # the group at once must never race a metadata write; a refused
+        # push is cancelled below (the caller keeps the group)
+        if slo.is_on():
+            slo.stamp_ingest(q.pipeline_name, group)
         pushed = q.push(group)
         if pushed:
             # ingest: every input funnels through this admit, so one hook
@@ -80,6 +95,8 @@ class ProcessQueueManager:
                               group.data_size())
             with self._data_cv:
                 self._data_cv.notify()
+        elif slo.is_on():
+            slo.cancel_group(group)
         return pushed
 
     def is_valid_to_push(self, key: int) -> bool:

@@ -8,7 +8,10 @@ to process queues.
 
 The port's copy of the JAX package's ``pipeline/queue/sender_queue.py``,
 with its retire semantics (``SenderQueue._retired``, the refused push).
-``SenderQueueItem.stamps`` stays empty: the port has no SLO plane.
+``SenderQueueItem.stamps`` carries the SLO plane's ingest stamps of the
+groups a payload serialized; a deleted queue's idle payloads are their
+drop terminals (JAX package ``sender_queue.py:255-268``), and
+``oldest_age`` is the ledger's ``sender_queue_lag_seconds`` watermark.
 """
 
 from __future__ import annotations
@@ -162,6 +165,14 @@ class SenderQueue:
         with self._lock:
             return len(self._items)
 
+    def oldest_age(self) -> Optional[float]:
+        """Seconds the oldest queued payload has waited (None when
+        empty): the ``sender_queue_lag_seconds`` watermark."""
+        with self._lock:
+            if not self._items:
+                return None
+            return max(0.0, time.monotonic() - self._items[0].enqueue_time)
+
     def empty(self) -> bool:
         with self._lock:
             return not self._items
@@ -205,7 +216,7 @@ class SenderQueueManager:
         with self._lock:
             q = self._queues.pop(key, None)
         if q is not None:
-            from ...monitor import ledger
+            from ...monitor import ledger, slo
             # serialized payloads still queued die with their queue
             # (direct delete, not the drain-then-GC path): terminal.
             # SENDING items are skipped — their delivery callback is
@@ -217,15 +228,20 @@ class SenderQueueManager:
             # a stale queue list cannot dispatch from a deleted queue
             # whether or not the ledger is counting
             led = ledger.is_on()
+            slo_on = slo.is_on()
             with q._lock:
                 q._retired = True
-                dead = ([(i.event_cnt, len(i.data))
+                dead = ([(i.event_cnt, len(i.data), i.stamps)
                          for i in q._items
                          if i.status is SendingStatus.IDLE]
-                        if led else [])
-            for events, nbytes in dead:
-                ledger.record(q.pipeline_name, ledger.B_DROP,
-                              events, nbytes, tag="queue_deleted")
+                        if (led or slo_on) else [])
+            for events, nbytes, stamps in dead:
+                if led:
+                    ledger.record(q.pipeline_name, ledger.B_DROP,
+                                  events, nbytes, tag="queue_deleted")
+                if slo_on:
+                    slo.observe_stamps(q.pipeline_name, stamps,
+                                       slo.OUTCOME_DROP)
 
     def get_available_items(self, limit_per_queue: int = 10
                             ) -> List[SenderQueueItem]:

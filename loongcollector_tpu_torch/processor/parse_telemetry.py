@@ -5,9 +5,9 @@ the structural index cannot prove well-formed fall back to per-row Python,
 and every such row is counted per (processor, pipeline), beside the rows
 parsed and the rows parsed with schema drift (extras columns), on a
 per-processor ``MetricsRecord`` and in ``status()`` (the agent's
-``--stats`` ``parse`` section).  Where the reference raises a one-shot
-``PARSE_FALLBACK_DEGRADED`` alarm once the fallback rate is sustained, the
-port (no alarm plane yet) logs one warning per (processor, pipeline).
+``--stats`` ``parse`` section).  Once the fallback rate is sustained, a
+one-shot ``PARSE_FALLBACK_DEGRADED`` alarm is raised (and logged) per
+(processor, pipeline), as the reference does.
 """
 
 from __future__ import annotations
@@ -75,6 +75,15 @@ def note_rows(processor: str, pipeline: str, total: int,
         log.warning("sustained per-row parse fallback on %s (pipeline %s): "
                     "%d/%d rows off the structural plane", processor,
                     pipeline, fb, seen)
+        # outside _lock: the alarm manager takes its own
+        from ..monitor.alarms import AlarmLevel, AlarmManager, AlarmType
+        AlarmManager.instance().send_alarm(
+            AlarmType.PARSE_FALLBACK_DEGRADED,
+            f"sustained per-row parse fallback on {processor}: "
+            f"{fb}/{seen} rows off the structural plane",
+            AlarmLevel.ERROR, pipeline=pipeline,
+            details={"processor": processor,
+                     "fallback_rows": str(fb), "rows": str(seen)})
 
 
 def status() -> Dict[str, object]:

@@ -19,8 +19,8 @@ At every start the manager
      there (``ROADMAP.md`` Queue 3);
   2. sweeps torn ``*.tmp`` files a crash left under the buffer directory.
 
-The JAX package's restart alarm (``AGENT_RESTART``) is counted
-(``unclean_shutdown_total``) and logged, as the port has no alarm plane;
+The JAX package's restart alarm (``AGENT_RESTART``) is raised on the alarm
+plane, logged and counted (``unclean_shutdown_total``);
 its counts are read through ``status()`` (``--stats`` ``tail``), not a
 metrics record.  The previous run's flight dump and the count of events
 waiting in spill files come with the port's ``prof/`` and disk buffer.
@@ -132,6 +132,11 @@ class RecoveryManager:
             log.warning("unclean shutdown detected (marker %s); total=%d: "
                         "recovering from acked-offset checkpoints",
                         self.marker_path, self.unclean_shutdown_total)
+            from .monitor.alarms import AlarmLevel, AlarmManager, AlarmType
+            AlarmManager.instance().send_alarm(
+                AlarmType.AGENT_RESTART,
+                "unclean shutdown: recovering from acked-offset checkpoints",
+                AlarmLevel.ERROR)
         self._load_window()
         self._sweep_torn_spills()
         # the tracker journals future acks into the SAME file the window

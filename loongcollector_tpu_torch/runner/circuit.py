@@ -22,8 +22,9 @@ visible in self-monitor output next to the chaos fault counters.
 The port's copy of the JAX package's ``runner/circuit.py``: the same
 states, thresholds, probe slot and probe timeout.  Trace events and
 flight records are left out (the port has neither plane); the open alarm
-is counted (``monitor/alarm_counts.py``) and every transition is kept in
-``transitions`` (``--stats`` ``send.breakers``).
+is raised on the alarm plane (``SINK_CIRCUIT_OPEN``, level error, with the
+breaker's pipeline) and every transition is kept in ``transitions``
+(``--stats`` ``send.breakers``).
 """
 
 from __future__ import annotations
@@ -33,7 +34,7 @@ import threading
 import time
 from typing import Callable, List, Optional, Tuple
 
-from ..monitor import alarm_counts
+from ..monitor.alarms import AlarmLevel, AlarmManager, AlarmType
 from ..monitor.metrics import MetricsRecord
 from ..utils.logger import get_logger
 
@@ -59,6 +60,7 @@ class SinkCircuitBreaker:
     """
 
     COMPONENT = "sink_circuit"
+    ALARM_TYPE = AlarmType.SINK_CIRCUIT_OPEN
     KIND = "sink"
     DEGRADE_NOTE = "degrading to disk buffer"
     MAX_TRANSITIONS = 256
@@ -241,7 +243,7 @@ class SinkCircuitBreaker:
         self._note_transition("open")
 
     def _emit(self) -> None:
-        """Deliver transition side effects (log line, alarm count,
+        """Deliver transition side effects (log line, alarm,
         on_close) decided under the lock — outside it."""
         # unlocked pre-check: transitions are rare, and every send pays
         # is_open()/allow_probe() — the common no-transition path must not
@@ -258,10 +260,11 @@ class SinkCircuitBreaker:
             if kind == "open":
                 log.warning("%s circuit %s opened: %s", self.KIND,
                             self.name, why)
-                alarm_counts.alarm(
-                    alarm_counts.SINK_CIRCUIT_OPEN,
+                AlarmManager.instance().send_alarm(
+                    self.ALARM_TYPE,
                     f"{self.KIND} {self.name} circuit opened: {why}; "
-                    f"{self.DEGRADE_NOTE}", key=self.name)
+                    f"{self.DEGRADE_NOTE}",
+                    AlarmLevel.ERROR, pipeline=self.pipeline)
             elif kind == "close":
                 log.info("%s circuit %s re-closed", self.KIND, self.name)
                 if self.on_close is not None:

@@ -26,8 +26,8 @@ The port's copy of the JAX package's ``runner/disk_buffer.py``: the same
 file format, header keys (``event_cnt`` included), namespaces, caps and
 ``.lcb.bad`` quarantine, so a buffer either agent spills replays in the
 other.  The chaos points, trace events and flight records are left out
-(the port has none of those planes); the quarantine alarm is counted
-(``monitor/alarm_counts.py``).  One change: replays are serialized
+(the port has none of those planes); a quarantine raises the
+``SECONDARY_READ_WRITE`` alarm.  One change: replays are serialized
 (``_replay_lock``).  The JAX package's ``replay`` can run on the
 application's loop and on the flusher runner's thread at once, and both
 can read a file before either removes it, pushing its payload twice.
@@ -42,7 +42,8 @@ import time
 import uuid
 from typing import Callable, List, Optional
 
-from ..monitor import alarm_counts, ledger
+from ..monitor import ledger
+from ..monitor.alarms import AlarmLevel, AlarmManager, AlarmType
 from ..pipeline.queue.sender_queue import SenderQueueItem
 from ..utils.logger import get_logger
 
@@ -365,9 +366,10 @@ class DiskBufferWriter:
                           tag="quarantine")
             ledger.record(pipeline, ledger.B_QUARANTINE, events, size)
         log.error("malformed buffer file quarantined: %s.bad", path)
-        alarm_counts.alarm(
-            alarm_counts.SECONDARY_READ_WRITE,
-            f"malformed disk-buffer file quarantined ({size} bytes)")
+        AlarmManager.instance().send_alarm(
+            AlarmType.SECONDARY_READ_WRITE,
+            f"malformed disk-buffer file quarantined ({size} bytes)",
+            AlarmLevel.ERROR)
 
     def quarantined(self) -> List[str]:
         by_ns = self._walk_files(".lcb.bad")

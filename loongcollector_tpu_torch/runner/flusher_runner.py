@@ -18,9 +18,14 @@ same dispatch, ``_on_done`` verdicts, retry heap, AIMD feedback, spill
 after ``MAX_TRY_BEFORE_SPILL`` tries or on an open breaker, replay, and
 exit spill under ``enable_full_drain_mode``.  It books ``send_ok``,
 ``send_fail``, ``spill`` and the tagged ``drop``s at delivery and acks
-the source spans there (``ack_watermark``).  Alarms are counted
-(``monitor/alarm_counts.py``); the SLO, trace and profiler hooks are left
-out.  Two changes: the retry thread ends with the runner (``stop`` joins
+the source spans there (``ack_watermark``), observes the SLO plane's
+terminals at the same sites (``spill``, ``drop``, ``send_ok``; JAX package
+``:270``, ``:368``, ``:498-501``, ``:548-550``), raises the JAX package's
+alarms (``SEND_QUOTA_EXCEED``, ``SEND_FAIL``, ``DISCARD_DATA``; ``:450-466``)
+and observes each send's sink round trip (``sink_rtt_seconds``) and its
+payload's sender-queue wait (``sender_queue_wait_seconds``) into the
+runner's record (``:88-90``), the SLO budget breakdown's ``sink`` hop.  The
+trace and profiler hooks are left out.  Two changes: the retry thread ends with the runner (``stop`` joins
 it), and a send that fails after ``stop`` — a transfer the HTTP sink
 finished while it drained — is spilled at once (or, when the buffer
 refuses it, booked as a ``drop`` tagged ``exit_undelivered``) instead of
@@ -37,7 +42,8 @@ import time
 from collections import deque
 from typing import Any, Dict, Optional, Tuple
 
-from ..monitor import alarm_counts, ledger
+from ..monitor import ledger, slo
+from ..monitor.alarms import AlarmLevel, AlarmManager, AlarmType
 from ..monitor.metrics import MetricsRecord
 from ..pipeline.queue.limiter import RateLimiter
 from ..pipeline.queue.sender_queue import (SenderQueueItem,
@@ -61,6 +67,11 @@ flags.DEFINE_FLAG_BOOL("enable_full_drain_mode",
 
 # samples kept for the --stats medians (the newest ones)
 STAT_SAMPLES = 65536
+
+# observe-only handle of the live runner (the ledger's occupancy probe and
+# lag watermarks, /debug/status's breakers): set by ``init``, cleared by
+# ``stop``
+_active_runner = None
 
 
 class FlusherRunner:
@@ -93,8 +104,12 @@ class FlusherRunner:
                                      labels={"runner": "flusher"})
         self.out_items = self.metrics.counter("out_items_total")
         self.spilled_items = self.metrics.counter("spilled_items_total")
-        # dispatch → on_done time of each send attempt, and how long items
-        # sat in their sender queue before a dispatch picked them up
+        # dispatch → on_done latency per send attempt, and how long items
+        # sat in their sender queue before this dispatch picked them up
+        self.sink_rtt_hist = self.metrics.histogram("sink_rtt_seconds")
+        self.sender_wait_hist = self.metrics.histogram(
+            "sender_queue_wait_seconds")
+        # the same two times, kept as samples for the --stats medians
         self._stats_lock = threading.Lock()
         self.requests = 0
         self.request_bytes = 0
@@ -106,8 +121,10 @@ class FlusherRunner:
         self._stopped = False
 
     def init(self) -> None:
+        global _active_runner
         self._running = True
         self._stopped = False
+        _active_runner = self
         self._thread = threading.Thread(target=self._run, name="flusher-runner",
                                         daemon=True)
         self._thread.start()
@@ -163,6 +180,9 @@ class FlusherRunner:
     # -- lifecycle -----------------------------------------------------------
 
     def stop(self, drain: bool = True, timeout: float = 5.0) -> None:
+        global _active_runner
+        if _active_runner is self:
+            _active_runner = None
         if drain:
             deadline = time.monotonic() + timeout
             while not self.sqm.all_empty() and time.monotonic() < deadline:
@@ -277,6 +297,9 @@ class FlusherRunner:
         # durable on disk IS a terminal for the SOURCE span: the replay
         # path owns delivery from here, the checkpoint may advance
         ack_watermark.ack_spans(item.spans)
+        if slo.is_on():
+            slo.observe_stamps(self._ledger_pipeline(item), item.stamps,
+                               slo.OUTCOME_SPILL)
         self.spilled_items.add(1)
         if breaker is not None:
             breaker.note_spilled()
@@ -331,6 +354,9 @@ class FlusherRunner:
                 ledger.record(self._ledger_pipeline(item), ledger.B_DROP,
                               item.event_cnt, len(item.data), tag="no_sink")
             ack_watermark.ack_spans(item.spans)
+            if slo.is_on():
+                slo.observe_stamps(self._ledger_pipeline(item), item.stamps,
+                                   slo.OUTCOME_DROP)
             self._release_limiters(item)
             self.sqm.remove_item(item)
             return
@@ -353,6 +379,7 @@ class FlusherRunner:
             return
         item.in_flight = True
         wait = max(0.0, time.monotonic() - item.enqueue_time)
+        self.sender_wait_hist.observe(wait)
         with self._stats_lock:
             self.requests += 1
             self.request_bytes += len(request.body or b"")
@@ -370,6 +397,7 @@ class FlusherRunner:
         rtt = None
         if item.last_send_time:
             rtt = max(0.0, time.monotonic() - item.last_send_time)
+            self.sink_rtt_hist.observe(rtt)
         with self._stats_lock:
             self.status_counts[status] = self.status_counts.get(status,
                                                                 0) + 1
@@ -410,25 +438,23 @@ class FlusherRunner:
             # way — release a held probe slot without recording a sample
             breaker.on_inconclusive()
         if verdict == "retry_slow":
-            alarm_counts.alarm(alarm_counts.SEND_QUOTA_EXCEED,
-                               f"quota exceeded (status {status})",
-                               key=breaker.name)
+            AlarmManager.instance().send_alarm(
+                AlarmType.SEND_QUOTA_EXCEED,
+                f"quota exceeded (status {status})", AlarmLevel.WARNING)
         elif verdict == "retry":
-            alarm_counts.alarm(alarm_counts.SEND_FAIL,
-                               f"send failed (status {status}); "
-                               "backing off", key=breaker.name)
+            AlarmManager.instance().send_alarm(
+                AlarmType.SEND_FAIL, f"send failed (status {status}); "
+                "backing off", AlarmLevel.WARNING)
         elif verdict == "drop":
             # the exception fallback also lands here: the payload IS lost
             # either way, but operators must not read a local flusher bug
             # as a backend rejection
-            alarm_counts.alarm(
-                alarm_counts.DISCARD_DATA,
+            AlarmManager.instance().send_alarm(
+                AlarmType.DISCARD_DATA,
                 ("payload dropped: flusher callback failed "
                  if cb_failed else
                  "payload dropped after permanent rejection ")
-                + f"(status {status})", key=breaker.name)
-        else:
-            alarm_counts.end_episode(breaker.name)
+                + f"(status {status})", AlarmLevel.ERROR)
         if verdict in ("retry", "retry_slow"):
             # one failed attempt: the item stays inflight (retry heap or
             # spill), never double-counted — send_fail is informational.
@@ -469,6 +495,10 @@ class FlusherRunner:
         # sink accepted (or permanently rejected) the payload: terminal
         # for its SOURCE spans either way — the watermark moves
         ack_watermark.ack_spans(item.spans)
+        if slo.is_on():
+            slo.observe_stamps(self._ledger_pipeline(item), item.stamps,
+                               slo.OUTCOME_SEND_OK if verdict == "ok"
+                               else slo.OUTCOME_DROP)
         self.out_items.add(1)
         self.sqm.remove_item(item)
 
@@ -516,20 +546,27 @@ class FlusherRunner:
                                   item.event_cnt, len(item.data),
                                   tag="retry_orphaned")
                 ack_watermark.ack_spans(item.spans)
+                if slo.is_on():
+                    slo.observe_stamps(self._ledger_pipeline(item),
+                                       item.stamps, slo.OUTCOME_DROP)
 
     def _drop_undelivered(self, item: SenderQueueItem) -> None:
         """A payload that failed after ``stop`` and that the buffer
         refused: terminal, booked as a tagged drop."""
         log.error("payload of %d events undelivered at exit and not "
                   "spilled; dropped", item.event_cnt)
-        alarm_counts.alarm(alarm_counts.DISCARD_DATA,
-                           "payload undelivered at exit and not spilled")
+        AlarmManager.instance().send_alarm(
+            AlarmType.DISCARD_DATA,
+            "payload undelivered at exit and not spilled", AlarmLevel.ERROR)
         self._note_drop("exit_undelivered")
         if ledger.is_on():
             ledger.record(self._ledger_pipeline(item), ledger.B_DROP,
                           item.event_cnt, len(item.data),
                           tag="exit_undelivered")
         ack_watermark.ack_spans(item.spans)
+        if slo.is_on():
+            slo.observe_stamps(self._ledger_pipeline(item), item.stamps,
+                               slo.OUTCOME_DROP)
         self.sqm.remove_item(item)
 
     # -- stats ---------------------------------------------------------------

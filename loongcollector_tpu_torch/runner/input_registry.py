@@ -9,10 +9,10 @@ process-queue manager (``wire_all``) and stops them in order
 (``stop_all``) before the processor runner drains.
 
 Each entry: name, instance getter, stop method name, stop order (lower
-stops first).  The port registers the runners it has: the eBPF server at
-the reference's order 40 and the file server (tail mode's file input) at
-60.  The reference's self-monitor (10), host monitor (20), Prometheus (30)
-and gRPC forward (50) runners join with their modules.
+stops first).  The port registers the runners it has, at the reference's
+orders: the self-monitor server (10), the eBPF server (40) and the file
+server (tail mode's file input, 60).  The reference's host monitor (20),
+Prometheus (30) and gRPC forward (50) runners join with their modules.
 """
 
 from __future__ import annotations
@@ -78,7 +78,10 @@ def register_builtin_runners() -> None:
     """Declarative matrix of the port's singleton runners (idempotent)."""
     from ..input.ebpf.server import EBPFServer
     from ..input.file.file_server import FileServer
+    from ..monitor.self_monitor import SelfMonitorServer
 
+    InputRunnerRegistry.register("self_monitor", SelfMonitorServer.instance,
+                                 stop_order=10)
     InputRunnerRegistry.register("ebpf", EBPFServer.instance, stop_order=40)
     InputRunnerRegistry.register("file_server", FileServer.instance,
                                  stop_order=60)

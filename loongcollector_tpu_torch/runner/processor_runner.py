@@ -43,9 +43,15 @@ and exits non-zero.  Nothing re-runs a group another way.
 
 With the ledger on, a group whose device work stays in flight is booked
 device_submit when it enters its lane and device_materialize when it
-completes, and a failed group is a reason-tagged drop.  Left out of the
-port: the SLO, ack-watermark, tracer, profiler and flight-recorder hooks,
-the lane breaker and the alarms.  Once a second a worker (the dispatch loop
+completes, and a failed group is a reason-tagged drop; the groups between
+a pop and their next counted station are counted in hand
+(``in_hand_count``, the ledger's occupancy probe; JAX package
+``processor_runner.py:399-409``).  With the SLO plane on, a failed group
+and a group with no pipeline are its drop terminals (JAX package
+``:727-738``, ``:800-801``).  ``_active_runner`` is the live runner, for
+the planes that observe it.  Left out of the port: the ack-watermark,
+tracer, profiler and flight-recorder hooks and the lane breaker.  A push
+refused after its retries raises ``PROCESS_QUEUE_FULL``.  Once a second a worker (the dispatch loop
 when sharded) pumps the ``TimeoutFlushManager`` and the auto-tuner.
 """
 
@@ -62,7 +68,7 @@ from typing import List, Optional, Tuple
 import torch
 
 from ..models import EventGroupMetaKey, PipelineEventGroup
-from ..monitor import ledger
+from ..monitor import ledger, slo
 from ..ops import chip_lanes
 from ..ops.device_plane import (bind_thread_streams, current_tenant,
                                 note_host_backlog, set_budget_relief,
@@ -87,6 +93,11 @@ ENV_THREADS = "LOONG_PROCESS_THREADS"
 INBOX_CAPACITY = 4
 
 _SOURCE_TAG = b"__source__"
+
+# observe-only handle of the live runner for the ledger's occupancy probe,
+# the runtime gauges and /debug/status: set by ``init``, cleared by
+# ``stop``; never constructed through it
+_active_runner = None
 
 
 def resolve_thread_count(env=os.environ) -> int:
@@ -171,6 +182,10 @@ class WorkerLane:
     def busy(self) -> bool:
         with self._lock:
             return bool(self._pending)
+
+    def pending_count(self) -> int:
+        with self._lock:
+            return len(self._pending)
 
     def full(self) -> bool:
         with self._lock:
@@ -285,6 +300,10 @@ class ProcessorRunner:
         self._adjust_claim = threading.Lock()
         self.error: Optional[BaseException] = None
         self.groups_failed = 0
+        # groups between a queue or inbox pop and their next counted
+        # station (a lane, a send): the ledger's live-occupancy probe
+        self._in_hand = 0
+        self._in_hand_lock = threading.Lock()
 
     # -- producer API -------------------------------------------------------
 
@@ -296,13 +315,20 @@ class ProcessorRunner:
             time.sleep(0.01)
         log.warning("push rejected after %d retries (queue %d)",
                     retry_times, key)
+        from ..monitor.alarms import AlarmLevel, AlarmManager, AlarmType
+        AlarmManager.instance().send_alarm(
+            AlarmType.PROCESS_QUEUE_FULL,
+            f"push rejected after {retry_times} retries (queue {key})",
+            AlarmLevel.WARNING)
         return False
 
     # -- lifecycle ----------------------------------------------------------
 
     def init(self) -> None:
+        global _active_runner
         self._running = True
         self._lanes = [WorkerLane(i) for i in range(self.thread_count)]
+        _active_runner = self
         if self.thread_count == 1:
             t = threading.Thread(target=self._guarded,
                                  args=(self._run_single, 0),
@@ -338,6 +364,9 @@ class ProcessorRunner:
     def stop(self) -> None:
         """Stop popping, drain what the queues, inboxes and lanes hold, and
         join the threads."""
+        global _active_runner
+        if _active_runner is self:
+            _active_runner = None
         self._running = False
         self.pqm.wake_up()
         if self._dispatch_thread is not None:
@@ -372,10 +401,29 @@ class ProcessorRunner:
     def lane_overlap(self) -> List[float]:
         return [lane.overlap_ratio() for lane in self._lanes]
 
+    def inbox_depths(self) -> List[int]:
+        """Queued groups per worker inbox (empty with one worker: no
+        dispatch hop)."""
+        return [len(ib) for ib in self._inboxes]
+
+    def _note_in_hand(self, delta: int) -> None:
+        # clamped at zero: the ledger can come on mid-run, making the
+        # first decrement unpaired
+        with self._in_hand_lock:
+            self._in_hand = max(0, self._in_hand + delta)
+
+    def in_hand_count(self) -> int:
+        """Groups between a queue or inbox pop and their next counted
+        station."""
+        with self._in_hand_lock:
+            return self._in_hand
+
     def _note_failure(self, what: str, pipeline, groups,
                       exc: BaseException) -> None:
         log.error("pipeline %s %s failed", pipeline.name, what,
                   exc_info=exc)
+        if slo.is_on():
+            slo.observe_groups(pipeline.name, groups, slo.OUTCOME_DROP)
         if ledger.is_on():
             ledger.record(pipeline.name, ledger.B_DROP,
                           sum(len(g) for g in groups),
@@ -429,8 +477,16 @@ class ProcessorRunner:
     def _handle_routed_run(self,
                            run: Tuple[int, List[PipelineEventGroup]]) -> None:
         key, groups = run
-        for group in groups:
-            self._route((key, group))
+        self._note_in_hand(len(groups))
+        left = len(groups)
+        try:
+            for group in groups:
+                self._route((key, group))
+                self._note_in_hand(-1)
+                left -= 1
+        finally:
+            if left:        # a raising route must not leave phantom in-hand
+                self._note_in_hand(-left)
 
     def _route(self, item: Tuple[int, PipelineEventGroup]) -> None:
         key, group = item
@@ -558,15 +614,22 @@ class ProcessorRunner:
         """One popped run, group by group: dispatch, advance the lane, put
         the new group in the lane.  Dispatch is per group so that a group's
         budget wait can always be relieved by its lane."""
-        for group in groups:
-            if lane is None:
-                self._process_one(key, group)
-                continue
-            nxt = self._dispatch_one(key, group, lane=lane)
-            # dispatch before advance is the overlap: the device holds
-            # group N+1 while the oldest lane entry completes
-            self._advance_ring(lane)
-            lane.put(nxt)
+        led = ledger.is_on()
+        if led:
+            self._note_in_hand(len(groups))
+        try:
+            for group in groups:
+                if lane is None:
+                    self._process_one(key, group)
+                    continue
+                nxt = self._dispatch_one(key, group, lane=lane)
+                # dispatch before advance is the overlap: the device holds
+                # group N+1 while the oldest lane entry completes
+                self._advance_ring(lane)
+                lane.put(nxt)
+        finally:
+            if led:
+                self._note_in_hand(-len(groups))
 
     def _dispatch_one(self, key: int, group: PipelineEventGroup,
                       lane: Optional[WorkerLane] = None):
@@ -576,6 +639,10 @@ class ProcessorRunner:
         pipeline = self.pipeline_manager.find_pipeline_by_queue_key(key)
         if pipeline is None:
             log.warning("no pipeline for queue key %d; dropping group", key)
+            if slo.is_on():
+                q = self.pqm.get_queue(key)
+                slo.observe_groups(q.pipeline_name if q is not None else "",
+                                   [group], slo.OUTCOME_DROP)
             self._note_settled(1)
             return None
         groups = [group]
@@ -615,6 +682,11 @@ class ProcessorRunner:
 
     def _complete(self, pending) -> None:
         pipeline, groups, finish = pending
+        # taken off its lane: in hand until sent (a stable ledger must not
+        # fake a quiesce while the group finishes)
+        led = ledger.is_on()
+        if led:
+            self._note_in_hand(1)
         # completion may run from the relief hook inside another
         # pipeline's submit wait: restore the tenant rather than clear it
         prev_tenant = current_tenant()
@@ -630,6 +702,8 @@ class ProcessorRunner:
                               sum(len(g) for g in groups))
             self._send(pipeline, groups)
         finally:
+            if led:
+                self._note_in_hand(-1)
             set_thread_tenant(prev_tenant)
 
     def _send(self, pipeline, groups) -> None:

@@ -44,6 +44,7 @@ from loongcollector_tpu_torch.runner.processor_runner import ProcessorRunner
 from loongcollector_tpu_torch.testdata import APACHE, gen_lines
 
 import test_torch_pipeline as tp
+from test_torch_alarms import alarms_left_empty  # noqa: F401
 
 CPU = torch.device("cpu")
 

@@ -46,6 +46,7 @@ from loongcollector_tpu_torch.processor.parse_regex import \
     ProcessorParseRegex
 from loongcollector_tpu_torch.processor.split_log_string import \
     ProcessorSplitLogString
+from test_torch_alarms import alarms_left_empty  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 RULES = [{"Name": n, "Regex": r} for n, r in td.URL_RULES]

@@ -28,6 +28,7 @@ from loongcollector_tpu_torch.ops import device_plane as port_dp
 from loongcollector_tpu_torch.ops import device_stream as port_stream
 from loongcollector_tpu_torch.ops import xprof
 from loongcollector_tpu_torch.ops.regex import engine as port_engine
+from test_torch_alarms import alarms_left_empty  # noqa: F401
 
 
 @pytest.fixture(autouse=True)

@@ -15,6 +15,7 @@ from loongcollector_tpu.ops import device_stream as ref_stream
 from loongcollector_tpu_torch.ops import device_plane as port_dp
 from loongcollector_tpu_torch.ops import device_stream as port_stream
 from loongcollector_tpu_torch.ops.device_batch import pack_rows
+from test_torch_alarms import alarms_left_empty  # noqa: F401
 
 PAIRS = [(ref_dp, ref_stream), (port_dp, port_stream)]
 

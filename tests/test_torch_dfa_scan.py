@@ -43,6 +43,7 @@ from loongcollector_tpu_torch.testdata import (BIT31_SET, JAVA_CONTINUE,
                                                JAVA_FILTER, JAVA_START,
                                                LIMIT_DFA, NEAR_CAP_SET,
                                                gen_java_log)
+from test_torch_alarms import alarms_left_empty  # noqa: F401
 
 JAVA_SET = [JAVA_START, JAVA_CONTINUE]
 

@@ -23,6 +23,7 @@ from loongcollector_tpu_torch.input.ebpf import adapter
 from loongcollector_tpu_torch.input.ebpf.adapter import (
     ABI_VERSION, AbiMismatch, CDriver, CEvent, EventSource, RawKernelEvent,
     SoAdapter, default_driver_path)
+from test_torch_alarms import alarms_left_empty  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 HEADER = os.path.join(REPO, "native", "ebpf_driver_abi.h")

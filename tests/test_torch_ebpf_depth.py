@@ -26,6 +26,7 @@ from loongcollector_tpu_torch.input.ebpf import adapter
 from loongcollector_tpu_torch.input.ebpf import connections
 from loongcollector_tpu_torch.input.ebpf import proc_tree
 from loongcollector_tpu_torch.testdata import ebpf_stream
+from test_torch_alarms import alarms_left_empty  # noqa: F401
 
 PKGS = {
     "ref": types.SimpleNamespace(models=ref_models, adapter=ref_adapter,

@@ -21,6 +21,7 @@ from loongcollector_tpu_torch.input.ebpf import protocol_http
 from loongcollector_tpu_torch.input.ebpf import protocol_mysql
 from loongcollector_tpu_torch.input.ebpf import protocol_redis
 from loongcollector_tpu_torch.testdata import ebpf_stream
+from test_torch_alarms import alarms_left_empty  # noqa: F401
 
 # the recorded byte streams of tests/test_ebpf_protocols.py
 _SQL = b"select * from users limit 5"

@@ -41,6 +41,7 @@ from loongcollector_tpu_torch import application
 from loongcollector_tpu_torch.input.ebpf import adapter
 from loongcollector_tpu_torch.input.ebpf import server
 from loongcollector_tpu_torch.input.file.file_server import FileServer
+from loongcollector_tpu_torch.monitor.self_monitor import SelfMonitorServer
 from loongcollector_tpu_torch.pipeline.plugin.interface import PluginContext
 from loongcollector_tpu_torch.pipeline.plugin.registry import PluginRegistry
 from loongcollector_tpu_torch.pipeline.queue.process_queue_manager import \
@@ -50,6 +51,7 @@ from loongcollector_tpu_torch.processor.classify_url import \
 from loongcollector_tpu_torch.runner import input_registry
 from loongcollector_tpu_torch.testdata import (URL_RULES, ebpf_mismatches,
                                                ebpf_stream)
+from test_torch_alarms import alarms_left_empty  # noqa: F401
 
 NOW = 1_700_000_123.0
 RULES = [{"Name": n, "Regex": r} for n, r in URL_RULES]
@@ -273,21 +275,25 @@ def test_input_registry_stops_in_order(monkeypatch):
     reg = input_registry.InputRunnerRegistry
     reg.register("late", lambda: late, stop_method="halt", stop_order=60)
     reg.register("early", lambda: early, stop_order=10)
-    # the file server (tail mode's file input) stops at the reference's 60
-    assert [e.name for e in reg.entries()] == ["early", "ebpf",
-                                               "file_server", "late"]
-    assert reg.entries()[1].instance == server.EBPFServer.instance
-    assert reg.entries()[2].instance == FileServer.instance
+    # the self-monitor server stops at the reference's 10, the file server
+    # (tail mode's file input) at 60
+    assert [e.name for e in reg.entries()] == ["self_monitor", "early",
+                                               "ebpf", "file_server", "late"]
+    assert reg.entries()[0].instance == SelfMonitorServer.instance
+    assert reg.entries()[2].instance == server.EBPFServer.instance
+    assert reg.entries()[3].instance == FileServer.instance
     pqm = ProcessQueueManager()
     try:
         reg.wire_all(pqm)
         assert late.process_queue_manager is pqm
         assert server.EBPFServer.instance().process_queue_manager is pqm
         assert FileServer.instance().process_queue_manager is pqm
+        assert SelfMonitorServer.instance().process_queue_manager is pqm
         reg.stop_all()
         assert stopped == ["early", "late.halt"]
     finally:
         FileServer.reset_for_testing()
+        SelfMonitorServer._instance = None
 
 
 def _configs(tmp_path):

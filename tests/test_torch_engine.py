@@ -28,6 +28,7 @@ from loongcollector_tpu_torch.ops.device_plane import (DevicePlane,
 from loongcollector_tpu_torch.ops.regex import engine as port_engine
 from loongcollector_tpu_torch.ops.regex.program import PatternTier
 from loongcollector_tpu_torch.testdata import APACHE, gen_lines
+from test_torch_alarms import alarms_left_empty  # noqa: F401
 
 
 def _layout(lines):

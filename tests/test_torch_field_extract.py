@@ -29,6 +29,7 @@ from loongcollector_tpu_torch.ops.regex.program import \
 from test_fuzz_generative import (CLASSES, LITERALS, PIVOT_FORMS, gen_inputs,
                                   gen_pattern)
 from test_pallas_kernel import PATTERNS, _inputs_for
+from test_torch_alarms import alarms_left_empty  # noqa: F401
 
 
 def _batch(lines, L=None, B=None):

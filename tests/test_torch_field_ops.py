@@ -32,6 +32,7 @@ from loongcollector_tpu_torch.processor.parse_regex import \
     ProcessorParseRegex
 from loongcollector_tpu_torch.processor.split_log_string import \
     ProcessorSplitLogString
+from test_torch_alarms import alarms_left_empty  # noqa: F401
 
 PKGS = {
     "ref": (RefGroup, RefSourceBuffer, RefSplit, RefParse, ref_ops,

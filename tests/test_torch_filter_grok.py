@@ -43,6 +43,7 @@ from loongcollector_tpu_torch.processor.split_log_string import \
     ProcessorSplitLogString
 from loongcollector_tpu_torch.testdata import (JAVA_FILTER, JAVA_PARSE,
                                                gen_java_log, gen_lines)
+from test_torch_alarms import alarms_left_empty  # noqa: F401
 
 
 @pytest.fixture(autouse=True)

@@ -28,6 +28,7 @@ from loongcollector_tpu_torch.testdata import (BIT31_SET, JAVA_CONTINUE,
                                                JAVA_FILTER, JAVA_START,
                                                LIMIT_DFA, NEAR_CAP_SET,
                                                gen_java_log, gen_lines)
+from test_torch_alarms import alarms_left_empty  # noqa: F401
 
 DFA_PATTERNS = [
     r"(?:GET|POST|PUT) /\S*", r"(?:ab)+x", r"(?:GET|POST|DELETE|PUT|HEAD) .*",

@@ -50,6 +50,7 @@ from loongcollector_tpu_torch.ops.device_plane import (DevicePlane,
 from loongcollector_tpu_torch.pipeline.fused_chain import (FusionPlanContext,
                                                            plan_fusion)
 from loongcollector_tpu_torch.pipeline.pipeline import CollectionPipeline
+from test_torch_alarms import alarms_left_empty  # noqa: F401
 
 CPU = torch.device("cpu")
 RX = td.THREE_STAGE_RX

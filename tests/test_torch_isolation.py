@@ -111,8 +111,14 @@ SEND_MODULES = [
     "pipeline.compression", "utils.payload_crypto", "runner.disk_buffer",
     "runner.circuit", "runner.http_sink", "runner.flusher_runner",
     "pipeline.serializer.sls_serializer", "flusher.http",
-    "flusher.http_base", "flusher.prometheus_rw", "monitor.alarm_counts",
+    "flusher.http_base", "flusher.prometheus_rw", "monitor.alarms",
     "flusher", "application", "native",
+]
+
+OBSERVABILITY_MODULES = [
+    "monitor.alarms", "monitor.fail_soft", "monitor.slo", "monitor.ledger",
+    "monitor.self_monitor", "monitor.runtime_stats", "monitor.exposition",
+    "input.internal", "monitor", "application",
 ]
 
 _PROBE_EACH = """
@@ -209,12 +215,52 @@ def test_send_modules_load_no_jax():
     assert all(bad == [] for bad in res.values()), res
 
 
+def test_observability_modules_load_no_jax():
+    """The self-observability planes (alarms, SLO, ledger and auditor,
+    self-monitor and the internal inputs, runtime gauges, the endpoint),
+    imported one after the other in a fresh interpreter, load neither JAX
+    nor the JAX package."""
+    out = subprocess.run([sys.executable, "-c", _PROBE_EACH,
+                          *OBSERVABILITY_MODULES], cwd=REPO,
+                         capture_output=True, text=True, timeout=120,
+                         check=True)
+    res = json.loads(out.stdout.strip().splitlines()[-1])
+    assert sorted(res) == sorted(OBSERVABILITY_MODULES)
+    assert all(bad == [] for bad in res.values()), res
+
+
+_PROBE_THREADS = """
+import importlib, json, os, sys, threading
+for k in ("LOONG_SLO", "LOONG_LEDGER", "LOONG_LEDGER_AUDIT",
+          "LOONG_EXPO_PORT"):
+    os.environ.pop(k, None)
+for name in sys.argv[1:]:
+    importlib.import_module("loongcollector_tpu_torch." + name)
+from loongcollector_tpu_torch.monitor import ledger, slo
+print(json.dumps({"threads": sorted(t.name for t in threading.enumerate()),
+                  "slo": slo.is_on(), "ledger": ledger.is_on()}))
+"""
+
+
+def test_planes_start_no_thread_on_import():
+    """Importing the planes turns nothing on: no evaluator, auditor,
+    self-monitor or endpoint thread, the SLO plane and the ledger off."""
+    out = subprocess.run([sys.executable, "-c", _PROBE_THREADS,
+                          *OBSERVABILITY_MODULES], cwd=REPO,
+                         capture_output=True, text=True, timeout=120,
+                         check=True)
+    res = json.loads(out.stdout.strip().splitlines()[-1])
+    assert res == {"threads": ["MainThread"], "slo": False,
+                   "ledger": False}, res
+
+
 def _sources():
     for root, _dirs, files in os.walk(PORT):
         for fn in files:
             if fn.endswith(".py"):
                 yield os.path.join(root, fn)
     yield os.path.join(REPO, "chip_smoke.py")
+    yield os.path.join(REPO, "chip_probe.py")
 
 
 def test_no_jax_imports_in_port_sources():

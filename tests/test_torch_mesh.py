@@ -55,6 +55,7 @@ from loongcollector_tpu_torch.testdata import APACHE, gen_lines
 from loongcollector_tpu_torch.utils.device import NoCudaDevice
 
 import test_torch_pipeline as tp
+from test_torch_alarms import alarms_left_empty  # noqa: F401
 
 PAT = r"(\w+):(\d+)"
 EMPTY = r"(\w*)"             # matches the empty string: pad rows are ok

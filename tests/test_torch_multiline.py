@@ -52,6 +52,7 @@ from loongcollector_tpu_torch.testdata import (JAVA_CONTINUE, JAVA_FILTER,
                                                JAVA_START, gen_java_log,
                                                java_filter_config,
                                                java_oracle, java_records)
+from test_torch_alarms import alarms_left_empty  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 END = r"\t\.\.\. \d+ more"

@@ -63,6 +63,7 @@ from loongcollector_tpu_torch.processor.parse_delimiter import (
     ProcessorParseDelimiter as PortDelimiter, _csv_fsm_split)
 from loongcollector_tpu_torch.processor.split_log_string import (
     ProcessorSplitLogString as PortSplit)
+from test_torch_alarms import alarms_left_empty  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

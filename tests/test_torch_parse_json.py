@@ -43,6 +43,7 @@ from loongcollector_tpu_torch.processor.parse_json import (  # noqa: E402
     ProcessorParseJson as PortParseJson)
 from loongcollector_tpu_torch.processor.split_log_string import (  # noqa: E402
     ProcessorSplitLogString as PortSplit)
+from test_torch_alarms import alarms_left_empty  # noqa: F401
 
 
 @pytest.fixture(autouse=True)

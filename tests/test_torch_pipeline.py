@@ -37,6 +37,7 @@ from loongcollector_tpu_torch.ops.device_plane import (DevicePlane,
                                                        mem_live_bytes)
 from loongcollector_tpu_torch.ops.kernels.field_extract import ExtractKernel
 from loongcollector_tpu_torch.testdata import gen_lines
+from test_torch_alarms import alarms_left_empty  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 YAML = os.path.join(REPO, "example_config", "quick_start",

@@ -24,6 +24,7 @@ from loongcollector_tpu_torch.ops.regex.program import \
 
 from test_fuzz_generative import gen_pattern
 from test_pallas_kernel import PATTERNS
+from test_torch_alarms import alarms_left_empty  # noqa: F401
 
 
 def _generated(seed, want=10):

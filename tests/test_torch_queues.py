@@ -14,6 +14,7 @@ from loongcollector_tpu_torch.models import SourceBuffer as PortBuffer
 from loongcollector_tpu_torch.pipeline.queue import bounded_queue as port_bq
 from loongcollector_tpu_torch.pipeline.queue import \
     process_queue_manager as port_pqm
+from test_torch_alarms import alarms_left_empty  # noqa: F401
 
 SIDES = {"reference": (ref_bq, ref_pqm, RefGroup),
          "port": (port_bq, port_pqm, PortGroup)}

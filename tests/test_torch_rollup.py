@@ -52,6 +52,7 @@ from loongcollector_tpu_torch.monitor import ledger as port_ledger  # noqa: E402
 from loongcollector_tpu_torch.ops.kernels import segment_reduce as sr  # noqa: E402
 from loongcollector_tpu_torch.pipeline.plugin.interface import (  # noqa: E402
     PluginContext as PortContext)
+from test_torch_alarms import alarms_left_empty  # noqa: F401
 
 TOL = 1e-5    # rtol = atol: scripts/agg_equivalence.py:163
 PIPE = "agg-test"

@@ -36,6 +36,7 @@ from loongcollector_tpu_torch.pipeline.pipeline_manager import \
 from loongcollector_tpu_torch.pipeline.queue.process_queue_manager import \
     ProcessQueueManager
 from loongcollector_tpu_torch.runner import processor_runner as port_runner
+from test_torch_alarms import alarms_left_empty  # noqa: F401
 
 CPU = torch.device("cpu")
 

@@ -37,6 +37,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 from loongcollector_tpu.ops.kernels import segment_reduce as ref  # noqa: E402
 from loongcollector_tpu_torch import testdata as td  # noqa: E402
 from loongcollector_tpu_torch.ops.kernels import segment_reduce as sr  # noqa: E402
+from test_torch_alarms import alarms_left_empty  # noqa: E402,F401
 
 TOL = 1e-5    # rtol = atol: scripts/agg_equivalence.py:163
 

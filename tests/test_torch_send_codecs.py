@@ -25,6 +25,7 @@ from loongcollector_tpu_torch.pipeline import compression as port_comp
 from loongcollector_tpu_torch.pipeline.serializer import \
     sls_serializer as port_sls
 from loongcollector_tpu_torch.utils import payload_crypto as port_crypto
+from test_torch_alarms import alarms_left_empty  # noqa: F401
 
 
 def _payloads():

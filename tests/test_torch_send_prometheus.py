@@ -33,6 +33,7 @@ from loongcollector_tpu_torch.aggregator.metric_rollup import \
 from loongcollector_tpu_torch.flusher import prometheus_rw as port_prom
 from loongcollector_tpu_torch.pipeline.plugin.interface import \
     PluginContext as PortContext
+from test_torch_alarms import alarms_left_empty  # noqa: F401
 
 PIPE = "rollup"
 

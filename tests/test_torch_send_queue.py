@@ -24,6 +24,7 @@ from loongcollector_tpu_torch.pipeline.batch.timeout_flush_manager import \
     TimeoutFlushManager
 from loongcollector_tpu_torch.pipeline.queue import limiter as port_limiter
 from loongcollector_tpu_torch.pipeline.queue import sender_queue as port_sq
+from test_torch_alarms import alarms_left_empty  # noqa: F401
 
 SIDES = {"reference": (ref_models, ref_batcher, ref_fs, ref_limiter, ref_sq),
          "port": (port_models, port_batcher, port_fs, port_limiter,

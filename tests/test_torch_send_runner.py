@@ -36,7 +36,8 @@ from loongcollector_tpu.runner import flusher_runner as ref_fr
 from loongcollector_tpu.runner import http_sink as ref_hs
 from loongcollector_tpu.utils import payload_crypto as ref_crypto
 from loongcollector_tpu_torch.flusher import http as port_http
-from loongcollector_tpu_torch.monitor import alarm_counts
+from loongcollector_tpu.monitor.alarms import AlarmManager as RefAlarms
+from loongcollector_tpu_torch.monitor.alarms import AlarmManager, AlarmType
 from loongcollector_tpu_torch.monitor import ledger as port_ledger
 from loongcollector_tpu_torch.pipeline.queue import limiter as port_limiter
 from loongcollector_tpu_torch.pipeline.queue import sender_queue as port_sq
@@ -45,6 +46,7 @@ from loongcollector_tpu_torch.runner import disk_buffer as port_db
 from loongcollector_tpu_torch.runner import flusher_runner as port_fr
 from loongcollector_tpu_torch.runner import http_sink as port_hs
 from loongcollector_tpu_torch.utils import payload_crypto as port_crypto
+from test_torch_alarms import alarms_left_empty  # noqa: F401
 
 SIDES = {
     "reference": dict(sq=ref_sq, limiter=ref_limiter, fr=ref_fr, hs=ref_hs,
@@ -59,8 +61,11 @@ def short_backoff(monkeypatch):
     for fr in (ref_fr, port_fr):
         monkeypatch.setattr(fr, "RETRY_BASE_S", 0.02)
         monkeypatch.setattr(fr, "RETRY_MAX_S", 0.25)
-    alarm_counts.reset()
+    AlarmManager.instance().reset()
+    RefAlarms.instance().flush()
     yield
+    AlarmManager.instance().reset()
+    RefAlarms.instance().flush()
     alive = [t.name for t in threading.enumerate()
              if t.name in ("flusher-runner", "flusher-retry")
              or t.name.startswith("http-sink")]
@@ -243,8 +248,13 @@ def test_breaker_trips_spills_and_recovers(server_factory, tmp_path):
     assert res["port"][3].replayed == res["port"][3].spilled
     row = snap["p"]
     assert row["spill"]["events"] == row["replay"]["events"] > 0
-    assert alarm_counts.counts().get("SINK_CIRCUIT_OPEN", 0) >= 1
-    assert alarm_counts.counts().get("SEND_FAIL", 0) >= 1
+    totals = AlarmManager.instance().totals()
+    assert totals.get("SINK_CIRCUIT_OPEN", 0) >= 1
+    assert totals.get("SEND_FAIL", 0) >= 1
+    docs = {d["alarm_type"]: d for d in AlarmManager.instance().flush()}
+    opened = docs[AlarmType.SINK_CIRCUIT_OPEN.value]
+    assert opened["alarm_level"] == "error" and opened["pipeline"] == "p"
+    assert docs[AlarmType.SEND_FAIL.value]["alarm_level"] == "warning"
 
 
 class _Target:
@@ -297,7 +307,10 @@ def test_spill_files_replay_across_packages(tmp_path, writer):
         [os.path.basename(files[1]) + ".bad"]
     if reader == "port":
         assert rbuf.quarantined_files == 1 and rbuf.replayed == 3
-        assert alarm_counts.counts()["SECONDARY_READ_WRITE"] == 1
+        assert AlarmManager.instance().totals()["SECONDARY_READ_WRITE"] == 1
+        [doc] = AlarmManager.instance().flush()
+        assert doc["alarm_type"] == AlarmType.SECONDARY_READ_WRITE.value
+        assert doc["alarm_level"] == "error"
 
 
 def test_exit_spill_replays_on_a_new_runner(server_factory, tmp_path):

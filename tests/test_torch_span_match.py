@@ -32,6 +32,7 @@ from loongcollector_tpu_torch.ops.kernels import dfa_scan, dfa_scan_cuda
 from loongcollector_tpu_torch.ops.kernels.dfa_scan import (
     DFASpanMatchKernel, LazySpanMatchKernel)
 from loongcollector_tpu_torch.ops.regex.dfa import compile_dfa
+from test_torch_alarms import alarms_left_empty  # noqa: F401
 
 PATTERNS = [r"[45]\d\d", "/health", td.JAVA_FILTER, r"(?:ab)+x", r"\d*",
             td.LIMIT_DFA]

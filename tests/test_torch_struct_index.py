@@ -44,6 +44,7 @@ from loongcollector_tpu_torch.ops.device_batch import (LENGTH_BUCKETS,
                                                        pick_length_bucket)
 from loongcollector_tpu_torch.ops.kernels import struct_index as si
 from loongcollector_tpu_torch.ops.kernels import struct_index_cuda as sic
+from test_torch_alarms import alarms_left_empty  # noqa: F401
 
 LENGTHS = [1, 15, 16, 17, 33, 128, 512]
 MODES = [(si.MODE_JSON, 0x2C), (si.MODE_DELIM, 0x2C), (si.MODE_DELIM, 0x7C)]

@@ -37,6 +37,7 @@ from loongcollector_tpu_torch.input.file import checkpoint as port_checkpoint
 from loongcollector_tpu_torch.input.file import reader as port_reader
 from loongcollector_tpu_torch.input.file.file_server import FileServer
 from loongcollector_tpu_torch.runner import ack_watermark as port_ack
+from test_torch_alarms import alarms_left_empty  # noqa: F401
 
 PKGS = {
     "port": (port_ack, port_checkpoint, port_reader, port_recovery),

@@ -33,6 +33,7 @@ from loongcollector_tpu_torch.input.file import checkpoint as port_checkpoint
 from loongcollector_tpu_torch.input.file import reader as port_reader
 from loongcollector_tpu_torch.input.file.file_server import FileServer
 from loongcollector_tpu_torch.runner import ack_watermark
+from test_torch_alarms import alarms_left_empty  # noqa: F401
 
 META = ("log.file.offset", "log.file.length", "log.file.crc32",
         "log.file.inode", "log.file.dev", "log.file.path",

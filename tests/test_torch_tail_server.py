@@ -10,7 +10,7 @@ package's, and the port's tail agent against the JAX package's.
   with excludes, files created later, ``TailExisted`` off): each server
   pushes every line, in order per file, and the two push the same lines.
 * The reader ceiling (``max_file_reader_num``) and the read-delay alarm,
-  counted where the JAX package raises its alarms.
+  raised on both packages' alarm planes alike.
 * A multiline record held open in the file ships by the timeouts (the
   reader's hold, then split_multiline's carry on the pipeline's timeout
   tick) while the source stays idle.
@@ -58,6 +58,7 @@ from loongcollector_tpu_torch.pipeline.queue.process_queue_manager import \
 from loongcollector_tpu_torch.processor import split_multiline
 from loongcollector_tpu_torch.runner import ack_watermark
 from loongcollector_tpu_torch.utils import flags as port_flags
+from test_torch_alarms import alarms_left_empty  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _TIME = re.compile(rb'"__time__": \d+')
@@ -298,7 +299,12 @@ def test_reader_ceiling_and_delay_alarms_are_counted(tmp_path, monkeypatch):
     for i in range(4):
         (tmp_path / f"r{i}.log").write_bytes(b"x" * 200 + b"\n")
     from loongcollector_tpu.monitor.alarms import AlarmManager
+    from loongcollector_tpu_torch.monitor.alarms import \
+        AlarmManager as PortAlarms
+    AlarmManager.instance().flush()
+    PortAlarms.instance().reset()
     counts = []
+    raised = []
     for fs_cls, pqm_cls, disc in ((FileServer, ProcessQueueManager,
                                    FileDiscoveryConfig),
                                   (RefFileServer, RefPQM, RefDiscovery)):
@@ -314,14 +320,26 @@ def test_reader_ceiling_and_delay_alarms_are_counted(tmp_path, monkeypatch):
         fs._round()
         counts.append(fs._reader_count())
         if fs_cls is FileServer:
-            assert fs.alarm_counts["FILE_READER_EXCEED"] >= 1
-            assert fs.alarm_counts["READ_LOG_DELAY"] == 2
+            totals = PortAlarms.instance().totals()
+            assert totals["FILE_READER_EXCEED"] >= 1
+            assert totals["READ_LOG_DELAY"] == 2
+            assert fs.status()["alarms"] == totals
+        mgr = PortAlarms if fs_cls is FileServer else AlarmManager
+        raised.append(sorted(
+            (d["alarm_type"], d["alarm_level"], d["pipeline"],
+             d["alarm_message"].replace(str(tmp_path), "<dir>"))
+            for d in mgr.instance().flush()))
         fs.stop()
         for st in list(fs._configs):
             fs.remove_config(st)
     # the JAX package's alarms stay out of later tests in this worker
     AlarmManager.instance().flush()
+    PortAlarms.instance().reset()
     assert counts == [2, 2]
+    # both raise the same alarms, at the same levels, with one message
+    assert raised[0] == raised[1]
+    assert {r[0] for r in raised[0]} == {"FILE_READER_EXCEED_ALARM",
+                                          "READ_LOG_DELAY_ALARM"}
 
 
 def _empty_group(pqm_cls):
