@@ -28,8 +28,8 @@ Phases, each of which exits non-zero on failure:
    padding rows.  Bit-exact on (ok, cap_off, cap_len), and both agree with
    a ``re.fullmatch`` oracle.  Every kernel instantiation must launch, as
    ``field_extract_cuda.launch()`` records its launches.
-3. main path: a seeded 300,000-line Apache access log (the first half of
-   the tail phases' 600,000 lines) runs through
+3. main path: a seeded 300,000-line Apache access log (the first 300,000
+   of the tail phases' 400,000 lines) runs through
    ``python -m loongcollector_tpu_torch --config DIR --once`` on the card
    (``example_config/quick_start/file_regex_apache.yaml`` with FilePaths
    pointed at the log and a flusher_file sink): the input pushes into the
@@ -282,9 +282,9 @@ Phases, each of which exits non-zero on failure:
    off), ``testdata.apache_config`` (the shipped
    ``file_regex_apache.yaml`` with a ``flusher_file`` sink) over a log
    that holds 256 warm-up lines; once their records are in the sink a
-   writer thread appends the 600,000 Apache lines (phase 3's log is
-   their first half) at 4 MB/s (one
-   ``write()`` every 10 ms of what is due; ~14 s) and rotates the log at
+   writer thread appends the 400,000 Apache lines (phase 3's log is
+   their first 300,000) at 4 MB/s (one
+   ``write()`` every 10 ms of what is due; ~9.5 s) and rotates the log at
    the midpoint (rename to ``.1``, a new file); the agent is stopped by
    SIGTERM once every record is in the sink.  A watcher thread polls the
    sink every 2 ms; each line's event-to-flush latency is the time the
@@ -330,6 +330,27 @@ Phases, each of which exits non-zero on failure:
    on the same data dir with an empty log and the receiver answering 200
    replays them all: every sample once, equal to the oracle, the buffer
    empty.  Both steps print the card's name and power limit.
+34. container stdout to Loki (after phase 33), in tail mode: the shipped
+   ``k8s_stdio_to_loki.yaml`` with the Apache parse and a Loki receiver
+   in this process, over a kubelet pod-log tree of 8 ``prod-web`` pods
+   and 2 ``kube-system`` pods (containerd text, 25,000 Apache lines a
+   pod, 2% of them cut into ``P`` and ``F`` pieces): every ``prod-web``
+   record arrives once as ``testdata.cri_merged`` makes it, nothing else
+   arrives, every stream has ``job``, ``_namespace_`` and ``_pod_name_``,
+   parsed fields equal ``re``, K1 launches = device batches > 0, exit 0
+   on SIGTERM.
+35. ``processor_spl``: (a) the shipped ``spl_enrich_join.yaml`` on
+   200,000 requests and a ``teams.csv``, (b) 200,000 Apache lines through
+   a parse, a Tier-1 and a DFA-tier ``where … matches`` and an ``extend``
+   with ``if``: every record equals the ``re`` / ``csv`` oracle in order,
+   K1 (and in (b) K2) launches = device batches > 0.
+36. ``es_with_aggregation.yaml``'s grok and ``aggregator_metadata_group``
+   to a file on 200,000 lines: the rows equal the oracle's, K1 launches =
+   device batches > 0.  The aggregator passes the grok's columnar groups
+   through, as the JAX package's does, so no group carries an ``app`` tag
+   (``ROADMAP.md`` Queue 3).
+   Phases 34–36 print their K1/K2 launches, device batches and host stage
+   seconds.
 
 In every phase each recorded launch must be whole warps within the block
 limit and the shared-memory budget, with a block for each SM once a batch
@@ -340,7 +361,7 @@ After each phase a line prints its seconds; a line before the last two
 prints the script's total seconds.  The line before the
 last is the ``kernels`` JSON line (K1, K2, K4, K3, K7, K6, K5 and K8; K1
 and K2 carry phase 27's launches beside their own, K1 phase 29's and
-30's under ``path_launches`` ``tail`` and ``tail_restart`` and phase 29's
+30's and 34–36's under ``path_launches`` and phase 29's
 latency, K6 phase 31's launches, requests, bytes and medians and phase
 32's spill, replay and transitions), the
 last line the ``{"ok": true, "device": ...}`` object.  It imports nothing of JAX
@@ -362,11 +383,12 @@ import threading
 import time
 
 REPO = os.path.dirname(os.path.abspath(__file__))
-# the tail phases' lines (phase 29: ~57 MB at 4 MB/s, the size of
-# bench.py:bench_pipeline_e2e); the ``--once`` paths take the first half,
-# and the Java and metrics corpora a quarter, since the tail phases
-# joined the script, which keeps its time from before them (PERF.md §4)
-TAIL_LINES = 600_000
+# the tail phases' lines (phase 29: ~38 MB at 4 MB/s, two thirds of
+# bench.py:bench_pipeline_e2e's since phases 34-36 joined the script); the
+# ``--once`` paths take the first 300,000, and the Java and metrics
+# corpora 150,000, since the tail phases joined the script, which keeps
+# its time from before them (PERF.md §4)
+TAIL_LINES = 400_000
 MAIN_PATH_LINES = 300_000
 JAVA_LINES = 150_000
 METRICS_LINES = 150_000
@@ -3226,6 +3248,80 @@ class RemoteWriteReceiver:
             self._server = None
 
 
+class LokiReceiver:
+    """A Loki push receiver on 127.0.0.1 (a stdlib ``http.server`` in a
+    thread of this process): every POST to ``/loki/api/v1/push`` is
+    answered 204 and its body (JSON, uncompressed) and headers kept;
+    ``records()`` gives [(labels, ts_ns, line)] of every body so far."""
+
+    def __init__(self):
+        self.bodies: list = []
+        self.headers: list = []
+        self.bad_paths: list = []
+        self.n_records = 0
+        self._lock = threading.Lock()
+        self._server = None
+        self._thread = None
+
+    @property
+    def url(self) -> str:
+        return f"http://127.0.0.1:{self._server.server_address[1]}"
+
+    def start(self) -> "LokiReceiver":
+        import http.server
+        recv = self
+
+        class Handler(http.server.BaseHTTPRequestHandler):
+            protocol_version = "HTTP/1.1"
+
+            def do_POST(self):
+                body = self.rfile.read(int(self.headers.get(
+                    "Content-Length", 0)))
+                try:
+                    n = sum(len(st["values"])
+                            for st in json.loads(body)["streams"])
+                except (ValueError, KeyError, TypeError):
+                    n = 0
+                with recv._lock:
+                    if self.path != "/loki/api/v1/push":
+                        recv.bad_paths.append(self.path)
+                    recv.bodies.append(body)
+                    recv.headers.append(dict(self.headers))
+                    recv.n_records += n
+                self.send_response(204)
+                self.send_header("Content-Length", "0")
+                self.end_headers()
+
+            def log_message(self, *args):
+                pass
+
+        self._server = http.server.ThreadingHTTPServer(("127.0.0.1", 0),
+                                                       Handler)
+        self._server.daemon_threads = True
+        self._thread = threading.Thread(target=self._server.serve_forever,
+                                        name="loki-receiver", daemon=True)
+        self._thread.start()
+        return self
+
+    def records(self) -> list:
+        from loongcollector_tpu_torch.testdata import loki_records
+        with self._lock:
+            bodies = list(self.bodies)
+        return loki_records(bodies)
+
+    def count(self) -> int:
+        """The records received so far."""
+        with self._lock:
+            return self.n_records
+
+    def stop(self) -> None:
+        if self._server is not None:
+            self._server.shutdown()
+            self._server.server_close()
+            self._thread.join(timeout=10)
+            self._server = None
+
+
 def phase_rollup(tmp, log_path, lines, n_bytes, oracle, invalid, groups,
                  threads, substrate=None, ledger=False) -> dict:
     """The metric-rollup path (``testdata.metric_rollup_config``: parse_json,
@@ -5521,6 +5617,343 @@ def phase_outage_planes_finish(ctx) -> dict:
     return res
 
 
+CONTAINER_SEED = 20
+CONTAINER_LINES = 25_000     # phase 34: Apache lines a pod (~19 MB in all)
+CONTAINER_PODS = (8, 2)      # pods in CRI_NAMESPACE, in CRI_OTHER_NAMESPACE
+SPL_LINES = 200_000          # phase 35 (a) requests, (b) Apache lines
+META_LINES = 200_000         # phase 36
+
+
+def stage_line(tag, st) -> None:
+    """The run's K1/K2 launches, device batches and host stage seconds."""
+    log(f"{tag}: K1 {st['launches']} launches / {st['device_batches']} "
+        f"device batches, K2 {st['k2']['launches']} launches / "
+        f"{st['k2']['device_batches']} batches; host stage seconds "
+        + json.dumps({k: round(v, 3) for k, v in
+                      sorted(st["stage_seconds"].items())})
+        + "; serialize seconds " + json.dumps(
+            {k: round(v, 3) for k, v in st["serialize_seconds"].items()}))
+
+
+_APACHE_RX = re.compile(APACHE.encode())
+
+
+def container_key(content):
+    """A container record as the sink shows it: the Apache fields
+    ``re.fullmatch`` gives the content, else the content itself."""
+    m = _APACHE_RX.fullmatch(content)
+    if m is None:
+        return ("raw", content)
+    return ("parsed", tuple(v.decode() for v in m.groups()))
+
+
+def container_inputs(records) -> dict:
+    """Phase 34's pod-log tree, its pods' Apache lines cut from
+    ``records``, and its oracle (made while an earlier phase waits)."""
+    from collections import Counter
+    from loongcollector_tpu_torch import testdata as td
+    if len(records) < sum(CONTAINER_PODS) * CONTAINER_LINES:
+        fail(f"container stdout: {len(records)} Apache lines for "
+             f"{sum(CONTAINER_PODS)} pods of {CONTAINER_LINES}")
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_container_")
+    root = os.path.join(tmp, "pods")
+    tree = td.write_cri_tree(root, *CONTAINER_PODS,
+                             lines_per_pod=CONTAINER_LINES,
+                             seed=CONTAINER_SEED, records=records)
+    want, splits, pods = Counter(), 0, set()
+    for path, (ns, pod, lines, _recs) in tree.items():
+        if ns != td.CRI_NAMESPACE:
+            continue
+        pods.add(pod)
+        for stream, content, split in td.cri_merged(lines):
+            want[(ns, pod, stream, container_key(content))] += 1
+            splits += split
+    return {"tmp": tmp, "root": root, "pods": pods, "want": want,
+            "splits": splits, "n_files": len(tree),
+            "n_bytes": sum(os.path.getsize(p) for p in tree)}
+
+
+def spl_inputs(alines) -> dict:
+    """Phase 35's logs (the Apache log the first ``SPL_LINES`` of
+    ``alines``), join table and oracles."""
+    from loongcollector_tpu_torch import testdata as td
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_spl_")
+    lines = td.gen_requests(SPL_LINES, seed=35)
+    table = td.teams_csv(seed=35)
+    alines = alines[:SPL_LINES]
+    paths = {k: os.path.join(tmp, v) for k, v in (
+        ("requests", "requests.log"), ("csv", "teams.csv"),
+        ("apache", "access.log"))}
+    for key, data in (("requests", b"\n".join(lines) + b"\n"),
+                      ("csv", table),
+                      ("apache", b"\n".join(alines) + b"\n")):
+        with open(paths[key], "wb") as f:
+            f.write(data)
+    return {"tmp": tmp, "paths": paths,
+            "join_want": spl_join_oracle(lines, table),
+            "apache_want": spl_apache_oracle(alines)}
+
+
+def meta_inputs() -> dict:
+    """Phase 36's lines, log and oracle."""
+    from collections import Counter
+    from loongcollector_tpu_torch import testdata as td
+    lines = td.gen_app_lines(META_LINES, seed=37)
+    tmp, log_path, n_bytes = write_log("chip_smoke_meta_", "app.log", lines)
+    return {"tmp": tmp, "log": log_path, "n_bytes": n_bytes,
+            "want": Counter(tuple(x.decode().split(" ")) for x in lines)}
+
+
+def slice20_inputs(apache_lines) -> dict:
+    """Phases 34-36's inputs; their Apache lines are cut from
+    ``apache_lines`` (the tail phases' lines, made at the start)."""
+    return {"container": container_inputs(apache_lines),
+            "spl": spl_inputs(apache_lines), "meta": meta_inputs()}
+
+
+def container_agent(cfg_dir, data_dir, stats_path, err_path, root):
+    """A tail-mode agent on the card (one worker, the ledger off) with the
+    pod-log root ``root``."""
+    env = dict(os.environ, LOONG_PROCESS_THREADS="1",
+               LOONG_CRI_POD_LOG_DIR=root)
+    env.pop("LOONG_LEDGER", None)
+    return subprocess.Popen(
+        [sys.executable, "-m", "loongcollector_tpu_torch", "--config",
+         cfg_dir, "--data-dir", data_dir, "--stats", stats_path],
+        cwd=REPO, env=env, stdout=subprocess.DEVNULL,
+        stderr=open(err_path, "wb"))
+
+
+def phase_container_stdio(inp) -> dict:
+    """Phase 34: container stdout to Loki in tail mode.  The shipped
+    ``k8s_stdio_to_loki.yaml`` with the Apache parse and a Loki receiver on
+    127.0.0.1 (``testdata.container_loki_config``) over a kubelet pod-log
+    tree (``LOONG_CRI_POD_LOG_DIR``): 8 pods in ``prod-web`` and 2 in
+    ``kube-system``, each ``0.log`` of containerd text lines wrapping
+    ``CONTAINER_LINES`` Apache lines, stdout and stderr mixed, 2% of the
+    records cut into ``P`` pieces and an ``F`` piece.  Every ``prod-web``
+    record reaches the receiver once, as ``testdata.cri_merged`` makes it
+    (a ``P`` run a reader chunk cuts ships as two records, counted); no
+    ``kube-system`` record and no record of a container outside the tree
+    arrives; each stream carries ``job``, ``_namespace_`` and
+    ``_pod_name_``; each parsed record equals ``re.fullmatch`` of its
+    line; K1's launches equal its device batches and are > 0; the agent
+    exits 0 on SIGTERM."""
+    from collections import Counter
+    from loongcollector_tpu_torch import testdata as td
+    tag = "container stdout to Loki"
+    tmp, root, pods, want = inp["tmp"], inp["root"], inp["pods"], inp["want"]
+    splits, n_bytes = inp["splits"], inp["n_bytes"]
+    n_want = sum(want.values())
+    recv = LokiReceiver().start()
+    cfg_dir, data_dir = os.path.join(tmp, "config"), os.path.join(tmp, "data")
+    os.makedirs(cfg_dir)
+    with open(os.path.join(cfg_dir, "k8s_stdio_to_loki.yaml"), "w") as f:
+        f.write(td.container_loki_config(recv.url))
+    stats_path, err = os.path.join(tmp, "stats.json"), \
+        os.path.join(tmp, "agent.err")
+    t0 = time.perf_counter()
+    proc = container_agent(cfg_dir, data_dir, stats_path, err, root)
+    try:
+        wait_until(tag, lambda: recv.count() >= n_want, 600, [(proc, err)])
+        wall = time.perf_counter() - t0
+        time.sleep(1.0)      # a record past the oracle's would arrive now
+        stop_agent(tag, proc, err)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        recv.stop()
+    with open(stats_path) as f:
+        st = json.load(f)
+    if st["device"] != "cuda":
+        fail(f"{tag}: the agent ran on {st['device']}")
+    got, streams = Counter(), set()
+    for labels, _ts, line in recv.records():
+        lab = dict(labels)
+        for k in ("job", "_namespace_", "_pod_name_"):
+            if k not in lab:
+                fail(f"{tag}: a stream without {k}: {lab}")
+        if lab["_namespace_"] != td.CRI_NAMESPACE or \
+                lab["_pod_name_"] not in pods:
+            fail(f"{tag}: a record of {lab['_namespace_']}/"
+                 f"{lab['_pod_name_']} arrived")
+        streams.add(labels)
+        obj = json.loads(line)
+        if all(k in obj for k in td.APACHE_KEYS):
+            key = ("parsed", tuple(obj[k] for k in td.APACHE_KEYS))
+        else:
+            key = ("raw", (obj.get("content") or obj["rawLog"]).encode())
+        got[(lab["_namespace_"], lab["_pod_name_"],
+             obj["_source_"].encode(), key)] += 1
+    if got != want:
+        extra, missing = got - want, want - got
+        fail(f"{tag}: {sum(extra.values())} records beyond the oracle's "
+             f"(e.g. {list(extra)[:2]}), {sum(missing.values())} missing "
+             f"(e.g. {list(missing)[:2]})")
+    if recv.bad_paths or any(h.get("X-Scope-OrgID") != "team-a"
+                             for h in recv.headers):
+        fail(f"{tag}: pushes to {recv.bad_paths} or without the tenant")
+    check_settled(tag, st)
+    if st["re_oversize_rows"] or st["re_tier_rows"]:
+        fail(f"{tag}: rows routed to re: {st['re_oversize_rows']} over "
+             f"the longest bucket, {st['re_tier_rows']} by tier")
+    mbps = n_bytes / wall / 1e6
+    log(f"{tag}: {inp['n_files']} pods ({n_bytes} bytes), {n_want} prod-web "
+        f"records pushed once each ({splits} of them pieces of a P run "
+        f"a reader chunk cut, as the oracle predicts), none of kube-system "
+        f"or the host; {len(streams)} streams, each with job, _namespace_ "
+        f"and _pod_name_; {len(recv.bodies)} pushes; parsed fields equal "
+        f"re.fullmatch; {mbps:.2f} MB/s from start to the last record "
+        f"({wall:.1f} s, the agent's start included) on {nvidia_smi()}; "
+        f"exec legs {st['kernel_seconds']:.6f} s, traced busy share "
+        f"{st['busy_share'] * 100:.2f}%")
+    stage_line(tag, st)
+    shutil.rmtree(tmp, ignore_errors=True)
+    return {"stats": st, "mbps": mbps, "records": n_want, "splits": splits}
+
+
+def spl_join_oracle(lines, table):
+    """``spl_enrich_join.yaml``'s records by ``re`` and ``csv``: the parse,
+    ``sev`` (``error`` at a status >= 500), ``bucket`` (``sev-N``, N the
+    latency in hundreds, rounded half to even) and the team's columns
+    where the user is in the table.  N is 0 where ``latency ** 100``
+    overflows a float (latencies over 1202): SPL's arithmetic evaluates
+    every operator of its table before it picks one (JAX package
+    ``processor/spl.py:320-327``, the port's copy the same), so ``div``
+    returns 0 once ``pow`` overflows — a defect both packages share
+    (``ROADMAP.md`` Queue 3)."""
+
+    def div(x, y):
+        try:
+            x ** y
+        except OverflowError:
+            return 0.0
+        return x / y if y else 0.0
+    import csv
+    import io
+    rows = list(csv.reader(io.StringIO(table.decode())))
+    head = rows[0]
+    teams = {r[0]: dict(zip(head[1:], r[1:])) for r in rows[1:]}
+    rx = re.compile(rb"(\S+) (\d+) (\d+)")
+    out = []
+    for line in lines:
+        u, s, lat = (x.decode() for x in rx.fullmatch(line).groups())
+        sev = "error" if int(s) >= 500 else "ok"
+        rec = {"user_id": u, "status": s, "latency_ms": lat, "sev": sev,
+               "bucket": f"{sev}-{round(div(float(lat), 100.0))}"}
+        rec.update(teams.get(u, {}))
+        out.append(rec)
+    return out
+
+
+def spl_apache_oracle(lines):
+    """The SPL Apache script's records by ``re``: the named fields, the
+    two ``matches`` filters, ``kind``."""
+    from loongcollector_tpu_torch import testdata as td
+    named = re.compile(td.SPL_APACHE_NAMED.encode())
+    status = re.compile(td.SPL_APACHE_STATUS.encode())
+    url = re.compile(td.SPL_APACHE_URL.encode())
+    out = []
+    for line in lines:
+        m = named.fullmatch(line)
+        if m and status.fullmatch(m["status"]) and url.fullmatch(m["url"]):
+            rec = {"content": line.decode(),
+                   **{k: v.decode() for k, v in m.groupdict().items()}}
+            rec["kind"] = "server" if int(m["status"]) >= 500 else "client"
+            out.append(rec)
+    return out
+
+
+def phase_spl(inp) -> dict:
+    """Phase 35: ``processor_spl`` on the card.  (a) ``spl_enrich_join.yaml``
+    as shipped (a ``flusher_file`` sink) on ``SPL_LINES`` requests and its
+    ``teams.csv``; (b) ``SPL_LINES`` Apache lines through the SPL script
+    alone (``testdata.spl_apache_script``: a named parse, a Tier-1 and a
+    DFA-tier ``where … matches``, an ``extend`` with ``if``).  Every record
+    equals the ``re`` / ``csv`` oracle in file order; K1's launches (and in
+    (b) K2's) equal their device batches and are > 0; each engine's tier
+    is printed."""
+    from loongcollector_tpu_torch import testdata as td
+    out = {}
+    tmp, paths = inp["tmp"], inp["paths"]
+    for name, config, src, want in (
+            ("join", lambda lp, o: td.spl_enrich_join_config(
+                lp, paths["csv"], o), paths["requests"], inp["join_want"]),
+            ("apache", td.spl_apache_config, paths["apache"],
+             inp["apache_want"])):
+        tag = f"SPL ({name})"
+        st, data, wall = path_run(tmp, tag, config, src, 1)
+        n = 0
+        for n, rec in enumerate(data.splitlines(), 1):
+            if n > len(want):
+                fail(f"{tag}: more records than the oracle's {len(want)}")
+            obj = json.loads(rec)
+            del obj["__time__"]
+            if obj != want[n - 1]:
+                fail(f"{tag}: record {n}: {obj} != the oracle's "
+                     f"{want[n - 1]}")
+        if n != len(want):
+            fail(f"{tag}: {n} records for the oracle's {len(want)}")
+        check_settled(tag, st)
+        tiers = {e["pattern"]: e["tier"] for e in st["engines"]}
+        if name == "apache":
+            if tiers.get(td.SPL_APACHE_URL) != "DFA" or \
+                    tiers.get(td.SPL_APACHE_STATUS) != "SEGMENT":
+                fail(f"{tag}: engine tiers {tiers}")
+            k2 = st["k2"]
+            if not 0 < k2["launches"] == k2["device_batches"]:
+                fail(f"{tag}: K2 {k2['launches']} launches for "
+                     f"{k2['device_batches']} batches")
+        if any(e["re_tier_rows"] or e["dfa_re_rows"] or e["re_oversize_rows"]
+               for e in st["engines"]):
+            fail(f"{tag}: rows on re: {st['engines']}")
+        mbps = os.path.getsize(src) / st["seconds"] / 1e6
+        log(f"{tag}: {len(want)} records equal the re/csv oracle in order; "
+            f"engine tiers {json.dumps(tiers)}; {mbps:.2f} MB/s end to end "
+            f"({st['seconds']:.3f} s, agent process {wall:.1f} s) on "
+            f"{nvidia_smi()}")
+        stage_line(tag, st)
+        out[name] = {"stats": st, "mbps": mbps}
+    shutil.rmtree(tmp, ignore_errors=True)
+    return out
+
+
+def phase_metadata_group(inp) -> dict:
+    """Phase 36: ``es_with_aggregation.yaml``'s ``processor_grok`` (K1) and
+    ``aggregator_metadata_group`` by ``app``, ``flusher_file`` in place of
+    ``flusher_elasticsearch`` (``testdata.metadata_group_config``), on
+    ``META_LINES`` lines: the rows' multiset equals the oracle's.  The
+    grok's groups are columnar, and the aggregator passes columnar groups
+    through intact in both packages, so no output group carries an ``app``
+    tag (``ROADMAP.md`` Queue 3, open); the regroup of row groups is held
+    against the JAX package's by ``tests/test_torch_aggregators.py``."""
+    from collections import Counter
+    from loongcollector_tpu_torch import testdata as td
+    tag = "regroup by metadata"
+    tmp, log_path, n_bytes, want = (inp["tmp"], inp["log"], inp["n_bytes"],
+                                    inp["want"])
+    st, data, wall = path_run(tmp, tag, td.metadata_group_config, log_path, 1)
+    got = Counter()
+    for rec in data.splitlines():
+        obj = json.loads(rec)
+        got[(obj["app"], obj["action"], obj["latency_ms"])] += 1
+    if got != want:
+        fail(f"{tag}: the rows differ from the oracle's "
+             f"({sum((got - want).values())} extra, "
+             f"{sum((want - got).values())} missing)")
+    check_settled(tag, st)
+    mbps = n_bytes / st["seconds"] / 1e6
+    log(f"{tag}: {sum(want.values())} rows equal the oracle's multiset "
+        f"through the agent ({mbps:.2f} MB/s end to end, "
+        f"{st['seconds']:.3f} s, agent process {wall:.1f} s, on "
+        f"{nvidia_smi()}; the aggregator passed the grok's columnar groups "
+        f"through, as the JAX package's does)")
+    stage_line(tag, st)
+    shutil.rmtree(tmp, ignore_errors=True)
+    return {"stats": st, "mbps": mbps}
+
+
 def _timed(name, fn):
     """``fn``, logging its seconds (each phase's share of the script's
     time limit)."""
@@ -5535,7 +5968,8 @@ def _timed(name, fn):
 
 
 for _name in [n for n in list(globals()) if n.startswith("phase_")
-              or n in ("main_path_log", "java_log", "metrics_log")]:
+              or n in ("main_path_log", "java_log", "metrics_log",
+                       "slice20_inputs")]:
     globals()[_name] = _timed(_name, globals()[_name])
 
 
@@ -5664,13 +6098,14 @@ def main() -> int:
         planes["proc"].kill()
         planes["recv"].stop()
         raise
-    # phase 33's corpus is made while this process only polls the
-    # planes' agent for its clear
+    # phase 33's corpus, and phases 34-36's, are made while this process
+    # only polls the planes' agent for its clear
     prep = {}
 
     def prepare():
         try:
             prep["inputs"] = observed_inputs()
+            prep["slice20"] = slice20_inputs(tail_lines)
         except BaseException as e:  # noqa: BLE001 — raised again below
             prep["error"] = e
 
@@ -5683,6 +6118,10 @@ def main() -> int:
     if "error" in prep:
         raise prep["error"]
     observed = phase_observed_tail(tail, prep["inputs"])
+    s20 = prep["slice20"]
+    container = phase_container_stdio(s20["container"])
+    spl = phase_spl(s20["spl"])
+    meta = phase_metadata_group(s20["meta"])
     mp = main_path["stats"]
     t8, t64 = timing[8192], timing[65536]
     kernels = {"kernels": [{
@@ -5732,7 +6171,12 @@ def main() -> int:
                               url4["stats"]["launches"],
                           "tail": tail["stats"]["launches"],
                           "tail_restart": kill["stats"]["launches"],
-                          "observed_tail": observed["launches"]},
+                          "observed_tail": observed["launches"],
+                          "container_stdio":
+                              container["stats"]["launches"],
+                          "spl_join": spl["join"]["stats"]["launches"],
+                          "spl_apache": spl["apache"]["stats"]["launches"],
+                          "metadata_group": meta["stats"]["launches"]},
         # phase 29: each line's event-to-flush time, in tail mode at
         # TAIL_RATE, the sink polled every WATCH_PERIOD_S
         "tail_event_to_flush_ms": {"p50": tail["p50_ms"],
@@ -5755,7 +6199,11 @@ def main() -> int:
                       "grok_nginx": grok["mbps"],
                       "json_filter": jsonf["mbps"],
                       "url_classify": url1["mbps"],
-                      "url_classify_4_workers": url4["mbps"]},
+                      "url_classify_4_workers": url4["mbps"],
+                      "container_stdio": container["mbps"],
+                      "spl_join": spl["join"]["mbps"],
+                      "spl_apache": spl["apache"]["mbps"],
+                      "metadata_group": meta["mbps"]},
         "build_s": build["build_s"]["field_extract"],
         "blocks": [t8["blocks"], t64["blocks"]],
         "threads": [t8["threads"], t64["threads"]],
@@ -5789,6 +6237,8 @@ def main() -> int:
     k2_entry["url_classify_launches"] = url1["stats"]["k2"]["launches"]
     k2_entry["url_classify_launches_4_workers"] = \
         url4["stats"]["k2"]["launches"]
+    k2_entry["spl_apache_launches"] = spl["apache"]["stats"]["k2"][
+        "launches"]
     k2_entry["url_classify_launch_shapes"] = [
         [sh.B, sh.L, sh.S, sh.blocks, n] for sh, n in url1["k2_shapes"]]
     log(f"ebpf: {ebpf['events']} events at {ebpf['events_per_s']:.0f} "

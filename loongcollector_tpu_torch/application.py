@@ -107,7 +107,10 @@ plane's totals); ``slo`` (with ``LOONG_SLO=1``, else null): the plane's
 ``event_to_flush_ms`` histogram and the hop histograms' totals (seconds
 and count), both over the whole run (the instruments are cumulative:
 the self-monitor resets none of them); ``ledger`` also holds the auditor's
-counts (``LOONG_LEDGER_AUDIT=1``).
+counts (``LOONG_LEDGER_AUDIT=1``); ``routing``: the groups and events
+that no flusher's ``Match`` took (dropped, tagged ``no_route``);
+``serialize_seconds``: each HTTP-family flusher's host seconds building
+and compressing its payloads.
 
 The self-observability planes (JAX package ``application.py:106-127``,
 ``:372-377``): ``LOONG_LEDGER`` / ``LOONG_LEDGER_AUDIT`` turn on the
@@ -511,6 +514,12 @@ def run_configs(configs: List[Tuple[str, Dict[str, Any]]], device,
     return {
         "device": str(device),
         "events": sum(p.events_sent for p in manager_pipelines),
+        # groups no flusher's Match took (dropped, tagged no_route)
+        "routing": {
+            "no_route_groups": sum(p.no_route_groups
+                                   for p in manager_pipelines),
+            "no_route_events": sum(p.no_route_events
+                                   for p in manager_pipelines)},
         "seconds": seconds,
         "stage_seconds": stages,
         "launches": sum(e.kernel.launches for e in engines
@@ -553,7 +562,7 @@ def run_configs(configs: List[Tuple[str, Dict[str, Any]]], device,
         "fusion": _fusion_stats(runs, timeline, on_card),
         "aggregation": _aggregation_stats(
             [p.aggregator for p in manager_pipelines
-             if p.aggregator is not None], timeline, on_card),
+             if hasattr(p.aggregator, "fold_counts")], timeline, on_card),
         "parse": parse_telemetry.status(),
         "k5": _k5_stats(timeline, on_card),
         "ledger": ledger_stats,
@@ -566,6 +575,12 @@ def run_configs(configs: List[Tuple[str, Dict[str, Any]]], device,
         "ebpf": _ebpf_stats(manager_pipelines),
         "tail": tail_stats,
         "send": send.stats(),
+        # each HTTP-family flusher's host seconds in its payload builder
+        # and compressor, by plugin id
+        "serialize_seconds": {
+            f"{p.name}/{f.plugin_id}": f.serialize_seconds
+            for p in manager_pipelines for f in p.flushers
+            if hasattr(f, "serialize_seconds")},
     }
 
 

@@ -1,14 +1,17 @@
 """Flusher plugins of the port: ``flusher_stdout`` and ``flusher_file``
-(inline writes), ``flusher_http`` and ``flusher_prometheus`` (the send
-path: Batcher, sender queue, flusher runner, HTTP sink)."""
+(inline writes), ``flusher_http``, ``flusher_prometheus`` and
+``flusher_loki`` (the send path: Batcher, sender queue, flusher runner,
+HTTP sink)."""
 
 
 def register_all(registry) -> None:
     from .file import FlusherFile
     from .http import FlusherHTTP
+    from .loki import FlusherLoki
     from .prometheus_rw import FlusherPrometheus
     from .stdout import FlusherStdout
     registry.register_flusher("flusher_stdout", FlusherStdout)
     registry.register_flusher("flusher_file", FlusherFile)
     registry.register_flusher("flusher_http", FlusherHTTP)
     registry.register_flusher("flusher_prometheus", FlusherPrometheus)
+    registry.register_flusher("flusher_loki", FlusherLoki)

@@ -19,6 +19,7 @@ terminal.
 
 from __future__ import annotations
 
+import time
 from typing import Any, Dict, List, Optional, Tuple
 
 from ..models import PipelineEventGroup
@@ -50,6 +51,9 @@ class HttpSinkFlusher(Flusher):
         self.headers: Dict[str, str] = {}
         self.compressor = None
         self.batcher: Batcher = None  # type: ignore
+        # host seconds in build_payload and the compressor (``--stats``
+        # ``serialize_seconds``)
+        self.serialize_seconds = 0.0
 
     # -- subclass surface ---------------------------------------------------
 
@@ -91,8 +95,10 @@ class HttpSinkFlusher(Flusher):
         # serialization erases group identity: the ingest stamps ride the
         # item (the spans shape) so the real terminal observes the sojourn
         stamps = slo.stamps_of(groups)
+        t0 = time.perf_counter()
         built = self.build_payload(groups)
         if built is None:
+            self.serialize_seconds += time.perf_counter() - t0
             # the sink's payload builder skipped the whole batch: terminal
             self._ledger_drop("payload_skipped", n_events)
             ack_watermark.ack_spans(spans, force=True)
@@ -105,6 +111,7 @@ class HttpSinkFlusher(Flusher):
             ledger.record(self._ledger_pipeline(), ledger.B_SERIALIZE,
                           n_events, raw_size)
         payload = self.compressor.compress(body)
+        self.serialize_seconds += time.perf_counter() - t0
         item = SenderQueueItem(payload, raw_size, flusher=self,
                                queue_key=self.queue_key,
                                tag={"headers": item_headers},

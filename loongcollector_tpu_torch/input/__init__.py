@@ -1,16 +1,23 @@
-"""Input plugins of the port: ``input_file`` (one-shot read of FilePaths),
-the five eBPF inputs (``input/ebpf/server.py``) and the two internal
-self-monitor inputs (``input/internal.py``), under the reference's
-names."""
+"""Input plugins of the port: ``input_file`` (one-shot read of FilePaths,
+or tail mode), ``input_container_stdio`` (container stdout,
+``input/container_stdio.py``), the five eBPF inputs
+(``input/ebpf/server.py``) and the three internal inputs
+(``input/internal.py``), under the reference's names."""
 
 
 def register_all(registry) -> None:
     from .ebpf.server import (InputCpuProfiling, InputFileSecurity,
                               InputNetworkObserver, InputNetworkSecurity,
                               InputProcessSecurity)
+    from .container_stdio import InputContainerStdio
     from .file.input_file import InputFile
-    from .internal import InputInternalAlarms, InputInternalMetrics
+    from .internal import (InputInternalAlarms,
+                           InputInternalMatchedContainerInfo,
+                           InputInternalMetrics)
     registry.register_input("input_file", InputFile)
+    registry.register_input("input_container_stdio", InputContainerStdio)
+    registry.register_input("input_internal_matched_container_info",
+                            InputInternalMatchedContainerInfo)
     registry.register_input("input_internal_metrics", InputInternalMetrics)
     registry.register_input("input_internal_alarms", InputInternalAlarms)
     registry.register_input("input_network_observer", InputNetworkObserver)

@@ -33,8 +33,11 @@ The JAX package's two alarms (``READ_LOG_DELAY`` past
 ceiling) are rate-limited per path as there, logged and raised on the
 alarm plane with the JAX package's levels and messages (``status()``
 ``alarms`` reads the plane's totals of the two).  Its CPU-level flow control waits
-for the port's watchdog.  ``reset_for_testing`` stops and joins the thread
-and drops the singleton.
+for the port's watchdog.  A config may carry a
+``tag_provider`` (JAX package ``file_server.py:75``, ``:486-488``): each
+group drained from a path gets the tags it gives for that path (the
+container stdout input's container and pod tags).  ``reset_for_testing``
+stops and joins the thread and drops the singleton.
 """
 
 from __future__ import annotations
@@ -102,6 +105,9 @@ class _ConfigState:
         self.groups_pushed = 0
         self.read_seconds = 0.0
         self.rotations = 0
+        # optional per-path group tags (container meta on stdio inputs):
+        # callable(path) -> Dict[bytes, bytes] | None
+        self.tag_provider = None
 
     def new_reader(self, path: str) -> LogFileReader:
         kwargs = {}
@@ -167,15 +173,17 @@ class FileServer:
                    queue_key: int, tail_existing: bool = False,
                    multiline_start: Optional[str] = None,
                    multiline_end: Optional[str] = None,
-                   encoding: str = "utf8",
+                   tag_provider=None, encoding: str = "utf8",
                    chunk_size: Optional[int] = None) -> _ConfigState:
         """Register a config; returns its state, whose counts the input
-        reports."""
+        reports.  ``tag_provider(path)`` gives the tags every group read
+        from ``path`` carries (or None)."""
         with self._lock:
             st = _ConfigState(
                 name, discovery, queue_key, tail_existing,
                 multiline_start=multiline_start, multiline_end=multiline_end,
                 encoding=encoding, chunk_size=chunk_size)
+            st.tag_provider = tag_provider
             self._configs[name] = st
         return st
 
@@ -523,6 +531,14 @@ class FileServer:
                 self.suppressed_groups += 1
                 self.checkpoints.update(reader.checkpoint())
                 continue
+            if st.tag_provider is not None:
+                try:
+                    tags = st.tag_provider(reader.path)
+                except Exception:  # noqa: BLE001
+                    tags = None
+                if tags:
+                    for k, v in tags.items():
+                        group.set_tag(k, v)
             if pqm is not None:
                 if not pqm.push_queue(st.queue_key, group):
                     # refused after the read: restore the offset and the

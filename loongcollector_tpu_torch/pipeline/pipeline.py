@@ -24,8 +24,8 @@ what its ``flush`` force-closes.
 The acked-offset hooks (``runner/ack_watermark.py``; JAX package
 ``pipeline/pipeline.py:436-450``, ``:505-515``): the groups the aggregator
 absorbs and the groups filtered to nothing are terminal for their source
-spans and are acked at once (forced); with more than one flusher a span
-owes an ack from each (``note_fanout``, before the first send), and each
+spans and are acked at once (forced); with more than one matching flusher
+a span owes an ack from each (``note_fanout``, before the first send), and each
 flusher acks what it delivered: ``flusher_file`` and ``flusher_stdout``
 once written, the HTTP family once the sink took it or it was spilled
 (the flusher runner).
@@ -55,6 +55,13 @@ replay, quarantine and the tagged drops at delivery (JAX package
 sender queue before its init, as in the JAX package
 (``pipeline.py:183-194``).  A self-accounting aggregator (the rollup)
 books its own agg_in / agg_fold / agg_emit.
+
+Routing (JAX package ``pipeline/pipeline.py:180-200``, ``:476-500``): a
+``Router`` holds each flusher's ``Match`` (``pipeline/route/router.py``);
+``send`` and ``_send_direct`` hand each group to the flushers whose
+condition holds.  A group none takes is a ``no_route`` drop: acked
+(forced), booked ``drop`` with the ledger, an SLO drop, and counted
+(``no_route_groups`` / ``no_route_events``, ``--stats`` ``routing``).
 
 Fused runs (resident stage fusion, ``pipeline/fused_chain.py``): at init
 ``plan_fusion`` turns every run of two or more consecutive stages that can
@@ -96,6 +103,7 @@ from ..runner import ack_watermark
 from ..utils.logger import get_logger
 from .plugin.interface import Flusher, Input, PluginContext, Processor
 from .plugin.registry import PluginRegistry
+from .route.router import Router
 
 log = get_logger("pipeline")
 
@@ -188,6 +196,12 @@ class CollectionPipeline:
                 registry.create_flusher, fcfg,
                 lambda f, i=i, typ=fcfg.get("Type", ""): self._wire_flusher(
                     f, f"{typ}/{i}", sender_queue_manager)))
+        # each flusher's Match (JAX package pipeline.py:180-200)
+        self.router = Router()
+        self.router.init([(i, fcfg.get("Match")) for i, fcfg in
+                          enumerate(config.get("flushers", []))])
+        self.no_route_groups = 0
+        self.no_route_events = 0
         # fused runs over the final chain: description only, the programs
         # are built at their first dispatch; LOONG_FUSED gates running them
         from .fused_chain import plan_fusion
@@ -239,8 +253,9 @@ class CollectionPipeline:
         TimeoutFlushManager.instance().unregister(self._agg_timeout_hook)
         for hook in self._drain_hooks:
             TimeoutFlushManager.instance().unregister(hook)
-        if self.aggregator is not None:
-            self.aggregator.metrics.mark_deleted()
+        record = getattr(self.aggregator, "metrics", None)
+        if record is not None:
+            record.mark_deleted()
         with self._stats_lock:
             records = list(self._stage_records.values())
             self._stage_records.clear()
@@ -484,38 +499,54 @@ class CollectionPipeline:
         return len(groups)
 
     def _flush_groups(self, groups: List[PipelineEventGroup]) -> None:
-        """Every group to every flusher (the port has no router), with
-        the extra copies of more than one flusher booked as fanout.  A
-        ``ledger_terminal`` flusher writes inline, so its send is terminal
-        and booked send_ok here; the HTTP family's sends are booked by the
-        flusher runner at delivery."""
+        """Each group to the flushers whose ``Match`` holds (JAX package
+        ``pipeline.py:476-500``).  A group no flusher matches is a
+        ``no_route`` drop (acked, forced); a group several match owes an
+        ack from each, raised before the first copy is sent, and its extra
+        copies are booked as fanout.  A ``ledger_terminal`` flusher writes
+        inline, so its send is terminal and booked send_ok here; the HTTP
+        family's sends are booked by the flusher runner at delivery."""
         led = ledger.is_on()
         slo_on = slo.is_on()
         for g in groups:
-            empty = g.empty()
-            if empty:
+            if g.empty():
                 # filtered to nothing: terminal for its source span
                 ack_watermark.ack_groups([g], force=True)
                 if slo_on:
                     slo.retire_groups([g])
-            elif len(self.flushers) > 1:
+                continue
+            idxs = self.router.route(g)
+            if not idxs:
+                # no flusher matched: the group is terminally discarded
+                ack_watermark.ack_groups([g], force=True)
+                with self._stats_lock:
+                    self.no_route_groups += 1
+                    self.no_route_events += len(g)
+                if led:
+                    ledger.record(self.name, ledger.B_DROP, len(g),
+                                  g.data_size(), tag="no_route")
+                if slo_on:
+                    slo.observe_groups(self.name, [g], slo.OUTCOME_DROP)
+                continue
+            if len(idxs) > 1:
                 # each flusher owes an ack: raised before any copy can ack
-                ack_watermark.note_fanout(g, len(self.flushers))
+                ack_watermark.note_fanout(g, len(idxs))
                 if slo_on:
                     # the stamp's refcount mirrors the fanout: each copy's
                     # terminal observes its own sojourn
-                    slo.note_fanout(g, len(self.flushers))
-            if led and len(self.flushers) > 1:
-                ledger.record(self.name, ledger.B_FANOUT,
-                              (len(self.flushers) - 1) * len(g))
-            for f in self.flushers:
+                    slo.note_fanout(g, len(idxs))
+                if led:
+                    ledger.record(self.name, ledger.B_FANOUT,
+                                  (len(idxs) - 1) * len(g))
+            for idx in idxs:
+                f = self.flushers[idx]
                 ok = self._timed(f.name, f.send, g)
-                if slo_on and f.ledger_terminal and not empty:
+                if slo_on and f.ledger_terminal:
                     slo.observe_groups(self.name, [g],
                                        slo.OUTCOME_SEND_OK if ok
                                        else slo.OUTCOME_DROP)
                 if led and f.ledger_terminal:
                     ledger.record(self.name, ledger.B_SEND_OK, len(g),
                                   g.data_size(), tag=f.name)
-        with self._stats_lock:
-            self.events_sent += sum(len(g) for g in groups)
+            with self._stats_lock:
+                self.events_sent += len(g)

@@ -7,16 +7,24 @@ one pipeline YAML drives either package.
 
 def register_all(registry) -> None:
     from .classify_url import ProcessorClassifyUrl
+    from .desensitize import ProcessorDesensitize
     from .field_ops import (ProcessorAddFields, ProcessorDrop,
                             ProcessorRenameFields, ProcessorStrReplace)
     from .filter import ProcessorFilter
     from .grok import ProcessorGrok
+    from .merge_multiline import ProcessorMergeMultilineLog
+    from .parse_apsara import ProcessorParseApsara
+    from .parse_container_log import ProcessorParseContainerLog
     from .parse_delimiter import ProcessorParseDelimiter
+    from .parse_from_pb import ProcessorParseFromPB
     from .parse_json import ProcessorParseJson
     from .parse_regex import ProcessorParseRegex
     from .parse_timestamp import ProcessorParseTimestamp
+    from .spl import ProcessorSPL
     from .split_log_string import ProcessorSplitLogString
     from .split_multiline import ProcessorSplitMultilineLogString
+    from .tag import ProcessorTag
+    from .timestamp_filter import ProcessorTimestampFilter
     registry.register_processor("processor_split_log_string_native",
                                 ProcessorSplitLogString)
     registry.register_processor("processor_split_multiline_log_string_native",
@@ -45,3 +53,17 @@ def register_all(registry) -> None:
     registry.register_processor("processor_rename", ProcessorRenameFields)
     registry.register_processor("processor_drop", ProcessorDrop)
     registry.register_processor("processor_strreplace", ProcessorStrReplace)
+    registry.register_processor("processor_parse_container_log_native",
+                                ProcessorParseContainerLog)
+    registry.register_processor("processor_merge_multiline_log_native",
+                                ProcessorMergeMultilineLog)
+    registry.register_processor("processor_tag_native", ProcessorTag)
+    registry.register_processor("processor_desensitize_native",
+                                ProcessorDesensitize)
+    registry.register_processor("processor_timestamp_filter_native",
+                                ProcessorTimestampFilter)
+    registry.register_processor("processor_parse_apsara_native",
+                                ProcessorParseApsara)
+    registry.register_processor("processor_parse_from_pb_native",
+                                ProcessorParseFromPB)
+    registry.register_processor("processor_spl", ProcessorSPL)

@@ -1878,3 +1878,304 @@ def ebpf_mismatches(net_records, sec_records, expected, limit=10):
             k for k in want_cells if cells[k] != want_cells[k]]
         bad.append(f"rollup cells differ at {diff[:3]}")
     return bad[:limit]
+
+
+# -- flusher routing ----------------------------------------------------------
+
+ROUTE_STORES = (("gets", "GET"), ("posts", "POST"))
+
+
+def route_config(log_paths, outs):
+    """Two pipelines, each over its own copy of an Apache log
+    (``log_paths``: the JAX package's file checkpoints are keyed by
+    (dev, inode) across pipelines, so two inputs of one file would read it
+    once in all) — ``input_file``, the Apache parse,
+    ``aggregator_logstore_router`` on ``method`` by ``ROUTE_STORES``),
+    each with two ``flusher_file`` sinks that carry a ``Match``.  ``outs``
+    maps ``a``, ``b``, ``c``, ``d`` to sink paths.  Pipeline ``only`` sends
+    ``__logstore__: gets`` groups to ``a`` and metrics to ``b`` (so every
+    other group matches no flusher and is dropped, tagged ``no_route``);
+    pipeline ``fan`` sends every log group to ``c`` and the ``gets``
+    groups also to ``d``.  The router's buckets close at 256 events or at
+    the stop-time drain (no timeout inside a run), so the groups and their
+    order do not depend on the run's pace.  Returns {file name: YAML}."""
+    keys = ", ".join(APACHE_KEYS)
+    regex = ", ".join(f"'{m}'" for _s, m in ROUTE_STORES)
+    stores = ", ".join(s for s, _m in ROUTE_STORES)
+    head = """inputs:
+  - Type: input_file
+    FilePaths: [{log}]
+processors:
+  - Type: processor_parse_regex_native
+    SourceKey: content
+    Regex: '{apache}'
+    Keys: [{keys}]
+aggregators:
+  - Type: aggregator_logstore_router
+    SourceKey: method
+    RouterRegex: [{regex}]
+    RouterLogstore: [{stores}]
+    MaxLogCount: 256
+    TimeoutSecs: 3600
+flushers:
+"""
+
+    def sink(name, match):
+        return (f"  - Type: flusher_file\n    FilePath: {outs[name]}\n"
+                f"    Match: {match}\n")
+    gets = "{Type: tag, Key: __logstore__, Value: gets}"
+    def pipeline(log):
+        return head.format(log=log, apache=APACHE, keys=keys, regex=regex,
+                           stores=stores)
+    return {
+        "only.yaml": pipeline(log_paths[0]) + sink("a", gets)
+        + sink("b", "{Type: event_type, Value: metric}"),
+        "fan.yaml": pipeline(log_paths[1])
+        + sink("c", "{Type: event_type, Value: log}") + sink("d", gets),
+    }
+
+
+# -- container stdout (kubelet pod-log layout, containerd text) --------------
+
+CRI_NAMESPACE = "prod-web"
+CRI_OTHER_NAMESPACE = "kube-system"
+
+
+def cri_lines(records, seed=0, partial=0.02):
+    """containerd text lines wrapping ``records`` (bytes): each record on
+    ``stdout`` (70%) or ``stderr``, and a share ``partial`` of them cut
+    into two or three pieces, written as ``P`` lines then an ``F`` line."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for i, rec in enumerate(records):
+        stream = b"stdout" if rng.random() < 0.7 else b"stderr"
+        ts = (f"2024-01-02T03:{(i // 60) % 60:02d}:{i % 60:02d}."
+              f"{i % 1000000000:09d}Z").encode()
+        if rng.random() < partial and len(rec) > 3:
+            k = int(rng.integers(2, 4))
+            cuts = sorted(rng.choice(np.arange(1, len(rec)), k - 1,
+                                     replace=False).tolist())
+            pieces = [rec[a:b] for a, b in zip([0] + cuts, cuts + [len(rec)])]
+            for j, piece in enumerate(pieces):
+                flag = b"F" if j == len(pieces) - 1 else b"P"
+                out.append(b" ".join((ts, stream, flag, piece)))
+        else:
+            out.append(b" ".join((ts, stream, b"F", rec)))
+    return out
+
+
+def write_cri_tree(root, n_prod=8, n_other=2, lines_per_pod=25000, seed=0,
+                   partial=0.02, records=None):
+    """The kubelet pod-log tree under ``root``: ``n_prod`` pods in
+    ``CRI_NAMESPACE`` and ``n_other`` in ``CRI_OTHER_NAMESPACE``, one
+    container (``app``) each, whose ``0.log`` holds ``cri_lines`` of
+    ``lines_per_pod`` Apache lines: ``gen_lines`` with the pod's own seed,
+    or the pod's slice of ``records`` when given.  Returns
+    {log path: (namespace, pod, cri lines, Apache lines)}."""
+    import os
+    out = {}
+    pods = ([(CRI_NAMESPACE, f"web-{k}") for k in range(n_prod)]
+            + [(CRI_OTHER_NAMESPACE, f"dns-{k}") for k in range(n_other)])
+    for k, (ns, pod) in enumerate(pods):
+        d = os.path.join(root, f"{ns}_{pod}_uid{k:04d}", "app")
+        os.makedirs(d, exist_ok=True)
+        if records is None:
+            recs = gen_lines(lines_per_pod, seed=seed * 1000 + k)
+        else:
+            recs = records[k * lines_per_pod:(k + 1) * lines_per_pod]
+        lines = cri_lines(recs, seed=seed * 1000 + k, partial=partial)
+        path = os.path.join(d, "0.log")
+        with open(path, "wb") as f:
+            f.write(b"\n".join(lines) + b"\n")
+        out[path] = (ns, pod, lines, recs)
+    return out
+
+
+def cri_merged(lines, chunk_size=512 * 1024):
+    """What the unwrap and the flag-mode merge make of one container log
+    read in reader chunks (``reader_chunks``): [(stream, content, split)],
+    in order.  A run of ``P`` lines merges with the line after it inside
+    one chunk only (the JAX package's ``merge_multiline.py:58-64``): a run
+    a chunk boundary cuts ships as two records, both marked ``split``."""
+    out = []
+    open_run = False
+    for chunk in reader_chunks(lines, chunk_size):
+        parsed = [ln.split(b" ", 3) for ln in chunk]
+        n = len(parsed)
+        i = 0
+        while i < n:
+            j = i
+            while j < n and parsed[j][2] == b"P":
+                j += 1
+            last = min(j, n - 1)
+            content = b"".join(p[3] for p in parsed[i:last + 1])
+            split = (i == 0 and open_run) or j == n
+            out.append((parsed[i][1], content, split))
+            i = last + 1
+        open_run = n > 0 and parsed[-1][2] == b"P"
+    return out
+
+
+def container_loki_config(url):
+    """The container stdout path, as YAML: the shipped
+    ``example_config/quick_start/k8s_stdio_to_loki.yaml`` with a
+    ``processor_parse_regex_tpu`` of the Apache pattern and keys and the
+    Loki ``URL`` pointed at ``url``.  The pod-log root comes from
+    ``LOONG_CRI_POD_LOG_DIR``."""
+    keys = ", ".join(APACHE_KEYS)
+    return f"""inputs:
+  - Type: input_container_stdio
+    ContainerFilters:
+      K8sNamespaceRegex: "prod.*"
+processors:
+  - Type: processor_parse_regex_tpu
+    SourceKey: content
+    Regex: '{APACHE}'
+    Keys: [{keys}]
+flushers:
+  - Type: flusher_loki
+    URL: "{url}"
+    TenantID: team-a
+    StaticLabels: {{job: loongcollector}}
+    DynamicLabels: [_namespace_, _pod_name_]
+"""
+
+
+def loki_records(bodies):
+    """[(labels, ts_ns, line)] of Loki push bodies (JSON), in order."""
+    import json
+    out = []
+    for body in bodies:
+        for stream in json.loads(body)["streams"]:
+            labels = tuple(sorted(stream["stream"].items()))
+            for ts, line in stream["values"]:
+                out.append((labels, ts, line))
+    return out
+
+
+# -- SPL ------------------------------------------------------------------------
+
+SPL_TEAMS = ("payments", "search", "growth", "infra")
+SPL_REGIONS = ("us-west-2", "eu-central-1", "ap-south-1")
+
+
+def gen_requests(n, seed=0, users=500):
+    """``user_id status latency_ms`` lines (``spl_enrich_join.yaml``'s
+    input)."""
+    rng = np.random.default_rng(seed)
+    uid = rng.integers(0, users, n)
+    st = rng.choice(np.array([200, 201, 204, 301, 404, 429, 500, 502, 503]),
+                    n)
+    lat = rng.integers(0, 5000, n)
+    return [f"u{u} {s} {t}".encode() for u, s, t in zip(uid, st, lat)]
+
+
+def teams_csv(users=500, seed=0, share=0.8):
+    """The join table ``user_id,team,region`` for a share of the users
+    (the rest stay un-joined)."""
+    rng = np.random.default_rng(seed)
+    rows = ["user_id,team,region"]
+    for u in range(users):
+        if rng.random() < share:
+            rows.append(f"u{u},{SPL_TEAMS[int(rng.integers(len(SPL_TEAMS)))]},"
+                        f"{SPL_REGIONS[int(rng.integers(len(SPL_REGIONS)))]}")
+    return ("\n".join(rows) + "\n").encode()
+
+
+def spl_enrich_join_config(log_path, csv_path, out_path):
+    """``example_config/quick_start/spl_enrich_join.yaml`` as shipped, with
+    ``FilePaths`` and the join table pointed at ``log_path`` and
+    ``csv_path``, and a ``flusher_file`` sink at ``out_path`` in place of
+    ``flusher_stdout``."""
+    return f"""inputs:
+  - Type: input_file
+    FilePaths:
+      - {log_path}
+processors:
+  - Type: processor_parse_regex_tpu
+    SourceKey: content
+    Regex: '(\\S+) (\\d+) (\\d+)'
+    Keys: [user_id, status, latency_ms]
+  - Type: processor_spl
+    Script: >
+      * | extend sev = if(status >= 500, 'error', 'ok')
+        | extend bucket = concat(sev, '-', round(div(latency_ms, 100)))
+        | join type=left file('{csv_path}') on user_id
+flushers:
+  - Type: flusher_file
+    FilePath: {out_path}
+"""
+
+
+# the SPL Apache script's stages: a named parse (Tier 1), a Tier-1 and a
+# DFA-tier ``where … matches``, and an ``extend`` with ``if``
+SPL_APACHE_STATUS = r"[45]\d\d"
+SPL_APACHE_URL = r".*\.(?:js|png|html)"
+SPL_APACHE_NAMED = "".join(
+    f"(?P<{k}>{g})" if g else lit for k, g, lit in (
+        ("ip", r"\S+", None), (None, None, " "), ("ident", r"\S+", None),
+        (None, None, " "), ("user", r"\S+", None), (None, None, r" \["),
+        ("time", r"[^\]]+", None), (None, None, r'\] "'),
+        ("method", r"\S+", None), (None, None, " "), ("url", r"\S+", None),
+        (None, None, " "), ("protocol", r'[^"]*', None), (None, None, '" '),
+        ("status", r"\d{3}", None), (None, None, " "),
+        ("size", r"\d+", None)))
+
+
+def spl_apache_script():
+    return (f"* | parse content with regex '{SPL_APACHE_NAMED}'"
+            f" | where status matches '{SPL_APACHE_STATUS}'"
+            f" | where url matches '{SPL_APACHE_URL}'"
+            f" | extend kind = if(status >= 500, 'server', 'client')")
+
+
+def spl_apache_config(log_path, out_path):
+    """An Apache log through ``processor_spl`` alone
+    (``spl_apache_script``), ``flusher_file``."""
+    script = spl_apache_script().replace("'", "''")
+    return f"""inputs:
+  - Type: input_file
+    FilePaths: [{log_path}]
+processors:
+  - Type: processor_spl
+    Script: '{script}'
+flushers:
+  - Type: flusher_file
+    FilePath: {out_path}
+"""
+
+
+# -- regroup by metadata (es_with_aggregation.yaml) ---------------------------
+
+META_APPS = ("web", "api", "db", "cache", "auth")
+
+
+def gen_app_lines(n, seed=0):
+    """``app action latency_ms`` lines (``es_with_aggregation.yaml``'s
+    grok)."""
+    rng = np.random.default_rng(seed)
+    apps = rng.integers(0, len(META_APPS), n)
+    acts = rng.choice(np.array(["get", "put", "list", "delete"]), n)
+    lat = rng.integers(0, 100000, n)
+    return [f"{META_APPS[a]} {c} {t}".encode()
+            for a, c, t in zip(apps, acts, lat)]
+
+
+def metadata_group_config(log_path, out_path):
+    """``example_config/quick_start/es_with_aggregation.yaml`` with
+    ``FilePaths`` pointed at ``log_path`` and a ``flusher_file`` sink at
+    ``out_path`` in place of ``flusher_elasticsearch``."""
+    return f"""inputs:
+  - Type: input_file
+    FilePaths:
+      - {log_path}
+processors:
+  - Type: processor_grok
+    Match: "%{{DATA:app}} %{{DATA:action}} %{{INT:latency_ms}}"
+aggregators:
+  - Type: aggregator_metadata_group
+    GroupMetadataKeys: [app]
+flushers:
+  - Type: flusher_file
+    FilePath: {out_path}
+"""
