@@ -340,17 +340,40 @@ Phases, each of which exits non-zero on failure:
    parsed fields equal ``re``, K1 launches = device batches > 0, exit 0
    on SIGTERM.
 35. ``processor_spl``: (a) the shipped ``spl_enrich_join.yaml`` on
-   200,000 requests and a ``teams.csv``, (b) 200,000 Apache lines through
+   100,000 requests and a ``teams.csv``, (b) 200,000 Apache lines through
    a parse, a Tier-1 and a DFA-tier ``where … matches`` and an ``extend``
    with ``if``: every record equals the ``re`` / ``csv`` oracle in order,
    K1 (and in (b) K2) launches = device batches > 0.
-36. ``es_with_aggregation.yaml``'s grok and ``aggregator_metadata_group``
-   to a file on 200,000 lines: the rows equal the oracle's, K1 launches =
-   device batches > 0.  The aggregator passes the grok's columnar groups
-   through, as the JAX package's does, so no group carries an ``app`` tag
-   (``ROADMAP.md`` Queue 3).
-   Phases 34–36 print their K1/K2 launches, device batches and host stage
-   seconds.
+36. ``es_with_aggregation.yaml`` whole: the grok (K1),
+   ``aggregator_metadata_group`` and ``flusher_elasticsearch`` with its
+   ``Authentication`` to a ``_bulk`` receiver on 127.0.0.1, on 200,000
+   lines: every row arrives once, each action line's ``_index`` is
+   ``logs-<app>`` of its own row, every request carries the Basic header,
+   K1 launches = device batches > 0.  The aggregator passes the grok's
+   columnar groups through, as the JAX package's does, so the index is
+   resolved row by row (``ROADMAP.md`` Queue 3).
+37. HTTP ingest, one tail-mode agent with two pipelines: (a)
+   ``http_ingest_spl.yaml``: 200,000 NDJSON requests in POSTs of 1,000
+   lines, every other POST gzipped, to ``input_http_server``, through
+   ``processor_spl``'s ``where`` / ``stats`` / ``sort`` to a ClickHouse
+   receiver: the rows equal ``testdata.ingest_spl_rows``, and each
+   POST's arrive whole and in the SPL's order (``ingest_spl_runs``);
+   (b) ``influx_ingest.yaml`` with a ``flusher_file`` sink: 100,000 influx
+   points arrive once each, with their tags, values and time.
+38. ``http_with_extensions.yaml``: 20,000 JSON records through
+   ``ext_default_decoder``, grouped by ``env``, to a receiver that checks
+   ``ext_basicauth``'s header on every request and answers 503 for its
+   first ``EXT_OUTAGE_S`` seconds: every ``env=prod`` record arrives once,
+   no other, and ``ext_request_breaker`` opened and closed again.
+39. host metrics, one tail-mode agent with two pipelines: (a)
+   ``metrics_remote_write.yaml`` at a 1 s interval to a remote-write
+   receiver for ``HOST_SECONDS``: ``gpu_memory_total_mb{gpu="0"}`` equals
+   ``nvidia-smi``'s ``memory.total``; (b) ``process_entities.yaml`` at a
+   1 s interval to an SLS receiver that decodes the LZ4 block and the
+   ``LogGroup`` itself and checks the request's signature: the agent's
+   own PID is among the entities.
+   Phases 34–39 print their K1/K2 launches, device batches and host stage
+   seconds; phases 36–39 their seconds, records and rate beside the card.
 
 In every phase each recorded launch must be whole warps within the block
 limit and the shared-memory budget, with a block for each SM once a batch
@@ -540,7 +563,10 @@ def gen_inputs(rng, pattern: str, count: int):
     return out
 
 
+@functools.lru_cache(maxsize=1)
 def nvidia_smi() -> str:
+    """The card's name and power limit, read once for the lines that print
+    them beside each phase's numbers."""
     try:
         return subprocess.run(
             ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -3322,6 +3348,179 @@ class LokiReceiver:
             self._server = None
 
 
+class CaptureReceiver:
+    """A sink receiver on 127.0.0.1 (a stdlib ``http.server`` in a thread
+    of this process) for the ``_bulk``, ClickHouse, HTTP and SLS sinks.
+    Each POST is answered ``status(t)``, ``t`` the seconds since the first
+    POST (200 by default); ``check(path, headers, body)`` returns an error
+    text for a request it refuses (kept in ``errors``; the request is
+    answered 400) or None.  Every POST answered 2xx is kept as (path,
+    headers, body) in ``posts``; ``answers`` counts the answers by
+    status."""
+
+    def __init__(self, status=lambda t: 200, check=None):
+        self.status = status
+        self.check = check
+        self.posts: list = []
+        self.answers: dict = {}
+        self.errors: list = []
+        self._lock = threading.Lock()
+        self._server = None
+        self._thread = None
+        self._t0 = None
+
+    @property
+    def port(self) -> int:
+        return self._server.server_address[1]
+
+    @property
+    def url(self) -> str:
+        return f"http://127.0.0.1:{self.port}"
+
+    def start(self) -> "CaptureReceiver":
+        import http.server
+        recv = self
+
+        class Handler(http.server.BaseHTTPRequestHandler):
+            protocol_version = "HTTP/1.1"
+
+            def do_POST(self):
+                body = self.rfile.read(int(self.headers.get(
+                    "Content-Length", 0)))
+                headers = dict(self.headers)
+                with recv._lock:
+                    if recv._t0 is None:
+                        recv._t0 = time.monotonic()
+                status = recv.status(time.monotonic() - recv._t0)
+                err = (recv.check(self.path, headers, body)
+                       if recv.check is not None else None)
+                if err is not None:
+                    status = 400
+                with recv._lock:
+                    recv.answers[status] = recv.answers.get(status, 0) + 1
+                    if err is not None:
+                        recv.errors.append(err)
+                    elif 200 <= status < 300:
+                        recv.posts.append((self.path, headers, body))
+                self.send_response(status)
+                self.send_header("Content-Length", "0")
+                self.end_headers()
+
+            def log_message(self, *args):
+                pass
+
+        self._server = http.server.ThreadingHTTPServer(("127.0.0.1", 0),
+                                                       Handler)
+        self._server.daemon_threads = True
+        self._thread = threading.Thread(target=self._server.serve_forever,
+                                        name="capture-receiver", daemon=True)
+        self._thread.start()
+        return self
+
+    def bodies(self) -> list:
+        with self._lock:
+            return [b for _, _, b in self.posts]
+
+    def stop(self) -> None:
+        if self._server is not None:
+            self._server.shutdown()
+            self._server.server_close()
+            self._thread.join(timeout=10)
+            self._server = None
+
+
+def lz4_block_decompress(src: bytes, raw_size: int) -> bytes:
+    """An LZ4 block (no frame) decoded in Python: the SLS receiver's own
+    decoder, independent of the port's native codec."""
+    out = bytearray()
+    i, n = 0, len(src)
+    while i < n:
+        token = src[i]
+        i += 1
+        lit = token >> 4
+        if lit == 15:
+            while True:
+                b = src[i]
+                i += 1
+                lit += b
+                if b != 255:
+                    break
+        out += src[i:i + lit]
+        i += lit
+        if i >= n:
+            break
+        off = src[i] | (src[i + 1] << 8)
+        i += 2
+        if off == 0 or off > len(out):
+            raise ValueError("lz4: bad match offset")
+        ml = token & 15
+        if ml == 15:
+            while True:
+                b = src[i]
+                i += 1
+                ml += b
+                if b != 255:
+                    break
+        ml += 4
+        start = len(out) - off
+        for k in range(ml):
+            out.append(out[start + k])
+    if len(out) != raw_size:
+        raise ValueError(f"lz4: {len(out)} bytes for x-log-bodyrawsize "
+                         f"{raw_size}")
+    return bytes(out)
+
+
+def decode_sls_loggroup(body: bytes) -> dict:
+    """An SLS ``LogGroup`` (protobuf) read field by field: {"logs": [(time,
+    {key: value})], "topic", "source", "tags": {key: value}}."""
+    logs, tags, topic, source = [], {}, "", ""
+    for fno, _, v in _pb_fields(body):
+        if fno == 1:
+            t, contents = 0, {}
+            for f2, _, v2 in _pb_fields(v):
+                if f2 == 1:
+                    t = v2
+                elif f2 == 2:
+                    d = {f: x for f, _, x in _pb_fields(v2)}
+                    contents[d.get(1, b"").decode()] = d.get(2, b"").decode()
+            logs.append((t, contents))
+        elif fno == 3:
+            topic = v.decode()
+        elif fno == 4:
+            source = v.decode()
+        elif fno == 6:
+            d = {f: x for f, _, x in _pb_fields(v)}
+            tags[d.get(1, b"").decode()] = d.get(2, b"").decode()
+    return {"logs": logs, "topic": topic, "source": source, "tags": tags}
+
+
+def sls_signature_error(path, headers, body, ak_id, ak_secret):
+    """None when an SLS PostLogStoreLogs request is signed as the SLS API
+    signs it (``LOG <AccessKeyId>:<base64 HMAC-SHA1>`` over the verb, the
+    body's MD5, the type, the date, the ``x-log-`` headers and the
+    resource), else what is wrong."""
+    import base64
+    import hashlib
+    import hmac
+    auth = headers.get("Authorization", "")
+    if not auth.startswith(f"LOG {ak_id}:"):
+        return f"Authorization {auth!r}"
+    md5 = hashlib.md5(body).hexdigest().upper()
+    if headers.get("Content-MD5") != md5:
+        return "Content-MD5 differs from the body's"
+    canon = "".join(f"{k}:{headers[k]}\n" for k in sorted(
+        k for k in headers if k.startswith("x-log-")
+        or k.startswith("x-acs-")))
+    sign = (f"POST\n{md5}\napplication/x-protobuf\n{headers.get('Date')}"
+            f"\n{canon}{path}")
+    want = base64.b64encode(hmac.new(ak_secret.encode(), sign.encode(),
+                                     hashlib.sha1).digest()).decode()
+    if auth != f"LOG {ak_id}:{want}":
+        return "signature differs"
+    return None
+
+
 def phase_rollup(tmp, log_path, lines, n_bytes, oracle, invalid, groups,
                  threads, substrate=None, ledger=False) -> dict:
     """The metric-rollup path (``testdata.metric_rollup_config``: parse_json,
@@ -5620,7 +5819,9 @@ def phase_outage_planes_finish(ctx) -> dict:
 CONTAINER_SEED = 20
 CONTAINER_LINES = 25_000     # phase 34: Apache lines a pod (~19 MB in all)
 CONTAINER_PODS = (8, 2)      # pods in CRI_NAMESPACE, in CRI_OTHER_NAMESPACE
-SPL_LINES = 200_000          # phase 35 (a) requests, (b) Apache lines
+SPL_LINES = 200_000          # phase 35 (b): Apache lines
+SPL_JOIN_LINES = 100_000     # phase 35 (a): requests (200,000 before
+                             # phases 37-39 needed the room)
 META_LINES = 200_000         # phase 36
 
 
@@ -5632,7 +5833,8 @@ def stage_line(tag, st) -> None:
         + json.dumps({k: round(v, 3) for k, v in
                       sorted(st["stage_seconds"].items())})
         + "; serialize seconds " + json.dumps(
-            {k: round(v, 3) for k, v in st["serialize_seconds"].items()}))
+            {k: round(v, 3) for k, v in st["serialize_seconds"].items()})
+        + f"; on {nvidia_smi()}")
 
 
 _APACHE_RX = re.compile(APACHE.encode())
@@ -5678,7 +5880,7 @@ def spl_inputs(alines) -> dict:
     ``alines``), join table and oracles."""
     from loongcollector_tpu_torch import testdata as td
     tmp = tempfile.mkdtemp(prefix="chip_smoke_spl_")
-    lines = td.gen_requests(SPL_LINES, seed=35)
+    lines = td.gen_requests(SPL_JOIN_LINES, seed=35)
     table = td.teams_csv(seed=35)
     alines = alines[:SPL_LINES]
     paths = {k: os.path.join(tmp, v) for k, v in (
@@ -5867,8 +6069,8 @@ def spl_apache_oracle(lines):
 
 def phase_spl(inp) -> dict:
     """Phase 35: ``processor_spl`` on the card.  (a) ``spl_enrich_join.yaml``
-    as shipped (a ``flusher_file`` sink) on ``SPL_LINES`` requests and its
-    ``teams.csv``; (b) ``SPL_LINES`` Apache lines through the SPL script
+    as shipped (a ``flusher_file`` sink) on ``SPL_JOIN_LINES`` requests
+    and its ``teams.csv``; (b) ``SPL_LINES`` Apache lines through the SPL script
     alone (``testdata.spl_apache_script``: a named parse, a Tier-1 and a
     DFA-tier ``where … matches``, an ``extend`` with ``if``).  Every record
     equals the ``re`` / ``csv`` oracle in file order; K1's launches (and in
@@ -5920,38 +6122,462 @@ def phase_spl(inp) -> dict:
 
 
 def phase_metadata_group(inp) -> dict:
-    """Phase 36: ``es_with_aggregation.yaml``'s ``processor_grok`` (K1) and
-    ``aggregator_metadata_group`` by ``app``, ``flusher_file`` in place of
-    ``flusher_elasticsearch`` (``testdata.metadata_group_config``), on
-    ``META_LINES`` lines: the rows' multiset equals the oracle's.  The
-    grok's groups are columnar, and the aggregator passes columnar groups
-    through intact in both packages, so no output group carries an ``app``
-    tag (``ROADMAP.md`` Queue 3, open); the regroup of row groups is held
-    against the JAX package's by ``tests/test_torch_aggregators.py``."""
+    """Phase 36: ``es_with_aggregation.yaml`` whole
+    (``testdata.es_aggregation_config``): the grok (K1),
+    ``aggregator_metadata_group`` by ``app`` and ``flusher_elasticsearch``
+    with its ``Authentication`` to a ``_bulk`` receiver on 127.0.0.1, on
+    ``META_LINES`` lines.  Every row arrives once (the multiset equals the
+    oracle's), each action line's ``_index`` is ``logs-<app>`` of its own
+    row, every request carries the config's Basic header, K1's launches
+    equal its device batches and are > 0.  The grok's groups are columnar
+    and the aggregator passes them through untagged in both packages
+    (``ROADMAP.md`` Queue 3), so the flusher resolves the dynamic index
+    row by row, as the JAX package's does."""
+    import base64
     from collections import Counter
     from loongcollector_tpu_torch import testdata as td
-    tag = "regroup by metadata"
+    tag = "es_with_aggregation"
     tmp, log_path, n_bytes, want = (inp["tmp"], inp["log"], inp["n_bytes"],
                                     inp["want"])
-    st, data, wall = path_run(tmp, tag, td.metadata_group_config, log_path, 1)
-    got = Counter()
-    for rec in data.splitlines():
-        obj = json.loads(rec)
-        got[(obj["app"], obj["action"], obj["latency_ms"])] += 1
+    basic = "Basic " + base64.b64encode(b"elastic:changeme").decode()
+    recv = CaptureReceiver(check=lambda path, h, b: None if (
+        path == "/_bulk" and h.get("Authorization") == basic) else
+        f"{path} Authorization {h.get('Authorization')!r}").start()
+    try:
+        run_dir = os.path.join(tmp, "es")
+        cfg_dir = os.path.join(run_dir, "config")
+        os.makedirs(cfg_dir)
+        with open(os.path.join(cfg_dir, "es_with_aggregation.yaml"),
+                  "w") as f:
+            f.write(td.es_aggregation_config(log_path, recv.url))
+        st, wall = run_agent(tag, cfg_dir, os.path.join(run_dir,
+                                                        "stats.json"), 1)
+    finally:
+        recv.stop()
+    if recv.errors:
+        fail(f"{tag}: {len(recv.errors)} requests refused: "
+             f"{recv.errors[:3]}")
+    got, bad_index = Counter(), 0
+    for index, src in td.es_bulk_rows(recv.bodies()):
+        got[(src["app"], src["action"], src["latency_ms"])] += 1
+        bad_index += index != f"logs-{src['app']}"
+        if not src.get("@timestamp", "").endswith("Z"):
+            fail(f"{tag}: a row without an ISO-8601 @timestamp: {src}")
+    if bad_index:
+        fail(f"{tag}: {bad_index} rows under another row's index")
     if got != want:
         fail(f"{tag}: the rows differ from the oracle's "
              f"({sum((got - want).values())} extra, "
              f"{sum((want - got).values())} missing)")
     check_settled(tag, st)
     mbps = n_bytes / st["seconds"] / 1e6
-    log(f"{tag}: {sum(want.values())} rows equal the oracle's multiset "
-        f"through the agent ({mbps:.2f} MB/s end to end, "
-        f"{st['seconds']:.3f} s, agent process {wall:.1f} s, on "
-        f"{nvidia_smi()}; the aggregator passed the grok's columnar groups "
-        f"through, as the JAX package's does)")
+    log(f"{tag}: {sum(want.values())} rows once each under their own "
+        f"logs-<app> index, Basic header on all {len(recv.posts)} _bulk "
+        f"requests; {mbps:.2f} MB/s end to end ({st['seconds']:.3f} s, "
+        f"agent process {wall:.1f} s); K1 {st['launches']} launches = "
+        f"device batches; on {nvidia_smi()} (the aggregator passed the "
+        f"grok's columnar groups through, as the JAX package's does)")
     stage_line(tag, st)
     shutil.rmtree(tmp, ignore_errors=True)
     return {"stats": st, "mbps": mbps}
+
+
+INGEST_RECORDS = 200_000     # phase 37 (a): NDJSON requests
+INGEST_POST_LINES = 1_000    # ... a POST
+INFLUX_POINTS = 100_000      # phase 37 (b)
+INFLUX_POST_LINES = 5_000
+EXT_RECORDS = 20_000         # phase 38
+EXT_POST_LINES = 1_000
+EXT_OUTAGE_S = 3.0           # phase 38: the receiver's 503s
+EXT_WINDOW_S = 5             # phase 38: the request breaker's window
+HOST_SECONDS = 5.0           # phase 39 (a): host metrics at a 1 s interval
+
+
+def service_agent(cfg_dir, data_dir, stats_path, err_path):
+    """A tail-mode agent on the card (one worker, the ledger off)."""
+    env = dict(os.environ, LOONG_PROCESS_THREADS="1")
+    env.pop("LOONG_LEDGER", None)
+    return subprocess.Popen(
+        [sys.executable, "-m", "loongcollector_tpu_torch", "--config",
+         cfg_dir, "--data-dir", data_dir, "--stats", stats_path],
+        cwd=REPO, env=env, stdout=subprocess.DEVNULL,
+        stderr=open(err_path, "wb"))
+
+
+def listening(port) -> bool:
+    import socket
+    try:
+        with socket.create_connection(("127.0.0.1", port), timeout=1):
+            return True
+    except OSError:
+        return False
+
+
+def http_post(port, body, gzipped=False, content_type="application/json"):
+    """POST ``body`` to ``input_http_server`` on 127.0.0.1:``port``; a
+    429 (its process queue full) is sent again.  Returns the 429s."""
+    import gzip
+    import urllib.error
+    import urllib.request
+    headers = {"Content-Type": content_type}
+    if gzipped:
+        body = gzip.compress(body)
+        headers["Content-Encoding"] = "gzip"
+    busy = 0
+    while True:
+        req = urllib.request.Request(f"http://127.0.0.1:{port}/", data=body,
+                                     headers=headers, method="POST")
+        try:
+            with urllib.request.urlopen(req, timeout=60) as r:
+                if r.status != 200:
+                    fail(f"input_http_server answered {r.status}")
+                return busy
+        except urllib.error.HTTPError as e:
+            if e.code != 429:
+                fail(f"input_http_server answered {e.code}: {e.read()!r}")
+            busy += 1
+            time.sleep(0.005)
+
+
+def spl_run_errors(bodies, runs) -> list:
+    """Where the ClickHouse ``bodies`` break ``runs``, each POST's SPL rows
+    in the SPL's order (``testdata.ingest_spl_runs``).  A POST is one
+    group, so its rows arrive contiguous and in its ``sort by -count``
+    order inside one body; empty when every body is a sequence of whole
+    runs and each run arrived once."""
+    from collections import Counter
+    left = Counter(r for r in runs if r)
+    by_first = {}
+    for run in left:
+        by_first.setdefault(run[0], []).append(run)
+    errors = []
+    for b, body in enumerate(bodies):
+        rows = [(r["route"], r["count"], r["avg_latency_ms"])
+                for r in map(json.loads, body.splitlines())]
+        i = 0
+        while i < len(rows):
+            for run in by_first.get(rows[i], ()):
+                if left[run] and tuple(rows[i:i + len(run)]) == run:
+                    left[run] -= 1
+                    i += len(run)
+                    break
+            else:
+                errors.append(f"body {b} row {i} {rows[i]} starts no "
+                              f"POST's rows in the SPL's order")
+                break
+    if sum(left.values()):
+        errors.append(f"{sum(left.values())} POSTs' rows did not arrive "
+                      f"whole and in order")
+    return errors
+
+
+def service_run(tag, tmp, configs, drive):
+    """One tail-mode agent over ``configs`` ({file name: YAML}); calls
+    ``drive(proc_err)`` once every port named in ``configs``' listeners
+    accepts, then stops the agent with SIGTERM (exit 0).  Returns
+    (``drive``'s result, the agent's ``--stats``, its wall seconds)."""
+    run_dir = os.path.join(tmp, re.sub(r"\W+", "_", tag))
+    cfg_dir, data_dir = (os.path.join(run_dir, "config"),
+                         os.path.join(run_dir, "data"))
+    os.makedirs(cfg_dir)
+    for name, text in configs.items():
+        with open(os.path.join(cfg_dir, name), "w") as f:
+            f.write(text)
+    stats_path, err = (os.path.join(run_dir, "stats.json"),
+                       os.path.join(run_dir, "agent.err"))
+    t0 = time.perf_counter()
+    proc = service_agent(cfg_dir, data_dir, stats_path, err)
+    try:
+        res = drive(proc, [(proc, err)])
+        stop_agent(tag, proc, err)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    wall = time.perf_counter() - t0
+    with open(stats_path) as f:
+        st = json.load(f)
+    if st["device"] != "cuda":
+        fail(f"{tag}: the agent ran on {st['device']}")
+    return res, st, wall
+
+
+def phase_http_ingest(inp) -> dict:
+    """Phase 37: HTTP ingest, one tail-mode agent with two pipelines.
+    (a) ``http_ingest_spl.yaml`` (``testdata.http_ingest_spl_config``):
+    ``INGEST_RECORDS`` NDJSON requests (``level``, ``route``,
+    ``latency_ms``; 10% ``DEBUG``, 20 routes) POSTed ``INGEST_POST_LINES``
+    at a time, every other POST gzipped, to ``input_http_server``; each
+    POST's group goes through ``processor_spl``'s ``where`` / ``stats`` /
+    ``sort`` to a ClickHouse receiver: the rows' multiset equals
+    ``testdata.ingest_spl_rows`` of the POSTs, each POST's rows arrive
+    contiguous and in the SPL's order (``spl_run_errors``), every request
+    is an ``INSERT INTO logs.route_stats FORMAT JSONEachRow``.  (b)
+    ``influx_ingest.yaml`` with a ``flusher_file`` sink
+    (``testdata.influx_ingest_config``): ``INFLUX_POINTS`` points in POSTs
+    of ``INFLUX_POST_LINES``: each arrives once, with its tags, values and
+    time.  No kernel runs on either pipeline."""
+    from collections import Counter
+    from urllib.parse import unquote
+    from loongcollector_tpu_torch import testdata as td
+    tag = "HTTP ingest"
+    tmp = inp["tmp"]
+    query = "/?query=" + "INSERT INTO logs.route_stats FORMAT JSONEachRow"
+    recv = CaptureReceiver(check=lambda path, h, b: None if unquote(path)
+                           == query else f"path {path}").start()
+    ports = (free_port(), free_port())
+    out_path = os.path.join(tmp, "influx.json")
+    configs = {"http_ingest_spl.yaml": td.http_ingest_spl_config(
+        ports[0], recv.url), "influx_ingest.yaml": td.influx_ingest_config(
+        ports[1], out_path)}
+    posts, want_rows = inp["posts"], inp["rows"]
+    lines, samples = inp["influx"], inp["samples"]
+
+    def n_rows():
+        return sum(b.count(b"\n") for b in recv.bodies())
+
+    def n_out():
+        if not os.path.exists(out_path):
+            return 0
+        with open(out_path, "rb") as f:
+            return f.read().count(b"\n")
+
+    def drive(proc, procs):
+        wait_until(tag, lambda: all(listening(p) for p in ports), 120,
+                   procs)
+        t0 = time.perf_counter()
+        busy = 0
+        for k, post in enumerate(posts):
+            busy += http_post(ports[0], b"\n".join(post) + b"\n",
+                              gzipped=k % 2 == 1)
+        t_sent = time.perf_counter() - t0
+        wait_until(tag, lambda: n_rows() >= len(want_rows), 300, procs)
+        t_spl = time.perf_counter() - t0
+        t1 = time.perf_counter()
+        for i in range(0, len(lines), INFLUX_POST_LINES):
+            busy += http_post(ports[1], b"\n".join(
+                lines[i:i + INFLUX_POST_LINES]) + b"\n",
+                content_type="text/plain")
+        wait_until(tag, lambda: n_out() >= len(lines), 300, procs)
+        t_influx = time.perf_counter() - t1
+        time.sleep(0.5)      # a record past the oracle's would arrive now
+        return {"sent_s": t_sent, "spl_s": t_spl, "influx_s": t_influx,
+                "busy": busy}
+
+    try:
+        res, st, wall = service_run(tag, tmp, configs, drive)
+    finally:
+        recv.stop()
+    if recv.errors:
+        fail(f"{tag}: {len(recv.errors)} requests refused: "
+             f"{recv.errors[:3]}")
+    got = Counter()
+    for body in recv.bodies():
+        for line in body.splitlines():
+            r = json.loads(line)
+            got[(r["route"], r["count"], r["avg_latency_ms"])] += 1
+    if got != Counter(want_rows):
+        fail(f"{tag} (a): the ClickHouse rows differ from the oracle's "
+             f"({sum((got - Counter(want_rows)).values())} extra, "
+             f"{sum((Counter(want_rows) - got).values())} missing)")
+    order = spl_run_errors(recv.bodies(), inp["runs"])
+    if order:
+        fail(f"{tag} (a): the ClickHouse rows are out of the SPL's order: "
+             f"{order[:3]}")
+    seen = {}
+    with open(out_path, "rb") as f:
+        for line in f:
+            r = json.loads(line)
+            lab = r["__labels__"]
+            key = (lab["host"], lab["region"], r["__time__"] * 10**9)
+            if r["__name__"] != "cpu" or key in seen:
+                fail(f"{tag} (b): {r} is not a point, or arrived twice")
+            seen[key] = r["__values__"]
+    if seen != samples:
+        fail(f"{tag} (b): the points differ from the ones sent "
+             f"({len(seen)} arrived of {len(samples)})")
+    n_req = sum(len(p) for p in posts)
+    spl_rps = n_req / res["spl_s"]
+    influx_pps = len(lines) / res["influx_s"]
+    log(f"{tag} (a): {n_req} requests in {len(posts)} POSTs (half gzipped) "
+        f"-> {len(want_rows)} SPL rows equal to the oracle at ClickHouse; "
+        f"{spl_rps:.0f} records/s from the first POST to the last row "
+        f"({res['spl_s']:.3f} s; POSTs sent in {res['sent_s']:.3f} s, "
+        f"{res['busy']} answered 429 and sent again); on {nvidia_smi()}")
+    log(f"{tag} (b): {len(lines)} influx points once each with tags, "
+        f"values and time; {influx_pps:.0f} points/s "
+        f"({res['influx_s']:.3f} s); agent process {wall:.1f} s; "
+        f"on {nvidia_smi()}")
+    stage_line(tag, st)
+    return {"stats": st, "spl_rps": spl_rps, "influx_pps": influx_pps,
+            "spl_s": res["spl_s"], "influx_s": res["influx_s"]}
+
+
+def phase_extensions(inp) -> dict:
+    """Phase 38: ``http_with_extensions.yaml``
+    (``testdata.http_extensions_config``; the request breaker's window
+    ``EXT_WINDOW_S`` s, 30 as shipped; an ``aggregator_content_value_group``
+    by ``env`` makes ``env`` the group tag the filter reads):
+    ``EXT_RECORDS`` JSON records POSTed ``EXT_POST_LINES`` at a time
+    through ``ext_default_decoder``.  The receiver refuses a request
+    without ``ext_basicauth``'s header and answers 503 for its first
+    ``EXT_OUTAGE_S`` s, then 200.  Every ``env=prod`` record arrives
+    once and no other (``ext_groupinfo_filter``), and
+    ``ext_request_breaker`` opened and closed again (``--stats``
+    ``extensions``)."""
+    import base64
+    from loongcollector_tpu_torch import testdata as td
+    tag = "http_with_extensions"
+    tmp, recs, want = inp["tmp"], inp["ext"], inp["ext_prod"]
+    basic = "Basic " + base64.b64encode(
+        f"{td.EXT_USER}:{td.EXT_PASSWORD}".encode()).decode()
+    recv = CaptureReceiver(
+        status=lambda t: 503 if t < EXT_OUTAGE_S else 200,
+        check=lambda path, h, b: None if h.get("Authorization") == basic
+        else f"Authorization {h.get('Authorization')!r}").start()
+    port = free_port()
+    configs = {"http_with_extensions.yaml": td.http_extensions_config(
+        port, recv.url + "/ingest", EXT_WINDOW_S)}
+
+    def ids():
+        return [json.loads(x)["id"] for b in recv.bodies()
+                for x in b.splitlines()]
+
+    def drive(proc, procs):
+        wait_until(tag, lambda: listening(port), 120, procs)
+        t0 = time.perf_counter()
+        for i in range(0, len(recs), EXT_POST_LINES):
+            http_post(port, b"\n".join(recs[i:i + EXT_POST_LINES]) + b"\n")
+        wait_until(tag, lambda: len(ids()) >= len(want), 300, procs)
+        t = time.perf_counter() - t0
+        time.sleep(0.5)
+        return t
+
+    try:
+        t, st, wall = service_run(tag, tmp, configs, drive)
+    finally:
+        recv.stop()
+    if recv.errors:
+        fail(f"{tag}: {len(recv.errors)} requests without the Basic "
+             f"header: {recv.errors[:3]}")
+    got = ids()
+    if sorted(got) != sorted(want):
+        fail(f"{tag}: {len(got)} records arrived ({len(set(got))} "
+             f"distinct) for the {len(want)} env=prod records")
+    br = st["extensions"].get("http_with_extensions/ext_request_breaker")
+    if not br or br["opened"] < 1 or br["closed"] < 1:
+        fail(f"{tag}: the request breaker did not open and close: {br}; "
+             f"receiver answers {recv.answers}")
+    snd = st["send"]
+    log(f"{tag}: {len(want)} env=prod records of {len(recs)} once each, "
+        f"the other groups filtered out; Basic header on every request; "
+        f"receiver answers {recv.answers}; ext_request_breaker opened "
+        f"{br['opened']} / closed {br['closed']} times; runner breaker "
+        f"{json.dumps(snd['breakers'])}; spilled {snd['spilled']}, "
+        f"replayed {snd['replayed']}; {len(recs) / t:.0f} records/s from "
+        f"the first POST to the last record ({t:.3f} s, the {EXT_OUTAGE_S}"
+        f" s outage in it); agent process {wall:.1f} s; on {nvidia_smi()}")
+    stage_line(tag, st)
+    return {"stats": st, "seconds": t, "breaker": br}
+
+
+def gpu_memory_total_mb() -> float:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=index,memory.total",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        timeout=60).stdout
+    for line in out.splitlines():
+        idx, total = (x.strip() for x in line.split(","))
+        if idx == "0":
+            return float(total)
+    fail(f"nvidia-smi lists no card 0: {out!r}")
+
+
+def phase_host_metrics(inp) -> dict:
+    """Phase 39: host metrics, one tail-mode agent with two pipelines.
+    (a) ``metrics_remote_write.yaml`` (``testdata.host_metrics_config``,
+    ``IntervalSeconds: 1``) to a remote-write receiver for
+    ``HOST_SECONDS`` s from its first sample: ``gpu_memory_total_mb`` of
+    ``gpu="0"`` equals ``nvidia-smi``'s ``memory.total`` for the card.
+    (b) ``process_entities.yaml`` (``testdata.process_entities_config``,
+    ``IntervalSeconds: 1``) to an SLS receiver on 127.0.0.1 that checks
+    each request's signature (``sls_signature_error``) and decodes the
+    LZ4 block and the ``LogGroup`` itself: the agent's own PID is among
+    the process entities."""
+    from loongcollector_tpu_torch import testdata as td
+    tag = "host metrics"
+    tmp = inp["tmp"]
+    rw = RemoteWriteReceiver().start()
+    sls = CaptureReceiver(check=lambda path, h, b: sls_signature_error(
+        path, h, b, td.SLS_AK_ID, td.SLS_AK_SECRET) if path ==
+        f"/logstores/{td.SLS_LOGSTORE}/shards/lb" else f"path {path}"
+    ).start()
+    configs = {"metrics_remote_write.yaml": td.host_metrics_config(rw.url,
+                                                                    1),
+               "process_entities.yaml": td.process_entities_config(
+                   sls.port, 1)}
+
+    def entity_pids():
+        pids = set()
+        for _, h, b in list(sls.posts):
+            raw = lz4_block_decompress(b, int(h["x-log-bodyrawsize"]))
+            for _, c in decode_sls_loggroup(raw)["logs"]:
+                if c.get("__entity_type__") == "infra.host.process":
+                    pids.add(int(c["pid"]))
+        return pids
+
+    def drive(proc, procs):
+        wait_until(tag, lambda: len(rw.samples) > 0, 120, procs)
+        t0 = time.monotonic()
+        wait_until(tag, lambda: proc.pid in entity_pids(), 120, procs)
+        time.sleep(max(0.0, HOST_SECONDS - (time.monotonic() - t0)))
+        return proc.pid
+
+    try:
+        pid, st, wall = service_run(tag, tmp, configs, drive)
+    finally:
+        rw.stop()
+        sls.stop()
+    if sls.errors or rw.errors:
+        fail(f"{tag}: requests refused: {sls.errors[:3]} {rw.errors[:3]}")
+    total = gpu_memory_total_mb()
+    gpu = [v for lab, v, _ in rw.samples
+           if lab.get("__name__") == "gpu_memory_total_mb"
+           and lab.get("gpu") == "0"]
+    if not gpu or any(v != total for v in gpu):
+        fail(f"{tag} (a): gpu_memory_total_mb{{gpu=\"0\"}} {gpu[:3]} for "
+             f"nvidia-smi's {total}")
+    names = sorted({lab["__name__"] for lab, _, _ in rw.samples})
+    stamps = sorted({ts for _, _, ts in rw.samples})
+    pids = entity_pids()
+    log(f"{tag} (a): {len(rw.samples)} samples of {len(names)} metrics at "
+        f"{len(stamps)} instants; gpu_memory_total_mb{{gpu=\"0\"}} = "
+        f"{gpu[0]:.0f} = nvidia-smi's memory.total in all {len(gpu)} "
+        f"samples; on {nvidia_smi()}")
+    log(f"{tag} (b): {len(sls.posts)} signed SLS requests (AccessKeyId "
+        f"{td.SLS_AK_ID}), {len(pids)} process entities, the agent's pid "
+        f"{pid} among them; agent process {wall:.1f} s; on {nvidia_smi()}")
+    stage_line(tag, st)
+    return {"stats": st, "samples": len(rw.samples),
+            "gpu_memory_total_mb": gpu[0], "sls_requests": len(sls.posts)}
+
+
+def slice22_inputs() -> dict:
+    """Phases 37–38's records, POSTs and oracles (made while an earlier
+    phase waits)."""
+    from loongcollector_tpu_torch import testdata as td
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_service_")
+    recs = td.gen_ingest_records(INGEST_RECORDS, seed=22)
+    posts = [recs[i:i + INGEST_POST_LINES]
+             for i in range(0, len(recs), INGEST_POST_LINES)]
+    lines = td.gen_influx_lines(INFLUX_POINTS, seed=22)
+    ext = td.gen_extension_records(EXT_RECORDS, seed=22)
+    runs = td.ingest_spl_runs(posts)
+    return {"tmp": tmp, "posts": posts, "runs": runs,
+            "rows": [row for run in runs for row in run],
+            "influx": lines, "samples": td.influx_samples(lines),
+            "ext": ext, "ext_prod": [json.loads(r)["id"] for r in ext
+                                     if json.loads(r)["env"] == "prod"]}
 
 
 def _timed(name, fn):
@@ -5963,13 +6589,14 @@ def _timed(name, fn):
         try:
             return fn(*args, **kwargs)
         finally:
-            log(f"seconds: {name} {time.perf_counter() - t0:.1f}")
+            log(f"seconds: {name} {time.perf_counter() - t0:.1f} on "
+                f"{nvidia_smi()}")
     return run
 
 
 for _name in [n for n in list(globals()) if n.startswith("phase_")
               or n in ("main_path_log", "java_log", "metrics_log",
-                       "slice20_inputs")]:
+                       "slice20_inputs", "slice22_inputs")]:
     globals()[_name] = _timed(_name, globals()[_name])
 
 
@@ -6106,6 +6733,7 @@ def main() -> int:
         try:
             prep["inputs"] = observed_inputs()
             prep["slice20"] = slice20_inputs(tail_lines)
+            prep["slice22"] = slice22_inputs()
         except BaseException as e:  # noqa: BLE001 — raised again below
             prep["error"] = e
 
@@ -6122,6 +6750,11 @@ def main() -> int:
     container = phase_container_stdio(s20["container"])
     spl = phase_spl(s20["spl"])
     meta = phase_metadata_group(s20["meta"])
+    s22 = prep["slice22"]
+    ingest = phase_http_ingest(s22)
+    ext = phase_extensions(s22)
+    host = phase_host_metrics(s22)
+    shutil.rmtree(s22["tmp"], ignore_errors=True)
     mp = main_path["stats"]
     t8, t64 = timing[8192], timing[65536]
     kernels = {"kernels": [{
@@ -6204,6 +6837,14 @@ def main() -> int:
                       "spl_join": spl["join"]["mbps"],
                       "spl_apache": spl["apache"]["mbps"],
                       "metadata_group": meta["mbps"]},
+        # phases 37–39: no kernel runs on them (HTTP ingest, the
+        # extension plane, host metrics); their rates beside K1's paths
+        "service_rates": {"http_ingest_spl_records_per_s":
+                              ingest["spl_rps"],
+                          "influx_points_per_s": ingest["influx_pps"],
+                          "extensions_records_per_s":
+                              EXT_RECORDS / ext["seconds"],
+                          "host_metrics_samples": host["samples"]},
         "build_s": build["build_s"]["field_extract"],
         "blocks": [t8["blocks"], t64["blocks"]],
         "threads": [t8["threads"], t64["threads"]],

@@ -110,7 +110,9 @@ the self-monitor resets none of them); ``ledger`` also holds the auditor's
 counts (``LOONG_LEDGER_AUDIT=1``); ``routing``: the groups and events
 that no flusher's ``Match`` took (dropped, tagged ``no_route``);
 ``serialize_seconds``: each HTTP-family flusher's host seconds building
-and compressing its payloads.
+and compressing its payloads; ``extensions``: each extension's counts
+that it keeps (the request breaker's trips and re-closes), keyed
+``<pipeline>/<extension key>``.
 
 The self-observability planes (JAX package ``application.py:106-127``,
 ``:372-377``): ``LOONG_LEDGER`` / ``LOONG_LEDGER_AUDIT`` turn on the
@@ -575,6 +577,13 @@ def run_configs(configs: List[Tuple[str, Dict[str, Any]]], device,
         "ebpf": _ebpf_stats(manager_pipelines),
         "tail": tail_stats,
         "send": send.stats(),
+        # each extension's counts (the request breaker's trips), by
+        # pipeline and extension key
+        "extensions": {
+            f"{p.name}/{key}": ext.stats()
+            for p in manager_pipelines
+            for key, ext in p.context.extensions.items()
+            if ext.stats() is not None},
         # each HTTP-family flusher's host seconds in its payload builder
         # and compressor, by plugin id
         "serialize_seconds": {

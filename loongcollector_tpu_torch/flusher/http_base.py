@@ -7,10 +7,13 @@ converter + HTTP client; here each sink is just `build_payload` (+ URL and
 static headers) on top of the same native sender path the SLS flusher uses
 (SenderQueueItem retry state, AIMD + rate gates, drain-on-exit).
 
-The port's copy of the JAX package's ``flusher/http_base.py``.  The port
-has no extension plane: a config that names an ``Authenticator``,
-``RequestBreaker`` or ``FlushInterceptor`` is refused
-(``resolve_http_extensions`` returns False) rather than run without it.
+The port's copy of the JAX package's ``flusher/http_base.py``, with its
+extension hooks: ``Authenticator``, ``RequestBreaker`` and
+``FlushInterceptor`` name instances of the pipeline's ``extensions:``
+(``resolve_http_extensions``; a dangling name refuses the config), the
+breaker fails ``build_request`` fast while open (``check_breaker``) and
+hears every send's outcome, the authenticator signs each request and the
+interceptor drops the groups it filters out (booked ``flush_filtered``).
 A payload carries the SLO ingest stamps of the groups it serialized
 (``SenderQueueItem.stamps``; JAX package ``http_base.py:91-122``), and a
 payload that is terminal before its queue (skipped, refused) is their drop
@@ -19,6 +22,7 @@ terminal.
 
 from __future__ import annotations
 
+import itertools
 import time
 from typing import Any, Dict, List, Optional, Tuple
 
@@ -35,9 +39,6 @@ from .http import HttpRequest
 
 log = get_logger("flusher_http")
 
-#: extension references the JAX package resolves and the port refuses
-EXTENSION_KEYS = ("Authenticator", "RequestBreaker", "FlushInterceptor")
-
 
 class HttpSinkFlusher(Flusher):
     """Subclasses implement `_init_sink` and `build_payload`; optionally
@@ -51,6 +52,9 @@ class HttpSinkFlusher(Flusher):
         self.headers: Dict[str, str] = {}
         self.compressor = None
         self.batcher: Batcher = None  # type: ignore
+        self.authenticator = None     # extension refs; resolved at init
+        self.breaker = None
+        self.flush_interceptor = None
         # host seconds in build_payload and the compressor (``--stats``
         # ``serialize_seconds``)
         self.serialize_seconds = 0.0
@@ -86,6 +90,8 @@ class HttpSinkFlusher(Flusher):
         return True
 
     def send(self, group: PipelineEventGroup) -> bool:
+        if intercepted(self, group):
+            return True
         self.batcher.add(group)
         return True
 
@@ -120,6 +126,7 @@ class HttpSinkFlusher(Flusher):
         push_refused(self, item)
 
     def build_request(self, item: SenderQueueItem) -> HttpRequest:
+        check_breaker(self)
         headers = dict(self.headers)
         headers.setdefault("Content-Type", self.content_type)
         headers.update(item.tag.get("headers") or {})
@@ -127,11 +134,16 @@ class HttpSinkFlusher(Flusher):
             enc = {"zlib": "deflate"}.get(self.compressor.name,
                                           self.compressor.name)
             headers["Content-Encoding"] = enc
-        return HttpRequest("POST", self.endpoint_url(item), headers,
-                           item.data)
+        req = HttpRequest("POST", self.endpoint_url(item), headers,
+                          item.data)
+        if self.authenticator is not None:
+            self.authenticator.apply(req)
+        return req
 
     def on_send_done(self, item: SenderQueueItem, status: int,
                      body: bytes) -> str:
+        if self.breaker is not None:
+            self.breaker.on_result(200 <= status < 300)
         if 200 <= status < 300:
             return "ok"
         if status in (429, 500, 502, 503, 504) or status <= 0:
@@ -146,6 +158,20 @@ class HttpSinkFlusher(Flusher):
         self.batcher.flush_all()
         self.batcher.close()
         return True
+
+
+class AddressRotator:
+    """Round-robin across sink addresses (the Go flushers' host pools)."""
+
+    def __init__(self, addresses: List[str]):
+        self.addresses = [a.rstrip("/") for a in addresses if a]
+        self._it = itertools.cycle(self.addresses) if self.addresses else None
+
+    def __bool__(self) -> bool:
+        return self._it is not None
+
+    def next(self) -> str:
+        return next(self._it)
 
 
 def flush_strategy(config: Dict[str, Any]) -> FlushStrategy:
@@ -177,14 +203,45 @@ def push_refused(flusher: Flusher, item: SenderQueueItem) -> bool:
 
 def resolve_http_extensions(flusher, config: Dict[str, Any],
                             context: PluginContext) -> bool:
-    """The JAX package resolves Authenticator / RequestBreaker /
-    FlushInterceptor references against the pipeline's ``extensions:``;
-    the port has none, so a config that names one is refused (False)."""
-    named = [k for k in EXTENSION_KEYS if config.get(k)]
-    if named:
-        log.error("%s: extension references %s are not supported by the "
-                  "port", flusher.name, named)
+    """Resolve Authenticator / RequestBreaker / FlushInterceptor extension
+    refs (reference: flushers point at named instances from the pipeline's
+    `extensions:` section).  A dangling ref is a config error; no ref keeps
+    the flusher extension-free."""
+    flusher.authenticator = None
+    flusher.breaker = None
+    flusher.flush_interceptor = None
+    for key, attr in (("Authenticator", "authenticator"),
+                      ("RequestBreaker", "breaker"),
+                      ("FlushInterceptor", "flush_interceptor")):
+        ref = config.get(key)
+        if not ref:
+            continue
+        ext = context.get_extension(str(ref))
+        if ext is None:
+            log.error("%s: %s %r names no extension of the pipeline",
+                      flusher.name, key, ref)
+            return False
+        setattr(flusher, attr, ext)
+    return True
+
+
+def check_breaker(flusher) -> None:
+    """Fail fast when the flusher's breaker is open: build_request raises,
+    FlusherRunner backs the item off without touching the endpoint."""
+    br = getattr(flusher, "breaker", None)
+    if br is not None and not br.allow():
+        from ..pipeline.plugin.extension import BreakerOpen
+        raise BreakerOpen(f"{flusher.name}: request breaker open")
+
+
+def intercepted(flusher, group: PipelineEventGroup) -> bool:
+    """True when the flusher's FlushInterceptor filters ``group`` out:
+    not an error, but terminal for its events (a ``flush_filtered``
+    drop)."""
+    flt = getattr(flusher, "flush_interceptor", None)
+    if flt is None or flt.filter([group]):
         return False
+    flusher._ledger_drop("flush_filtered", group=group)
     return True
 
 

@@ -51,7 +51,13 @@ last healthy tick and a trip leaves its breakdown empty.  The breakdown also cou
 watermarks): a freshness trip lands while its stamp still waits, often in
 a sender queue's backoff between two attempts, and the JAX package's
 breakdown, which sees only completed waits, then names whichever hop
-finished work in the last evaluator interval.  The hop totals'
+finished work in the last evaluator interval.  A payload spilled in the
+callback of its failed send (the breaker opened on it) has its round
+trip observed before the spill books the bad outcome; a healthy tick
+between the two moves the baseline past the round trip, and the spilled
+payload waits nowhere, so the JAX package's breakdown names no hop.  The
+port's names the ``sink`` hop with those payloads' egress seconds
+(``observe_spill``).  The hop totals'
 fail-soft read is logged once and counted (``monitor/fail_soft.py``)
 instead of passing silently.
 """
@@ -171,6 +177,10 @@ class SloPlane:
         # budget-breakdown baseline: hop-histogram (sum, count) at the last
         # healthy evaluator tick — a trip's breakdown is the delta since
         self._hop_baseline: Dict[str, Tuple[float, int]] = {}
+        # egress-leg seconds of the payloads spilled after a failed send
+        # since that tick, and the spills still booking (``observe_spill``)
+        self._spilled_s = 0.0
+        self._spills_booking = 0
 
     # -- stamp registry ------------------------------------------------------
 
@@ -403,6 +413,9 @@ class SloPlane:
         clears: List[Tuple[str, int, dict]] = []
         results: Dict[str, dict] = {}
         with self._lock:
+            # the spill seconds this tick's verdict covers: none while a
+            # spill is between its note and its booking
+            spill_seen = 0.0 if self._spills_booking else self._spilled_s
             for name, st in self._states.items():
                 if not name:
                     continue    # unattributed results have no contract
@@ -437,7 +450,10 @@ class SloPlane:
             if not any_firing:
                 # healthy tick: the NEXT trip's breakdown is the hop spend
                 # accumulated since this instant
-                self._hop_baseline = _hop_totals()
+                totals = _hop_totals()
+                with self._lock:
+                    self._hop_baseline = totals
+                    self._spilled_s = max(0.0, self._spilled_s - spill_seen)
         self.export_gauges(results)
         return results
 
@@ -471,12 +487,41 @@ class SloPlane:
         dominant = ""
         if hops and any(v > 0.0 for v in hops.values()):
             dominant = max(sorted(hops), key=lambda k: hops[k])
+        with self._lock:
+            spilled = self._spilled_s
+        from_spill = not dominant and spilled > 0.0
+        if from_spill:
+            # no hop spend, but a payload spilled after its failed send:
+            # the healthy tick landed between that send's round trip and
+            # the spill, which left nothing waiting — the egress leg the
+            # spilled payloads took is the spend
+            hops["sink"] = spilled
+            dominant = "sink"
         doc = {"hops": {k: round(v, 6) for k, v in sorted(hops.items())},
                "histograms": hists, "dominant": dominant}
         if inflight:
             doc["inflight"] = {k: round(v, 6)
                                for k, v in sorted(inflight.items())}
+        if from_spill:
+            doc["spilled"] = {"sink": round(spilled, 6)}
         return doc
+
+    def observe_spill(self, pipeline: str, stamps, egress_s: float) -> None:
+        """Book the spill of a payload whose send just failed, after
+        ``egress_s`` seconds on the egress leg (sender queue and sends).
+        The breakdown reads those seconds only when no hop histogram moved
+        since the last healthy tick.  A tick between the note and the
+        booking leaves them in place: its verdict did not see the spill."""
+        if not stamps:
+            return
+        with self._lock:
+            self._spilled_s += max(0.0, float(egress_s))
+            self._spills_booking += 1
+        try:
+            self.observe_stamps(pipeline, stamps, OUTCOME_SPILL)
+        finally:
+            with self._lock:
+                self._spills_booking -= 1
 
     def _raise(self, pipeline: str, episode: int, stats: dict) -> None:
         breakdown = self.budget_breakdown()
@@ -663,6 +708,7 @@ class SloPlane:
             self._refs.clear()
             self._states.clear()
             self._hop_baseline = {}
+            self._spilled_s = 0.0
 
 
 def _hop_totals() -> Dict[str, Tuple[float, int]]:
@@ -789,6 +835,13 @@ def stamps_of(groups) -> Tuple[int, ...]:
     if plane is None:
         return ()
     return plane.stamps_of(groups)
+
+
+def observe_spill(pipeline: str, stamps, egress_s: float) -> None:
+    plane = _plane
+    if plane is None or not stamps:
+        return
+    plane.observe_spill(pipeline, stamps, egress_s)
 
 
 def observe_stamps(pipeline: str, stamps, outcome: str) -> None:

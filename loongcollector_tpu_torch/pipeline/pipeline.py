@@ -56,6 +56,12 @@ sender queue before its init, as in the JAX package
 (``pipeline.py:183-194``).  A self-accounting aggregator (the rollup)
 books its own agg_in / agg_fold / agg_emit.
 
+Extensions (JAX package ``pipeline/pipeline.py:113-128``, ``:309``): the
+``extensions:`` section is built before the inputs, each instance keyed by
+its type or ``<type>/<Alias>`` in ``context.extensions``, where the other
+plugins look it up by name; a duplicate key refuses the config, and each
+extension is stopped after the flushers.
+
 Routing (JAX package ``pipeline/pipeline.py:180-200``, ``:476-500``): a
 ``Router`` holds each flusher's ``Match`` (``pipeline/route/router.py``);
 ``send`` and ``_send_direct`` hand each group to the flushers whose
@@ -177,6 +183,18 @@ class CollectionPipeline:
         self._in_process_zero = threading.Condition()
         registry = PluginRegistry.instance()
         registry.load_static_plugins()
+        # extensions first: the other plugins resolve them by name at init
+        for ecfg in config.get("extensions", []):
+            ext = self._make(registry.create_extension, ecfg)
+            key = ecfg.get("Type", "")
+            if ecfg.get("Alias"):
+                key = f"{key}/{ecfg['Alias']}"
+            if key in self.context.extensions:
+                # an overwrite would leave the shadowed instance unstopped
+                # and authenticate with the wrong credentials
+                raise PipelineInitError(f"pipeline {name}: duplicate "
+                                        f"extension {key!r} (use Alias)")
+            self.context.extensions[key] = ext
         for icfg in config.get("inputs", []):
             inp = self._make(registry.create_input, icfg)
             self.inputs.append(inp)
@@ -245,6 +263,11 @@ class CollectionPipeline:
         batcher holds into its sender queue."""
         for f in self.flushers:
             f.stop()
+        for ext in self.context.extensions.values():
+            try:
+                ext.stop()
+            except Exception:  # noqa: BLE001
+                log.exception("extension %s stop failed", ext.name)
 
     def release(self) -> None:
         """Free the pipeline's global registrations (the aggregator's

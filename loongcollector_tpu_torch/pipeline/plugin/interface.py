@@ -33,7 +33,10 @@ class PluginContext:
     run their kernels; inputs push what they read into the pipeline's
     process queue (``process_queue_manager``, ``process_queue_key``);
     ``tail`` is true when the agent runs in tail mode (without
-    ``--once``), where a file input follows its files."""
+    ``--once``), where a file input follows its files.  ``extensions``
+    holds the named extension instances of the pipeline's
+    ``extensions:`` section (key ``<type>`` or ``<type>/<alias>``; JAX
+    package ``interface.py:31-38``)."""
 
     def __init__(self, pipeline_name: str = "", config: Optional[dict] = None,
                  device: Optional[torch.device] = None,
@@ -45,6 +48,11 @@ class PluginContext:
         self.process_queue_manager = process_queue_manager
         self.process_queue_key = process_queue_key
         self.tail = tail
+        self.extensions: Dict[str, Any] = {}
+
+    def get_extension(self, ref: str):
+        """Resolve an extension reference from another plugin's config."""
+        return self.extensions.get(ref)
 
 
 class Plugin:

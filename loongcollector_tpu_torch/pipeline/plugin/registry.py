@@ -2,8 +2,8 @@
 
 Reference: core/collection_pipeline/plugin/PluginRegistry.cpp —
 LoadStaticPlugins (:162-231) registers creators; CreateInput/Processor/
-Flusher (:112-133); the aggregators as the JAX package's registry
-(``create_aggregator``).  The port registers the plugins of its slice under the
+Flusher (:112-133); the aggregators and extensions as the JAX package's
+registry (``create_aggregator``, ``create_extension``).  The port registers the plugins of its slice under the
 reference's type names, ``_tpu`` and ``_native`` aliases included, so the
 same pipeline YAML drives either package.
 """
@@ -25,6 +25,7 @@ class PluginRegistry:
         self._processors: Dict[str, Callable[[], Processor]] = {}
         self._flushers: Dict[str, Callable[[], Flusher]] = {}
         self._aggregators: Dict[str, Callable[[], Plugin]] = {}
+        self._extensions: Dict[str, Callable[[], Plugin]] = {}
         self._loaded = False
 
     @classmethod
@@ -49,6 +50,10 @@ class PluginRegistry:
                             creator: Callable[[], Plugin]) -> None:
         self._aggregators[name] = creator
 
+    def register_extension(self, name: str,
+                           creator: Callable[[], Plugin]) -> None:
+        self._extensions[name] = creator
+
     def load_static_plugins(self) -> None:
         """Registers all built-in plugins (idempotent)."""
         if self._loaded:
@@ -62,6 +67,8 @@ class PluginRegistry:
         _flusher_pkg.register_all(self)
         _input_pkg.register_all(self)
         _aggregator_pkg.register_all(self)
+        from . import extension as _extension_pkg
+        _extension_pkg.register_all(self)
 
     def create_input(self, name: str) -> Optional[Input]:
         c = self._inputs.get(name)
@@ -77,4 +84,8 @@ class PluginRegistry:
 
     def create_aggregator(self, name: str) -> Optional[Plugin]:
         c = self._aggregators.get(name)
+        return c() if c else None
+
+    def create_extension(self, name: str) -> Optional[Plugin]:
+        c = self._extensions.get(name)
         return c() if c else None

@@ -283,10 +283,13 @@ class FlusherRunner:
 
     # -- spill / replay ------------------------------------------------------
 
-    def _spill_item(self, item: SenderQueueItem, breaker=None) -> bool:
+    def _spill_item(self, item: SenderQueueItem, breaker=None,
+                    after_send: bool = False) -> bool:
         """Route one undeliverable item to the disk buffer, freeing its
         queue slot.  False when spilling is impossible (no buffer, buffer
-        full, exactly-once item) — the caller falls back to backoff."""
+        full, exactly-once item) — the caller falls back to backoff.
+        ``after_send``: spilled in the callback of its failed send, whose
+        round trip the SLO breakdown may already have passed."""
         flusher = item.flusher
         if (self.disk_buffer is None or flusher is None
                 or "eo_cp" in item.tag):
@@ -298,8 +301,12 @@ class FlusherRunner:
         # path owns delivery from here, the checkpoint may advance
         ack_watermark.ack_spans(item.spans)
         if slo.is_on():
-            slo.observe_stamps(self._ledger_pipeline(item), item.stamps,
-                               slo.OUTCOME_SPILL)
+            if after_send:
+                slo.observe_spill(self._ledger_pipeline(item), item.stamps,
+                                  time.monotonic() - item.enqueue_time)
+            else:
+                slo.observe_stamps(self._ledger_pipeline(item), item.stamps,
+                                   slo.OUTCOME_SPILL)
         self.spilled_items.add(1)
         if breaker is not None:
             breaker.note_spilled()
@@ -470,7 +477,7 @@ class FlusherRunner:
             if (breaker.is_open()
                     or item.try_count >= MAX_TRY_BEFORE_SPILL
                     or not self._running):
-                if self._spill_item(item, breaker):
+                if self._spill_item(item, breaker, after_send=True):
                     return
             if not self._running:
                 # the runner stopped while this transfer was in flight:

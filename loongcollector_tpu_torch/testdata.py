@@ -2179,3 +2179,260 @@ flushers:
   - Type: flusher_file
     FilePath: {out_path}
 """
+
+
+def es_aggregation_config(log_path, url):
+    """``example_config/quick_start/es_with_aggregation.yaml`` as shipped,
+    with ``FilePaths`` pointed at ``log_path`` and ``Addresses`` at the
+    ``_bulk`` receiver ``url`` in place of ``http://localhost:9200``."""
+    return f"""inputs:
+  - Type: input_file
+    FilePaths:
+      - {log_path}
+processors:
+  - Type: processor_grok
+    Match: "%{{DATA:app}} %{{DATA:action}} %{{INT:latency_ms}}"
+aggregators:
+  - Type: aggregator_metadata_group
+    GroupMetadataKeys: [app]
+flushers:
+  - Type: flusher_elasticsearch
+    Addresses: ["{url}"]
+    Index: "logs-%{{app}}"
+    Authentication:
+      PlainText: {{Username: elastic, Password: changeme}}
+"""
+
+
+def es_bulk_rows(bodies):
+    """[(index, source dict)] of ``_bulk`` bodies (action / source line
+    pairs); raises on a line that is not one of a pair."""
+    import json
+    out = []
+    for body in bodies:
+        lines = body.split(b"\n")
+        if lines and lines[-1] == b"":
+            lines.pop()
+        if len(lines) % 2:
+            raise ValueError("a _bulk body of an odd number of lines")
+        for a, s in zip(lines[0::2], lines[1::2]):
+            out.append((json.loads(a)["index"]["_index"], json.loads(s)))
+    return out
+
+
+# -- HTTP ingest (http_ingest_spl.yaml, influx_ingest.yaml) ---------------------
+
+INGEST_ROUTES = tuple(f"/api/v1/{r}" for r in (
+    "users", "orders", "cart", "search", "login", "logout", "items",
+    "prices", "stock", "reviews", "ship", "pay", "refund", "coupons",
+    "profile", "health", "metrics", "feed", "notify", "upload"))
+INGEST_LEVELS = ("INFO", "WARN", "ERROR")
+
+
+def gen_ingest_records(n, seed=0):
+    """NDJSON request records ``{"level", "route", "latency_ms"}``: 10%
+    ``DEBUG``, the rest INFO / WARN / ERROR, over ``INGEST_ROUTES``."""
+    import json
+    rng = np.random.default_rng(seed)
+    debug = rng.random(n) < 0.10
+    lv = rng.integers(0, len(INGEST_LEVELS), n)
+    rt = rng.integers(0, len(INGEST_ROUTES), n)
+    lat = rng.integers(0, 3000, n)
+    return [json.dumps({"level": "DEBUG" if d else INGEST_LEVELS[v],
+                        "route": INGEST_ROUTES[r],
+                        "latency_ms": int(t)}).encode()
+            for d, v, r, t in zip(debug, lv, rt, lat)]
+
+
+def ingest_spl_rows(posts):
+    """``ingest_spl_runs`` of ``posts``, one list of rows."""
+    return [row for run in ingest_spl_runs(posts) for row in run]
+
+
+def ingest_spl_runs(posts):
+    """What ``http_ingest_spl.yaml``'s SPL makes of each POST (one group),
+    a tuple of rows a POST: its non-DEBUG records counted and their
+    ``latency_ms`` averaged by ``route``, as rows ``(route, count,
+    avg_latency_ms)`` with the SPL's number text (an integer without a
+    point, else ``repr``), by descending count, routes of equal count in
+    first-seen order."""
+    import json
+    out = []
+    for post in posts:
+        by = {}
+        for line in post:
+            rec = json.loads(line)
+            if rec["level"] == "DEBUG":
+                continue
+            acc = by.setdefault(rec["route"], [0, 0])
+            acc[0] += 1
+            acc[1] += rec["latency_ms"]
+        rows = []
+        for route, (n, total) in sorted(by.items(), key=lambda kv: -kv[1][0]):
+            avg = total / n
+            text = str(int(avg)) if avg.is_integer() else repr(avg)
+            rows.append((route, str(n), text))
+        out.append(tuple(rows))
+    return out
+
+
+def http_ingest_spl_config(port, url):
+    """``example_config/quick_start/http_ingest_spl.yaml`` as shipped, with
+    the input on ``127.0.0.1:port`` and ``Addresses`` at the ClickHouse
+    receiver ``url`` in place of ``http://clickhouse:8123``."""
+    return f"""inputs:
+  - Type: input_http_server
+    Address: "127.0.0.1:{port}"
+    Format: ndjson
+processors:
+  - Type: processor_spl
+    Script: "* | where level != 'DEBUG' | stats count(), avg(latency_ms) by route | sort by -count"
+flushers:
+  - Type: flusher_clickhouse
+    Addresses: ["{url}"]
+    Database: logs
+    Table: route_stats
+"""
+
+
+def gen_influx_lines(n, seed=0, t0_ns=1_700_000_000_000_000_000):
+    """Influx line-protocol points ``cpu,host=…,region=… usage_user=…,
+    usage_system=…,procs=…i <ns>``, one a second from ``t0_ns`` (a sink
+    that writes whole seconds still shows each point's own time), each
+    sample unique by (host, region, timestamp)."""
+    rng = np.random.default_rng(seed)
+    hosts = rng.integers(0, 64, n)
+    regions = rng.integers(0, len(SPL_REGIONS), n)
+    user = (rng.integers(0, 10000, n) / 100.0).tolist()
+    system = (rng.integers(0, 10000, n) / 100.0).tolist()
+    procs = rng.integers(1, 2000, n).tolist()
+    return [(f"cpu,host=h{h},region={SPL_REGIONS[r]} usage_user={u!r},"
+             f"usage_system={s!r},procs={p}i {t0_ns + i * 1_000_000_000}"
+             ).encode()
+            for i, (h, r, u, s, p) in enumerate(zip(hosts, regions, user,
+                                                    system, procs))]
+
+
+def influx_samples(lines):
+    """{(host, region, ts_ns): {field: value}} of ``gen_influx_lines``."""
+    out = {}
+    for line in lines:
+        head, fields, ts = line.decode().split(" ")
+        tags = dict(kv.split("=") for kv in head.split(",")[1:])
+        vals = {}
+        for kv in fields.split(","):
+            k, v = kv.split("=")
+            vals[k] = float(v[:-1] if v.endswith("i") else v)
+        out[(tags["host"], tags["region"], int(ts))] = vals
+    return out
+
+
+def influx_ingest_config(port, out_path):
+    """``example_config/quick_start/influx_ingest.yaml`` with the input on
+    ``127.0.0.1:port`` and a ``flusher_file`` sink at ``out_path`` in place
+    of ``flusher_stdout``."""
+    return f"""inputs:
+  - Type: input_http_server
+    Address: 127.0.0.1:{port}
+    Format: influx
+flushers:
+  - Type: flusher_file
+    FilePath: {out_path}
+"""
+
+
+# -- the extension plane (http_with_extensions.yaml) ---------------------------
+
+EXT_ENVS = ("prod", "dev", "staging")
+EXT_USER, EXT_PASSWORD = "agent", "s3cret"
+
+
+def gen_extension_records(n, seed=0):
+    """JSON records ``{"id", "env", "msg"}`` with unique ids, ``env`` over
+    ``EXT_ENVS``."""
+    import json
+    rng = np.random.default_rng(seed)
+    envs = rng.integers(0, len(EXT_ENVS), n)
+    return [json.dumps({"id": str(i), "env": EXT_ENVS[e],
+                        "msg": f"event {i}"}).encode()
+            for i, e in enumerate(envs)]
+
+
+def http_extensions_config(port, url, window_s=30):
+    """``example_config/quick_start/http_with_extensions.yaml`` with the
+    input on ``127.0.0.1:port``, ``RemoteURL`` at ``url``, the request
+    breaker's ``WindowInSeconds`` at ``window_s`` (30 as shipped), and an
+    ``aggregator_content_value_group`` by ``env``: it makes each record's
+    ``env`` a group tag, which is what ``ext_groupinfo_filter`` reads (no
+    plugin of the shipped config tags a group)."""
+    return f"""extensions:
+  - Type: ext_default_decoder
+    Format: json
+  - Type: ext_basicauth
+    Username: {EXT_USER}
+    Password: {EXT_PASSWORD}
+  - Type: ext_request_breaker
+    FailureRatio: 0.2
+    WindowInSeconds: {window_s}
+  - Type: ext_groupinfo_filter
+    Tags: {{env: prod}}
+inputs:
+  - Type: input_http_server
+    Address: 127.0.0.1:{port}
+    Decoder: ext_default_decoder
+aggregators:
+  - Type: aggregator_content_value_group
+    GroupKeys: [env]
+flushers:
+  - Type: flusher_http
+    RemoteURL: {url}
+    Authenticator: ext_basicauth
+    RequestBreaker: ext_request_breaker
+    FlushInterceptor: ext_groupinfo_filter
+"""
+
+
+# -- host metrics (metrics_remote_write.yaml, process_entities.yaml) ----------
+
+def host_metrics_config(url, interval_s=15):
+    """``example_config/quick_start/metrics_remote_write.yaml`` with the
+    remote-write ``Endpoint`` at ``url``.  The shipped file sets
+    ``IntervalSecs: 15``, a key neither package reads (both read
+    ``IntervalSeconds``, default 60); this config sets ``IntervalSeconds:
+    interval_s``."""
+    return f"""inputs:
+  - Type: input_host_monitor
+    Collectors: [cpu, mem, disk, net, gpu]
+    IntervalSeconds: {interval_s}
+processors: []
+flushers:
+  - Type: flusher_prometheus
+    Endpoint: "{url}"
+"""
+
+
+SLS_PROJECT = "127"
+SLS_LOGSTORE = "host-entities"
+SLS_AK_ID, SLS_AK_SECRET = "LTAI-test-key-id", "test-key-secret"
+
+
+def process_entities_config(port, interval_s=60):
+    """``example_config/quick_start/process_entities.yaml`` with
+    ``IntervalSeconds: interval_s``, fake keys, and the SLS endpoints on
+    the loopback: the flusher's host is ``<Project>.<Endpoint>``, so
+    ``Project: "127"`` and ``Endpoint: "0.0.1:<port>"`` put it at
+    ``127.0.0.1:<port>`` (a name lookup of the shipped host is never
+    made); the second endpoint is ``127.0.0.2:<port>``."""
+    return f"""inputs:
+  - Type: input_process_entity
+    IntervalSeconds: {interval_s}
+    TopN: 50
+flushers:
+  - Type: flusher_sls
+    Project: "{SLS_PROJECT}"
+    Logstore: {SLS_LOGSTORE}
+    Endpoint: "0.0.1:{port}"
+    Endpoints: ["0.0.1:{port}", "0.0.2:{port}"]
+    AccessKeyId: {SLS_AK_ID}
+    AccessKeySecret: {SLS_AK_SECRET}
+"""

@@ -80,10 +80,15 @@ def reset_planes() -> None:
 @pytest.fixture(autouse=True, scope="module")
 def alarms_left_empty():
     """At the end of the module that imports it: both packages' alarm
-    managers dropped, with whatever the module's runs raised."""
+    managers dropped, with whatever the module's runs raised, and both
+    ledgers off (a JAX test file that leaves its ledger on fails
+    ``tests/test_loongcolumn.py`` when that file runs next on the same
+    xdist worker)."""
     yield
     for alarms in (ref_alarms, port_alarms):
         alarms.AlarmManager._instance = None
+    for ledger in (ref_ledger, port_ledger):
+        ledger.disable()
 
 
 @pytest.fixture(autouse=True)

@@ -41,6 +41,7 @@ from loongcollector_tpu_torch import application
 from loongcollector_tpu_torch.input.ebpf import adapter
 from loongcollector_tpu_torch.input.ebpf import server
 from loongcollector_tpu_torch.input.file.file_server import FileServer
+from loongcollector_tpu_torch.input.host_monitor import HostMonitorInputRunner
 from loongcollector_tpu_torch.monitor.self_monitor import SelfMonitorServer
 from loongcollector_tpu_torch.pipeline.plugin.interface import PluginContext
 from loongcollector_tpu_torch.pipeline.plugin.registry import PluginRegistry
@@ -275,13 +276,15 @@ def test_input_registry_stops_in_order(monkeypatch):
     reg = input_registry.InputRunnerRegistry
     reg.register("late", lambda: late, stop_method="halt", stop_order=60)
     reg.register("early", lambda: early, stop_order=10)
-    # the self-monitor server stops at the reference's 10, the file server
-    # (tail mode's file input) at 60
-    assert [e.name for e in reg.entries()] == ["self_monitor", "early",
-                                               "ebpf", "file_server", "late"]
+    # the self-monitor server stops at the reference's 10, the host
+    # monitor at 20, the file server (tail mode's file input) at 60
+    assert [e.name for e in reg.entries()] == [
+        "self_monitor", "early", "host_monitor", "ebpf", "file_server",
+        "late"]
     assert reg.entries()[0].instance == SelfMonitorServer.instance
-    assert reg.entries()[2].instance == server.EBPFServer.instance
-    assert reg.entries()[3].instance == FileServer.instance
+    assert reg.entries()[2].instance == HostMonitorInputRunner.instance
+    assert reg.entries()[3].instance == server.EBPFServer.instance
+    assert reg.entries()[4].instance == FileServer.instance
     pqm = ProcessQueueManager()
     try:
         reg.wire_all(pqm)
@@ -289,11 +292,14 @@ def test_input_registry_stops_in_order(monkeypatch):
         assert server.EBPFServer.instance().process_queue_manager is pqm
         assert FileServer.instance().process_queue_manager is pqm
         assert SelfMonitorServer.instance().process_queue_manager is pqm
+        assert HostMonitorInputRunner.instance().process_queue_manager \
+            is pqm
         reg.stop_all()
         assert stopped == ["early", "late.halt"]
     finally:
         FileServer.reset_for_testing()
         SelfMonitorServer._instance = None
+        HostMonitorInputRunner._instance = None
 
 
 def _configs(tmp_path):

@@ -44,6 +44,7 @@ from loongcollector_tpu_torch.processor.parse_json import (  # noqa: E402
 from loongcollector_tpu_torch.processor.split_log_string import (  # noqa: E402
     ProcessorSplitLogString as PortSplit)
 from test_torch_alarms import alarms_left_empty  # noqa: F401
+from test_torch_parse_delimiter import both_native  # noqa: E402,F401
 
 
 @pytest.fixture(autouse=True)
@@ -172,7 +173,10 @@ def _parse(which, lines, config, rows_path=False):
     ids=["default", "keep_ok", "drop_fail"])
 @pytest.mark.parametrize("corpus", sorted(CORPORA))
 def test_parse_json_snapshot_matches_reference(corpus, config, struct,
-                                               monkeypatch):
+                                               monkeypatch, both_native):
+    # both packages on their native library (``both_native``): a worker
+    # whose JAX bridge met a half-written library would run the reference
+    # on its Python fallbacks and the port natively
     monkeypatch.setenv("LOONG_STRUCT", struct)
     lines = CORPORA[corpus]()
     ref_tel.reset_for_testing()

@@ -38,6 +38,7 @@ from loongcollector_tpu.ops.kernels import segment_reduce as ref  # noqa: E402
 from loongcollector_tpu_torch import testdata as td  # noqa: E402
 from loongcollector_tpu_torch.ops.kernels import segment_reduce as sr  # noqa: E402
 from test_torch_alarms import alarms_left_empty  # noqa: E402,F401
+from test_torch_parse_delimiter import both_native  # noqa: E402,F401
 
 TOL = 1e-5    # rtol = atol: scripts/agg_equivalence.py:163
 
@@ -204,7 +205,8 @@ def test_first_seen_ids_and_numpy_fold_bit_identical(case):
 
 
 @pytest.mark.parametrize("case", range(len(td.agg_batch_corpus())))
-def test_native_fold_equals_reference(case):
+def test_native_fold_equals_reference(case, both_native):
+    # both bridges loaded whatever this worker's state (``both_native``)
     _label, rows, _ok = td.agg_batch_corpus()[case]
     args = td.pack_agg_rows(rows)
     got = sr.fold_batch_native(*args)

@@ -19,11 +19,13 @@ inputs (``input/internal.py``) and runtime gauges
   POST, beside ``input_internal_metrics`` and
   ``input_internal_alarms`` pipelines) runs through both agents in tail
   mode with ``LOONG_SLO=1`` and the auditor.  The alarms NDJSON matches
-  record by record on type, level, count and message; the metrics
+  record by record on type, level, count and message (the JAX burn
+  alarm's hop aside when its breakdown named none); the metrics
   NDJSON's SLO and ledger records match on category and labels (the SLO
-  records on their value names too); both agents show one episode with
-  ``sink`` dominant and equal ok / bad totals, and every sample arrives
-  once at both.  The port's ``--stats`` send totals (items sent, items
+  records on their value names too); both agents show one episode and
+  equal ok / bad totals, the port's with ``sink`` dominant (the JAX
+  package's names ``sink`` or, in its spill race, no hop), and every
+  sample arrives once at both.  The port's ``--stats`` send totals (items sent, items
   spilled) equal the receiver's and the disk buffer's counts: the
   self-monitor's sends reset no counter.  The JAX package's chaos-plane storm is not needed: the
   outage is the test server's 503s.
@@ -389,7 +391,17 @@ def test_outage_agents_agree_end_to_end(tmp_path):
     for who, run in runs.items():
         slo = run["slo"]
         assert slo["episodes"] == 1, (who, slo)
-        assert slo["last_breakdown"]["dominant"] == "sink", (who, slo)
+    assert runs["port"]["slo"]["last_breakdown"]["dominant"] == "sink", \
+        runs["port"]["slo"]
+    # the reference shares a race the port repaired: a healthy evaluator
+    # tick between a 503's round trip (loongcollector_tpu/runner/
+    # flusher_runner.py:408-411) and its spill (:256-280) moves the
+    # baseline past the round trip, and the spilled payload waits in no
+    # queue, so its breakdown (monitor/slo.py:430-450) can name no hop
+    # (test_torch_slo.py::TestBudgetBreakdown::
+    # test_spill_after_a_healthy_tick_names_the_sink drives it)
+    assert runs["ref"]["slo"]["last_breakdown"]["dominant"] in (
+        "sink", ""), runs["ref"]["slo"]
     assert (runs["port"]["slo"]["ok_total"], runs["port"]["slo"][
         "bad_total"]) == (runs["ref"]["slo"]["ok_total"],
                           runs["ref"]["slo"]["bad_total"])
@@ -399,7 +411,22 @@ def test_outage_agents_agree_end_to_end(tmp_path):
                        int(a["alarm_count"]), a["alarm_message"])
                       for a in _read(runs[who]["sinks"]["a"])
                       if a["alarm_type"] in PATH_ALARMS)
-    assert alarm_docs("port") == alarm_docs("ref")
+    ref_alarms = alarm_docs("ref")
+    if runs["ref"]["slo"]["last_breakdown"]["dominant"] == "":
+        # the race above, on this run: the reference's burn alarm is
+        # worded from its breakdown (loongcollector_tpu/monitor/
+        # slo.py:460-465), so it names no hop ("unknown") where the port's
+        # names the sink.  Only that phrase of those alarms is mapped;
+        # every other word and every other alarm must agree
+        burns = [m for t, _, _, m in ref_alarms
+                 if t == "SLO_BURN_RATE_ALARM"]
+        assert burns and all("to the unknown hop" in m for m in burns), \
+            burns
+        ref_alarms = sorted(
+            (t, lvl, n, msg.replace("to the unknown hop", "to the sink hop")
+             if t == "SLO_BURN_RATE_ALARM" else msg)
+            for t, lvl, n, msg in ref_alarms)
+    assert alarm_docs("port") == ref_alarms
     assert {t for t, *_ in alarm_docs("port")} == {
         "SEND_DATA_FAIL_ALARM", "SINK_CIRCUIT_OPEN_ALARM",
         "SLO_BURN_RATE_ALARM"}
@@ -432,7 +459,19 @@ def test_outage_at_the_first_post_names_no_hop(tmp_path):
     (closed by the idle timer) is stamped; it is delivered late, and the
     episode's breakdown finds no hop spend and names no hop.  (Phase 32 (a)
     with the planes arms its outage after those rows are delivered, so
-    that the stamped payload meets it.)"""
+    that the stamped payload meets it.)  The stamped payload meets the open
+    breaker and is spilled at dispatch, with no send of its own.  Under
+    load it can instead go out as the breaker's half-open probe and fail.
+    When a healthy evaluator tick falls between that probe's round trip
+    and its spill, this is the interleaving the port repaired: its
+    breakdown names the sink from the spilled egress seconds
+    (``SloPlane.observe_spill``), carries ``spilled`` and counts no round
+    trip since the tick, where the JAX agent's names no hop.
+    ``test_torch_slo.py::TestBudgetBreakdown::test_failed_probe_spill``
+    drives both orders in one thread; ``spilled`` appears only in that
+    one.  A failed probe with no tick between names the sink through its
+    round trip in both agents, and fails this test on either side, as it
+    did before the repair."""
     assert port_native.ensure_built()
     lines = td.gen_metrics_jsonl(48000, seed=17)   # three closed windows
     log = tmp_path / "metrics.jsonl"
@@ -491,5 +530,15 @@ def test_outage_at_the_first_post_names_no_hop(tmp_path):
         assert (slo["episodes"], slo["ok_total"], slo["bad_total"]) == \
             (1, 0, 1), (who, slo)
         bd = slo["last_breakdown"]
+        if who == "port" and "spilled" in bd:
+            # the repaired interleaving (docstring): no hop spend and no
+            # round trip since the tick, the spilled seconds named sink
+            others = [v for k, v in bd["hops"].items() if k != "sink"]
+            assert bd["dominant"] == "sink" and not any(others), (who, slo)
+            assert bd["histograms"].get("sink_rtt_seconds", {}).get(
+                "delta_count", 0) == 0, (who, slo)
+            assert bd["hops"]["sink"] == bd["spilled"]["sink"] > 0.0, \
+                (who, slo)
+            continue
         assert bd["dominant"] == "" and not any(bd["hops"].values()), \
             (who, slo)

@@ -31,6 +31,7 @@ package's, on the CPU.
 
 import json
 import time
+import types
 
 import numpy as np
 import pytest
@@ -55,6 +56,9 @@ from loongcollector_tpu_torch.monitor import self_monitor as port_sm
 from loongcollector_tpu_torch.monitor import slo as port_slo
 from loongcollector_tpu_torch.pipeline.queue import \
     process_queue_manager as port_pqm
+from loongcollector_tpu_torch.pipeline.queue import sender_queue as port_sq
+from loongcollector_tpu_torch.runner import disk_buffer as port_db
+from loongcollector_tpu_torch.runner import flusher_runner as port_fr
 
 from conftest import wait_for
 from test_torch_alarms import TIME_FIELDS, reset_planes
@@ -686,6 +690,157 @@ class TestBudgetBreakdown:
         assert got["port"]["hops"] == {"queue": 0.1, "sink": 2.5,
                                        "stage": 0.2}
         assert got["port"]["histograms"] == got["reference"]["histograms"]
+
+
+    @staticmethod
+    def _spill_rig(tmp_path, on_send_done=None, http_sink=None,
+                   cooldown_s=5.0):
+        """The flusher runner with a disk buffer, no thread, one stamped
+        payload taken from its sender queue, and the flusher's
+        ``on_send_done``; the breaker trips on one failure."""
+        plane = port_slo.enable()
+        port_slo.reset()
+        sqm = port_sq.SenderQueueManager()
+        q = sqm.create_or_reuse_queue(7, pipeline_name="p")
+        buf = port_db.DiskBufferWriter(str(tmp_path / "buffer"))
+        runner = port_fr.FlusherRunner(sqm, http_sink, disk_buffer=buf,
+                                       breaker_failure_threshold=1,
+                                       breaker_cooldown_s=cooldown_s)
+
+        class Flusher:
+            name = "flusher_http"
+            queue_key = 7
+            sender_queue = q
+
+            def spill_identity(self):
+                return {"pipeline": "p", "flusher_type": self.name,
+                        "plugin_id": "flusher_http/0"}
+
+            def build_request(self, item):
+                return types.SimpleNamespace(body=item.data)
+
+        if on_send_done is not None:
+            Flusher.on_send_done = staticmethod(on_send_done)
+        g = _group(SIDES["port"])
+        plane.stamp("p", g)
+        item = port_sq.SenderQueueItem(
+            b"payload", 7, flusher=Flusher(), queue_key=7, event_cnt=1,
+            stamps=port_slo.stamps_of([g]))
+        q.push(item)
+        q.get_available_items(1)
+        runner._running = True      # the live runner's state, no thread
+        return types.SimpleNamespace(plane=plane, q=q, buf=buf,
+                                     runner=runner, item=item,
+                                     breaker=runner.breaker_for(item))
+
+    @staticmethod
+    def _trip(rig):
+        """Stop the rig, run the tick that trips, and return the row."""
+        try:
+            rig.runner._running = False
+            assert rig.buf.spilled == 1 and rig.q.empty()
+            rig.plane.evaluate_once()
+            row = rig.plane.debug_document()["pipelines"]["p"]
+        finally:
+            rig.runner._running = False
+            rig.runner.stop(drain=False)
+            rig.runner.metrics.mark_deleted()
+            rig.breaker.mark_deleted()
+        assert row["episodes"] == 1
+        return row["last_breakdown"]
+
+    def test_spill_after_a_healthy_tick_names_the_sink(self, tmp_path):
+        """The outage interleaving, driven in one thread: the flusher
+        runner observes a 503's round trip, a healthy evaluator tick moves
+        the baseline past it (run from inside the flusher's callback,
+        which sits between the two), then the open breaker spills the
+        payload, so nothing waits in a sender queue.  The trip's
+        breakdown names the sink hop."""
+        ticks = []
+
+        def on_send_done(item, status, body):
+            ticks.append(rig.plane.evaluate_once())
+            return "retry"
+
+        rig = self._spill_rig(tmp_path, on_send_done)
+        rig.item.in_flight = True
+        rig.item.last_send_time = time.monotonic() - 0.05
+        try:
+            rig.runner._on_done(rig.item, 503, b"")
+        finally:
+            bd = self._trip(rig)
+        assert not ticks[0]["p"]["firing"]  # the tick was healthy
+        # the round trip is in the baseline: no hop histogram moved
+        assert bd["histograms"]["sink_rtt_seconds"]["delta_count"] == 0
+        assert bd["dominant"] == "sink", bd
+        assert bd["hops"]["sink"] == bd["spilled"]["sink"] > 0.0
+        assert "inflight" not in bd
+
+    def test_spill_at_an_open_breaker_names_no_hop(self, tmp_path):
+        """The breakdown the repair leaves as it was: a payload that
+        meets a breaker already open is spilled at dispatch without a send
+        of its own, so after a healthy tick no hop spent anything on it and
+        the trip names no hop, as in the JAX package (the outage from the
+        first POST, ``test_torch_self_monitor.py``)."""
+        rig = self._spill_rig(tmp_path, http_sink=object())
+        rig.breaker.on_failure()
+        try:
+            assert not rig.plane.evaluate_once()["p"]["firing"]
+            rig.runner._dispatch(rig.item)
+        finally:
+            bd = self._trip(rig)
+        assert bd["dominant"] == "" and not any(bd["hops"].values()), bd
+        assert "spilled" not in bd
+
+    @pytest.mark.parametrize("tick_between", [True, False],
+                             ids=["tick_between", "no_tick"])
+    def test_failed_probe_spill(self, tmp_path, tick_between):
+        """The half-open variant of the outage, driven in one thread
+        through ``_dispatch``: the breaker is open and its cooldown has
+        elapsed, so the stamped payload goes out as the probe; the send
+        fails (503), the probe re-opens the breaker, and the same callback
+        spills the payload.  With a healthy evaluator tick between the
+        probe's round trip and the spill (run from inside the flusher's
+        callback) this is the repaired interleaving: the breakdown names
+        the sink from the spilled egress seconds and carries ``spilled``.
+        With the last healthy tick before the dispatch, the probe's queue
+        wait and round trip are the sink hop's spend, and the breakdown is
+        the one it was before the repair (no ``spilled``)."""
+        ticks = []
+
+        class Sink:
+            def add_request(self, request, done):
+                done(503, b"")
+
+        def on_send_done(item, status, body):
+            if tick_between:
+                ticks.append(rig.plane.evaluate_once())
+            return "retry"
+
+        rig = self._spill_rig(tmp_path, on_send_done, Sink(), 60.0)
+        rig.item.enqueue_time = time.monotonic() - 0.05  # 50 ms queued
+        rig.breaker.on_failure()            # open ...
+        rig.breaker._opened_at -= 60.0      # ... and its cooldown elapsed
+        try:
+            if not tick_between:
+                assert not rig.plane.evaluate_once()["p"]["firing"]
+            rig.runner._dispatch(rig.item)
+            assert rig.breaker.transitions[-2:] == ["half_open", "open"]
+        finally:
+            bd = self._trip(rig)
+        assert [t["p"]["firing"] for t in ticks] == (
+            [False] if tick_between else [])
+        rtt = bd["histograms"]["sink_rtt_seconds"]["delta_count"]
+        assert bd["dominant"] == "sink", bd
+        assert "inflight" not in bd
+        if tick_between:
+            # the probe's round trip is in the baseline: no hop moved
+            assert rtt == 0
+            assert bd["hops"]["sink"] == bd["spilled"]["sink"] >= 0.05
+            assert not any(v for k, v in bd["hops"].items() if k != "sink")
+        else:
+            assert rtt == 1
+            assert "spilled" not in bd and bd["hops"]["sink"] >= 0.05
 
 
 class TestExportLifecycle:

@@ -45,6 +45,7 @@ from loongcollector_tpu_torch.ops.device_batch import (LENGTH_BUCKETS,
 from loongcollector_tpu_torch.ops.kernels import struct_index as si
 from loongcollector_tpu_torch.ops.kernels import struct_index_cuda as sic
 from test_torch_alarms import alarms_left_empty  # noqa: F401
+from test_torch_parse_delimiter import both_native  # noqa: F401
 
 LENGTHS = [1, 15, 16, 17, 33, 128, 512]
 MODES = [(si.MODE_JSON, 0x2C), (si.MODE_DELIM, 0x2C), (si.MODE_DELIM, 0x7C)]
@@ -280,7 +281,8 @@ def test_cuda_launch_refuses_what_the_kernel_does_not_take():
         sic.launch(big, lens, si.MODE_JSON, 0x2C)
 
 
-def test_reference_native_masks_agree_with_the_port_bridge():
+def test_reference_native_masks_agree_with_the_port_bridge(both_native):
+    # both bridges loaded whatever this worker's state (``both_native``)
     lines = td.struct_adversarial_rows()
     arena, offs, lens = _arena(lines)
     for mode in (native.STRUCT_MODE_JSON, native.STRUCT_MODE_DELIM):
